@@ -1,0 +1,106 @@
+"""Engine configuration: the fields of ``production_stack_tpu/engine/config.py``
+that the port's serving path reads, under the same names, plus ``device``.
+"""
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from production_stack_tpu_torch.ops.paged_attention import supports_paged_decode
+
+_ITEMSIZE = {"bfloat16": 2, "float16": 2, "float32": 4}
+
+
+@dataclass
+class EngineConfig:
+    model: str = "tiny-llama"
+    dtype: str = "bfloat16"
+    # Entry points run on the card; the CPU only when asked for ("cpu").
+    device: str = "cuda"
+    max_model_len: int = 2048
+    # --- KV cache (stored in the compute dtype; int8 KV is ROADMAP work) ---
+    block_size: int = 16
+    num_kv_blocks: Optional[int] = None     # explicit block count; else derived
+    hbm_utilization: float = 0.9            # fraction of free memory for KV
+    enable_prefix_caching: bool = True
+    # --- scheduler ---
+    max_num_seqs: int = 64
+    max_num_batched_tokens: int = 4096      # prefill dispatch token budget
+    max_prefill_seqs: int = 8               # rows per batched prefill dispatch
+    # MAX decode steps fused into ONE dispatch; the scheduler grades K down
+    # with the number of streams (scheduler.decode_step_cap).
+    num_decode_steps: int = 32
+    # --- kernels ---
+    # "auto" -> "paged" on CUDA when the kernel takes the model (llama
+    # family, head_dim 64/128, bf16), else "window". "window": decode
+    # gathers the live KV into a contiguous window. "paged": force the
+    # flash-decode kernel path (raises when the model can't take it).
+    attn_impl: str = "auto"
+    # Strict issue -> fetch -> apply loop in this slice. Pipelining on CUDA
+    # streams and events is ROADMAP Queue 1 item 6; True raises.
+    async_pipeline: bool = False
+    overlap_dispatch: bool = False
+    seed: int = 0
+    served_model_name: Optional[str] = None
+
+    def __post_init__(self):
+        if self.async_pipeline or self.overlap_dispatch:
+            raise ValueError(
+                "async_pipeline/overlap_dispatch are not ported yet: the "
+                "port's engine loop is strict issue-fetch-apply"
+            )
+        if self.dtype not in _ITEMSIZE:
+            raise ValueError(f"Unknown dtype {self.dtype!r}")
+
+    @property
+    def torch_device(self) -> torch.device:
+        return torch.device(self.device)
+
+    def resolved_attn_impl(self, model_config) -> str:
+        """Resolve the decode attention implementation for ``model_config``
+        (see the attn_impl field comment)."""
+        on_cuda = self.torch_device.type == "cuda"
+        supported = (
+            model_config.arch == "llama"
+            and supports_paged_decode(model_config.head_dim_, self.block_size,
+                                      model_config.q_per_kv)
+            # the kernel takes bf16 pools; the CPU runs its plain version
+            and (not on_cuda or self.dtype == "bfloat16")
+        )
+        v = self.attn_impl
+        if v == "window":
+            return "window"
+        if v == "paged":
+            if not supported:
+                raise ValueError(
+                    f"attn_impl={v!r} requires a llama-family model with "
+                    f"head_dim in (64, 128), at most 16 query heads per kv "
+                    f"head, and bfloat16 on CUDA; got arch={model_config.arch} "
+                    f"head_dim={model_config.head_dim_} "
+                    f"heads={model_config.num_heads}/{model_config.num_kv_heads} "
+                    f"dtype={self.dtype} device={self.device}"
+                )
+            return "paged"
+        if v != "auto":
+            raise ValueError(f"Unknown attn_impl {v!r}")
+        return "paged" if supported and on_cuda else "window"
+
+    def kv_cache_bytes_per_token(self, model_config) -> int:
+        """Pool bytes one token occupies across all layers (K + V in the
+        compute dtype)."""
+        return (
+            2 * model_config.num_layers * model_config.num_kv_heads
+            * model_config.head_dim_ * _ITEMSIZE[self.dtype]
+        )
+
+    def kv_cache_bytes_per_block(self, model_config) -> int:
+        return self.block_size * self.kv_cache_bytes_per_token(model_config)
+
+    @property
+    def model_name(self) -> str:
+        return self.served_model_name or self.model
+
+    @property
+    def max_blocks_per_seq(self) -> int:
+        return -(-self.max_model_len // self.block_size)

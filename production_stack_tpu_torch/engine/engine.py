@@ -1,0 +1,303 @@
+"""ServingEngine: the async continuous-batching inference engine.
+
+Counterpart of ``production_stack_tpu/engine/engine.py``. Owns the
+tokenizer, the ModelRunner (device state), the BlockPoolManager (paged KV
+bookkeeping + prefix cache), the Scheduler, and per-request output streams.
+Device work runs on one worker thread so the asyncio loop (HTTP serving)
+never blocks on the card.
+
+The loop is strict issue -> fetch -> apply (the JAX package's
+``async_pipeline=False``): one dispatch at a time, its tokens applied before
+the next is scheduled. Aborts are deferred to the loop, between dispatches,
+so KV blocks are never freed under a running dispatch. Tracing, the flight
+recorder and Prometheus histograms are not ported yet (ROADMAP).
+"""
+
+import asyncio
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import AsyncIterator, Dict, List, Optional, Set
+
+import torch  # noqa: F401 — every module of the port is a torch module
+
+from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.kv_cache import BlockPoolManager
+from production_stack_tpu_torch.engine.runner import ModelRunner
+from production_stack_tpu_torch.engine.sampling import SamplingParams
+from production_stack_tpu_torch.engine.scheduler import (
+    Scheduler,
+    Sequence,
+    SequenceStatus,
+)
+from production_stack_tpu_torch.engine.tokenizer import (
+    IncrementalDetokenizer,
+    get_tokenizer,
+)
+from production_stack_tpu_torch.models.config import resolve_model_config
+from production_stack_tpu_torch.utils import init_logger, random_uuid
+
+logger = init_logger(__name__)
+
+
+@dataclass
+class RequestOutput:
+    request_id: str
+    text_delta: str = ""
+    token_ids: List[int] = field(default_factory=list)
+    finished: bool = False
+    finish_reason: Optional[str] = None
+    num_prompt_tokens: int = 0
+    num_output_tokens: int = 0
+    num_cached_tokens: int = 0
+
+
+@dataclass
+class _StreamState:
+    queue: asyncio.Queue
+    detok: IncrementalDetokenizer
+    text: str = ""   # decoded output, already truncated at any stop match
+    sent: int = 0    # chars delivered to the client so far
+
+
+class ServingEngine:
+    def __init__(self, config: EngineConfig, params: Optional[Dict] = None,
+                 num_kv_blocks: Optional[int] = None):
+        self.config = config
+        self.model_config = resolve_model_config(config.model)
+        self.tokenizer = get_tokenizer(config.model, self.model_config)
+        self.runner = ModelRunner(
+            config, self.model_config, params=params,
+            num_kv_blocks=num_kv_blocks,
+        )
+        self.block_manager = BlockPoolManager(
+            self.runner.num_kv_blocks, config.block_size,
+            config.enable_prefix_caching,
+        )
+        self.scheduler = Scheduler(
+            config, self.block_manager,
+            decode_window_budget=self.runner.decode_window_blocks,
+            prefill_window_budget=self.runner.prefill_window_blocks,
+        )
+        self._streams: Dict[str, _StreamState] = {}
+        self._pending_aborts: Set[str] = set()
+        self._new_work = asyncio.Event()
+        self._loop_task: Optional[asyncio.Task] = None
+        self._running = False
+        # One worker thread: every device call of the runner comes from it.
+        self._executor = ThreadPoolExecutor(max_workers=1,
+                                            thread_name_prefix="runner")
+        self.start_time = time.monotonic()
+        self.prompt_tokens_total = 0
+        self.generation_tokens_total = 0
+        self.decode_dispatches_total = 0
+        self.prefill_dispatches_total = 0
+
+    # --------------------------------------------------------------- lifecycle
+    async def start(self) -> None:
+        if self._running:
+            return
+        self._new_work = asyncio.Event()
+        self._running = True
+        self._loop_task = asyncio.create_task(self._run_loop())
+        logger.info(
+            "Engine started: model=%s kv_blocks=%d block_size=%d attn=%s "
+            "device=%s", self.config.model_name, self.runner.num_kv_blocks,
+            self.config.block_size, self.runner.attn_impl, self.runner.device,
+        )
+
+    async def stop(self) -> None:
+        self._running = False
+        self._new_work.set()
+        if self._loop_task:
+            await self._loop_task
+            self._loop_task = None
+
+    def shutdown(self) -> None:
+        """Release the worker thread (after ``stop``)."""
+        self._executor.shutdown(wait=True)
+
+    @property
+    def is_healthy(self) -> bool:
+        return self._running and (
+            self._loop_task is not None and not self._loop_task.done()
+        )
+
+    # ----------------------------------------------------------------- intake
+    async def generate(
+        self,
+        prompt: Optional[str] = None,
+        prompt_token_ids: Optional[List[int]] = None,
+        sampling: Optional[SamplingParams] = None,
+        request_id: Optional[str] = None,
+    ) -> AsyncIterator[RequestOutput]:
+        """Submit a request; yields streaming RequestOutput deltas."""
+        request_id = request_id or random_uuid("req-")
+        sampling = sampling or SamplingParams()
+        if prompt_token_ids is None:
+            assert prompt is not None
+            prompt_token_ids = self.tokenizer.encode(prompt)
+        if not prompt_token_ids:
+            prompt_token_ids = [self.tokenizer.eos_token_id or 0]
+        seq = Sequence(
+            request_id=request_id,
+            prompt_token_ids=list(prompt_token_ids),
+            sampling=sampling,
+            eos_token_id=self.tokenizer.eos_token_id,
+        )
+        state = _StreamState(
+            queue=asyncio.Queue(), detok=IncrementalDetokenizer(self.tokenizer)
+        )
+        self.scheduler.add_sequence(seq)
+        self._streams[request_id] = state
+        self.prompt_tokens_total += len(prompt_token_ids)
+        self._new_work.set()
+        try:
+            while True:
+                out: RequestOutput = await state.queue.get()
+                yield out
+                if out.finished:
+                    break
+        finally:
+            self._streams.pop(request_id, None)
+            if not seq.status.is_finished:
+                self.abort(request_id)
+
+    def abort(self, request_id: str) -> None:
+        """Deferred abort: applied by the engine loop between dispatches."""
+        self._pending_aborts.add(request_id)
+        self._new_work.set()
+
+    # ------------------------------------------------------------ engine loop
+    async def _run_loop(self) -> None:
+        loop = asyncio.get_running_loop()
+        while self._running:
+            self._apply_pending_aborts()
+            batch = self.scheduler.schedule()
+            if batch is None:
+                self._new_work.clear()
+                if not self.scheduler.has_work():
+                    try:
+                        await asyncio.wait_for(self._new_work.wait(), timeout=1.0)
+                    except asyncio.TimeoutError:
+                        pass
+                else:
+                    # Work exists but nothing schedulable: yield and retry.
+                    await asyncio.sleep(0.001)
+                continue
+            try:
+                tokens = await loop.run_in_executor(
+                    self._executor, self.runner.execute, batch
+                )
+            except Exception:  # noqa: BLE001 — the loop must survive
+                logger.exception("Dispatch failed; aborting its batch")
+                for seq in batch.seqs:
+                    aborted = self.scheduler.abort(seq.request_id)
+                    if aborted is not None:
+                        self._process_output(aborted)
+                continue
+            if batch.kind == "decode":
+                self.decode_dispatches_total += 1
+            else:
+                self.prefill_dispatches_total += 1
+            produced, accepted = self.scheduler.update_after_step(batch, tokens)
+            self.generation_tokens_total += accepted
+            for seq in produced:
+                self._process_output(seq)
+            await asyncio.sleep(0)
+
+    def _apply_pending_aborts(self) -> None:
+        while self._pending_aborts:
+            rid = self._pending_aborts.pop()
+            seq = self.scheduler.abort(rid)
+            if seq is not None:
+                self._process_output(seq)
+
+    def _process_output(self, seq: Sequence) -> None:
+        """Detokenize incrementally, apply stop-string semantics, emit the
+        delta. The stop sequence itself is excluded from the output; while a
+        request has stop strings, the last len(longest_stop)-1 chars are
+        held back so a match split across tokens is never partially sent."""
+        st = self._streams.get(seq.request_id)
+        if st is None:
+            return
+        finished = seq.status.is_finished
+        delta = st.detok.step(seq.output_token_ids, flush=finished)
+        st.text += delta
+        stops = seq.sampling.stop
+        if stops and delta:
+            max_stop = max(len(s) for s in stops)
+            start = max(0, len(st.text) - len(delta) - max_stop)
+            idx = -1
+            for s in stops:
+                i = st.text.find(s, start)
+                if i != -1 and (idx == -1 or i < idx):
+                    idx = i
+            if idx != -1:
+                st.text = st.text[:idx]
+                # Drop sampled-past-the-stop tokens (the fused K-step decode
+                # can overshoot a stop match by up to K-1 tokens): smallest
+                # kept prefix by binary search, then a short linear fix-up
+                # (decoded length is not strictly monotone in token count).
+                toks = seq.output_token_ids
+                lo, hi = 0, len(toks)
+                while lo < hi:
+                    mid = (lo + hi) // 2
+                    if len(self.tokenizer.decode(toks[:mid])) < idx:
+                        lo = mid + 1
+                    else:
+                        hi = mid
+                while lo < len(toks) and \
+                        len(self.tokenizer.decode(toks[:lo])) < idx:
+                    lo += 1
+                while lo > 0 and \
+                        len(self.tokenizer.decode(toks[:lo - 1])) >= idx:
+                    lo -= 1
+                self.generation_tokens_total -= max(0, len(toks) - lo)
+                seq.output_token_ids = toks[:lo]
+                if finished:
+                    seq.status = SequenceStatus.FINISHED_STOPPED
+                else:
+                    self.scheduler.finish(
+                        seq.request_id, SequenceStatus.FINISHED_STOPPED
+                    )
+                finished = True
+        hold = 0 if finished or not stops else max(len(s) for s in stops) - 1
+        emit_upto = max(len(st.text) - hold, st.sent)
+        text_delta = st.text[st.sent:emit_upto]
+        st.sent = emit_upto
+        st.queue.put_nowait(RequestOutput(
+            request_id=seq.request_id,
+            text_delta=text_delta,
+            token_ids=list(seq.output_token_ids),
+            finished=finished,
+            finish_reason=seq.finish_reason(),
+            num_prompt_tokens=seq.num_prompt_tokens,
+            num_output_tokens=len(seq.output_token_ids),
+            num_cached_tokens=seq.num_cached_tokens,
+        ))
+
+    # ------------------------------------------------------------------ stats
+    def stats(self) -> Dict:
+        r = self.runner
+        return {
+            "engine_uptime_seconds": time.monotonic() - self.start_time,
+            "device": str(r.device),
+            "attn_impl": r.attn_impl,
+            "kv_pool_bytes": r.kv_pool_bytes,
+            "kv_num_blocks": r.num_kv_blocks,
+            "num_requests_running": self.scheduler.num_running,
+            "num_requests_waiting": self.scheduler.num_waiting,
+            "kv_cache_usage": self.block_manager.usage(),
+            "prefix_cache_hits": self.block_manager.prefix_hits_total,
+            "prefix_cache_queries": self.block_manager.prefix_queries_total,
+            "num_preemptions": self.scheduler.num_preemptions_total,
+            "prompt_tokens_total": self.prompt_tokens_total,
+            "generation_tokens_total": self.generation_tokens_total,
+            "decode_dispatches_total": self.decode_dispatches_total,
+            "prefill_dispatches_total": self.prefill_dispatches_total,
+            "decode_steps_total": r.decode_steps_total,
+            "decode_tokens_total": r.decode_tokens_total,
+            "decode_seconds_total": r.decode_seconds_total,
+            "prefill_seconds_total": r.prefill_seconds_total,
+        }

@@ -1,0 +1,228 @@
+"""Llama-family decoder (Llama 2/3, Mistral, Qwen2) in PyTorch.
+
+Counterpart of ``production_stack_tpu/models/llama.py``. Parameters keep the
+JAX package's layout: a plain dict whose decoder layers are STACKED on a
+leading ``L`` axis, projections oriented ``x @ w`` ([in, out]). The forward
+runs a Python loop over layers where the JAX package ran ``lax.scan``. The
+rounding order follows the JAX code (``rms_norm`` casts back to the
+activation dtype BEFORE the weight multiply; rope math in f32).
+
+The caller (engine/runner.py) owns the paged pool. Window path: it gathers
+the window before ``forward`` and scatters the returned (k_new, v_new)
+after. Paged path (decode only): each layer attends against its slice of the
+stacked pool through ops/paged_attention.py:paged_flash_decode_stats, merged
+with the small dense ring + current-token segment.
+"""
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from production_stack_tpu_torch.models.config import ModelConfig
+from production_stack_tpu_torch.ops.attention import (
+    _NEG_INF,
+    dense_decode_stats,
+    merge_attention_segments,
+    window_attention,
+)
+from production_stack_tpu_torch.ops.paged_attention import paged_flash_decode_stats
+
+Params = Dict
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def _rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+    """cos/sin tables for the given absolute positions. positions: [B, T]."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=positions.device) / head_dim
+    base = torch.full((), theta, dtype=torch.float32, device=positions.device)
+    inv_freq = 1.0 / torch.pow(base, exps)
+    angles = positions[..., None].float() * inv_freq             # [B, T, Dh/2]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """HF-convention rotary embedding (rotate-half). x: [B, T, H, Dh]."""
+    xf = x.float()
+    x1, x2 = xf.chunk(2, dim=-1)
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype: torch.dtype = torch.bfloat16,
+                device: Optional[torch.device] = None) -> Params:
+    """Random weights (the JAX package's scheme: N(0, 1/fan_in), unit norms),
+    drawn on ``device`` from ``generator`` (which must live on that device).
+    Each stacked leaf is drawn one layer at a time in f32 so the peak extra
+    memory is one layer, not the whole model."""
+    device = device if device is not None else generator.device
+    d, f, dh = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim_
+    h, hkv, nl, v = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers, cfg.vocab_size
+
+    def draw(shape, fan_in):
+        return (torch.randn(shape, generator=generator, device=device,
+                            dtype=torch.float32) * fan_in ** -0.5).to(dtype)
+
+    def w(shape, fan_in):
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(shape[0]):
+            out[i] = draw(shape[1:], fan_in)
+        return out
+
+    layers = {
+        "attn_norm": torch.ones((nl, d), dtype=dtype, device=device),
+        "mlp_norm": torch.ones((nl, d), dtype=dtype, device=device),
+        "wq": w((nl, d, h * dh), d),
+        "wk": w((nl, d, hkv * dh), d),
+        "wv": w((nl, d, hkv * dh), d),
+        "wo": w((nl, h * dh, d), h * dh),
+        "w_gate": w((nl, d, f), d),
+        "w_up": w((nl, d, f), d),
+        "w_down": w((nl, f, d), f),
+    }
+    if cfg.attention_bias:
+        layers["bq"] = torch.zeros((nl, h * dh), dtype=dtype, device=device)
+        layers["bk"] = torch.zeros((nl, hkv * dh), dtype=dtype, device=device)
+        layers["bv"] = torch.zeros((nl, hkv * dh), dtype=dtype, device=device)
+    params = {
+        "embed": draw((v, d), d),
+        "layers": layers,
+        "final_norm": torch.ones((d,), dtype=dtype, device=device),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = draw((d, v), d)
+    return params
+
+
+def _layer_body(
+    cfg: ModelConfig,
+    hidden: torch.Tensor,       # [B, T, D]
+    lp: Dict,                   # one layer's params (leading L axis sliced off)
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    positions: torch.Tensor,
+    chunk_lens: torch.Tensor,
+    win_k, win_v, win_len,
+    ring_k, ring_v, ring_pos,
+    paged=None,                 # (pool_k, pool_v, block_tables, kv_lens, bs)
+    layer_idx: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, t, d = hidden.shape
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+
+    x = rms_norm(hidden, lp["attn_norm"], cfg.rms_norm_eps)
+    q = x @ lp["wq"]
+    k = x @ lp["wk"]
+    v = x @ lp["wv"]
+    if cfg.attention_bias:
+        q = q + lp["bq"]
+        k = k + lp["bk"]
+        v = v + lp["bv"]
+    q = apply_rope(q.reshape(b, t, h, dh), cos, sin)
+    k = apply_rope(k.reshape(b, t, hkv, dh), cos, sin)
+    v = v.reshape(b, t, hkv, dh)
+
+    if paged is not None:
+        # Paged decode (T == 1): the pool segment runs in the flash-decode
+        # kernel directly against this layer of the stacked pool; the
+        # intra-dispatch ring + the current token form a small dense
+        # segment; the two merge by their softmax stats.
+        pool_k, pool_v, block_tables, kv_lens, block_size = paged
+        q2 = q.reshape(b, h, dh)
+        out_p, m_p, l_p = paged_flash_decode_stats(
+            q2, pool_k, pool_v, block_tables, kv_lens, layer_idx,
+            block_size=block_size,
+        )
+        kc = k.permute(2, 0, 1, 3)              # [Hkv, B, 1, Dh] current token
+        vc = v.permute(2, 0, 1, 3)
+        self_bias = torch.zeros((b, 1), dtype=torch.float32, device=hidden.device)
+        if ring_k is not None:
+            keys = torch.cat([ring_k, kc], dim=2)
+            vals = torch.cat([ring_v, vc], dim=2)
+            ring_bias = torch.zeros(
+                ring_pos.shape, dtype=torch.float32, device=hidden.device
+            ).masked_fill_(ring_pos >= positions, _NEG_INF)   # [B, R]
+            bias = torch.cat([ring_bias, self_bias], dim=1)
+        else:
+            keys, vals, bias = kc, vc, self_bias
+        out_d, m_d, l_d = dense_decode_stats(q2, keys, vals, bias)
+        attn = merge_attention_segments(out_p, m_p, l_p, out_d, m_d, l_d)
+        attn = attn.reshape(b, t, h, dh)
+    else:
+        attn = window_attention(
+            q, k, v, positions, chunk_lens,
+            win_k, win_v, win_len, ring_k, ring_v, ring_pos,
+        )
+    hidden = hidden + attn.reshape(b, t, h * dh) @ lp["wo"]
+
+    x = rms_norm(hidden, lp["mlp_norm"], cfg.rms_norm_eps)
+    gated = F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])
+    mlp = gated @ lp["w_down"]
+    # New KV in pool layout [Hkv, B, T, Dh] for the runner's single scatter.
+    return hidden + mlp, k.permute(2, 0, 1, 3), v.permute(2, 0, 1, 3)
+
+
+def forward(
+    params: Params,
+    cfg: ModelConfig,
+    token_ids: torch.Tensor,     # [B, T]
+    positions: torch.Tensor,     # [B, T]
+    chunk_lens: torch.Tensor,    # [B] valid tokens per row
+    win_k: Optional[torch.Tensor] = None,    # [L, Hkv, B, S, Dh] gathered window
+    win_v: Optional[torch.Tensor] = None,
+    win_len: Optional[torch.Tensor] = None,  # [B]
+    ring_k: Optional[torch.Tensor] = None,   # [L, Hkv, B, R, Dh]
+    ring_v: Optional[torch.Tensor] = None,
+    ring_pos: Optional[torch.Tensor] = None,  # [B, R]
+    *,
+    paged=None,  # (pool_k [L,Hkv,S,Dh], pool_v, block_tables [B,Mb],
+                 #  kv_lens [B], block_size) — paged decode path
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (hidden [B,T,D], k_new [L,Hkv,B,T,Dh], v_new [L,Hkv,B,T,Dh])."""
+    hidden = params["embed"][token_ids.long()]
+    hidden = hidden.to(win_k.dtype if win_k is not None else params["embed"].dtype)
+    cos, sin = _rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
+    layers = params["layers"]
+    k_out, v_out = [], []
+    for i in range(cfg.num_layers):
+        lp = {name: leaf[i] for name, leaf in layers.items()}
+        hidden, k_l, v_l = _layer_body(
+            cfg, hidden, lp, cos, sin, positions, chunk_lens,
+            win_k[i] if win_k is not None else None,
+            win_v[i] if win_v is not None else None,
+            win_len,
+            ring_k[i] if ring_k is not None else None,
+            ring_v[i] if ring_v is not None else None,
+            ring_pos,
+            paged=paged, layer_idx=i,
+        )
+        k_out.append(k_l)
+        v_out.append(v_l)
+    hidden = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
+    return hidden, torch.stack(k_out), torch.stack(v_out)
+
+
+def lm_head_f32(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The output projection [D, V] widened to f32 once: ``compute_logits``
+    then multiplies bf16 values exactly in f32 with f32 accumulation, as the
+    JAX package's ``preferred_element_type=float32`` dot does."""
+    head = params["embed"].t() if cfg.tie_word_embeddings else params["lm_head"]
+    return head.float().contiguous()
+
+
+def compute_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
+                   head_f32: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """hidden [..., D] -> logits [..., V] in float32. ``head_f32`` is the
+    cached ``lm_head_f32`` (computed here when not given)."""
+    if head_f32 is None:
+        head_f32 = lm_head_f32(params, cfg)
+    return torch.matmul(hidden.float(), head_f32)

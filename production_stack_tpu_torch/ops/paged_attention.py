@@ -1,0 +1,249 @@
+"""Paged flash-decode over the layer-stacked KV pool: the hand-written CUDA
+kernel (``csrc/paged_decode.cu``) and its plain PyTorch twin.
+
+Counterpart of ``production_stack_tpu/ops/pallas/paged_attention.py``
+(``paged_flash_decode_stats`` and its ``_decode_kernel``). The wrapper takes
+the plain version only for tensors that lie on the CPU; for a CUDA tensor it
+launches the kernel or raises. The kernel is compiled by ``nvcc`` from the
+source in the checkout at first use into ``build/torch_kernels/`` and bound
+through ``ctypes`` (a plain C interface: seconds to build, no PyTorch
+headers).
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Optional, Tuple
+
+import torch
+
+SUPPORTED_HEAD_DIMS = (64, 128)
+MAX_QUERY_GROUP = 16      # H / Hkv the kernel holds per block (kMaxGroup)
+TILE_TOKENS = 64          # tokens per shared-memory tile (kTile)
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "paged_decode.cu")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib = None
+_lib_lock = threading.Lock()
+_sm_count = {}
+
+
+def supports_paged_decode(head_dim: int, block_size: int,
+                          q_per_kv: int = 1) -> bool:
+    """Shapes the CUDA kernel takes: Dh in {64, 128}, any block size, at
+    most MAX_QUERY_GROUP query heads per kv head."""
+    return (head_dim in SUPPORTED_HEAD_DIMS and block_size >= 1
+            and 1 <= q_per_kv <= MAX_QUERY_GROUP)
+
+
+def _find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (CUDA_HOME, /usr/local/cuda/bin or PATH): the "
+            "paged-decode kernel is built from source at first use"
+        )
+    return found
+
+
+def build_kernels() -> Tuple[str, str]:
+    """Compile ``csrc/paged_decode.cu`` into a shared library (once per
+    source content). Returns (library path, ptxas report)."""
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    tag = digest.hexdigest()[:16]
+    lib_path = os.path.join(BUILD_DIR, f"libpaged_decode-{tag}.so")
+    log_path = lib_path + ".log"
+    if not os.path.exists(lib_path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        with open(log_path, "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, lib_path)
+    with open(log_path) as f:
+        return lib_path, f.read()
+
+
+def _load_lib():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            path, _ = build_kernels()
+            lib = ctypes.CDLL(path)
+            vp, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.pstpu_paged_decode_bf16.argtypes = [
+                vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                i32, i32, i32, i32, ctypes.c_longlong, i32, i32, i32, i32,
+                ctypes.c_float, vp,
+            ]
+            lib.pstpu_paged_decode_bf16.restype = i32
+            lib.pstpu_cuda_error_string.argtypes = [i32]
+            lib.pstpu_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def num_splits_for(batch: int, num_kv_heads: int, max_tokens: int,
+                   device: torch.device) -> int:
+    """Split-KV factor: enough blocks to give every SM two, never more
+    splits than 64-token tiles in the widest row, at most 32."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_count:
+        _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    want = -(-2 * _sm_count[idx] // max(1, batch * num_kv_heads))
+    max_tiles = max(1, -(-max_tokens // TILE_TOKENS))
+    return max(1, min(want, max_tiles, 32))
+
+
+def paged_flash_decode_stats(
+    q: torch.Tensor,             # [B, H, Dh] decode queries (post-rope)
+    k_pool: torch.Tensor,        # [L, Hkv, num_slots, Dh]
+    v_pool: torch.Tensor,        # [L, Hkv, num_slots, Dh]
+    block_tables: torch.Tensor,  # [B, Mb] int32
+    kv_lens: torch.Tensor,       # [B] int32 — tokens resident in the pool
+    layer: int,                  # layer of the stacked pool
+    *,
+    block_size: int,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pool-segment flash decode for one layer of the stacked pool.
+
+    Returns (out [B, H, Dh] normalized in q's dtype, m [B, H] f32,
+    l [B, H] f32); rows with kv_len == 0 give (0, -inf, 0), a no-op under
+    ops/attention.py:merge_attention_segments. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (bf16 q and pools) or raise.
+    Each kv_lens[i] must be at most Mb * block_size (the caller's block
+    tables cover every resident token; the lengths stay on the device, so
+    this is not checked here)."""
+    if q.device.type == "cpu":
+        return paged_flash_decode_stats_ref(
+            q, k_pool, v_pool, block_tables, kv_lens, layer,
+            block_size=block_size, scale=scale,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_flash_decode_stats: unsupported device {q.device}")
+    b, h, dh = q.shape
+    n_layers, hkv, num_slots, pdh = k_pool.shape
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
+                    ("block_tables", block_tables), ("kv_lens", kv_lens)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    if q.dtype != torch.bfloat16 or k_pool.dtype != torch.bfloat16 \
+            or v_pool.dtype != torch.bfloat16:
+        raise ValueError(
+            f"paged decode kernel takes bf16 q and pools, got q={q.dtype} "
+            f"k={k_pool.dtype} v={v_pool.dtype}"
+        )
+    if v_pool.shape != k_pool.shape or pdh != dh or h % hkv:
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)} k {tuple(k_pool.shape)} "
+            f"v {tuple(v_pool.shape)}"
+        )
+    if not supports_paged_decode(dh, block_size, h // hkv):
+        raise ValueError(
+            f"paged decode kernel: head_dim {dh} not in {SUPPORTED_HEAD_DIMS} "
+            f"or {h // hkv} query heads per kv head > {MAX_QUERY_GROUP}"
+        )
+    if block_tables.dtype != torch.int32 or kv_lens.dtype != torch.int32:
+        raise ValueError("block_tables and kv_lens must be int32")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b \
+            or tuple(kv_lens.shape) != (b,):
+        raise ValueError("block_tables must be [B, Mb] and kv_lens [B]")
+    if num_slots % block_size or not 0 <= layer < n_layers:
+        raise ValueError(
+            f"num_slots {num_slots} not a multiple of block_size "
+            f"{block_size}, or layer {layer} outside [0, {n_layers})"
+        )
+    if scale is None:
+        scale = dh ** -0.5
+    mb = block_tables.shape[1]
+    splits = num_splits_for(b, hkv, mb * block_size, q.device)
+    out = torch.empty_like(q)
+    m = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((b, h, splits, dh), dtype=torch.float32, device=q.device)
+    part_m = torch.empty((b, h, splits), dtype=torch.float32, device=q.device)
+    part_l = torch.empty((b, h, splits), dtype=torch.float32, device=q.device)
+    lib = _load_lib()
+    err = lib.pstpu_paged_decode_bf16(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+        m.data_ptr(), l.data_ptr(), part_acc.data_ptr(), part_m.data_ptr(),
+        part_l.data_ptr(), b, h, hkv, dh, num_slots, int(layer), mb,
+        block_size, splits, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"paged decode kernel launch failed: CUDA error {err} "
+            f"({lib.pstpu_cuda_error_string(err).decode()})"
+        )
+    paged_flash_decode_stats.launches += 1
+    return out, m, l
+
+
+paged_flash_decode_stats.launches = 0
+
+
+def paged_flash_decode_stats_ref(
+    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+    block_tables: torch.Tensor, kv_lens: torch.Tensor, layer: int,
+    *, block_size: int, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel, with the Pallas kernel's
+    arithmetic: q in f32 pre-scaled, f32 scores and PV, masked keys at -inf.
+    Keys and values past kv_len are zeroed before the contractions so a
+    stale slot never meets a zero weight as 0 * NaN. On the card its f32
+    products are full precision only with TF32 off
+    (``torch.backends.cuda.matmul.allow_tf32``, PyTorch's default;
+    chip_smoke.py sets it and ``cudnn.allow_tf32`` to False)."""
+    b, h, dh = q.shape
+    _, hkv, num_slots, _ = k_pool.shape
+    g = h // hkv
+    if scale is None:
+        scale = dh ** -0.5
+    mb = block_tables.shape[1]
+    nb = num_slots // block_size
+    s_tot = mb * block_size
+    idx = block_tables.long()
+    keys = k_pool[layer].view(hkv, nb, block_size, dh)[:, idx]
+    vals = v_pool[layer].view(hkv, nb, block_size, dh)[:, idx]
+    keys = keys.reshape(hkv, b, s_tot, dh).float()
+    vals = vals.reshape(hkv, b, s_tot, dh).float()
+    pos = torch.arange(s_tot, device=q.device)
+    valid = pos[None, :] < kv_lens.to(q.device).long()[:, None]      # [B, S]
+    vmask = valid[None, :, :, None]
+    keys = torch.where(vmask, keys, 0.0)
+    vals = torch.where(vmask, vals, 0.0)
+    qf = q.float().reshape(b, hkv, g, dh) * scale
+    scores = torch.einsum("bkgd,kbsd->bkgs", qf, keys)
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = scores.amax(dim=-1)                                           # [B,Hkv,G]
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(scores - m_safe[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgs,kbsd->bkgd", p, vals)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return (out.reshape(b, h, dh).to(q.dtype), m.reshape(b, h),
+            l.reshape(b, h))
