@@ -5,22 +5,31 @@ NVIDIA GPU and check it.
 Phases, each printing what it finds (serving and check run before the
 kernel phase, whose profiler would otherwise stay attached during serving):
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-  2. build: the paged flash-decode kernel compiled by nvcc from the checkout;
+  2. build: the paged flash-decode kernel (bf16 and int8 variants) compiled
+     by nvcc from the checkout;
   3. kernel: ``paged_flash_decode_stats`` (CUDA) against its plain PyTorch
-     version on the card, in bf16, at llama-3b heads (H=24, Hkv=8, Dh=128)
-     and llama-1b heads (H=32, Hkv=4, Dh=64), block size 16, B in {1, 8, 32},
-     ragged kv_lens (0, 1, 17, >= 4000), shuffled block tables, NaN-poisoned
-     slots past kv_len and in the block-table padding; two faulty plain
-     versions (PV summed in bf16, a row's last value dropped) must fail
-     the same check; device times (torch.profiler) of the kernel, the
-     plain version and an SDPA yardstick, and the HBM bound;
-  4. serving: llama-3b at full width (random bf16 weights from --seed)
-     behind the port's HTTP server, one untimed warm-up request, then 4
-     concurrent requests (greedy and seeded, completions and streamed
-     chat), /v1/models and /health; the kernel's launch count must cover
-     every decode step of every layer;
+     version on the card, for each variant (bf16 pools; int8 pools with
+     bf16 per-slot scales), at llama-3b heads (H=24, Hkv=8, Dh=128) and
+     llama-1b heads (H=32, Hkv=4, Dh=64), block size 16, B in {1, 8, 32}
+     and the main path's shape, ragged kv_lens (0, 1, 17, >= 4000),
+     shuffled block tables, NaN-poisoned slots (bf16) or scales (int8)
+     past kv_len and in the block-table padding; faulty plain versions
+     must fail the same check (bf16: PV summed in bf16, a row's last value
+     dropped; int8: l summed over p * v_scale, K scales read from the
+     neighbouring slot); ``paged_attention_decode`` and ``paged_attention``
+     must give the kernel's output; device times (torch.profiler) of the
+     kernel, the plain version and an SDPA yardstick (int8: over K/V
+     dequantized beforehand, untimed), and the HBM bound;
+  4. serving, twice: llama-3b at full width (random bf16 weights from
+     --seed) behind the port's HTTP server with a bf16 KV pool, then with
+     an int8 KV pool of the same bytes; each: one untimed warm-up request,
+     then 4 concurrent requests (greedy and seeded, completions and
+     streamed chat), /v1/models and /health; the run's kernel variant must
+     launch for every decode step of every layer, the other not at all;
   5. check: one decode step at llama-3b width (depth cut to 2 layers)
-     through the kernel path against the plain window path.
+     through the kernel path against the plain window path, over a bf16
+     pool and over an int8 pool; the seeded-sampling Gumbel field on the
+     card bit for bit against the CPU's.
 
 Any failure exits non-zero before the result lines. The last two lines are
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -30,6 +39,7 @@ Run: ``python3 chip_smoke.py`` from the root of the repository.
 
 import argparse
 import asyncio
+import gc
 import json
 import os
 import random
@@ -42,7 +52,13 @@ import urllib.request
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 KERNEL_SOURCE = "production_stack_tpu_torch/csrc/paged_decode.cu"
-KERNEL_REPLACES = "production_stack_tpu/ops/pallas/paged_attention.py:57"
+# The TPU kernel each variant replaces: _decode_kernel, and its
+# quantized=True branch (int8 scores and weights).
+KERNEL_REPLACES = {
+    "bf16": "production_stack_tpu/ops/pallas/paged_attention.py:57",
+    "int8": "production_stack_tpu/ops/pallas/paged_attention.py:175",
+}
+BF16_KV_BLOCKS = 8 * 4096 // 16 + 1   # 8 sequences x 4096 tokens + null block
 # out is bf16 in both versions and their fp32 sums differ only in order, so
 # they differ by at most one bf16 rounding step (< 2**-7 relative, inside
 # OUT_RTOL). A typical |out| is ~0.03 at kv_len in the thousands, so each
@@ -67,10 +83,13 @@ def log(msg: str) -> None:
 
 
 # ---------------------------------------------------------------- phase 3
-def make_case(torch, b, h, hkv, dh, kv_lens, n_layers, bs, seed, device):
+def make_case(torch, b, h, hkv, dh, kv_lens, n_layers, bs, seed, device,
+              quant=False):
     """Pool, shuffled block tables and queries for one kernel case. Slots
-    past each kv_len and the block the table padding points at hold NaN:
-    a kernel that reads them poisons its output."""
+    past each kv_len and the block the table padding points at hold NaN
+    (int8: NaN scales over a payload of +-127): a kernel that reads them
+    poisons its output. Returns (q, k_pool, v_pool, k_scale, v_scale,
+    block_tables, kv_lens); the scales are None for bf16."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     pages = [-(-n // bs) for n in kv_lens]
@@ -88,16 +107,24 @@ def make_case(torch, b, h, hkv, dh, kv_lens, n_layers, bs, seed, device):
     shape = (n_layers, hkv, num_blocks * bs, dh)
     k_pool = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
     v_pool = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
-    nan = float("nan")
-    for pool in (k_pool, v_pool):
-        pool[:, :, nan_blk * bs:(nan_blk + 1) * bs] = nan
+    k_scale = v_scale = None
+    poisoned = [(k_pool, float("nan")), (v_pool, float("nan"))]
+    if quant:
+        from production_stack_tpu_torch.ops.quantization import quantize_kv
+
+        k_pool, k_scale = quantize_kv(k_pool)
+        v_pool, v_scale = quantize_kv(v_pool)
+        poisoned = [(k_pool, 127), (v_pool, -127), (k_scale, float("nan")),
+                    (v_scale, float("nan"))]
+    for pool, bad in poisoned:
+        pool[:, :, nan_blk * bs:(nan_blk + 1) * bs] = bad
         for i, n in enumerate(kv_lens):
             if n % bs:
                 blk = int(bt[i, n // bs])
-                pool[:, :, blk * bs + n % bs:(blk + 1) * bs] = nan
+                pool[:, :, blk * bs + n % bs:(blk + 1) * bs] = bad
     q = torch.randn((b, h, dh), generator=gen, device=device).to(torch.bfloat16)
     kvl = torch.tensor(kv_lens, dtype=torch.int32, device=device)
-    return q, k_pool, v_pool, bt, kvl
+    return q, k_pool, v_pool, k_scale, v_scale, bt, kvl
 
 
 def device_ms(torch, fn, n_calls: int, what: str) -> float:
@@ -120,12 +147,14 @@ def device_ms(torch, fn, n_calls: int, what: str) -> float:
     fail(f"{what}: torch.profiler recorded no device time")
 
 
-def bound_of(kv_lens, b, h, hkv, dh, bs):
+def bound_of(kv_lens, b, h, hkv, dh, bs, quant=False):
     """Least time for the work this input needs: each K/V row of the live
-    pages read once, q read, out/m/l written, the block-table entries in use
-    and kv_lens read; operations 4*kv_len*H*Dh (QK and PV)."""
+    pages read once (bf16: 2 B an element; int8: 1 B an element plus the
+    slot's 2-byte bf16 scale), q read, out/m/l written, the block-table
+    entries in use and kv_lens read; operations 4*kv_len*H*Dh (QK and PV)."""
     toks = sum(kv_lens)
-    nbytes = (toks * hkv * dh * 2 * 2 + b * h * dh * 2 * 2 + b * h * 4 * 2
+    kv_row_bytes = dh + 2 if quant else dh * 2
+    nbytes = (toks * hkv * kv_row_bytes * 2 + b * h * dh * 2 * 2 + b * h * 4 * 2
               + sum(-(-n // bs) for n in kv_lens) * 4 + b * 4)
     ops = 4 * toks * h * dh
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -179,19 +208,65 @@ def plain_with_fault(torch, q, kp, vp, bt, kvl, layer, bs, fault):
     return (acc / l.clamp(min=1e-30)[..., None]).reshape(b, h, dh).to(q.dtype)
 
 
+def int8_plain_with_fault(torch, pa, q, kp, vp, ks, vs, bt, kvl, layer, bs,
+                          fault):
+    """The int8 plain version with one deliberate fault, to show that the
+    check catches it: "l over p*v_scale" sums the V-scaled weights into l;
+    "K scale of the next slot" reads each slot's K scale from its
+    neighbour. Returns (out, m, l)."""
+    if fault == "K scale of the next slot":
+        # The poisoned (NaN) scales become 0 first, so that the control
+        # fails by its arithmetic and not by a NaN rolled into a live slot.
+        return pa.paged_flash_decode_stats_ref(
+            q, kp, vp, bt, kvl, layer, block_size=bs,
+            k_scale=torch.roll(torch.nan_to_num(ks, nan=0.0), -1, dims=2),
+            v_scale=vs)
+    b, h, dh = q.shape
+    hkv = kp.shape[1]
+    s_max = -(-max(int(kvl.max()), 1) // bs) * bs
+    slots = (bt.long()[:, :, None] * bs
+             + torch.arange(bs, device=q.device)).reshape(b, -1)[:, :s_max]
+    pos = torch.arange(s_max, device=q.device)[None, :]
+    valid = pos < kvl.long()[:, None]                              # [B, S]
+
+    def rows(pool, n_dims):
+        x = torch.stack([pool[layer][:, slots[i]] for i in range(b)]).float()
+        return torch.where(valid.view(b, 1, s_max, *[1] * n_dims), x, 0.0)
+
+    keys, vals = rows(kp, 1), rows(vp, 1)                          # [B,Hkv,S,Dh]
+    ksc, vsc = rows(ks, 0), rows(vs, 0)                            # [B,Hkv,S]
+    qf = q.float().reshape(b, hkv, h // hkv, dh) * dh ** -0.5
+    sc = torch.einsum("bkgd,bksd->bkgs", qf, keys) * ksc[:, :, None, :]
+    sc = sc.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = sc.amax(dim=-1)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    pv = torch.exp(sc - m[..., None]) * vsc[:, :, None, :]
+    l = pv.sum(dim=-1)
+    acc = torch.einsum("bkgs,bksd->bkgd", pv, vals)
+    out = (acc / l.clamp(min=1e-30)[..., None]).reshape(b, h, dh).to(q.dtype)
+    return out, m.reshape(b, h), l.reshape(b, h)
+
+
+def stats_close(torch, got, want):
+    return torch.allclose(got, want, rtol=STATS_RTOL, atol=STATS_ATOL)
+
+
 def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
-                    device, bs=16):
+                    device, quant, bs=16):
     import torch.nn.functional as F
 
-    q, kp, vp, bt, kvl = make_case(torch, b, h, hkv, dh, kv_lens, n_layers,
-                                   bs, seed, device)
+    from production_stack_tpu_torch.ops.quantization import dequantize_kv
+
+    q, kp, vp, ks, vs, bt, kvl = make_case(torch, b, h, hkv, dh, kv_lens,
+                                           n_layers, bs, seed, device, quant)
+    sc = dict(k_scale=ks, v_scale=vs)
     max_err = max_row_rel = 0.0
     controls = {}
     for layer in sorted({0, n_layers - 1}):
         out, m, l = pa.paged_flash_decode_stats(q, kp, vp, bt, kvl, layer,
-                                                block_size=bs)
+                                                block_size=bs, **sc)
         ro, rm, rl = pa.paged_flash_decode_stats_ref(q, kp, vp, bt, kvl, layer,
-                                                     block_size=bs)
+                                                     block_size=bs, **sc)
         torch.cuda.synchronize()
         for i, n in enumerate(kv_lens):
             if n == 0:
@@ -217,7 +292,20 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
             fail(f"{name} layer {layer}: kernel stats disagree with plain version: {e}")
         max_err = max(max_err, err)
         max_row_rel = max(max_row_rel, row_rel)
-        if layer == 0:
+        if layer == 0 and quant:
+            for fault in ("l over p*v_scale", "K scale of the next slot"):
+                bo, bm, bl = int8_plain_with_fault(torch, pa, q, kp, vp, ks, vs,
+                                                   bt, kvl, 0, bs, fault)
+                c_err, c_row, c_ok = out_error(torch, bo, ro, live)
+                c_ok = (c_ok and stats_close(torch, bm[live], rm[live])
+                        and stats_close(torch, bl[live], rl[live]))
+                controls[fault] = c_row
+                if c_ok:
+                    fail(f"{name}: control '{fault}' passed the out/m/l check "
+                         f"(max abs {c_err:.3e}, row rel {c_row:.3e}): the "
+                         "tolerance is too loose to see that fault")
+                del bo, bm, bl
+        elif layer == 0:
             for fault in ("bf16 PV sum", "last V dropped"):
                 bad = plain_with_fault(torch, q, kp, vp, bt, kvl, 0, bs, fault)
                 c_err, c_row, c_ok = out_error(torch, bad, ro, live)
@@ -227,28 +315,47 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
                          f"(max abs {c_err:.3e}, row rel {c_row:.3e}): the "
                          "tolerance is too loose to see that fault")
                 del bad
+        if layer == 0 and name.startswith("main path"):
+            # The single-layer wrapper and the by-shape dispatch reach the
+            # same kernel: their output is the kernel's, bit for bit.
+            one = dict(k_scale=ks[0], v_scale=vs[0]) if quant else {}
+            dec = pa.paged_attention_decode(q[:, None], kp[0], vp[0], bt, kvl,
+                                            block_size=bs, **one)
+            disp = pa.paged_attention(q[:, None], kp[0], vp[0], bt, kvl,
+                                      (kvl - 1)[:, None], block_size=bs, **one)
+            if not (torch.equal(dec[:, 0], out) and torch.equal(disp[:, 0], out)):
+                fail(f"{name}: paged_attention_decode / paged_attention differ "
+                     "from the kernel's output")
+            log(f"{name}: paged_attention_decode and paged_attention give the "
+                "kernel's output")
 
     # Cycle through the layers so each launch meets its pages cold in L2,
     # as the decode step does (28 layers apart).
     def kern(i):
         return pa.paged_flash_decode_stats(q, kp, vp, bt, kvl, i % n_layers,
-                                           block_size=bs)
+                                           block_size=bs, **sc)
 
     def plain(i):
         return pa.paged_flash_decode_stats_ref(q, kp, vp, bt, kvl, i % n_layers,
-                                               block_size=bs)
+                                               block_size=bs, **sc)
 
     # Yardstick: SDPA over the same K/V gathered contiguous per layer
-    # (gather not timed), padded to the longest row with a key mask.
+    # (int8: dequantized to bf16; gather and dequantization not timed),
+    # padded to the longest row with a key mask.
     s_max = max(max(kv_lens), 1)
     n_lib = min(4, n_layers)
     wins = []
     slots = (bt.long()[:, :, None] * bs
              + torch.arange(bs, device=device)).reshape(b, -1)[:, :s_max]
     for layer in range(n_lib):
-        kw = torch.stack([kp[layer][:, slots[i]] for i in range(b)])  # [B,Hkv,S,Dh]
-        vw = torch.stack([vp[layer][:, slots[i]] for i in range(b)])
-        wins.append((kw.contiguous(), vw.contiguous()))
+        win = []
+        for pool, scale in ((kp, ks), (vp, vs)):
+            w = torch.stack([pool[layer][:, slots[i]] for i in range(b)])
+            if quant:
+                w = dequantize_kv(w, torch.stack(
+                    [scale[layer][:, slots[i]] for i in range(b)]), torch.bfloat16)
+            win.append(w.contiguous())                     # [B, Hkv, S, Dh]
+        wins.append(win)
     mask = (torch.arange(s_max, device=device)[None, :] < kvl[:, None].long())
     mask = mask[:, None, None, :]
     q4 = q[:, :, None, :]
@@ -258,17 +365,19 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
         return F.scaled_dot_product_attention(q4, kw, vw, attn_mask=mask,
                                               enable_gqa=True)
 
-    ms = device_ms(torch, kern, 2 * n_layers, f"{name} kernel")
-    plain_ms = device_ms(torch, plain, min(8, n_layers), f"{name} plain")
-    library_ms = device_ms(torch, sdpa, 4 * n_lib, f"{name} SDPA")
-    bound_ms, bound_by = bound_of(kv_lens, b, h, hkv, dh, bs)
-    del q, kp, vp, bt, kvl, wins
+    what = f"{name} [{'int8' if quant else 'bf16'}]"
+    ms = device_ms(torch, kern, 2 * n_layers, f"{what} kernel")
+    plain_ms = device_ms(torch, plain, min(8, n_layers), f"{what} plain")
+    library_ms = device_ms(torch, sdpa, 4 * n_lib, f"{what} SDPA")
+    bound_ms, bound_by = bound_of(kv_lens, b, h, hkv, dh, bs, quant)
+    del q, kp, vp, ks, vs, bt, kvl, wins, sc
     torch.cuda.empty_cache()
-    row = {"case": name, "B": b, "H": h, "Hkv": hkv, "Dh": dh,
-           "kv_tokens": sum(kv_lens), "max_kv_len": max(kv_lens),
-           "max_abs_err": max_err, "max_row_rel_err": max_row_rel,
-           "control_row_rel_err": controls, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    row = {"case": name, "variant": "int8" if quant else "bf16", "B": b, "H": h,
+           "Hkv": hkv, "Dh": dh, "kv_tokens": sum(kv_lens),
+           "max_kv_len": max(kv_lens), "max_abs_err": max_err,
+           "max_row_rel_err": max_row_rel, "control_row_rel_err": controls,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms}
     log(f"kernel case {json.dumps(row)}")
     return row
 
@@ -284,9 +393,9 @@ def kernel_phase(torch, pa, device, seed, main_lens):
             cases.append((f"{label} B={b}", b, h, hkv, dh, lens, n_layers))
     # The main path's shape: the served batch mid-decode.
     cases.append(("main path llama-3b B=4", 4, 24, 8, 128, main_lens, 28))
-    rows = [run_kernel_case(torch, pa, *c, seed=seed + i, device=device)
-            for i, c in enumerate(cases)]
-    return rows
+    return [run_kernel_case(torch, pa, *c, seed=seed + i, device=device,
+                            quant=quant)
+            for quant in (False, True) for i, c in enumerate(cases)]
 
 
 # ---------------------------------------------------------------- phase 4
@@ -350,24 +459,33 @@ def trace_requests(torch, loop_run, n_tokens):
             "top_ms": [[name[:80], us / 1e3] for name, us in top]}
 
 
-def serving_phase(torch, pa, device, seed, prompts, card, trace=False):
+def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
+                  trace=False):
+    """Serve llama-3b over HTTP with a KV pool of ``kv_cache_dtype``; the
+    int8 pool gets the bf16 pool's bytes (so ~1.97x its blocks). Returns
+    the launch counts of this run's main path."""
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.engine import ServingEngine
+    from production_stack_tpu_torch.models.config import resolve_model_config
     from production_stack_tpu_torch.server.api_server import OpenAIServer
 
     max_tokens = 64
-    cfg = EngineConfig(
-        model="llama-3b", dtype="bfloat16", attn_impl="paged", device="cuda",
-        max_model_len=4096,
-        # 8 sequences x 4096 tokens of bf16 KV (~3.8 GB) + the null block
-        num_kv_blocks=8 * 4096 // 16 + 1,
-        num_decode_steps=32, seed=seed,
-    )
+    common = dict(model="llama-3b", dtype="bfloat16", attn_impl="paged",
+                  device="cuda", max_model_len=4096, num_decode_steps=32,
+                  seed=seed)
+    mc = resolve_model_config("llama-3b")
+    # 8 sequences x 4096 tokens of bf16 KV (~3.8 GB) + the null block
+    pool_bytes = BF16_KV_BLOCKS * EngineConfig(**common).kv_cache_bytes_per_block(mc)
+    cfg = EngineConfig(**common, kv_cache_dtype=kv_cache_dtype)
+    cfg.num_kv_blocks = pool_bytes // cfg.kv_cache_bytes_per_block(mc)
+    variant = pa.INT8 if cfg.kv_cache_quantized else pa.BF16
     t0 = time.monotonic()
     engine = ServingEngine(cfg)
     torch.cuda.synchronize()
-    log(f"serving: llama-3b engine up in {time.monotonic() - t0:.3f} s "
-        f"(random bf16 weights, {engine.runner.num_kv_blocks} KV blocks, "
+    log(f"serving [{kv_cache_dtype} KV]: llama-3b engine up in "
+        f"{time.monotonic() - t0:.3f} s (random bf16 weights, "
+        f"{engine.runner.num_kv_blocks} KV blocks, "
+        f"kv_pool_bytes {engine.runner.kv_pool_bytes}, "
         f"attn={engine.runner.attn_impl}, "
         f"weights+pool {torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
     results = {}
@@ -414,7 +532,8 @@ def serving_phase(torch, pa, device, seed, prompts, card, trace=False):
                     "decode_seconds_total", "prefill_seconds_total"):
             setattr(engine.runner, key, 0)
         engine.decode_dispatches_total = engine.prefill_dispatches_total = 0
-        pa.paged_flash_decode_stats.launches = 0
+        for key in pa.LAUNCHES:
+            pa.LAUNCHES[key] = 0
         torch.cuda.reset_peak_memory_stats()
         t_start = time.monotonic()
 
@@ -425,7 +544,7 @@ def serving_phase(torch, pa, device, seed, prompts, card, trace=False):
 
         await asyncio.gather(*[loop.run_in_executor(None, one, *r) for r in reqs])
         results["_wall"] = time.monotonic() - t_start
-        results["_launches"] = pa.paged_flash_decode_stats.launches
+        results["_launches"] = dict(pa.LAUNCHES)
         results["_stats"] = engine.stats()
         results["_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         if trace:
@@ -471,20 +590,26 @@ def serving_phase(torch, pa, device, seed, prompts, card, trace=False):
             finish = [out["choices"][0]["finish_reason"]]
         if n_out != max_tokens or finish != ["length"]:
             fail(f"{name}: {n_out} tokens (want {max_tokens}), finish {finish}")
-        log(f"serving: {name}: HTTP 200, {n_out} tokens, finish=length, "
-            f"{t_end - t0_:.3f} s")
+        log(f"serving [{kv_cache_dtype} KV]: {name}: HTTP 200, {n_out} tokens, "
+            f"finish=length, {t_end - t0_:.3f} s")
     steps = stats["decode_steps_total"]
-    launches = results["_launches"]
+    counts = results["_launches"]
+    launches = counts[variant]
     n_layers = engine.model_config.num_layers
     if steps <= 0 or launches < n_layers * steps:
-        fail(f"kernel launches {launches} < {n_layers} layers x {steps} "
+        fail(f"{variant} launches {launches} < {n_layers} layers x {steps} "
              "decode steps: decode did not go through the kernel")
+    others = {k: v for k, v in counts.items() if k != variant and v}
+    if others:
+        fail(f"{kv_cache_dtype} KV run launched another variant: {others}")
     decode_tok_s = stats["decode_tokens_total"] / stats["decode_seconds_total"]
-    log(f"serving: {launches} kernel launches over {steps} decode steps "
-        f"({stats['decode_dispatches_total']} decode dispatches, "
-        f"{stats['prefill_dispatches_total']} prefill dispatches)")
+    log(f"serving [{kv_cache_dtype} KV]: {launches} {variant} launches over "
+        f"{steps} decode steps ({stats['decode_dispatches_total']} decode "
+        f"dispatches, {stats['prefill_dispatches_total']} prefill dispatches)")
     summary = {
-        "card": card, "wall_s": results["_wall"],
+        "card": card, "kv_cache_dtype": kv_cache_dtype,
+        "kv_blocks": stats["kv_num_blocks"],
+        "kv_pool_bytes": stats["kv_pool_bytes"], "wall_s": results["_wall"],
         "ttft_s_streamed": ttfts,
         "prefill_s_total": stats["prefill_seconds_total"],
         "decode_tokens": stats["decode_tokens_total"],
@@ -492,22 +617,24 @@ def serving_phase(torch, pa, device, seed, prompts, card, trace=False):
         "decode_tok_s": decode_tok_s,
         "decode_ms_per_step": 1e3 * stats["decode_seconds_total"] / steps,
         "peak_mem_gib": results["_peak_gib"],
-        "launches": launches, "decode_steps": steps,
+        "launches": counts, "decode_steps": steps,
     }
     log(f"serving result {json.dumps(summary)}")
-    return launches
+    return counts
 
 
 # ---------------------------------------------------------------- phase 5
-def check_phase(torch, device, seed):
+def check_phase(torch, device, seed, quant):
     """One decode step at llama-3b width, depth cut to 2 layers: the paged
     path (kernel + dense ring segment + merge) against the plain window
-    path (gathered window + window_attention) on the same pool."""
+    path (gathered window + window_attention) on the same pool, bf16 or
+    int8 (the window path then dequantizes in its gather)."""
     from dataclasses import replace
 
     from production_stack_tpu_torch.models import llama
     from production_stack_tpu_torch.models.config import resolve_model_config
     from production_stack_tpu_torch.ops.attention import gather_window
+    from production_stack_tpu_torch.ops.quantization import quantize_kv
 
     mc = replace(resolve_model_config("llama-3b"), num_layers=2)
     gen = torch.Generator(device=device)
@@ -521,12 +648,16 @@ def check_phase(torch, device, seed):
     shape = (mc.num_layers, mc.num_kv_heads, (b * mb + 1) * bs, mc.head_dim_)
     kp = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
     vp = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    ks = vs = None
+    if quant:
+        kp, ks = quantize_kv(kp)
+        vp, vs = quantize_kv(vp)
     pos = torch.tensor(lens, dtype=torch.int32, device=device)
     toks = torch.randint(0, 256, (b, 1), generator=gen, device=device)
     ones = torch.ones((b,), dtype=torch.int32, device=device)
     h_p, _, _ = llama.forward(params, mc, toks, pos[:, None], ones,
-                              paged=(kp, vp, bt, pos, bs))
-    wk, wv = gather_window(kp, vp, bt, bs)
+                              paged=(kp, vp, ks, vs, bt, pos, bs))
+    wk, wv = gather_window(kp, vp, bt, bs, ks, vs, out_dtype=torch.bfloat16)
     h_w, _, _ = llama.forward(params, mc, toks, pos[:, None], ones, wk, wv, pos)
     head = llama.lm_head_f32(params, mc)
     lg_p = llama.compute_logits(params, mc, h_p[:, 0], head)
@@ -535,13 +666,31 @@ def check_phase(torch, device, seed):
         fail("check: paged-path logits not finite or wrong shape")
     rel = ((h_p.float() - h_w.float()).norm() / h_w.float().norm()).item()
     agree = (lg_p.argmax(-1) == lg_w.argmax(-1)).float().mean().item()
-    log(f"check: llama-3b width x2 layers, paged (kernel) vs window (plain): "
+    log(f"check [{'int8' if quant else 'bf16'} KV]: llama-3b width x2 layers, "
+        f"paged (kernel) vs window (plain): "
         f"hidden rel err {rel:.3e}, logits max abs diff "
         f"{(lg_p - lg_w).abs().max().item():.3e}, argmax agreement {agree:.2f}")
     # bf16 activations, and the two paths round at different points (two
     # normalized segments merged vs one softmax): ~1e-2 is rounding.
     if rel > 5e-2:
-        fail(f"check: hidden rel err {rel:.3e} > 5e-2")
+        fail(f"check [{'int8' if quant else 'bf16'} KV]: hidden rel err "
+             f"{rel:.3e} > 5e-2")
+
+
+def check_noise(torch, device):
+    """The seeded-sampling noise (jax.random's threefry Gumbel field, as
+    the port computes it) is the same bits on the card as on the CPU, where
+    the tests hold it to the JAX package's."""
+    from production_stack_tpu_torch.engine.sampling import gumbel_noise
+
+    seeds = [0, 1234, 2**32 - 1]
+    on_card = gumbel_noise(seeds, 128256, device).cpu()
+    on_cpu = gumbel_noise(seeds, 128256, torch.device("cpu"))
+    n_diff = int((on_card.view(torch.int32) != on_cpu.view(torch.int32)).sum())
+    log(f"check: Gumbel noise [3 x 128256] on the card vs the CPU: "
+        f"{n_diff} values differ")
+    if n_diff:
+        fail(f"check: {n_diff} Gumbel values differ between the card and the CPU")
 
 
 def main() -> None:
@@ -595,31 +744,41 @@ def main() -> None:
     # Served rows mid-decode: chat prompts carry the template's bytes.
     main_lens = [len(tok.encode(p)) + 32 for p in prompts]
     # Serving runs before the kernel phase: the kernel phase's profiler
-    # must not perturb the serving numbers.
-    launches = None
+    # must not perturb the serving numbers. Each serving run is one main
+    # path: its launch counts are set to 0 before it and read after it.
+    launches = {"bf16": None, "int8": None}
     if "serving" in phases:
-        launches = serving_phase(torch, pa, device, args.seed, prompts, card,
-                                 trace="trace" in phases)
+        for kv in ("bfloat16", "int8"):
+            variant = "int8" if kv == "int8" else "bf16"
+            launches[variant] = serving_phase(
+                torch, pa, device, args.seed, prompts, card, kv,
+                trace="trace" in phases and kv == "bfloat16")[
+                    pa.INT8 if variant == "int8" else pa.BF16]
+            gc.collect()
+            torch.cuda.empty_cache()
     if "check" in phases:
-        check_phase(torch, device, args.seed)
+        for quant in (False, True):
+            check_phase(torch, device, args.seed, quant)
+        check_noise(torch, device)
     rows = []
     if "kernel" in phases:
         rows = kernel_phase(torch, pa, device, args.seed, main_lens)
 
-    main_row = next((r for r in rows if r["case"].startswith("main path")), None)
-    kernels = [{
-        "name": "paged_flash_decode_stats",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": max((r["max_abs_err"] for r in rows), default=None),
-        "ms": main_row["ms"] if main_row else None,
-        "plain_ms": main_row["plain_ms"] if main_row else None,
-        "bound_ms": main_row["bound_ms"] if main_row else None,
-        "bound_by": main_row["bound_by"] if main_row else None,
-        "library_ms": main_row["library_ms"] if main_row else None,
-    }]
+    kernels = []
+    for variant, name in (("bf16", pa.BF16), ("int8", pa.INT8)):
+        mine = [r for r in rows if r["variant"] == variant]
+        main_row = next((r for r in mine if r["case"].startswith("main path")),
+                        {})
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": KERNEL_REPLACES[variant],
+            "launches": launches[variant],
+            "max_abs_err": max((r["max_abs_err"] for r in mine), default=None),
+            **{key: main_row.get(key) for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,10 @@ from typing import Optional
 import torch
 
 from production_stack_tpu_torch.ops.paged_attention import supports_paged_decode
+from production_stack_tpu_torch.ops.quantization import (
+    KV_CACHE_DTYPES,
+    SCALE_ITEMSIZE,
+)
 
 _ITEMSIZE = {"bfloat16": 2, "float16": 2, "float32": 4}
 
@@ -19,7 +23,12 @@ class EngineConfig:
     # Entry points run on the card; the CPU only when asked for ("cpu").
     device: str = "cuda"
     max_model_len: int = 2048
-    # --- KV cache (stored in the compute dtype; int8 KV is ROADMAP work) ---
+    # --- KV cache ---
+    # Pool STORAGE dtype (compute stays ``dtype``): "int8" stores K/V as
+    # symmetric int8 with a per-(slot, head) bf16 scale
+    # (ops/quantization.py); readers dequantize inline (window gather, the
+    # paged kernel's int8 variant).
+    kv_cache_dtype: str = "bfloat16"
     block_size: int = 16
     num_kv_blocks: Optional[int] = None     # explicit block count; else derived
     hbm_utilization: float = 0.9            # fraction of free memory for KV
@@ -52,6 +61,11 @@ class EngineConfig:
             )
         if self.dtype not in _ITEMSIZE:
             raise ValueError(f"Unknown dtype {self.dtype!r}")
+        if self.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(
+                f"Unknown kv_cache_dtype {self.kv_cache_dtype!r} "
+                f"(supported: {', '.join(KV_CACHE_DTYPES)})"
+            )
 
     @property
     def torch_device(self) -> torch.device:
@@ -65,7 +79,8 @@ class EngineConfig:
             model_config.arch == "llama"
             and supports_paged_decode(model_config.head_dim_, self.block_size,
                                       model_config.q_per_kv)
-            # the kernel takes bf16 pools; the CPU runs its plain version
+            # the kernel takes bf16 queries over bf16 or int8 pools; the
+            # CPU runs its plain version
             and (not on_cuda or self.dtype == "bfloat16")
         )
         v = self.attn_impl
@@ -87,15 +102,31 @@ class EngineConfig:
         return "paged" if supported and on_cuda else "window"
 
     def kv_cache_bytes_per_token(self, model_config) -> int:
-        """Pool bytes one token occupies across all layers (K + V in the
-        compute dtype)."""
+        """Pool bytes one token occupies across all layers: K + V payload
+        in the pool's storage dtype, plus the per-(slot, head) scale when
+        quantized."""
+        if self.kv_cache_quantized:
+            per_slot = model_config.head_dim_ + SCALE_ITEMSIZE
+        else:
+            per_slot = model_config.head_dim_ * _ITEMSIZE[self.dtype]
+        return 2 * model_config.num_layers * model_config.num_kv_heads * per_slot
+
+    def window_bytes_per_block(self, model_config) -> int:
+        """Bytes of one block of a gathered window: windows hold the
+        DEQUANTIZED K/V, so they cost compute-dtype bytes at any storage
+        dtype."""
         return (
-            2 * model_config.num_layers * model_config.num_kv_heads
-            * model_config.head_dim_ * _ITEMSIZE[self.dtype]
+            2 * model_config.num_layers * self.block_size
+            * model_config.num_kv_heads * model_config.head_dim_
+            * _ITEMSIZE[self.dtype]
         )
 
     def kv_cache_bytes_per_block(self, model_config) -> int:
         return self.block_size * self.kv_cache_bytes_per_token(model_config)
+
+    @property
+    def kv_cache_quantized(self) -> bool:
+        return self.kv_cache_dtype == "int8"
 
     @property
     def model_name(self) -> str:

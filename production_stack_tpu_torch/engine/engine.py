@@ -284,7 +284,9 @@ class ServingEngine:
             "engine_uptime_seconds": time.monotonic() - self.start_time,
             "device": str(r.device),
             "attn_impl": r.attn_impl,
+            "kv_cache_dtype": self.config.kv_cache_dtype,
             "kv_pool_bytes": r.kv_pool_bytes,
+            "kv_quant_bytes_saved_total": r.kv_quant_bytes_saved_total,
             "kv_num_blocks": r.num_kv_blocks,
             "num_requests_running": self.scheduler.num_running,
             "num_requests_waiting": self.scheduler.num_waiting,

@@ -4,6 +4,9 @@ Counterpart of ``production_stack_tpu/engine/runner.py`` (main path only):
   * The KV pool is two tensors ``[L, Hkv, num_slots, Dh]`` (the JAX layout,
     so offload bytes stay compatible later), updated IN PLACE — the JAX
     package donated its pools to each dispatch and rebound the results.
+    ``kv_cache_dtype="int8"`` stores int8 payload pools plus bf16 scale
+    pools ``[L, Hkv, num_slots]``; fresh K/V is quantized once, before it is
+    written, and every reader dequantizes (ops/quantization.py).
   * A prefill dispatch computes slot mappings, gathers the history window
     once, runs the forward, samples from the last token's logits and
     scatters the chunk's KV once.
@@ -41,6 +44,11 @@ from production_stack_tpu_torch.models import llama
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.models.weights import dtype_of
 from production_stack_tpu_torch.ops.attention import gather_window
+from production_stack_tpu_torch.ops.quantization import (
+    SCALE_DTYPE,
+    dequantize_kv,
+    quantize_kv,
+)
 from production_stack_tpu_torch.utils import (
     init_logger,
     pow2_bucket as _bucket,
@@ -82,6 +90,10 @@ class ModelRunner:
         # gathers the live KV into a contiguous per-dispatch window.
         self.attn_impl = config.resolved_attn_impl(model_config)
         self.dtype = dtype_of(config.dtype)
+        self.kv_quantized = config.kv_cache_quantized
+        # Tokens written to a quantized pool (prefill + decode), for
+        # kv_quant_bytes_saved_total.
+        self.kv_quant_tokens_written = 0
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
@@ -106,22 +118,47 @@ class ModelRunner:
 
     # ------------------------------------------------------------------ sizing
     def _alloc_kv_pools(self) -> None:
+        """Payload pools in the storage dtype, plus (int8) the per-(slot,
+        head) scale pools."""
         mc, cfg = self.model_config, self.config
         num_slots = self.num_kv_blocks * cfg.block_size
         shape = (mc.num_layers, mc.num_kv_heads, num_slots, mc.head_dim_)
-        self.kv_k = torch.zeros(shape, dtype=self.dtype, device=self.device)
-        self.kv_v = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        store = torch.int8 if self.kv_quantized else self.dtype
+        self.kv_k = torch.zeros(shape, dtype=store, device=self.device)
+        self.kv_v = torch.zeros(shape, dtype=store, device=self.device)
+        if self.kv_quantized:
+            self.kv_k_scale = torch.zeros(shape[:-1], dtype=SCALE_DTYPE,
+                                          device=self.device)
+            self.kv_v_scale = torch.zeros_like(self.kv_k_scale)
+        else:
+            self.kv_k_scale = self.kv_v_scale = None
 
     @property
     def kv_pool_bytes(self) -> int:
-        return 2 * self.kv_k.numel() * self.kv_k.element_size()
+        """Device bytes of the KV pool, payload + scale pools."""
+        return self.num_kv_blocks * self.config.kv_cache_bytes_per_block(
+            self.model_config)
+
+    @property
+    def kv_quant_bytes_saved_total(self) -> int:
+        """Pool bytes a quantized cache avoided writing against storing the
+        same tokens in the compute dtype (0 when not quantized)."""
+        if not self.kv_quantized:
+            return 0
+        mc, cfg = self.model_config, self.config
+        unquantized = (2 * mc.num_layers * mc.num_kv_heads * mc.head_dim_
+                       * self.dtype.itemsize)
+        saved = max(0, unquantized - cfg.kv_cache_bytes_per_token(mc))
+        return self.kv_quant_tokens_written * saved
 
     def _derive_num_blocks(self) -> int:
         """Size the KV pool from free device memory (after the weights are
-        resident); the CPU gets a conservative 2 GiB."""
+        resident); the CPU gets a conservative 2 GiB. The pool costs its
+        storage bytes (int8 payload + scales when quantized); gathered
+        windows hold dequantized compute-dtype K/V and cost those bytes."""
         mc, cfg = self.model_config, self.config
         bytes_per_block = cfg.kv_cache_bytes_per_block(mc)
-        window_bytes_per_block = bytes_per_block  # windows are compute-dtype copies
+        window_bytes_per_block = cfg.window_bytes_per_block(mc)
         if self.device.type == "cuda":
             free_bytes, _ = torch.cuda.mem_get_info(self.device)
         else:
@@ -145,9 +182,10 @@ class ModelRunner:
             n = (budget - reserve_bytes) // bytes_per_block
         n = max(2, min(n, cfg.max_blocks_per_seq * cfg.max_num_seqs + 1))
         logger.info(
-            "KV pool: %d blocks x %d tokens (%.1f MiB, attn=%s, device=%s)",
+            "KV pool: %d blocks x %d tokens (%.1f MiB, kv_cache_dtype=%s, "
+            "attn=%s, device=%s)",
             n, cfg.block_size, n * bytes_per_block / (1 << 20),
-            self.attn_impl, self.device,
+            cfg.kv_cache_dtype, self.attn_impl, self.device,
         )
         return n
 
@@ -271,11 +309,15 @@ class ModelRunner:
         slot_steps = torch.where(valid, blk * bs + p % bs,
                                  torch.zeros_like(blk))
 
+        quant = self.kv_quantized
         if self.attn_impl == "paged":
             win_k = win_v = win_len = None
-            paged = (self.kv_k, self.kv_v, block_tables, pos0, bs)
+            paged = (self.kv_k, self.kv_v, self.kv_k_scale, self.kv_v_scale,
+                     block_tables, pos0, bs)
         else:
-            win_k, win_v = gather_window(self.kv_k, self.kv_v, block_tables, bs)
+            win_k, win_v = gather_window(
+                self.kv_k, self.kv_v, block_tables, bs, self.kv_k_scale,
+                self.kv_v_scale, out_dtype=self.dtype)
             win_len = pos0
             paged = None
 
@@ -283,6 +325,16 @@ class ModelRunner:
         ring_k = torch.zeros((nl, hkv, b, num_steps, dh), dtype=self.dtype,
                              device=self.device)
         ring_v = torch.zeros_like(ring_k)
+        if quant:
+            # Side rings of the int8 payload + scales each step scatters at
+            # the end of the dispatch: each token is quantized ONCE, so the
+            # pool and the attention ring hold the same (q, scale) pair.
+            ring_qk = torch.zeros(ring_k.shape, dtype=torch.int8,
+                                  device=self.device)
+            ring_qv = torch.zeros_like(ring_qk)
+            ring_sk = torch.zeros(ring_k.shape[:-1], dtype=SCALE_DTYPE,
+                                  device=self.device)
+            ring_sv = torch.zeros_like(ring_sk)
         ring_pos = torch.full((b, num_steps), POS_SENTINEL, dtype=torch.int32,
                               device=self.device)
         ones = torch.ones((b,), dtype=torch.int32, device=self.device)
@@ -306,6 +358,18 @@ class ModelRunner:
                                counts, presence, frequency)
             if counts is not None:
                 counts[rows, nxt] += 1
+            if quant:
+                # Later steps attend to what later dispatches reconstruct
+                # from the pool; this step's own token attended to itself
+                # unquantized inside the forward.
+                qk, sk = quantize_kv(k_new)
+                qv, sv = quantize_kv(v_new)
+                k_new = dequantize_kv(qk, sk, self.dtype)
+                v_new = dequantize_kv(qv, sv, self.dtype)
+                ring_qk[:, :, :, j] = qk[:, :, :, 0]
+                ring_qv[:, :, :, j] = qv[:, :, :, 0]
+                ring_sk[:, :, :, j] = sk[:, :, :, 0]
+                ring_sv[:, :, :, j] = sv[:, :, :, 0]
             ring_k[:, :, :, j] = k_new[:, :, :, 0]
             ring_v[:, :, :, j] = v_new[:, :, :, 0]
             ring_pos[:, j] = positions[:, 0]
@@ -313,12 +377,23 @@ class ModelRunner:
             toks = torch.where(j < budget, nxt.to(torch.int32), toks)
             toks_all.append(nxt)
 
-        # ONE scatter writes the whole dispatch's KV to the pool, in place.
+        # ONE scatter writes the whole dispatch's KV to the pool, in place
+        # (int8: the payload and scales the steps recorded).
         flat_slots = slot_steps.reshape(-1).long()
-        self.kv_k[:, :, flat_slots] = ring_k.permute(0, 1, 3, 2, 4).reshape(
-            nl, hkv, num_steps * b, dh)
-        self.kv_v[:, :, flat_slots] = ring_v.permute(0, 1, 3, 2, 4).reshape(
-            nl, hkv, num_steps * b, dh)
+
+        def steps_major(ring):
+            return ring.transpose(2, 3).reshape(nl, hkv, num_steps * b,
+                                                *ring.shape[4:])
+
+        if quant:
+            self.kv_k[:, :, flat_slots] = steps_major(ring_qk)
+            self.kv_v[:, :, flat_slots] = steps_major(ring_qv)
+            self.kv_k_scale[:, :, flat_slots] = steps_major(ring_sk)
+            self.kv_v_scale[:, :, flat_slots] = steps_major(ring_sv)
+            self.kv_quant_tokens_written += sum(batch.decode_steps)
+        else:
+            self.kv_k[:, :, flat_slots] = steps_major(ring_k)
+            self.kv_v[:, :, flat_slots] = steps_major(ring_v)
 
         out = torch.stack(toks_all).cpu().numpy()                    # [K, b]
         tokens = [
@@ -392,7 +467,11 @@ class ModelRunner:
         slot_mapping = torch.where(in_chunk, blk * bs + positions % bs,
                                    torch.zeros_like(blk))
         if has_window:
-            win_k, win_v = gather_window(self.kv_k, self.kv_v, block_tables, bs)
+            # The history window dequantizes; the chunk attends its own
+            # fresh K/V unquantized.
+            win_k, win_v = gather_window(
+                self.kv_k, self.kv_v, block_tables, bs, self.kv_k_scale,
+                self.kv_v_scale, out_dtype=self.dtype)
             win_len = chunk_start
         else:
             win_k = win_v = win_len = None
@@ -414,8 +493,18 @@ class ModelRunner:
 
         nl, hkv, dh = mc.num_layers, mc.num_kv_heads, mc.head_dim_
         flat_slots = slot_mapping.reshape(-1).long()
-        self.kv_k[:, :, flat_slots] = k_new.reshape(nl, hkv, b * t, dh)
-        self.kv_v[:, :, flat_slots] = v_new.reshape(nl, hkv, b * t, dh)
+        k_flat = k_new.reshape(nl, hkv, b * t, dh)
+        v_flat = v_new.reshape(nl, hkv, b * t, dh)
+        if self.kv_quantized:
+            # Quantized before the one scatter: compute-dtype K/V never
+            # lands in an int8 pool.
+            k_flat, k_sc = quantize_kv(k_flat)
+            v_flat, v_sc = quantize_kv(v_flat)
+            self.kv_k_scale[:, :, flat_slots] = k_sc
+            self.kv_v_scale[:, :, flat_slots] = v_sc
+            self.kv_quant_tokens_written += sum(batch.chunk_lens)
+        self.kv_k[:, :, flat_slots] = k_flat
+        self.kv_v[:, :, flat_slots] = v_flat
 
         if next_tokens is None:
             if self.device.type == "cuda":

@@ -10,12 +10,11 @@ requests:
   * filtered rows reduce the vocab to the top TOP_CANDIDATES logits and
     apply the top-k/top-p masks among those candidates.
 
-The Gumbel field is an explicit argument of ``sample_tokens``, so a test can
-feed the JAX sampler's own noise to both frameworks. The port draws its
-noise from one ``torch.Generator`` per row, seeded with the same uint32 seed
-schedule as the JAX package (``token_seed``); it does not reproduce JAX's
-threefry bits, so seeded (non-greedy) tokens differ from the JAX package's
-(ROADMAP Queue 1 item 3).
+The Gumbel field is an explicit argument of ``sample_tokens``. The port
+computes it as the JAX package does, bit for bit: row i is
+``jax.random.gumbel(jax.random.PRNGKey(seed_i), (V,), float32)`` with the
+same uint32 seed schedule (``seed_base``, ``token_seed``), so seeded tokens
+equal the JAX package's (see ``gumbel_noise``).
 """
 
 from dataclasses import dataclass, field
@@ -25,6 +24,24 @@ import torch
 
 TOP_CANDIDATES = 128  # candidate pool for the filtered (top-k/top-p) branch
 SEED_MULT = 1000003
+
+_M32 = 0xFFFFFFFF
+# threefry2x32: the rotations of the even and odd groups of four rounds,
+# and the key-schedule parity constant.
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
+# XLA's f32 log on the CPU (Cephes/Eigen ``plog``: the mantissa folded
+# into [sqrt(1/2), sqrt(2)), a degree-9 polynomial, ln 2 split in two),
+# whose constants these are, read from the LLVM IR that jax's CPU backend
+# emits for ``jnp.log`` (``XLA_FLAGS=--xla_dump_to=DIR``).
+_SQRT_HALF = float.fromhex("0x1.6a09e6p-1")
+_LOG_P = tuple(float.fromhex(h) for h in (
+    "0x1.204376p-4", "-0x1.d7a37p-4", "-0x1.fcba9ep-4", "0x1.23d37ep-3",
+    "0x1.999d58p-3", "-0x1.fffff8p-3", "0x1.de4a34p-4", "-0x1.555cap-3",
+    "0x1.555554p-2"))
+_LN2_LO = float.fromhex("-0x1.bd0106p-13")
+_LN2_HI = float.fromhex("0x1.63p-1")
 
 
 @dataclass
@@ -85,18 +102,111 @@ def token_seed(base: int, gen_index: int) -> int:
     return (int(base) * SEED_MULT + int(gen_index)) & 0xFFFFFFFF
 
 
+def _int64_on(values: Sequence[int], device: torch.device) -> torch.Tensor:
+    """A host list as an int64 tensor on ``device``; to the card through
+    pinned memory without a blocking copy (which would wait for the queued
+    decode step)."""
+    t = torch.tensor(values, dtype=torch.int64)
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
+    """The threefry2x32 hash (20 rounds), as ``jax._src.prng`` computes it.
+    Keys and counts are uint32 values held in int64 lanes; returns the two
+    output words the same way."""
+    ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = _rotl32(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x1, x2
+
+
+def random_bits(seeds: Sequence[int], n: int,
+                device: torch.device) -> torch.Tensor:
+    """[len(seeds), n] 32-bit random words (int64 lanes): row i equals
+    ``jax.random.bits(jax.random.PRNGKey(seeds[i]), (n,), uint32)`` under
+    ``jax_threefry_partitionable=True`` (jax's default since 0.5): the key
+    of a uint32 seed is (0, seed), element j hashes the 64-bit count j split
+    into (high word, low word) = (0, j) for n < 2**32, and the two output
+    words are XOR-ed. Older jax without the partitionable layout hashes
+    other counts and is not reproduced."""
+    k2 = _int64_on([int(s) & _M32 for s in seeds], device)[:, None]
+    lo = torch.arange(n, dtype=torch.int64, device=device)[None, :]
+    b1, b2 = threefry2x32(0, k2, torch.zeros_like(lo), lo)
+    return b1 ^ b2
+
+
+def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """jax.random's f32 uniform on [tiny, 1) from 32-bit words: the top 23
+    bits as the mantissa of a float in [1, 2), minus 1, then
+    ``max(tiny, u * (1 - tiny) + tiny)``."""
+    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    u = fbits.view(torch.float32) - 1.0
+    lo = torch.full((), _F32_TINY, dtype=torch.float32, device=bits.device)
+    span = torch.ones((), dtype=torch.float32, device=bits.device) - lo
+    return torch.maximum(lo, u * span + lo)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 fused multiply-add: the product of two f32 values is exact in
+    f64, so one f64 add rounds it once before the final f32 rounding (a
+    double rounding, which differs from a true FMA only when the f64 sum
+    lands exactly halfway between two f32 values)."""
+    b = b.double() if isinstance(b, torch.Tensor) else b
+    c = c.double() if isinstance(c, torch.Tensor) else c
+    return (a.double() * b + c).float()
+
+
+def xla_log_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log`` of positive finite f32 values, bit for bit as jax's CPU
+    backend computes it on an x86 machine with FMA (``torch.log`` is
+    correctly rounded and differs from it by an ulp on ~15% of inputs).
+    The LLVM backend contracts the polynomial's multiply-adds and the
+    ``ln2_lo`` term into FMAs; the other products are exact."""
+    x = torch.clamp_min(x, float(torch.finfo(torch.float32).tiny))
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & -0x7F800001) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    small = m < _SQRT_HALF
+    xr = (m - 1.0) + torch.where(small, m, 0.0)
+    e = e - torch.where(small, 1.0, 0.0)
+    x2 = xr * xr
+    x3 = x2 * xr
+    p0, p1, p2, p3, p4, p5, p6, p7, p8 = _LOG_P
+    y0 = _fma(_fma(xr, p0, p1), xr, p6)
+    y1 = _fma(_fma(xr, p2, p3), xr, p7)
+    y2 = _fma(_fma(xr, p4, p5), xr, p8)
+    y = _fma(_fma(_fma(y0, x3, y1), x3, y2), x3, e * _LN2_LO)
+    return ((xr - x2 * 0.5) + y) + e * _LN2_HI
+
+
 def gumbel_noise(seeds: Sequence[int], vocab: int, device: torch.device,
                  rows: Optional[Sequence[bool]] = None) -> torch.Tensor:
-    """Per-row Gumbel field [B, V] f32: row i from a generator seeded with
-    ``seeds[i]``. Rows with ``rows[i]`` False (greedy) stay zero."""
+    """Per-row Gumbel field [B, V] f32: row i is
+    ``jax.random.gumbel(jax.random.PRNGKey(seeds[i]), (V,), float32)``
+    (mode "low": ``-log(-log(u))``), computed only for rows with
+    ``rows[i]`` True; the others (greedy) stay zero. Bit for bit the JAX
+    package's field on the CPU (``xla_log_f32``)."""
     out = torch.zeros((len(seeds), vocab), dtype=torch.float32, device=device)
-    for i, s in enumerate(seeds):
-        if rows is not None and not rows[i]:
-            continue
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(s))
-        # -log(E), E ~ Exp(1), is a standard Gumbel draw.
-        out[i].exponential_(generator=gen).log_().neg_()
+    sel = [i for i in range(len(seeds)) if rows is None or rows[i]]
+    if not sel:
+        return out
+    u = uniform_from_bits(random_bits([seeds[i] for i in sel], vocab, device))
+    g = -xla_log_f32(-xla_log_f32(u))
+    if len(sel) == len(seeds):
+        return g
+    out[_int64_on(sel, device)] = g
     return out
 
 

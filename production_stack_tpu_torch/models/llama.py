@@ -113,7 +113,8 @@ def _layer_body(
     chunk_lens: torch.Tensor,
     win_k, win_v, win_len,
     ring_k, ring_v, ring_pos,
-    paged=None,                 # (pool_k, pool_v, block_tables, kv_lens, bs)
+    paged=None,                 # (pool_k, pool_v, k_scale, v_scale,
+                                #  block_tables, kv_lens, bs)
     layer_idx: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, t, d = hidden.shape
@@ -135,12 +136,13 @@ def _layer_body(
         # Paged decode (T == 1): the pool segment runs in the flash-decode
         # kernel directly against this layer of the stacked pool; the
         # intra-dispatch ring + the current token form a small dense
-        # segment; the two merge by their softmax stats.
-        pool_k, pool_v, block_tables, kv_lens, block_size = paged
+        # segment; the two merge by their softmax stats. Int8 pools carry
+        # their scale pools (None for bf16) into the kernel's int8 variant.
+        pool_k, pool_v, k_scale, v_scale, block_tables, kv_lens, block_size = paged
         q2 = q.reshape(b, h, dh)
         out_p, m_p, l_p = paged_flash_decode_stats(
             q2, pool_k, pool_v, block_tables, kv_lens, layer_idx,
-            block_size=block_size,
+            block_size=block_size, k_scale=k_scale, v_scale=v_scale,
         )
         kc = k.permute(2, 0, 1, 3)              # [Hkv, B, 1, Dh] current token
         vc = v.permute(2, 0, 1, 3)
@@ -184,8 +186,9 @@ def forward(
     ring_v: Optional[torch.Tensor] = None,
     ring_pos: Optional[torch.Tensor] = None,  # [B, R]
     *,
-    paged=None,  # (pool_k [L,Hkv,S,Dh], pool_v, block_tables [B,Mb],
-                 #  kv_lens [B], block_size) — paged decode path
+    paged=None,  # (pool_k [L,Hkv,S,Dh], pool_v, k_scale [L,Hkv,S] | None,
+                 #  v_scale | None, block_tables [B,Mb], kv_lens [B],
+                 #  block_size) — paged decode path
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (hidden [B,T,D], k_new [L,Hkv,B,T,Dh], v_new [L,Hkv,B,T,Dh])."""
     hidden = params["embed"][token_ids.long()]

@@ -4,11 +4,13 @@ and the port's own random init.
 ``params_from_jax`` takes the JAX params exported as numpy
 (``jax.tree.map(np.asarray, params)``) and returns the same stacked-layer
 dict as torch tensors, so a test can make both frameworks compute with the
-same weights. The port's own random init is ``models/llama.py:init_params``.
+same weights; ``kv_pools_from_jax`` carries the JAX runner's KV pools (state,
+not weights) across the same way. The port's own random init is
+``models/llama.py:init_params``.
 Checkpoint loading from a HuggingFace directory is not ported yet (ROADMAP).
 """
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,3 +54,35 @@ def params_from_jax(np_tree: Dict, cfg: ModelConfig,
         k: _to_tensor(v, dtype, device) for k, v in np_tree["layers"].items()
     }
     return out
+
+
+def _bf16_tensor(arr) -> torch.Tensor:
+    """ml_dtypes bf16, or its raw bits viewed as uint16 -> torch bf16."""
+    arr = np.ascontiguousarray(np.asarray(arr))
+    if arr.dtype == np.uint16:
+        return torch.from_numpy(arr.copy()).view(torch.bfloat16)
+    return _to_tensor(arr, torch.bfloat16, "cpu")
+
+
+def kv_pools_from_jax(k, v, k_scale=None, v_scale=None,
+                      device: Optional[torch.device] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor,
+                                 Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The JAX runner's KV pools as numpy (``np.asarray(runner.kv_k)``
+    etc.) -> the port's pool tensors, same ``[L, Hkv, num_slots, Dh]``
+    layout and bits: int8 payload pools with bf16 scale pools
+    ``[L, Hkv, num_slots]`` (ml_dtypes bf16 or its bits as uint16), or bf16
+    / f32 pools with no scales."""
+    device = device if device is not None else torch.device("cpu")
+
+    def pool(arr):
+        arr = np.asarray(arr)
+        if arr.dtype.name == "bfloat16" or arr.dtype == np.uint16:
+            return _bf16_tensor(arr).to(device)
+        return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+
+    scales = [None if s is None else _bf16_tensor(s).to(device)
+              for s in (k_scale, v_scale)]
+    if (scales[0] is None) != (scales[1] is None):
+        raise ValueError("kv_pools_from_jax: pass both scale pools or neither")
+    return pool(k), pool(v), scales[0], scales[1]

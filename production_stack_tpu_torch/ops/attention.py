@@ -13,6 +13,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from production_stack_tpu_torch.ops.quantization import dequantize_kv
+
 _NEG_INF = float(torch.finfo(torch.float32).min)
 
 # Query-block size for the chunked prefill path: bounds the materialized
@@ -181,18 +183,33 @@ def gather_window(
     kv_v: torch.Tensor,
     block_tables: torch.Tensor,  # [B, Mb] int32
     block_size: int,
+    k_scale: Optional[torch.Tensor] = None,  # [L, Hkv, num_slots] (int8 pools)
+    v_scale: Optional[torch.Tensor] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One gather per dispatch: paged pool -> contiguous per-sequence
     windows [L, Hkv, B, Mb*bs, Dh] (slot s holds absolute position s),
-    indexed by BLOCK so each gathered element is a contiguous bs*Dh run."""
+    indexed by BLOCK so each gathered element is a contiguous bs*Dh run.
+    Int8 pools (scales given) gather payload and scales and dequantize the
+    window to ``out_dtype`` (default bf16)."""
     b, mb = block_tables.shape
     n_layers, hkv, num_slots, dh = kv_k.shape
     nb = num_slots // block_size
+    s_tot = mb * block_size
     idx = block_tables.long()
     win_k = kv_k.view(n_layers, hkv, nb, block_size, dh)[:, :, idx]
     win_v = kv_v.view(n_layers, hkv, nb, block_size, dh)[:, :, idx]
-    return (win_k.reshape(n_layers, hkv, b, mb * block_size, dh),
-            win_v.reshape(n_layers, hkv, b, mb * block_size, dh))
+    win_k = win_k.reshape(n_layers, hkv, b, s_tot, dh)
+    win_v = win_v.reshape(n_layers, hkv, b, s_tot, dh)
+    if k_scale is not None:
+        out_dtype = out_dtype or torch.bfloat16
+        ks = k_scale.view(n_layers, hkv, nb, block_size)[:, :, idx]
+        vs = v_scale.view(n_layers, hkv, nb, block_size)[:, :, idx]
+        win_k = dequantize_kv(win_k, ks.reshape(n_layers, hkv, b, s_tot),
+                              out_dtype)
+        win_v = dequantize_kv(win_v, vs.reshape(n_layers, hkv, b, s_tot),
+                              out_dtype)
+    return win_k, win_v
 
 
 def gather_kv_pages(pool: torch.Tensor, block_tables: torch.Tensor,
@@ -215,10 +232,13 @@ def paged_attention_xla(
     *,
     block_size: int,
     scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [Hkv, num_slots] (int8 pools)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Reference paged attention (the JAX package's XLA path, kept under its
     name): gather pages, masked softmax. Query at position p attends to KV
-    slots [0, p] of its own sequence; slots beyond kv_len are masked."""
+    slots [0, p] of its own sequence; slots beyond kv_len are masked. Int8
+    pools pass per-slot scales; the gathered pages dequantize to f32."""
     b, t, h, dh = q.shape
     hkv = k_pool.shape[0]
     g = h // hkv
@@ -226,6 +246,11 @@ def paged_attention_xla(
         scale = dh ** -0.5
     k = gather_kv_pages(k_pool, block_tables, block_size)       # [Hkv, B, S, Dh]
     v = gather_kv_pages(v_pool, block_tables, block_size)
+    if k_scale is not None:
+        ks = gather_kv_pages(k_scale[..., None], block_tables, block_size)
+        vs = gather_kv_pages(v_scale[..., None], block_tables, block_size)
+        k = dequantize_kv(k, ks[..., 0], torch.float32)
+        v = dequantize_kv(v, vs[..., 0], torch.float32)
     s = k.shape[2]
     qg = q.reshape(b, t, hkv, g, dh).float() * scale
     scores = torch.einsum("btkgd,kbsd->bkgts", qg, k.float())

@@ -1,13 +1,16 @@
 """Paged flash-decode over the layer-stacked KV pool: the hand-written CUDA
-kernel (``csrc/paged_decode.cu``) and its plain PyTorch twin.
+kernel (``csrc/paged_decode.cu``, a bf16-pool and an int8-pool variant) and
+its plain PyTorch twin.
 
 Counterpart of ``production_stack_tpu/ops/pallas/paged_attention.py``
-(``paged_flash_decode_stats`` and its ``_decode_kernel``). The wrapper takes
-the plain version only for tensors that lie on the CPU; for a CUDA tensor it
-launches the kernel or raises. The kernel is compiled by ``nvcc`` from the
-source in the checkout at first use into ``build/torch_kernels/`` and bound
-through ``ctypes`` (a plain C interface: seconds to build, no PyTorch
-headers).
+(``paged_flash_decode_stats`` and its ``_decode_kernel``, both branches, and
+the ``paged_attention_decode_pallas`` / ``paged_attention_pallas`` wrappers).
+The wrapper takes the plain version only for tensors that lie on the CPU;
+for a CUDA tensor it launches the kernel or raises. The kernel is compiled
+by ``nvcc`` from the source in the checkout at first use into
+``build/torch_kernels/`` and bound through ``ctypes`` (a plain C interface:
+seconds to build, no PyTorch headers). ``LAUNCHES`` counts the kernel's
+launches per variant, so a run can show which one served it.
 """
 
 import ctypes
@@ -20,6 +23,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from production_stack_tpu_torch.ops.attention import paged_attention_xla
+from production_stack_tpu_torch.ops.quantization import SCALE_DTYPE
+
 SUPPORTED_HEAD_DIMS = (64, 128)
 MAX_QUERY_GROUP = 16      # H / Hkv the kernel holds per block (kMaxGroup)
 TILE_TOKENS = 64          # tokens per shared-memory tile (kTile)
@@ -29,6 +35,11 @@ SOURCE = os.path.join(_PKG_DIR, "csrc", "paged_decode.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Kernel launches per variant (the names of chip_smoke.py's kernels line).
+BF16 = "paged_flash_decode_stats"
+INT8 = "paged_flash_decode_stats[int8]"
+LAUNCHES = {BF16: 0, INT8: 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -94,6 +105,12 @@ def _load_lib():
                 ctypes.c_float, vp,
             ]
             lib.pstpu_paged_decode_bf16.restype = i32
+            lib.pstpu_paged_decode_int8.argtypes = [
+                vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                i32, i32, i32, i32, ctypes.c_longlong, i32, i32, i32, i32,
+                ctypes.c_float, vp,
+            ]
+            lib.pstpu_paged_decode_int8.restype = i32
             lib.pstpu_cuda_error_string.argtypes = [i32]
             lib.pstpu_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -122,38 +139,57 @@ def paged_flash_decode_stats(
     *,
     block_size: int,
     scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [L, Hkv, num_slots] (int8 pools)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pool-segment flash decode for one layer of the stacked pool.
 
     Returns (out [B, H, Dh] normalized in q's dtype, m [B, H] f32,
     l [B, H] f32); rows with kv_len == 0 give (0, -inf, 0), a no-op under
     ops/attention.py:merge_attention_segments. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (bf16 q and pools) or raise.
-    Each kv_lens[i] must be at most Mb * block_size (the caller's block
-    tables cover every resident token; the lengths stay on the device, so
-    this is not checked here)."""
+    version; CUDA tensors launch the kernel or raise: bf16 q over bf16
+    pools, or (scales given) bf16 q over int8 pools with bf16 per-slot
+    scales. Each kv_lens[i] must be at most Mb * block_size (the caller's
+    block tables cover every resident token; the lengths stay on the
+    device, so this is not checked here)."""
+    quant = k_scale is not None
     if q.device.type == "cpu":
         return paged_flash_decode_stats_ref(
             q, k_pool, v_pool, block_tables, kv_lens, layer,
-            block_size=block_size, scale=scale,
+            block_size=block_size, scale=scale, k_scale=k_scale,
+            v_scale=v_scale,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode_stats: unsupported device {q.device}")
     b, h, dh = q.shape
     n_layers, hkv, num_slots, pdh = k_pool.shape
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables), ("kv_lens", kv_lens)):
+    tensors = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+               ("block_tables", block_tables), ("kv_lens", kv_lens)]
+    if quant or v_scale is not None:
+        if k_scale is None or v_scale is None:
+            raise ValueError("int8 pools need both k_scale and v_scale")
+        tensors += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for name, t in tensors:
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not q.is_contiguous():
-        raise ValueError("q must be contiguous")
-    if q.dtype != torch.bfloat16 or k_pool.dtype != torch.bfloat16 \
-            or v_pool.dtype != torch.bfloat16:
+    pool_dtype = torch.int8 if quant else torch.bfloat16
+    if q.dtype != torch.bfloat16 or k_pool.dtype != pool_dtype \
+            or v_pool.dtype != pool_dtype:
         raise ValueError(
-            f"paged decode kernel takes bf16 q and pools, got q={q.dtype} "
+            f"paged decode kernel takes bf16 q and {pool_dtype} pools "
+            f"({'with' if quant else 'without'} scales), got q={q.dtype} "
             f"k={k_pool.dtype} v={v_pool.dtype}"
+        )
+    if quant and (k_scale.dtype != SCALE_DTYPE or v_scale.dtype != SCALE_DTYPE
+                  or tuple(k_scale.shape) != (n_layers, hkv, num_slots)
+                  or v_scale.shape != k_scale.shape):
+        raise ValueError(
+            f"int8 pools need {SCALE_DTYPE} scales of shape "
+            f"{(n_layers, hkv, num_slots)}, got k_scale "
+            f"{k_scale.dtype} {tuple(k_scale.shape)}, v_scale "
+            f"{v_scale.dtype} {tuple(v_scale.shape)}"
         )
     if v_pool.shape != k_pool.shape or pdh != dh or h % hkv:
         raise ValueError(
@@ -186,9 +222,14 @@ def paged_flash_decode_stats(
     part_m = torch.empty((b, h, splits), dtype=torch.float32, device=q.device)
     part_l = torch.empty((b, h, splits), dtype=torch.float32, device=q.device)
     lib = _load_lib()
-    err = lib.pstpu_paged_decode_bf16(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+    ptrs = [q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr()]
+    if quant:
+        fn, variant = lib.pstpu_paged_decode_int8, INT8
+        ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
+    else:
+        fn, variant = lib.pstpu_paged_decode_bf16, BF16
+    err = fn(
+        *ptrs, block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
         m.data_ptr(), l.data_ptr(), part_acc.data_ptr(), part_m.data_ptr(),
         part_l.data_ptr(), b, h, hkv, dh, num_slots, int(layer), mb,
         block_size, splits, float(scale),
@@ -196,26 +237,28 @@ def paged_flash_decode_stats(
     )
     if err != 0:
         raise RuntimeError(
-            f"paged decode kernel launch failed: CUDA error {err} "
+            f"paged decode kernel ({variant}) launch failed: CUDA error {err} "
             f"({lib.pstpu_cuda_error_string(err).decode()})"
         )
-    paged_flash_decode_stats.launches += 1
+    LAUNCHES[variant] += 1
     return out, m, l
-
-
-paged_flash_decode_stats.launches = 0
 
 
 def paged_flash_decode_stats_ref(
     q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     block_tables: torch.Tensor, kv_lens: torch.Tensor, layer: int,
     *, block_size: int, scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel, with the Pallas kernel's
     arithmetic: q in f32 pre-scaled, f32 scores and PV, masked keys at -inf.
-    Keys and values past kv_len are zeroed before the contractions so a
-    stale slot never meets a zero weight as 0 * NaN. On the card its f32
-    products are full precision only with TF32 off
+    Int8 pools (scales given), as the Pallas kernel's quantized branch: the
+    raw int8 score times the slot's K scale, ``l`` sums the unscaled
+    weights, and each weight is multiplied by its slot's V scale on the way
+    into PV. Keys, values and scales past kv_len are zeroed before the
+    contractions so a stale slot never meets a zero weight as 0 * NaN. On
+    the card its f32 products are full precision only with TF32 off
     (``torch.backends.cuda.matmul.allow_tf32``, PyTorch's default;
     chip_smoke.py sets it and ``cudnn.allow_tf32`` to False)."""
     b, h, dh = q.shape
@@ -237,13 +280,69 @@ def paged_flash_decode_stats_ref(
     keys = torch.where(vmask, keys, 0.0)
     vals = torch.where(vmask, vals, 0.0)
     qf = q.float().reshape(b, hkv, g, dh) * scale
+
+    def slot_scales(sc):                                              # [B,Hkv,1,S]
+        w = sc[layer].view(hkv, nb, block_size)[:, idx].reshape(hkv, b, s_tot)
+        w = torch.where(valid[None], w.float(), 0.0)
+        return w.permute(1, 0, 2)[:, :, None, :]
+
     scores = torch.einsum("bkgd,kbsd->bkgs", qf, keys)
+    if k_scale is not None:
+        scores = scores * slot_scales(k_scale)
     scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
     m = scores.amax(dim=-1)                                           # [B,Hkv,G]
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(scores - m_safe[..., None])
     l = p.sum(dim=-1)
+    if v_scale is not None:
+        p = p * slot_scales(v_scale)
     acc = torch.einsum("bkgs,kbsd->bkgd", p, vals)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return (out.reshape(b, h, dh).to(q.dtype), m.reshape(b, h),
             l.reshape(b, h))
+
+
+def paged_attention_decode(
+    q: torch.Tensor,             # [B, 1, H, Dh]
+    k_pool: torch.Tensor,        # [Hkv, num_slots, Dh]
+    v_pool: torch.Tensor,        # [Hkv, num_slots, Dh]
+    block_tables: torch.Tensor,  # [B, Mb] int32
+    kv_lens: torch.Tensor,       # [B] int32
+    *,
+    block_size: int,
+    scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [Hkv, num_slots] (int8 pools)
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Single-layer wrapper (``paged_attention_decode_pallas``): the
+    normalized output [B, 1, H, Dh] only."""
+    b, t, h, dh = q.shape
+    if t != 1:
+        raise ValueError(f"paged_attention_decode is decode-only (T=1), got T={t}")
+    out, _, _ = paged_flash_decode_stats(
+        q.reshape(b, h, dh), k_pool[None], v_pool[None], block_tables,
+        kv_lens, 0, block_size=block_size, scale=scale,
+        k_scale=None if k_scale is None else k_scale[None],
+        v_scale=None if v_scale is None else v_scale[None],
+    )
+    return out.reshape(b, 1, h, dh)
+
+
+def paged_attention(
+    q, k_pool, v_pool, block_tables, kv_lens, q_positions,
+    *, block_size: int, scale: Optional[float] = None,
+    k_scale=None, v_scale=None,
+) -> torch.Tensor:
+    """Dispatch by shape (``paged_attention_pallas``): a decode query
+    (T == 1) on a shape the kernel takes runs the flash-decode kernel;
+    everything else runs ``ops/attention.py:paged_attention_xla``."""
+    b, t, h, dh = q.shape
+    if t == 1 and supports_paged_decode(dh, block_size, h // k_pool.shape[0]):
+        return paged_attention_decode(
+            q, k_pool, v_pool, block_tables, kv_lens, block_size=block_size,
+            scale=scale, k_scale=k_scale, v_scale=v_scale,
+        )
+    return paged_attention_xla(
+        q, k_pool, v_pool, block_tables, kv_lens, q_positions,
+        block_size=block_size, scale=scale, k_scale=k_scale, v_scale=v_scale,
+    )

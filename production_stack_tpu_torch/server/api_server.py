@@ -313,6 +313,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", default="bfloat16")
+    p.add_argument("--kv-cache-dtype", default="bfloat16",
+                   choices=["bfloat16", "int8"],
+                   help="KV-cache storage dtype: int8 stores K/V with "
+                        "per-(slot, head) bf16 scales (~2x the blocks per "
+                        "byte, half the decode kernel's pool bytes)")
     p.add_argument("--max-model-len", type=int, default=4096)
     p.add_argument("--num-kv-blocks", type=int, default=None)
     p.add_argument("--max-num-seqs", type=int, default=64)
@@ -326,7 +331,7 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     cfg = EngineConfig(
         model=args.model, device=args.device, dtype=args.dtype,
-        max_model_len=args.max_model_len, num_kv_blocks=args.num_kv_blocks,
+        kv_cache_dtype=args.kv_cache_dtype, max_model_len=args.max_model_len, num_kv_blocks=args.num_kv_blocks,
         max_num_seqs=args.max_num_seqs, num_decode_steps=args.num_decode_steps,
         attn_impl=args.attn_impl, seed=args.seed,
     )

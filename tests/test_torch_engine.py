@@ -6,6 +6,9 @@ paged path runs its Pallas kernel in interpret mode, the port's runs the
 kernel's plain version. float32 because bf16 argmax near-ties on random
 weights are not a signal. The port's engine loop is strict, so the JAX
 engine runs with ``async_pipeline=False`` too (tokens do not depend on it).
+Seeded tokens must be identical too: the port computes the JAX package's
+threefry Gumbel field bit for bit. With ``kv_cache_dtype="int8"`` the two
+engines' pools are compared after serving.
 """
 
 import asyncio
@@ -37,57 +40,103 @@ from production_stack_tpu_torch.engine.kv_cache import BlockPoolManager
 from production_stack_tpu_torch.engine.sampling import SamplingParams
 from production_stack_tpu_torch.engine.scheduler import Scheduler, Sequence
 from production_stack_tpu_torch.models.config import resolve_model_config
-from production_stack_tpu_torch.models.weights import params_from_jax
+from production_stack_tpu_torch.models.weights import (
+    kv_pools_from_jax,
+    params_from_jax,
+)
 from production_stack_tpu_torch.server.api_server import OpenAIServer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = "tiny-llama-128dh"
 
 
-async def _serve_all(engine, sampling_cls, prompts, max_tokens):
+async def _serve_all(engine, sampling_cls, prompts, max_tokens,
+                     samplings=None):
+    """Serve every prompt concurrently (greedy unless ``samplings`` gives
+    each prompt's sampling fields); returns each request's tokens."""
     await engine.start()
 
-    async def one(p):
+    async def one(p, extra):
         toks = None
-        async for out in engine.generate(
-            prompt=p, sampling=sampling_cls(
-                max_tokens=max_tokens, temperature=0.0, ignore_eos=True)):
+        fields = dict(max_tokens=max_tokens, temperature=0.0, ignore_eos=True)
+        fields.update(extra)
+        async for out in engine.generate(prompt=p,
+                                         sampling=sampling_cls(**fields)):
             toks = out.token_ids
         return toks
 
     try:
-        return await asyncio.gather(*[one(p) for p in prompts])
+        return await asyncio.gather(*[
+            one(p, samplings[i] if samplings else {})
+            for i, p in enumerate(prompts)])
     finally:
         await engine.stop()
 
 
-# (attn_impl, block_size, num_kv_blocks, prompts, max_tokens): the first two
-# include a multi-chunk prefill (150 tokens against a 64-token budget); the
-# last runs the pool dry so decode preempts and the victim re-prefills. The
-# paged case uses 64-token pages: the JAX side's Pallas interpret-mode
-# compile unrolls one DMA per page of a 512-token superpage.
+def _jax_and_port_engines(common):
+    """A JAX engine and a port engine (CPU) over the same f32 weights."""
+    jparams = jax_init(jax_resolve(MODEL), jax.random.PRNGKey(0), jnp.float32)
+    jeng = JaxEngine(JaxConfig(**common, async_pipeline=False,
+                               overlap_dispatch=False), params=jparams)
+    eng = ServingEngine(
+        EngineConfig(**common, device="cpu"),
+        params=params_from_jax(jax.tree.map(np.asarray, jparams),
+                               resolve_model_config(MODEL), torch.float32))
+    return jeng, eng
+
+
+def _compare_int8_pools(jeng, eng):
+    """The two engines' int8 pools and scales on every block but the null
+    block 0 (the padding sink, written in no fixed order). The fp32 K/V of
+    the two frameworks may differ by ulps, which can move a value across a
+    rounding boundary: up to 0.1% of payload elements may differ by 1 and
+    of scales by 1 bf16 ulp; the counts are printed."""
+    r = jeng.runner
+    want = kv_pools_from_jax(np.asarray(r.kv_k), np.asarray(r.kv_v),
+                             np.asarray(r.kv_k_scale), np.asarray(r.kv_v_scale))
+    tr = eng.runner
+    got = (tr.kv_k, tr.kv_v, tr.kv_k_scale, tr.kv_v_scale)
+    bs = eng.config.block_size
+    for name, a, c in zip(("k", "v", "k_scale", "v_scale"), got, want):
+        assert a.dtype == c.dtype and a.shape == c.shape, name
+        a, c = a[:, :, bs:], c[:, :, bs:]
+        if a.dtype == torch.int8:
+            diff = (a.int() - c.int()).abs()
+        else:
+            diff = (a.view(torch.int16).int() - c.view(torch.int16).int()).abs()
+        n_diff = int((diff > 0).sum())
+        print(f"int8 pool {name}: {n_diff} of {diff.numel()} elements differ "
+              f"(max {int(diff.max())})")
+        assert int(diff.max()) <= 1 and n_diff <= 1e-3 * diff.numel(), name
+    assert int((tr.kv_k_scale[:, :, bs:] != 0).sum()) > 0   # pools were written
+
+
+# (attn_impl, block_size, num_kv_blocks, prompts, max_tokens,
+# kv_cache_dtype): the first two of each dtype include a multi-chunk prefill
+# (150 tokens against a 64-token budget); window-preempt runs the pool dry
+# so decode preempts and the victim re-prefills. The paged cases use
+# 64-token pages: the JAX side's Pallas interpret-mode compile unrolls one
+# DMA per page of a 512-token superpage.
+_PROMPTS = ["hello world this is request 0 ", "x" * 150]
 CASES = {
-    "paged": ("paged", 64, 32, ["hello world this is request 0 ", "x" * 150], 12),
-    "window": ("window", 16, 128, ["hello world this is request 0 ", "x" * 150], 12),
-    "window-preempt": ("window", 16, 12, [f"request {i} " * 4 for i in range(3)], 40),
+    "paged": ("paged", 64, 32, _PROMPTS, 12, "bfloat16"),
+    "window": ("window", 16, 128, _PROMPTS, 12, "bfloat16"),
+    "window-preempt": ("window", 16, 12, [f"request {i} " * 4 for i in range(3)],
+                       40, "bfloat16"),
+    "paged-int8": ("paged", 64, 32, _PROMPTS, 12, "int8"),
+    "window-int8": ("window", 16, 128, _PROMPTS, 12, "int8"),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 async def test_engine_greedy_tokens_match_jax(case):
-    impl, bs, blocks, prompts, max_tokens = CASES[case]
-    jparams = jax_init(jax_resolve(MODEL), jax.random.PRNGKey(0), jnp.float32)
+    impl, bs, blocks, prompts, max_tokens, kv_dtype = CASES[case]
     common = dict(model=MODEL, max_model_len=256, block_size=bs,
                   num_kv_blocks=blocks, attn_impl=impl, num_decode_steps=8,
-                  dtype="float32", max_num_batched_tokens=64)
-    want = await _serve_all(
-        JaxEngine(JaxConfig(**common, async_pipeline=False,
-                            overlap_dispatch=False), params=jparams),
-        JaxSampling, prompts, max_tokens)
-    eng = ServingEngine(
-        EngineConfig(**common, device="cpu"),
-        params=params_from_jax(jax.tree.map(np.asarray, jparams),
-                               resolve_model_config(MODEL), torch.float32))
+                  dtype="float32", max_num_batched_tokens=64,
+                  kv_cache_dtype=kv_dtype)
+    jeng, eng = _jax_and_port_engines(common)
+    want = await _serve_all(jeng, JaxSampling, prompts, max_tokens)
     assert eng.runner.attn_impl == impl
     got = await _serve_all(eng, SamplingParams, prompts, max_tokens)
     eng.shutdown()
@@ -95,6 +144,32 @@ async def test_engine_greedy_tokens_match_jax(case):
     assert all(len(t) == max_tokens for t in got)
     if case == "window-preempt":
         assert eng.stats()["num_preemptions"] > 0
+    if kv_dtype == "int8":
+        _compare_int8_pools(jeng, eng)
+        st = eng.stats()
+        assert st["kv_cache_dtype"] == "int8"
+        assert st["kv_quant_bytes_saved_total"] > 0
+
+
+@pytest.mark.parametrize("impl", ["window", "paged"])
+async def test_engine_seeded_tokens_match_jax(impl):
+    """Seeded rows (top-p, top-k, and unfiltered) batched with a greedy
+    one: every token equals the JAX engine's, from the first sampled token
+    (prefill) through the fused decode steps."""
+    common = dict(model=MODEL, max_model_len=256, block_size=64,
+                  num_kv_blocks=32, attn_impl=impl, num_decode_steps=8,
+                  dtype="float32", max_num_batched_tokens=64)
+    samplings = [dict(temperature=0.8, top_p=0.9, seed=1234),
+                 dict(temperature=0.8, top_k=50, seed=7),
+                 dict(temperature=1.0, seed=2**32 - 1),
+                 {}]
+    prompts = ["seeded prompt one ", "y" * 90, "third", "greedy row"]
+    jeng, eng = _jax_and_port_engines(common)
+    want = await _serve_all(jeng, JaxSampling, prompts, 20, samplings)
+    got = await _serve_all(eng, SamplingParams, prompts, 20, samplings)
+    eng.shutdown()
+    assert got == want
+    assert all(len(t) == 20 for t in got)
 
 
 def _describe(batch):
@@ -226,7 +301,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15
+    assert int(proc.stdout.split()[-1]) >= 16
 
 
 async def test_stop_strings_cut_text_and_tokens():
@@ -311,6 +386,7 @@ def test_engine_config_validation():
         EngineConfig(attn_impl="nope").resolved_attn_impl(llama3b)
     cfg = EngineConfig(model="llama-3b", max_model_len=4096)
     assert cfg.kv_cache_bytes_per_token(llama3b) == 2 * 28 * 8 * 128 * 2
+    assert cfg.window_bytes_per_block(llama3b) == 16 * 2 * 28 * 8 * 128 * 2
     assert cfg.max_blocks_per_seq == 256
 
 

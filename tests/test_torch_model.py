@@ -108,7 +108,7 @@ def test_forward_paged_branch_matches_jax(name):
     th, tk, tv = tllama.forward(
         tp, tcfg, _t(toks), _t(pos), _t(ones), None, None, None,
         _t(ring_k), _t(ring_v), _t(ring_pos),
-        paged=(_t(kp), _t(vp), _t(bt), _t(pos0), bs))
+        paged=(_t(kp), _t(vp), None, None, _t(bt), _t(pos0), bs))
     _close(th.numpy(), jh)
     _close(tk.numpy(), jk)
     _close(tv.numpy(), jv)
@@ -135,6 +135,36 @@ def test_sample_tokens_matches_jax_with_shared_gumbel():
                                       _t(top_p), _t(g))
         np.testing.assert_array_equal(got.numpy(), want)
         assert got[0].item() == int(np.argmax(logits[0]))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 1234, 2**32 - 1])
+def test_threefry_gumbel_matches_jax(seed):
+    """The port's noise against jax.random on the CPU: the threefry bits
+    and the uniform exactly, and the Gumbel field too (the port reproduces
+    XLA's f32 log, so it is within 0 of the 2 ulp allowed)."""
+    key = jax.random.PRNGKey(np.uint32(seed))
+    tiny = np.finfo(np.float32).tiny
+    for v in (256, 128256):
+        want = np.asarray(jax.random.bits(key, (v,), jnp.uint32))
+        bits = tsampling.random_bits([seed], v, torch.device("cpu"))
+        np.testing.assert_array_equal(bits[0].numpy(), want.astype(np.int64))
+        u = tsampling.uniform_from_bits(bits)[0].numpy()
+        np.testing.assert_array_equal(
+            u.view(np.int32),
+            np.asarray(jax.random.uniform(key, (v,), jnp.float32, minval=tiny,
+                                          maxval=1.0)).view(np.int32))
+        g = tsampling.gumbel_noise([seed], v, torch.device("cpu"))[0].numpy()
+        jg = np.asarray(jax.random.gumbel(key, (v,), jnp.float32))
+        ulps = np.abs(g.view(np.int32).astype(np.int64)
+                      - jg.view(np.int32).astype(np.int64))
+        assert ulps.max() <= 2, (v, int(ulps.max()), int((ulps > 0).sum()))
+        assert np.array_equal(g, jg)
+    # The sampler's own batched field (vmap over per-row keys).
+    seeds = np.array([seed, 7], np.uint32)
+    jrows = np.asarray(jsampling._gumbel(jnp.asarray(seeds), (2, 256)))
+    trows = tsampling.gumbel_noise([int(x) for x in seeds], 256,
+                                   torch.device("cpu"))
+    np.testing.assert_array_equal(trows.numpy(), jrows)
 
 
 def test_port_noise_is_per_row_and_seeded():
