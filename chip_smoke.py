@@ -6,8 +6,14 @@ Phases, each printing what it finds (serving and check run before the
 kernel phase, whose profiler would otherwise stay attached during serving):
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
   2. build: the paged flash-decode kernel (bf16 and int8 variants) compiled
-     by nvcc from the checkout;
-  3. kernel: ``paged_flash_decode_stats`` (CUDA) against its plain PyTorch
+     by nvcc from the checkout; per template instance, ptxas's registers,
+     spills and static shared memory, the launch's dynamic shared memory
+     and resident blocks per SM;
+  3. kernel: one call of each variant captured in a CUDA graph and
+     replayed after kv_lens and the block tables change in place (it must
+     give the plain version's output on the new inputs, and the captured
+     inputs' eager output again bit for bit); then
+     ``paged_flash_decode_stats`` (CUDA) against its plain PyTorch
      version on the card, for each variant (bf16 pools; int8 pools with
      bf16 per-slot scales), at llama-3b heads (H=24, Hkv=8, Dh=128) and
      llama-1b heads (H=32, Hkv=4, Dh=64), block size 16, B in {1, 8, 32}
@@ -18,8 +24,9 @@ kernel phase, whose profiler would otherwise stay attached during serving):
      dropped; int8: l summed over p * v_scale, K scales read from the
      neighbouring slot); ``paged_attention_decode`` and ``paged_attention``
      must give the kernel's output; device times (torch.profiler) of the
-     kernel, the plain version and an SDPA yardstick (int8: over K/V
-     dequantized beforehand, untimed), and the HBM bound;
+     kernel (per CUDA kernel name; exactly one launch per call), the plain
+     version and an SDPA yardstick (int8: over K/V dequantized
+     beforehand, untimed), the bound and the kernel's share of it;
   4. serving, twice: llama-3b at full width (random bf16 weights from
      --seed) behind the port's HTTP server with a bf16 KV pool, then with
      an int8 KV pool of the same bytes; each: one untimed warm-up request,
@@ -83,6 +90,96 @@ def log(msg: str) -> None:
 
 
 # ---------------------------------------------------------------- phase 3
+def kernel_instances(pa, ptxas: str):
+    """Per template instance of the kernel: ptxas's registers, spills and
+    static shared memory, and the launch's dynamic shared memory and
+    resident blocks per SM (CUDA occupancy calculator, 128 threads)."""
+    import re
+
+    insts, cur = [], None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"paged_decode_kernelI(13__nv_bfloat16|a)Li(\d+)ELi(\d+)E",
+                          m.group(1))
+            cur = None if t is None else {
+                "variant": "bf16" if t.group(1) != "a" else "int8",
+                "Dh": int(t.group(2)), "KG": int(t.group(3))}
+            if cur:
+                insts.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m:
+            cur["registers"], cur["static_smem"] = int(m.group(1)), int(m.group(2))
+    if len(insts) != 8:
+        fail(f"build: ptxas reported {len(insts)} kernel instances, want 8")
+    for inst in insts:
+        blocks, smem = pa.occupancy(inst["variant"] == "int8", inst["Dh"], inst["KG"])
+        inst.update(dynamic_smem=smem, blocks_per_sm=blocks,
+                    warps_per_sm=4 * blocks)
+        if blocks < 1:
+            fail(f"build: instance {inst} cannot launch")
+    return insts
+
+
+def graph_check(torch, pa, device, seed, main_lens):
+    """Capture one call of each variant in a CUDA graph, then change
+    kv_lens and the block tables in place and replay: the output must be
+    the plain version's on the new inputs (no host decision read device
+    data), and replaying the first inputs again must give the eager output
+    bit for bit (the merge tickets were reset)."""
+    b, h, hkv, dh, bs = 4, 24, 8, 128, 16
+    for quant in (False, True):
+        name = f"graph [{'int8' if quant else 'bf16'}]"
+        q, kp, vp, ks, vs, bt, kvl = make_case(torch, b, h, hkv, dh, main_lens, 2,
+                                               bs, seed, device, quant)
+        sc = dict(k_scale=ks, v_scale=vs)
+        want = pa.paged_flash_decode_stats(q, kp, vp, bt, kvl, 1, block_size=bs, **sc)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            got = pa.paged_flash_decode_stats(q, kp, vp, bt, kvl, 1, block_size=bs, **sc)
+        kernels, nodes = pa.graph_node_counts(graph)
+        if kernels != 1 or nodes != 1:
+            fail(f"{name}: one call captured as {nodes} graph nodes, {kernels} "
+                 "of them kernels; the kernel is one launch per call")
+        bt0, kvl0 = bt.clone(), kvl.clone()
+        # Rows rotated by one and shortened (row 0 emptied): other pages,
+        # other chunk counts; every position kept is clean in the pool.
+        new_lens = [0] + [max(1, main_lens[(i + 1) % b] - 97 * i) for i in range(1, b)]
+        bt.copy_(torch.roll(bt0, -1, dims=0))
+        kvl.copy_(torch.tensor(new_lens, dtype=torch.int32, device=device))
+        graph.replay()
+        ro, rm, rl = pa.paged_flash_decode_stats_ref(q, kp, vp, bt, kvl, 1,
+                                                     block_size=bs, **sc)
+        torch.cuda.synchronize()
+        live = kvl > 0
+        err, row_rel, ok = out_error(torch, got[0], ro, live)
+        ok = (ok and stats_close(torch, got[1][live], rm[live])
+              and stats_close(torch, got[2][live], rl[live])
+              and bool((got[0][0] == 0).all()) and bool((got[1][0] == float("-inf")).all()))
+        if not ok:
+            fail(f"{name}: replay with new kv_lens {new_lens} and tables disagrees "
+                 f"with the plain version (max abs {err:.3e}, row rel {row_rel:.3e})")
+        bt.copy_(bt0)
+        kvl.copy_(kvl0)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            fail(f"{name}: replay of the captured inputs differs from the eager call")
+        log(f"{name}: one call is 1 graph node (a kernel); replay with kv_lens "
+            f"{new_lens} and rotated tables matches "
+            f"the plain version (max abs {err:.3e}, row rel {row_rel:.3e}); "
+            "replay of the captured inputs equals the eager call bit for bit")
+        del graph, got, want, q, kp, vp, ks, vs
+        torch.cuda.empty_cache()
+
+
 def make_case(torch, b, h, hkv, dh, kv_lens, n_layers, bs, seed, device,
               quant=False):
     """Pool, shuffled block tables and queries for one kernel case. Slots
@@ -127,24 +224,43 @@ def make_case(torch, b, h, hkv, dh, kv_lens, n_layers, bs, seed, device,
     return q, k_pool, v_pool, k_scale, v_scale, bt, kvl
 
 
-def device_ms(torch, fn, n_calls: int, what: str) -> float:
-    """Mean device time per call (ms): the sum of the kernels' own times in
-    a torch.profiler trace of n_calls calls, host gaps excluded. A trace
-    with no device time is taken once more, then fails the run."""
+def device_profile(torch, fn, n_calls: int, what: str, per_call=None):
+    """Device time of n_calls calls from one torch.profiler trace (host
+    gaps excluded): (ms per call summed over every kernel, {kernel name: ms
+    per call}, kernel launches per call). A trace with no device time, or
+    with another count of launches per call than ``per_call`` (CUPTI can
+    drop records), is taken again, up to three times; no device time at
+    all fails the run."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
     torch.cuda.synchronize()
-    for _ in range(2):
+    found = None
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(n_calls):
                 fn(i)
             torch.cuda.synchronize()
-        total_us = sum(evt.time_range.elapsed_us() for evt in prof.events()
-                       if str(evt.device_type).endswith("CUDA"))
+        by_name, count = {}, 0
+        for evt in prof.events():
+            if str(evt.device_type).endswith("CUDA"):
+                count += 1
+                by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+        total_us = sum(by_name.values())
         if total_us > 0:
-            return total_us / n_calls / 1e3
-    fail(f"{what}: torch.profiler recorded no device time")
+            found = (total_us / n_calls / 1e3,
+                     {k: v / n_calls / 1e3 for k, v in by_name.items()},
+                     count / n_calls)
+            if per_call is None or found[2] == per_call:
+                return found
+    if found is None:
+        fail(f"{what}: torch.profiler recorded no device time")
+    return found
+
+
+def device_ms(torch, fn, n_calls: int, what: str) -> float:
+    """Mean device time per call (ms), every kernel of the call summed."""
+    return device_profile(torch, fn, n_calls, what)[0]
 
 
 def bound_of(kv_lens, b, h, hkv, dh, bs, quant=False):
@@ -366,7 +482,14 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
                                               enable_gqa=True)
 
     what = f"{name} [{'int8' if quant else 'bf16'}]"
-    ms = device_ms(torch, kern, 2 * n_layers, f"{what} kernel")
+    ms, ms_by_kernel, per_call = device_profile(torch, kern, 2 * n_layers,
+                                                f"{what} kernel", per_call=1)
+    if len(ms_by_kernel) != 1 or not 0 < per_call <= 1:
+        fail(f"{what}: {per_call} device kernels per call "
+             f"({sorted(ms_by_kernel)}); the kernel is one launch per call")
+    # CUPTI may drop a record (per_call < 1): the mean recorded launch.
+    ms /= per_call
+    ms_by_kernel = {k: v / per_call for k, v in ms_by_kernel.items()}
     plain_ms = device_ms(torch, plain, min(8, n_layers), f"{what} plain")
     library_ms = device_ms(torch, sdpa, 4 * n_lib, f"{what} SDPA")
     bound_ms, bound_by = bound_of(kv_lens, b, h, hkv, dh, bs, quant)
@@ -376,8 +499,10 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
            "Hkv": hkv, "Dh": dh, "kv_tokens": sum(kv_lens),
            "max_kv_len": max(kv_lens), "max_abs_err": max_err,
            "max_row_rel_err": max_row_rel, "control_row_rel_err": controls,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": library_ms}
+           "ms": ms, "ms_by_kernel": ms_by_kernel, "recorded_per_call": per_call,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "share_of_bound": bound_ms / ms, "library_ms": library_ms,
+           "vs_library": ms / library_ms}
     log(f"kernel case {json.dumps(row)}")
     return row
 
@@ -525,8 +650,9 @@ def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
         # handles, allocator pools, the kernel library's first load).
         st, body, _, _ = await loop.run_in_executor(
             None, http, "POST", base + "/v1/completions",
-            {"prompt": "warm up", "max_tokens": 4, "temperature": 0.0})
-        if st != 200:
+            {"prompt": "warm up", "max_tokens": 4, "temperature": 0.0,
+             "ignore_eos": True})
+        if st != 200 or body["usage"]["completion_tokens"] != 4:
             fail(f"warm-up request: {st} {body}")
         for key in ("decode_steps_total", "decode_tokens_total",
                     "decode_seconds_total", "prefill_seconds_total"):
@@ -735,9 +861,8 @@ def main() -> None:
     t0 = time.monotonic()
     lib_path, ptxas = pa.build_kernels()
     log(f"build: {lib_path} in {time.monotonic() - t0:.1f} s")
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"build: {line.strip()}")
+    for inst in kernel_instances(pa, ptxas):
+        log(f"build: {json.dumps(inst)}")
 
     tok = ByteTokenizer(128256)
     prompts = make_prompts(args.seed, 4)
@@ -762,6 +887,7 @@ def main() -> None:
         check_noise(torch, device)
     rows = []
     if "kernel" in phases:
+        graph_check(torch, pa, device, args.seed, main_lens)
         rows = kernel_phase(torch, pa, device, args.seed, main_lens)
 
     kernels = []

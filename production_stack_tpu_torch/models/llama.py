@@ -57,6 +57,74 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
+# XLA's CPU f32 ``exp`` (Cephes): clamp, 2**n split with a two-part ln2,
+# degree-5 polynomial; constants as the IR jax emits them.
+_EXP_LO, _EXP_HI, _LOG2E, _LN2_HI, _LN2_LO = map(float.fromhex, (
+    "-0x1.5f3334p+6", "0x1.633334p+6", "0x1.715476p+0", "0x1.63p-1",
+    "-0x1.bd0106p-13"))
+_EXP_P = tuple(map(float.fromhex, ("0x1.a0d2cep-13", "0x1.6e879cp-10",
+                                   "0x1.11121p-7", "0x1.555382p-5",
+                                   "0x1.555554p-3", "0x1p-1")))
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
+_silu_tables: Dict[torch.device, torch.Tensor] = {}
+
+
+def _ftz(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU runtime flushes subnormal f32 inputs and results to zero."""
+    return torch.where(x.abs() < _F32_TINY, x * 0.0, x)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 fused multiply-add through f64 (the f32 product is exact there)."""
+    return (a.double() * b + c).float()
+
+
+def _xla_exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.exp`` of f32 values bit for bit as jax's CPU backend computes
+    it on an x86 machine with FMA: every multiply-add of the range
+    reduction and the polynomial is contracted into an FMA."""
+    x = torch.clamp(_ftz(x), _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(_fma(x, _LOG2E, 0.5)), -127.0, 127.0)
+    r = _fma(-n, _LN2_LO, _fma(-n, _LN2_HI, x))
+    y = _fma(r, _EXP_P[0], _EXP_P[1])
+    for p in _EXP_P[2:]:
+        y = _fma(y, r, p)
+    y = _fma(y, r * r, r) + 1.0
+    two_n = ((n.to(torch.int32) << 23) + 0x3F800000).view(torch.float32)
+    return _ftz(y * two_n)
+
+
+def _silu_table() -> torch.Tensor:
+    """Jitted ``jax.nn.silu`` of every bf16 value, indexed by its 16 bits.
+    XLA's CPU fusion rounds to bf16 after each op of ``x * (1 / (1 +
+    exp(-x)))``, with its own ``exp``; a NaN comes out as the quiet NaN of
+    its sign (x86's default NaN is negative: silu(-inf) = -inf * 0)."""
+    bits = torch.arange(65536, dtype=torch.int32).to(torch.int16)
+    x = _ftz(bits.view(torch.bfloat16).float())
+
+    def bf(v):
+        return v.to(torch.bfloat16).float()
+
+    e = bf(_xla_exp_f32(bf(-x)))
+    r = bf(_ftz(1.0 / bf(e + 1.0)))
+    out = _ftz(x * r).to(torch.bfloat16).view(torch.int16)
+    nan_bits = torch.where(x.isnan(), bits & -0x8000, -0x8000) | 0x7FC0
+    return torch.where((x * r).isnan(), nan_bits.to(torch.int16),
+                       out).view(torch.bfloat16)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the JAX package computes it. bf16: a lookup in a
+    table of all 65,536 results (one gather, bit for bit the jitted JAX
+    function on the CPU); other dtypes: ``F.silu``."""
+    if x.dtype != torch.bfloat16:
+        return F.silu(x)
+    table = _silu_tables.get(x.device)
+    if table is None:
+        table = _silu_tables[x.device] = _silu_table().to(x.device)
+    return table[x.view(torch.int16).long()]
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
                 device: Optional[torch.device] = None) -> Params:
@@ -167,7 +235,7 @@ def _layer_body(
     hidden = hidden + attn.reshape(b, t, h * dh) @ lp["wo"]
 
     x = rms_norm(hidden, lp["mlp_norm"], cfg.rms_norm_eps)
-    gated = F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])
+    gated = silu(x @ lp["w_gate"]) * (x @ lp["w_up"])
     mlp = gated @ lp["w_down"]
     # New KV in pool layout [Hkv, B, T, Dh] for the runner's single scatter.
     return hidden + mlp, k.permute(2, 0, 1, 3), v.permute(2, 0, 1, 3)

@@ -10,7 +10,10 @@ for a CUDA tensor it launches the kernel or raises. The kernel is compiled
 by ``nvcc`` from the source in the checkout at first use into
 ``build/torch_kernels/`` and bound through ``ctypes`` (a plain C interface:
 seconds to build, no PyTorch headers). ``LAUNCHES`` counts the kernel's
-launches per variant, so a run can show which one served it.
+launches per variant, so a run can show which one served it. A call is
+one kernel launch: the kernel splits each row's tiles into chunks on the
+device (the host only sizes the grid, ``launch_plan``) and merges the
+chunks itself, through a scratch kept per device and shape bucket.
 """
 
 import ctypes
@@ -29,6 +32,8 @@ from production_stack_tpu_torch.ops.quantization import SCALE_DTYPE
 SUPPORTED_HEAD_DIMS = (64, 128)
 MAX_QUERY_GROUP = 16      # H / Hkv the kernel holds per block (kMaxGroup)
 TILE_TOKENS = 64          # tokens per shared-memory tile (kTile)
+MAX_CHUNK_TILES = 8       # tiles per block, at most (kMaxChunkTiles)
+MAX_BLOCK_SIZE = 512      # page sizes: powers of two in [2, 512]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "paged_decode.cu")
@@ -44,14 +49,37 @@ LAUNCHES = {BF16: 0, INT8: 0}
 _lib = None
 _lib_lock = threading.Lock()
 _sm_count = {}
+# Split scratch per (device, batch bucket, Hkv, G, Dh, chunks): partial
+# (acc, m, l) of every chunk and one merge ticket per (row, kv head). Kept
+# for the life of the process, so a captured CUDA graph's pointers stay
+# valid; the kernel leaves every ticket at 0.
+_scratch = {}
 
 
 def supports_paged_decode(head_dim: int, block_size: int,
                           q_per_kv: int = 1) -> bool:
-    """Shapes the CUDA kernel takes: Dh in {64, 128}, any block size, at
-    most MAX_QUERY_GROUP query heads per kv head."""
-    return (head_dim in SUPPORTED_HEAD_DIMS and block_size >= 1
+    """Shapes the CUDA kernel takes: Dh in {64, 128}, a block size that is
+    a power of two in [2, 512] (as the Pallas kernel's, whose 512-token
+    superpage it divides), at most MAX_QUERY_GROUP query heads per kv
+    head."""
+    return (head_dim in SUPPORTED_HEAD_DIMS
+            and 2 <= block_size <= MAX_BLOCK_SIZE
+            and block_size & (block_size - 1) == 0
             and 1 <= q_per_kv <= MAX_QUERY_GROUP)
+
+
+def launch_plan(batch: int, num_kv_heads: int, max_tokens: int,
+                sm_count: int) -> Tuple[int, int]:
+    """(chunk_tiles, max_chunks) of a call, from host-known sizes only:
+    chunks of 4 tiles, or of MAX_CHUNK_TILES where 4-tile chunks of rows as
+    long as the block table allows would exceed 8 blocks per SM. The kernel
+    gives row b ceil(tiles_b / chunk_tiles) of the max_chunks blocks per kv
+    head."""
+    tiles = max(1, -(-max_tokens // TILE_TOKENS))
+    chunk = 4
+    if batch * num_kv_heads * -(-tiles // chunk) > 8 * sm_count:
+        chunk = MAX_CHUNK_TILES
+    return chunk, -(-tiles // chunk)
 
 
 def _find_nvcc() -> str:
@@ -99,34 +127,76 @@ def _load_lib():
             path, _ = build_kernels()
             lib = ctypes.CDLL(path)
             vp, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.pstpu_paged_decode_bf16.argtypes = [
-                vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                i32, i32, i32, i32, ctypes.c_longlong, i32, i32, i32, i32,
-                ctypes.c_float, vp,
-            ]
+            tail = [i32, i32, i32, i32, ctypes.c_longlong, i32, i32, i32, i32,
+                    i32, ctypes.c_float, vp]
+            lib.pstpu_paged_decode_bf16.argtypes = [vp] * 11 + tail
             lib.pstpu_paged_decode_bf16.restype = i32
-            lib.pstpu_paged_decode_int8.argtypes = [
-                vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                i32, i32, i32, i32, ctypes.c_longlong, i32, i32, i32, i32,
-                ctypes.c_float, vp,
-            ]
+            lib.pstpu_paged_decode_int8.argtypes = [vp] * 13 + tail
             lib.pstpu_paged_decode_int8.restype = i32
+            lib.pstpu_paged_decode_occupancy.argtypes = [
+                i32, i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+            lib.pstpu_paged_decode_occupancy.restype = i32
+            lib.pstpu_graph_node_counts.argtypes = [
+                vp, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+            lib.pstpu_graph_node_counts.restype = i32
             lib.pstpu_cuda_error_string.argtypes = [i32]
             lib.pstpu_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
 
 
-def num_splits_for(batch: int, num_kv_heads: int, max_tokens: int,
-                   device: torch.device) -> int:
-    """Split-KV factor: enough blocks to give every SM two, never more
-    splits than 64-token tiles in the widest row, at most 32."""
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"paged decode kernel ({what}): CUDA error {err} "
+                           f"({lib.pstpu_cuda_error_string(err).decode()})")
+
+
+def occupancy(quant: bool, head_dim: int, q_per_kv: int) -> Tuple[int, int]:
+    """(resident blocks per SM, dynamic shared bytes per block) of the
+    kernel instance a call with these shapes launches, as the CUDA runtime
+    reports them for the launch's block size and shared memory."""
+    lib = _load_lib()
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    _check(lib, lib.pstpu_paged_decode_occupancy(
+        int(quant), head_dim, q_per_kv, ctypes.byref(blocks),
+        ctypes.byref(smem)), "occupancy")
+    return blocks.value, smem.value
+
+
+def graph_node_counts(graph: "torch.cuda.CUDAGraph") -> Tuple[int, int]:
+    """(kernel nodes, all nodes) of a graph captured with keep_graph=True:
+    how many launches one replay makes."""
+    lib = _load_lib()
+    kernels, total = ctypes.c_int(0), ctypes.c_int(0)
+    _check(lib, lib.pstpu_graph_node_counts(
+        graph.raw_cuda_graph(), ctypes.byref(kernels), ctypes.byref(total)),
+        "graph nodes")
+    return kernels.value, total.value
+
+
+def sm_count(device: torch.device) -> int:
     idx = device.index if device.index is not None else torch.cuda.current_device()
     if idx not in _sm_count:
         _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    want = -(-2 * _sm_count[idx] // max(1, batch * num_kv_heads))
-    max_tiles = max(1, -(-max_tokens // TILE_TOKENS))
-    return max(1, min(want, max_tiles, 32))
+    return _sm_count[idx]
+
+
+def _split_scratch(device: torch.device, b: int, hkv: int, g: int, dh: int,
+                   max_chunks: int):
+    """(partial acc, partial (m, l), tickets) for a call, allocated once per
+    device and shape bucket (the batch rounded up to a power of two)."""
+    bucket = 1
+    while bucket < b:
+        bucket *= 2
+    key = (device, bucket, hkv, g, dh, max_chunks)
+    if key not in _scratch:
+        rows = bucket * hkv * max_chunks * g
+        _scratch[key] = (
+            torch.empty((rows * dh,), dtype=torch.float32, device=device),
+            torch.empty((rows * 2,), dtype=torch.float32, device=device),
+            torch.zeros((bucket * hkv,), dtype=torch.int32, device=device),
+        )
+    return _scratch[key]
 
 
 def paged_flash_decode_stats(
@@ -151,7 +221,11 @@ def paged_flash_decode_stats(
     pools, or (scales given) bf16 q over int8 pools with bf16 per-slot
     scales. Each kv_lens[i] must be at most Mb * block_size (the caller's
     block tables cover every resident token; the lengths stay on the
-    device, so this is not checked here)."""
+    device, so this is not checked here: the kernel clamps to it). One
+    launch per call, and no host decision reads device data, so a call can
+    be captured in a CUDA graph and replayed with new lengths and tables.
+    Calls on one device must not overlap in time: they share the split
+    scratch."""
     quant = k_scale is not None
     if q.device.type == "cpu":
         return paged_flash_decode_stats_ref(
@@ -198,8 +272,10 @@ def paged_flash_decode_stats(
         )
     if not supports_paged_decode(dh, block_size, h // hkv):
         raise ValueError(
-            f"paged decode kernel: head_dim {dh} not in {SUPPORTED_HEAD_DIMS} "
-            f"or {h // hkv} query heads per kv head > {MAX_QUERY_GROUP}"
+            f"paged decode kernel: head_dim {dh} not in {SUPPORTED_HEAD_DIMS}, "
+            f"block_size {block_size} not a power of two in "
+            f"[2, {MAX_BLOCK_SIZE}], or {h // hkv} query heads per kv head > "
+            f"{MAX_QUERY_GROUP}"
         )
     if block_tables.dtype != torch.int32 or kv_lens.dtype != torch.int32:
         raise ValueError("block_tables and kv_lens must be int32")
@@ -211,16 +287,22 @@ def paged_flash_decode_stats(
             f"num_slots {num_slots} not a multiple of block_size "
             f"{block_size}, or layer {layer} outside [0, {n_layers})"
         )
+    # 16-byte copies of pool rows; 4-byte loads of q pairs and copies of
+    # scale pairs.
+    for name, t in tensors:
+        align = 16 if name.endswith("pool") else 4
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
     if scale is None:
         scale = dh ** -0.5
     mb = block_tables.shape[1]
-    splits = num_splits_for(b, hkv, mb * block_size, q.device)
+    chunk_tiles, max_chunks = launch_plan(b, hkv, mb * block_size,
+                                          sm_count(q.device))
+    part_acc, part_ml, tickets = _split_scratch(q.device, b, hkv, h // hkv,
+                                                dh, max_chunks)
     out = torch.empty_like(q)
     m = torch.empty((b, h), dtype=torch.float32, device=q.device)
     l = torch.empty((b, h), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((b, h, splits, dh), dtype=torch.float32, device=q.device)
-    part_m = torch.empty((b, h, splits), dtype=torch.float32, device=q.device)
-    part_l = torch.empty((b, h, splits), dtype=torch.float32, device=q.device)
     lib = _load_lib()
     ptrs = [q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr()]
     if quant:
@@ -228,18 +310,13 @@ def paged_flash_decode_stats(
         ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
     else:
         fn, variant = lib.pstpu_paged_decode_bf16, BF16
-    err = fn(
+    _check(lib, fn(
         *ptrs, block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-        m.data_ptr(), l.data_ptr(), part_acc.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), b, h, hkv, dh, num_slots, int(layer), mb,
-        block_size, splits, float(scale),
+        m.data_ptr(), l.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        tickets.data_ptr(), b, h, hkv, dh, num_slots, int(layer), mb,
+        block_size.bit_length() - 1, chunk_tiles, max_chunks, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(
-            f"paged decode kernel ({variant}) launch failed: CUDA error {err} "
-            f"({lib.pstpu_cuda_error_string(err).decode()})"
-        )
+    ), f"{variant} launch")
     LAUNCHES[variant] += 1
     return out, m, l
 

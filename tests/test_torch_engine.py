@@ -172,6 +172,30 @@ async def test_engine_seeded_tokens_match_jax(impl):
     assert all(len(t) == 20 for t in got)
 
 
+@pytest.mark.parametrize("impl,bs,blocks", [("window", 16, 128),
+                                             ("paged", 64, 32)])
+async def test_engine_bf16_greedy_tokens_match_jax(impl, bs, blocks):
+    """bf16 weights, activations and pools in both engines: greedy tokens
+    are identical. This needs the port's bf16 ``silu`` to be jitted
+    ``jax.nn.silu`` bit for bit (with ``F.silu`` the paged case's sixth
+    token differs)."""
+    common = dict(model=MODEL, max_model_len=256, block_size=bs,
+                  num_kv_blocks=blocks, attn_impl=impl, num_decode_steps=8,
+                  dtype="bfloat16", max_num_batched_tokens=64)
+    jparams = jax_init(jax_resolve(MODEL), jax.random.PRNGKey(0), jnp.bfloat16)
+    jeng = JaxEngine(JaxConfig(**common, async_pipeline=False,
+                               overlap_dispatch=False), params=jparams)
+    eng = ServingEngine(
+        EngineConfig(**common, device="cpu"),
+        params=params_from_jax(jax.tree.map(np.asarray, jparams),
+                               resolve_model_config(MODEL), torch.bfloat16))
+    want = await _serve_all(jeng, JaxSampling, _PROMPTS, 12)
+    got = await _serve_all(eng, SamplingParams, _PROMPTS, 12)
+    eng.shutdown()
+    assert eng.runner.kv_k.dtype == torch.bfloat16
+    assert got == want and all(len(t) == 12 for t in got)
+
+
 def _describe(batch):
     if batch is None:
         return None

@@ -16,6 +16,8 @@ import torch
 
 import jax.numpy as jnp
 
+import chip_smoke
+from paged_decode_model import chunk_plan, kernel_model
 from production_stack_tpu.ops import attention as jattn
 from production_stack_tpu.ops import quantization as jquant
 from production_stack_tpu.ops.pallas import paged_attention as jpa
@@ -162,6 +164,45 @@ def test_int8_paged_decode_matches_pallas_interpret(dh):
                                rtol=0, atol=ATOL)
     np.testing.assert_allclose(to.numpy()[live], np.asarray(ref)[live, 0],
                                rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("heads", ["llama-3b", "llama-1b"])
+@pytest.mark.parametrize("chunk_tiles", [None, 1])
+def test_int8_kernel_numerics_model_within_smoke_tolerance(heads, chunk_tiles):
+    """The int8 kernel's arithmetic (``paged_decode_model.kernel_model``:
+    int8 K/V exact in bf16, the K scale on the fp32 score, P times the V
+    scale split into bf16 hi + lo, l over the unscaled weights, chunks
+    merged as the kernel merges them) against the quantized Pallas kernel
+    in interpret mode, at llama-3b and llama-1b head shapes: within
+    chip_smoke.py's out/m/l tolerance, with NaN scales past kv_len."""
+    h, hkv, dh = {"llama-3b": (24, 8, 128), "llama-1b": (32, 4, 64)}[heads]
+    q, kq, vq, ks, vs, bt, lens = _case(dh + 3, 4, h, hkv, dh, [0, 1, 37, 520])
+    q = q.astype(jnp.bfloat16).astype(np.float32)
+    jo, jm, jl = jpa.paged_flash_decode_stats(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), jnp.asarray(bt),
+        jnp.asarray(lens), jnp.asarray([1], jnp.int32), block_size=PALLAS_BS,
+        interpret=True, k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    tk, tv, tks, tvs = kv_pools_from_jax(kq, vq, ks, vs)
+    for i, n in enumerate(lens):      # stale scales past kv_len
+        for p in range(n, bt.shape[1] * PALLAS_BS):
+            slot = bt[i, p // PALLAS_BS] * PALLAS_BS + p % PALLAS_BS
+            tks[:, :, slot] = float("nan")
+            tvs[:, :, slot] = float("nan")
+    mb_tokens = bt.shape[1] * PALLAS_BS
+    if chunk_tiles is None:
+        chunk_tiles, _ = tpa.launch_plan(4, hkv, mb_tokens, 132)
+    assert len(chunk_plan(520, mb_tokens, PALLAS_BS, chunk_tiles)) > 1
+    mo, mm, ml = kernel_model(
+        _t(q).to(torch.bfloat16), tk, tv, _t(bt), _t(lens), 1,
+        block_size=PALLAS_BS, chunk_tiles=chunk_tiles, k_scale=tks,
+        v_scale=tvs)
+    live = torch.from_numpy(lens > 0)
+    _, row_rel, ok = chip_smoke.out_error(torch, mo, _t(jo), live)
+    assert ok, row_rel
+    for got, want in ((mm, jm), (ml, jl)):
+        assert chip_smoke.stats_close(torch, got[live], _t(want)[live])
+    assert torch.all(mo[0] == 0) and torch.all(mm[0] == -np.inf)
+    assert torch.all(ml[0] == 0)
 
 
 def test_int8_ref_ignores_poisoned_scales():

@@ -14,8 +14,13 @@ that count (the CUDA kernel is checked at block size 16 by chip_smoke.py).
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
+
+import chip_smoke
+from paged_decode_model import chunk_plan, kernel_model
 
 from production_stack_tpu.ops import attention as jattn
 from production_stack_tpu.ops.pallas.paged_attention import (
@@ -109,6 +114,84 @@ def test_supports_paged_decode_gate():
     assert not tpa.supports_paged_decode(32, 16)      # head dim not templated
     assert not tpa.supports_paged_decode(96, 16)
     assert not tpa.supports_paged_decode(128, 16, 17)  # > MAX_QUERY_GROUP
+    assert tpa.supports_paged_decode(128, 2) and tpa.supports_paged_decode(64, 512)
+    for bs in (1, 12, 24, 1024):                       # power of two in [2, 512]
+        assert not tpa.supports_paged_decode(128, bs)
+
+
+_LEN = st.one_of(st.sampled_from([0, 1, 15, 16, 63, 64, 4095, 4096, 5000]),
+                 st.integers(0, 4096))
+
+
+@settings(max_examples=200, deadline=None)
+@given(lens=st.lists(_LEN, min_size=1, max_size=64),
+       block_size=st.sampled_from([2, 16, 64, 512]),
+       hkv=st.sampled_from([1, 4, 8]))
+def test_split_plan_covers_every_tile_once(lens, block_size, hkv):
+    """The device-side work split (``chunk_plan``, under the host's
+    ``launch_plan``): every (row, 64-token tile) lies in exactly one chunk
+    of at most chunk_tiles tiles, within the grid's max_chunks; no chunk
+    reaches past kv_len (clamped to the block table) or reads a
+    block-table entry at or past cdiv(kv_len, block_size); a zero-length
+    row has no chunk."""
+    max_tokens = 4096                      # Mb * block_size of the tables
+    chunk_tiles, max_chunks = tpa.launch_plan(len(lens), hkv, max_tokens, 132)
+    assert 1 <= chunk_tiles <= tpa.MAX_CHUNK_TILES
+    assert max_chunks * chunk_tiles * tpa.TILE_TOKENS >= max_tokens
+    for n in lens:
+        kv_len = min(n, max_tokens)
+        plan = chunk_plan(n, max_tokens, block_size, chunk_tiles)
+        assert len(plan) <= max_chunks
+        covered = []
+        for c, begin, end, page0, n_pages in plan:
+            assert 0 <= begin < end <= kv_len
+            assert end - begin <= chunk_tiles * tpa.TILE_TOKENS
+            assert begin == c * chunk_tiles * tpa.TILE_TOKENS
+            covered += range(begin // tpa.TILE_TOKENS,
+                             -(-end // tpa.TILE_TOKENS))
+            assert page0 == begin // block_size
+            assert page0 + n_pages <= -(-kv_len // block_size)
+            assert page0 + n_pages == -(-end // block_size)  # every page in use
+        assert covered == list(range(-(-kv_len // tpa.TILE_TOKENS)))
+        assert (plan == []) == (kv_len == 0)
+
+
+def _bf16_values(x):
+    return x.astype(jnp.bfloat16).astype(np.float32)
+
+
+@pytest.mark.parametrize("heads", ["llama-3b", "llama-1b"])
+@pytest.mark.parametrize("chunk_tiles", [None, 1])
+def test_kernel_numerics_model_within_smoke_tolerance(heads, chunk_tiles):
+    """The kernel's arithmetic (``paged_decode_model.kernel_model``: bf16 q
+    unscaled, fp32 scores, per-warp online softmax, P = hi + lo in bf16,
+    chunk partials merged as the kernel merges them) against the Pallas
+    kernel in interpret mode on the same bf16 values, at llama-3b (H=24,
+    Hkv=8, Dh=128) and llama-1b (H=32, Hkv=4, Dh=64) head shapes: within
+    chip_smoke.py's out/m/l tolerance, with the row of 520 tokens split
+    into the launch plan's chunks or into one chunk per tile."""
+    h, hkv, dh = {"llama-3b": (24, 8, 128), "llama-1b": (32, 4, 64)}[heads]
+    q, kp, vp, bt, lens = _pool_case(dh + 1, 4, h, hkv, dh, [0, 1, 37, 520])
+    q, kp, vp = (_bf16_values(x) for x in (q, kp, vp))
+    jo, jm, jl = jax_paged_stats(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(lens), jnp.asarray([1], jnp.int32), block_size=PALLAS_BS,
+        interpret=True)
+    if chunk_tiles is None:
+        chunk_tiles, _ = tpa.launch_plan(4, hkv, bt.shape[1] * PALLAS_BS, 132)
+    assert len(chunk_plan(520, bt.shape[1] * PALLAS_BS, PALLAS_BS,
+                              chunk_tiles)) > 1
+    mo, mm, ml = kernel_model(
+        _t(q).to(torch.bfloat16), _t(kp).to(torch.bfloat16),
+        _t(vp).to(torch.bfloat16), _t(bt), _t(lens), 1, block_size=PALLAS_BS,
+        chunk_tiles=chunk_tiles)
+    live = torch.from_numpy(lens > 0)
+    _, row_rel, ok = chip_smoke.out_error(torch, mo, _t(jo), live)
+    assert ok, row_rel
+    for got, want in ((mm, jm), (ml, jl)):
+        assert chip_smoke.stats_close(torch, got[live], _t(want)[live])
+    assert torch.all(mo[0] == 0) and torch.all(mm[0] == -np.inf)
+    assert torch.all(ml[0] == 0)
 
 
 @pytest.mark.parametrize("t,with_win,with_ring", [
