@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port (``production_stack_tpu_torch``) on one
 NVIDIA GPU and check it.
 
-Phases, each printing what it finds (serving and check run before the
-kernel phase, whose profiler would otherwise stay attached during serving):
+Phases, each printing what it finds (serving, graphs and check run before
+the kernel phase, whose profiler would otherwise stay attached during
+serving):
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
   2. build: the paged flash-decode kernel (bf16 and int8 variants) compiled
      by nvcc from the checkout; per template instance, ptxas's registers,
@@ -12,7 +13,8 @@ kernel phase, whose profiler would otherwise stay attached during serving):
   3. kernel: one call of each variant captured in a CUDA graph and
      replayed after kv_lens and the block tables change in place (it must
      give the plain version's output on the new inputs, and the captured
-     inputs' eager output again bit for bit); then
+     inputs' eager output again bit for bit; each replay counts one launch
+     of its variant); then
      ``paged_flash_decode_stats`` (CUDA) against its plain PyTorch
      version on the card, for each variant (bf16 pools; int8 pools with
      bf16 per-slot scales), at llama-3b heads (H=24, Hkv=8, Dh=128) and
@@ -28,12 +30,27 @@ kernel phase, whose profiler would otherwise stay attached during serving):
      version and an SDPA yardstick (int8: over K/V dequantized
      beforehand, untimed), the bound and the kernel's share of it;
   4. serving, twice: llama-3b at full width (random bf16 weights from
-     --seed) behind the port's HTTP server with a bf16 KV pool, then with
-     an int8 KV pool of the same bytes; each: one untimed warm-up request,
-     then 4 concurrent requests (greedy and seeded, completions and
-     streamed chat), /v1/models and /health; the run's kernel variant must
-     launch for every decode step of every layer, the other not at all;
-  5. check: one decode step at llama-3b width (depth cut to 2 layers)
+     --seed) behind the port's HTTP server with its defaults (decode CUDA
+     graphs captured at warm-up, the pipelined two-slot loop) and a bf16
+     KV pool, then with an int8 KV pool of the same bytes; each: one
+     untimed warm-up request, then 4 concurrent requests (greedy and
+     seeded, completions and streamed chat), /v1/models and /health; every
+     decode dispatch must replay graphs, and the run's kernel variant must
+     launch exactly once per layer and decode step, the other not at all,
+     by the kernel's own launch counter on the card (which counts graph
+     replays); with ``trace``, the profiler's records of the kernel in one
+     more served round are held against the counter;
+  5. graphs: per KV dtype, the strict eager loop and the graph + pipeline
+     + overlap loop alternated (eager, graph, graph, eager) on the same 4
+     requests; the graph runs' warm-up (families, graphs, nodes, capture
+     seconds, graph pool), tokens equal to the eager loop's bit for bit,
+     no eager decode dispatch, launch counts, a round with a prefill
+     landing mid-decode whose fetches overlap; decode ms per step by CUDA
+     events and by wall clock, TTFT, aggregate tokens/s, peak memory and
+     the step's byte bound for each run; then the window path with
+     decode_loop="while" on a small model (bf16 and int8 pools), eager
+     against graphs, bit for bit;
+  6. check: one decode step at llama-3b width (depth cut to 2 layers)
      through the kernel path against the plain window path, over a bf16
      pool and over an int8 pool; the seeded-sampling Gumbel field on the
      card bit for bit against the CPU's.
@@ -149,6 +166,7 @@ def graph_check(torch, pa, device, seed, main_lens):
             fail(f"{name}: one call captured as {nodes} graph nodes, {kernels} "
                  "of them kernels; the kernel is one launch per call")
         bt0, kvl0 = bt.clone(), kvl.clone()
+        pa.reset_launch_counts()
         # Rows rotated by one and shortened (row 0 emptied): other pages,
         # other chunk counts; every position kept is clean in the pool.
         new_lens = [0] + [max(1, main_lens[(i + 1) % b] - 97 * i) for i in range(1, b)]
@@ -172,10 +190,15 @@ def graph_check(torch, pa, device, seed, main_lens):
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
             fail(f"{name}: replay of the captured inputs differs from the eager call")
+        variant = pa.INT8 if quant else pa.BF16
+        counts = pa.launch_counts()
+        if counts != {**dict.fromkeys(pa.VARIANTS, 0), variant: 2}:
+            fail(f"{name}: two replays counted {counts}, want 2 of {variant}")
         log(f"{name}: one call is 1 graph node (a kernel); replay with kv_lens "
             f"{new_lens} and rotated tables matches "
             f"the plain version (max abs {err:.3e}, row rel {row_rel:.3e}); "
-            "replay of the captured inputs equals the eager call bit for bit")
+            "replay of the captured inputs equals the eager call bit for bit; "
+            "the kernel counted each of the 2 replays")
         del graph, got, want, q, kp, vp, ks, vs
         torch.cuda.empty_cache()
 
@@ -559,10 +582,31 @@ def make_prompts(seed: int, n: int):
     return out
 
 
+# Kernel classes of the trace breakdown, by CUDA kernel name (first match).
+KERNEL_CLASSES = (
+    ("paged decode kernel", ("paged_decode",)),
+    ("bf16 GEMM", ("nvjet", "bf16gemm", "s16816gemm", "bf16_s1688gemm")),
+    ("f32 GEMM / GEMV", ("sgemm", "gemm_f32", "xmma_gemm_f32", "gemmSN", "gemv")),
+    ("copy / cast", ("copy", "Copy", "cast")),
+    ("index / gather / scatter", ("index", "gather", "scatter")),
+    ("reduction", ("reduce", "Reduce", "softmax", "cumsum", "scan", "topk",
+                   "sort", "radix", "argmax")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def kernel_class(name: str) -> str:
+    for cls, keys in KERNEL_CLASSES:
+        if any(k in name for k in keys):
+            return cls
+    return "other"
+
+
 def trace_requests(torch, loop_run, n_tokens):
-    """Profile one served round (prefill + one fused decode dispatch of the
-    same 4 rows): host wall time, device busy time (sum of kernel times on
-    the one stream) and the kernels that take it."""
+    """Profile one served round (4 fresh short prompts, one padded prefill
+    and the fused decode dispatches of the same 4 rows, replayed from
+    graphs): host wall time, device busy time (sum of kernel times on the
+    one stream), the kernels that take it, and their classes."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -572,16 +616,23 @@ def trace_requests(torch, loop_run, n_tokens):
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     by_name = {}
-    count = 0
+    count = paged_records = 0
     for evt in prof.events():
         if str(evt.device_type).endswith("CUDA"):
             count += 1
+            paged_records += "paged_decode" in evt.name
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
     busy = sum(by_name.values()) / 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    by_class = {}
+    for name, us in by_name.items():
+        cls = kernel_class(name)
+        by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
     return {"wall_s": wall, "device_busy_s": busy,
             "busy_share": busy / wall if wall else None, "kernel_launches": count,
-            "top_ms": [[name[:80], us / 1e3] for name, us in top]}
+            "paged_decode_records": paged_records,
+            "ms_by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+            "top_ms": [[name[:100], us / 1e3] for name, us in top]}
 
 
 def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
@@ -595,9 +646,11 @@ def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
     from production_stack_tpu_torch.server.api_server import OpenAIServer
 
     max_tokens = 64
+    # The server's defaults: decode graphs captured at warm-up, the
+    # pipelined two-slot loop.
     common = dict(model="llama-3b", dtype="bfloat16", attn_impl="paged",
                   device="cuda", max_model_len=4096, num_decode_steps=32,
-                  seed=seed)
+                  seed=seed, enable_warmup=True)
     mc = resolve_model_config("llama-3b")
     # 8 sequences x 4096 tokens of bf16 KV (~3.8 GB) + the null block
     pool_bytes = BF16_KV_BLOCKS * EngineConfig(**common).kv_cache_bytes_per_block(mc)
@@ -655,11 +708,12 @@ def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
         if st != 200 or body["usage"]["completion_tokens"] != 4:
             fail(f"warm-up request: {st} {body}")
         for key in ("decode_steps_total", "decode_tokens_total",
-                    "decode_seconds_total", "prefill_seconds_total"):
+                    "decode_seconds_total", "decode_device_seconds_total",
+                    "prefill_seconds_total"):
             setattr(engine.runner, key, 0)
         engine.decode_dispatches_total = engine.prefill_dispatches_total = 0
-        for key in pa.LAUNCHES:
-            pa.LAUNCHES[key] = 0
+        engine.runner.decode_train.eager_dispatches_total = 0
+        pa.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         t_start = time.monotonic()
 
@@ -670,26 +724,40 @@ def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
 
         await asyncio.gather(*[loop.run_in_executor(None, one, *r) for r in reqs])
         results["_wall"] = time.monotonic() - t_start
-        results["_launches"] = dict(pa.LAUNCHES)
+        results["_launches"] = pa.launch_counts()
         results["_stats"] = engine.stats()
         results["_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         if trace:
             def round_of(n_tokens):
-                # The 4 greedy prompts again (their prefixes now hit the
-                # prefix cache), 1 prefill token + one 32-step decode.
+                # 4 fresh short prompts (one small prefill, no history
+                # window), then n_tokens - 1 decode steps in 32-step
+                # dispatches: the round is mostly graph replays.
                 def go(i):
                     http("POST", base + "/v1/completions", {
-                        "prompt": prompts[i] + " again", "max_tokens": n_tokens,
-                        "temperature": 0.0, "ignore_eos": True})
+                        "prompt": f"trace round prompt {i}: " * 4,
+                        "max_tokens": n_tokens,
+                        "temperature": 0.0 if i % 2 == 0 else 0.8,
+                        "seed": i, "ignore_eos": True})
                 threads = [threading.Thread(target=go, args=(i,)) for i in range(4)]
                 for t in threads:
                     t.start()
                 for t in threads:
                     t.join()
 
+            steps0 = engine.runner.decode_steps_total
+            pa.reset_launch_counts()
             tr = await loop.run_in_executor(
-                None, trace_requests, torch, round_of, 33)
+                None, trace_requests, torch, round_of, 65)
+            tr["decode_steps"] = engine.runner.decode_steps_total - steps0
+            # Two witnesses of the kernel's launches in the traced round:
+            # its device counter, and the profiler's records of it (CUPTI
+            # may drop a few records, never add one).
+            tr["paged_decode_counted"] = pa.launch_counts()[pa.BF16]
             log(f"trace {json.dumps(tr)}")
+            if not 0 < tr["paged_decode_records"] <= tr["paged_decode_counted"]:
+                fail(f"trace: {tr['paged_decode_records']} profiler records of the "
+                     f"paged kernel against {tr['paged_decode_counted']} counted "
+                     "launches")
         await server.stop()
 
     asyncio.run(run())
@@ -722,16 +790,21 @@ def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
     counts = results["_launches"]
     launches = counts[variant]
     n_layers = engine.model_config.num_layers
-    if steps <= 0 or launches < n_layers * steps:
-        fail(f"{variant} launches {launches} < {n_layers} layers x {steps} "
-             "decode steps: decode did not go through the kernel")
+    if steps <= 0 or launches != n_layers * steps:
+        fail(f"{variant} launches {launches} != {n_layers} layers x {steps} "
+             "decode steps: decode did not go through the kernel once per "
+             "layer and step")
     others = {k: v for k, v in counts.items() if k != variant and v}
     if others:
         fail(f"{kv_cache_dtype} KV run launched another variant: {others}")
-    decode_tok_s = stats["decode_tokens_total"] / stats["decode_seconds_total"]
-    log(f"serving [{kv_cache_dtype} KV]: {launches} {variant} launches over "
-        f"{steps} decode steps ({stats['decode_dispatches_total']} decode "
-        f"dispatches, {stats['prefill_dispatches_total']} prefill dispatches)")
+    if stats["decode_eager_dispatches_total"] or not stats["graph_families"]:
+        fail(f"serving [{kv_cache_dtype} KV]: {stats['decode_eager_dispatches_total']} "
+             f"eager decode dispatches, {stats['graph_families']} graph families: "
+             "decode did not replay its warm-up graphs")
+    log(f"serving [{kv_cache_dtype} KV]: {launches} {variant} launches counted "
+        f"by the kernel over {steps} decode steps "
+        f"({stats['decode_dispatches_total']} decode dispatches, all graph "
+        f"replays; {stats['prefill_dispatches_total']} prefill dispatches)")
     summary = {
         "card": card, "kv_cache_dtype": kv_cache_dtype,
         "kv_blocks": stats["kv_num_blocks"],
@@ -739,9 +812,14 @@ def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
         "ttft_s_streamed": ttfts,
         "prefill_s_total": stats["prefill_seconds_total"],
         "decode_tokens": stats["decode_tokens_total"],
-        "decode_s_total": stats["decode_seconds_total"],
-        "decode_tok_s": decode_tok_s,
-        "decode_ms_per_step": 1e3 * stats["decode_seconds_total"] / steps,
+        "decode_device_s_total": stats["decode_device_seconds_total"],
+        "decode_ms_per_step_events": (
+            1e3 * stats["decode_device_seconds_total"] / steps),
+        "aggregate_tok_s": 4 * max_tokens / results["_wall"],
+        "dispatch_overlap_ratio": stats["dispatch_overlap_ratio"],
+        "graphs": {k: stats[k] for k in (
+            "graph_families", "graphs_captured", "graph_step_nodes_max",
+            "graph_capture_seconds", "graph_pool_bytes")},
         "peak_mem_gib": results["_peak_gib"],
         "launches": counts, "decode_steps": steps,
     }
@@ -750,6 +828,284 @@ def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
 
 
 # ---------------------------------------------------------------- phase 5
+def step_bound_ms(mc, kv_lens, quant):
+    """Least time of one decode step at B = len(kv_lens): the bytes it must
+    move at the card's HBM rate (the bf16 layer weights and the bf16 output
+    head read once, each row's live KV read once, bf16 2 B or int8 1 B an
+    element plus the 2-byte scale per slot and head); the step's 2 * params
+    * B operations take far less at the bf16 peak. The port reads an f32
+    copy of the head (to match the JAX package's bf16 x bf16 -> f32 dot):
+    ``f32_head_extra_ms`` is that design's extra read, not in the bound."""
+    d, f, dh = mc.hidden_size, mc.intermediate_size, mc.head_dim_
+    h, hkv = mc.num_heads, mc.num_kv_heads
+    layer = d * h * dh + 2 * d * hkv * dh + h * dh * d + 3 * d * f + 2 * d
+    weight_bytes = (mc.num_layers * layer + d * mc.vocab_size) * 2
+    kv_bytes = sum(kv_lens) * 2 * mc.num_layers * hkv * (dh + 2 if quant else 2 * dh)
+    ops = 2 * (mc.num_layers * layer + d * mc.vocab_size) * len(kv_lens)
+    return max((weight_bytes + kv_bytes) / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S) * 1e3
+
+
+def f32_head_extra_ms(mc):
+    """The extra read of the port's f32 output head over a bf16 one, at
+    the card's HBM rate."""
+    return mc.hidden_size * mc.vocab_size * 2 / HBM_BYTES_PER_S * 1e3
+
+
+def graph_prompts(seed: int):
+    """4 prompts of 500-950 bytes: one prefill dispatch holds all four
+    (fair share 1024 tokens each), so the strict and the pipelined loop form
+    the same batches and their tokens can be compared bit for bit."""
+    rng = random.Random(seed + 1)
+    words = "graphs replay the decode train of every family we warmed".split()
+    out = []
+    for i in range(4):
+        text = []
+        while sum(len(w) + 1 for w in text) < 500 + 150 * i:
+            text.append(rng.choice(words))
+        out.append(" ".join(text))
+    return out
+
+
+def graphs_phase(torch, pa, device, seed, card, model="llama-3b"):
+    """Per KV dtype: the strict eager loop (no warm-up graphs, no pipeline)
+    and the graph + pipeline + overlap loop serve the same 4 requests (2
+    greedy, 2 seeded, 64 tokens), alternated eager, graph, graph, eager in
+    this one call. Each graph run logs its warm-up (families, graphs, nodes,
+    capture seconds, graph pool); it must give the eager tokens bit for bit,
+    make no eager decode dispatch, launch its kernel variant once per layer
+    and decode step (the kernel's own count) and the other variant never. The first graph run then
+    serves a round whose prefill lands mid-decode: its fetches must
+    overlap. Returns one summary row per run."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import resolve_model_config
+
+    mc = resolve_model_config(model)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = llama.init_params(mc, gen, torch.bfloat16, device)
+    prompts = graph_prompts(seed)
+    samplings = [dict(temperature=0.0), dict(temperature=0.0),
+                 dict(temperature=0.8, top_p=0.9, seed=1234),
+                 dict(temperature=0.7, top_k=50, seed=7)]
+    max_tokens = 64
+    modes = {"eager": dict(enable_warmup=False, async_pipeline=False,
+                           overlap_dispatch=False),
+             "graph": dict(enable_warmup=True, async_pipeline=True,
+                           overlap_dispatch=True)}
+    rows = []
+    for kv in ("bfloat16", "int8"):
+        quant = kv == "int8"
+        variant, other = (pa.INT8, pa.BF16) if quant else (pa.BF16, pa.INT8)
+        tokens = {}
+        for i, mode in enumerate(("eager", "graph", "graph", "eager")):
+            cfg = EngineConfig(model=model, dtype="bfloat16",
+                               attn_impl="paged", device=device.type,
+                               max_model_len=4096, num_decode_steps=32,
+                               seed=seed, kv_cache_dtype=kv,
+                               num_kv_blocks=(2 if quant else 1) * BF16_KV_BLOCKS,
+                               **modes[mode])
+            engine = ServingEngine(cfg, params=params)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = {}
+
+            async def one(k, prompt, extra, n=max_tokens):
+                t_sub, t_first, toks = time.monotonic(), None, []
+                async for out in engine.generate(prompt=prompt, sampling=SamplingParams(
+                        max_tokens=n, ignore_eos=True, **extra)):
+                    if t_first is None and out.token_ids:
+                        t_first = time.monotonic()
+                    toks = out.token_ids
+                times[k] = (t_sub, t_first, time.monotonic())
+                return toks
+
+            async def serve():
+                t_warm = time.monotonic()
+                await engine.start()
+                warm_s = time.monotonic() - t_warm
+                # One short untimed request first (cuBLAS handles, the
+                # prefill shapes' first use), as the serving phase does.
+                await one("warm-up", "warm up", dict(temperature=0.0), 4)
+                pa.reset_launch_counts()
+                r = engine.runner
+                r.decode_steps_total = r.decode_tokens_total = 0
+                r.decode_device_seconds_total = 0.0
+                r.chained_dispatches_total = 0
+                r.decode_train.eager_dispatches_total = 0
+                engine.decode_dispatches_total = 0
+                # The 4 requests are created together: they are all queued
+                # before the engine loop schedules again, so every loop
+                # mode forms the same batches.
+                t0 = time.monotonic()
+                tasks = [asyncio.create_task(one(k, p, samplings[k]))
+                         for k, p in enumerate(prompts)]
+                got = await asyncio.wait_for(asyncio.gather(*tasks), 600)
+                wall = time.monotonic() - t0
+                launches = pa.launch_counts()
+                stats = engine.stats()
+                overlap = None
+                if mode == "graph" and i == 1:
+                    overlap = await overlap_round()
+                await engine.stop()
+                return got, wall, warm_s, t0, launches, stats, overlap
+
+            async def wait_until(cond):
+                deadline = time.monotonic() + 120
+                while not cond():
+                    if time.monotonic() > deadline:
+                        fail("graphs: the overlap round made no progress")
+                    await asyncio.sleep(0.001)
+
+            async def overlap_round():
+                """A decode stream, then a prompt landing mid-decode."""
+                engine.fetches_total = engine.overlapped_fetches_total = 0
+                d0 = engine.decode_dispatches_total
+                long = asyncio.create_task(one("long", prompts[0] + " again",
+                                               dict(temperature=0.0)))
+                await wait_until(lambda: engine.decode_dispatches_total >= d0 + 2)
+                late = asyncio.create_task(one("late", prompts[1] + " late",
+                                               dict(temperature=0.8, seed=3)))
+                await asyncio.wait_for(asyncio.gather(long, late), 300)
+                st = engine.stats()
+                return {"fetches": st["fetches_total"],
+                        "overlapped_fetches": st["overlapped_fetches_total"],
+                        "dispatch_overlap_ratio": st["dispatch_overlap_ratio"]}
+
+            got, wall, warm_s, t0, launches, st, overlap = asyncio.run(serve())
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            engine.shutdown()
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+            name = f"graphs [{kv} KV] run {i + 1} {mode}"
+            if any(len(t) != max_tokens for t in got):
+                fail(f"{name}: {[len(t) for t in got]} tokens, want {max_tokens}")
+            steps = st["decode_steps_total"]
+            ttft = [times[k][1] - times[k][0] for k in range(len(prompts))]
+            # Client-side wall time per decode step: every row gets one
+            # token per step, so a row's first-to-last token time over its
+            # tokens after the first.
+            wall_step = [(times[k][2] - times[k][1]) / (max_tokens - 1)
+                         for k in range(len(prompts))]
+            row = {
+                "card": card, "kv_cache_dtype": kv, "run": i + 1, "mode": mode,
+                "decode_steps": steps,
+                "decode_dispatches": st["decode_dispatches_total"],
+                "decode_ms_per_step_events": 1e3 * st["decode_device_seconds_total"] / steps,
+                "decode_ms_per_step_wall": 1e3 * sum(wall_step) / len(wall_step),
+                "ttft_s": ttft, "wall_s": wall,
+                "aggregate_tok_s": len(prompts) * max_tokens / wall,
+                "peak_mem_gib": peak, "launches": launches,
+                "step_bound_ms": step_bound_ms(
+                    mc, [len(p) + max_tokens // 2 for p in prompts], quant),
+                "f32_head_extra_ms": f32_head_extra_ms(mc),
+                "decode_eager_dispatches": st["decode_eager_dispatches_total"],
+                "chained_dispatches": st["chained_dispatches_total"],
+                "dispatch_overlap_ratio": st["dispatch_overlap_ratio"],
+            }
+            if mode == "graph":
+                row.update(warmup_s=warm_s, overlap_round=overlap,
+                           **{k: st[k] for k in (
+                               "graph_families", "graphs_captured",
+                               "graph_nodes_total", "graph_step_nodes_max",
+                               "graph_capture_seconds", "graph_pool_bytes")})
+                row["graph_pool_mib"] = st["graph_pool_bytes"] / 2**20
+                if st["decode_eager_dispatches_total"]:
+                    fail(f"{name}: {st['decode_eager_dispatches_total']} eager "
+                         "decode dispatches after warm-up")
+                n_layers = mc.num_layers
+                if launches[variant] != n_layers * steps or launches[other]:
+                    fail(f"{name}: {launches} launches over {steps} decode steps: "
+                         f"want {n_layers} x steps of {variant} and none of {other}")
+                if overlap is not None and not overlap["dispatch_overlap_ratio"] > 0:
+                    fail(f"{name}: no fetch overlapped another dispatch in the "
+                         f"round with a prefill landing mid-decode ({overlap})")
+            if mode in tokens and got != tokens[mode]:
+                fail(f"{name}: tokens differ from the earlier {mode} run")
+            tokens.setdefault(mode, got)
+            if "eager" in tokens and "graph" in tokens and \
+                    tokens["eager"] != tokens["graph"]:
+                diff = [k for k in range(4) if tokens["eager"][k] != tokens["graph"][k]]
+                fail(f"{name}: graph + pipeline tokens differ from the strict "
+                     f"eager loop's in requests {diff}")
+            log(f"graphs run {json.dumps(row)}")
+            rows.append(row)
+        log(f"graphs [{kv} KV]: the graph + pipeline + overlap loop gives the "
+            "strict eager loop's tokens bit for bit (2 greedy, 2 seeded, "
+            f"{max_tokens} tokens each)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def graphs_window_check(torch, seed):
+    """The other decode options under graphs, on a small model (tiny-llama
+    at Dh 128, bf16): the window path (its head gathers the window inside
+    the captured graph) with decode_loop="while" (fewer step replays than
+    K), over bf16 and int8 pools. The graph + pipeline loop must give the
+    strict eager loop's tokens bit for bit and make no eager dispatch."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    # Prompts of at most 64 tokens: one prefill dispatch holds all four, so
+    # both loops form the same batches (a row's bf16 GEMM bits depend on
+    # the batch's row count on the card).
+    prompts = ["window " * 8, "graphs " * 9, "while loop", "seeded " * 7]
+    samplings = [dict(max_tokens=40), dict(max_tokens=23),
+                 dict(max_tokens=40, temperature=0.9, seed=11),
+                 dict(max_tokens=31, temperature=0.7, top_k=20, seed=2)]
+    for kv in ("bfloat16", "int8"):
+        got = {}
+        for mode, over in (("eager", dict(async_pipeline=False)),
+                           ("graph", dict(enable_warmup=True))):
+            engine = ServingEngine(EngineConfig(
+                model="tiny-llama-128dh", device="cuda", dtype="bfloat16",
+                attn_impl="window", decode_loop="while", max_model_len=512,
+                num_kv_blocks=512, max_num_seqs=8, max_num_batched_tokens=256,
+                kv_cache_dtype=kv, seed=seed, **over))
+
+            async def one(prompt, extra):
+                toks = []
+                async for out in engine.generate(prompt=prompt, sampling=SamplingParams(
+                        **{"ignore_eos": True, "temperature": 0.0, **extra})):
+                    toks = out.token_ids
+                return toks
+
+            async def serve():
+                tasks = [asyncio.create_task(one(p, s))
+                         for p, s in zip(prompts, samplings)]
+                await asyncio.sleep(0)
+                await engine.start()
+                out = await asyncio.wait_for(asyncio.gather(*tasks), 300)
+                await engine.stop()
+                return out
+
+            got[mode] = asyncio.run(serve())
+            st = engine.stats()
+            engine.shutdown()
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+            if mode == "graph" and (st["decode_eager_dispatches_total"]
+                                    or not st["decode_graph_dispatches_total"]):
+                fail(f"graphs [window, while, {kv} KV]: "
+                     f"{st['decode_eager_dispatches_total']} eager and "
+                     f"{st['decode_graph_dispatches_total']} replayed decode dispatches")
+        if got["eager"] != got["graph"] or \
+                [len(t) for t in got["graph"]] != [40, 23, 40, 31]:
+            fail(f"graphs [window, while, {kv} KV]: graph + pipeline tokens differ "
+                 "from the strict eager loop's")
+        log(f"graphs [window, while, {kv} KV]: tiny-llama-128dh, the graph + pipeline "
+            "loop gives the strict eager loop's tokens bit for bit "
+            f"({st['decode_graph_dispatches_total']} replayed decode dispatches)")
+
+
+# ---------------------------------------------------------------- phase 6
 def check_phase(torch, device, seed, quant):
     """One decode step at llama-3b width, depth cut to 2 layers: the paged
     path (kernel + dense ring segment + merge) against the plain window
@@ -820,12 +1176,13 @@ def check_noise(torch, device):
 
 
 def main() -> None:
+    t_main = time.monotonic()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernel,serving,check",
-                    help="comma list of kernel,serving,check,trace (build always "
-                         "runs; trace profiles one more served round after "
-                         "serving)")
+    ap.add_argument("--phases", default="kernel,serving,graphs,check",
+                    help="comma list of kernel,serving,graphs,check,trace "
+                         "(build always runs; trace profiles one more served "
+                         "round after serving)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -881,6 +1238,9 @@ def main() -> None:
                     pa.INT8 if variant == "int8" else pa.BF16]
             gc.collect()
             torch.cuda.empty_cache()
+    if "graphs" in phases:
+        graphs_phase(torch, pa, device, args.seed, card)
+        graphs_window_check(torch, args.seed)
     if "check" in phases:
         for quant in (False, True):
             check_phase(torch, device, args.seed, quant)
@@ -905,6 +1265,7 @@ def main() -> None:
             **{key: main_row.get(key) for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
+    log(f"smoke: {time.monotonic() - t_main:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

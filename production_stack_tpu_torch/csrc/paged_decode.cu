@@ -67,6 +67,7 @@
 #include <stdint.h>
 
 #include <type_traits>
+#include <vector>
 
 namespace {
 
@@ -218,6 +219,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,        // [B, H, DH]
                     float* __restrict__ part_acc,   // [B*Hkv, max_chunks, G, DH]
                     float* __restrict__ part_ml,    // [B*Hkv, max_chunks, G, 2]
                     int* __restrict__ tickets,      // [B*Hkv], 0 between calls
+                    unsigned long long* __restrict__ launches,  // this variant's count
                     int H, int Hkv, long long num_slots, int layer, int mb,
                     int bs_shift, int chunk_tiles, int max_chunks, float scale) {
   using Lay = Layout<T, DH>;
@@ -244,6 +246,9 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,        // [B, H, DH]
   const int bs = 1 << bs_shift;
   const long long bh = (long long)b * Hkv + kvh;
   const long long row0 = (long long)b * H + (long long)kvh * G;  // first head
+  // One count per launch, taken on the device: a CUDA-graph replay of a
+  // captured call counts as the call did.
+  if (tid == 0 && chunk == 0 && kvh == 0 && b == 0) atomicAdd(launches, 1ull);
 
   // q fragments (A operand, bf16 unscaled), loaded first so that their
   // latency overlaps the kv_len and block-table reads, in the permuted
@@ -605,9 +610,10 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const void* k_scale, const void* v_scale,
                    const void* block_tables, const void* kv_lens, void* out,
                    void* m_out, void* l_out, void* part_acc, void* part_ml,
-                   void* tickets, int B, int H, int Hkv, long long num_slots,
-                   int layer, int mb, int bs_shift, int chunk_tiles,
-                   int max_chunks, float scale, cudaStream_t stream) {
+                   void* tickets, void* launches, int B, int H, int Hkv,
+                   long long num_slots, int layer, int mb, int bs_shift,
+                   int chunk_tiles, int max_chunks, float scale,
+                   cudaStream_t stream) {
   constexpr int kSmem = smem_bytes<T, DH, KG>();
   static bool attr_set = false;   // once per instance (idempotent)
   if (!attr_set) {
@@ -624,7 +630,8 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
       static_cast<const int*>(block_tables), static_cast<const int*>(kv_lens),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(m_out),
       static_cast<float*>(l_out), static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), static_cast<int*>(tickets), H, Hkv,
+      static_cast<float*>(part_ml), static_cast<int*>(tickets),
+      static_cast<unsigned long long*>(launches), H, Hkv,
       num_slots, layer, mb, bs_shift, chunk_tiles, max_chunks, scale);
   return cudaGetLastError();
 }
@@ -654,18 +661,19 @@ cudaError_t dispatch(const void* q, const void* k_pool, const void* v_pool,
                      const void* k_scale, const void* v_scale,
                      const void* block_tables, const void* kv_lens, void* out,
                      void* m_out, void* l_out, void* part_acc, void* part_ml,
-                     void* tickets, int B, int H, int Hkv, int Dh,
-                     long long num_slots, int layer, int mb, int bs_shift,
+                     void* tickets, void* launches, int B, int H, int Hkv,
+                     int Dh, long long num_slots, int layer, int mb, int bs_shift,
                      int chunk_tiles, int max_chunks, float scale, void* stream) {
-  if (!valid_args(B, H, Hkv, mb, bs_shift, chunk_tiles, max_chunks))
+  if (launches == nullptr ||
+      !valid_args(B, H, Hkv, mb, bs_shift, chunk_tiles, max_chunks))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = H / Hkv;
 #define PSTPU_LAUNCH(DH_, KG_)                                                      \
   return launch<T, DH_, KG_>(q, k_pool, v_pool, k_scale, v_scale, block_tables,    \
                              kv_lens, out, m_out, l_out, part_acc, part_ml,        \
-                             tickets, B, H, Hkv, num_slots, layer, mb, bs_shift,   \
-                             chunk_tiles, max_chunks, scale, st)
+                             tickets, launches, B, H, Hkv, num_slots, layer, mb,   \
+                             bs_shift, chunk_tiles, max_chunks, scale, st)
   if (Dh == 64) {
     if (G <= 8) PSTPU_LAUNCH(64, 8);
     PSTPU_LAUNCH(64, 16);
@@ -683,13 +691,13 @@ cudaError_t dispatch(const void* q, const void* k_pool, const void* v_pool,
 extern "C" int pstpu_paged_decode_bf16(
     const void* q, const void* k_pool, const void* v_pool,
     const void* block_tables, const void* kv_lens, void* out, void* m_out,
-    void* l_out, void* part_acc, void* part_ml, void* tickets, int B, int H,
-    int Hkv, int Dh, long long num_slots, int layer, int mb, int bs_shift,
-    int chunk_tiles, int max_chunks, float scale, void* stream) {
+    void* l_out, void* part_acc, void* part_ml, void* tickets, void* launches,
+    int B, int H, int Hkv, int Dh, long long num_slots, int layer, int mb,
+    int bs_shift, int chunk_tiles, int max_chunks, float scale, void* stream) {
   return static_cast<int>(dispatch<__nv_bfloat16>(
       q, k_pool, v_pool, nullptr, nullptr, block_tables, kv_lens, out, m_out,
-      l_out, part_acc, part_ml, tickets, B, H, Hkv, Dh, num_slots, layer, mb,
-      bs_shift, chunk_tiles, max_chunks, scale, stream));
+      l_out, part_acc, part_ml, tickets, launches, B, H, Hkv, Dh, num_slots,
+      layer, mb, bs_shift, chunk_tiles, max_chunks, scale, stream));
 }
 
 // int8 pools [L, Hkv, NS, Dh] with bf16 per-slot scales [L, Hkv, NS].
@@ -697,15 +705,15 @@ extern "C" int pstpu_paged_decode_int8(
     const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
     const void* v_scale, const void* block_tables, const void* kv_lens,
     void* out, void* m_out, void* l_out, void* part_acc, void* part_ml,
-    void* tickets, int B, int H, int Hkv, int Dh, long long num_slots,
-    int layer, int mb, int bs_shift, int chunk_tiles, int max_chunks,
-    float scale, void* stream) {
+    void* tickets, void* launches, int B, int H, int Hkv, int Dh,
+    long long num_slots, int layer, int mb, int bs_shift, int chunk_tiles,
+    int max_chunks, float scale, void* stream) {
   if (k_scale == nullptr || v_scale == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dispatch<int8_t>(
       q, k_pool, v_pool, k_scale, v_scale, block_tables, kv_lens, out, m_out,
-      l_out, part_acc, part_ml, tickets, B, H, Hkv, Dh, num_slots, layer, mb,
-      bs_shift, chunk_tiles, max_chunks, scale, stream));
+      l_out, part_acc, part_ml, tickets, launches, B, H, Hkv, Dh, num_slots,
+      layer, mb, bs_shift, chunk_tiles, max_chunks, scale, stream));
 }
 
 // Resident blocks per SM the launch gets for one instance (quant 0/1, Dh,
@@ -734,9 +742,8 @@ extern "C" int pstpu_graph_node_counts(void* graph, int* kernels, int* total) {
   size_t n = 0;
   cudaError_t err = cudaGraphGetNodes(g, nullptr, &n);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaGraphNode_t nodes[64];
-  if (n > 64) return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaGraphGetNodes(g, nodes, &n);
+  std::vector<cudaGraphNode_t> nodes(n);
+  err = cudaGraphGetNodes(g, nodes.data(), &n);
   if (err != cudaSuccess) return static_cast<int>(err);
   int k = 0;
   for (size_t i = 0; i < n; ++i) {

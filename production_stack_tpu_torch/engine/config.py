@@ -46,19 +46,36 @@ class EngineConfig:
     # gathers the live KV into a contiguous window. "paged": force the
     # flash-decode kernel path (raises when the model can't take it).
     attn_impl: str = "auto"
-    # Strict issue -> fetch -> apply loop in this slice. Pipelining on CUDA
-    # streams and events is ROADMAP Queue 1 item 6; True raises.
-    async_pipeline: bool = False
-    overlap_dispatch: bool = False
+    # Fused-decode loop: "scan" runs all K steps of a dispatch; "while" runs
+    # max(min(budget, K)) of them (the host knows every row's budget), so a
+    # drain tail skips steps no row needs. Tokens are the same either way.
+    decode_loop: str = "scan"
+    # Capture the decode train of every reachable (b, mb, K) family as CUDA
+    # graphs before serving (engine/decode_graphs.py); on the CPU it runs
+    # each family's dummy dispatch eagerly. The server turns it on.
+    enable_warmup: bool = False
+    # Pipelined engine loop: issue dispatch N+1 before fetching N's tokens
+    # (start tokens chained on the device, scheduler state advanced at
+    # issue). False restores strict issue -> fetch -> apply.
+    async_pipeline: bool = True
+    # Dispatches outstanding at once; 1 when async_pipeline is False, and
+    # clamped to 2 by the engine loop (a third outstanding decode could need
+    # start tokens from two unapplied dispatches).
+    pipeline_depth: int = 2
+    # Two-slot prefill/decode overlap: one scheduling round may issue a
+    # prefill while a decode is in flight, and the reverse.
+    overlap_dispatch: bool = True
     seed: int = 0
     served_model_name: Optional[str] = None
 
     def __post_init__(self):
-        if self.async_pipeline or self.overlap_dispatch:
+        if self.decode_loop not in ("scan", "while"):
             raise ValueError(
-                "async_pipeline/overlap_dispatch are not ported yet: the "
-                "port's engine loop is strict issue-fetch-apply"
+                f"Unknown decode_loop {self.decode_loop!r} (scan or while)"
             )
+        if self.pipeline_depth < 1:
+            raise ValueError(f"pipeline_depth must be >= 1, got "
+                             f"{self.pipeline_depth}")
         if self.dtype not in _ITEMSIZE:
             raise ValueError(f"Unknown dtype {self.dtype!r}")
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:

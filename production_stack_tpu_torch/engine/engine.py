@@ -3,18 +3,25 @@
 Counterpart of ``production_stack_tpu/engine/engine.py``. Owns the
 tokenizer, the ModelRunner (device state), the BlockPoolManager (paged KV
 bookkeeping + prefix cache), the Scheduler, and per-request output streams.
-Device work runs on one worker thread so the asyncio loop (HTTP serving)
-never blocks on the card.
+Device work (issue and fetch) runs on one worker thread so the asyncio
+loop (HTTP serving) never blocks on the card.
 
-The loop is strict issue -> fetch -> apply (the JAX package's
-``async_pipeline=False``): one dispatch at a time, its tokens applied before
-the next is scheduled. Aborts are deferred to the loop, between dispatches,
-so KV blocks are never freed under a running dispatch. Tracing, the flight
-recorder and Prometheus histograms are not ported yet (ROADMAP).
+The loop is the reference's two-slot pipeline (``async_pipeline``,
+``pipeline_depth`` clamped to 2, ``overlap_dispatch``): each round fills the
+free dispatch slots, then fetches the oldest dispatch and applies its
+tokens. Scheduler state advances at issue; a decode issued before its rows'
+previous tokens reach the host chains them on the device. With overlap, a
+round may hold a prefill and a decode at once. Aborts are applied by the
+loop between rounds; a block freed under an in-flight dispatch is reused
+only by a later dispatch, which runs after it on the one compute stream.
+``async_pipeline=False`` is the strict issue -> fetch -> apply loop.
+Tracing, the flight recorder and Prometheus histograms are not ported yet
+(ROADMAP).
 """
 
 import asyncio
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import AsyncIterator, Dict, List, Optional, Set
@@ -90,14 +97,26 @@ class ServingEngine:
         self.start_time = time.monotonic()
         self.prompt_tokens_total = 0
         self.generation_tokens_total = 0
+        # Dispatch-pipeline telemetry (the reference's names): dispatches
+        # per kind, fetches, fetches that ran with another dispatch still
+        # outstanding (overlap), and the host-observed time during which
+        # nothing was outstanding between two dispatches (bubbles).
         self.decode_dispatches_total = 0
         self.prefill_dispatches_total = 0
+        self.fetches_total = 0
+        self.overlapped_fetches_total = 0
+        self.dispatch_gap_seconds_total = 0.0
+        self.host_stall_seconds_total = 0.0
+        self._last_fetch_done: Optional[float] = None
 
     # --------------------------------------------------------------- lifecycle
     async def start(self) -> None:
         if self._running:
             return
         self._new_work = asyncio.Event()
+        if self.config.enable_warmup:
+            await asyncio.get_running_loop().run_in_executor(
+                self._executor, self.runner.warmup)
         self._running = True
         self._loop_task = asyncio.create_task(self._run_loop())
         logger.info(
@@ -170,41 +189,109 @@ class ServingEngine:
 
     # ------------------------------------------------------------ engine loop
     async def _run_loop(self) -> None:
+        """Two-slot pipelined dispatch loop (the reference's ``_run_loop``).
+
+        Each iteration FILLS the free dispatch slots (issuing only enqueues
+        device work) and then FETCHES the oldest dispatch, so the fetch's
+        wait overlaps the newer dispatch's execution. Tokens are applied in
+        issue order; rows finished or preempted since a dispatch's issue
+        discard its tokens (epoch check)."""
         loop = asyncio.get_running_loop()
-        while self._running:
-            self._apply_pending_aborts()
-            batch = self.scheduler.schedule()
-            if batch is None:
-                self._new_work.clear()
-                if not self.scheduler.has_work():
-                    try:
-                        await asyncio.wait_for(self._new_work.wait(), timeout=1.0)
-                    except asyncio.TimeoutError:
-                        pass
-                else:
-                    # Work exists but nothing schedulable: yield and retry.
-                    await asyncio.sleep(0.001)
-                continue
+        cfg = self.config
+        # Clamped to 2: a third outstanding decode could need start tokens
+        # from two unapplied dispatches (the single-source invariant).
+        depth = min(2, cfg.pipeline_depth) if cfg.async_pipeline else 1
+        overlap = cfg.overlap_dispatch and depth >= 2
+        in_flight: deque = deque()  # (batch, DispatchHandle), FIFO
+
+        def abort_batch(batch):
+            for seq in batch.seqs:
+                aborted = self.scheduler.abort(seq.request_id)
+                if aborted is not None:
+                    self._process_output(aborted)
+
+        async def apply_oldest():
+            batch, handle = in_flight.popleft()
+            self.fetches_total += 1
+            if in_flight:
+                # Another dispatch executes while this fetch waits.
+                self.overlapped_fetches_total += 1
             try:
-                tokens = await loop.run_in_executor(
-                    self._executor, self.runner.execute, batch
-                )
+                tokens = await loop.run_in_executor(self._executor,
+                                                    handle.fetch)
             except Exception:  # noqa: BLE001 — the loop must survive
-                logger.exception("Dispatch failed; aborting its batch")
-                for seq in batch.seqs:
-                    aborted = self.scheduler.abort(seq.request_id)
-                    if aborted is not None:
-                        self._process_output(aborted)
-                continue
-            if batch.kind == "decode":
-                self.decode_dispatches_total += 1
-            else:
-                self.prefill_dispatches_total += 1
-            produced, accepted = self.scheduler.update_after_step(batch, tokens)
+                logger.exception("Dispatch fetch failed; aborting its batch")
+                abort_batch(batch)
+                self._last_fetch_done = time.monotonic()
+                return
+            self._last_fetch_done = time.monotonic()
+            produced, accepted = self.scheduler.apply_results(batch, tokens)
             self.generation_tokens_total += accepted
             for seq in produced:
                 self._process_output(seq)
-            await asyncio.sleep(0)
+
+        def next_batch():
+            if not overlap:
+                return self.scheduler.schedule()
+            kinds = {b.kind for b, _ in in_flight}
+            # With a prefill in flight, decode gets the free slot first
+            # (its streams must not stall behind a chunk train).
+            return self.scheduler.schedule(
+                prefer_decode=("prefill" in kinds and "decode" not in kinds))
+
+        while self._running:
+            self._apply_pending_aborts()
+            issue_failed = False
+            while len(in_flight) < depth:
+                batch = next_batch()
+                if batch is None:
+                    break
+                # Penalty counts are built from APPLIED tokens: drain first.
+                if in_flight and any(
+                        s.sampling.presence_penalty
+                        or s.sampling.frequency_penalty for s in batch.seqs):
+                    while in_flight:
+                        await apply_oldest()
+                issue_mono = time.monotonic()
+                try:
+                    handle = await loop.run_in_executor(
+                        self._executor, self.runner.execute_async, batch)
+                except Exception:  # noqa: BLE001 — the loop must survive
+                    logger.exception("Dispatch issue failed; aborting its batch")
+                    abort_batch(batch)
+                    issue_failed = True
+                    break
+                if not in_flight and self._last_fetch_done is not None:
+                    self.dispatch_gap_seconds_total += (
+                        time.monotonic() - self._last_fetch_done)
+                    self.host_stall_seconds_total += max(
+                        0.0, issue_mono - self._last_fetch_done)
+                if batch.kind == "decode":
+                    self.decode_dispatches_total += 1
+                else:
+                    self.prefill_dispatches_total += 1
+                self.scheduler.advance_at_issue(batch)
+                in_flight.append((batch, handle))
+            if in_flight:
+                # Applying may finish rows and free blocks, unblocking
+                # admission: the next iteration schedules right after.
+                await apply_oldest()
+                await asyncio.sleep(0)
+                continue
+            if issue_failed:
+                continue
+            self._new_work.clear()
+            if not self.scheduler.has_work():
+                try:
+                    await asyncio.wait_for(self._new_work.wait(), timeout=1.0)
+                except asyncio.TimeoutError:
+                    pass
+            else:
+                # Work exists but nothing schedulable: yield and retry.
+                await asyncio.sleep(0.001)
+        # Stopping: apply what is in flight, so no accepted token is lost.
+        while in_flight:
+            await apply_oldest()
 
     def _apply_pending_aborts(self) -> None:
         while self._pending_aborts:
@@ -298,8 +385,18 @@ class ServingEngine:
             "generation_tokens_total": self.generation_tokens_total,
             "decode_dispatches_total": self.decode_dispatches_total,
             "prefill_dispatches_total": self.prefill_dispatches_total,
+            "fetches_total": self.fetches_total,
+            "overlapped_fetches_total": self.overlapped_fetches_total,
+            "dispatch_overlap_ratio": (
+                self.overlapped_fetches_total / self.fetches_total
+                if self.fetches_total else 0.0),
+            "dispatch_gap_seconds_total": self.dispatch_gap_seconds_total,
+            "host_stall_seconds_total": self.host_stall_seconds_total,
             "decode_steps_total": r.decode_steps_total,
             "decode_tokens_total": r.decode_tokens_total,
+            "chained_dispatches_total": r.chained_dispatches_total,
             "decode_seconds_total": r.decode_seconds_total,
+            "decode_device_seconds_total": r.decode_device_seconds_total,
             "prefill_seconds_total": r.prefill_seconds_total,
+            **r.decode_train.stats(),
         }

@@ -1,4 +1,4 @@
-"""ModelRunner: owns the device state and runs the serving steps.
+"""ModelRunner: owns the device state and issues the serving dispatches.
 
 Counterpart of ``production_stack_tpu/engine/runner.py`` (main path only):
   * The KV pool is two tensors ``[L, Hkv, num_slots, Dh]`` (the JAX layout,
@@ -7,46 +7,63 @@ Counterpart of ``production_stack_tpu/engine/runner.py`` (main path only):
     ``kv_cache_dtype="int8"`` stores int8 payload pools plus bf16 scale
     pools ``[L, Hkv, num_slots]``; fresh K/V is quantized once, before it is
     written, and every reader dequantizes (ops/quantization.py).
-  * A prefill dispatch computes slot mappings, gathers the history window
-    once, runs the forward, samples from the last token's logits and
-    scatters the chunk's KV once.
-  * A decode dispatch runs K fused steps. Tokens produced mid-dispatch live
-    in a small ring ``[L, Hkv, b, K, Dh]`` that attention reads beside the
-    pool (``kv_lens = pos0``: the pool holds only tokens of earlier
-    dispatches); the whole dispatch's KV is scattered once at the end.
-  * All small host inputs of a dispatch ride ONE int32 buffer (floats
-    bitcast), one host-to-device copy per dispatch.
-
-The engine loop is strict issue -> fetch -> apply in this slice, so every
-decode row's start token is already on the host (no device token chaining;
-pipelining is ROADMAP Queue 1 item 6). Row counts are not padded to
-power-of-two buckets: PyTorch runs eagerly, and the buckets existed for
-XLA's compile families (CUDA graphs per bucket are ROADMAP work).
+  * A dispatch is issued (``execute_async``: staged, enqueued, no wait)
+    and fetched later through its ``DispatchHandle``, so the pipelined
+    engine loop can issue the next dispatch first. Every dispatch runs on
+    the one current stream; its small host inputs ride ONE int32 buffer
+    (the reference's 14-row layout, floats bitcast) copied from a pinned
+    staging slot, and its tokens come back into the slot's pinned output
+    behind a CUDA event, which the fetch waits on.
+  * A prefill dispatch (eager) computes slot mappings, gathers the history
+    window once, runs the forward, samples from the last token's logits and
+    scatters the chunk's KV once. Its chunk length and block-table width
+    pad to the reference's buckets; its rows are not padded (no graph
+    replays prefill yet, and a padding row costs a full forward).
+  * A decode dispatch runs the fused K-step train of
+    ``engine/decode_graphs.py`` (head / step / tail), replayed from CUDA
+    graphs captured by ``warmup`` for its (b, mb, K) family, or eagerly.
+    Rows pad to the power-of-two ``b`` bucket; padding rows have budget 0
+    and table 0 and write only the null block.
+  * Token chaining: a dispatch's last-token vector stays on the device
+    (``_chains``); a decode whose rows' previous tokens are not applied on
+    the host yet reads them there (``chain_src``), all from ONE source
+    dispatch (the scheduler keeps fresh prefill rows out of decode until
+    their prefill applies).
+  * Seeds are derived on the device from ``seed_base`` and ``gen0``.
 """
 
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.decode_graphs import (
+    NUM_SCALARS,
+    DecodeTrain,
+    FamilyKey,
+)
 from production_stack_tpu_torch.engine.sampling import (
     apply_penalties,
     gumbel_noise,
     sample_tokens,
     seed_base,
-    token_seed,
+    token_seeds,
 )
-from production_stack_tpu_torch.engine.scheduler import ScheduledBatch
+from production_stack_tpu_torch.engine.scheduler import (
+    INTERACTIVE_DECODE_STEPS,
+    ScheduledBatch,
+    decode_step_cap,
+)
 from production_stack_tpu_torch.models import llama
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.models.weights import dtype_of
+from production_stack_tpu_torch.ops import paged_attention as pa
 from production_stack_tpu_torch.ops.attention import gather_window
 from production_stack_tpu_torch.ops.quantization import (
     SCALE_DTYPE,
-    dequantize_kv,
     quantize_kv,
 )
 from production_stack_tpu_torch.utils import (
@@ -59,14 +76,30 @@ from production_stack_tpu_torch.utils import (
 
 logger = init_logger(__name__)
 
-POS_SENTINEL = 2**30  # ring_pos value for not-yet-written entries
-# Rows of per-row int32 scalars at the head of a decode dispatch's packed
-# host buffer (floats bitcast): tokens0, pos0, budget, temperature, top_k,
-# top_p, presence, frequency.
-_DECODE_SCALARS = 8
-# Prefill: chunk_start, chunk_len, temperature, top_k, top_p, presence,
-# frequency.
-_PREFILL_SCALARS = 7
+# Staging slots: a slot is reused four dispatches later; with at most two
+# dispatches outstanding, its copies have run and its fetch has read it.
+_NUM_SLOTS = 4
+
+
+class DispatchHandle:
+    """An issued dispatch: ``fetch()`` waits for its event and returns
+    each row's tokens from its pinned output (called once)."""
+
+    __slots__ = ("fetch",)
+
+    def __init__(self, fetch):
+        self.fetch = fetch
+
+
+class _Slot:
+    """Host memory of one dispatch in flight: the packed input it stages
+    and the tokens it fetches (pinned on the card), and the events around
+    its device work (``end`` follows its last copy)."""
+
+    __slots__ = ("inp", "out", "start", "end")
+
+    def __init__(self):
+        self.inp = self.out = self.start = self.end = None
 
 
 class ModelRunner:
@@ -105,16 +138,32 @@ class ModelRunner:
                 for k, v in params.items()
             }
         self.params = params
-        self._head_f32 = llama.lm_head_f32(params, model_config)
+        self.head_f32 = llama.lm_head_f32(params, model_config)
         self.num_kv_blocks = num_kv_blocks or config.num_kv_blocks or \
             self._derive_num_blocks()
         self._alloc_kv_pools()
-        # Host-clock dispatch accounting (each dispatch ends in a fetch that
-        # synchronizes the device).
+        self.b_max = _bucket(config.max_num_seqs, 1, max(1, config.max_num_seqs))
+        # Device-resident last-token vectors of recent token-producing
+        # dispatches, newest first: {"last": [b_max] int32, "row": {rid:
+        # row}, "epoch": {rid: preemptions}}. With at most pipeline_depth
+        # dispatches outstanding, the newest max(2, depth) entries cover
+        # every chainable row.
+        self._chains: List[Dict] = []
+        self._max_chains = max(2, config.pipeline_depth)
+        self.decode_train = DecodeTrain(self)
+        self._slots = [_Slot() for _ in range(_NUM_SLOTS)]
+        self._slot_idx = 0
+        # Host clock from issue to fetch per dispatch (pipelined dispatches
+        # overlap, so these sums can exceed the wall time), and decode
+        # device time between CUDA events around each dispatch (0 on the
+        # CPU: not measured there).
         self.prefill_seconds_total = 0.0
         self.decode_seconds_total = 0.0
+        self.decode_device_seconds_total = 0.0
         self.decode_steps_total = 0       # fused steps executed
         self.decode_tokens_total = 0      # tokens within row budgets
+        # Decode dispatches that read start tokens on the device.
+        self.chained_dispatches_total = 0
 
     # ------------------------------------------------------------------ sizing
     def _alloc_kv_pools(self) -> None:
@@ -220,241 +269,320 @@ class ModelRunner:
                            max(1, cfg.max_blocks_per_seq))
         return window_mb_bucket(live_blocks, cfg.max_blocks_per_seq)
 
-    # --------------------------------------------------------------- helpers
-    def _upload(self, packed: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(packed)
-        if self.device.type == "cuda":
-            t = t.pin_memory().to(self.device, non_blocking=True)
-        return t
+    # ------------------------------------------------------------ families
+    def _row_buckets(self) -> List[int]:
+        """The power-of-two row buckets up to b_max, and b_max itself (a
+        max_num_seqs that is not a power of two clamps the top bucket to
+        it, which the reference's enumeration misses)."""
+        out, nb = [], 1
+        while nb < self.b_max:
+            out.append(nb)
+            nb *= 2
+        return out + [self.b_max]
 
-    def _sample(self, logits, temps, top_k, top_p, seeds: List[int],
-                host_temps: List[float], counts=None, presence=None,
-                frequency=None) -> torch.Tensor:
-        eff = logits
-        if counts is not None:
-            eff = apply_penalties(logits, counts, presence, frequency)
-        gumbel = gumbel_noise(seeds, logits.shape[1], self.device,
-                              rows=[t > 0.0 for t in host_temps])
-        return sample_tokens(eff, temps, top_k, top_p, gumbel)
-
-    def _counts(self, seqs) -> Optional[torch.Tensor]:
-        if not any(s.sampling.presence_penalty or s.sampling.frequency_penalty
-                   for s in seqs):
-            return None
-        vocab = self.model_config.vocab_size
-        counts = np.zeros((len(seqs), vocab), np.int32)
-        for i, s in enumerate(seqs):
-            if s.output_token_ids:
-                np.add.at(counts[i],
-                          np.asarray(s.output_token_ids, np.int64) % vocab, 1)
-        return torch.from_numpy(counts).to(self.device)
-
-    # ------------------------------------------------------------------ decode
-    def _execute_decode(self, batch: ScheduledBatch) -> List[List[int]]:
-        """One fused K-step decode dispatch (the JAX package's
-        ``_issue_decode`` + ``_decode_impl`` + fetch); returns each row's
-        tokens (its step budget's worth)."""
-        t_start = time.monotonic()
-        cfg, mc = self.config, self.model_config
-        bs = cfg.block_size
-        seqs = batch.seqs
-        num_steps = batch.num_steps
-        b = len(seqs)
-        mb = self._decode_mb(max(len(s.block_ids) for s in seqs))
-
-        packed = np.zeros((_DECODE_SCALARS * b + b * mb,), np.int32)
-        sc = packed[:_DECODE_SCALARS * b].reshape(_DECODE_SCALARS, b)
-        bt = packed[_DECODE_SCALARS * b:].reshape(b, mb)
-        f32 = sc.view(np.float32)
-        bases, gen0s, host_temps = [], [], []
-        for i, s in enumerate(seqs):
-            pos = s.num_computed_tokens
-            if pos >= len(s.all_token_ids):
-                raise RuntimeError(
-                    f"row {s.request_id}: token at pos {pos} is not on the "
-                    "host (the strict engine loop applies every dispatch "
-                    "before the next is issued)"
-                )
-            sc[0, i] = s.all_token_ids[pos]
-            sc[1, i] = pos
-            sc[2, i] = batch.decode_steps[i]
-            sp = s.sampling
-            f32[3, i] = sp.temperature
-            sc[4, i] = sp.top_k
-            f32[5, i] = sp.top_p
-            f32[6, i] = sp.presence_penalty
-            f32[7, i] = sp.frequency_penalty
-            bt[i, :len(s.block_ids)] = s.block_ids
-            bases.append(seed_base(s.request_id, sp))
-            gen0s.append(len(s.output_token_ids) + s.inflight_steps)
-            host_temps.append(sp.temperature)
-        dev = self._upload(packed)
-        scalars = dev[:_DECODE_SCALARS * b].view(_DECODE_SCALARS, b)
-        tokens0, pos0, budget = scalars[0], scalars[1], scalars[2]
-        temps = scalars[3].view(torch.float32)
-        top_k = scalars[4]
-        top_p = scalars[5].view(torch.float32)
-        presence = scalars[6].view(torch.float32)
-        frequency = scalars[7].view(torch.float32)
-        block_tables = dev[_DECODE_SCALARS * b:].view(b, mb)
-        counts = self._counts(seqs)
-
-        # Per-step write slots [K, b] (0 = the null block for rows whose
-        # budget ran out).
-        k_iota = torch.arange(num_steps, dtype=torch.int32, device=self.device)
-        p = pos0[None, :] + k_iota[:, None]                          # [K, b]
-        blk_idx = torch.clamp(p // bs, 0, mb - 1)
-        blk = torch.gather(block_tables, 1, blk_idx.t().long()).t()  # [K, b]
-        valid = k_iota[:, None] < budget[None, :]
-        slot_steps = torch.where(valid, blk * bs + p % bs,
-                                 torch.zeros_like(blk))
-
-        quant = self.kv_quantized
+    def reachable_decode_families(self) -> List[Tuple[int, int, int]]:
+        """Every (b, mb, K) decode family the scheduler can dispatch under
+        this config: the reference's ``reachable_decode_families`` without
+        its cached-window flag (the port keeps no persistent window).
+        ``warmup`` captures each as CUDA graphs."""
+        cfg = self.config
+        full_mb = _bucket(cfg.max_blocks_per_seq, 1,
+                          max(1, cfg.max_blocks_per_seq))
         if self.attn_impl == "paged":
-            win_k = win_v = win_len = None
-            paged = (self.kv_k, self.kv_v, self.kv_k_scale, self.kv_v_scale,
-                     block_tables, pos0, bs)
+            mbs = [full_mb]
         else:
-            win_k, win_v = gather_window(
-                self.kv_k, self.kv_v, block_tables, bs, self.kv_k_scale,
-                self.kv_v_scale, out_dtype=self.dtype)
-            win_len = pos0
-            paged = None
+            mbs = sorted({
+                window_mb_bucket(m, cfg.max_blocks_per_seq)
+                for m in (1, full_mb // 4, full_mb // 2, full_mb)
+            })
+        fams = set()
+        for nb in self._row_buckets():
+            # Counts 1..nb share bucket nb, and tier bounds can land inside
+            # a bucket: both endpoints' caps, and the interactive cap.
+            ks = {
+                decode_step_cap(nb, cfg.num_decode_steps),
+                decode_step_cap(nb // 2 + 1, cfg.num_decode_steps),
+                min(INTERACTIVE_DECODE_STEPS,
+                    decode_step_cap(nb, cfg.num_decode_steps)),
+            }
+            for mb in mbs:
+                if self.attn_impl != "paged" and \
+                        nb * mb > self.decode_window_blocks:
+                    continue  # the scheduler's window budget never emits it
+                for dk in ks:
+                    fams.add((nb, mb, dk))
+        return sorted(fams)
 
-        nl, hkv, dh = mc.num_layers, mc.num_kv_heads, mc.head_dim_
-        ring_k = torch.zeros((nl, hkv, b, num_steps, dh), dtype=self.dtype,
-                             device=self.device)
-        ring_v = torch.zeros_like(ring_k)
-        if quant:
-            # Side rings of the int8 payload + scales each step scatters at
-            # the end of the dispatch: each token is quantized ONCE, so the
-            # pool and the attention ring hold the same (q, scale) pair.
-            ring_qk = torch.zeros(ring_k.shape, dtype=torch.int8,
-                                  device=self.device)
-            ring_qv = torch.zeros_like(ring_qk)
-            ring_sk = torch.zeros(ring_k.shape[:-1], dtype=SCALE_DTYPE,
-                                  device=self.device)
-            ring_sv = torch.zeros_like(ring_sk)
-        ring_pos = torch.full((b, num_steps), POS_SENTINEL, dtype=torch.int32,
-                              device=self.device)
-        ones = torch.ones((b,), dtype=torch.int32, device=self.device)
-        max_len = cfg.max_model_len
-        rows = torch.arange(b, device=self.device)
+    def reachable_prefill_families(self) -> List[Tuple[int, int, int, bool]]:
+        """Every (b, t, mb, has_window) prefill family reachable under this
+        config (the reference's set; prefill runs eagerly in the port)."""
+        cfg = self.config
+        full_mb = _bucket(cfg.max_blocks_per_seq, 1,
+                          max(1, cfg.max_blocks_per_seq))
+        t_max = _bucket(cfg.max_num_batched_tokens, 16,
+                        max(16, cfg.max_num_batched_tokens))
+        pb_max = _bucket(max(1, cfg.max_prefill_seqs), 1,
+                         max(1, cfg.max_num_seqs))
+        win_mbs = sorted({
+            window_mb_bucket(m, cfg.max_blocks_per_seq)
+            for m in (1, full_mb // 4, full_mb // 2, full_mb)
+        })
+        fams = set()
+        for pb in {1, pb_max}:
+            t = prefill_t_floor(cfg.max_num_batched_tokens)
+            while t <= t_max:
+                # Multi-row dispatches split the token budget fairly, so
+                # their chunk bucket never exceeds bucket(budget // 2).
+                if pb == 1 or t <= _bucket(
+                    max(16, cfg.max_num_batched_tokens // 2), 16, t_max
+                ):
+                    fams.add((pb, t, full_mb, False))
+                    for mb in win_mbs:
+                        if pb * mb <= self.prefill_window_blocks:
+                            fams.add((pb, t, mb, True))
+                t *= 2
+        return sorted(fams)
 
-        # Every step of the dispatch runs (the JAX package's
-        # decode_loop="scan"); steps past a row's budget are discarded.
-        toks = tokens0
-        toks_all = []
-        for j in range(num_steps):
-            positions = torch.clamp(pos0 + j, max=max_len - 1)[:, None]
-            hidden, k_new, v_new = llama.forward(
-                self.params, mc, toks[:, None], positions, ones,
-                win_k, win_v, win_len, ring_k, ring_v, ring_pos, paged=paged,
-            )
-            logits = llama.compute_logits(self.params, mc, hidden[:, 0],
-                                          self._head_f32)
-            seeds = [token_seed(bases[i], gen0s[i] + j) for i in range(b)]
-            nxt = self._sample(logits, temps, top_k, top_p, seeds, host_temps,
-                               counts, presence, frequency)
-            if counts is not None:
-                counts[rows, nxt] += 1
-            if quant:
-                # Later steps attend to what later dispatches reconstruct
-                # from the pool; this step's own token attended to itself
-                # unquantized inside the forward.
-                qk, sk = quantize_kv(k_new)
-                qv, sv = quantize_kv(v_new)
-                k_new = dequantize_kv(qk, sk, self.dtype)
-                v_new = dequantize_kv(qv, sv, self.dtype)
-                ring_qk[:, :, :, j] = qk[:, :, :, 0]
-                ring_qv[:, :, :, j] = qv[:, :, :, 0]
-                ring_sk[:, :, :, j] = sk[:, :, :, 0]
-                ring_sv[:, :, :, j] = sv[:, :, :, 0]
-            ring_k[:, :, :, j] = k_new[:, :, :, 0]
-            ring_v[:, :, :, j] = v_new[:, :, :, 0]
-            ring_pos[:, j] = positions[:, 0]
-            # The carried token freezes at each row's step budget.
-            toks = torch.where(j < budget, nxt.to(torch.int32), toks)
-            toks_all.append(nxt)
-
-        # ONE scatter writes the whole dispatch's KV to the pool, in place
-        # (int8: the payload and scales the steps recorded).
-        flat_slots = slot_steps.reshape(-1).long()
-
-        def steps_major(ring):
-            return ring.transpose(2, 3).reshape(nl, hkv, num_steps * b,
-                                                *ring.shape[4:])
-
-        if quant:
-            self.kv_k[:, :, flat_slots] = steps_major(ring_qk)
-            self.kv_v[:, :, flat_slots] = steps_major(ring_qv)
-            self.kv_k_scale[:, :, flat_slots] = steps_major(ring_sk)
-            self.kv_v_scale[:, :, flat_slots] = steps_major(ring_sv)
-            self.kv_quant_tokens_written += sum(batch.decode_steps)
-        else:
-            self.kv_k[:, :, flat_slots] = steps_major(ring_k)
-            self.kv_v[:, :, flat_slots] = steps_major(ring_v)
-
-        out = torch.stack(toks_all).cpu().numpy()                    # [K, b]
-        tokens = [
-            [int(out[j, i]) for j in range(batch.decode_steps[i])]
-            for i in range(b)
-        ]
-        self.decode_steps_total += num_steps
-        self.decode_tokens_total += sum(batch.decode_steps)
-        self.decode_seconds_total += time.monotonic() - t_start
-        return tokens
-
-    # ----------------------------------------------------------------- prefill
-    def _execute_prefill(self, batch: ScheduledBatch) -> List[List[int]]:
-        """One (multi-sequence) prefill chunk dispatch (``_issue_prefill`` +
-        ``_prefill_impl`` + fetch); returns the sampled token for rows whose
-        prompt completes in this chunk."""
-        t_start = time.monotonic()
-        cfg, mc = self.config, self.model_config
-        bs = cfg.block_size
-        seqs = batch.seqs
-        b = len(seqs)
+    def prefill_shape(self, batch: ScheduledBatch) -> Tuple[int, int, bool]:
+        """(t, mb, has_window) of a prefill dispatch: its chunk-length and
+        block-table buckets, as the reference's. With the reference's row
+        family (1, or the ``max_prefill_seqs`` bucket) they make its
+        (b, t, mb, has_window) family in ``reachable_prefill_families``."""
+        cfg = self.config
         t = _bucket(max(batch.chunk_lens),
                     prefill_t_floor(cfg.max_num_batched_tokens),
                     max(16, cfg.max_num_batched_tokens))
         has_window = any(st > 0 for st in batch.chunk_starts)
-        mb = self._prefill_mb(max(len(s.block_ids) for s in seqs), has_window)
+        mb = self._prefill_mb(max(len(s.block_ids) for s in batch.seqs),
+                              has_window)
+        return t, mb, has_window
+
+    def decode_graph_keys(self) -> List[FamilyKey]:
+        """The variants ``warmup`` captures, as the reference warms them:
+        the default sampling variant of every decode family, and the
+        penalty variant at b = 1."""
+        fams = self.reachable_decode_families()
+        return ([(b, mb, k, False) for b, mb, k in fams]
+                + [(b, mb, k, True) for b, mb, k in fams if b == 1])
+
+    def warmup(self) -> None:
+        """Before serving: on the card, capture head, step and tail of
+        every decode graph family (``DecodeTrain.capture``; the kernel
+        library is built first); on the CPU, run each family's all-zero
+        dummy dispatch eagerly. Dummy dispatches have budget 0 and table 0
+        in every row, so they write only the null block: the pool's other
+        blocks survive warmup. Prefill stays eager and is not warmed."""
+        keys = self.decode_graph_keys()
+        t0 = time.monotonic()
+        if self.device.type == "cuda":
+            if self.attn_impl == "paged":
+                pa.build_kernels()
+            self.decode_train.capture(keys)
+        else:
+            self.decode_train.reserve(keys)
+            for key in keys:
+                self.decode_train.dummy_dispatch(key)
+        logger.info("warmup: %d decode families in %.2f s (%s)", len(keys),
+                    time.monotonic() - t0,
+                    "CUDA graphs" if self.device.type == "cuda" else "eager")
+
+    # --------------------------------------------------------------- helpers
+    def _slot(self, n_in: int, n_out: int) -> _Slot:
+        """The next staging slot, with room for ``n_in`` packed int32s and
+        ``n_out`` fetched int32s; waits (normally not at all) until its
+        previous dispatch's copies have run."""
+        slot = self._slots[self._slot_idx % _NUM_SLOTS]
+        self._slot_idx += 1
+        cuda = self.device.type == "cuda"
+        if slot.end is not None:
+            slot.end.synchronize()
+        if slot.inp is None or slot.inp.numel() < n_in:
+            slot.inp = torch.empty((max(n_in, 1024),), dtype=torch.int32,
+                                   pin_memory=cuda)
+        if slot.out is None or slot.out.numel() < n_out:
+            slot.out = torch.empty((max(n_out, 1024),), dtype=torch.int32,
+                                   pin_memory=cuda)
+        if cuda and slot.start is None:
+            slot.start = torch.cuda.Event(enable_timing=True)
+            slot.end = torch.cuda.Event(enable_timing=True)
+        if cuda:
+            slot.start.record()
+        return slot
+
+    def _counts(self, seqs, b: int) -> Optional[np.ndarray]:
+        """[b, V] output-token occurrence counts when a row has a penalty
+        (built from APPLIED tokens: the engine drains the pipeline before
+        such a batch), else None."""
+        if not any(s.sampling.presence_penalty or s.sampling.frequency_penalty
+                   for s in seqs):
+            return None
+        vocab = self.model_config.vocab_size
+        counts = np.zeros((b, vocab), np.int32)
+        for i, s in enumerate(seqs):
+            if s.output_token_ids:
+                np.add.at(counts[i],
+                          np.asarray(s.output_token_ids, np.int64) % vocab, 1)
+        return counts
+
+    def _push_chain(self, last: torch.Tensor, seqs, rows) -> None:
+        """Record a token-producing dispatch's device-resident last-token
+        vector (newest first, bounded): later decodes chain start tokens
+        from it until its results reach the host."""
+        self._chains.insert(0, {
+            "last": last,
+            "row": {seqs[i].request_id: i for i in rows},
+            "epoch": {seqs[i].request_id: seqs[i].num_preemptions
+                      for i in rows},
+        })
+        del self._chains[self._max_chains:]
+
+    # ------------------------------------------------------------------ decode
+    def _issue_decode(self, batch: ScheduledBatch) -> DispatchHandle:
+        """Issue one fused K-step decode dispatch (the reference's
+        ``_issue_decode``); its handle's fetch returns each row's tokens
+        (its step budget's worth)."""
+        t_issue = time.monotonic()
+        cfg = self.config
+        seqs = batch.seqs
+        k = batch.num_steps
+        n = len(seqs)
+        b = _bucket(n, 1, max(1, cfg.max_num_seqs))
+        mb = self._decode_mb(max(len(s.block_ids) for s in seqs))
+        n_packed = NUM_SCALARS * b + b * mb
+        slot = self._slot(n_packed, k * b)
+        packed = slot.inp[:n_packed].numpy()
+        packed[:] = 0
+        sc = packed[:NUM_SCALARS * b].reshape(NUM_SCALARS, b)
+        bt = packed[NUM_SCALARS * b:].reshape(b, mb)
+        f32 = sc.view(np.float32)
+        u32 = sc.view(np.uint32)
+        sc[11, :] = -1
+        chain_entry = None  # the ONE device vector this dispatch chains from
+        for i, s in enumerate(seqs):
+            pos = s.num_computed_tokens
+            if pos < len(s.all_token_ids):
+                sc[0, i] = s.all_token_ids[pos]
+            else:
+                # The row's last token is still in an unapplied dispatch's
+                # device vector: read it there.
+                src, src_entry = -1, None
+                for entry in self._chains:  # newest first
+                    r = entry["row"].get(s.request_id, -1)
+                    if r >= 0 and entry["epoch"][s.request_id] == \
+                            s.num_preemptions:
+                        src, src_entry = r, entry
+                        break
+                if src < 0:
+                    raise RuntimeError(
+                        f"row {s.request_id}: token at pos {pos} neither "
+                        "applied on host nor chainable from a recent "
+                        "dispatch (pipeline invariant breach)"
+                    )
+                if chain_entry is None:
+                    chain_entry = src_entry
+                elif chain_entry is not src_entry:
+                    raise RuntimeError(
+                        f"row {s.request_id}: decode batch chains start "
+                        "tokens from two different in-flight dispatches "
+                        "(overlap single-source invariant breach)"
+                    )
+                sc[11, i] = src
+            sc[1, i] = pos
+            sc[2, i] = batch.decode_steps[i]
+            u32[3, i] = seed_base(s.request_id, s.sampling)
+            u32[4, i] = len(s.output_token_ids) + s.inflight_steps
+            sp = s.sampling
+            f32[5, i] = sp.temperature
+            sc[6, i] = sp.top_k
+            f32[7, i] = sp.top_p
+            f32[9, i] = sp.presence_penalty
+            f32[10, i] = sp.frequency_penalty
+            bt[i, :len(s.block_ids)] = s.block_ids
+        counts = self._counts(seqs, b)
+        key = (b, mb, k, counts is not None)
+        train = self.decode_train
+        bf = train.buffers(*key)
+        bf.packed.copy_(slot.inp[:n_packed], non_blocking=True)
+        if chain_entry is not None:
+            bf.prev_last.copy_(chain_entry["last"])
+            self.chained_dispatches_total += 1
+        if counts is not None:
+            bf.counts.copy_(torch.from_numpy(counts))
+        steps = list(batch.decode_steps)
+        n_steps = k if cfg.decode_loop == "scan" else max(steps)
+        train.run(key, bf, n_steps)
+        self._push_chain(bf.last.clone(), seqs, range(n))
+        out_buf, start, end = slot.out, slot.start, slot.end
+        out_buf[:k * b].copy_(bf.toks_all.view(-1), non_blocking=True)
+        if end is not None:
+            end.record()
+        if self.kv_quantized:
+            self.kv_quant_tokens_written += sum(steps)
+        self.decode_steps_total += n_steps
+        self.decode_tokens_total += sum(steps)
+
+        def fetch():
+            if end is not None:
+                end.synchronize()
+                self.decode_device_seconds_total += \
+                    start.elapsed_time(end) / 1e3
+            out = out_buf[:k * b].numpy().reshape(k, b)
+            tokens = [[int(out[j, i]) for j in range(steps[i])]
+                      for i in range(n)]
+            self.decode_seconds_total += time.monotonic() - t_issue
+            return tokens
+
+        return DispatchHandle(fetch)
+
+    # ----------------------------------------------------------------- prefill
+    def _issue_prefill(self, batch: ScheduledBatch) -> DispatchHandle:
+        """Issue one (multi-sequence) prefill chunk dispatch (the
+        reference's ``_issue_prefill`` + ``_prefill_impl``); its fetch
+        returns the sampled token of rows whose prompt completes in this
+        chunk. Packed rows: 0 chunk_start, 1 chunk_len, 2 seed_base,
+        3 gen0, 4 temperature, 5 top_k, 6 top_p, 9 presence, 10 frequency."""
+        t_issue = time.monotonic()
+        cfg, mc = self.config, self.model_config
+        bs = cfg.block_size
+        seqs = batch.seqs
+        b = len(seqs)
+        t, mb, has_window = self.prefill_shape(batch)
         finals = [
             batch.chunk_starts[i] + batch.chunk_lens[i] >= seqs[i].num_tokens
             for i in range(b)
         ]
 
-        n_sc = _PREFILL_SCALARS * b
-        packed = np.zeros((n_sc + b * mb + b * t,), np.int32)
-        sc = packed[:n_sc].reshape(_PREFILL_SCALARS, b)
+        n_sc = NUM_SCALARS * b
+        n_packed = n_sc + b * mb + b * t
+        slot = self._slot(n_packed, b)
+        packed = slot.inp[:n_packed].numpy()
+        packed[:] = 0
+        sc = packed[:n_sc].reshape(NUM_SCALARS, b)
         bt = packed[n_sc:n_sc + b * mb].reshape(b, mb)
         toks = packed[n_sc + b * mb:].reshape(b, t)
         f32 = sc.view(np.float32)
-        seeds, host_temps = [], []
+        u32 = sc.view(np.uint32)
         for i, s in enumerate(seqs):
             start, ln = batch.chunk_starts[i], batch.chunk_lens[i]
             sc[0, i] = start
             sc[1, i] = ln
+            u32[2, i] = seed_base(s.request_id, s.sampling)
+            u32[3, i] = len(s.output_token_ids)
             sp = s.sampling
-            f32[2, i] = sp.temperature
-            sc[3, i] = sp.top_k
-            f32[4, i] = sp.top_p
-            f32[5, i] = sp.presence_penalty
-            f32[6, i] = sp.frequency_penalty
+            f32[4, i] = sp.temperature
+            sc[5, i] = sp.top_k
+            f32[6, i] = sp.top_p
+            f32[9, i] = sp.presence_penalty
+            f32[10, i] = sp.frequency_penalty
             bt[i, :len(s.block_ids)] = s.block_ids
             toks[i, :ln] = s.all_token_ids[start:start + ln]
-            seeds.append(token_seed(seed_base(s.request_id, sp),
-                                    len(s.output_token_ids)))
-            host_temps.append(sp.temperature)
-        dev = self._upload(packed)
-        scalars = dev[:n_sc].view(_PREFILL_SCALARS, b)
+        dev = torch.empty((n_packed,), dtype=torch.int32, device=self.device)
+        dev.copy_(slot.inp[:n_packed], non_blocking=True)
+        scalars = dev[:n_sc].view(NUM_SCALARS, b)
         chunk_start, chunk_lens = scalars[0], scalars[1]
-        temps = scalars[2].view(torch.float32)
-        top_k = scalars[3]
-        top_p = scalars[4].view(torch.float32)
-        presence = scalars[5].view(torch.float32)
-        frequency = scalars[6].view(torch.float32)
+        temps = scalars[4].view(torch.float32)
+        top_k = scalars[5]
+        top_p = scalars[6].view(torch.float32)
         block_tables = dev[n_sc:n_sc + b * mb].view(b, mb)
         token_ids = dev[n_sc + b * mb:].view(b, t)
 
@@ -482,14 +610,22 @@ class ModelRunner:
         del win_k, win_v
         logit_idx = torch.clamp(chunk_lens - 1, min=0).long()
         last_hidden = hidden[torch.arange(b, device=self.device), logit_idx]
-        next_tokens = None
         if any(finals):
             logits = llama.compute_logits(self.params, mc, last_hidden,
-                                          self._head_f32)
-            next_tokens = self._sample(
-                logits, temps, top_k, top_p, seeds, host_temps,
-                self._counts(seqs), presence, frequency,
-            )
+                                          self.head_f32)
+            counts = self._counts(seqs, b)
+            if counts is not None:
+                logits_eff = apply_penalties(
+                    logits, torch.from_numpy(counts).to(self.device),
+                    scalars[9].view(torch.float32),
+                    scalars[10].view(torch.float32))
+            else:
+                logits_eff = logits
+            gumbel = gumbel_noise(token_seeds(scalars[2], scalars[3]),
+                                  logits.shape[1], self.device,
+                                  rows=temps > 0.0)
+            next_tokens = sample_tokens(logits_eff, temps, top_k, top_p,
+                                        gumbel).int()
 
         nl, hkv, dh = mc.num_layers, mc.num_kv_heads, mc.head_dim_
         flat_slots = slot_mapping.reshape(-1).long()
@@ -506,20 +642,36 @@ class ModelRunner:
         self.kv_k[:, :, flat_slots] = k_flat
         self.kv_v[:, :, flat_slots] = v_flat
 
-        if next_tokens is None:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            tokens = [[] for _ in range(b)]
-        else:
-            out = next_tokens.cpu().numpy()
-            tokens = [[int(out[i])] if finals[i] else [] for i in range(b)]
-        self.prefill_seconds_total += time.monotonic() - t_start
-        return tokens
+        if not any(finals):
+            if slot.end is not None:
+                slot.end.record()
+            self.prefill_seconds_total += time.monotonic() - t_issue
+            return DispatchHandle(lambda: [[] for _ in range(b)])
+        # Final rows' sampled tokens are chainable by the next decode
+        # without a host round trip.
+        last = torch.zeros((self.b_max,), dtype=torch.int32, device=self.device)
+        last[:b] = next_tokens
+        self._push_chain(last, seqs, [i for i in range(b) if finals[i]])
+        out_buf, end = slot.out, slot.end
+        out_buf[:b].copy_(next_tokens, non_blocking=True)
+        if end is not None:
+            end.record()
+
+        def fetch():
+            if end is not None:
+                end.synchronize()
+            out = out_buf[:b].numpy()
+            self.prefill_seconds_total += time.monotonic() - t_issue
+            return [[int(out[i])] if finals[i] else [] for i in range(b)]
+
+        return DispatchHandle(fetch)
 
     # ---------------------------------------------------------------- execute
-    def execute(self, batch: ScheduledBatch) -> List[List[int]]:
-        """Run one dispatch to completion: per-sequence NEW token lists
-        (empty for a non-final prefill chunk)."""
+    def execute_async(self, batch: ScheduledBatch) -> DispatchHandle:
+        """Issue one dispatch: it is enqueued on the current stream and the
+        call returns before any device-to-host wait; ``fetch()`` on the
+        handle waits for its tokens. The pipelined engine loop issues the
+        next dispatch before fetching this one."""
         if batch.kind == "decode":
-            return self._execute_decode(batch)
-        return self._execute_prefill(batch)
+            return self._issue_decode(batch)
+        return self._issue_prefill(batch)

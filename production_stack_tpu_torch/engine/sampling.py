@@ -18,7 +18,7 @@ equal the JAX package's (see ``gumbel_noise``).
 """
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import torch
 
@@ -102,14 +102,22 @@ def token_seed(base: int, gen_index: int) -> int:
     return (int(base) * SEED_MULT + int(gen_index)) & 0xFFFFFFFF
 
 
-def _int64_on(values: Sequence[int], device: torch.device) -> torch.Tensor:
-    """A host list as an int64 tensor on ``device``; to the card through
-    pinned memory without a blocking copy (which would wait for the queued
-    decode step)."""
-    t = torch.tensor(values, dtype=torch.int64)
-    if device.type == "cuda":
-        t = t.pin_memory().to(device, non_blocking=True)
-    return t
+def token_seeds(base: torch.Tensor, gen_index: torch.Tensor) -> torch.Tensor:
+    """``token_seed`` on the device (the JAX package's
+    ``runner._derive_seeds``): uint32 seed bases and generation indices held
+    in int64 lanes, the uint32 wrap-around done by a mask. base * SEED_MULT
+    stays below 2**52, so no int64 overflow."""
+    return (base.long() * SEED_MULT + gen_index.long()) & _M32
+
+
+def _seed_tensor(seeds, device: torch.device) -> torch.Tensor:
+    """Seeds as an int64 tensor on ``device``: a tensor is used as it is
+    (the serving path derives its seeds on the device); a host list is
+    copied over (tests and checks)."""
+    if isinstance(seeds, torch.Tensor):
+        return seeds.to(device=device, dtype=torch.int64)
+    return torch.tensor([int(s) & _M32 for s in seeds], dtype=torch.int64,
+                        device=device)
 
 
 def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -132,7 +140,7 @@ def threefry2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
     return x1, x2
 
 
-def random_bits(seeds: Sequence[int], n: int,
+def random_bits(seeds: Union[torch.Tensor, Sequence[int]], n: int,
                 device: torch.device) -> torch.Tensor:
     """[len(seeds), n] 32-bit random words (int64 lanes): row i equals
     ``jax.random.bits(jax.random.PRNGKey(seeds[i]), (n,), uint32)`` under
@@ -141,7 +149,7 @@ def random_bits(seeds: Sequence[int], n: int,
     into (high word, low word) = (0, j) for n < 2**32, and the two output
     words are XOR-ed. Older jax without the partitionable layout hashes
     other counts and is not reproduced."""
-    k2 = _int64_on([int(s) & _M32 for s in seeds], device)[:, None]
+    k2 = _seed_tensor(seeds, device)[:, None]
     lo = torch.arange(n, dtype=torch.int64, device=device)[None, :]
     b1, b2 = threefry2x32(0, k2, torch.zeros_like(lo), lo)
     return b1 ^ b2
@@ -191,23 +199,24 @@ def xla_log_f32(x: torch.Tensor) -> torch.Tensor:
     return ((xr - x2 * 0.5) + y) + e * _LN2_HI
 
 
-def gumbel_noise(seeds: Sequence[int], vocab: int, device: torch.device,
-                 rows: Optional[Sequence[bool]] = None) -> torch.Tensor:
+def gumbel_noise(seeds: Union[torch.Tensor, Sequence[int]], vocab: int,
+                 device: torch.device,
+                 rows: Union[torch.Tensor, Sequence[bool], None] = None
+                 ) -> torch.Tensor:
     """Per-row Gumbel field [B, V] f32: row i is
     ``jax.random.gumbel(jax.random.PRNGKey(seeds[i]), (V,), float32)``
-    (mode "low": ``-log(-log(u))``), computed only for rows with
-    ``rows[i]`` True; the others (greedy) stay zero. Bit for bit the JAX
-    package's field on the CPU (``xla_log_f32``)."""
-    out = torch.zeros((len(seeds), vocab), dtype=torch.float32, device=device)
-    sel = [i for i in range(len(seeds)) if rows is None or rows[i]]
-    if not sel:
-        return out
-    u = uniform_from_bits(random_bits([seeds[i] for i in sel], vocab, device))
+    (mode "low": ``-log(-log(u))``) where ``rows[i]`` is True; the others
+    (greedy) are zero. Bit for bit the JAX package's field on the CPU
+    (``xla_log_f32``). Every row is computed and masked on the device, so
+    the call reads nothing on the host and can be captured in a CUDA
+    graph."""
+    u = uniform_from_bits(random_bits(seeds, vocab, device))
     g = -xla_log_f32(-xla_log_f32(u))
-    if len(sel) == len(seeds):
+    if rows is None:
         return g
-    out[_int64_on(sel, device)] = g
-    return out
+    if not isinstance(rows, torch.Tensor):
+        rows = torch.tensor(list(rows), dtype=torch.bool, device=device)
+    return torch.where(rows.to(device)[:, None], g, torch.zeros_like(g))
 
 
 def apply_penalties(

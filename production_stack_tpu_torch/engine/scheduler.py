@@ -180,8 +180,18 @@ class Scheduler:
         return bool(self.waiting or self.running)
 
     # -------------------------------------------------------------- schedule
-    def schedule(self) -> Optional[ScheduledBatch]:
-        """One admissible batch, prefill first (TTFT priority)."""
+    def schedule(self, prefer_decode: bool = False) -> Optional[ScheduledBatch]:
+        """One admissible batch, prefill first (TTFT priority);
+        ``prefer_decode`` inverts the order: the overlap engine loop asks
+        for it while a prefill is in flight, so decode keeps its cadence
+        through a chunk train. Rows whose final prefill chunk is issued but
+        not applied never join a decode batch (``pending_prefill_apply``),
+        so every decode chains its start tokens from one dispatch."""
+        if prefer_decode:
+            batch = self._schedule_decode()
+            if batch is not None:
+                return batch
+            return self._try_schedule_prefill()
         batch = self._try_schedule_prefill()
         if batch is not None:
             return batch
@@ -368,7 +378,9 @@ class Scheduler:
     # ------------------------------------------------------- post-step update
     def advance_at_issue(self, batch: ScheduledBatch) -> None:
         """State advance at dispatch issue: KV positions, queue transitions,
-        in-flight generation accounting."""
+        in-flight generation accounting — all that ``schedule`` needs to
+        build the next dispatch before this one's tokens reach the host
+        (``apply_results`` delivers them later, in issue order)."""
         batch.epochs = [s.num_preemptions for s in batch.seqs]
         if batch.kind == "prefill":
             requeue: List[Sequence] = []

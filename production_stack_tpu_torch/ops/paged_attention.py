@@ -9,8 +9,9 @@ The wrapper takes the plain version only for tensors that lie on the CPU;
 for a CUDA tensor it launches the kernel or raises. The kernel is compiled
 by ``nvcc`` from the source in the checkout at first use into
 ``build/torch_kernels/`` and bound through ``ctypes`` (a plain C interface:
-seconds to build, no PyTorch headers). ``LAUNCHES`` counts the kernel's
-launches per variant, so a run can show which one served it. A call is
+seconds to build, no PyTorch headers). The kernel counts its own launches
+per variant on the device (``launch_counts``), so a run can show which
+variant served it, graph replays included. A call is
 one kernel launch: the kernel splits each row's tiles into chunks on the
 device (the host only sizes the grid, ``launch_plan``) and merges the
 chunks itself, through a scratch kept per device and shape bucket.
@@ -22,7 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -41,10 +42,16 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Kernel launches per variant (the names of chip_smoke.py's kernels line).
+# The variants (the names of chip_smoke.py's kernels line). Each launch
+# adds one to its variant's slot of a per-device int64 counter, in the
+# kernel (thread 0 of block (0, 0, 0)): a launch replayed from a CUDA graph
+# counts like a direct one, and a call that launches nothing counts
+# nothing. Counters live as long as the process (graphs hold their
+# addresses).
 BF16 = "paged_flash_decode_stats"
 INT8 = "paged_flash_decode_stats[int8]"
-LAUNCHES = {BF16: 0, INT8: 0}
+VARIANTS = (BF16, INT8)
+_counters: Dict[torch.device, torch.Tensor] = {}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -129,9 +136,9 @@ def _load_lib():
             vp, i32 = ctypes.c_void_p, ctypes.c_int
             tail = [i32, i32, i32, i32, ctypes.c_longlong, i32, i32, i32, i32,
                     i32, ctypes.c_float, vp]
-            lib.pstpu_paged_decode_bf16.argtypes = [vp] * 11 + tail
+            lib.pstpu_paged_decode_bf16.argtypes = [vp] * 12 + tail
             lib.pstpu_paged_decode_bf16.restype = i32
-            lib.pstpu_paged_decode_int8.argtypes = [vp] * 13 + tail
+            lib.pstpu_paged_decode_int8.argtypes = [vp] * 14 + tail
             lib.pstpu_paged_decode_int8.restype = i32
             lib.pstpu_paged_decode_occupancy.argtypes = [
                 i32, i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
@@ -172,6 +179,38 @@ def graph_node_counts(graph: "torch.cuda.CUDAGraph") -> Tuple[int, int]:
         graph.raw_cuda_graph(), ctypes.byref(kernels), ctypes.byref(total)),
         "graph nodes")
     return kernels.value, total.value
+
+
+def _counter(device: torch.device) -> torch.Tensor:
+    """The launch counter of ``device`` ([len(VARIANTS)] int64), made at
+    the first call on it, which must not be under CUDA-graph capture."""
+    if device not in _counters:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "paged decode kernel: the first call on a device must run "
+                "outside CUDA-graph capture (it allocates the launch counter)")
+        _counters[device] = torch.zeros((len(VARIANTS),), dtype=torch.int64,
+                                        device=device)
+    return _counters[device]
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per variant since the last ``reset_launch_counts``,
+    summed over devices (after waiting for each device's queued work). On a
+    machine where the kernel never ran, every count is 0."""
+    total = dict.fromkeys(VARIANTS, 0)
+    for device, counter in _counters.items():
+        torch.cuda.synchronize(device)
+        for name, n in zip(VARIANTS, counter.tolist()):
+            total[name] += n
+    return total
+
+
+def reset_launch_counts() -> None:
+    """Set every device's launch counts to 0 (queued on each device's
+    current stream, after the work already queued there)."""
+    for counter in _counters.values():
+        counter.zero_()
 
 
 def sm_count(device: torch.device) -> int:
@@ -310,14 +349,14 @@ def paged_flash_decode_stats(
         ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
     else:
         fn, variant = lib.pstpu_paged_decode_bf16, BF16
+    counter = _counter(q.device)[VARIANTS.index(variant):]
     _check(lib, fn(
         *ptrs, block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
         m.data_ptr(), l.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        tickets.data_ptr(), b, h, hkv, dh, num_slots, int(layer), mb,
-        block_size.bit_length() - 1, chunk_tiles, max_chunks, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        tickets.data_ptr(), counter.data_ptr(), b, h, hkv, dh, num_slots,
+        int(layer), mb, block_size.bit_length() - 1, chunk_tiles, max_chunks,
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     ), f"{variant} launch")
-    LAUNCHES[variant] += 1
     return out, m, l
 
 

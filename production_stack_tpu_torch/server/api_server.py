@@ -322,6 +322,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--num-kv-blocks", type=int, default=None)
     p.add_argument("--max-num-seqs", type=int, default=64)
     p.add_argument("--num-decode-steps", type=int, default=32)
+    p.add_argument("--decode-loop", default="scan", choices=["scan", "while"],
+                   help="fused-decode loop: scan runs all K steps of a "
+                        "dispatch, while runs only the steps some row needs")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip capturing the decode CUDA graphs at startup "
+                        "(decode then runs eagerly)")
+    p.add_argument("--no-overlap-dispatch", action="store_true",
+                   help="one batch kind per scheduling round (no prefill "
+                        "issued while a decode is in flight)")
+    p.add_argument("--pipeline-depth", type=int, default=2,
+                   help="dispatches outstanding at once (1 = strict "
+                        "issue-fetch-apply; clamped to 2)")
     p.add_argument("--attn-impl", default="auto")
     p.add_argument("--seed", type=int, default=0)
     return p.parse_args(argv)
@@ -331,8 +343,11 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     cfg = EngineConfig(
         model=args.model, device=args.device, dtype=args.dtype,
-        kv_cache_dtype=args.kv_cache_dtype, max_model_len=args.max_model_len, num_kv_blocks=args.num_kv_blocks,
-        max_num_seqs=args.max_num_seqs, num_decode_steps=args.num_decode_steps,
+        kv_cache_dtype=args.kv_cache_dtype, max_model_len=args.max_model_len,
+        num_kv_blocks=args.num_kv_blocks, max_num_seqs=args.max_num_seqs,
+        num_decode_steps=args.num_decode_steps, decode_loop=args.decode_loop,
+        enable_warmup=not args.no_warmup, pipeline_depth=args.pipeline_depth,
+        overlap_dispatch=not args.no_overlap_dispatch,
         attn_impl=args.attn_impl, seed=args.seed,
     )
 

@@ -4,8 +4,11 @@ Greedy tokens must be identical: both engines serve the same weights (the
 JAX params exported through numpy) in float32 on the CPU, the JAX engine's
 paged path runs its Pallas kernel in interpret mode, the port's runs the
 kernel's plain version. float32 because bf16 argmax near-ties on random
-weights are not a signal. The port's engine loop is strict, so the JAX
-engine runs with ``async_pipeline=False`` too (tokens do not depend on it).
+weights are not a signal. Both engines run the strict loop here
+(``async_pipeline=False``): tokens do not depend on it, but the pools, which
+the int8 cases compare block by block, do (the pipelined loop may allocate
+blocks in another order); ``tests/test_torch_pipeline.py`` holds the
+pipelined loops.
 Seeded tokens must be identical too: the port computes the JAX package's
 threefry Gumbel field bit for bit. With ``kv_cache_dtype="int8"`` the two
 engines' pools are compared after serving.
@@ -76,10 +79,10 @@ async def _serve_all(engine, sampling_cls, prompts, max_tokens,
 def _jax_and_port_engines(common):
     """A JAX engine and a port engine (CPU) over the same f32 weights."""
     jparams = jax_init(jax_resolve(MODEL), jax.random.PRNGKey(0), jnp.float32)
-    jeng = JaxEngine(JaxConfig(**common, async_pipeline=False,
-                               overlap_dispatch=False), params=jparams)
+    strict = dict(async_pipeline=False, overlap_dispatch=False)
+    jeng = JaxEngine(JaxConfig(**common, **strict), params=jparams)
     eng = ServingEngine(
-        EngineConfig(**common, device="cpu"),
+        EngineConfig(**common, **strict, device="cpu"),
         params=params_from_jax(jax.tree.map(np.asarray, jparams),
                                resolve_model_config(MODEL), torch.float32))
     return jeng, eng
@@ -392,8 +395,15 @@ async def test_abort_frees_blocks():
 def test_engine_config_validation():
     llama3b = resolve_model_config("llama-3b")
     tiny = resolve_model_config("tiny-llama")          # head_dim 32
-    with pytest.raises(ValueError, match="async_pipeline"):
-        EngineConfig(async_pipeline=True)
+    # The loop and warm-up fields default as the JAX package's do.
+    for name in ("async_pipeline", "pipeline_depth", "overlap_dispatch",
+                 "decode_loop", "enable_warmup"):
+        assert getattr(EngineConfig(), name) == getattr(JaxConfig(), name), name
+    assert (EngineConfig().async_pipeline, EngineConfig().pipeline_depth,
+            EngineConfig().overlap_dispatch, EngineConfig().decode_loop) == \
+        (True, 2, True, "scan")
+    with pytest.raises(ValueError, match="decode_loop"):
+        EngineConfig(decode_loop="unrolled")
     with pytest.raises(ValueError, match="dtype"):
         EngineConfig(dtype="int4")
     assert EngineConfig(device="cuda").resolved_attn_impl(llama3b) == "paged"

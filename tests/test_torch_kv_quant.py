@@ -137,11 +137,11 @@ def test_int8_paged_decode_matches_pallas_interpret(dh):
         jnp.asarray(lens), jnp.asarray([layer], jnp.int32), block_size=PALLAS_BS,
         interpret=True, k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
     tk, tv, tks, tvs = kv_pools_from_jax(kq, vq, ks, vs)
-    before = dict(tpa.LAUNCHES)
+    before = tpa.launch_counts()
     to, tm, tl = tpa.paged_flash_decode_stats(
         _t(q), tk, tv, _t(bt), _t(lens), layer, block_size=PALLAS_BS,
         k_scale=tks, v_scale=tvs)
-    assert tpa.LAUNCHES == before                      # CPU: plain version
+    assert tpa.launch_counts() == before                      # CPU: plain version
     live = lens > 0
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0, atol=ATOL)
     np.testing.assert_allclose(tm.numpy()[live], np.asarray(jm)[live],
@@ -327,14 +327,14 @@ def test_cuda_int8_kernel_matches_plain_version():
             pools[3][:, :, slot] = float("nan")
     qt = _t(q).to(dev, torch.bfloat16)
     bt_t, lens_t = _t(bt).to(dev), _t(lens).to(dev)
-    before = tpa.LAUNCHES[tpa.INT8]
+    before = tpa.launch_counts()[tpa.INT8]
     out, m, l = tpa.paged_flash_decode_stats(
         qt, pools[0], pools[1], bt_t, lens_t, 1, block_size=16,
         k_scale=pools[2], v_scale=pools[3])
     ro, rm, rl = tpa.paged_flash_decode_stats_ref(
         qt, pools[0], pools[1], bt_t, lens_t, 1, block_size=16,
         k_scale=pools[2], v_scale=pools[3])
-    assert tpa.LAUNCHES[tpa.INT8] == before + 1
+    assert tpa.launch_counts()[tpa.INT8] == before + 1
     torch.testing.assert_close(out.float(), ro.float(), atol=2e-3, rtol=1e-2)
     torch.testing.assert_close(m[1:], rm[1:], rtol=1e-3, atol=1e-5)
     torch.testing.assert_close(l[1:], rl[1:], rtol=1e-3, atol=1e-5)

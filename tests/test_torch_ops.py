@@ -60,10 +60,10 @@ def test_paged_decode_matches_pallas_interpret_and_xla(dh):
         jnp.asarray(lens), jnp.asarray([layer], jnp.int32),
         block_size=bs, interpret=True,
     )
-    before = dict(tpa.LAUNCHES)
+    before = tpa.launch_counts()
     to, tm, tl = tpa.paged_flash_decode_stats(
         _t(q), _t(kp), _t(vp), _t(bt), _t(lens), layer, block_size=bs)
-    assert tpa.LAUNCHES == before                      # CPU: plain version
+    assert tpa.launch_counts() == before                      # CPU: plain version
     live = lens > 0
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=TOL, atol=TOL)
     np.testing.assert_allclose(tm.numpy()[live], np.asarray(jm)[live],
@@ -301,11 +301,11 @@ def test_cuda_kernel_matches_plain_version():
     args = [torch.from_numpy(x).to(dev) for x in (q, kp, vp)]
     args = [a.to(torch.bfloat16) for a in args]
     bt_t, lens_t = torch.from_numpy(bt).to(dev), torch.from_numpy(lens).to(dev)
-    before = tpa.LAUNCHES[tpa.BF16]
+    before = tpa.launch_counts()[tpa.BF16]
     out, m, l = tpa.paged_flash_decode_stats(*args, bt_t, lens_t, 1, block_size=16)
     ro, rm, rl = tpa.paged_flash_decode_stats_ref(*args, bt_t, lens_t, 1,
                                                   block_size=16)
-    assert tpa.LAUNCHES[tpa.BF16] == before + 1
+    assert tpa.launch_counts()[tpa.BF16] == before + 1
     torch.testing.assert_close(out.float(), ro.float(), atol=2e-3, rtol=1e-2)
     diff = (out[1:].float() - ro[1:].float()).norm(dim=-1)
     assert (diff / ro[1:].float().norm(dim=-1)).max().item() <= 5e-3
