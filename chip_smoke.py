@@ -53,7 +53,19 @@ serving):
   6. check: one decode step at llama-3b width (depth cut to 2 layers)
      through the kernel path against the plain window path, over a bf16
      pool and over an int8 pool; the seeded-sampling Gumbel field on the
-     card bit for bit against the CPU's.
+     card bit for bit against the CPU's;
+  7. tp: llama-3-8b (Meta-Llama-3-8B shapes, full width and depth, random
+     bf16 weights from --seed) at tensor_parallel_size 2, both ranks on
+     this card (rank 1 a worker process; gloo, host-staged), bf16 then
+     int8 KV: the tp = 1 runner's greedy tokens forced through the tp = 2
+     runners (max |logit diff| within ``tp_logit_bound``, argmax equal
+     where tp = 1's top-2 margin exceeds twice it), eager decode ms per
+     step of both, the tp = 2 engine behind the HTTP server (4 requests;
+     the ranks' token digests agree; each rank's kernel counter reads 32 x
+     decode steps of the run's variant and 0 of the other; stats), one
+     profiled step (host ms in the collectives); then
+     ``paged_flash_decode_stats_tp`` on each of 2 ranks against its plain
+     twin, and its device times at a rank's shape (H 16, Hkv 4).
 
 Any failure exits non-zero before the result lines. The last two lines are
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -65,6 +77,7 @@ import argparse
 import asyncio
 import gc
 import json
+import math
 import os
 import random
 import subprocess
@@ -82,6 +95,8 @@ KERNEL_REPLACES = {
     "bf16": "production_stack_tpu/ops/pallas/paged_attention.py:57",
     "int8": "production_stack_tpu/ops/pallas/paged_attention.py:175",
 }
+TP_KERNEL_REPLACES = ("production_stack_tpu/ops/pallas/paged_attention.py:376 "
+                      "paged_flash_decode_stats_tp")
 BF16_KV_BLOCKS = 8 * 4096 // 16 + 1   # 8 sequences x 4096 tokens + null block
 # out is bf16 in both versions and their fp32 sums differ only in order, so
 # they differ by at most one bf16 rounding step (< 2**-7 relative, inside
@@ -391,7 +406,10 @@ def stats_close(torch, got, want):
 
 
 def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
-                    device, quant, bs=16):
+                    device, quant, bs=16, kernel=None):
+    """One kernel case: the kernel (``kernel``, by default
+    ``paged_flash_decode_stats``) against its plain version, the fault
+    controls, and device times of the kernel, the plain version and SDPA."""
     import torch.nn.functional as F
 
     from production_stack_tpu_torch.ops.quantization import dequantize_kv
@@ -399,11 +417,11 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
     q, kp, vp, ks, vs, bt, kvl = make_case(torch, b, h, hkv, dh, kv_lens,
                                            n_layers, bs, seed, device, quant)
     sc = dict(k_scale=ks, v_scale=vs)
+    kernel = kernel or pa.paged_flash_decode_stats
     max_err = max_row_rel = 0.0
     controls = {}
     for layer in sorted({0, n_layers - 1}):
-        out, m, l = pa.paged_flash_decode_stats(q, kp, vp, bt, kvl, layer,
-                                                block_size=bs, **sc)
+        out, m, l = kernel(q, kp, vp, bt, kvl, layer, block_size=bs, **sc)
         ro, rm, rl = pa.paged_flash_decode_stats_ref(q, kp, vp, bt, kvl, layer,
                                                      block_size=bs, **sc)
         torch.cuda.synchronize()
@@ -471,8 +489,7 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
     # Cycle through the layers so each launch meets its pages cold in L2,
     # as the decode step does (28 layers apart).
     def kern(i):
-        return pa.paged_flash_decode_stats(q, kp, vp, bt, kvl, i % n_layers,
-                                           block_size=bs, **sc)
+        return kernel(q, kp, vp, bt, kvl, i % n_layers, block_size=bs, **sc)
 
     def plain(i):
         return pa.paged_flash_decode_stats_ref(q, kp, vp, bt, kvl, i % n_layers,
@@ -1175,16 +1192,490 @@ def check_noise(torch, device):
         fail(f"check: {n_diff} Gumbel values differ between the card and the CPU")
 
 
+# ---------------------------------------------------------------- phase 7
+TP_MODEL = "llama-3-8b"
+TP = 2
+TP_KV_BLOCKS = 4 * 4096 // 16 + 1   # 4 rows x 4096 tokens + the null block
+TF_STEPS = 16                       # teacher-forced decode steps
+TP_TIMEOUT_S = 300.0
+U_BF16 = 2.0 ** -8                  # bf16 unit roundoff
+
+
+def tp_logit_bound(n_layers: int, n_samples: int, sources: int = 2) -> float:
+    """Bound on max |logit(tp=2) - logit(tp=1)| over ``n_samples`` logits
+    of the same teacher-forced tokens, from bf16 rounding (fixed before the
+    first card run of the tp phase). A bf16 rounding adds a uniform error of
+    relative std u / sqrt(3) (u = 2**-8). tp = 2 rounds each row-parallel
+    partial sum (``wo``, ``w_down``) to bf16 before the float32 sum; that
+    first extra rounding decorrelates every later rounding of the two runs,
+    so they differ like two independent bf16 evaluations of the residual
+    stream: one rounding per residual add, 2 L adds, relative to the final
+    normalized hidden. The random head's logits have unit std, so a
+    relative hidden error e is a logit error of std e: per source
+    sigma = sqrt(2) u / sqrt(3) sqrt(2 L). ``sources`` counts independent
+    sources of that size: on the card a second one, the summation orders
+    of GEMMs and of the paged kernel that depend on the shapes (a rank's
+    matrices are half as wide). The max of n Gaussian samples is about
+    sqrt(2 ln n) sigma; times 1.5 for the int8 pool's requantization and
+    the crudeness of the model. ``tests/test_torch_parallel.py`` holds the
+    one-source bound over a 32-layer proxy on the CPU."""
+    sigma = math.sqrt(2 * sources) * U_BF16 / math.sqrt(3) * math.sqrt(2 * n_layers)
+    return 1.5 * math.sqrt(2 * math.log(n_samples)) * sigma
+
+
+def tp_kernel_rank(torch, pa, group, seed, lens, quant):
+    """Every rank of ``group``: its slice of a main-path-shaped case at
+    llama-3-8b's heads (H 32, Hkv 8, Dh 128, 32 layers; B 4) through
+    ``paged_flash_decode_stats_tp`` against the plain twin on the same
+    slice (layers 0 and 31, the kernel phase's tolerances); the slices'
+    outputs gathered over the ranks against the one-process kernel over all
+    heads (max |diff|, reported). Returns every rank's result (rank 0)."""
+    b, h, hkv, dh, n_layers, bs = 4, 32, 8, 128, 32, 16
+    q, kp, vp, ks, vs, bt, kvl = make_case(torch, b, h, hkv, dh, lens, n_layers,
+                                           bs, seed, group.device, quant)
+    r, tp = group.rank, group.size
+    hq, hk = h // tp, hkv // tp
+
+    def mine(t, n):
+        return None if t is None else t[:, r * n:(r + 1) * n].contiguous()
+
+    ql, kl, vl = mine(q, hq), mine(kp, hk), mine(vp, hk)
+    sc_l = dict(k_scale=mine(ks, hk), v_scale=mine(vs, hk))
+    res = {"rank": r, "ok": True, "max_abs_err": 0.0, "max_row_rel_err": 0.0,
+           "vs_one_process": 0.0, "H": hq, "Hkv": hk}
+    for layer in (0, n_layers - 1):
+        out, m, l = pa.paged_flash_decode_stats_tp(ql, kl, vl, bt, kvl, layer,
+                                                   block_size=bs, **sc_l)
+        ro, rm, rl = pa.paged_flash_decode_stats_ref(ql, kl, vl, bt, kvl, layer,
+                                                     block_size=bs, **sc_l)
+        if group.device.type == "cuda":
+            torch.cuda.synchronize()
+        live = kvl > 0
+        err, row_rel, ok = out_error(torch, out, ro, live)
+        ok = (ok and stats_close(torch, m[live], rm[live])
+              and stats_close(torch, l[live], rl[live])
+              and all(bool(torch.isfinite(t[live]).all()) for t in (out, m, l)))
+        res["ok"] = res["ok"] and ok
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["max_row_rel_err"] = max(res["max_row_rel_err"], row_rel)
+        full = group.all_gather(out, dim=1)
+        if r == 0:
+            one = pa.paged_flash_decode_stats(q, kp, vp, bt, kvl, layer,
+                                              block_size=bs, k_scale=ks, v_scale=vs)[0]
+            res["vs_one_process"] = max(res["vs_one_process"],
+                                        (full.float() - one.float()).abs().max().item())
+    del q, kp, vp, ks, vs, ql, kl, vl, sc_l
+    torch.cuda.empty_cache()
+    return group.gather_object(res)
+
+
+def tp_kernel_rank_main(seed: int, rank: int, port: int, device: str,
+                        lens) -> None:
+    """``--tp-kernel-rank R``: rank R of the per-rank kernel check (started
+    by rank 0's ``tp_kernel_phase``)."""
+    import torch
+
+    from production_stack_tpu_torch.parallel.mesh import die_with_parent
+
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    from production_stack_tpu_torch.parallel.mesh import TPGroup
+
+    die_with_parent(os.getppid())
+    group = TPGroup.join(rank, TP, port, torch.device(device), TP_TIMEOUT_S)
+    try:
+        for quant in (False, True):
+            tp_kernel_rank(torch, pa, group, seed, lens, quant)
+    finally:
+        group.close()
+
+
+def tp_kernel_phase(torch, pa, device, seed, main_lens, card):
+    """``paged_flash_decode_stats_tp`` on each of 2 ranks (this process and
+    one it starts, both on this card over gloo), bf16 then int8 pools; then
+    its device times at the per-rank shape (H 16, Hkv 4) on rank 0 alone:
+    the kernel through the wrapper, its plain twin, SDPA, the bound.
+    Returns the bf16 and int8 rows."""
+    from production_stack_tpu_torch.parallel.mesh import TPGroup
+
+    here = os.path.abspath(__file__)
+    group = TPGroup.launch(TP, device, TP_TIMEOUT_S, lambda r, port: [
+        sys.executable, here, "--seed", str(seed), "--tp-kernel-rank", str(r),
+        "--tp-port", str(port), "--tp-device", device.type,
+        "--tp-lens", ",".join(map(str, main_lens))])
+    results = {}
+    try:
+        for quant in (False, True):
+            results[quant] = tp_kernel_rank(torch, pa, group, seed, main_lens, quant)
+    finally:
+        group.close()
+    rows = {}
+    for quant in (False, True):
+        variant = "int8" if quant else "bf16"
+        for res in results[quant]:
+            log(f"tp kernel [{variant}] rank {res['rank']}: {json.dumps(res)}")
+            if not res["ok"]:
+                fail(f"tp kernel [{variant}] rank {res['rank']}: its slice disagrees "
+                     f"with the plain version (max abs {res['max_abs_err']:.3e}, row "
+                     f"rel {res['max_row_rel_err']:.3e})")
+        row = run_kernel_case(torch, pa, "tp rank llama-3-8b B=4", 4, 32 // TP, 8 // TP,
+                              128, main_lens, 32, seed, device, quant,
+                              kernel=pa.paged_flash_decode_stats_tp)
+        row.update(card=card, ranks=results[quant],
+                   max_abs_err=max(r["max_abs_err"] for r in results[quant]))
+        rows[variant] = row
+    return rows
+
+
+def tp_forced(torch, runner, prompt_ids, forced, steps):
+    """One prefill of ``prompt_ids`` and ``steps`` one-step decode
+    dispatches through ``runner.execute_async``; step s's input token is
+    ``forced[i][s]`` (None: the run's own greedy tokens). Returns (the f32
+    logits [steps + 1, B, V] on the CPU, each row's greedy tokens, the
+    sequences)."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.scheduler import ScheduledBatch, Sequence
+
+    n = len(prompt_ids)
+    per_row = (runner.num_kv_blocks - 1) // n
+    seqs = []
+    for i, ids in enumerate(prompt_ids):
+        s = Sequence(f"tf-{i}", list(ids), SamplingParams(
+            temperature=0.0, max_tokens=4 * steps, ignore_eos=True))
+        s.block_ids = list(range(1 + i * per_row, 1 + (i + 1) * per_row))
+        seqs.append(s)
+    runner.logits_sink = sink = []
+    out = runner.execute_async(ScheduledBatch(
+        "prefill", seqs, chunk_starts=[0] * n,
+        chunk_lens=[len(x) for x in prompt_ids])).fetch()
+    greedy = [[t[0]] for t in out]
+    for s in seqs:
+        s.num_computed_tokens = s.num_tokens
+    for step in range(steps):
+        for i, s in enumerate(seqs):
+            s.output_token_ids.append(forced[i][step] if forced else greedy[i][-1])
+        out = runner.execute_async(ScheduledBatch(
+            "decode", seqs, num_steps=1, decode_steps=[1] * n)).fetch()
+        for i, s in enumerate(seqs):
+            s.num_computed_tokens += 1
+            greedy[i].append(out[i][0])
+    runner.logits_sink = None
+    logits = torch.stack([x[:n].float().cpu() for x in sink])
+    return logits, greedy, seqs
+
+
+def tp_decode_timing(torch, runner, seqs, greedy, k=16, rounds=2):
+    """``rounds`` fused decode dispatches of ``k`` steps after a forced run:
+    ms per step by the runner's CUDA events around each dispatch (rank 0's
+    stream, collective waits included) and by the host clock to its fetch;
+    at tp > 1 also rank 0's host ms inside collectives per step."""
+    from production_stack_tpu_torch.engine.scheduler import ScheduledBatch
+
+    out = []
+    for _ in range(rounds):
+        for i, s in enumerate(seqs):
+            s.output_token_ids.append(greedy[i][-1])
+        ev0 = runner.decode_device_seconds_total
+        coll0 = runner.tp.collective_seconds if runner.tp is not None else 0.0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        toks = runner.execute_async(ScheduledBatch(
+            "decode", seqs, num_steps=k, decode_steps=[k] * len(seqs))).fetch()
+        wall = time.monotonic() - t0
+        for i, s in enumerate(seqs):
+            s.num_computed_tokens += k
+            s.output_token_ids.extend(toks[i][:-1])
+            greedy[i].append(toks[i][-1])
+        row = {"ms_per_step_events": 1e3 * (runner.decode_device_seconds_total - ev0) / k,
+               "ms_per_step_wall": 1e3 * wall / k}
+        if runner.tp is not None:
+            row["collective_host_ms_per_step"] = 1e3 * (
+                runner.tp.collective_seconds - coll0) / k
+        out.append(row)
+    return out
+
+
+TP_SPANS = ("tp.all_reduce", "tp.all_gather", "tp.stage_d2h", "tp.exchange",
+            "tp.stage_h2d")
+
+
+def tp_profile_step(torch, runner, seqs, greedy):
+    """One one-step decode dispatch under torch.profiler, on rank 0: host
+    ms in the collectives' record_function ranges (``tp.all_reduce`` and
+    ``tp.all_gather``, and their parts: the staging copy to the host, which
+    waits for the rank's queued device work; the gloo exchange, which waits
+    for the other rank; the copy back), the device's busy ms (kernels and
+    copies of this process) and the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from production_stack_tpu_torch.engine.scheduler import ScheduledBatch
+
+    for i, s in enumerate(seqs):
+        s.output_token_ids.append(greedy[i][-1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        toks = runner.execute_async(ScheduledBatch(
+            "decode", seqs, num_steps=1, decode_steps=[1] * len(seqs))).fetch()
+        wall = time.monotonic() - t0
+    for i, s in enumerate(seqs):
+        s.num_computed_tokens += 1
+        greedy[i].append(toks[i][0])
+    spans = {name: [0, 0.0] for name in TP_SPANS}
+    busy_us = 0.0
+    for evt in prof.events():
+        on_device = str(evt.device_type).endswith("CUDA")
+        if on_device:
+            busy_us += evt.time_range.elapsed_us()
+        elif evt.name in spans:     # the host range, not its device mirror
+            spans[evt.name][0] += 1
+            spans[evt.name][1] += evt.time_range.elapsed_us() / 1e3
+    out = {"step_wall_ms": 1e3 * wall, "device_busy_ms": busy_us / 1e3}
+    for name, (calls, ms) in spans.items():
+        out[name] = {"calls": calls, "ms": ms}
+    out["collective_share"] = (spans["tp.all_reduce"][1]
+                               + spans["tp.all_gather"][1]) / (1e3 * wall)
+    return out
+
+
+def tp_served(torch, engine, prompts, forced_run, max_tokens=32):
+    """The tp engine behind the HTTP server: a 4-token warm-up request, then
+    4 concurrent requests (2 greedy, 2 seeded; completions and streamed
+    chat). Every rank's report is read with its launch counts reset to 0
+    just before the 4 requests, and again right after; then one more step
+    of the teacher-forced rows (``forced_run``: their sequences and tokens)
+    is profiled. Returns the results by request name, and "_before",
+    "_after" (the reports), "_steps" (rank 0's decode steps), "_wall",
+    "_stats" and "_profile"."""
+    from production_stack_tpu_torch.server.api_server import OpenAIServer
+
+    results = {}
+
+    async def run():
+        server = OpenAIServer(engine, "127.0.0.1", 0)
+        await server.start()
+        base = f"http://127.0.0.1:{server.port}"
+        loop = asyncio.get_running_loop()
+        try:
+            st, body, _, _ = await loop.run_in_executor(None, http, "GET", base + "/health")
+            if st != 200:
+                fail(f"tp /health: {st} {body}")
+            st, body, _, _ = await loop.run_in_executor(
+                None, http, "POST", base + "/v1/completions",
+                {"prompt": "warm up", "max_tokens": 4, "temperature": 0.0,
+                 "ignore_eos": True})
+            if st != 200 or body["usage"]["completion_tokens"] != 4:
+                fail(f"tp warm-up request: {st} {body}")
+            reqs = [
+                ("completion greedy", "/v1/completions", False,
+                 {"prompt": prompts[0], "max_tokens": max_tokens, "temperature": 0.0,
+                  "ignore_eos": True}),
+                ("completion seeded", "/v1/completions", False,
+                 {"prompt": prompts[1], "max_tokens": max_tokens, "temperature": 0.8,
+                  "top_p": 0.9, "seed": 1234, "ignore_eos": True}),
+                ("chat stream greedy", "/v1/chat/completions", True,
+                 {"messages": [{"role": "user", "content": prompts[2]}],
+                  "max_tokens": max_tokens, "temperature": 0.0, "stream": True,
+                  "stream_options": {"include_usage": True}, "ignore_eos": True}),
+                ("chat stream seeded", "/v1/chat/completions", True,
+                 {"messages": [{"role": "user", "content": prompts[3]}],
+                  "max_tokens": max_tokens, "temperature": 0.7, "top_k": 50,
+                  "seed": 7, "stream": True,
+                  "stream_options": {"include_usage": True}, "ignore_eos": True}),
+            ]
+            results["_before"] = await engine.rank_reports(reset=True)
+            steps0 = engine.runner.decode_steps_total
+
+            def one(name, path, stream, body):
+                t = time.monotonic()
+                st, out, t_first, t_end = http("POST", base + path, body, stream)
+                results[name] = (st, out, t, t_first, t_end)
+
+            t0 = time.monotonic()
+            await asyncio.gather(*[loop.run_in_executor(None, one, *r) for r in reqs])
+            results["_wall"] = time.monotonic() - t0
+            results["_after"] = await engine.rank_reports()
+            results["_steps"] = engine.runner.decode_steps_total - steps0
+            results["_stats"] = engine.stats()
+            results["_profile"] = await loop.run_in_executor(
+                engine._executor, tp_profile_step, torch, engine.runner,
+                *forced_run)
+        finally:
+            await server.stop()
+
+    asyncio.run(run())
+    return results
+
+
+def tp_phase(torch, pa, device, seed, card, kv_cache_dtype, model=TP_MODEL):
+    """llama-3-8b at full width and depth (random bf16 weights from
+    ``seed``) at tp = 2, both ranks on this card: the tp = 1 runner's
+    teacher-forced greedy run (one prefill of 4 prompts + 16 one-step
+    decodes), the same tokens forced through the tp = 2 engine's runner
+    (max |logit diff| within ``tp_logit_bound``; equal argmax wherever tp =
+    1's top-2 margin exceeds twice the bound), decode ms per step of both
+    (eager), then the tp = 2 engine behind the HTTP server (every request
+    200 with its tokens; the ranks' token digests agree; each rank's kernel
+    counter reads exactly 32 x decode steps of the run's variant and 0 of
+    the other; stats show tp 2, the rule's backend, per-rank pool bytes
+    half the tp = 1 pool's) and one profiled step. Returns the run's
+    launches summed over the ranks."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+    from production_stack_tpu_torch.engine.runner import ModelRunner
+    from production_stack_tpu_torch.engine.tokenizer import ByteTokenizer
+    from production_stack_tpu_torch.models.config import resolve_model_config
+
+    mc = resolve_model_config(model)
+    quant = kv_cache_dtype == "int8"
+    variant, other = (pa.INT8, pa.BF16) if quant else (pa.BF16, pa.INT8)
+    name = f"tp [{kv_cache_dtype} KV]"
+    tok = ByteTokenizer(mc.vocab_size)
+    prompt_ids = [tok.encode(p) for p in graph_prompts(seed)]
+    common = dict(model=model, dtype="bfloat16", attn_impl="paged", device=device.type,
+                  max_model_len=4096, num_decode_steps=32, seed=seed,
+                  kv_cache_dtype=kv_cache_dtype, num_kv_blocks=TP_KV_BLOCKS)
+
+    # tp = 1: the reference logits and greedy tokens, eager.
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ref = ModelRunner(EngineConfig(**common), mc)
+    torch.cuda.synchronize()
+    up1 = time.monotonic() - t0
+    lg1, greedy1, seqs = tp_forced(torch, ref, prompt_ids, None, TF_STEPS)
+    timing1 = tp_decode_timing(torch, ref, seqs, [list(g) for g in greedy1])
+    pool1 = ref.hbm_kv_bytes
+    peak1 = torch.cuda.max_memory_allocated() / 2**30
+    del ref, seqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{name}: tp=1 runner up in {up1:.1f} s, peak {peak1:.2f} GiB, pool "
+        f"{pool1} bytes; decode {json.dumps(timing1)}")
+
+    # tp = 2: rank 0 here, rank 1 a worker process on the same card.
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    engine = ServingEngine(EngineConfig(**common, tensor_parallel_size=TP,
+                                        tp_timeout_s=TP_TIMEOUT_S, enable_warmup=True))
+    up2 = time.monotonic() - t0
+    try:
+        runner = engine.runner
+        lg2, greedy2, seqs = tp_forced(torch, runner, prompt_ids, greedy1, TF_STEPS)
+        forced_run = (seqs, [list(g) for g in greedy2])
+        timing2 = tp_decode_timing(torch, runner, *forced_run)
+        diff = (lg2 - lg1).abs()
+        max_diff = diff.max().item()
+        bound = tp_logit_bound(mc.num_layers, lg1.numel())
+        top2 = lg1.topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        decided = margin > 2 * bound
+        same = lg2.argmax(-1) == lg1.argmax(-1)
+        prefix = []
+        for i in range(len(prompt_ids)):
+            n = 0
+            while n < len(greedy1[i]) and greedy2[i][n] == greedy1[i][n]:
+                n += 1
+            prefix.append(n)
+        logits_row = {
+            "max_abs_logit_diff": max_diff, "bound": bound,
+            "mean_abs_logit_diff": diff.mean().item(),
+            "steps_checked": int(decided.sum()), "steps": int(decided.numel()),
+            "argmax_equal_all": float(same.float().mean()),
+            "common_greedy_prefix": prefix, "of": len(greedy1[0])}
+        log(f"{name}: teacher-forced logits tp=2 vs tp=1 {json.dumps(logits_row)}")
+        if not (math.isfinite(max_diff) and max_diff <= bound):
+            fail(f"{name}: max |logit diff| {max_diff:.4f} over the bound {bound:.4f}")
+        if not bool(same[decided].all()):
+            fail(f"{name}: argmax differs at a step whose tp=1 top-2 margin exceeds "
+                 f"twice the bound ({2 * bound:.4f})")
+        served = tp_served(torch, engine, make_prompts(seed, 4), forced_run)
+        reports = engine.tp_reports
+    finally:
+        engine.shutdown()
+    del engine, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    for rname in ("completion greedy", "completion seeded", "chat stream greedy",
+                  "chat stream seeded"):
+        st, out, _, _, _ = served[rname]
+        if st != 200:
+            fail(f"{name}: {rname}: HTTP {st}")
+        if isinstance(out, list):
+            usage = [e for e in out[:-1] if e.get("usage")]
+            n_out = usage[-1]["usage"]["completion_tokens"] if usage else None
+        else:
+            n_out = out["usage"]["completion_tokens"]
+        if n_out != 32:
+            fail(f"{name}: {rname}: {n_out} tokens, want 32")
+    ttft = [served[k][3] - served[k][2] for k in ("chat stream greedy", "chat stream seeded")]
+    before, after, steps = served["_before"], served["_after"], served["_steps"]
+    stats = served["_stats"]
+    launches = 0
+    for b_rep, a_rep in zip(before, after):
+        r = a_rep["rank"]
+        counts = a_rep["launch_counts"]
+        rank_steps = a_rep["decode_steps_total"] - b_rep["decode_steps_total"]
+        if steps <= 0 or rank_steps != steps or counts[variant] != mc.num_layers * steps \
+                or counts[other]:
+            fail(f"{name}: rank {r} counted {counts} over {rank_steps} decode steps "
+                 f"(rank 0: {steps}): want {mc.num_layers} x steps of {variant}, "
+                 f"none of {other}")
+        if a_rep["hbm_kv_bytes"] * TP != pool1:
+            fail(f"{name}: rank {r} holds {a_rep['hbm_kv_bytes']} pool bytes, not half "
+                 f"of the tp=1 pool's {pool1}")
+        launches += counts[variant]
+    if len({rep["token_digest"] for rep in after}) != 1 or \
+            len({rep["token_digest"] for rep in reports}) != 1:
+        fail(f"{name}: the ranks' token digests differ: {after} / {reports}")
+    want_backend = "nccl" if torch.cuda.device_count() >= TP else "gloo"
+    per_dev = list(stats["hbm_kv_bytes_per_device"].values())
+    if (stats["mesh_tp_size"], stats["tp_backend"]) != (TP, want_backend) or \
+            per_dev != [pool1 // TP] * TP or stats["graph_families"] or \
+            stats["decode_graph_dispatches_total"]:
+        fail(f"{name}: stats show tp {stats['mesh_tp_size']}, backend "
+             f"{stats['tp_backend']} (want {want_backend}), per-rank pool bytes "
+             f"{per_dev} (want {pool1 // TP} each), {stats['graph_families']} graph "
+             "families")
+    summary = {
+        "card": card, "model": model, "kv_cache_dtype": kv_cache_dtype, "tp": TP,
+        "backend": stats["tp_backend"], "engine_up_s": up2, "decode_steps": steps,
+        "launches_per_rank": [rep["launch_counts"][variant] for rep in after],
+        "token_digest_after_served": after[0]["token_digest"],
+        "token_digest_at_stop": reports[0]["token_digest"], "ttft_s_streamed": ttft,
+        "wall_s": served["_wall"], "aggregate_tok_s": 4 * 32 / served["_wall"],
+        "decode_ms_per_step_tp1_eager": timing1, "decode_ms_per_step_tp2_eager": timing2,
+        "profile_one_step": served["_profile"],
+        "peak_gib_per_rank": [max(b_rep["peak_bytes"], a_rep["peak_bytes"]) / 2**30
+                              for b_rep, a_rep in zip(before, after)],
+        "peak_gib_tp1": peak1,
+        "weight_gib_per_rank": [rep["weight_bytes"] / 2**30 for rep in after],
+        "head_f32_gib_per_rank": [rep["head_f32_bytes"] / 2**30 for rep in after],
+        "hbm_kv_bytes_per_rank": [rep["hbm_kv_bytes"] for rep in after],
+        "logits": logits_row,
+    }
+    log(f"tp result {json.dumps(summary)}")
+    return launches
+
+
 def main() -> None:
     t_main = time.monotonic()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernel,serving,graphs,check",
-                    help="comma list of kernel,serving,graphs,check,trace "
+    ap.add_argument("--phases", default="kernel,serving,graphs,check,tp",
+                    help="comma list of kernel,serving,graphs,check,tp,trace "
                          "(build always runs; trace profiles one more served "
                          "round after serving)")
+    ap.add_argument("--tp-kernel-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # a rank of the tp phase's kernel check
+    ap.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-device", default="cuda", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-lens", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    if args.tp_kernel_rank is not None:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        tp_kernel_rank_main(args.seed, args.tp_kernel_rank, args.tp_port,
+                            args.tp_device, [int(n) for n in args.tp_lens.split(",")])
+        return
 
     import torch
 
@@ -1245,6 +1736,16 @@ def main() -> None:
         for quant in (False, True):
             check_phase(torch, device, args.seed, quant)
         check_noise(torch, device)
+    # The tp phase: llama-3-8b at tp = 2 on this card, bf16 then int8 KV;
+    # each run is one main path of paged_flash_decode_stats_tp (its launch
+    # counts, summed over the ranks, set to 0 before it and read after it).
+    tp_launches, tp_rows = None, {}
+    if "tp" in phases:
+        tp_launches = sum(tp_phase(torch, pa, device, args.seed, card, kv)
+                          for kv in ("bfloat16", "int8"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp_rows = tp_kernel_phase(torch, pa, device, args.seed, main_lens, card)
     rows = []
     if "kernel" in phases:
         graph_check(torch, pa, device, args.seed, main_lens)
@@ -1265,6 +1766,19 @@ def main() -> None:
             **{key: main_row.get(key) for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
+    # The tp op's numbers at a rank's shape (H 16, Hkv 4), bf16 pools; its
+    # launches over both tp runs and both ranks.
+    tp_row = tp_rows.get("bf16", {})
+    kernels.append({
+        "name": "paged_flash_decode_stats_tp",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": TP_KERNEL_REPLACES,
+        "launches": tp_launches,
+        "max_abs_err": max((r["max_abs_err"] for r in tp_rows.values()), default=None),
+        **{key: tp_row.get(key) for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
     log(f"smoke: {time.monotonic() - t_main:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

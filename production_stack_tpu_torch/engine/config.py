@@ -65,6 +65,15 @@ class EngineConfig:
     # Two-slot prefill/decode overlap: one scheduling round may issue a
     # prefill while a decode is in flight, and the reverse.
     overlap_dispatch: bool = True
+    # --- parallelism ---
+    # Tensor-parallel ranks, one process each (parallel/mesh.py): rank 0
+    # serves, ranks 1..tp-1 are worker processes it starts. Heads are split
+    # over the ranks (parallel/sharding.py), so tp must divide both head
+    # counts.
+    tensor_parallel_size: int = 1
+    # Seconds any collective of the tp group may wait: a lost rank is an
+    # error within it.
+    tp_timeout_s: float = 600.0
     seed: int = 0
     served_model_name: Optional[str] = None
 
@@ -83,17 +92,58 @@ class EngineConfig:
                 f"Unknown kv_cache_dtype {self.kv_cache_dtype!r} "
                 f"(supported: {', '.join(KV_CACHE_DTYPES)})"
             )
+        self.validate_parallelism()
 
     @property
     def torch_device(self) -> torch.device:
         return torch.device(self.device)
 
+    @property
+    def mesh_devices(self) -> int:
+        """Devices (ranks) the engine's tp group occupies."""
+        return self.tensor_parallel_size
+
+    def validate_parallelism(self) -> None:
+        """The tp degree against the other knobs (the reference's
+        ``validate_parallelism``); raises a ValueError naming the flags at
+        fault. Speculation is not ported, so its tp rule has no
+        counterpart here."""
+        from production_stack_tpu_torch.models.config import (
+            resolve_model_config,
+        )
+        from production_stack_tpu_torch.parallel.sharding import check_tp
+
+        tp = self.tensor_parallel_size
+        if tp < 1:
+            raise ValueError(
+                f"--tensor-parallel-size must be >= 1, got {tp}")
+        if tp == 1:
+            return
+        mc = resolve_model_config(self.model)
+        if self.kv_cache_quantized and (mc.num_kv_heads % tp
+                                        or mc.num_heads % tp):
+            raise ValueError(
+                f"--kv-cache-dtype int8 with --tensor-parallel-size {tp} "
+                f"requires tp to divide the model's head counts (the "
+                f"per-(slot, head) scale pools are kv-head-sharded over the "
+                f"tp ranks like the payload pools); model {self.model!r} has "
+                f"{mc.num_heads}/{mc.num_kv_heads} heads. Use a tp that "
+                f"divides both, or --kv-cache-dtype bfloat16.")
+        check_tp(mc, tp)
+
     def resolved_attn_impl(self, model_config) -> str:
         """Resolve the decode attention implementation for ``model_config``
         (see the attn_impl field comment)."""
         on_cuda = self.torch_device.type == "cuda"
+        # tp > 1: each rank runs the kernel over its own kv heads
+        # (paged_flash_decode_stats_tp), exact only when tp divides both
+        # head counts.
+        tp = self.tensor_parallel_size
+        tp_ok = (model_config.num_heads % tp == 0
+                 and model_config.num_kv_heads % tp == 0)
         supported = (
             model_config.arch == "llama"
+            and tp_ok
             and supports_paged_decode(model_config.head_dim_, self.block_size,
                                       model_config.q_per_kv)
             # the kernel takes bf16 queries over bf16 or int8 pools; the
@@ -108,10 +158,11 @@ class EngineConfig:
                 raise ValueError(
                     f"attn_impl={v!r} requires a llama-family model with "
                     f"head_dim in (64, 128), at most 16 query heads per kv "
-                    f"head, and bfloat16 on CUDA; got arch={model_config.arch} "
+                    f"head, head counts divisible by tensor_parallel_size, "
+                    f"and bfloat16 on CUDA; got arch={model_config.arch} "
                     f"head_dim={model_config.head_dim_} "
                     f"heads={model_config.num_heads}/{model_config.num_kv_heads} "
-                    f"dtype={self.dtype} device={self.device}"
+                    f"tp={tp} dtype={self.dtype} device={self.device}"
                 )
             return "paged"
         if v != "auto":
@@ -119,24 +170,29 @@ class EngineConfig:
         return "paged" if supported and on_cuda else "window"
 
     def kv_cache_bytes_per_token(self, model_config) -> int:
-        """Pool bytes one token occupies across all layers: K + V payload
-        in the pool's storage dtype, plus the per-(slot, head) scale when
-        quantized."""
+        """Pool bytes one token occupies across all layers ON ONE RANK (its
+        Hkv / tp kv heads): K + V payload in the pool's storage dtype, plus
+        the per-(slot, head) scale when quantized."""
         if self.kv_cache_quantized:
             per_slot = model_config.head_dim_ + SCALE_ITEMSIZE
         else:
             per_slot = model_config.head_dim_ * _ITEMSIZE[self.dtype]
-        return 2 * model_config.num_layers * model_config.num_kv_heads * per_slot
+        return 2 * model_config.num_layers * self.local_kv_heads(
+            model_config) * per_slot
 
     def window_bytes_per_block(self, model_config) -> int:
-        """Bytes of one block of a gathered window: windows hold the
-        DEQUANTIZED K/V, so they cost compute-dtype bytes at any storage
-        dtype."""
+        """Bytes of one block of a gathered window on one rank: windows
+        hold the DEQUANTIZED K/V, so they cost compute-dtype bytes at any
+        storage dtype."""
         return (
             2 * model_config.num_layers * self.block_size
-            * model_config.num_kv_heads * model_config.head_dim_
+            * self.local_kv_heads(model_config) * model_config.head_dim_
             * _ITEMSIZE[self.dtype]
         )
+
+    def local_kv_heads(self, model_config) -> int:
+        """KV heads each tp rank holds."""
+        return model_config.num_kv_heads // self.tensor_parallel_size
 
     def kv_cache_bytes_per_block(self, model_config) -> int:
         return self.block_size * self.kv_cache_bytes_per_token(model_config)

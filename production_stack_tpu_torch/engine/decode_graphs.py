@@ -32,6 +32,11 @@ eagerly; on the card ``capture`` records one graph of each per family, and
 a dispatch replays head, step (K times under ``decode_loop="scan"``, or
 ``max(min(budget, K))`` times under "while", a count the host knows) and
 tail: the same operations on the same buffers, so the same bits.
+
+At tensor_parallel_size > 1 nothing is captured: the forward's collectives
+(gloo, host-staged, when ranks share a card) cannot be captured, and NCCL
+capture is not ported yet. Every rank runs the train eagerly, and each
+decode dispatch counts in ``decode_eager_dispatches_total``.
 """
 
 import time
@@ -107,7 +112,7 @@ class DecodeTrain:
         self.r = runner
         mc = runner.model_config
         self.b_max = runner.b_max
-        self._shapes = (mc.num_layers, mc.num_kv_heads, mc.head_dim_)
+        self._shapes = (mc.num_layers, runner.local_kv_heads, mc.head_dim_)
         self._arena: Dict[str, torch.Tensor] = {}
         self.graphs: Dict[FamilyKey, FamilyGraphs] = {}
         self.pool = None
@@ -226,9 +231,12 @@ class DecodeTrain:
         ones = torch.ones((bf.b,), dtype=torch.int32, device=r.device)
         hidden, k_new, v_new = llama.forward(
             r.params, mc, bf.toks[:, None], positions, ones, win_k, win_v,
-            win_len, bf.ring_k, bf.ring_v, bf.ring_pos, paged=paged,
+            win_len, bf.ring_k, bf.ring_v, bf.ring_pos, paged=paged, tp=r.tp,
         )
-        logits = llama.compute_logits(r.params, mc, hidden[:, 0], r.head_f32)
+        logits = llama.compute_logits(r.params, mc, hidden[:, 0], r.head_f32,
+                                      tp=r.tp)
+        if r.logits_sink is not None:
+            r.logits_sink.append(logits.clone())
         eff = logits
         if bf.counts is not None:
             eff = apply_penalties(logits, bf.counts, sc[9].view(torch.float32),
@@ -336,6 +344,9 @@ class DecodeTrain:
         eagerly on the capture stream (lazy initialization stays out of
         the graph). A failed capture raises: there is no eager fallback
         for a family that was meant to be captured."""
+        if self.r.tp is not None:
+            raise RuntimeError("decode graphs are not captured at "
+                               "tensor_parallel_size > 1")
         self.reserve(keys)
         device = self.r.device
         # The graph pool's bytes: reserved memory before and after, each

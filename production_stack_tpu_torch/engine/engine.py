@@ -17,6 +17,13 @@ only by a later dispatch, which runs after it on the one compute stream.
 ``async_pipeline=False`` is the strict issue -> fetch -> apply loop.
 Tracing, the flight recorder and Prometheus histograms are not ported yet
 (ROADMAP).
+
+With ``tensor_parallel_size`` > 1 this process is tp rank 0: the engine
+starts ranks 1..tp-1 as worker processes (``parallel/worker.py``) before
+building its runner, and stops and joins them at ``stop``. Decode runs
+eagerly (no graph is captured). A lost rank (a worker that exited, or a
+collective that failed or timed out) makes the engine unhealthy; its
+requests, and every later one, raise.
 """
 
 import asyncio
@@ -42,7 +49,10 @@ from production_stack_tpu_torch.engine.tokenizer import (
     get_tokenizer,
 )
 from production_stack_tpu_torch.models.config import resolve_model_config
-from production_stack_tpu_torch.utils import init_logger, random_uuid
+from production_stack_tpu_torch.ops import paged_attention as pa
+from production_stack_tpu_torch.parallel import worker
+from production_stack_tpu_torch.parallel.mesh import TPGroup
+from production_stack_tpu_torch.utils import init_logger, random_uuid, resolve_device
 
 logger = init_logger(__name__)
 
@@ -73,10 +83,29 @@ class ServingEngine:
         self.config = config
         self.model_config = resolve_model_config(config.model)
         self.tokenizer = get_tokenizer(config.model, self.model_config)
-        self.runner = ModelRunner(
-            config, self.model_config, params=params,
-            num_kv_blocks=num_kv_blocks,
-        )
+        self.tp: Optional[TPGroup] = None
+        self.tp_reports: Optional[List[Dict]] = None  # every rank's, at stop
+        self._tp_error: Optional[str] = None
+        if config.tensor_parallel_size > 1:
+            device = resolve_device(config.device)
+            if device.type == "cuda" and \
+                    config.resolved_attn_impl(self.model_config) == "paged":
+                pa.build_kernels()  # once, before the workers load it
+            self.tp = TPGroup.launch(
+                config.tensor_parallel_size, device, config.tp_timeout_s,
+                lambda rank, port: worker.argv(
+                    config, rank, port, broadcast_params=params is not None,
+                    num_kv_blocks=num_kv_blocks))
+        try:
+            self.runner = ModelRunner(
+                config, self.model_config, params=params,
+                num_kv_blocks=num_kv_blocks, tp=self.tp,
+            )
+        except BaseException:
+            if self.tp is not None:
+                self.tp.error = self.tp.error or "runner failed to start"
+                self.tp.close()
+            raise
         self.block_manager = BlockPoolManager(
             self.runner.num_kv_blocks, config.block_size,
             config.enable_prefix_caching,
@@ -113,6 +142,9 @@ class ServingEngine:
     async def start(self) -> None:
         if self._running:
             return
+        if self.tp is not None and self.tp_reports is not None:
+            raise RuntimeError("a stopped tensor-parallel engine cannot "
+                               "start again: its worker ranks have exited")
         self._new_work = asyncio.Event()
         if self.config.enable_warmup:
             await asyncio.get_running_loop().run_in_executor(
@@ -121,26 +153,66 @@ class ServingEngine:
         self._loop_task = asyncio.create_task(self._run_loop())
         logger.info(
             "Engine started: model=%s kv_blocks=%d block_size=%d attn=%s "
-            "device=%s", self.config.model_name, self.runner.num_kv_blocks,
-            self.config.block_size, self.runner.attn_impl, self.runner.device,
+            "device=%s tp=%d", self.config.model_name,
+            self.runner.num_kv_blocks, self.config.block_size,
+            self.runner.attn_impl, self.runner.device,
+            self.config.tensor_parallel_size,
         )
+        if self.tp is not None:
+            logger.info("tp=%d over %s: the decode train runs eagerly (no "
+                        "CUDA graph family is captured)", self.tp.size,
+                        self.tp.backend)
 
     async def stop(self) -> None:
+        """Stop the engine loop; at tp > 1 also end the worker ranks (their
+        final reports land in ``tp_reports``) and join them."""
         self._running = False
         self._new_work.set()
         if self._loop_task:
             await self._loop_task
             self._loop_task = None
+        if self.tp is not None and self.tp_reports is None:
+            await asyncio.get_running_loop().run_in_executor(
+                self._executor, self._stop_ranks)
+
+    def _stop_ranks(self) -> None:
+        try:
+            if self._lost() is None:
+                self.tp_reports = self.runner.tp_stop()
+        except Exception as e:  # noqa: BLE001 — the ranks are lost
+            self._tp_error = f"stopping the tp ranks failed: {e}"
+            logger.error("%s", self._tp_error)
+        finally:
+            if self.tp_reports is None:
+                self.tp_reports = []
+            self.tp.close()
 
     def shutdown(self) -> None:
-        """Release the worker thread (after ``stop``)."""
+        """Release the worker thread (after ``stop``); end the worker ranks
+        if ``stop`` did not."""
+        if self.tp is not None and self.tp_reports is None:
+            self._executor.submit(self._stop_ranks).result()
         self._executor.shutdown(wait=True)
+
+    def _lost(self) -> Optional[str]:
+        """Why the tp group is lost, or None (always None at tp = 1)."""
+        if self.tp is None:
+            return None
+        self._tp_error = self._tp_error or self.tp.lost()
+        return self._tp_error
 
     @property
     def is_healthy(self) -> bool:
         return self._running and (
             self._loop_task is not None and not self._loop_task.done()
-        )
+        ) and self._lost() is None
+
+    async def rank_reports(self, reset: bool = False) -> List[Dict]:
+        """Every tp rank's report (``ModelRunner.tp_query``), taken between
+        dispatches on the runner thread; ``reset`` zeroes each rank's
+        launch counts, token digest and peak-memory mark afterwards."""
+        return await asyncio.get_running_loop().run_in_executor(
+            self._executor, self.runner.tp_query, reset)
 
     # ----------------------------------------------------------------- intake
     async def generate(
@@ -153,6 +225,8 @@ class ServingEngine:
         """Submit a request; yields streaming RequestOutput deltas."""
         request_id = request_id or random_uuid("req-")
         sampling = sampling or SamplingParams()
+        if self._lost() is not None:
+            raise RuntimeError(f"engine unavailable: {self._tp_error}")
         if prompt_token_ids is None:
             assert prompt is not None
             prompt_token_ids = self.tokenizer.encode(prompt)
@@ -173,7 +247,9 @@ class ServingEngine:
         self._new_work.set()
         try:
             while True:
-                out: RequestOutput = await state.queue.get()
+                out = await state.queue.get()
+                if isinstance(out, Exception):
+                    raise out
                 yield out
                 if out.finished:
                     break
@@ -256,7 +332,18 @@ class ServingEngine:
                 try:
                     handle = await loop.run_in_executor(
                         self._executor, self.runner.execute_async, batch)
-                except Exception:  # noqa: BLE001 — the loop must survive
+                except Exception as e:  # noqa: BLE001 — the loop must survive
+                    if self.tp is not None:
+                        # A tp rank is lost: every request fails, the loop
+                        # ends and the engine reports unhealthy.
+                        self._tp_error = self._lost() or \
+                            f"tp dispatch failed: {e}"
+                        logger.error("tensor-parallel group lost: %s",
+                                     self._tp_error)
+                        self._fail_all(RuntimeError(
+                            f"engine unavailable: {self._tp_error}"))
+                        self._running = False
+                        break
                     logger.exception("Dispatch issue failed; aborting its batch")
                     abort_batch(batch)
                     issue_failed = True
@@ -292,6 +379,11 @@ class ServingEngine:
         # Stopping: apply what is in flight, so no accepted token is lost.
         while in_flight:
             await apply_oldest()
+
+    def _fail_all(self, err: Exception) -> None:
+        """End every open stream with ``err`` (raised by its generate())."""
+        for st in self._streams.values():
+            st.queue.put_nowait(err)
 
     def _apply_pending_aborts(self) -> None:
         while self._pending_aborts:
@@ -398,5 +490,11 @@ class ServingEngine:
             "decode_seconds_total": r.decode_seconds_total,
             "decode_device_seconds_total": r.decode_device_seconds_total,
             "prefill_seconds_total": r.prefill_seconds_total,
+            # Tensor parallelism: the group's size and devices, the backend
+            # its rule picked, and each rank's pool bytes.
+            "mesh_tp_size": self.config.tensor_parallel_size,
+            "mesh_devices": self.config.mesh_devices,
+            "hbm_kv_bytes_per_device": r.per_device_hbm_kv_bytes(),
+            "tp_backend": self.tp.backend if self.tp is not None else None,
             **r.decode_train.stats(),
         }

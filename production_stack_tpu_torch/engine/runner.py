@@ -30,8 +30,22 @@ Counterpart of ``production_stack_tpu/engine/runner.py`` (main path only):
     dispatch (the scheduler keeps fresh prefill rows out of decode until
     their prefill applies).
   * Seeds are derived on the device from ``seed_base`` and ``gen0``.
+  * Tensor parallelism (``tensor_parallel_size`` > 1, ``parallel/``): each
+    rank's runner holds its param shard and the pools of its kv heads, and
+    every dispatch splits in two. The host part, on rank 0 only, packs the
+    int32 buffer from the ``ScheduledBatch``; the device part runs on every
+    rank from a descriptor (kind, shape key, ``n_steps``, ``finals``,
+    penalty counts, chain source and the packed buffer) that rank 0
+    broadcasts on the tp group's CPU group right before its own device
+    part. Chains are kept per dispatch number on every rank, so a worker
+    needs no ``Sequence``. Every rank samples from the same full logits
+    with the same seeds, so start tokens chain on every rank without a
+    broadcast; only rank 0 copies tokens to the host. Each rank keeps a
+    device digest of the tokens it sampled, reported with its launch
+    counts (``tp_query``) and at ``tp_stop``.
 """
 
+import contextlib
 import os
 import time
 from typing import Dict, List, Optional, Tuple
@@ -66,6 +80,8 @@ from production_stack_tpu_torch.ops.quantization import (
     SCALE_DTYPE,
     quantize_kv,
 )
+from production_stack_tpu_torch.parallel import mesh
+from production_stack_tpu_torch.parallel.sharding import shard_params
 from production_stack_tpu_torch.utils import (
     init_logger,
     pow2_bucket as _bucket,
@@ -102,13 +118,32 @@ class _Slot:
         self.inp = self.out = self.start = self.end = None
 
 
+# Token digest: digest = (digest * _DIGEST_MULT + sum(tokens * weights))
+# mod _DIGEST_MOD, weights 1..65521 by position; int64 never overflows.
+_DIGEST_MULT = 1000003
+_DIGEST_MOD = 2147483647
+
+
 class ModelRunner:
     def __init__(self, config: EngineConfig, model_config: ModelConfig,
                  params: Optional[Dict] = None,
-                 num_kv_blocks: Optional[int] = None):
+                 num_kv_blocks: Optional[int] = None,
+                 tp: Optional[mesh.TPGroup] = None,
+                 broadcast_params: bool = False):
+        """``tp``: this process's rank of the tensor-parallel group (None at
+        tensor_parallel_size 1). ``params`` are FULL params; at tp > 1 rank
+        0's are broadcast to the workers (which pass ``broadcast_params``)
+        and each rank keeps its shard."""
         self.config = config
         self.model_config = model_config
-        self.device = resolve_device(config.device)
+        if (tp.size if tp is not None else 1) != config.tensor_parallel_size:
+            raise ValueError(
+                f"tensor_parallel_size {config.tensor_parallel_size} needs a "
+                f"tp group of that size, got {tp.size if tp else None}")
+        self.tp = tp if config.tensor_parallel_size > 1 else None
+        self.rank = tp.rank if self.tp is not None else 0
+        self.device = (self.tp.device if self.tp is not None
+                       else resolve_device(config.device))
         if model_config.arch != "llama":
             raise ValueError(
                 f"arch {model_config.arch!r} is not ported (llama family only)"
@@ -127,11 +162,17 @@ class ModelRunner:
         # Tokens written to a quantized pool (prefill + decode), for
         # kv_quant_bytes_saved_total.
         self.kv_quant_tokens_written = 0
+        tp_size = config.tensor_parallel_size
+        self.local_kv_heads = config.local_kv_heads(model_config)
+        if self.tp is not None and (params is not None or broadcast_params):
+            params = self.tp.broadcast_params(params)
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
-            params = llama.init_params(model_config, gen, self.dtype, self.device)
+            params = llama.init_params(model_config, gen, self.dtype,
+                                       self.device, rank=self.rank, tp=tp_size)
         else:
+            params = shard_params(params, model_config, self.rank, tp_size)
             params = {
                 k: ({n: t.to(self.device, self.dtype) for n, t in v.items()}
                     if k == "layers" else v.to(self.device, self.dtype))
@@ -139,17 +180,33 @@ class ModelRunner:
             }
         self.params = params
         self.head_f32 = llama.lm_head_f32(params, model_config)
-        self.num_kv_blocks = num_kv_blocks or config.num_kv_blocks or \
-            self._derive_num_blocks()
+        if self.tp is not None:
+            # Every rank's weights are resident before any rank reads the
+            # free memory its pool may take.
+            self.tp.barrier()
+        n = num_kv_blocks or config.num_kv_blocks or self._derive_num_blocks()
+        if self.tp is not None:
+            # Block ids are global: every rank holds the same count.
+            n = self.tp.min_int(n)
+        self.num_kv_blocks = n
         self._alloc_kv_pools()
         self.b_max = _bucket(config.max_num_seqs, 1, max(1, config.max_num_seqs))
         # Device-resident last-token vectors of recent token-producing
-        # dispatches, newest first: {"last": [b_max] int32, "row": {rid:
-        # row}, "epoch": {rid: preemptions}}. With at most pipeline_depth
-        # dispatches outstanding, the newest max(2, depth) entries cover
-        # every chainable row.
-        self._chains: List[Dict] = []
+        # dispatches, newest first, on every rank: (dispatch number, [b_max]
+        # int32). Rank 0 keeps their rows beside them, {"dispatch": n,
+        # "row": {rid: row}, "epoch": {rid: preemptions}}. With at most
+        # pipeline_depth dispatches outstanding, the newest max(2, depth)
+        # entries cover every chainable row.
+        self._chain_last: List[Tuple[int, torch.Tensor]] = []
+        self._chain_rows: List[Dict] = []
         self._max_chains = max(2, config.pipeline_depth)
+        self._dispatches = 0
+        # When a list: each dispatch appends its full f32 logits (prefill:
+        # [b, V]; each decode step: [b bucket, V]), for a caller that reads
+        # them (chip_smoke.py's teacher-forced check).
+        self.logits_sink: Optional[List[torch.Tensor]] = None
+        self._digest = (torch.zeros((1,), dtype=torch.int64, device=self.device)
+                        if self.tp is not None else None)
         self.decode_train = DecodeTrain(self)
         self._slots = [_Slot() for _ in range(_NUM_SLOTS)]
         self._slot_idx = 0
@@ -164,6 +221,10 @@ class ModelRunner:
         self.decode_tokens_total = 0      # tokens within row budgets
         # Decode dispatches that read start tokens on the device.
         self.chained_dispatches_total = 0
+        # Every rank's report at start (device, pool and weight bytes).
+        self.rank_info: List[Dict] = [self._rank_report()]
+        if self.tp is not None:
+            self.rank_info = self.tp.gather_object(self.rank_info[0])
 
     # ------------------------------------------------------------------ sizing
     def _alloc_kv_pools(self) -> None:
@@ -171,7 +232,7 @@ class ModelRunner:
         head) scale pools."""
         mc, cfg = self.model_config, self.config
         num_slots = self.num_kv_blocks * cfg.block_size
-        shape = (mc.num_layers, mc.num_kv_heads, num_slots, mc.head_dim_)
+        shape = (mc.num_layers, self.local_kv_heads, num_slots, mc.head_dim_)
         store = torch.int8 if self.kv_quantized else self.dtype
         self.kv_k = torch.zeros(shape, dtype=store, device=self.device)
         self.kv_v = torch.zeros(shape, dtype=store, device=self.device)
@@ -184,32 +245,53 @@ class ModelRunner:
 
     @property
     def kv_pool_bytes(self) -> int:
-        """Device bytes of the KV pool, payload + scale pools."""
-        return self.num_kv_blocks * self.config.kv_cache_bytes_per_block(
-            self.model_config)
+        """Device bytes of the whole KV pool, payload + scale pools, over
+        all tp ranks."""
+        return (self.num_kv_blocks * self.config.tensor_parallel_size
+                * self.config.kv_cache_bytes_per_block(self.model_config))
+
+    @property
+    def hbm_kv_bytes(self) -> int:
+        """Device bytes this rank's pool tensors occupy."""
+        pools = [self.kv_k, self.kv_v, self.kv_k_scale, self.kv_v_scale]
+        return sum(t.numel() * t.element_size() for t in pools if t is not None)
+
+    def per_device_hbm_kv_bytes(self) -> Dict[str, int]:
+        """Each rank's pool bytes (as the rank measured them at start),
+        keyed "rank<r>:<device>" (the reference keys by device; ranks may
+        share one here)."""
+        return {f"rank{i['rank']}:{i['device']}": i["hbm_kv_bytes"]
+                for i in self.rank_info}
 
     @property
     def kv_quant_bytes_saved_total(self) -> int:
         """Pool bytes a quantized cache avoided writing against storing the
-        same tokens in the compute dtype (0 when not quantized)."""
+        same tokens in the compute dtype, over all ranks (0 when not
+        quantized)."""
         if not self.kv_quantized:
             return 0
         mc, cfg = self.model_config, self.config
-        unquantized = (2 * mc.num_layers * mc.num_kv_heads * mc.head_dim_
+        unquantized = (2 * mc.num_layers * self.local_kv_heads * mc.head_dim_
                        * self.dtype.itemsize)
         saved = max(0, unquantized - cfg.kv_cache_bytes_per_token(mc))
-        return self.kv_quant_tokens_written * saved
+        return (self.kv_quant_tokens_written * saved
+                * cfg.tensor_parallel_size)
 
     def _derive_num_blocks(self) -> int:
         """Size the KV pool from free device memory (after the weights are
         resident); the CPU gets a conservative 2 GiB. The pool costs its
         storage bytes (int8 payload + scales when quantized); gathered
-        windows hold dequantized compute-dtype K/V and cost those bytes."""
+        windows hold dequantized compute-dtype K/V and cost those bytes.
+        Bytes are this rank's (its kv heads); tp ranks sharing one card
+        each take their share of its free memory (the caller then takes the
+        minimum over ranks)."""
         mc, cfg = self.model_config, self.config
         bytes_per_block = cfg.kv_cache_bytes_per_block(mc)
         window_bytes_per_block = cfg.window_bytes_per_block(mc)
         if self.device.type == "cuda":
             free_bytes, _ = torch.cuda.mem_get_info(self.device)
+            free_bytes //= mesh.ranks_per_device(
+                self.device, cfg.tensor_parallel_size)
         else:
             free_bytes = 2 << 30
         budget = int(free_bytes * cfg.hbm_utilization)
@@ -371,20 +453,26 @@ class ModelRunner:
         library is built first); on the CPU, run each family's all-zero
         dummy dispatch eagerly. Dummy dispatches have budget 0 and table 0
         in every row, so they write only the null block: the pool's other
-        blocks survive warmup. Prefill stays eager and is not warmed."""
-        keys = self.decode_graph_keys()
+        blocks survive warmup. Prefill stays eager and is not warmed. At
+        tp > 1 no family is captured (gloo collectives cannot be captured,
+        and NCCL capture is not ported): decode runs eagerly."""
         t0 = time.monotonic()
-        if self.device.type == "cuda":
-            if self.attn_impl == "paged":
-                pa.build_kernels()
+        cuda = self.device.type == "cuda"
+        if cuda and self.attn_impl == "paged":
+            pa.build_kernels()
+        if self.tp is not None:
+            logger.info("warmup: tp=%d: no decode family captured (decode "
+                        "runs eagerly)", self.tp.size)
+            return
+        keys = self.decode_graph_keys()
+        if cuda:
             self.decode_train.capture(keys)
         else:
             self.decode_train.reserve(keys)
             for key in keys:
                 self.decode_train.dummy_dispatch(key)
         logger.info("warmup: %d decode families in %.2f s (%s)", len(keys),
-                    time.monotonic() - t0,
-                    "CUDA graphs" if self.device.type == "cuda" else "eager")
+                    time.monotonic() - t0, "CUDA graphs" if cuda else "eager")
 
     # --------------------------------------------------------------- helpers
     def _slot(self, n_in: int, n_out: int) -> _Slot:
@@ -424,23 +512,45 @@ class ModelRunner:
                           np.asarray(s.output_token_ids, np.int64) % vocab, 1)
         return counts
 
-    def _push_chain(self, last: torch.Tensor, seqs, rows) -> None:
+    def _dispatch_lock(self):
+        """Rank 0 holds the tp group's lock from a descriptor's broadcast to
+        the end of the device work it describes."""
+        return self.tp.lock if self.tp is not None else contextlib.nullcontext()
+
+    def _push_last(self, last: torch.Tensor) -> int:
         """Record a token-producing dispatch's device-resident last-token
-        vector (newest first, bounded): later decodes chain start tokens
-        from it until its results reach the host."""
-        self._chains.insert(0, {
-            "last": last,
+        vector under its dispatch number (newest first, bounded): later
+        decodes chain start tokens from it until its results reach the
+        host. Returns the number."""
+        d = self._dispatches
+        self._chain_last.insert(0, (d, last))
+        del self._chain_last[self._max_chains:]
+        return d
+
+    def _push_rows(self, d: int, seqs, rows) -> None:
+        """Rank 0: the rows of dispatch ``d``'s last-token vector."""
+        self._chain_rows.insert(0, {
+            "dispatch": d,
             "row": {seqs[i].request_id: i for i in rows},
             "epoch": {seqs[i].request_id: seqs[i].num_preemptions
                       for i in rows},
         })
-        del self._chains[self._max_chains:]
+        del self._chain_rows[self._max_chains:]
+
+    def _digest_add(self, toks: torch.Tensor) -> None:
+        """Fold sampled tokens into this rank's device digest (tp > 1)."""
+        if self._digest is None:
+            return
+        flat = toks.reshape(-1).long()
+        w = torch.arange(flat.numel(), device=flat.device) % 65521 + 1
+        self._digest.mul_(_DIGEST_MULT).add_((flat * w).sum()).remainder_(
+            _DIGEST_MOD)
 
     # ------------------------------------------------------------------ decode
     def _issue_decode(self, batch: ScheduledBatch) -> DispatchHandle:
         """Issue one fused K-step decode dispatch (the reference's
         ``_issue_decode``); its handle's fetch returns each row's tokens
-        (its step budget's worth)."""
+        (its step budget's worth). The host part: pack the inputs."""
         t_issue = time.monotonic()
         cfg = self.config
         seqs = batch.seqs
@@ -457,7 +567,7 @@ class ModelRunner:
         f32 = sc.view(np.float32)
         u32 = sc.view(np.uint32)
         sc[11, :] = -1
-        chain_entry = None  # the ONE device vector this dispatch chains from
+        chain_entry = None  # the ONE dispatch this dispatch chains from
         for i, s in enumerate(seqs):
             pos = s.num_computed_tokens
             if pos < len(s.all_token_ids):
@@ -466,7 +576,7 @@ class ModelRunner:
                 # The row's last token is still in an unapplied dispatch's
                 # device vector: read it there.
                 src, src_entry = -1, None
-                for entry in self._chains:  # newest first
+                for entry in self._chain_rows:  # newest first
                     r = entry["row"].get(s.request_id, -1)
                     if r >= 0 and entry["epoch"][s.request_id] == \
                             s.num_preemptions:
@@ -499,27 +609,25 @@ class ModelRunner:
             f32[10, i] = sp.frequency_penalty
             bt[i, :len(s.block_ids)] = s.block_ids
         counts = self._counts(seqs, b)
-        key = (b, mb, k, counts is not None)
-        train = self.decode_train
-        bf = train.buffers(*key)
-        bf.packed.copy_(slot.inp[:n_packed], non_blocking=True)
-        if chain_entry is not None:
-            bf.prev_last.copy_(chain_entry["last"])
-            self.chained_dispatches_total += 1
         if counts is not None:
-            bf.counts.copy_(torch.from_numpy(counts))
+            counts = torch.from_numpy(counts)
         steps = list(batch.decode_steps)
         n_steps = k if cfg.decode_loop == "scan" else max(steps)
-        train.run(key, bf, n_steps)
-        self._push_chain(bf.last.clone(), seqs, range(n))
+        chain_src = -1 if chain_entry is None else chain_entry["dispatch"]
+        with self._dispatch_lock():
+            if self.tp is not None:
+                self.tp.send_header(mesh.DECODE, self._dispatches, b, mb, k,
+                                    n_steps, chain_src, int(counts is not None))
+                self.tp.bcast(slot.inp[:n_packed])
+                if counts is not None:
+                    self.tp.bcast(counts)
+            d, bf = self._decode_device(slot, b, mb, k, n_steps, chain_src,
+                                        counts)
+        self._push_rows(d, seqs, range(n))
         out_buf, start, end = slot.out, slot.start, slot.end
         out_buf[:k * b].copy_(bf.toks_all.view(-1), non_blocking=True)
         if end is not None:
             end.record()
-        if self.kv_quantized:
-            self.kv_quant_tokens_written += sum(steps)
-        self.decode_steps_total += n_steps
-        self.decode_tokens_total += sum(steps)
 
         def fetch():
             if end is not None:
@@ -534,16 +642,49 @@ class ModelRunner:
 
         return DispatchHandle(fetch)
 
+    def _decode_device(self, slot: _Slot, b: int, mb: int, k: int,
+                       n_steps: int, chain_src: int,
+                       counts: Optional[torch.Tensor]):
+        """The device part of a decode dispatch, on every rank: the fused
+        train over the packed inputs in ``slot``. Returns (dispatch number,
+        the train's buffers)."""
+        n_packed = NUM_SCALARS * b + b * mb
+        key = (b, mb, k, counts is not None)
+        train = self.decode_train
+        bf = train.buffers(*key)
+        bf.packed.copy_(slot.inp[:n_packed], non_blocking=True)
+        if chain_src >= 0:
+            last = dict(self._chain_last).get(chain_src)
+            if last is None:
+                raise RuntimeError(
+                    f"decode chains from dispatch {chain_src}, which is not "
+                    "among the recent token-producing dispatches")
+            bf.prev_last.copy_(last)
+            self.chained_dispatches_total += 1
+        if counts is not None:
+            bf.counts.copy_(counts)
+        train.run(key, bf, n_steps)
+        d = self._push_last(bf.last.clone())
+        self._dispatches += 1
+        self._digest_add(bf.toks_all)
+        # Row 2 holds each row's step budget (0 in padding rows).
+        budgets = int(slot.inp[2 * b:3 * b].sum())
+        if self.kv_quantized:
+            self.kv_quant_tokens_written += budgets
+        self.decode_steps_total += n_steps
+        self.decode_tokens_total += budgets
+        return d, bf
+
     # ----------------------------------------------------------------- prefill
     def _issue_prefill(self, batch: ScheduledBatch) -> DispatchHandle:
         """Issue one (multi-sequence) prefill chunk dispatch (the
         reference's ``_issue_prefill`` + ``_prefill_impl``); its fetch
         returns the sampled token of rows whose prompt completes in this
         chunk. Packed rows: 0 chunk_start, 1 chunk_len, 2 seed_base,
-        3 gen0, 4 temperature, 5 top_k, 6 top_p, 9 presence, 10 frequency."""
+        3 gen0, 4 temperature, 5 top_k, 6 top_p, 9 presence, 10 frequency;
+        then the block tables, the chunk's tokens and (the descriptor's
+        ``finals``) one flag per row."""
         t_issue = time.monotonic()
-        cfg, mc = self.config, self.model_config
-        bs = cfg.block_size
         seqs = batch.seqs
         b = len(seqs)
         t, mb, has_window = self.prefill_shape(batch)
@@ -554,12 +695,13 @@ class ModelRunner:
 
         n_sc = NUM_SCALARS * b
         n_packed = n_sc + b * mb + b * t
-        slot = self._slot(n_packed, b)
-        packed = slot.inp[:n_packed].numpy()
+        slot = self._slot(n_packed + b, b)
+        packed = slot.inp[:n_packed + b].numpy()
         packed[:] = 0
         sc = packed[:n_sc].reshape(NUM_SCALARS, b)
         bt = packed[n_sc:n_sc + b * mb].reshape(b, mb)
-        toks = packed[n_sc + b * mb:].reshape(b, t)
+        toks = packed[n_sc + b * mb:n_packed].reshape(b, t)
+        packed[n_packed:] = finals
         f32 = sc.view(np.float32)
         u32 = sc.view(np.uint32)
         for i, s in enumerate(seqs):
@@ -576,6 +718,52 @@ class ModelRunner:
             f32[10, i] = sp.frequency_penalty
             bt[i, :len(s.block_ids)] = s.block_ids
             toks[i, :ln] = s.all_token_ids[start:start + ln]
+        counts = self._counts(seqs, b) if any(finals) else None
+        if counts is not None:
+            counts = torch.from_numpy(counts)
+        with self._dispatch_lock():
+            if self.tp is not None:
+                self.tp.send_header(mesh.PREFILL, self._dispatches, b, t, mb,
+                                    int(has_window), int(counts is not None))
+                self.tp.bcast(slot.inp[:n_packed + b])
+                if counts is not None:
+                    self.tp.bcast(counts)
+            d, next_tokens = self._prefill_device(slot, b, t, mb, has_window,
+                                                  finals, counts)
+
+        if next_tokens is None:
+            if slot.end is not None:
+                slot.end.record()
+            self.prefill_seconds_total += time.monotonic() - t_issue
+            return DispatchHandle(lambda: [[] for _ in range(b)])
+        # Final rows' sampled tokens are chainable by the next decode
+        # without a host round trip.
+        self._push_rows(d, seqs, [i for i in range(b) if finals[i]])
+        out_buf, end = slot.out, slot.end
+        out_buf[:b].copy_(next_tokens, non_blocking=True)
+        if end is not None:
+            end.record()
+
+        def fetch():
+            if end is not None:
+                end.synchronize()
+            out = out_buf[:b].numpy()
+            self.prefill_seconds_total += time.monotonic() - t_issue
+            return [[int(out[i])] if finals[i] else [] for i in range(b)]
+
+        return DispatchHandle(fetch)
+
+    def _prefill_device(self, slot: _Slot, b: int, t: int, mb: int,
+                        has_window: bool, finals: List[bool],
+                        counts: Optional[torch.Tensor]):
+        """The device part of a prefill dispatch, on every rank: slot
+        mappings, the history window, the forward, sampling (when a row's
+        prompt completes) and the one scatter of the chunk's KV. Returns
+        (dispatch number, the sampled tokens or None)."""
+        cfg, mc = self.config, self.model_config
+        bs = cfg.block_size
+        n_sc = NUM_SCALARS * b
+        n_packed = n_sc + b * mb + b * t
         dev = torch.empty((n_packed,), dtype=torch.int32, device=self.device)
         dev.copy_(slot.inp[:n_packed], non_blocking=True)
         scalars = dev[:n_sc].view(NUM_SCALARS, b)
@@ -605,18 +793,20 @@ class ModelRunner:
             win_k = win_v = win_len = None
         hidden, k_new, v_new = llama.forward(
             self.params, mc, token_ids, positions, chunk_lens,
-            win_k, win_v, win_len,
+            win_k, win_v, win_len, tp=self.tp,
         )
         del win_k, win_v
-        logit_idx = torch.clamp(chunk_lens - 1, min=0).long()
-        last_hidden = hidden[torch.arange(b, device=self.device), logit_idx]
+        next_tokens = None
         if any(finals):
+            logit_idx = torch.clamp(chunk_lens - 1, min=0).long()
+            last_hidden = hidden[torch.arange(b, device=self.device), logit_idx]
             logits = llama.compute_logits(self.params, mc, last_hidden,
-                                          self.head_f32)
-            counts = self._counts(seqs, b)
+                                          self.head_f32, tp=self.tp)
+            if self.logits_sink is not None:
+                self.logits_sink.append(logits.clone())
             if counts is not None:
                 logits_eff = apply_penalties(
-                    logits, torch.from_numpy(counts).to(self.device),
+                    logits, counts.to(self.device),
                     scalars[9].view(torch.float32),
                     scalars[10].view(torch.float32))
             else:
@@ -627,7 +817,7 @@ class ModelRunner:
             next_tokens = sample_tokens(logits_eff, temps, top_k, top_p,
                                         gumbel).int()
 
-        nl, hkv, dh = mc.num_layers, mc.num_kv_heads, mc.head_dim_
+        nl, hkv, dh = mc.num_layers, self.local_kv_heads, mc.head_dim_
         flat_slots = slot_mapping.reshape(-1).long()
         k_flat = k_new.reshape(nl, hkv, b * t, dh)
         v_flat = v_new.reshape(nl, hkv, b * t, dh)
@@ -638,33 +828,18 @@ class ModelRunner:
             v_flat, v_sc = quantize_kv(v_flat)
             self.kv_k_scale[:, :, flat_slots] = k_sc
             self.kv_v_scale[:, :, flat_slots] = v_sc
-            self.kv_quant_tokens_written += sum(batch.chunk_lens)
+            self.kv_quant_tokens_written += int(slot.inp[b:2 * b].sum())
         self.kv_k[:, :, flat_slots] = k_flat
         self.kv_v[:, :, flat_slots] = v_flat
-
-        if not any(finals):
-            if slot.end is not None:
-                slot.end.record()
-            self.prefill_seconds_total += time.monotonic() - t_issue
-            return DispatchHandle(lambda: [[] for _ in range(b)])
-        # Final rows' sampled tokens are chainable by the next decode
-        # without a host round trip.
-        last = torch.zeros((self.b_max,), dtype=torch.int32, device=self.device)
-        last[:b] = next_tokens
-        self._push_chain(last, seqs, [i for i in range(b) if finals[i]])
-        out_buf, end = slot.out, slot.end
-        out_buf[:b].copy_(next_tokens, non_blocking=True)
-        if end is not None:
-            end.record()
-
-        def fetch():
-            if end is not None:
-                end.synchronize()
-            out = out_buf[:b].numpy()
-            self.prefill_seconds_total += time.monotonic() - t_issue
-            return [[int(out[i])] if finals[i] else [] for i in range(b)]
-
-        return DispatchHandle(fetch)
+        d = self._dispatches
+        if next_tokens is not None:
+            last = torch.zeros((self.b_max,), dtype=torch.int32,
+                               device=self.device)
+            last[:b] = next_tokens
+            self._push_last(last)
+            self._digest_add(next_tokens)
+        self._dispatches += 1
+        return d, next_tokens
 
     # ---------------------------------------------------------------- execute
     def execute_async(self, batch: ScheduledBatch) -> DispatchHandle:
@@ -675,3 +850,89 @@ class ModelRunner:
         if batch.kind == "decode":
             return self._issue_decode(batch)
         return self._issue_prefill(batch)
+
+    # ------------------------------------------------------ tensor parallel
+    def _rank_report(self) -> Dict:
+        cuda = self.device.type == "cuda"
+        return {
+            "rank": self.rank, "pid": os.getpid(), "device": str(self.device),
+            "hbm_kv_bytes": self.hbm_kv_bytes,
+            "weight_bytes": sum(
+                t.numel() * t.element_size() for k, v in self.params.items()
+                for t in (v.values() if k == "layers" else [v])),
+            "head_f32_bytes": self.head_f32.numel() * 4,
+            "num_kv_blocks": self.num_kv_blocks,
+            "launch_counts": pa.launch_counts(),
+            "token_digest": (int(self._digest.item())
+                             if self._digest is not None else None),
+            "dispatches": self._dispatches,
+            "decode_steps_total": self.decode_steps_total,
+            "peak_bytes": (torch.cuda.max_memory_allocated(self.device)
+                           if cuda else 0),
+        }
+
+    def _answer_query(self, reset: bool) -> List[Dict]:
+        reports = self.tp.gather_object(self._rank_report())
+        if reset:
+            pa.reset_launch_counts()
+            self._digest.zero_()
+            if self.device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(self.device)
+        return reports
+
+    def tp_query(self, reset: bool = False) -> List[Dict]:
+        """Rank 0, between dispatches: every rank's report (launch counts,
+        token digest, pool and weight bytes, dispatches, decode steps, peak
+        device bytes), in rank order. ``reset`` then sets each rank's launch
+        counts, digest and peak-memory mark to 0."""
+        with self.tp.lock:
+            self.tp.send_header(mesh.QUERY, int(reset))
+            return self._answer_query(reset)
+
+    def tp_stop(self) -> List[Dict]:
+        """Rank 0: end the workers' descriptor loops; returns every rank's
+        final report."""
+        with self.tp.lock:
+            self.tp.send_header(mesh.STOP)
+            return self._answer_query(False)
+
+    def serve(self) -> List[Dict]:
+        """Ranks 1..tp-1: run rank 0's descriptors, in order, until the
+        stop descriptor; returns the final reports."""
+        tp = self.tp
+        vocab = self.model_config.vocab_size
+        while True:
+            h = tp.recv_header()
+            kind = h[0]
+            if kind == mesh.NOOP:
+                continue
+            if kind == mesh.QUERY:
+                self._answer_query(bool(h[1]))
+                continue
+            if kind == mesh.STOP:
+                return self._answer_query(False)
+            if kind == mesh.DECODE:
+                d, b, mb, k, n_steps, chain_src, pen = h[1:8]
+                n_payload = NUM_SCALARS * b + b * mb
+            elif kind == mesh.PREFILL:
+                d, b, t, mb, has_window, pen = h[1:7]
+                n_payload = NUM_SCALARS * b + b * mb + b * t + b
+            else:
+                raise RuntimeError(f"unknown dispatch descriptor kind {kind}")
+            if d != self._dispatches:
+                raise RuntimeError(f"descriptor of dispatch {d} reached rank "
+                                   f"{self.rank} at dispatch {self._dispatches}")
+            slot = self._slot(n_payload, 0)
+            tp.bcast(slot.inp[:n_payload])
+            counts = None
+            if pen:
+                counts = torch.empty((b, vocab), dtype=torch.int32)
+                tp.bcast(counts)
+            if kind == mesh.DECODE:
+                self._decode_device(slot, b, mb, k, n_steps, chain_src, counts)
+            else:
+                finals = [bool(f) for f in slot.inp[n_payload - b:n_payload].tolist()]
+                self._prefill_device(slot, b, t, mb, bool(has_window), finals,
+                                     counts)
+            if slot.end is not None:
+                slot.end.record()

@@ -12,6 +12,16 @@ the window before ``forward`` and scatters the returned (k_new, v_new)
 after. Paged path (decode only): each layer attends against its slice of the
 stacked pool through ops/paged_attention.py:paged_flash_decode_stats, merged
 with the small dense ring + current-token segment.
+
+Tensor parallelism (``tp``, a ``parallel/mesh.py:TPGroup``): every rank
+holds its shard of the params (``parallel/sharding.py``) and runs the same
+forward on its own heads; activations between the projections are
+replicated. The collectives sit where the JAX package's sharding puts them:
+the embedding rows are gathered over the hidden dim, the row-parallel
+``wo`` and ``w_down`` products are all-reduced, and the head either
+all-gathers each rank's vocab slice of the logits (``lm_head`` split on V)
+or all-reduces partial logits (a tied head, ``embed`` split on D). The
+paged decode runs ``paged_flash_decode_stats_tp`` over the rank's kv heads.
 """
 
 from typing import Dict, Optional, Tuple
@@ -26,7 +36,11 @@ from production_stack_tpu_torch.ops.attention import (
     merge_attention_segments,
     window_attention,
 )
-from production_stack_tpu_torch.ops.paged_attention import paged_flash_decode_stats
+from production_stack_tpu_torch.ops.paged_attention import (
+    paged_flash_decode_stats,
+    paged_flash_decode_stats_tp,
+)
+from production_stack_tpu_torch.parallel.sharding import check_tp, shard_leaf
 
 Params = Dict
 
@@ -127,47 +141,61 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
-                device: Optional[torch.device] = None) -> Params:
+                device: Optional[torch.device] = None,
+                rank: int = 0, tp: int = 1) -> Params:
     """Random weights (the JAX package's scheme: N(0, 1/fan_in), unit norms),
     drawn on ``device`` from ``generator`` (which must live on that device).
     Each stacked leaf is drawn one layer at a time in f32 so the peak extra
-    memory is one layer, not the whole model."""
+    memory is one layer, not the whole model. With ``tp`` > 1 every leaf
+    is still drawn in full, in the same order, and rank ``rank`` keeps its
+    slice (parallel/sharding.py): the ranks together hold exactly the
+    weights a tp=1 engine draws from the same seed."""
     device = device if device is not None else generator.device
+    check_tp(cfg, tp)
     d, f, dh = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim_
     h, hkv, nl, v = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers, cfg.vocab_size
 
-    def draw(shape, fan_in):
-        return (torch.randn(shape, generator=generator, device=device,
-                            dtype=torch.float32) * fan_in ** -0.5).to(dtype)
+    def draw(name, shape, fan_in):
+        x = (torch.randn(shape, generator=generator, device=device,
+                         dtype=torch.float32) * fan_in ** -0.5).to(dtype)
+        return shard_leaf(name, x, rank, tp)
 
-    def w(shape, fan_in):
-        out = torch.empty(shape, dtype=dtype, device=device)
+    def w(name, shape, fan_in):
+        out = None
         for i in range(shape[0]):
-            out[i] = draw(shape[1:], fan_in)
+            layer = draw(name, shape[1:], fan_in)
+            if out is None:
+                out = torch.empty((shape[0],) + tuple(layer.shape),
+                                  dtype=dtype, device=device)
+            out[i] = layer
         return out
+
+    def zeros(name, shape):
+        return shard_leaf(name, torch.zeros(shape, dtype=dtype, device=device),
+                          rank, tp)
 
     layers = {
         "attn_norm": torch.ones((nl, d), dtype=dtype, device=device),
         "mlp_norm": torch.ones((nl, d), dtype=dtype, device=device),
-        "wq": w((nl, d, h * dh), d),
-        "wk": w((nl, d, hkv * dh), d),
-        "wv": w((nl, d, hkv * dh), d),
-        "wo": w((nl, h * dh, d), h * dh),
-        "w_gate": w((nl, d, f), d),
-        "w_up": w((nl, d, f), d),
-        "w_down": w((nl, f, d), f),
+        "wq": w("wq", (nl, d, h * dh), d),
+        "wk": w("wk", (nl, d, hkv * dh), d),
+        "wv": w("wv", (nl, d, hkv * dh), d),
+        "wo": w("wo", (nl, h * dh, d), h * dh),
+        "w_gate": w("w_gate", (nl, d, f), d),
+        "w_up": w("w_up", (nl, d, f), d),
+        "w_down": w("w_down", (nl, f, d), f),
     }
     if cfg.attention_bias:
-        layers["bq"] = torch.zeros((nl, h * dh), dtype=dtype, device=device)
-        layers["bk"] = torch.zeros((nl, hkv * dh), dtype=dtype, device=device)
-        layers["bv"] = torch.zeros((nl, hkv * dh), dtype=dtype, device=device)
+        layers["bq"] = zeros("bq", (nl, h * dh))
+        layers["bk"] = zeros("bk", (nl, hkv * dh))
+        layers["bv"] = zeros("bv", (nl, hkv * dh))
     params = {
-        "embed": draw((v, d), d),
+        "embed": draw("embed", (v, d), d),
         "layers": layers,
         "final_norm": torch.ones((d,), dtype=dtype, device=device),
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = draw((d, v), d)
+        params["lm_head"] = draw("lm_head", (d, v), d)
     return params
 
 
@@ -184,9 +212,12 @@ def _layer_body(
     paged=None,                 # (pool_k, pool_v, k_scale, v_scale,
                                 #  block_tables, kv_lens, bs)
     layer_idx: int = 0,
+    tp=None,                    # TPGroup when tensor_parallel_size > 1
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, t, d = hidden.shape
-    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    dh = cfg.head_dim_
+    # This rank's heads (all of them at tp = 1).
+    h, hkv = lp["wq"].shape[-1] // dh, lp["wk"].shape[-1] // dh
 
     x = rms_norm(hidden, lp["attn_norm"], cfg.rms_norm_eps)
     q = x @ lp["wq"]
@@ -208,7 +239,11 @@ def _layer_body(
         # their scale pools (None for bf16) into the kernel's int8 variant.
         pool_k, pool_v, k_scale, v_scale, block_tables, kv_lens, block_size = paged
         q2 = q.reshape(b, h, dh)
-        out_p, m_p, l_p = paged_flash_decode_stats(
+        # tp > 1: the pool holds this rank's kv heads and q2 the matching
+        # query heads; tables and lengths are replicated.
+        decode = paged_flash_decode_stats_tp if tp is not None \
+            else paged_flash_decode_stats
+        out_p, m_p, l_p = decode(
             q2, pool_k, pool_v, block_tables, kv_lens, layer_idx,
             block_size=block_size, k_scale=k_scale, v_scale=v_scale,
         )
@@ -232,11 +267,14 @@ def _layer_body(
             q, k, v, positions, chunk_lens,
             win_k, win_v, win_len, ring_k, ring_v, ring_pos,
         )
-    hidden = hidden + attn.reshape(b, t, h * dh) @ lp["wo"]
+    o = attn.reshape(b, t, h * dh) @ lp["wo"]
+    hidden = hidden + (o if tp is None else tp.all_reduce(o))
 
     x = rms_norm(hidden, lp["mlp_norm"], cfg.rms_norm_eps)
     gated = silu(x @ lp["w_gate"]) * (x @ lp["w_up"])
     mlp = gated @ lp["w_down"]
+    if tp is not None:
+        mlp = tp.all_reduce(mlp)
     # New KV in pool layout [Hkv, B, T, Dh] for the runner's single scatter.
     return hidden + mlp, k.permute(2, 0, 1, 3), v.permute(2, 0, 1, 3)
 
@@ -257,9 +295,13 @@ def forward(
     paged=None,  # (pool_k [L,Hkv,S,Dh], pool_v, k_scale [L,Hkv,S] | None,
                  #  v_scale | None, block_tables [B,Mb], kv_lens [B],
                  #  block_size) — paged decode path
+    tp=None,     # TPGroup when tensor_parallel_size > 1 (Hkv: this rank's)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (hidden [B,T,D], k_new [L,Hkv,B,T,Dh], v_new [L,Hkv,B,T,Dh])."""
     hidden = params["embed"][token_ids.long()]
+    if tp is not None:
+        # embed is split on D: every rank's columns of the same rows.
+        hidden = tp.all_gather(hidden, dim=-1)
     hidden = hidden.to(win_k.dtype if win_k is not None else params["embed"].dtype)
     cos, sin = _rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
     layers = params["layers"]
@@ -274,7 +316,7 @@ def forward(
             ring_k[i] if ring_k is not None else None,
             ring_v[i] if ring_v is not None else None,
             ring_pos,
-            paged=paged, layer_idx=i,
+            paged=paged, layer_idx=i, tp=tp,
         )
         k_out.append(k_l)
         v_out.append(v_l)
@@ -285,15 +327,27 @@ def forward(
 def lm_head_f32(params: Params, cfg: ModelConfig) -> torch.Tensor:
     """The output projection [D, V] widened to f32 once: ``compute_logits``
     then multiplies bf16 values exactly in f32 with f32 accumulation, as the
-    JAX package's ``preferred_element_type=float32`` dot does."""
+    JAX package's ``preferred_element_type=float32`` dot does. From sharded
+    params it is this rank's share: [D, V/tp] (``lm_head``) or [D/tp, V]
+    (a tied ``embed``)."""
     head = params["embed"].t() if cfg.tie_word_embeddings else params["lm_head"]
     return head.float().contiguous()
 
 
 def compute_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
-                   head_f32: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   head_f32: Optional[torch.Tensor] = None,
+                   tp=None) -> torch.Tensor:
     """hidden [..., D] -> logits [..., V] in float32. ``head_f32`` is the
-    cached ``lm_head_f32`` (computed here when not given)."""
+    cached ``lm_head_f32`` (computed here when not given). With ``tp``, the
+    full logits on every rank, bit-identical across ranks: the vocab slices
+    all-gathered, or (tied head) the partial logits over each rank's D
+    slice all-reduced in f32."""
     if head_f32 is None:
         head_f32 = lm_head_f32(params, cfg)
-    return torch.matmul(hidden.float(), head_f32)
+    if tp is None:
+        return torch.matmul(hidden.float(), head_f32)
+    if cfg.tie_word_embeddings:
+        dl = head_f32.shape[0]
+        part = hidden[..., tp.rank * dl:(tp.rank + 1) * dl]
+        return tp.all_reduce(torch.matmul(part.float(), head_f32))
+    return tp.all_gather(torch.matmul(hidden.float(), head_f32), dim=-1)

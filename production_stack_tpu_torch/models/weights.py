@@ -40,9 +40,13 @@ def _to_tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:
 
 def params_from_jax(np_tree: Dict, cfg: ModelConfig,
                     dtype: torch.dtype = torch.bfloat16,
-                    device: Optional[torch.device] = None) -> Dict:
+                    device: Optional[torch.device] = None,
+                    rank: int = 0, tp: int = 1) -> Dict:
     """JAX llama param tree (numpy leaves) -> the port's param dict, same
-    keys, same ``[L, ...]`` layouts, ``x @ w`` orientation."""
+    keys, same ``[L, ...]`` layouts, ``x @ w`` orientation; with ``tp`` >
+    1, tp rank ``rank``'s shard of it (parallel/sharding.py)."""
+    from production_stack_tpu_torch.parallel.sharding import shard_params
+
     if cfg.arch != "llama":
         raise ValueError(f"params_from_jax: arch {cfg.arch!r} is not ported")
     device = device if device is not None else torch.device("cpu")
@@ -53,7 +57,7 @@ def params_from_jax(np_tree: Dict, cfg: ModelConfig,
     out["layers"] = {
         k: _to_tensor(v, dtype, device) for k, v in np_tree["layers"].items()
     }
-    return out
+    return shard_params(out, cfg, rank, tp) if tp > 1 else out
 
 
 def _bf16_tensor(arr) -> torch.Tensor:

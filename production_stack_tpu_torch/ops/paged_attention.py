@@ -3,8 +3,9 @@ kernel (``csrc/paged_decode.cu``, a bf16-pool and an int8-pool variant) and
 its plain PyTorch twin.
 
 Counterpart of ``production_stack_tpu/ops/pallas/paged_attention.py``
-(``paged_flash_decode_stats`` and its ``_decode_kernel``, both branches, and
-the ``paged_attention_decode_pallas`` / ``paged_attention_pallas`` wrappers).
+(``paged_flash_decode_stats`` and its ``_decode_kernel``, both branches, the
+tensor-parallel ``paged_flash_decode_stats_tp``, and the
+``paged_attention_decode_pallas`` / ``paged_attention_pallas`` wrappers).
 The wrapper takes the plain version only for tensors that lie on the CPU;
 for a CUDA tensor it launches the kernel or raises. The kernel is compiled
 by ``nvcc`` from the source in the checkout at first use into
@@ -358,6 +359,40 @@ def paged_flash_decode_stats(
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     ), f"{variant} launch")
     return out, m, l
+
+
+def paged_flash_decode_stats_tp(
+    q: torch.Tensor,             # [B, H/tp, Dh] this rank's query heads
+    k_pool: torch.Tensor,        # [L, Hkv/tp, num_slots, Dh] this rank's kv heads
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, Mb] int32 (replicated)
+    kv_lens: torch.Tensor,       # [B] int32 (replicated)
+    layer: int,
+    *,
+    block_size: int,
+    scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [L, Hkv/tp, num_slots]
+    v_scale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One tensor-parallel rank's pool-segment flash decode: the
+    counterpart of the reference's ``paged_flash_decode_stats_tp``, which
+    ``shard_map``s the kernel over the tp axis. Each rank runs the kernel
+    (its plain twin on the CPU) over its own contiguous block of kv heads
+    and the query heads of their GQA groups; int8 scale pools are split
+    like the payload. Heads are independent, so this needs no collective:
+    it returns this rank's ``(out [B, H/tp, Dh], m, l [B, H/tp])``, and the
+    row-parallel output projection downstream sums over the ranks. The
+    launch counts like any other call of the kernel, on this rank's device
+    counter."""
+    if q.shape[1] % k_pool.shape[1]:
+        raise ValueError(
+            f"paged_flash_decode_stats_tp: this rank's {q.shape[1]} query "
+            f"heads do not fill whole GQA groups of its {k_pool.shape[1]} "
+            "kv heads")
+    return paged_flash_decode_stats(
+        q, k_pool, v_pool, block_tables, kv_lens, layer,
+        block_size=block_size, scale=scale, k_scale=k_scale, v_scale=v_scale,
+    )
 
 
 def paged_flash_decode_stats_ref(

@@ -1,0 +1,67 @@
+"""Entry point of tensor-parallel ranks 1..tp-1.
+
+``ServingEngine`` (rank 0) starts one process per worker rank, as
+``python -m production_stack_tpu_torch.parallel.worker --rank R --port P
+--spec JSON`` (``argv`` builds the line). A worker joins rank 0's group
+(``parallel/mesh.py``), builds the same ``ModelRunner`` over its own shard
+(its params drawn from the same seed, or rank 0's broadcast), runs rank 0's
+dispatch descriptors in order until the stop descriptor
+(``ModelRunner.serve``), reports and exits. It dies with its parent.
+"""
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+from typing import List, Optional
+
+import torch
+
+from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.runner import ModelRunner
+from production_stack_tpu_torch.models.config import resolve_model_config
+from production_stack_tpu_torch.parallel.mesh import TPGroup, die_with_parent
+from production_stack_tpu_torch.utils import init_logger
+
+logger = init_logger(__name__)
+
+
+def argv(config: EngineConfig, rank: int, port: int, *,
+         broadcast_params: bool, num_kv_blocks: Optional[int]) -> List[str]:
+    """The command line of worker ``rank``. It runs with rank 0's intra-op
+    thread count, so reductions over the replicated logits take the same
+    order on every rank."""
+    spec = {"config": dataclasses.asdict(config),
+            "broadcast_params": broadcast_params,
+            "num_kv_blocks": num_kv_blocks,
+            "threads": torch.get_num_threads(), "parent": os.getpid()}
+    return [sys.executable, "-m", "production_stack_tpu_torch.parallel.worker",
+            "--rank", str(rank), "--port", str(port), "--spec", json.dumps(spec)]
+
+
+def main(args: Optional[List[str]] = None) -> None:
+    p = argparse.ArgumentParser(description="tensor-parallel worker rank")
+    p.add_argument("--rank", type=int, required=True)
+    p.add_argument("--port", type=int, required=True)
+    p.add_argument("--spec", required=True)
+    a = p.parse_args(args)
+    spec = json.loads(a.spec)
+    die_with_parent(spec["parent"])
+    torch.set_num_threads(spec["threads"])
+    cfg = EngineConfig(**spec["config"])
+    group = TPGroup.join(a.rank, cfg.tensor_parallel_size, a.port,
+                         torch.device(cfg.device), cfg.tp_timeout_s)
+    try:
+        runner = ModelRunner(cfg, resolve_model_config(cfg.model),
+                             num_kv_blocks=spec["num_kv_blocks"], tp=group,
+                             broadcast_params=spec["broadcast_params"])
+        runner.serve()
+        logger.info("tp rank %d: stopped after %d dispatches", a.rank,
+                    runner._dispatches)
+    finally:
+        group.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -16,7 +16,10 @@ package's shapes. Every other route of the JAX server is not ported yet
 (ROADMAP).
 
 Run: ``python -m production_stack_tpu_torch.server.api_server --model
-llama-3b --port 8000`` (on the card; ``--device cpu`` for a CPU run).
+llama-3b --port 8000`` (on the card; ``--device cpu`` for a CPU run). With
+``--tensor-parallel-size N`` the server process is tp rank 0 and starts N-1
+worker processes (NCCL when the machine has N cards, gloo when the ranks
+share one).
 """
 
 import argparse
@@ -335,6 +338,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="dispatches outstanding at once (1 = strict "
                         "issue-fetch-apply; clamped to 2)")
     p.add_argument("--attn-impl", default="auto")
+    p.add_argument("--tensor-parallel-size", type=int, default=1,
+                   help="tp ranks, one process each (heads split over them; "
+                        "tp must divide both head counts)")
     p.add_argument("--seed", type=int, default=0)
     return p.parse_args(argv)
 
@@ -349,15 +355,18 @@ def main(argv=None) -> None:
         enable_warmup=not args.no_warmup, pipeline_depth=args.pipeline_depth,
         overlap_dispatch=not args.no_overlap_dispatch,
         attn_impl=args.attn_impl, seed=args.seed,
+        tensor_parallel_size=args.tensor_parallel_size,
     )
 
     async def run():
-        server = OpenAIServer(ServingEngine(cfg), args.host, args.port)
+        engine = ServingEngine(cfg)
+        server = OpenAIServer(engine, args.host, args.port)
         await server.start()
         try:
             await asyncio.Event().wait()
         finally:
             await server.stop()
+            engine.shutdown()
 
     asyncio.run(run())
 

@@ -312,11 +312,16 @@ def test_cuda_is_the_default_and_raises_without_a_card():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter (conftest imports jax into this one): every
-    module of the port, and chip_smoke.py, import without jax."""
+    module of the port, the tensor-parallel modules and the worker entry
+    point (what a spawned rank imports) among them, and chip_smoke.py,
+    import without jax."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import production_stack_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "need = {'production_stack_tpu_torch.parallel.' + m for m in "
+        "('mesh', 'sharding', 'worker')}\n"
+        "assert need <= set(mods), need - set(mods)\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', "
@@ -328,7 +333,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 16
+    assert int(proc.stdout.split()[-1]) >= 20
 
 
 async def test_stop_strings_cut_text_and_tokens():
