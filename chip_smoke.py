@@ -65,8 +65,26 @@ serving):
      decode steps of the run's variant and 0 of the other; stats), one
      profiled step (host ms in the collectives); then
      ``paged_flash_decode_stats_tp`` on each of 2 ranks against its plain
-     twin, and its device times at a rank's shape (H 16, Hkv 4).
+     twin, and its device times at a rank's shape (H 16, Hkv 4);
+  8. surface: llama-3b (full width and depth, random bf16 weights, bf16 KV
+     of 2049 blocks, decode graphs with their logprob variants captured)
+     behind the port's server with an API key and a queue bound: /version,
+     401 without the key, the router's /metrics series before traffic;
+     after an untimed priming round, the same 4 streams (2 plain, 1
+     completions logprobs 5, 1 chat top_logprobs 5) with logprobs off and
+     on: tokens equal bit for bit, no eager decode dispatch, the kernel's
+     count 28 x decode steps, well-formed logprobs (greedy: chosen = top-1),
+     /metrics mid-round and after; a top_logprobs 20 request served eagerly;
+     n = 2 and a 2-prompt completion; resume from a stream's pstpu payload
+     (equal tokens reported at llama-3b bf16); the logprob ops' device time;
+     drain with a stream in flight (every block returned); then, on the
+     engine API, logprobs from graphs + pipeline against the strict eager
+     loop on the same batches, bit for bit; and resume on tiny-llama-128dh
+     in float32, identical.
 
+Stdout carries the card line, one ``<phase> summary {...}`` line of JSON
+per phase (timings beside the SM clock nvidia-smi sampled meanwhile) and
+the result lines; the detail goes to ``chiprun_out/chip_smoke_detail.log``.
 Any failure exits non-zero before the result lines. The last two lines are
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 
@@ -75,6 +93,7 @@ Run: ``python3 chip_smoke.py`` from the root of the repository.
 
 import argparse
 import asyncio
+import faulthandler
 import gc
 import json
 import math
@@ -112,13 +131,84 @@ STATS_RTOL = 1e-3              # m, l are fp32 in both versions
 STATS_ATOL = 1e-5
 
 
+# Per-request and per-case detail goes to this file (in the repository's
+# gitignored output directory); stdout gets one summary line per phase.
+DETAIL_LOG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "chiprun_out", "chip_smoke_detail.log")
+_detail = None
+
+
 def fail(msg: str) -> None:
+    log(f"FAIL: {msg}")
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A detail line: to DETAIL_LOG, not stdout."""
+    global _detail
+    if _detail is None:
+        os.makedirs(os.path.dirname(DETAIL_LOG), exist_ok=True)
+        _detail = open(DETAIL_LOG, "w")
+    _detail.write(msg + "\n")
+    _detail.flush()
+
+
+def summary(phase: str, obj) -> None:
+    """The phase's one summary line of JSON, on stdout (and in the detail
+    log)."""
+    line = f"{phase} summary {json.dumps(obj)}"
+    log(line)
+    print(line, flush=True)
+
+
+class SmMhz:
+    """The card's SM clock (MHz), sampled by ``nvidia-smi -lms`` while a
+    timed block runs: min, mean and max of the samples ("not read" when
+    nvidia-smi gives none)."""
+
+    def __init__(self, period_ms: int = 200):
+        self.period_ms = period_ms
+        self.samples = []
+
+    def __enter__(self):
+        self.samples = []
+        try:
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "--id=0", "--query-gpu=clocks.sm",
+                 "--format=csv,noheader,nounits", f"--loop-ms={self.period_ms}"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            self.proc = None
+            return self
+
+        def read():
+            for line in self.proc.stdout:
+                try:
+                    self.samples.append(float(line.strip()))
+                except ValueError:
+                    pass
+
+        self.reader = threading.Thread(target=read, daemon=True)
+        self.reader.start()
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc is not None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(5)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+            self.reader.join(5)
+        return False
+
+    def summary(self):
+        if not self.samples:
+            return "not read"
+        return {"min": min(self.samples), "mean": sum(self.samples) / len(self.samples),
+                "max": max(self.samples), "n": len(self.samples)}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -522,8 +612,9 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
                                               enable_gqa=True)
 
     what = f"{name} [{'int8' if quant else 'bf16'}]"
-    ms, ms_by_kernel, per_call = device_profile(torch, kern, 2 * n_layers,
-                                                f"{what} kernel", per_call=1)
+    with SmMhz() as clock:
+        ms, ms_by_kernel, per_call = device_profile(torch, kern, 2 * n_layers,
+                                                    f"{what} kernel", per_call=1)
     if len(ms_by_kernel) != 1 or not 0 < per_call <= 1:
         fail(f"{what}: {per_call} device kernels per call "
              f"({sorted(ms_by_kernel)}); the kernel is one launch per call")
@@ -542,7 +633,7 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
            "ms": ms, "ms_by_kernel": ms_by_kernel, "recorded_per_call": per_call,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "share_of_bound": bound_ms / ms, "library_ms": library_ms,
-           "vs_library": ms / library_ms}
+           "vs_library": ms / library_ms, "sm_clock_mhz": clock.summary()}
     log(f"kernel case {json.dumps(row)}")
     return row
 
@@ -564,11 +655,11 @@ def kernel_phase(torch, pa, device, seed, main_lens):
 
 
 # ---------------------------------------------------------------- phase 4
-def http(method, url, body=None, stream=False, timeout=600):
+def http(method, url, body=None, stream=False, timeout=600, headers=None):
     """(status, parsed JSON or list of SSE payloads, t_first_event, t_end)."""
     data = json.dumps(body).encode() if body is not None else None
-    req = urllib.request.Request(url, data=data, method=method,
-                                 headers={"Content-Type": "application/json"})
+    req = urllib.request.Request(url, data=data, method=method, headers={
+        "Content-Type": "application/json", **(headers or {})})
     with urllib.request.urlopen(req, timeout=timeout) as resp:
         if not stream:
             return resp.status, json.loads(resp.read()), None, time.monotonic()
@@ -739,8 +830,10 @@ def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
             st, out, t_first, t_end = http("POST", base + path, body, stream)
             results[name] = (st, out, t, t_first, t_end)
 
-        await asyncio.gather(*[loop.run_in_executor(None, one, *r) for r in reqs])
+        with SmMhz() as clock:
+            await asyncio.gather(*[loop.run_in_executor(None, one, *r) for r in reqs])
         results["_wall"] = time.monotonic() - t_start
+        results["_clock"] = clock.summary()
         results["_launches"] = pa.launch_counts()
         results["_stats"] = engine.stats()
         results["_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -839,9 +932,10 @@ def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
             "graph_capture_seconds", "graph_pool_bytes")},
         "peak_mem_gib": results["_peak_gib"],
         "launches": counts, "decode_steps": steps,
+        "sm_clock_mhz": results["_clock"],
     }
     log(f"serving result {json.dumps(summary)}")
-    return counts
+    return counts, summary
 
 
 # ---------------------------------------------------------------- phase 5
@@ -959,8 +1053,10 @@ def graphs_phase(torch, pa, device, seed, card, model="llama-3b"):
                 t0 = time.monotonic()
                 tasks = [asyncio.create_task(one(k, p, samplings[k]))
                          for k, p in enumerate(prompts)]
-                got = await asyncio.wait_for(asyncio.gather(*tasks), 600)
+                with SmMhz() as clock:
+                    got = await asyncio.wait_for(asyncio.gather(*tasks), 600)
                 wall = time.monotonic() - t0
+                times["_clock"] = clock.summary()
                 launches = pa.launch_counts()
                 stats = engine.stats()
                 overlap = None
@@ -1022,13 +1118,16 @@ def graphs_phase(torch, pa, device, seed, card, model="llama-3b"):
                 "decode_eager_dispatches": st["decode_eager_dispatches_total"],
                 "chained_dispatches": st["chained_dispatches_total"],
                 "dispatch_overlap_ratio": st["dispatch_overlap_ratio"],
+                "sm_clock_mhz": times["_clock"],
             }
             if mode == "graph":
                 row.update(warmup_s=warm_s, overlap_round=overlap,
                            **{k: st[k] for k in (
                                "graph_families", "graphs_captured",
                                "graph_nodes_total", "graph_step_nodes_max",
-                               "graph_capture_seconds", "graph_pool_bytes")})
+                               "graph_capture_seconds", "graph_pool_bytes",
+                               "graph_families_logprobs",
+                               "graph_pool_bytes_logprobs")})
                 row["graph_pool_mib"] = st["graph_pool_bytes"] / 2**20
                 if st["decode_eager_dispatches_total"]:
                     fail(f"{name}: {st['decode_eager_dispatches_total']} eager "
@@ -1073,6 +1172,7 @@ def graphs_window_check(torch, seed):
     # both loops form the same batches (a row's bf16 GEMM bits depend on
     # the batch's row count on the card).
     prompts = ["window " * 8, "graphs " * 9, "while loop", "seeded " * 7]
+    replayed = {}
     samplings = [dict(max_tokens=40), dict(max_tokens=23),
                  dict(max_tokens=40, temperature=0.9, seed=11),
                  dict(max_tokens=31, temperature=0.7, top_k=20, seed=2)]
@@ -1120,6 +1220,8 @@ def graphs_window_check(torch, seed):
         log(f"graphs [window, while, {kv} KV]: tiny-llama-128dh, the graph + pipeline "
             "loop gives the strict eager loop's tokens bit for bit "
             f"({st['decode_graph_dispatches_total']} replayed decode dispatches)")
+        replayed[kv] = st["decode_graph_dispatches_total"]
+    return {"window_while_tokens_equal": True, "replayed_dispatches": replayed}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1165,15 +1267,18 @@ def check_phase(torch, device, seed, quant):
         fail("check: paged-path logits not finite or wrong shape")
     rel = ((h_p.float() - h_w.float()).norm() / h_w.float().norm()).item()
     agree = (lg_p.argmax(-1) == lg_w.argmax(-1)).float().mean().item()
+    max_diff = (lg_p - lg_w).abs().max().item()
     log(f"check [{'int8' if quant else 'bf16'} KV]: llama-3b width x2 layers, "
         f"paged (kernel) vs window (plain): "
         f"hidden rel err {rel:.3e}, logits max abs diff "
-        f"{(lg_p - lg_w).abs().max().item():.3e}, argmax agreement {agree:.2f}")
+        f"{max_diff:.3e}, argmax agreement {agree:.2f}")
     # bf16 activations, and the two paths round at different points (two
     # normalized segments merged vs one softmax): ~1e-2 is rounding.
     if rel > 5e-2:
         fail(f"check [{'int8' if quant else 'bf16'} KV]: hidden rel err "
              f"{rel:.3e} > 5e-2")
+    return {"hidden_rel_err": rel, "logits_max_abs_diff": max_diff,
+            "argmax_agreement": agree}
 
 
 def check_noise(torch, device):
@@ -1190,6 +1295,7 @@ def check_noise(torch, device):
         f"{n_diff} values differ")
     if n_diff:
         fail(f"check: {n_diff} Gumbel values differ between the card and the CPU")
+    return n_diff
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1346,7 +1452,7 @@ def tp_forced(torch, runner, prompt_ids, forced, steps):
     runner.logits_sink = sink = []
     out = runner.execute_async(ScheduledBatch(
         "prefill", seqs, chunk_starts=[0] * n,
-        chunk_lens=[len(x) for x in prompt_ids])).fetch()
+        chunk_lens=[len(x) for x in prompt_ids])).fetch()[0]
     greedy = [[t[0]] for t in out]
     for s in seqs:
         s.num_computed_tokens = s.num_tokens
@@ -1354,7 +1460,7 @@ def tp_forced(torch, runner, prompt_ids, forced, steps):
         for i, s in enumerate(seqs):
             s.output_token_ids.append(forced[i][step] if forced else greedy[i][-1])
         out = runner.execute_async(ScheduledBatch(
-            "decode", seqs, num_steps=1, decode_steps=[1] * n)).fetch()
+            "decode", seqs, num_steps=1, decode_steps=[1] * n)).fetch()[0]
         for i, s in enumerate(seqs):
             s.num_computed_tokens += 1
             greedy[i].append(out[i][0])
@@ -1379,7 +1485,7 @@ def tp_decode_timing(torch, runner, seqs, greedy, k=16, rounds=2):
         torch.cuda.synchronize()
         t0 = time.monotonic()
         toks = runner.execute_async(ScheduledBatch(
-            "decode", seqs, num_steps=k, decode_steps=[k] * len(seqs))).fetch()
+            "decode", seqs, num_steps=k, decode_steps=[k] * len(seqs))).fetch()[0]
         wall = time.monotonic() - t0
         for i, s in enumerate(seqs):
             s.num_computed_tokens += k
@@ -1415,7 +1521,7 @@ def tp_profile_step(torch, runner, seqs, greedy):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         toks = runner.execute_async(ScheduledBatch(
-            "decode", seqs, num_steps=1, decode_steps=[1] * len(seqs))).fetch()
+            "decode", seqs, num_steps=1, decode_steps=[1] * len(seqs))).fetch()[0]
         wall = time.monotonic() - t0
     for i, s in enumerate(seqs):
         s.num_computed_tokens += 1
@@ -1491,8 +1597,10 @@ def tp_served(torch, engine, prompts, forced_run, max_tokens=32):
                 results[name] = (st, out, t, t_first, t_end)
 
             t0 = time.monotonic()
-            await asyncio.gather(*[loop.run_in_executor(None, one, *r) for r in reqs])
+            with SmMhz() as clock:
+                await asyncio.gather(*[loop.run_in_executor(None, one, *r) for r in reqs])
             results["_wall"] = time.monotonic() - t0
+            results["_clock"] = clock.summary()
             results["_after"] = await engine.rank_reports()
             results["_steps"] = engine.runner.decode_steps_total - steps0
             results["_stats"] = engine.stats()
@@ -1650,20 +1758,607 @@ def tp_phase(torch, pa, device, seed, card, kv_cache_dtype, model=TP_MODEL):
         "weight_gib_per_rank": [rep["weight_bytes"] / 2**30 for rep in after],
         "head_f32_gib_per_rank": [rep["head_f32_bytes"] / 2**30 for rep in after],
         "hbm_kv_bytes_per_rank": [rep["hbm_kv_bytes"] for rep in after],
-        "logits": logits_row,
+        "logits": logits_row, "sm_clock_mhz": served["_clock"],
     }
     log(f"tp result {json.dumps(summary)}")
-    return launches
+    return launches, summary
+
+
+# ---------------------------------------------------------------- phase 8
+SURFACE_KEY = "smoke-key"
+SURFACE_WATCHDOG_S = 420
+SURFACE_HTTP_TIMEOUT_S = 120
+# The router's EngineStatsScraper contract, preemptions, and the dispatch
+# telemetry: present on /metrics before any traffic.
+SURFACE_SERIES = (
+    "vllm:num_requests_running", "vllm:num_requests_waiting",
+    "vllm:gpu_prefix_cache_hits_total", "vllm:gpu_prefix_cache_queries_total",
+    "vllm:gpu_cache_usage_perc", "vllm:num_preemptions_total",
+    "pstpu:decode_dispatches_total", "pstpu:prefill_dispatches_total",
+    "pstpu:dispatch_overlap_ratio", "pstpu:dispatch_gap_seconds_total",
+    "pstpu:host_stall_seconds_total", "pstpu:live_tok_per_s",
+    "pstpu:live_hbm_bw_pct")
+
+
+def request(method, url, body=None, headers=None, timeout=SURFACE_HTTP_TIMEOUT_S):
+    """(status, lower-cased headers, body text), on any status."""
+    import urllib.error
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method, headers={
+        "Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, {k.lower(): v for k, v in resp.headers.items()}, \
+                resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, {k.lower(): v for k, v in e.headers.items()}, e.read().decode()
+
+
+def parse_metrics(text):
+    """{series name: [(labels, value), ...]} of a Prometheus text
+    exposition (this script's own parser)."""
+    import re
+
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, _, value = line.rpartition(" ")
+        name, _, labels = head.partition("{")
+        out.setdefault(name, []).append(
+            (dict(re.findall(r'(\w+)="([^"]*)"', labels)), float(value)))
+    return out
+
+
+def sse_stream(url, body, headers):
+    """A streamed request: (status, the JSON chunks, t_sent, t_first
+    chunk, t_end); the stream must end in [DONE]."""
+    t0 = time.monotonic()
+    st, events, t_first, t_end = http("POST", url, body, True, headers=headers,
+                                      timeout=SURFACE_HTTP_TIMEOUT_S)
+    if events[-1] != "[DONE]":
+        fail(f"surface: stream to {url} did not end in [DONE]")
+    return st, events[:-1], t0, t_first, t_end
+
+
+def stream_tokens(chunks):
+    """The output token ids a stream's pstpu payloads carry, checked
+    contiguous."""
+    toks = []
+    for c in chunks:
+        if "pstpu" not in c:
+            continue
+        if c["pstpu"]["off"] != len(toks):
+            fail(f"surface: pstpu offsets not contiguous: {c['pstpu']['off']} "
+                 f"after {len(toks)} tokens")
+        toks += c["pstpu"]["toks"]
+    return toks
+
+
+def check_logprobs(name, chunks, chat, greedy, n_tokens):
+    """A logprob stream's entries: one per token, every logprob <= 0, top
+    lists non-increasing; a greedy row's chosen token is its top-1 (chat
+    lists keep ids' order; a tie may swap equal values)."""
+    entries = []
+    for c in chunks:
+        for ch in c["choices"]:
+            lp = ch.get("logprobs")
+            if not lp:
+                continue
+            if chat:
+                entries += [(e["logprob"], e["token"],
+                             [(t["token"], t["logprob"]) for t in e["top_logprobs"]])
+                            for e in lp["content"]]
+            else:
+                entries += [(v, tok, sorted(((k, x) for k, x in top.items()),
+                                            key=lambda kv: -kv[1]))
+                            for v, tok, top in zip(lp["token_logprobs"], lp["tokens"],
+                                                   lp["top_logprobs"])]
+    if len(entries) != n_tokens:
+        fail(f"surface: {name}: {len(entries)} logprob entries, want {n_tokens}")
+    for chosen, tok, top in entries:
+        vals = [v for _, v in top]
+        if chosen > 0 or any(v > 0 for v in vals) or vals != sorted(vals, reverse=True):
+            fail(f"surface: {name}: logprob above 0 or a top list out of order: "
+                 f"{chosen} {top}")
+        if chat and greedy and not (vals[0] == chosen and (
+                top[0][0] == tok or (len(vals) > 1 and vals[1] == vals[0]))):
+            fail(f"surface: {name}: greedy token {tok!r} ({chosen}) is not the "
+                 f"top-1 {top[0]}")
+        if not chat and greedy and vals and vals[0] > chosen:
+            fail(f"surface: {name}: a top logprob {vals[0]} beats the greedy "
+                 f"token's {chosen}")
+    return len(entries)
+
+
+def resume_check(base, headers, body, cut):
+    """A seeded stream, cut after ``cut`` tokens and resumed from its pstpu
+    payload (the delivered tokens and the seed): (the stream's tokens, the
+    continuation's, equal tokens after the cut)."""
+    st, chunks, *_ = sse_stream(base + "/v1/completions", body, headers)
+    toks = stream_tokens(chunks)
+    if st != 200 or len(toks) != body["max_tokens"]:
+        fail(f"surface: resume source stream: HTTP {st}, {len(toks)} tokens")
+    seed = chunks[0]["pstpu"]["seed"]
+    st, rchunks, *_ = sse_stream(base + "/v1/completions", {
+        **body, "resume_tokens": toks[:cut], "resume_seed": seed}, headers)
+    rest = stream_tokens_from(rchunks, cut)
+    if st != 200 or len(rest) != body["max_tokens"] - cut:
+        fail(f"surface: resumed stream: HTTP {st}, {len(rest)} tokens after the cut")
+    return toks, rest, sum(a == b for a, b in zip(toks[cut:], rest))
+
+
+def stream_tokens_from(chunks, off):
+    toks = []
+    for c in chunks:
+        if "pstpu" in c:
+            if c["pstpu"]["off"] != off + len(toks):
+                fail("surface: resumed stream's pstpu offsets do not start at the cut")
+            toks += c["pstpu"]["toks"]
+    return toks
+
+
+def replay_ms_per_step(torch, train, key, steps=32, reps=3):
+    """Replay ``key``'s head, ``steps`` step graphs and tail over all-zero
+    inputs (every row budget 0, table 0: only the null block is written):
+    ms per step between CUDA events, the median of ``reps``."""
+    bf = train.buffers(*key)
+    bf.packed.zero_()
+    bf.prev_last.zero_()
+    g = train.graphs[key].graphs
+    out = []
+    for _ in range(reps):
+        g["head"].replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            g["step"].replay()
+        end.record()
+        g["tail"].replay()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / steps)
+    return sorted(out)[len(out) // 2]
+
+
+def graph_vs_eager_dummy(torch, train, key):
+    """One dispatch of all-zero inputs (budget 0, table 0: only the null
+    block is written), replayed from ``key``'s graphs and run eagerly:
+    whether each output is equal, and its max |diff|."""
+    outs = []
+    for replay in (True, False):
+        bf = train.buffers(*key)
+        bf.packed.zero_()
+        bf.prev_last.zero_()
+        if replay:
+            g = train.graphs[key].graphs
+            g["head"].replay()
+            for _ in range(key[2]):
+                g["step"].replay()
+            g["tail"].replay()
+        else:
+            train.head(bf)
+            for _ in range(key[2]):
+                train.step(bf)
+            train.tail(bf)
+        torch.cuda.synchronize()
+        outs.append([t.clone() for t in (bf.toks_all, bf.lp_chosen, bf.lp_top, bf.lp_ids)])
+    return {name: [bool(torch.equal(a, b)), (a.double() - b.double()).abs().max().item()]
+            for name, a, b in zip(("toks", "chosen_lp", "top_lp", "top_ids"), *outs)}
+
+
+def surface_phase(torch, pa, device, seed, card, model="llama-3b"):
+    """llama-3b (full width and depth, random bf16 weights, bf16 KV of 2049
+    blocks, decode graphs captured at warm-up) behind ``OpenAIServer`` with
+    an API key and a queue bound: /version and /metrics; the same 4
+    streams with logprobs off, then on (1 completions logprobs 5, 1 chat
+    top_logprobs 5): their tokens equal, no eager decode dispatch, the
+    kernel's count 28 x steps, the logprob entries well formed; a
+    top_logprobs 20 request served eagerly; n = 2 and a 2-prompt
+    completion; resume from a stream's pstpu payload (llama-3b bf16:
+    equal tokens reported; tiny-llama-128dh float32: identical); drain; then
+    on the engine API, logprobs from graphs + pipeline against the strict
+    eager loop on the same batches, bit for bit. Returns (the main path's
+    bf16 launches, the summary)."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams, compute_logprobs
+    from production_stack_tpu_torch.server.api_server import OpenAIServer
+
+    max_tokens = 64
+    auth = {"Authorization": f"Bearer {SURFACE_KEY}", "x-pstpu-resume": "1"}
+    # A hang anywhere in the phase dumps every thread's stack to stderr and
+    # exits, well inside the run's limit.
+    faulthandler.dump_traceback_later(SURFACE_WATCHDOG_S, exit=True)
+    cfg = EngineConfig(model=model, dtype="bfloat16", attn_impl="paged",
+                       device=device.type, max_model_len=4096, num_decode_steps=32,
+                       seed=seed, enable_warmup=True, num_kv_blocks=BF16_KV_BLOCKS)
+    torch.cuda.reset_peak_memory_stats()
+    t_up = time.monotonic()
+    engine = ServingEngine(cfg)
+    n_layers = engine.model_config.num_layers
+    prompts = make_prompts(seed + 1, 4)
+    sched = engine.scheduler
+    schedule = sched.schedule
+    gate = {"want": 0}
+
+    def gated(*a, **k):
+        # A round's requests all wait before its first batch forms, so
+        # rounds over HTTP form the same batches.
+        if gate["want"] and len(sched.waiting) < gate["want"]:
+            return None
+        if gate["want"]:
+            gate["open"] = time.monotonic()
+        gate["want"] = 0
+        return schedule(*a, **k)
+
+    sched.schedule = gated
+    out = {"card": card}
+
+    def round_bodies(lp):
+        # Chat streams send their first chunk (the role) with the first
+        # token, so they time TTFT; a completions chunk waits for text,
+        # and most of llama-3b's ids are no text under the byte tokenizer.
+        comp = {"max_tokens": max_tokens, "ignore_eos": True, "stream": True,
+                "stream_options": {"include_usage": True}}
+
+        def chat(i):
+            return {"messages": [{"role": "user", "content": prompts[i]}]}
+
+        return [
+            ("/v1/chat/completions", {**comp, **chat(0), "temperature": 0.0}),
+            ("/v1/chat/completions", {**comp, **chat(1), "temperature": 0.8,
+                                      "top_p": 0.9, "seed": 1234}),
+            ("/v1/completions", {**comp, "prompt": prompts[2], "temperature": 0.7,
+                                 "seed": 7, **({"logprobs": 5} if lp else {})}),
+            ("/v1/chat/completions", {
+                **comp, **chat(3), "temperature": 0.0,
+                **({"logprobs": True, "top_logprobs": 5} if lp else {})}),
+        ]
+
+    async def run():
+        loop = asyncio.get_running_loop()
+
+        def ex(fn, *a):
+            return loop.run_in_executor(None, fn, *a)
+
+        server = OpenAIServer(engine, "127.0.0.1", 0, api_key=SURFACE_KEY,
+                              max_queue_len=64, drain_timeout=120.0)
+        await server.start()
+        base = f"http://127.0.0.1:{server.port}"
+        st0 = engine.stats()
+        out["engine_up_s"] = time.monotonic() - t_up
+        out["graphs"] = {k: st0[k] for k in (
+            "graph_families", "graphs_captured", "graph_pool_bytes",
+            "graph_families_logprobs", "graph_pool_bytes_logprobs",
+            "graph_capture_seconds", "graph_step_nodes_max")}
+        out["graphs"]["graph_families_without_logprobs"] = (
+            st0["graph_families"] - st0["graph_families_logprobs"])
+        out["graphs"]["graph_pool_bytes_without_logprobs"] = (
+            st0["graph_pool_bytes"] - st0["graph_pool_bytes_logprobs"])
+        # 1. /version, auth, /metrics before traffic
+        st, _, body = await ex(request, "GET", base + "/version")
+        if st != 200 or json.loads(body) != {"version": "0.1.0"}:
+            fail(f"surface: /version {st} {body}")
+        st, _, body = await ex(request, "POST", base + "/v1/completions",
+                               {"prompt": "no key", "max_tokens": 2})
+        if st != 401:
+            fail(f"surface: a request without the bearer token got {st}, not 401")
+        st, _, text = await ex(request, "GET", base + "/metrics")
+        m0 = parse_metrics(text)
+        missing = [s for s in SURFACE_SERIES if s not in m0]
+        if st != 200 or missing:
+            fail(f"surface: /metrics {st}, missing series {missing}")
+        out["metrics_series"] = len(m0)
+        st, _, body = await ex(request, "POST", base + "/v1/completions", {
+            "prompt": "warm up", "max_tokens": 4, "temperature": 0.0,
+            "ignore_eos": True}, auth)
+        if st != 200 or json.loads(body)["usage"]["completion_tokens"] != 4:
+            fail(f"surface: warm-up request {st} {body}")
+
+        # 2. the same 4 streams, logprobs off then on, after an untimed
+        # round of the same prompts: both timed rounds then find the same
+        # prompt blocks in the prefix cache and form the same batches.
+        rounds = {}
+        for lp in (None, False, True):
+            name = {None: "priming", False: "logprobs off", True: "logprobs on"}[lp]
+            r = engine.runner
+            steps0, dev0 = r.decode_steps_total, r.decode_device_seconds_total
+            train = r.decode_train
+            eager0, d0 = train.eager_dispatches_total, engine.decode_dispatches_total
+            m_before = parse_metrics((await ex(request, "GET", base + "/metrics"))[2])
+            gate["want"] = 4
+            mid = {"running": 0}
+            pa.reset_launch_counts()
+            t0 = time.monotonic()
+            with SmMhz() as clock:
+                streams = asyncio.gather(*[
+                    ex(sse_stream, base + path, body, auth)
+                    for path, body in round_bodies(bool(lp))])
+                # One /metrics scrape while the round's rows decode (the
+                # loop thread must stay free to answer it: never block it).
+                while sched.num_running == 0 and not streams.done():
+                    await asyncio.sleep(0.002)
+                if not streams.done():
+                    mm = parse_metrics((await ex(request, "GET", base + "/metrics"))[2])
+                    mid["running"] = mm["vllm:num_requests_running"][0][1]
+                res = await streams
+                wall = time.monotonic() - t0
+            launches = pa.launch_counts()
+            steps = r.decode_steps_total - steps0
+            m_after = parse_metrics((await ex(request, "GET", base + "/metrics"))[2])
+            toks = []
+            for i, (st, chunks, ts, tf, te) in enumerate(res):
+                usage = [c["usage"] for c in chunks if c.get("usage")]
+                if st != 200 or not usage or usage[-1]["completion_tokens"] != max_tokens:
+                    fail(f"surface: {name} stream {i}: HTTP {st}, usage {usage}")
+                toks.append(stream_tokens(chunks))
+                if len(toks[-1]) != max_tokens:
+                    fail(f"surface: {name} stream {i}: {len(toks[-1])} pstpu tokens")
+            eager = train.eager_dispatches_total - eager0
+            if lp is None:
+                continue
+            rounds[lp] = {
+                "toks": toks, "launches": launches, "steps": steps,
+                "row": {
+                    # From the moment the round's batch could form (all
+                    # 4 requests waiting) to each chat stream's first chunk.
+                    "ttft_s": [res[i][3] - gate["open"] for i in (0, 1, 3)],
+                    "decode_ms_per_step_events": 1e3 * (
+                        r.decode_device_seconds_total - dev0) / steps,
+                    "decode_ms_per_step_wall": 1e3 * sum(
+                        (res[i][4] - res[i][3]) / (max_tokens - 1)
+                        for i in (0, 1, 3)) / 3,
+                    "aggregate_tok_s": 4 * max_tokens / wall, "wall_s": wall,
+                    "decode_steps": steps,
+                    "decode_dispatches": engine.decode_dispatches_total - d0,
+                    "eager_decode_dispatches": eager,
+                    "dispatch_overlap_ratio": m_after["pstpu:dispatch_overlap_ratio"][0][1],
+                    "sm_clock_mhz": clock.summary()}}
+            row = rounds[lp]["row"]
+            log(f"surface round {name} {json.dumps(row)}")
+            if eager:
+                fail(f"surface: {name}: {eager} eager decode dispatches after warm-up")
+            if steps <= 0 or launches[pa.BF16] != n_layers * steps or launches[pa.INT8]:
+                fail(f"surface: {name}: launches {launches} over {steps} decode steps, "
+                     f"want {n_layers} x steps of {pa.BF16}")
+            running_after = m_after["vllm:num_requests_running"][0][1]
+            grown = (m_after["pstpu:decode_dispatches_total"][0][1]
+                     - m_before["pstpu:decode_dispatches_total"][0][1])
+            live_tok = m_after["pstpu:live_tok_per_s"][0][1]
+            bw = m_after["pstpu:live_hbm_bw_pct"][0][1]
+            row.update(metrics_running_mid=mid["running"], metrics_running_after=running_after,
+                       metrics_decode_dispatches_grown=grown, live_tok_per_s=live_tok,
+                       live_hbm_bw_pct=bw)
+            if mid["running"] < 1 or running_after != 0 or grown <= 0 or \
+                    not live_tok > 0 or not 0 < bw <= 100:
+                fail(f"surface: {name}: /metrics mid-round running {mid['running']}, after "
+                     f"{running_after}, decode dispatches grown {grown}, live_tok_per_s "
+                     f"{live_tok}, live_hbm_bw_pct {bw}")
+            if lp:
+                rounds[lp]["entries"] = [
+                    check_logprobs("completions logprobs 5 (seeded)", res[2][1], False,
+                                   False, max_tokens),
+                    check_logprobs("chat top_logprobs 5 (greedy)", res[3][1], True,
+                                   True, max_tokens)]
+        if rounds[True]["toks"] != rounds[False]["toks"]:
+            diff = [i for i in range(4) if rounds[True]["toks"][i] != rounds[False]["toks"][i]]
+            fail(f"surface: tokens with logprobs on differ from logprobs off in streams {diff}")
+        out["round_logprobs_off"] = rounds[False]["row"]
+        out["round_logprobs_on"] = rounds[True]["row"]
+        out["logprob_entries"] = rounds[True]["entries"]
+        out["launches"] = rounds[True]["launches"]
+
+        # 3. top_logprobs 20: the bucket warm-up does not capture, eager
+        train = engine.runner.decode_train
+        eager0, graph0 = train.eager_dispatches_total, train.graph_dispatches_total
+        d0 = engine.decode_dispatches_total
+        st, chunks, *_ = await ex(sse_stream, base + "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": prompts[0][:300]}],
+            "max_tokens": 24, "temperature": 0.0, "ignore_eos": True, "stream": True,
+            "logprobs": True, "top_logprobs": 20}, auth)
+        n20 = check_logprobs("chat top_logprobs 20", chunks, True, True, 24)
+        eager = train.eager_dispatches_total - eager0
+        dispatches = engine.decode_dispatches_total - d0
+        if st != 200 or eager != dispatches or dispatches <= 0 or \
+                train.graph_dispatches_total != graph0:
+            fail(f"surface: top_logprobs 20: {eager} eager of {dispatches} decode "
+                 "dispatches (want all of them, none replayed)")
+        out["top_logprobs_20"] = {"decode_dispatches": dispatches, "eager": eager,
+                                  "entries": n20}
+
+        # 5. n = 2 and a 2-prompt completion. At llama-3b's vocab most
+        # tokens are ids the byte tokenizer renders as no text, so choices
+        # are told apart by their tokens' logprobs.
+        st, _, body = await ex(request, "POST", base + "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": prompts[1][:400]}], "n": 2,
+            "seed": 21, "temperature": 0.9, "max_tokens": 24, "ignore_eos": True,
+            "logprobs": True}, auth)
+        nb = json.loads(body)
+        seqs = [tuple(e["logprob"] for e in c["logprobs"]["content"])
+                for c in nb.get("choices", [])]
+        if st != 200 or [c["index"] for c in nb["choices"]] != [0, 1] or \
+                len(set(seqs)) != 2 or nb["usage"]["completion_tokens"] != 48:
+            fail(f"surface: n=2: HTTP {st}, {nb.get('usage')}, distinct {len(set(seqs))}")
+        st, _, body = await ex(request, "POST", base + "/v1/completions", {
+            "prompt": [prompts[2][:300], prompts[3][:500]], "temperature": 0.0,
+            "max_tokens": 24, "ignore_eos": True, "logprobs": 0}, auth)
+        mb_ = json.loads(body)
+        texts = [tuple(c["logprobs"]["token_logprobs"]) for c in mb_.get("choices", [])]
+        want_prompt = len(prompts[2][:300].encode()) + len(prompts[3][:500].encode())
+        if st != 200 or len(texts) != 2 or len(set(texts)) != 2 or \
+                mb_["usage"]["completion_tokens"] != 48 or \
+                mb_["usage"]["prompt_tokens"] != want_prompt:
+            fail(f"surface: 2-prompt completion: HTTP {st}, {mb_.get('usage')}")
+        out["fanout"] = {"n2_usage": nb["usage"], "two_prompts_usage": mb_["usage"]}
+
+        # 6. resume (llama-3b bf16: equal tokens reported)
+        toks, rest, equal = await ex(resume_check, base, auth, {
+            "prompt": prompts[0][:600], "max_tokens": 48, "temperature": 0.8,
+            "seed": 99, "ignore_eos": True, "stream": True}, 20)
+        out["resume_llama3b_bf16"] = {"cut": 20, "after_cut": len(rest),
+                                      "equal_after_cut": equal}
+
+        # 8. the logprob ops' device time: one family's step graph with
+        # and without them, replayed alternately; and the ops alone.
+        full_mb = engine.runner._decode_mb(1)
+        keys = [(4, full_mb, 32, False, 0), (4, full_mb, 32, False, 8)]
+        ms = {k: [] for k in keys}
+        with SmMhz() as clock:
+            for k in (keys[0], keys[1], keys[1], keys[0]):
+                ms[k].append(await loop.run_in_executor(
+                    engine._executor, replay_ms_per_step, torch, train, k))
+        logits = torch.randn((4, engine.model_config.vocab_size), device=device)
+        chosen = logits.argmax(-1).int()
+        buf = [torch.zeros((32, 4), device=device), torch.zeros((32, 4, 8), device=device),
+               torch.zeros((32, 4, 8), dtype=torch.int32, device=device)]
+        j = torch.zeros((1,), dtype=torch.long, device=device)
+
+        def lp_ops(i):
+            c, t, ids = compute_logprobs(logits, chosen, 8)
+            buf[0].index_copy_(0, j, c[None])
+            buf[1].index_copy_(0, j, t[None])
+            buf[2].index_copy_(0, j, ids[None])
+
+        lp_ms, lp_by_kernel, _ = device_profile(torch, lp_ops, 32, "logprob ops")
+        out["logprob_cost"] = {
+            "step_graph_ms_lpk0": ms[keys[0]], "step_graph_ms_lpk8": ms[keys[1]],
+            "delta_ms_per_step": (sum(ms[keys[1]]) - sum(ms[keys[0]])) / 2,
+            "ops_alone_device_ms_b4": lp_ms,
+            "ops_alone_ms_by_kernel": {k[:60]: v for k, v in lp_by_kernel.items()},
+            "sm_clock_mhz": clock.summary()}
+
+        # 7. drain with one stream in flight
+        free0 = engine.block_manager.num_free_blocks
+        stream = loop.run_in_executor(None, sse_stream, base + "/v1/completions", {
+            "prompt": prompts[1][:500], "max_tokens": max_tokens, "temperature": 0.0,
+            "ignore_eos": True, "stream": True}, auth)
+        while sched.num_running == 0:
+            if stream.done():
+                fail("surface: drain: the stream ended before it was seen running")
+            await asyncio.sleep(0.005)
+        drain = asyncio.ensure_future(server.drain())
+        await asyncio.sleep(0)
+        st_h, hdr_h, body_h = await ex(request, "GET", base + "/health")
+        st_p, hdr_p, _ = await ex(request, "POST", base + "/v1/completions",
+                                  {"prompt": "late", "max_tokens": 2}, auth)
+        st, chunks, *_ = await stream
+        await drain
+        got = stream_tokens(chunks)
+        fin = [c["choices"][0]["finish_reason"] for c in chunks
+               if c["choices"] and c["choices"][0].get("finish_reason")]
+        free1 = engine.block_manager.num_free_blocks
+        if st_h != 503 or json.loads(body_h).get("status") != "draining" or \
+                "retry-after" not in hdr_h or st_p != 503 or "retry-after" not in hdr_p \
+                or st != 200 or len(got) != max_tokens or fin != ["length"] or free1 != free0:
+            fail(f"surface: drain: /health {st_h} {body_h}, POST {st_p} {hdr_p}, stream "
+                 f"{st} {len(got)} tokens {fin}, free blocks {free1} (before {free0})")
+        out["drain"] = {"health": json.loads(body_h), "post_status": st_p,
+                        "stream_tokens": len(got), "free_blocks": [free0, free1]}
+        await server.stop()
+
+        # 4. logprobs from graphs + pipeline against the strict eager loop
+        # on the same batches (the engine API; all requests queued before
+        # the loop starts). An untimed priming run first: both compared
+        # runs then find the same prompt blocks in the prefix cache, so
+        # their prefills compute the same chunks.
+        cfg.enable_warmup = False
+        lp_prompts = [p[:700] for p in prompts]
+        lp_samplings = [dict(temperature=0.0, logprobs=5), dict(temperature=0.8, seed=3,
+                                                                logprobs=8),
+                        dict(temperature=0.0), dict(temperature=0.7, seed=5, logprobs=2)]
+        got = {}
+        saved = train.graphs
+        for mode in ("priming", "graph", "eager"):
+            cfg.async_pipeline = cfg.overlap_dispatch = mode == "graph"
+            train.graphs = saved if mode == "graph" else {}
+            e0, g0 = train.eager_dispatches_total, train.graph_dispatches_total
+
+            async def one(p, extra):
+                final = None
+                async for o in engine.generate(prompt=p, sampling=SamplingParams(
+                        max_tokens=40, ignore_eos=True, **extra)):
+                    final = o
+                return final.token_ids, final.logprobs
+
+            tasks = [asyncio.ensure_future(one(p, s))
+                     for p, s in zip(lp_prompts, lp_samplings)]
+            await asyncio.sleep(0)
+            await engine.start()
+            got[mode] = await asyncio.gather(*tasks)
+            await engine.stop()
+            got[mode + "_dispatches"] = (train.eager_dispatches_total - e0,
+                                         train.graph_dispatches_total - g0)
+        del got["priming"]
+        train.graphs = saved
+        if got["graph"] != got["eager"]:
+            rows = []
+            for (gt, gl), (et, el) in zip(got["graph"], got["eager"]):
+                diffs = [abs(a[0] - b[0]) for a, b in zip(gl or [], el or [])
+                         if a is not None and b is not None]
+                rows.append({"tokens_equal": gt == et, "first_token_diff": next(
+                    (i for i, (a, b) in enumerate(zip(gt, et)) if a != b), None),
+                    "lp_entries_differing": sum(d > 0 for d in diffs),
+                    "max_abs_lp_diff": max(diffs, default=0.0)})
+            dummy = await loop.run_in_executor(
+                engine._executor, graph_vs_eager_dummy, torch, train,
+                (4, engine.runner._decode_mb(1), 32, False, 8))
+            fail(f"surface: logprobs (or tokens) from graphs + pipeline differ from the "
+                 f"strict eager loop's on the same batches: {rows}; one dispatch of "
+                 f"all-zero inputs, replayed against eager: {dummy}")
+        if got["graph_dispatches"][0] or not got["eager_dispatches"][0]:
+            fail(f"surface: graph run {got['graph_dispatches']}, eager run "
+                 f"{got['eager_dispatches']} (eager, replayed) decode dispatches")
+        out["graph_vs_eager_logprobs"] = {
+            "equal": True, "rows": 4, "tokens_each": 40,
+            "dispatches_graph_run": got["graph_dispatches"],
+            "dispatches_eager_run": got["eager_dispatches"]}
+
+    asyncio.run(run())
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    engine.shutdown()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. resume at float32 on a small model: identical
+    small = ServingEngine(EngineConfig(
+        model="tiny-llama-128dh", device=device.type, dtype="float32", attn_impl="window",
+        max_model_len=512, num_kv_blocks=256, max_num_seqs=8, seed=seed,
+        enable_warmup=True))
+
+    async def small_run():
+        server = OpenAIServer(small, "127.0.0.1", 0)
+        await server.start()
+        try:
+            return await asyncio.get_running_loop().run_in_executor(
+                None, resume_check, f"http://127.0.0.1:{server.port}",
+                {"x-pstpu-resume": "1"}, {
+                    "prompt": "resume at float32 " * 6, "max_tokens": 48,
+                    "temperature": 0.9, "seed": 17, "ignore_eos": True,
+                    "stream": True}, 20)
+        finally:
+            await server.stop()
+
+    toks, rest, equal = asyncio.run(small_run())
+    small.shutdown()
+    if rest != toks[20:]:
+        fail(f"surface: float32 resume: {equal} of {len(rest)} tokens after the cut "
+             "equal the uninterrupted stream's")
+    out["resume_tiny_f32"] = {"cut": 20, "identical": True, "after_cut": len(rest)}
+    faulthandler.cancel_dump_traceback_later()
+    log(f"surface result {json.dumps(out)}")
+    return out["launches"][pa.BF16], out
 
 
 def main() -> None:
     t_main = time.monotonic()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernel,serving,graphs,check,tp",
-                    help="comma list of kernel,serving,graphs,check,tp,trace "
-                         "(build always runs; trace profiles one more served "
-                         "round after serving)")
+    ap.add_argument("--phases", default="kernel,serving,graphs,check,tp,surface",
+                    help="comma list of kernel,serving,graphs,check,tp,surface,"
+                         "trace (build always runs; trace profiles one more "
+                         "served round after serving)")
     ap.add_argument("--tp-kernel-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # a rank of the tp phase's kernel check
     ap.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
@@ -1701,16 +2396,27 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "not read"
-    log(f"card: {card}")
-    log(f"torch: {torch.__version__} cuda {torch.version.cuda} device "
-        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    print(f"card: {card}", flush=True)
+    with SmMhz() as idle:
+        time.sleep(1.0)
+    summary("card", {"nvidia_smi": card, "torch": torch.__version__,
+                     "cuda": torch.version.cuda,
+                     "device": torch.cuda.get_device_name(0),
+                     "count": torch.cuda.device_count(),
+                     "sm_clock_idle_mhz": idle.summary()})
 
     # 2. build
     t0 = time.monotonic()
     lib_path, ptxas = pa.build_kernels()
-    log(f"build: {lib_path} in {time.monotonic() - t0:.1f} s")
-    for inst in kernel_instances(pa, ptxas):
+    build_s = time.monotonic() - t0
+    insts = kernel_instances(pa, ptxas)
+    for inst in insts:
         log(f"build: {json.dumps(inst)}")
+    summary("build", {"seconds": build_s, "instances": [
+        [i["variant"], i["Dh"], i["KG"], i["registers"], i.get("spill_stores", 0),
+         i["static_smem"], i["dynamic_smem"], i["blocks_per_sm"]] for i in insts],
+        "instance_fields": ["variant", "Dh", "KG", "registers", "spill_stores",
+                            "static_smem", "dynamic_smem", "blocks_per_sm"]})
 
     tok = ByteTokenizer(128256)
     prompts = make_prompts(args.seed, 4)
@@ -1719,37 +2425,89 @@ def main() -> None:
     # Serving runs before the kernel phase: the kernel phase's profiler
     # must not perturb the serving numbers. Each serving run is one main
     # path: its launch counts are set to 0 before it and read after it.
-    launches = {"bf16": None, "int8": None}
+    # launches by main path: each path's counts are set to 0 just before
+    # it and read just after it.
+    by_path = {"bf16": {}, "int8": {}}
     if "serving" in phases:
+        rows = {}
         for kv in ("bfloat16", "int8"):
             variant = "int8" if kv == "int8" else "bf16"
-            launches[variant] = serving_phase(
+            counts, rows[kv] = serving_phase(
                 torch, pa, device, args.seed, prompts, card, kv,
-                trace="trace" in phases and kv == "bfloat16")[
-                    pa.INT8 if variant == "int8" else pa.BF16]
+                trace="trace" in phases and kv == "bfloat16")
+            by_path[variant]["serving"] = counts[pa.INT8 if variant == "int8" else pa.BF16]
             gc.collect()
             torch.cuda.empty_cache()
+        summary("serving", {kv: {k: r[k] for k in (
+            "kv_blocks", "wall_s", "ttft_s_streamed", "decode_ms_per_step_events",
+            "aggregate_tok_s", "dispatch_overlap_ratio", "peak_mem_gib", "decode_steps",
+            "launches", "graphs", "sm_clock_mhz")} for kv, r in rows.items()})
     if "graphs" in phases:
-        graphs_phase(torch, pa, device, args.seed, card)
-        graphs_window_check(torch, args.seed)
+        rows = graphs_phase(torch, pa, device, args.seed, card)
+        window = graphs_window_check(torch, args.seed)
+        summary("graphs", {"runs": [
+            [r["kv_cache_dtype"], r["run"], r["mode"], r["decode_ms_per_step_events"],
+             r["decode_ms_per_step_wall"], sum(r["ttft_s"]) / len(r["ttft_s"]),
+             r["aggregate_tok_s"], r["peak_mem_gib"], r["decode_eager_dispatches"],
+             r["step_bound_ms"],
+             r["sm_clock_mhz"]["mean"] if isinstance(r["sm_clock_mhz"], dict) else None]
+            for r in rows],
+            "run_fields": ["kv", "run", "mode", "ms_per_step_events", "ms_per_step_wall",
+                           "ttft_s_mean", "tok_s", "peak_gib", "eager_dispatches",
+                           "step_bound_ms", "sm_clock_mhz_mean"],
+            "warmup": [{k: r[k] for k in (
+                "kv_cache_dtype", "run", "warmup_s", "graph_families", "graphs_captured",
+                "graph_capture_seconds", "graph_pool_bytes", "graph_families_logprobs",
+                "graph_pool_bytes_logprobs")} for r in rows if r["mode"] == "graph"],
+            "overlap_round": [r["overlap_round"] for r in rows if r.get("overlap_round")],
+            "tokens_graph_equal_eager": True, **window})
     if "check" in phases:
-        for quant in (False, True):
-            check_phase(torch, device, args.seed, quant)
-        check_noise(torch, device)
+        summary("check", {"bf16": check_phase(torch, device, args.seed, False),
+                          "int8": check_phase(torch, device, args.seed, True),
+                          "gumbel_values_differing": check_noise(torch, device)})
     # The tp phase: llama-3-8b at tp = 2 on this card, bf16 then int8 KV;
     # each run is one main path of paged_flash_decode_stats_tp (its launch
     # counts, summed over the ranks, set to 0 before it and read after it).
     tp_launches, tp_rows = None, {}
     if "tp" in phases:
-        tp_launches = sum(tp_phase(torch, pa, device, args.seed, card, kv)
-                          for kv in ("bfloat16", "int8"))
+        tp = {}
+        tp_launches = 0
+        for kv in ("bfloat16", "int8"):
+            n, tp[kv] = tp_phase(torch, pa, device, args.seed, card, kv)
+            tp_launches += n
         gc.collect()
         torch.cuda.empty_cache()
         tp_rows = tp_kernel_phase(torch, pa, device, args.seed, main_lens, card)
+        summary("tp", {
+            **{kv: {k: r[k] for k in (
+                "backend", "engine_up_s", "decode_steps", "launches_per_rank",
+                "ttft_s_streamed", "aggregate_tok_s", "decode_ms_per_step_tp1_eager",
+                "decode_ms_per_step_tp2_eager", "peak_gib_per_rank", "peak_gib_tp1",
+                "sm_clock_mhz")}
+               | {"collective_share": r["profile_one_step"]["collective_share"],
+                  "max_abs_logit_diff": r["logits"]["max_abs_logit_diff"],
+                  "bound": r["logits"]["bound"]} for kv, r in tp.items()},
+            "kernel": {v: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "library_ms", "max_abs_err")}
+                       for v, r in tp_rows.items()}})
+    if "surface" in phases:
+        n, surface = surface_phase(torch, pa, device, args.seed, card)
+        by_path["bf16"]["surface"] = n
+        summary("surface", surface)
+        gc.collect()
+        torch.cuda.empty_cache()
     rows = []
     if "kernel" in phases:
         graph_check(torch, pa, device, args.seed, main_lens)
         rows = kernel_phase(torch, pa, device, args.seed, main_lens)
+        summary("kernel", {"cases": [
+            [r["case"], r["variant"], r["ms"], r["share_of_bound"], r["plain_ms"],
+             r["library_ms"], r["vs_library"], r["max_abs_err"],
+             r["sm_clock_mhz"]["mean"] if isinstance(r["sm_clock_mhz"], dict) else None]
+            for r in rows],
+            "case_fields": ["case", "variant", "ms", "share_of_bound", "plain_ms",
+                            "library_ms", "vs_library", "max_abs_err",
+                            "sm_clock_mhz_mean"]})
 
     kernels = []
     for variant, name in (("bf16", pa.BF16), ("int8", pa.INT8)):
@@ -1761,7 +2519,9 @@ def main() -> None:
             "route": "cuda",
             "source": KERNEL_SOURCE,
             "replaces": KERNEL_REPLACES[variant],
-            "launches": launches[variant],
+            "launches": (sum(by_path[variant].values()) if by_path[variant]
+                         else None),
+            "launches_by_path": by_path[variant],
             "max_abs_err": max((r["max_abs_err"] for r in mine), default=None),
             **{key: main_row.get(key) for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -1779,7 +2539,7 @@ def main() -> None:
         **{key: tp_row.get(key) for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     })
-    log(f"smoke: {time.monotonic() - t_main:.1f} s in all")
+    summary("smoke", {"seconds": time.monotonic() - t_main})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -76,6 +76,10 @@ class EngineConfig:
     tp_timeout_s: float = 600.0
     seed: int = 0
     served_model_name: Optional[str] = None
+    # Peak HBM bandwidth (GB/s) of one card, the ceiling of the live
+    # roofline gauge (pstpu:live_hbm_bw_pct); None: looked up from the
+    # card's name (perf/roofline.py), 0 when the card is not in the table.
+    hbm_peak_gbps: Optional[float] = None
 
     def __post_init__(self):
         if self.decode_loop not in ("scan", "while"):

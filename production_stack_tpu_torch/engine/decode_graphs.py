@@ -1,5 +1,5 @@
 """The fused K-step decode train as head / step / tail over static buffers,
-and its CUDA graphs per (b, mb, K) family.
+and its CUDA graphs per (b, mb, K, penalties, logprobs) family.
 
 Counterpart of the body of ``production_stack_tpu/engine/runner.py``
 ``_decode_impl`` (the reference compiles the whole train as one XLA program
@@ -13,7 +13,9 @@ three functions:
   * step: one forward at position ``pos0 + j``, sample with seeds derived
     on the device from ``(seed_base, gen0 + j)``, ring write at ``j``;
     ``j`` is a device scalar the step increments, so one captured step
-    serves every step of the train;
+    serves every step of the train; the logprob variants (``lpk`` > 0)
+    also write the chosen token's logprob and the top-``lpk`` logprobs and
+    ids of the step's raw logits at ``j``;
   * tail: the one pool scatter of the dispatch's KV and the last-token
     vector the next dispatch may chain from.
 
@@ -47,6 +49,7 @@ import torch
 
 from production_stack_tpu_torch.engine.sampling import (
     apply_penalties,
+    compute_logprobs,
     gumbel_noise,
     sample_tokens,
     token_seeds,
@@ -72,8 +75,8 @@ POS_SENTINEL = 2**30  # ring_pos value for not-yet-written entries
 # are not ported).
 NUM_SCALARS = 14
 
-# (b, mb, K, has_penalties)
-FamilyKey = Tuple[int, int, int, bool]
+# (b, mb, K, has_penalties, logprobs bucket; 0 = no logprobs)
+FamilyKey = Tuple[int, int, int, bool, int]
 
 
 @dataclass
@@ -95,6 +98,12 @@ class DecodeBuffers:
     win: Optional[Tuple[torch.Tensor, torch.Tensor]]  # window path
     toks_all: torch.Tensor      # int32 [K, b] (output)
     last: torch.Tensor          # int32 [b_max] (output)
+    lpk: int = 0
+    # Logprob variants (lpk > 0), outputs: the chosen token's logprob
+    # f32 [K, b], the top-lpk logprobs f32 [K, b, lpk] and ids int32.
+    lp_chosen: Optional[torch.Tensor] = None
+    lp_top: Optional[torch.Tensor] = None
+    lp_ids: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -118,6 +127,8 @@ class DecodeTrain:
         self.pool = None
         self.capture_seconds = 0.0
         self.pool_bytes = 0
+        # The graph pool's growth while the logprob variants were captured.
+        self.pool_bytes_logprobs = 0
         # Decode dispatches that ran the train eagerly on the card (no
         # warmup, or a family outside the captured set, e.g. a penalty
         # batch at b > 1), and those that replayed graphs.
@@ -141,7 +152,8 @@ class DecodeTrain:
             self._arena[name] = buf = fresh
         return buf[:n].view(shape)
 
-    def buffers(self, b: int, mb: int, k: int, pen: bool) -> DecodeBuffers:
+    def buffers(self, b: int, mb: int, k: int, pen: bool,
+                lpk: int = 0) -> DecodeBuffers:
         r = self.r
         nl, hkv, dh = self._shapes
         ring = (nl, hkv, b, k, dh)
@@ -171,6 +183,13 @@ class DecodeTrain:
                  if r.attn_impl == "window" else None),
             toks_all=self._view("toks_all", (k, b), torch.int32),
             last=self._view("last", (self.b_max,), torch.int32),
+            lpk=lpk,
+            lp_chosen=(self._view("lp_chosen", (k, b), torch.float32)
+                       if lpk else None),
+            lp_top=(self._view("lp_top", (k, b, lpk), torch.float32)
+                    if lpk else None),
+            lp_ids=(self._view("lp_ids", (k, b, lpk), torch.int32)
+                    if lpk else None),
         )
 
     @staticmethod
@@ -204,6 +223,10 @@ class DecodeTrain:
                 t.zero_()
         bf.j.zero_()
         bf.toks_all.zero_()
+        if bf.lpk:
+            bf.lp_chosen.zero_()
+            bf.lp_top.zero_()
+            bf.lp_ids.zero_()
         if bf.win is not None:
             wk, wv = gather_window(r.kv_k, r.kv_v, tables, bs, r.kv_k_scale,
                                    r.kv_v_scale, out_dtype=r.dtype)
@@ -247,6 +270,12 @@ class DecodeTrain:
         if bf.counts is not None:
             rows = torch.arange(bf.b, device=r.device)
             bf.counts[rows, nxt.long()] += 1
+        if bf.lpk:
+            # From the raw logits: sampling above read the same tensor.
+            chosen_lp, top_lp, top_ids = compute_logprobs(logits, nxt, bf.lpk)
+            bf.lp_chosen.index_copy_(0, j, chosen_lp[None])
+            bf.lp_top.index_copy_(0, j, top_lp[None])
+            bf.lp_ids.index_copy_(0, j, top_ids[None])
         if bf.ring_q is not None:
             # Later steps attend to what later dispatches reconstruct from
             # the pool; this step's own token attended to itself
@@ -303,8 +332,8 @@ class DecodeTrain:
                 if self.graphs and key not in self._warned:
                     self._warned.add(key)
                     logger.warning(
-                        "decode family (b, mb, K, penalties)=%s was not "
-                        "captured: its dispatches run eagerly", key)
+                        "decode family (b, mb, K, penalties, logprobs)=%s "
+                        "was not captured: its dispatches run eagerly", key)
             self.head(bf)
             for _ in range(n_steps):
                 self.step(bf)
@@ -343,7 +372,8 @@ class DecodeTrain:
         graphs sharing one memory pool. Each function first runs once
         eagerly on the capture stream (lazy initialization stays out of
         the graph). A failed capture raises: there is no eager fallback
-        for a family that was meant to be captured."""
+        for a family that was meant to be captured. The arena must hold
+        every family captured in any call (``reserve`` them all first)."""
         if self.r.tp is not None:
             raise RuntimeError("decode graphs are not captured at "
                                "tensor_parallel_size > 1")
@@ -379,7 +409,10 @@ class DecodeTrain:
         torch.cuda.synchronize(device)
         self.capture_seconds += time.monotonic() - t0
         torch.cuda.empty_cache()
-        self.pool_bytes += max(0, torch.cuda.memory_reserved(device) - reserved0)
+        grown = max(0, torch.cuda.memory_reserved(device) - reserved0)
+        self.pool_bytes += grown
+        if keys and all(key[4] for key in keys):
+            self.pool_bytes_logprobs += grown
         logger.info(
             "decode graphs: %d families, %d graphs, %d nodes per step "
             "graph (max), %.2f s to capture, graph pool %.1f MiB",
@@ -397,6 +430,9 @@ class DecodeTrain:
                                         default=0),
             "graph_capture_seconds": self.capture_seconds,
             "graph_pool_bytes": self.pool_bytes,
+            "graph_families_logprobs": sum(1 for key in self.graphs
+                                           if key[4]),
+            "graph_pool_bytes_logprobs": self.pool_bytes_logprobs,
             "decode_graph_dispatches_total": self.graph_dispatches_total,
             "decode_eager_dispatches_total": self.eager_dispatches_total,
         }

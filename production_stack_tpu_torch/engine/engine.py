@@ -15,7 +15,12 @@ round may hold a prefill and a decode at once. Aborts are applied by the
 loop between rounds; a block freed under an in-flight dispatch is reused
 only by a later dispatch, which runs after it on the one compute stream.
 ``async_pipeline=False`` is the strict issue -> fetch -> apply loop.
-Tracing, the flight recorder and Prometheus histograms are not ported yet
+The loop keeps the reference's request-latency, lifecycle and per-train
+dispatch-duration histograms and a rolling window of dispatches, from
+which ``stats()`` derives the live throughput and roofline gauges
+(``_live_perf``). A request may carry logprobs (computed on the device, see
+runner.py) and resume an interrupted stream (``generate(resume_tokens=,
+resume_seed=)``). Tracing and the flight recorder are not ported yet
 (ROADMAP).
 
 With ``tensor_parallel_size`` > 1 this process is tp rank 0: the engine
@@ -30,13 +35,18 @@ import asyncio
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import AsyncIterator, Dict, List, Optional, Set
 
-import torch  # noqa: F401 — every module of the port is a torch module
+import torch
 
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.kv_cache import BlockPoolManager
+from production_stack_tpu_torch.engine.metrics import (
+    DispatchDurationHistograms,
+    LifecycleHistograms,
+    RequestLatencyHistograms,
+)
 from production_stack_tpu_torch.engine.runner import ModelRunner
 from production_stack_tpu_torch.engine.sampling import SamplingParams
 from production_stack_tpu_torch.engine.scheduler import (
@@ -52,6 +62,10 @@ from production_stack_tpu_torch.models.config import resolve_model_config
 from production_stack_tpu_torch.ops import paged_attention as pa
 from production_stack_tpu_torch.parallel import worker
 from production_stack_tpu_torch.parallel.mesh import TPGroup
+from production_stack_tpu_torch.perf.roofline import (
+    peak_gbps_for,
+    roofline_components,
+)
 from production_stack_tpu_torch.utils import init_logger, random_uuid, resolve_device
 
 logger = init_logger(__name__)
@@ -67,6 +81,10 @@ class RequestOutput:
     num_prompt_tokens: int = 0
     num_output_tokens: int = 0
     num_cached_tokens: int = 0
+    # When sampling.logprobs is set: one (chosen logprob, [(token id,
+    # logprob), ...]) per output token, aligned with token_ids (None for
+    # tokens a resume pre-seeded); None otherwise.
+    logprobs: Optional[List] = None
 
 
 @dataclass
@@ -80,6 +98,9 @@ class _StreamState:
 class ServingEngine:
     def __init__(self, config: EngineConfig, params: Optional[Dict] = None,
                  num_kv_blocks: Optional[int] = None):
+        self._startup_t0 = time.monotonic()
+        self.startup_total_seconds = 0.0
+        self.startup_warmup_seconds = 0.0
         self.config = config
         self.model_config = resolve_model_config(config.model)
         self.tokenizer = get_tokenizer(config.model, self.model_config)
@@ -137,6 +158,25 @@ class ServingEngine:
         self.dispatch_gap_seconds_total = 0.0
         self.host_stall_seconds_total = 0.0
         self._last_fetch_done: Optional[float] = None
+        # Rolling window of (fetch done, issue-to-fetch seconds, tokens
+        # accepted, decode row-steps) per dispatch: the live gauges.
+        self._dispatch_window: deque = deque(maxlen=256)
+        self.histograms = RequestLatencyHistograms()
+        self.lifecycle = LifecycleHistograms()
+        self.dispatch_hists = DispatchDurationHistograms()
+        self._ttft_recorded: Set[str] = set()
+        # Prompt + resume tokens a resumed request found in the prefix
+        # cache instead of recomputing.
+        self.resume_restored_tokens_total = 0
+        self.hbm_peak_gbps = config.hbm_peak_gbps
+        if self.hbm_peak_gbps is None:
+            dev = self.runner.device
+            name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else None
+            self.hbm_peak_gbps = peak_gbps_for(name)
+            if self.hbm_peak_gbps is None:
+                logger.warning("no HBM peak known for device %r and no "
+                               "--hbm-peak-gbps: pstpu:live_hbm_bw_pct reads 0",
+                               name or str(dev))
 
     # --------------------------------------------------------------- lifecycle
     async def start(self) -> None:
@@ -147,8 +187,12 @@ class ServingEngine:
                                "start again: its worker ranks have exited")
         self._new_work = asyncio.Event()
         if self.config.enable_warmup:
+            t0 = time.monotonic()
             await asyncio.get_running_loop().run_in_executor(
                 self._executor, self.runner.warmup)
+            self.startup_warmup_seconds += time.monotonic() - t0
+        if not self.startup_total_seconds:
+            self.startup_total_seconds = time.monotonic() - self._startup_t0
         self._running = True
         self._loop_task = asyncio.create_task(self._run_loop())
         logger.info(
@@ -207,6 +251,10 @@ class ServingEngine:
             self._loop_task is not None and not self._loop_task.done()
         ) and self._lost() is None
 
+    def active_request_ids(self) -> List[str]:
+        """Request ids with a live output stream (drain aborts these)."""
+        return list(self._streams)
+
     async def rank_reports(self, reset: bool = False) -> List[Dict]:
         """Every tp rank's report (``ModelRunner.tp_query``), taken between
         dispatches on the runner thread; ``reset`` zeroes each rank's
@@ -221,12 +269,31 @@ class ServingEngine:
         prompt_token_ids: Optional[List[int]] = None,
         sampling: Optional[SamplingParams] = None,
         request_id: Optional[str] = None,
+        resume_tokens: Optional[List[int]] = None,
+        resume_seed: Optional[int] = None,
     ) -> AsyncIterator[RequestOutput]:
-        """Submit a request; yields streaming RequestOutput deltas."""
+        """Submit a request; yields streaming RequestOutput deltas.
+
+        Mid-stream resume (the reference's rules): ``resume_tokens`` are
+        output tokens an earlier engine produced and delivered before its
+        stream broke. The request prefills prompt + resume_tokens (the
+        prefix cache serves what it holds) and decodes on at generation
+        index len(resume_tokens); ``resume_seed``, the earlier engine's
+        resolved seed base, replaces the seed, so the continuation is the
+        uninterrupted stream's. Its text starts where the delivered text
+        stopped. Resuming a finished stream (resume_tokens as long as
+        max_tokens) is refused."""
         request_id = request_id or random_uuid("req-")
         sampling = sampling or SamplingParams()
         if self._lost() is not None:
             raise RuntimeError(f"engine unavailable: {self._tp_error}")
+        if resume_tokens:
+            if len(resume_tokens) >= sampling.max_tokens:
+                raise ValueError(
+                    f"resume_tokens ({len(resume_tokens)}) must be shorter "
+                    f"than max_tokens ({sampling.max_tokens})")
+            if resume_seed is not None:
+                sampling = replace(sampling, seed=int(resume_seed))
         if prompt_token_ids is None:
             assert prompt is not None
             prompt_token_ids = self.tokenizer.encode(prompt)
@@ -241,6 +308,21 @@ class ServingEngine:
         state = _StreamState(
             queue=asyncio.Queue(), detok=IncrementalDetokenizer(self.tokenizer)
         )
+        if resume_tokens:
+            # The delivered tokens, pre-seeded as output (they were checked
+            # for EOS and stops upstream), and the emission state the
+            # earlier engine had: text and the emitted boundary are
+            # functions of the token list, so the first delta starts
+            # exactly where the delivered text stopped.
+            seq.output_token_ids = list(resume_tokens)
+            seq.resume_base = len(resume_tokens)
+            if sampling.logprobs is not None:
+                seq.output_logprobs = [None] * len(resume_tokens)
+            pre = state.detok.step(list(resume_tokens))
+            state.text = pre
+            hold = max(len(s) for s in sampling.stop) - 1 \
+                if sampling.stop else 0
+            state.sent = max(len(pre) - hold, 0)
         self.scheduler.add_sequence(seq)
         self._streams[request_id] = state
         self.prompt_tokens_total += len(prompt_token_ids)
@@ -287,29 +369,35 @@ class ServingEngine:
                     self._process_output(aborted)
 
         async def apply_oldest():
-            batch, handle = in_flight.popleft()
+            batch, handle, issue_time = in_flight.popleft()
             self.fetches_total += 1
             if in_flight:
                 # Another dispatch executes while this fetch waits.
                 self.overlapped_fetches_total += 1
             try:
-                tokens = await loop.run_in_executor(self._executor,
-                                                    handle.fetch)
+                tokens, lps = await loop.run_in_executor(self._executor,
+                                                         handle.fetch)
             except Exception:  # noqa: BLE001 — the loop must survive
                 logger.exception("Dispatch fetch failed; aborting its batch")
                 abort_batch(batch)
                 self._last_fetch_done = time.monotonic()
                 return
-            self._last_fetch_done = time.monotonic()
-            produced, accepted = self.scheduler.apply_results(batch, tokens)
+            self._last_fetch_done = now = time.monotonic()
+            self._record_fetch(batch, issue_time, now)
+            produced, accepted = self.scheduler.apply_results(batch, tokens,
+                                                              lps)
             self.generation_tokens_total += accepted
+            row_steps = (len(batch.seqs) * batch.num_steps
+                         if batch.kind == "decode" else 0)
+            self._dispatch_window.append(
+                (now, now - issue_time, accepted, row_steps))
             for seq in produced:
                 self._process_output(seq)
 
         def next_batch():
             if not overlap:
                 return self.scheduler.schedule()
-            kinds = {b.kind for b, _ in in_flight}
+            kinds = {b.kind for b, _, _ in in_flight}
             # With a prefill in flight, decode gets the free slot first
             # (its streams must not stall behind a chunk train).
             return self.scheduler.schedule(
@@ -357,8 +445,13 @@ class ServingEngine:
                     self.decode_dispatches_total += 1
                 else:
                     self.prefill_dispatches_total += 1
+                for seq in batch.seqs:
+                    if seq.first_issue_time is None:
+                        seq.first_issue_time = issue_mono
+                        self.lifecycle.queue_wait.observe(
+                            issue_mono - seq.arrival_time)
                 self.scheduler.advance_at_issue(batch)
-                in_flight.append((batch, handle))
+                in_flight.append((batch, handle, issue_mono))
             if in_flight:
                 # Applying may finish rows and free blocks, unblocking
                 # admission: the next iteration schedules right after.
@@ -380,6 +473,21 @@ class ServingEngine:
         while in_flight:
             await apply_oldest()
 
+    def _record_fetch(self, batch, issue_time: float, now: float) -> None:
+        """A fetched dispatch's duration, by train kind; a decode's in the
+        lifecycle's decode-train histogram; a row's prefill phase when its
+        final chunk comes back."""
+        self.dispatch_hists.observe(
+            "decode" if batch.kind == "decode" else "prefill",
+            now - issue_time)
+        if batch.kind == "decode":
+            self.lifecycle.decode_train.observe(now - issue_time)
+            return
+        for idx, seq in enumerate(batch.seqs):
+            if batch.finals and batch.finals[idx] and \
+                    seq.first_issue_time is not None:
+                self.lifecycle.prefill.observe(now - seq.first_issue_time)
+
     def _fail_all(self, err: Exception) -> None:
         """End every open stream with ``err`` (raised by its generate())."""
         for st in self._streams.values():
@@ -397,9 +505,22 @@ class ServingEngine:
         delta. The stop sequence itself is excluded from the output; while a
         request has stop strings, the last len(longest_stop)-1 chars are
         held back so a match split across tokens is never partially sent."""
+        if seq.first_token_time is not None and \
+                seq.request_id not in self._ttft_recorded:
+            self._ttft_recorded.add(seq.request_id)
+            self.histograms.ttft.observe(seq.first_token_time
+                                         - seq.arrival_time)
+        if seq.status.is_finished:
+            self._ttft_recorded.discard(seq.request_id)
+            if seq.status is not SequenceStatus.FINISHED_ABORTED:
+                self.histograms.e2e.observe(time.monotonic()
+                                            - seq.arrival_time)
         st = self._streams.get(seq.request_id)
         if st is None:
             return
+        if seq.resume_base and not seq._resume_counted and seq.prefill_done:
+            seq._resume_counted = True
+            self.resume_restored_tokens_total += seq.num_cached_tokens
         finished = seq.status.is_finished
         delta = st.detok.step(seq.output_token_ids, flush=finished)
         st.text += delta
@@ -432,8 +553,13 @@ class ServingEngine:
                 while lo > 0 and \
                         len(self.tokenizer.decode(toks[:lo - 1])) >= idx:
                     lo -= 1
-                self.generation_tokens_total -= max(0, len(toks) - lo)
+                # Tokens below resume_base were counted by the engine that
+                # generated them, not by this one.
+                self.generation_tokens_total -= max(
+                    0, len(toks) - max(lo, seq.resume_base))
                 seq.output_token_ids = toks[:lo]
+                if seq.output_logprobs:
+                    del seq.output_logprobs[lo:]
                 if finished:
                     seq.status = SequenceStatus.FINISHED_STOPPED
                 else:
@@ -454,7 +580,43 @@ class ServingEngine:
             num_prompt_tokens=seq.num_prompt_tokens,
             num_output_tokens=len(seq.output_token_ids),
             num_cached_tokens=seq.num_cached_tokens,
+            logprobs=(list(seq.output_logprobs)
+                      if seq.sampling.logprobs is not None else None),
         ))
+
+    def _live_perf(self) -> Dict[str, float]:
+        """Live gauges from the rolling dispatch window (the reference's
+        ``_live_perf``): tokens per second over the window's span (oldest
+        issue to newest fetch), tokens per decode row-step, and the share
+        of the decode HBM roofline at the running batch's shape. An idle
+        engine, or one without a known peak, reads 0 for the share."""
+        out = {"live_tok_per_s": 0.0, "live_hbm_bw_pct": 0.0,
+               "live_effective_tokens_per_target_step": 0.0}
+        win = list(self._dispatch_window)
+        if not win:
+            return out
+        span = max(win[-1][0] - (win[0][0] - win[0][1]), 1e-9)
+        tok_s = sum(e[2] for e in win) / span
+        out["live_tok_per_s"] = tok_s
+        row_steps = sum(e[3] for e in win)
+        eff = 1.0
+        if row_steps:
+            eff = sum(e[2] for e in win if e[3]) / row_steps
+            out["live_effective_tokens_per_target_step"] = eff
+        if not self.hbm_peak_gbps:
+            return out
+        running = self.scheduler.running
+        avg_ctx = (sum(s.num_tokens for s in running) / len(running)
+                   if running else 1.0)
+        dtype_bytes = {"bfloat16": 2.0, "float16": 2.0, "float32": 4.0}[
+            self.config.dtype]
+        comp = roofline_components(
+            self.config.model, dtype_bytes, self.config.kv_cache_dtype,
+            max(1, len(running)), avg_ctx, peak_gbs=self.hbm_peak_gbps,
+            tokens_per_target_step=max(1.0, eff),
+            num_chips=self.config.mesh_devices)
+        out["live_hbm_bw_pct"] = 100.0 * tok_s / comp["roofline_tok_s"]
+        return out
 
     # ------------------------------------------------------------------ stats
     def stats(self) -> Dict:
@@ -469,6 +631,10 @@ class ServingEngine:
             "kv_num_blocks": r.num_kv_blocks,
             "num_requests_running": self.scheduler.num_running,
             "num_requests_waiting": self.scheduler.num_waiting,
+            "queue_depth": self.scheduler.num_running + self.scheduler.num_waiting,
+            "resume_restored_tokens_total": self.resume_restored_tokens_total,
+            "startup_warmup_seconds": self.startup_warmup_seconds,
+            "startup_total_seconds": self.startup_total_seconds,
             "kv_cache_usage": self.block_manager.usage(),
             "prefix_cache_hits": self.block_manager.prefix_hits_total,
             "prefix_cache_queries": self.block_manager.prefix_queries_total,
@@ -497,4 +663,5 @@ class ServingEngine:
             "hbm_kv_bytes_per_device": r.per_device_hbm_kv_bytes(),
             "tp_backend": self.tp.backend if self.tp is not None else None,
             **r.decode_train.stats(),
+            **self._live_perf(),
         }

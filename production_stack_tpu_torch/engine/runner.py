@@ -12,8 +12,13 @@ Counterpart of ``production_stack_tpu/engine/runner.py`` (main path only):
     engine loop can issue the next dispatch first. Every dispatch runs on
     the one current stream; its small host inputs ride ONE int32 buffer
     (the reference's 14-row layout, floats bitcast) copied from a pinned
-    staging slot, and its tokens come back into the slot's pinned output
-    behind a CUDA event, which the fetch waits on.
+    staging slot, and its tokens (and, for a batch that asked for
+    logprobs, their logprob arrays, f32 as int32 bits) come back into the
+    slot's one pinned output behind a CUDA event, which the fetch waits on.
+  * Logprobs: a batch's ``logprobs_k`` is the largest bucket among its
+    rows (``LOGPROB_BUCKETS``); the decode train's logprob variant and the
+    prefill's final sample compute them from the raw logits on the device,
+    and the fetch cuts each row's entries to its own width.
   * A prefill dispatch (eager) computes slot mappings, gathers the history
     window once, runs the forward, samples from the last token's logits and
     scatters the chunk's KV once. Its chunk length and block-table width
@@ -60,8 +65,11 @@ from production_stack_tpu_torch.engine.decode_graphs import (
     FamilyKey,
 )
 from production_stack_tpu_torch.engine.sampling import (
+    LOGPROB_BUCKETS,
     apply_penalties,
+    compute_logprobs,
     gumbel_noise,
+    logprobs_bucket,
     sample_tokens,
     seed_base,
     token_seeds,
@@ -99,7 +107,8 @@ _NUM_SLOTS = 4
 
 class DispatchHandle:
     """An issued dispatch: ``fetch()`` waits for its event and returns
-    each row's tokens from its pinned output (called once)."""
+    (each row's tokens, each row's logprob entries or None) from its pinned
+    output (called once)."""
 
     __slots__ = ("fetch",)
 
@@ -441,11 +450,14 @@ class ModelRunner:
 
     def decode_graph_keys(self) -> List[FamilyKey]:
         """The variants ``warmup`` captures, as the reference warms them:
-        the default sampling variant of every decode family, and the
-        penalty variant at b = 1."""
+        the default sampling variant and the first logprob bucket's of
+        every decode family, and the penalty variant at b = 1. Others (the
+        top bucket, penalties at b > 1) run eagerly."""
         fams = self.reachable_decode_families()
-        return ([(b, mb, k, False) for b, mb, k in fams]
-                + [(b, mb, k, True) for b, mb, k in fams if b == 1])
+        lpk = LOGPROB_BUCKETS[0]
+        return ([(b, mb, k, False, 0) for b, mb, k in fams]
+                + [(b, mb, k, False, lpk) for b, mb, k in fams]
+                + [(b, mb, k, True, 0) for b, mb, k in fams if b == 1])
 
     def warmup(self) -> None:
         """Before serving: on the card, capture head, step and tail of
@@ -466,7 +478,11 @@ class ModelRunner:
             return
         keys = self.decode_graph_keys()
         if cuda:
-            self.decode_train.capture(keys)
+            # The arena holds every family first; the logprob variants are
+            # captured apart, so their share of the graph pool is read.
+            self.decode_train.reserve(keys)
+            self.decode_train.capture([k for k in keys if not k[4]])
+            self.decode_train.capture([k for k in keys if k[4]])
         else:
             self.decode_train.reserve(keys)
             for key in keys:
@@ -496,6 +512,58 @@ class ModelRunner:
         if cuda:
             slot.start.record()
         return slot
+
+    @staticmethod
+    def _logprobs_k(seqs) -> int:
+        """A batch's logprob bucket: the largest among its rows (0 when no
+        row asked for logprobs)."""
+        return max((logprobs_bucket(s.sampling.logprobs) for s in seqs
+                    if s.sampling.logprobs is not None), default=0)
+
+    @staticmethod
+    def _out_ints(k: int, b: int, lpk: int) -> int:
+        """int32s a dispatch fetches: tokens [k, b], and with logprobs the
+        chosen logprob [k, b], top logprobs and ids [k, b, lpk]."""
+        return k * b * (2 + 2 * lpk if lpk else 1)
+
+    @staticmethod
+    def _gather_logprobs(seqs, steps, host, offs, k: int, b: int, lpk: int):
+        """Per-row logprob entries from a dispatch's fetched arrays (the
+        segments ``_copy_out`` wrote at ``offs``: tokens, chosen [k, b],
+        top [k, b, lpk], ids [k, b, lpk]): a row that asked gets one
+        (chosen logprob, [(token id, logprob), ...] cut to its own width)
+        per token in its budget; the others get None (the reference's
+        ``_gather_logprobs``)."""
+        o_c, o_t, o_i = offs[1:]
+        lp_c = host[o_c:o_c + k * b].view(np.float32).reshape(k, b)
+        lp_t = host[o_t:o_t + k * b * lpk].view(np.float32).reshape(k, b, lpk)
+        lp_i = host[o_i:o_i + k * b * lpk].reshape(k, b, lpk)
+        out = []
+        for i, s in enumerate(seqs):
+            want = s.sampling.logprobs
+            if want is None:
+                out.append(None)
+                continue
+            entries = []
+            for j in range(steps[i]):
+                top = [(int(lp_i[j, i, r]), float(lp_t[j, i, r]))
+                       for r in range(min(want, lp_i.shape[-1]))]
+                entries.append((float(lp_c[j, i]), top))
+            out.append(entries)
+        return out
+
+    @staticmethod
+    def _copy_out(out_buf, parts) -> List[int]:
+        """Copy device arrays into consecutive int32 segments of a pinned
+        output (f32 as its bits); returns the segments' offsets."""
+        offs, o = [], 0
+        for t in parts:
+            n = t.numel()
+            src = t.view(torch.int32) if t.dtype == torch.float32 else t
+            out_buf[o:o + n].copy_(src.reshape(-1), non_blocking=True)
+            offs.append(o)
+            o += n
+        return offs
 
     def _counts(self, seqs, b: int) -> Optional[np.ndarray]:
         """[b, V] output-token occurrence counts when a row has a penalty
@@ -558,8 +626,9 @@ class ModelRunner:
         n = len(seqs)
         b = _bucket(n, 1, max(1, cfg.max_num_seqs))
         mb = self._decode_mb(max(len(s.block_ids) for s in seqs))
+        lpk = self._logprobs_k(seqs)
         n_packed = NUM_SCALARS * b + b * mb
-        slot = self._slot(n_packed, k * b)
+        slot = self._slot(n_packed, self._out_ints(k, b, lpk))
         packed = slot.inp[:n_packed].numpy()
         packed[:] = 0
         sc = packed[:NUM_SCALARS * b].reshape(NUM_SCALARS, b)
@@ -617,15 +686,19 @@ class ModelRunner:
         with self._dispatch_lock():
             if self.tp is not None:
                 self.tp.send_header(mesh.DECODE, self._dispatches, b, mb, k,
-                                    n_steps, chain_src, int(counts is not None))
+                                    n_steps, chain_src, int(counts is not None),
+                                    lpk)
                 self.tp.bcast(slot.inp[:n_packed])
                 if counts is not None:
                     self.tp.bcast(counts)
             d, bf = self._decode_device(slot, b, mb, k, n_steps, chain_src,
-                                        counts)
+                                        counts, lpk)
         self._push_rows(d, seqs, range(n))
         out_buf, start, end = slot.out, slot.start, slot.end
-        out_buf[:k * b].copy_(bf.toks_all.view(-1), non_blocking=True)
+        parts = [bf.toks_all]
+        if lpk:
+            parts += [bf.lp_chosen, bf.lp_top, bf.lp_ids]
+        offs = self._copy_out(out_buf, parts)
         if end is not None:
             end.record()
 
@@ -634,22 +707,25 @@ class ModelRunner:
                 end.synchronize()
                 self.decode_device_seconds_total += \
                     start.elapsed_time(end) / 1e3
-            out = out_buf[:k * b].numpy().reshape(k, b)
+            host = out_buf.numpy()
+            out = host[:k * b].reshape(k, b)
             tokens = [[int(out[j, i]) for j in range(steps[i])]
                       for i in range(n)]
+            lps = (self._gather_logprobs(seqs, steps, host, offs, k, b, lpk)
+                   if lpk else None)
             self.decode_seconds_total += time.monotonic() - t_issue
-            return tokens
+            return tokens, lps
 
         return DispatchHandle(fetch)
 
     def _decode_device(self, slot: _Slot, b: int, mb: int, k: int,
                        n_steps: int, chain_src: int,
-                       counts: Optional[torch.Tensor]):
+                       counts: Optional[torch.Tensor], lpk: int = 0):
         """The device part of a decode dispatch, on every rank: the fused
         train over the packed inputs in ``slot``. Returns (dispatch number,
         the train's buffers)."""
         n_packed = NUM_SCALARS * b + b * mb
-        key = (b, mb, k, counts is not None)
+        key = (b, mb, k, counts is not None, lpk)
         train = self.decode_train
         bf = train.buffers(*key)
         bf.packed.copy_(slot.inp[:n_packed], non_blocking=True)
@@ -695,7 +771,10 @@ class ModelRunner:
 
         n_sc = NUM_SCALARS * b
         n_packed = n_sc + b * mb + b * t
-        slot = self._slot(n_packed + b, b)
+        # Logprob and penalty variants matter only for a final chunk's
+        # sampled token.
+        lpk = self._logprobs_k(seqs) if any(finals) else 0
+        slot = self._slot(n_packed + b, self._out_ints(1, b, lpk))
         packed = slot.inp[:n_packed + b].numpy()
         packed[:] = 0
         sc = packed[:n_sc].reshape(NUM_SCALARS, b)
@@ -724,42 +803,49 @@ class ModelRunner:
         with self._dispatch_lock():
             if self.tp is not None:
                 self.tp.send_header(mesh.PREFILL, self._dispatches, b, t, mb,
-                                    int(has_window), int(counts is not None))
+                                    int(has_window), int(counts is not None),
+                                    lpk)
                 self.tp.bcast(slot.inp[:n_packed + b])
                 if counts is not None:
                     self.tp.bcast(counts)
-            d, next_tokens = self._prefill_device(slot, b, t, mb, has_window,
-                                                  finals, counts)
+            d, next_tokens, lp = self._prefill_device(
+                slot, b, t, mb, has_window, finals, counts, lpk)
 
         if next_tokens is None:
             if slot.end is not None:
                 slot.end.record()
             self.prefill_seconds_total += time.monotonic() - t_issue
-            return DispatchHandle(lambda: [[] for _ in range(b)])
+            return DispatchHandle(lambda: ([[] for _ in range(b)], None))
         # Final rows' sampled tokens are chainable by the next decode
         # without a host round trip.
         self._push_rows(d, seqs, [i for i in range(b) if finals[i]])
         out_buf, end = slot.out, slot.end
-        out_buf[:b].copy_(next_tokens, non_blocking=True)
+        offs = self._copy_out(out_buf, [next_tokens, *lp])
         if end is not None:
             end.record()
 
         def fetch():
             if end is not None:
                 end.synchronize()
-            out = out_buf[:b].numpy()
+            host = out_buf.numpy()
+            out = host[:b]
             self.prefill_seconds_total += time.monotonic() - t_issue
-            return [[int(out[i])] if finals[i] else [] for i in range(b)]
+            tokens = [[int(out[i])] if finals[i] else [] for i in range(b)]
+            lps = (self._gather_logprobs(seqs, [int(f) for f in finals],
+                                         host, offs, 1, b, lpk)
+                   if lpk else None)
+            return tokens, lps
 
         return DispatchHandle(fetch)
 
     def _prefill_device(self, slot: _Slot, b: int, t: int, mb: int,
                         has_window: bool, finals: List[bool],
-                        counts: Optional[torch.Tensor]):
+                        counts: Optional[torch.Tensor], lpk: int = 0):
         """The device part of a prefill dispatch, on every rank: slot
         mappings, the history window, the forward, sampling (when a row's
         prompt completes) and the one scatter of the chunk's KV. Returns
-        (dispatch number, the sampled tokens or None)."""
+        (dispatch number, the sampled tokens or None, the logprob arrays
+        of ``compute_logprobs`` or ())."""
         cfg, mc = self.config, self.model_config
         bs = cfg.block_size
         n_sc = NUM_SCALARS * b
@@ -796,7 +882,7 @@ class ModelRunner:
             win_k, win_v, win_len, tp=self.tp,
         )
         del win_k, win_v
-        next_tokens = None
+        next_tokens, lp = None, ()
         if any(finals):
             logit_idx = torch.clamp(chunk_lens - 1, min=0).long()
             last_hidden = hidden[torch.arange(b, device=self.device), logit_idx]
@@ -816,6 +902,8 @@ class ModelRunner:
                                   rows=temps > 0.0)
             next_tokens = sample_tokens(logits_eff, temps, top_k, top_p,
                                         gumbel).int()
+            if lpk:
+                lp = compute_logprobs(logits, next_tokens, lpk)
 
         nl, hkv, dh = mc.num_layers, self.local_kv_heads, mc.head_dim_
         flat_slots = slot_mapping.reshape(-1).long()
@@ -839,7 +927,7 @@ class ModelRunner:
             self._push_last(last)
             self._digest_add(next_tokens)
         self._dispatches += 1
-        return d, next_tokens
+        return d, next_tokens, lp
 
     # ---------------------------------------------------------------- execute
     def execute_async(self, batch: ScheduledBatch) -> DispatchHandle:
@@ -912,10 +1000,10 @@ class ModelRunner:
             if kind == mesh.STOP:
                 return self._answer_query(False)
             if kind == mesh.DECODE:
-                d, b, mb, k, n_steps, chain_src, pen = h[1:8]
+                d, b, mb, k, n_steps, chain_src, pen, lpk = h[1:9]
                 n_payload = NUM_SCALARS * b + b * mb
             elif kind == mesh.PREFILL:
-                d, b, t, mb, has_window, pen = h[1:7]
+                d, b, t, mb, has_window, pen, lpk = h[1:8]
                 n_payload = NUM_SCALARS * b + b * mb + b * t + b
             else:
                 raise RuntimeError(f"unknown dispatch descriptor kind {kind}")
@@ -929,10 +1017,11 @@ class ModelRunner:
                 counts = torch.empty((b, vocab), dtype=torch.int32)
                 tp.bcast(counts)
             if kind == mesh.DECODE:
-                self._decode_device(slot, b, mb, k, n_steps, chain_src, counts)
+                self._decode_device(slot, b, mb, k, n_steps, chain_src, counts,
+                                    lpk)
             else:
                 finals = [bool(f) for f in slot.inp[n_payload - b:n_payload].tolist()]
                 self._prefill_device(slot, b, t, mb, bool(has_window), finals,
-                                     counts)
+                                     counts, lpk)
             if slot.end is not None:
                 slot.end.record()

@@ -15,6 +15,11 @@ computes it as the JAX package does, bit for bit: row i is
 ``jax.random.gumbel(jax.random.PRNGKey(seed_i), (V,), float32)`` with the
 same uint32 seed schedule (``seed_base``, ``token_seed``), so seeded tokens
 equal the JAX package's (see ``gumbel_noise``).
+
+``compute_logprobs`` gives the OpenAI ``logprobs`` fields from the RAW f32
+logits (before penalties and temperature), inside the decode train and
+after the prefill sample; ``LOGPROB_BUCKETS`` bound the top-k widths a
+dispatch computes (the reference's ``runner.LOGPROB_BUCKETS``).
 """
 
 from dataclasses import dataclass, field
@@ -24,6 +29,10 @@ import torch
 
 TOP_CANDIDATES = 128  # candidate pool for the filtered (top-k/top-p) branch
 SEED_MULT = 1000003
+# Static buckets for a dispatch's top-logprobs width: OpenAI completions
+# allow logprobs <= 5, chat top_logprobs <= 20; two buckets bound the
+# variant count. 0 = the default variant (no logprobs).
+LOGPROB_BUCKETS = (8, 20)
 
 _M32 = 0xFFFFFFFF
 # threefry2x32: the rotations of the even and odd groups of four rounds,
@@ -56,6 +65,9 @@ class SamplingParams:
     ignore_eos: bool = False
     seed: Optional[int] = None
     n: int = 1
+    # Top-logprobs width of every output token (0: the chosen token's
+    # logprob only); None: no logprobs.
+    logprobs: Optional[int] = None
     presence_penalty: float = 0.0
     frequency_penalty: float = 0.0
 
@@ -74,6 +86,13 @@ class SamplingParams:
         if max_tokens is None:
             max_tokens = default_max_tokens
         stop = get("stop", [])
+        logprobs = body.get("logprobs")
+        if logprobs is True:  # chat: a bool, the width in top_logprobs
+            logprobs = int(get("top_logprobs", 0))
+        elif logprobs is False:
+            logprobs = None
+        elif logprobs is not None:
+            logprobs = int(logprobs)
         return SamplingParams(
             temperature=float(get("temperature", 1.0)),
             top_p=float(get("top_p", 1.0)),
@@ -83,9 +102,18 @@ class SamplingParams:
             ignore_eos=bool(get("ignore_eos", False)),
             seed=body.get("seed"),
             n=int(get("n", 1)),
+            logprobs=logprobs,
             presence_penalty=float(get("presence_penalty", 0.0)),
             frequency_penalty=float(get("frequency_penalty", 0.0)),
         )
+
+
+def logprobs_bucket(k: int) -> int:
+    """Smallest static top-k bucket covering a requested logprobs width."""
+    for b in LOGPROB_BUCKETS:
+        if k <= b:
+            return b
+    return LOGPROB_BUCKETS[-1]
 
 
 def seed_base(request_id: str, sampling: SamplingParams) -> int:
@@ -269,3 +297,36 @@ def sample_tokens(
     row_filtered = (top_k > 0) | (top_p < 1.0)
     sampled = torch.where(row_filtered, filtered_pick, unfiltered_pick)
     return torch.where(temperature <= 0.0, greedy, sampled)
+
+
+def sampling_scores(
+    logits: torch.Tensor,       # [B, V] float32
+    temperature: torch.Tensor,  # [B]
+    gumbel: torch.Tensor,       # [B, V] the rows' Gumbel field
+) -> torch.Tensor:
+    """The score field whose argmax the unfiltered branch of
+    ``sample_tokens`` picks: raw logits for greedy rows,
+    ``logits / T + Gumbel`` for sampled rows (the reference's
+    ``sampling_scores``; speculation ranks alternates by it)."""
+    temp = torch.clamp(temperature, min=1e-6)[:, None]
+    return torch.where(temperature[:, None] <= 0.0, logits,
+                       logits / temp + gumbel)
+
+
+def compute_logprobs(
+    logits: torch.Tensor,  # [B, V] float32
+    chosen: torch.Tensor,  # [B] sampled token ids
+    k: int,
+):
+    """(chosen logprob [B], top-k logprobs [B, k], top-k ids [B, k] int32)
+    for the OpenAI ``logprobs`` fields, from the RAW logits: the model's
+    distribution, not the penalty- and temperature-shaped one it sampled
+    from. The reference's ``compute_logprobs``; ``torch.topk`` promises no
+    order among equal values, ``jax.lax.top_k`` puts the lower id first."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    chosen_lp = torch.gather(logp, 1, chosen.long()[:, None])[:, 0]
+    if k <= 0:
+        z = logp.new_zeros((logits.shape[0], 0))
+        return chosen_lp, z, z.int()
+    top_lp, top_ids = torch.topk(logp, k, dim=-1)
+    return chosen_lp, top_lp, top_ids.int()

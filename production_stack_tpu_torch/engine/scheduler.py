@@ -4,9 +4,11 @@ Mirror of ``production_stack_tpu/engine/scheduler.py`` (same policy, same
 batches): prefill has priority and runs in token-budgeted chunks, several
 waiting prompts per batched prefill; otherwise all running sequences decode
 together in one fused K-step dispatch; when the block pool is exhausted the
-lowest-priority running sequence is preempted by recompute. Offload
-restores, disagg roles, LoRA namespaces, speculative reconciliation and
-logprobs are not ported yet (ROADMAP).
+lowest-priority running sequence is preempted by recompute. A resumed
+request (``Sequence.resume_base``) enters the same prefill path with its
+delivered tokens pre-seeded as output. Offload restores, disagg roles,
+LoRA namespaces and speculative reconciliation are not ported yet
+(ROADMAP).
 """
 
 import enum
@@ -70,6 +72,17 @@ class Sequence:
 
     status: SequenceStatus = SequenceStatus.WAITING
     output_token_ids: List[int] = field(default_factory=list)
+    # When sampling.logprobs is set: one (chosen logprob, [(id, logprob),
+    # ...]) per output token, None for tokens a resume pre-seeded.
+    output_logprobs: List = field(default_factory=list)
+    # Mid-stream resume: output tokens pre-seeded from the request's
+    # resume_tokens (delivered by an earlier engine). This engine rebuilds
+    # their KV through prefill and decodes on at generation index
+    # resume_base; they are never counted as generated here.
+    resume_base: int = 0
+    _resume_counted: bool = False
+    # Monotonic time of the first dispatch issue (closes queue wait).
+    first_issue_time: Optional[float] = None
     # Tokens sampled by an issued-but-unapplied dispatch (num_computed_tokens
     # already includes them).
     inflight_steps: int = 0
@@ -96,6 +109,10 @@ class Sequence:
     @property
     def num_prompt_tokens(self) -> int:
         return len(self.prompt_token_ids)
+
+    @property
+    def prefill_done(self) -> bool:
+        return self.num_computed_tokens >= len(self.prompt_token_ids)
 
     def finish_reason(self) -> Optional[str]:
         return self.status.value if self.status.is_finished else None
@@ -412,8 +429,10 @@ class Scheduler:
 
     def apply_results(
         self, batch: ScheduledBatch, token_lists: List[List[int]],
+        logprob_lists=None,
     ) -> tuple:
-        """Deliver a fetched dispatch's tokens. Returns (sequences that
+        """Deliver a fetched dispatch's tokens (and, when a row asked, its
+        per-token logprob entries, aligned). Returns (sequences that
         produced NEW tokens, number of tokens accepted)."""
         produced: List[Sequence] = []
         accepted = 0
@@ -427,7 +446,10 @@ class Scheduler:
                 self._register_full_blocks(seq)
                 if batch.finals[idx] and token_lists[idx]:
                     seq.inflight_steps -= 1
-                    self._append_token(seq, token_lists[idx][0])
+                    self._append_token(
+                        seq, token_lists[idx][0],
+                        logprob_lists[idx][0]
+                        if logprob_lists and logprob_lists[idx] else None)
                     accepted += 1
                     produced.append(seq)
         else:
@@ -436,10 +458,11 @@ class Scheduler:
                     continue
                 seq.inflight_steps -= batch.decode_steps[i]
                 took = False
-                for tok in toks:
+                lps = logprob_lists[i] if logprob_lists else None
+                for j, tok in enumerate(toks):
                     if seq.status.is_finished:
                         break  # EOS/max_tokens hit mid-scan; rest discarded
-                    self._append_token(seq, tok)
+                    self._append_token(seq, tok, lps[j] if lps else None)
                     accepted += 1
                     took = True
                 self._register_full_blocks(seq)
@@ -452,15 +475,18 @@ class Scheduler:
 
     def update_after_step(
         self, batch: ScheduledBatch, token_lists: List[List[int]],
+        logprob_lists=None,
     ) -> tuple:
         """Synchronous advance + apply (the strict engine loop)."""
         self.advance_at_issue(batch)
-        return self.apply_results(batch, token_lists)
+        return self.apply_results(batch, token_lists, logprob_lists)
 
-    def _append_token(self, seq: Sequence, token: int) -> None:
+    def _append_token(self, seq: Sequence, token: int, logprob=None) -> None:
         if seq.first_token_time is None:
             seq.first_token_time = time.monotonic()
         seq.output_token_ids.append(token)
+        if seq.sampling.logprobs is not None:
+            seq.output_logprobs.append(logprob)
         sp = seq.sampling
         n_out = len(seq.output_token_ids)
         if (

@@ -1,0 +1,190 @@
+"""Launch port engines: one ``python -m
+production_stack_tpu_torch.server.api_server`` process per engine, each on a
+free port, ready once its ``/health`` answers 200.
+
+Counterpart of the engine half of ``benchmarks/stack.py:launch_stack`` (the
+router stays the JAX package's CPU process: point its ``--static-backends``
+at the URLs this prints), and of ``__graft_entry__.py:entry``.
+
+  python -m production_stack_tpu_torch.launch --model llama-3b \\
+      --num-engines 2 -- --max-num-seqs 16
+
+prints ``{"urls": [...], "ready_s": [...], "pids": [...]}`` on one line,
+then serves until SIGTERM or SIGINT, which drains and stops every engine.
+"""
+
+import argparse
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import urllib.error
+import urllib.request
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import torch
+
+# The directory holding the package: engine processes import it from there
+# whether or not the package is installed.
+_PKG_PARENT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _healthy(url: str) -> bool:
+    try:
+        with urllib.request.urlopen(url + "/health", timeout=2) as r:
+            return r.status == 200
+    except (urllib.error.URLError, ConnectionError, OSError):
+        return False
+
+
+@dataclass
+class EngineHandle:
+    """Running engines: their URLs, spawn-to-healthy seconds, the exact
+    argv of each (a relaunch reuses it), processes and log files."""
+    urls: List[str]
+    ready_seconds: List[float]
+    argvs: List[List[str]]
+    procs: List[subprocess.Popen] = field(repr=False)
+    log_paths: List[str] = field(default_factory=list)
+
+    def stop(self, timeout_s: float = 60.0) -> List[int]:
+        """SIGTERM every engine (each drains), then wait; an engine still
+        up at ``timeout_s`` is killed. Returns the exit codes."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        codes = []
+        deadline = time.monotonic() + timeout_s
+        for p in self.procs:
+            try:
+                codes.append(p.wait(max(0.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                codes.append(p.wait())
+        return codes
+
+
+def launch_engines(model: str, num_engines: int = 1,
+                   engine_args: Optional[List[str]] = None,
+                   device: str = "cuda", log_dir: Optional[str] = None,
+                   startup_timeout_s: float = 1800.0) -> EngineHandle:
+    """Start ``num_engines`` port engines serving ``model`` on ``device``
+    (extra server flags in ``engine_args``), each on a free port, and
+    wait until every ``/health`` answers 200. Logs go to ``log_dir`` (a
+    fresh temporary directory by default). An engine that exits or is not
+    healthy within ``startup_timeout_s`` stops them all and raises."""
+    log_dir = log_dir or tempfile.mkdtemp(prefix="pstpu-torch-engines-")
+    os.makedirs(log_dir, exist_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [_PKG_PARENT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                         if p])
+    procs, argvs, urls, logs, ready = [], [], [], [], []
+    t0 = time.monotonic()
+    handle = EngineHandle(urls, ready, argvs, procs, logs)
+    try:
+        for i in range(num_engines):
+            port = free_port()
+            argv = [sys.executable, "-m",
+                    "production_stack_tpu_torch.server.api_server",
+                    "--model", model, "--device", device,
+                    "--host", "127.0.0.1", "--port", str(port),
+                    *(engine_args or [])]
+            path = os.path.join(log_dir, f"engine-{i}-{port}.log")
+            with open(path, "wb") as log:
+                procs.append(subprocess.Popen(argv, stdout=log,
+                                              stderr=subprocess.STDOUT,
+                                              env=env))
+            argvs.append(argv)
+            urls.append(f"http://127.0.0.1:{port}")
+            logs.append(path)
+        for proc, url, path in zip(procs, urls, logs):
+            while not _healthy(url):
+                if proc.poll() is not None:
+                    raise RuntimeError(f"engine {url} exited with "
+                                       f"{proc.returncode}; log: {path}")
+                if time.monotonic() - t0 > startup_timeout_s:
+                    raise RuntimeError(f"engine {url} not healthy after "
+                                       f"{startup_timeout_s:.0f} s; log: {path}")
+                time.sleep(0.2)
+            ready.append(time.monotonic() - t0)
+    except BaseException:
+        handle.stop(timeout_s=10.0)
+        raise
+    return handle
+
+
+def entry(device: str = "cuda"):
+    """(fn, example_args) of the decode train at ``tiny-llama``: fn runs one
+    fused 4-step decode dispatch of 4 rows (head, 4 steps, tail) over the
+    packed int32 buffer the engine stages (every row starts at position 0
+    with token 1, writes block 1, greedy)."""
+    import functools
+
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.decode_graphs import NUM_SCALARS
+    from production_stack_tpu_torch.engine.runner import ModelRunner
+    from production_stack_tpu_torch.models.config import resolve_model_config
+
+    cfg = EngineConfig(model="tiny-llama", device=device, max_model_len=256,
+                       num_kv_blocks=64, max_num_seqs=8,
+                       max_num_batched_tokens=64)
+    runner = ModelRunner(cfg, resolve_model_config(cfg.model))
+    b, k = 4, 4
+    mb = runner._decode_mb(1)
+    key = (b, mb, k, False, 0)
+    bf = runner.decode_train.buffers(*key)
+    packed = np.zeros((NUM_SCALARS * b + b * mb,), np.int32)
+    sc = packed[:NUM_SCALARS * b].reshape(NUM_SCALARS, b)
+    sc[0, :] = 1                        # tokens0
+    sc[2, :] = k                        # step budget
+    sc[6, :] = -1                       # top_k off
+    sc.view(np.float32)[7, :] = 1.0     # top_p
+    sc[11, :] = -1                      # start tokens from the host
+    packed[NUM_SCALARS * b:].reshape(b, mb)[:, 0] = 1
+    bf.packed.copy_(torch.from_numpy(packed))
+    return functools.partial(runner.decode_train.run, key), (bf, k)
+
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
+    extra: List[str] = []
+    if "--" in argv:
+        i = argv.index("--")
+        argv, extra = argv[:i], argv[i + 1:]
+    p = argparse.ArgumentParser(description="Launch port engines")
+    p.add_argument("--model", default="llama-3b")
+    p.add_argument("--num-engines", type=int, default=1)
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--log-dir", default=None)
+    p.add_argument("--startup-timeout", type=float, default=1800.0)
+    args = p.parse_args(argv)
+    handle = launch_engines(args.model, args.num_engines, extra, args.device,
+                            args.log_dir, args.startup_timeout)
+    print(json.dumps({"urls": handle.urls, "ready_s": handle.ready_seconds,
+                      "pids": [pr.pid for pr in handle.procs],
+                      "logs": handle.log_paths}), flush=True)
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
+    while not stop.is_set() and all(pr.poll() is None for pr in handle.procs):
+        stop.wait(1.0)
+    handle.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,19 +1,33 @@
 """OpenAI-compatible HTTP server for the port, on the standard library.
 
 Counterpart of ``production_stack_tpu/server/api_server.py`` (which runs on
-aiohttp) for the routes of the serving main path:
+aiohttp) for what an engine behind the stack's router serves:
 
   * POST /v1/completions, POST /v1/chat/completions — JSON, or SSE with
     ``stream: true`` (events ``data: {...}`` ending in ``data: [DONE]``);
     ``max_tokens``, ``temperature``, ``top_p``, ``top_k``, ``seed``,
-    ``stop``, ``ignore_eos`` and ``stream_options.include_usage`` are
-    honoured;
-  * GET /v1/models, GET /health.
+    ``stop``, ``ignore_eos``, presence/frequency penalties,
+    ``stream_options.include_usage``, ``logprobs`` (completions: an int in
+    [0, 5]; chat: a bool with ``top_logprobs`` in [0, 20]), ``n`` in
+    [1, 16] (choice i samples with seed + i), multi-prompt completions
+    (a list of strings or of token-id lists; choices prompt-major), and
+    mid-stream resume (``resume_tokens``, ``resume_seed``);
+  * GET /v1/models, /health, /metrics (Prometheus text, the reference's
+    series), /version.
+
+The router's contract: bearer auth on /v1/* when ``--api-key`` is set
+(401 otherwise); ``--max-queue-len`` sheds generation requests with 503 and
+``Retry-After`` while the wait queue is that deep; SIGTERM drains (/health
+turns 503 ``draining``, new POSTs 503, in-flight requests finish or are
+aborted at ``--drain-timeout``; a second SIGTERM exits at once); with the
+``x-pstpu-resume`` request header every streamed chunk of a single-choice
+request carries ``pstpu: {toks, off, seed}``, what the router needs to
+resume the stream on another engine.
 
 HTTP/1.1 with one request per connection (``Connection: close``); a
-streamed response is close-delimited. Response bodies have the JAX
-package's shapes. Every other route of the JAX server is not ported yet
-(ROADMAP).
+streamed response is close-delimited. Tool calling, /v1/embeddings,
+/rerank, /prefix_index, /prewarm, /disagg/* and /debug/* are not ported
+yet (ROADMAP).
 
 Run: ``python -m production_stack_tpu_torch.server.api_server --model
 llama-3b --port 8000`` (on the card; ``--device cpu`` for a CPU run). With
@@ -24,22 +38,32 @@ share one).
 
 import argparse
 import asyncio
+import hmac
 import json
+import os
+import signal
 import time
+from dataclasses import replace
 from typing import Optional, Tuple
 
 import torch  # noqa: F401 — every module of the port is a torch module
 
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.engine import ServingEngine
-from production_stack_tpu_torch.engine.sampling import SamplingParams
+from production_stack_tpu_torch.engine.sampling import SamplingParams, seed_base
+from production_stack_tpu_torch.server.metrics import render_engine_metrics
 from production_stack_tpu_torch.utils import init_logger, random_uuid
 
 logger = init_logger(__name__)
 
-_REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
-            405: "Method Not Allowed", 413: "Payload Too Large",
-            500: "Internal Server Error", 503: "Service Unavailable"}
+VERSION = "0.1.0"
+# The router sets this header on the streams it proxies: only then do the
+# chunks carry the resume payload (direct clients get plain OpenAI chunks).
+RESUME_HEADER = "x-pstpu-resume"
+_REASONS = {200: "OK", 400: "Bad Request", 401: "Unauthorized",
+            404: "Not Found", 405: "Method Not Allowed",
+            413: "Payload Too Large", 500: "Internal Server Error",
+            503: "Service Unavailable"}
 _MAX_BODY = 16 << 20
 
 
@@ -55,24 +79,37 @@ def _sse(obj: dict) -> bytes:
 
 class _HttpError(Exception):
     def __init__(self, status: int, message: str,
-                 etype: str = "invalid_request_error"):
+                 etype: str = "invalid_request_error",
+                 headers: Optional[dict] = None):
         super().__init__(message)
         self.status, self.message, self.etype = status, message, etype
+        self.headers = headers or {}
 
 
 class OpenAIServer:
     def __init__(self, engine: ServingEngine, host: str = "127.0.0.1",
-                 port: int = 8000):
+                 port: int = 8000, api_key: Optional[str] = None,
+                 max_queue_len: int = 0, drain_timeout: float = 30.0):
         self.engine = engine
         self.host = host
         self.port = port
         self.model_name = engine.config.model_name
+        self.api_key = api_key
+        self.max_queue_len = max_queue_len
+        self.drain_timeout = drain_timeout
         self._server: Optional[asyncio.base_events.Server] = None
+        self._draining = False
+        self._inflight = 0
+        self._drained = asyncio.Event()
+        self._drain_task: Optional[asyncio.Task] = None
+        self.on_drained = None    # called after a SIGTERM drain (main: exit)
+        self.on_second_sigterm = None
 
     async def start(self) -> None:
         """Start the engine loop and listen; ``port=0`` picks a free port
         (read it back from ``self.port``)."""
         await self.engine.start()
+        self._drained = asyncio.Event()
         self._server = await asyncio.start_server(
             self._handle, self.host, self.port
         )
@@ -83,9 +120,61 @@ class OpenAIServer:
     async def stop(self) -> None:
         if self._server is not None:
             self._server.close()
-            await self._server.wait_closed()
+            try:
+                # Waits for open connections; a stuck client does not hold
+                # the exit.
+                await asyncio.wait_for(self._server.wait_closed(), 5.0)
+            except asyncio.TimeoutError:
+                logger.warning("stopping with connections still open")
             self._server = None
         await self.engine.stop()
+
+    # ---------------------------------------------------------------- drain
+    def install_signal_handlers(self, loop) -> None:
+        """SIGTERM drains; a second SIGTERM aborts what is in flight and
+        calls ``on_second_sigterm`` (main: exit)."""
+        loop.add_signal_handler(signal.SIGTERM, self._on_sigterm)
+
+    def _on_sigterm(self) -> None:
+        if self._drain_task is not None:
+            logger.warning("Second SIGTERM: exiting without finishing drain")
+            for rid in self.engine.active_request_ids():
+                self.engine.abort(rid)
+            if self.on_second_sigterm is not None:
+                self.on_second_sigterm()
+            return
+        self._drain_task = asyncio.ensure_future(self._drain_and_exit())
+
+    async def _drain_and_exit(self) -> None:
+        await self.drain()
+        if self.on_drained is not None:
+            self.on_drained()
+
+    async def drain(self) -> None:
+        """Stop admitting; let in-flight requests finish for up to
+        ``drain_timeout``, then abort the rest (aborts land between
+        dispatches: an issued dispatch is fetched and its blocks freed)."""
+        if self._draining:
+            return
+        self._draining = True
+        if self._inflight == 0:
+            self._drained.set()
+        logger.info("Drain: admission stopped, %d request(s) in flight",
+                    self._inflight)
+        try:
+            await asyncio.wait_for(self._drained.wait(), self.drain_timeout)
+            logger.info("Drain complete: all in-flight requests finished")
+        except asyncio.TimeoutError:
+            stale = self.engine.active_request_ids()
+            logger.warning("Drain timeout after %.1f s: aborting %d "
+                           "request(s)", self.drain_timeout, len(stale))
+            for rid in stale:
+                self.engine.abort(rid)
+            try:
+                await asyncio.wait_for(self._drained.wait(), 5.0)
+            except asyncio.TimeoutError:
+                logger.warning("Drain: %d handler(s) still active at exit",
+                               self._inflight)
 
     # ---------------------------------------------------------------- HTTP
     async def _read_request(self, reader) -> Tuple[str, str, dict, bytes]:
@@ -108,27 +197,37 @@ class OpenAIServer:
         return method, target.split("?", 1)[0], headers, body
 
     @staticmethod
-    def _head(status: int, content_type: str, extra: str = "") -> bytes:
+    def _head(status: int, content_type: str, headers: Optional[dict] = None,
+              length: Optional[int] = None) -> bytes:
+        extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
+        if length is not None:
+            extra += f"Content-Length: {length}\r\n"
         return (
             f"HTTP/1.1 {status} {_REASONS.get(status, 'Error')}\r\n"
-            f"Content-Type: {content_type}\r\nConnection: close\r\n{extra}"
+            f"Content-Type: {content_type}\r\nConnection: close\r\n"
+            f"{extra}\r\n"
         ).encode()
 
-    async def _send_json(self, writer, status: int, obj: dict) -> None:
-        body = json.dumps(obj).encode()
-        writer.write(self._head(status, "application/json",
-                                f"Content-Length: {len(body)}\r\n\r\n"))
+    async def _send(self, writer, status: int, body: bytes,
+                    content_type: str, headers: Optional[dict] = None) -> None:
+        writer.write(self._head(status, content_type, headers, len(body)))
         writer.write(body)
         await writer.drain()
+
+    async def _send_json(self, writer, status: int, obj: dict,
+                         headers: Optional[dict] = None) -> None:
+        await self._send(writer, status, json.dumps(obj).encode(),
+                         "application/json", headers)
 
     async def _handle(self, reader, writer) -> None:
         try:
             try:
                 method, path, headers, body = await self._read_request(reader)
-                await self._route(writer, method, path, body)
+                await self._route(writer, method, path, headers, body)
             except _HttpError as e:
                 await self._send_json(writer, e.status,
-                                      _error_body(e.status, e.message, e.etype))
+                                      _error_body(e.status, e.message, e.etype),
+                                      e.headers)
         except (ConnectionError, asyncio.IncompleteReadError):
             pass  # client went away; generate()'s cleanup aborted its work
         except Exception as e:  # noqa: BLE001 — one bad request, not the server
@@ -141,9 +240,12 @@ class OpenAIServer:
         finally:
             writer.close()
 
-    async def _route(self, writer, method: str, path: str, body: bytes) -> None:
+    async def _route(self, writer, method: str, path: str, headers: dict,
+                     body: bytes) -> None:
         routes = {
             ("GET", "/health"): self.health,
+            ("GET", "/metrics"): self.metrics,
+            ("GET", "/version"): self.version,
             ("GET", "/v1/models"): self.models,
             ("POST", "/v1/completions"): self.completions,
             ("POST", "/v1/chat/completions"): self.chat_completions,
@@ -153,16 +255,46 @@ class OpenAIServer:
             if any(p == path for _, p in routes):
                 raise _HttpError(405, f"{method} not allowed on {path}")
             raise _HttpError(404, f"route {path} not found")
-        await handler(writer, body)
+        if self.api_key and path.startswith("/v1"):
+            got = headers.get("authorization", "")
+            if not hmac.compare_digest(got.encode(),
+                                       f"Bearer {self.api_key}".encode()):
+                raise _HttpError(401, "Invalid or missing API key",
+                                 "authentication_error")
+        if method != "POST":
+            await handler(writer, headers, body)
+            return
+        if self._draining:
+            raise _HttpError(503, "Server is draining (shutting down)",
+                             "service_unavailable", {"Retry-After": "5"})
+        self._inflight += 1
+        try:
+            await handler(writer, headers, body)
+        finally:
+            self._inflight -= 1
+            if self._draining and self._inflight == 0:
+                self._drained.set()
 
     # -------------------------------------------------------------- routes
-    async def health(self, writer, body: bytes) -> None:
-        if self.engine.is_healthy:
+    async def health(self, writer, headers: dict, body: bytes) -> None:
+        if self._draining:
+            await self._send_json(
+                writer, 503, {"status": "draining", "inflight": self._inflight},
+                {"Retry-After": "1"})
+        elif self.engine.is_healthy:
             await self._send_json(writer, 200, {"status": "healthy"})
         else:
-            await self._send_json(writer, 503, {"status": "unhealthy"})
+            await self._send_json(writer, 503, {"status": "unhealthy"},
+                                  {"Retry-After": "1"})
 
-    async def models(self, writer, body: bytes) -> None:
+    async def metrics(self, writer, headers: dict, body: bytes) -> None:
+        text = render_engine_metrics(self.engine, self.model_name)
+        await self._send(writer, 200, text.encode(), "text/plain")
+
+    async def version(self, writer, headers: dict, body: bytes) -> None:
+        await self._send_json(writer, 200, {"version": VERSION})
+
+    async def models(self, writer, headers: dict, body: bytes) -> None:
         await self._send_json(writer, 200, {"object": "list", "data": [{
             "id": self.model_name, "object": "model",
             "created": int(time.time()), "owned_by": "production-stack-tpu",
@@ -180,35 +312,68 @@ class OpenAIServer:
         return obj
 
     def _check(self, body: dict, chat: bool) -> None:
+        """The model, and the reference's ``_check_unsupported``: 400 for an
+        accepted but unimplemented parameter, never a silent drop."""
         model = body.get("model", self.model_name)
         if model != self.model_name:
             raise _HttpError(404, f"Model '{model}' not found", "model_not_found")
-        for key in ("logit_bias", "tools", "logprobs", "top_logprobs"):
-            if body.get(key):
-                raise _HttpError(400, f"'{key}' is not supported by this server")
-        if not chat and (body.get("suffix") or body.get("echo")):
-            raise _HttpError(400, "'suffix'/'echo' are not supported")
-        if body.get("n", 1) not in (1, None):
-            raise _HttpError(400, "only n=1 is supported by this server")
+        if body.get("logit_bias"):
+            raise _HttpError(400, "'logit_bias' is not supported")
+        if body.get("tools"):
+            raise _HttpError(400, "'tools' is not supported by this server")
+        if not chat and body.get("suffix"):
+            raise _HttpError(400, "'suffix' is not supported")
+        if not chat and body.get("echo"):
+            raise _HttpError(400, "'echo' is not supported")
+        n = body.get("n")
+        if n is None:
+            n = 1
+        if not isinstance(n, int) or not 1 <= n <= 16:
+            raise _HttpError(400, "'n' must be an integer in [1, 16]")
+        best_of = body.get("best_of")
+        if best_of is not None and best_of != n:
+            raise _HttpError(400, "'best_of' != n is not supported")
+        lp = body.get("logprobs")
+        if chat:
+            # A type check: 1 == True in Python.
+            if lp is not None and type(lp) is not bool:
+                raise _HttpError(400, "chat 'logprobs' must be a boolean "
+                                      "(use 'top_logprobs' for the list width)")
+            top = body.get("top_logprobs")
+            if top is not None and (type(top) is not int or not 0 <= top <= 20):
+                raise _HttpError(400, "'top_logprobs' must be in [0, 20]")
+        elif lp is not None and (type(lp) is not int or not 0 <= lp <= 5):
+            raise _HttpError(400, "'logprobs' must be an integer in [0, 5]")
 
-    async def completions(self, writer, raw: bytes) -> None:
+    async def completions(self, writer, headers: dict, raw: bytes) -> None:
         body = self._parse(raw)
         prompt = body.get("prompt")
-        if isinstance(prompt, list) and prompt and all(type(x) is int for x in prompt):
-            vocab = self.engine.tokenizer.vocab_size
-            if any(not 0 <= x < vocab for x in prompt):
-                raise _HttpError(400, f"prompt token ids must be in [0, {vocab})")
-            kw = {"prompt_token_ids": list(prompt)}
-        elif isinstance(prompt, str):
-            kw = {"prompt": prompt}
+
+        def is_ids(p):
+            return isinstance(p, list) and p and all(type(x) is int for x in p)
+
+        if isinstance(prompt, str):
+            prompts = [prompt]
+        elif isinstance(prompt, list) and prompt and \
+                all(isinstance(p, str) for p in prompt):
+            prompts = list(prompt)
+        elif is_ids(prompt):
+            prompts = [list(prompt)]
+        elif isinstance(prompt, list) and prompt and all(is_ids(p) for p in prompt):
+            prompts = [list(p) for p in prompt]
         else:
-            raise _HttpError(400, "'prompt' must be a string or a list of "
-                                  "token ids")
+            raise _HttpError(400, "'prompt' must be a non-empty string, list "
+                                  "of strings, or list(s) of token ids")
+        vocab = self.engine.tokenizer.vocab_size
+        for p in prompts:
+            if isinstance(p, list) and any(not 0 <= x < vocab for x in p):
+                raise _HttpError(400, f"prompt token ids must be in [0, {vocab})")
         self._check(body, chat=False)
         sampling = SamplingParams.from_request(body, default_max_tokens=16)
-        await self._generate(writer, body, kw, sampling, chat=False)
+        await self._generate(writer, headers, body, prompts, sampling,
+                             chat=False)
 
-    async def chat_completions(self, writer, raw: bytes) -> None:
+    async def chat_completions(self, writer, headers: dict, raw: bytes) -> None:
         body = self._parse(raw)
         messages = body.get("messages")
         if not messages or not isinstance(messages, list):
@@ -220,98 +385,290 @@ class OpenAIServer:
         except (KeyError, TypeError) as e:
             raise _HttpError(400, f"Could not apply chat template: {e}")
         sampling = SamplingParams.from_request(body, default_max_tokens=256)
-        await self._generate(writer, body, {"prompt": prompt}, sampling,
+        await self._generate(writer, headers, body, [prompt], sampling,
                              chat=True)
 
-    async def _generate(self, writer, body: dict, kw: dict,
-                        sampling: SamplingParams, chat: bool) -> None:
-        n_prompt = len(kw["prompt_token_ids"]) if "prompt_token_ids" in kw \
-            else len(self.engine.tokenizer.encode(kw["prompt"]))
-        if n_prompt >= self.engine.config.max_model_len:
-            raise _HttpError(400, f"Prompt of {n_prompt} tokens exceeds "
-                                  f"max_model_len {self.engine.config.max_model_len}")
-        request_id = random_uuid("chatcmpl-" if chat else "cmpl-")
-        created = int(time.time())
-        stream = bool(body.get("stream", False))
-        obj = ("chat.completion.chunk" if chat and stream
-               else "chat.completion" if chat else "text_completion")
-        gen = self.engine.generate(**kw, sampling=sampling,
-                                   request_id=request_id)
-        if not stream:
-            text, final = "", None
-            try:
-                async for out in gen:
-                    text += out.text_delta
-                    final = out
-            except ValueError as e:
-                raise _HttpError(400, str(e))
-            if chat:
-                choice = {"index": 0,
-                          "message": {"role": "assistant", "content": text},
-                          "finish_reason": final.finish_reason}
-            else:
-                choice = {"index": 0, "text": text,
-                          "finish_reason": final.finish_reason,
-                          "logprobs": None}
-            await self._send_json(writer, 200, {
-                "id": request_id, "object": obj, "created": created,
-                "model": self.model_name, "choices": [choice],
-                "usage": self._usage(final),
+    # ------------------------------------------------------------ logprobs
+    def _token_str(self, tid: int) -> str:
+        return self.engine.tokenizer.decode([tid])
+
+    def _completion_logprobs_slice(self, out, start: int, offset: int):
+        """The completions-format logprobs block of tokens from ``start``,
+        and the text offset after them (streamed chunks carry it on)."""
+        tokens, token_lps, tops, offsets = [], [], [], []
+        for tid, entry in zip(out.token_ids[start:],
+                              (out.logprobs or [])[start:]):
+            ts = self._token_str(tid)
+            tokens.append(ts)
+            offsets.append(offset)
+            offset += len(ts)
+            if entry is None:
+                token_lps.append(None)
+                tops.append(None)
+                continue
+            chosen, top = entry
+            token_lps.append(chosen)
+            tops.append({self._token_str(i): lp for i, lp in top} or None)
+        return {"tokens": tokens, "token_logprobs": token_lps,
+                "top_logprobs": tops, "text_offset": offsets}, offset
+
+    def _chat_logprobs_content(self, out, start: int = 0) -> list:
+        """The chat-format logprobs entries of tokens from ``start``."""
+        content = []
+        for tid, entry in zip(out.token_ids[start:],
+                              (out.logprobs or [])[start:]):
+            ts = self._token_str(tid)
+            content.append({
+                "token": ts,
+                "logprob": entry[0] if entry else None,
+                "bytes": list(ts.encode("utf-8")),
+                "top_logprobs": [
+                    {"token": self._token_str(i), "logprob": lp,
+                     "bytes": list(self._token_str(i).encode("utf-8"))}
+                    for i, lp in (entry[1] if entry else [])],
             })
+        return content
+
+    @staticmethod
+    def _child_sampling(sampling: SamplingParams, c_idx: int,
+                        num: int) -> SamplingParams:
+        """Choice ``c_idx`` of a fan-out samples with seed + c_idx (an
+        unseeded choice seeds from its own request id)."""
+        if num == 1:
+            return sampling
+        return replace(sampling, seed=None if sampling.seed is None
+                       else sampling.seed + c_idx)
+
+    # ------------------------------------------------------------ generate
+    def _check_resume(self, body: dict, sampling: SamplingParams,
+                      num_choices: int):
+        """The request's resume tokens and seed, validated (the
+        reference's rules)."""
+        resume_tokens = body.get("resume_tokens")
+        resume_seed = body.get("resume_seed")
+        if resume_tokens is None:
+            return None, None
+        if not (isinstance(resume_tokens, list) and resume_tokens
+                and all(type(t) is int for t in resume_tokens)):
+            raise _HttpError(400, "'resume_tokens' must be a non-empty list "
+                                  "of token ids")
+        vocab = self.engine.tokenizer.vocab_size
+        if any(not 0 <= t < vocab for t in resume_tokens):
+            raise _HttpError(400, f"resume token ids must be in [0, {vocab})")
+        if num_choices != 1:
+            raise _HttpError(400, "mid-stream resume requires n=1 and a "
+                                  "single prompt")
+        if len(resume_tokens) >= sampling.max_tokens:
+            raise _HttpError(400, "resume_tokens must be shorter than "
+                                  "max_tokens (the stream would already "
+                                  "have finished)")
+        if resume_seed is not None and type(resume_seed) is not int:
+            raise _HttpError(400, "'resume_seed' must be an integer")
+        return list(resume_tokens), resume_seed
+
+    async def _generate(self, writer, headers: dict, body: dict, prompts: list,
+                        sampling: SamplingParams, chat: bool) -> None:
+        """Run len(prompts) * n generations and answer them as OpenAI
+        choices (prompt-major), streamed or not."""
+        waiting = self.engine.scheduler.num_waiting
+        if self.max_queue_len and waiting >= self.max_queue_len:
+            raise _HttpError(503, f"Engine overloaded: {waiting} requests "
+                                  f"waiting (bound {self.max_queue_len})",
+                             "service_unavailable", {"Retry-After": "1"})
+        request_id = random_uuid("chatcmpl-" if chat else "cmpl-")
+        n = max(1, sampling.n)
+        num_choices = len(prompts) * n
+        resume_tokens, resume_seed = self._check_resume(body, sampling,
+                                                        num_choices)
+        n_resume = len(resume_tokens) if resume_tokens else 0
+        max_len = self.engine.config.max_model_len
+        for p in prompts:
+            n_prompt = n_resume + (len(p) if isinstance(p, list)
+                                   else len(self.engine.tokenizer.encode(p)))
+            if n_prompt >= max_len:
+                raise _HttpError(400, f"Prompt of {n_prompt} tokens (incl. "
+                                      f"resume) exceeds max_model_len {max_len}")
+        children = [
+            (p_idx * n + c_idx, prompt,
+             self._child_sampling(sampling, c_idx, num_choices),
+             request_id if num_choices == 1
+             else f"{request_id}-{p_idx * n + c_idx}")
+            for p_idx, prompt in enumerate(prompts) for c_idx in range(n)]
+
+        def submit(prompt, sp, rid):
+            kw = ({"prompt_token_ids": prompt} if isinstance(prompt, list)
+                  else {"prompt": prompt})
+            if resume_tokens:
+                kw.update(resume_tokens=resume_tokens, resume_seed=resume_seed)
+            return self.engine.generate(**kw, sampling=sp, request_id=rid)
+
+        created = int(time.time())
+        obj = ("chat.completion.chunk" if chat and body.get("stream")
+               else "chat.completion" if chat else "text_completion")
+        head = {"id": request_id, "object": obj, "created": created,
+                "model": self.model_name}
+        if body.get("stream"):
+            await self._stream(writer, headers, body, sampling, chat, children,
+                               submit, head, resume_tokens, resume_seed)
             return
 
-        writer.write(self._head(
-            200, "text/event-stream",
-            f"Cache-Control: no-cache\r\nx-request-id: {request_id}\r\n\r\n"))
-        first_sent = False
-        final = None
-        try:
-            async for out in gen:
+        async def collect(idx, prompt, sp, rid):
+            text, final = "", None
+            async for out in submit(prompt, sp, rid):
+                text += out.text_delta
                 final = out
+            return idx, text, final
+
+        try:
+            results = await asyncio.gather(
+                *[collect(*child) for child in children])
+        except ValueError as e:
+            for *_, rid in children:
+                self.engine.abort(rid)
+            raise _HttpError(400, str(e))
+        choices, finals = [], []
+        for idx, text, final in sorted(results, key=lambda r: r[0]):
+            finals.append(final)
+            if chat:
+                choice = {"index": idx,
+                          "message": {"role": "assistant", "content": text},
+                          "finish_reason": final.finish_reason}
+                if sampling.logprobs is not None:
+                    choice["logprobs"] = {
+                        "content": self._chat_logprobs_content(final)}
+            else:
+                choice = {"index": idx, "text": text,
+                          "finish_reason": final.finish_reason,
+                          "logprobs": (
+                              self._completion_logprobs_slice(final, 0, 0)[0]
+                              if final.logprobs is not None else None)}
+            choices.append(choice)
+        await self._send_json(writer, 200, {**head, "choices": choices,
+                                            "usage": self._usage(finals)})
+
+    async def _stream(self, writer, headers: dict, body: dict,
+                      sampling: SamplingParams, chat: bool, children, submit,
+                      head: dict, resume_tokens, resume_seed) -> None:
+        num_choices = len(children)
+        writer.write(self._head(200, "text/event-stream", {
+            "Cache-Control": "no-cache", "x-request-id": head["id"]}))
+        queue: asyncio.Queue = asyncio.Queue()
+
+        async def pump(idx, prompt, sp, rid):
+            try:
+                async for out in submit(prompt, sp, rid):
+                    await queue.put((idx, out, None))
+            except Exception as e:  # noqa: BLE001 — relayed to the writer
+                await queue.put((idx, None, e))
+
+        tasks = [asyncio.ensure_future(pump(*child)) for child in children]
+        n_resume = len(resume_tokens) if resume_tokens else 0
+        want_lp = sampling.logprobs is not None
+        # With stop strings a later match can trim tokens already sampled,
+        # so their logprob entries ride the finishing chunk.
+        defer_lp = want_lp and bool(sampling.stop)
+        # A resumed stream's client holds the role delta and the resumed
+        # tokens already.
+        first_sent = [bool(resume_tokens)] * num_choices
+        lp_sent = [n_resume] * num_choices
+        lp_offset = [0] * num_choices
+        tok_sent = [n_resume] * num_choices
+        meta = num_choices == 1 and bool(headers.get(RESUME_HEADER))
+        meta_seed = 0
+        if meta:
+            # A resumed request samples with the relayed seed, the base a
+            # further resume must carry on.
+            meta_seed = (int(resume_seed) & 0xFFFFFFFF
+                         if resume_tokens and resume_seed is not None
+                         else seed_base(children[0][3], children[0][2]))
+        finals = {}
+        try:
+            remaining = num_choices
+            while remaining:
+                idx, out, exc = await queue.get()
+                if exc is not None:
+                    raise exc
+                finals[idx] = out
+                remaining -= out.finished
+                ready = bool(out.text_delta) or out.finished
+                send_lp = (want_lp and out.logprobs is not None and ready
+                           and (not defer_lp or out.finished))
                 if chat:
                     delta = {}
-                    if not first_sent and (out.text_delta or not out.finished):
+                    if not first_sent[idx] and (out.text_delta
+                                                or not out.finished):
                         delta["role"] = "assistant"
-                        first_sent = True
+                        first_sent[idx] = True
                     if out.text_delta:
                         delta["content"] = out.text_delta
-                    choice = {"index": 0, "delta": delta,
+                    choice = {"index": idx, "delta": delta,
                               "finish_reason": out.finish_reason}
+                    if send_lp:
+                        new = self._chat_logprobs_content(out, lp_sent[idx])
+                        lp_sent[idx] = len(out.token_ids)
+                        if new:
+                            choice["logprobs"] = {"content": new}
                     write_now = bool(delta) or out.finished
                 else:
-                    choice = {"index": 0, "text": out.text_delta,
+                    choice = {"index": idx, "text": out.text_delta,
                               "finish_reason": out.finish_reason}
-                    write_now = bool(out.text_delta) or out.finished
-                if write_now:
-                    writer.write(_sse({
-                        "id": request_id, "object": obj, "created": created,
-                        "model": self.model_name, "choices": [choice],
-                    }))
-                    await writer.drain()
-            if final is not None and (body.get("stream_options") or {}).get(
+                    if send_lp:
+                        block, lp_offset[idx] = self._completion_logprobs_slice(
+                            out, lp_sent[idx], lp_offset[idx])
+                        lp_sent[idx] = len(out.token_ids)
+                        if block["tokens"]:
+                            choice["logprobs"] = block
+                    write_now = ready
+                if not write_now:
+                    continue
+                payload = {**head, "choices": [choice]}
+                if meta:
+                    # A stop-string trim can shrink token_ids below what was
+                    # sent: the payload never claims unproduced tokens.
+                    start = min(tok_sent[idx], len(out.token_ids))
+                    payload["pstpu"] = {"toks": list(out.token_ids[start:]),
+                                        "off": start, "seed": meta_seed}
+                    tok_sent[idx] = len(out.token_ids)
+                writer.write(_sse(payload))
+                await writer.drain()
+            if finals and (body.get("stream_options") or {}).get(
                     "include_usage"):
-                writer.write(_sse({
-                    "id": request_id, "object": obj, "created": created,
-                    "model": self.model_name, "choices": [],
-                    "usage": self._usage(final),
-                }))
+                writer.write(_sse({**head, "choices": [],
+                                   "usage": self._usage(finals.values())}))
+            writer.write(b"data: [DONE]\n\n")
+            await writer.drain()
+        except (ConnectionError, asyncio.CancelledError):
+            for *_, rid in children:
+                self.engine.abort(rid)
+            raise
+        except Exception as e:  # noqa: BLE001 — headers are out: an SSE error
+            for *_, rid in children:
+                self.engine.abort(rid)
+            logger.exception("Streaming generation failed")
+            writer.write(_sse({"error": {"message": str(e),
+                                         "type": "internal_error"}}))
             writer.write(b"data: [DONE]\n\n")
             await writer.drain()
         finally:
-            await gen.aclose()
+            for t in tasks:
+                t.cancel()
 
     @staticmethod
-    def _usage(out) -> dict:
-        return {
-            "prompt_tokens": out.num_prompt_tokens,
-            "completion_tokens": out.num_output_tokens,
-            "total_tokens": out.num_prompt_tokens + out.num_output_tokens,
-        }
+    def _usage(outs) -> dict:
+        """Usage summed over every choice."""
+        outs = list(outs)
+        p = sum(o.num_prompt_tokens for o in outs)
+        c = sum(o.num_output_tokens for o in outs)
+        return {"prompt_tokens": p, "completion_tokens": c,
+                "total_tokens": p + c}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="OpenAI-compatible server (PyTorch port)")
     p.add_argument("--model", default="llama-3b")
+    p.add_argument("--served-model-name", default=None,
+                   help="name advertised on /v1/models and in responses "
+                        "(default: --model)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--device", default="cuda")
@@ -342,13 +699,27 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="tp ranks, one process each (heads split over them; "
                         "tp must divide both head counts)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--api-key", default=os.environ.get("VLLM_API_KEY"),
+                   help="require 'Authorization: Bearer <key>' on /v1/* "
+                        "(default: $VLLM_API_KEY)")
+    p.add_argument("--max-queue-len", type=int, default=0,
+                   help="answer generation requests 503 + Retry-After while "
+                        "the wait queue is at least this deep (0: never)")
+    p.add_argument("--drain-timeout", type=float, default=30.0,
+                   help="seconds a SIGTERM drain waits for in-flight "
+                        "requests before aborting them")
+    p.add_argument("--hbm-peak-gbps", type=float, default=None,
+                   help="the card's peak HBM bandwidth in GB/s, the ceiling "
+                        "of pstpu:live_hbm_bw_pct (default: looked up from "
+                        "the card's name; H100 SXM 3350)")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
     cfg = EngineConfig(
-        model=args.model, device=args.device, dtype=args.dtype,
+        model=args.model, served_model_name=args.served_model_name,
+        device=args.device, dtype=args.dtype,
         kv_cache_dtype=args.kv_cache_dtype, max_model_len=args.max_model_len,
         num_kv_blocks=args.num_kv_blocks, max_num_seqs=args.max_num_seqs,
         num_decode_steps=args.num_decode_steps, decode_loop=args.decode_loop,
@@ -356,14 +727,22 @@ def main(argv=None) -> None:
         overlap_dispatch=not args.no_overlap_dispatch,
         attn_impl=args.attn_impl, seed=args.seed,
         tensor_parallel_size=args.tensor_parallel_size,
+        hbm_peak_gbps=args.hbm_peak_gbps,
     )
 
     async def run():
         engine = ServingEngine(cfg)
-        server = OpenAIServer(engine, args.host, args.port)
+        server = OpenAIServer(engine, args.host, args.port,
+                              api_key=args.api_key,
+                              max_queue_len=args.max_queue_len,
+                              drain_timeout=args.drain_timeout)
+        done = asyncio.Event()
+        server.on_drained = done.set
+        server.on_second_sigterm = done.set
         await server.start()
+        server.install_signal_handlers(asyncio.get_running_loop())
         try:
-            await asyncio.Event().wait()
+            await done.wait()
         finally:
             await server.stop()
             engine.shutdown()

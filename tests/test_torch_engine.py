@@ -313,19 +313,21 @@ def test_cuda_is_the_default_and_raises_without_a_card():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter (conftest imports jax into this one): every
     module of the port, the tensor-parallel modules and the worker entry
-    point (what a spawned rank imports) among them, and chip_smoke.py,
-    import without jax."""
+    point (what a spawned rank imports), the metrics, roofline and
+    launcher modules among them, and chip_smoke.py, import without jax;
+    and without prometheus_client (the card's machine may not have it)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import production_stack_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        "need = {'production_stack_tpu_torch.parallel.' + m for m in "
-        "('mesh', 'sharding', 'worker')}\n"
+        "need = {'production_stack_tpu_torch.' + m for m in "
+        "('parallel.mesh', 'parallel.sharding', 'parallel.worker', "
+        "'server.metrics', 'engine.metrics', 'perf.roofline', 'launch')}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', "
-        "'production_stack_tpu')]\n"
+        "'production_stack_tpu', 'prometheus_client')]\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

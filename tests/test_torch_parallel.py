@@ -467,6 +467,48 @@ async def test_tp2_from_seed_matches_tp1_from_seed():
     assert eng.stats()["decode_eager_dispatches_total"] == 0   # CPU: not counted
 
 
+async def test_tp2_logprobs_match_tp1():
+    """Logprobs at tp = 2 (the bucket rides each dispatch's descriptor;
+    rank 0 returns its copy) equal tp = 1's within f32 rounding, with the
+    same tokens; every rank runs the same dispatches."""
+    cfg = dict(model="tiny-llama-8kv", device="cpu", dtype="float32",
+               max_model_len=256, num_kv_blocks=64, num_decode_steps=4,
+               seed=5, tp_timeout_s=120)
+    samplings = [SamplingParams(max_tokens=9, temperature=0.0, ignore_eos=True,
+                                logprobs=3),
+                 SamplingParams(max_tokens=9, temperature=0.8, seed=2,
+                                ignore_eos=True, logprobs=12)]
+
+    async def serve(engine):
+        async def one(p, sp):
+            final = None
+            async for out in engine.generate(prompt=p, sampling=sp):
+                final = out
+            return final
+
+        await engine.start()
+        try:
+            return await asyncio.gather(*[one(p, sp) for p, sp in
+                                          zip(_PROMPTS, samplings)])
+        finally:
+            await engine.stop()
+
+    base = ServingEngine(EngineConfig(**cfg))
+    want = await serve(base)
+    base.shutdown()
+    eng = ServingEngine(EngineConfig(**cfg, tensor_parallel_size=2))
+    try:
+        got = await serve(eng)
+    finally:
+        eng.shutdown()
+    _check_reports(eng, 2)
+    for g, w, sp in zip(got, want, samplings):
+        assert g.token_ids == w.token_ids and len(g.logprobs) == 9
+        for (gc, gt), (wc, wt) in zip(g.logprobs, w.logprobs):
+            assert abs(gc - wc) <= 1e-4 and len(gt) == len(wt) == sp.logprobs
+            assert max(abs(a[1] - b[1]) for a, b in zip(gt, wt)) <= 1e-4
+
+
 # ------------------------------------------------------------ config errors
 def test_tp_config_errors_name_the_flags():
     with pytest.raises(ValueError, match=r"--kv-cache-dtype int8 with "

@@ -339,8 +339,13 @@ def test_reachable_families_equal_jax(impl, max_num_seqs):
         ref.reachable_prefill_families())
     keys = runner.decode_graph_keys()
     assert len(keys) == len(set(keys))
-    assert {k[:3] for k in keys if k[3]} == {
-        f for f in runner.reachable_decode_families() if f[0] == 1}
+    fams = set(runner.reachable_decode_families())
+    # The reference's warm variants: (penalties, logprobs bucket) (False, 0)
+    # and (False, 8) of every family, (True, 0) at b = 1.
+    assert {k[:3] for k in keys if k[3:] == (False, 0)} == fams
+    assert {k[:3] for k in keys if k[3:] == (False, 8)} == fams
+    assert {k[:3] for k in keys if k[3]} == {f for f in fams if f[0] == 1}
+    assert all(k[3:] in ((False, 0), (False, 8), (True, 0)) for k in keys)
 
 
 @pytest.mark.parametrize("impl", ["paged", "window"])

@@ -1,0 +1,283 @@
+"""Port engines behind the stack's router.
+
+The real router (``production_stack_tpu.router``, built as
+``tests/test_router_e2e.py`` builds it) proxies to a port engine serving
+the JAX engine's float32 weights on the CPU: its streamed chat carries the
+JAX engine's tokens, and its engine-stats scraper reads the port's
+``/metrics``. The port's exposition has the JAX renderer's series names and
+label sets, every one in the stack's metric registry. Then the server
+surface an engine behind the router needs: ``/version``, bearer auth,
+queue-depth admission, SIGTERM drain, and the launcher's engine processes.
+"""
+
+import asyncio
+import functools
+import json
+import re
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from aiohttp.test_utils import TestClient, TestServer
+
+from production_stack_tpu.engine import metrics as jax_metrics
+from production_stack_tpu.engine.config import EngineConfig as JaxConfig
+from production_stack_tpu.engine.engine import ServingEngine as JaxEngine
+from production_stack_tpu.models.config import resolve_model_config as jax_resolve
+from production_stack_tpu.models.llama import init_params as jax_init
+from production_stack_tpu.server.api_server import APIServer as JaxServer
+from production_stack_tpu.server.metrics import (
+    render_engine_metrics as jax_render,
+)
+from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.engine import ServingEngine
+from production_stack_tpu_torch.engine.metrics import EngineMetricsCollector
+from production_stack_tpu_torch.engine.sampling import SamplingParams
+from production_stack_tpu_torch.launch import launch_engines
+from production_stack_tpu_torch.models.config import resolve_model_config
+from production_stack_tpu_torch.models.weights import params_from_jax
+from production_stack_tpu_torch.server.api_server import OpenAIServer
+from production_stack_tpu_torch.server.metrics import render_engine_metrics
+from tests.test_router_e2e import router_args
+from tests.test_torch_surface import _events, _http
+from tools.pstpu_lint.metrics_registry import ENGINE_TEXT, REGISTRY
+
+MODEL = "tiny-llama-128dh"
+COMMON = dict(model=MODEL, max_model_len=256, block_size=16, num_kv_blocks=96,
+              attn_impl="window", num_decode_steps=4, dtype="float32",
+              max_num_batched_tokens=64, max_num_seqs=8)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_params():
+    return jax_init(jax_resolve(MODEL), jax.random.PRNGKey(0), jnp.float32)
+
+
+def _port_engine(**over):
+    return ServingEngine(
+        EngineConfig(**{**COMMON, **over}, device="cpu"),
+        params=params_from_jax(jax.tree.map(np.asarray, _jax_params()),
+                               resolve_model_config(MODEL), torch.float32))
+
+
+def _series(text):
+    """{series name: label names} of an exposition (histogram samples under
+    their family's name, without ``le``)."""
+    hist = set(re.findall(r"^# TYPE (\S+) histogram$", text, re.M))
+    out = {name: frozenset() for name in
+           re.findall(r"^# TYPE (\S+) \w+$", text, re.M)}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, _, labels = line.split(" ")[0].partition("{")
+        for suffix in ("_bucket", "_sum", "_count"):
+            if name.endswith(suffix) and name[:-len(suffix)] in hist:
+                name = name[:-len(suffix)]
+        keys = frozenset(re.findall(r'(\w+)="', labels)) - {"le"}
+        out[name] = out[name] | keys
+    return out
+
+
+async def test_router_streams_a_port_engine_like_jax_and_scrapes_it():
+    """Chat through the router to a port engine (greedy and seeded): the
+    tokens of the JAX engine's stream; the router's scraper then reads the
+    port's gauges (live throughput, the request counts)."""
+    from production_stack_tpu.router.app import build_app
+    from production_stack_tpu.router.stats.engine_stats import (
+        get_engine_stats_scraper,
+    )
+
+    jclient = TestClient(TestServer(
+        JaxServer(JaxEngine(JaxConfig(**COMMON), params=_jax_params()))
+        .build_app()))
+    await jclient.start_server()
+    server = OpenAIServer(_port_engine(), port=0)
+    await server.start()
+    url = f"http://127.0.0.1:{server.port}"
+    router = TestClient(TestServer(build_app(router_args([url], [MODEL]))))
+    await router.start_server()
+    hdr = {"x-pstpu-resume": "1"}
+    try:
+        for extra in ({"temperature": 0.0}, {"temperature": 0.9, "seed": 5}):
+            body = {"model": MODEL, "stream": True, "max_tokens": 10,
+                    "ignore_eos": True, **extra,
+                    "messages": [{"role": "user", "content": "route me"}]}
+            got = []
+            for client in (router, jclient):
+                resp = await client.post("/v1/chat/completions", json=body,
+                                         headers=hdr)
+                assert resp.status == 200
+                evs, done = _events(await resp.text())
+                assert done and evs[-1]["choices"][0]["finish_reason"] == \
+                    "length"
+                got.append(([t for e in evs for t in e["pstpu"]["toks"]],
+                            "".join(e["choices"][0]["delta"].get("content", "")
+                                    for e in evs)))
+            assert got[0] == got[1] and len(got[0][0]) == 10
+        scraper = get_engine_stats_scraper()
+        for _ in range(100):
+            stats = scraper.get_engine_stats().get(url)
+            if stats is not None and stats.live_tok_per_s > 0:
+                break
+            await asyncio.sleep(0.1)
+        assert stats is not None and stats.live_tok_per_s > 0
+        assert stats.num_running_requests == 0 and stats.num_queuing_requests == 0
+    finally:
+        await router.close()
+        await jclient.close()
+        await server.stop()
+        server.engine.shutdown()
+
+
+async def test_exposition_matches_the_jax_renderer_and_the_registry():
+    """On one served port engine's stats(): the port's series names and
+    label sets equal the JAX renderer's, every name is registered for the
+    engine text surface, and the prometheus_client collector yields the
+    same families."""
+    eng = _port_engine()
+    await eng.start()
+    try:
+        async for _ in eng.generate(prompt="metrics", sampling=SamplingParams(
+                max_tokens=6, temperature=0.0, ignore_eos=True)):
+            pass
+    finally:
+        await eng.stop()
+    text = render_engine_metrics(eng, MODEL)
+    shim = types.SimpleNamespace(
+        stats=eng.stats, histograms=jax_metrics.RequestLatencyHistograms(),
+        lifecycle=jax_metrics.LifecycleHistograms(),
+        dispatch_hists=jax_metrics.DispatchDurationHistograms())
+    mine, ref = _series(text), _series(jax_render(shim, MODEL))
+    assert mine == ref
+    registered = {s.name: s.labels for s in REGISTRY if ENGINE_TEXT in s.surfaces}
+    assert set(mine) <= set(registered), set(mine) - set(registered)
+    assert all(mine[n] <= set(registered[n]) for n in mine)
+    assert 'vllm:generation_tokens_total{model_name="%s"} 6' % MODEL in text
+    assert re.search(r'pstpu:hbm_kv_bytes\{model_name="%s",device="rank0:cpu"\} '
+                     r"[1-9]" % MODEL, text)
+    fams = list(EngineMetricsCollector(eng).collect())
+    names = {f.name + ("_total" if f.type == "counter" else "") for f in fams}
+    assert names == set(mine)
+    eng.shutdown()
+
+
+async def test_version_auth_admission_and_drain():
+    """/version; 401 without the bearer token on /v1/* (not on /health or
+    /metrics); 503 + Retry-After while the wait queue is at the bound;
+    drain: /health 503 draining, a new POST 503 + Retry-After, the stream
+    in flight finishes with max_tokens, and every block comes back."""
+    eng = _port_engine()
+    server = OpenAIServer(eng, port=0, api_key="sk-test", max_queue_len=2,
+                          drain_timeout=60.0)
+    await server.start()
+    port = server.port
+    auth = {"Authorization": "Bearer sk-test"}
+    body = {"prompt": "drain me", "max_tokens": 40, "temperature": 0.0,
+            "ignore_eos": True, "stream": True}
+    try:
+        st, _, v = await _http(port, "GET", "/version")
+        assert (st, json.loads(v)) == (200, {"version": "0.1.0"})
+        for path in ("/health", "/metrics"):
+            assert (await _http(port, "GET", path))[0] == 200
+        st, _, err = await _http(port, "POST", "/v1/completions", body)
+        assert st == 401 and json.loads(err)["error"]["type"] == \
+            "authentication_error"
+        st, _, _ = await _http(port, "GET", "/v1/models",
+                               headers={"Authorization": "Bearer wrong"})
+        assert st == 401
+        # Admission: a wait queue held at the bound sheds the request.
+        held = [object(), object()]
+        eng.scheduler.waiting.extend(held)
+        st, hdrs, _ = await _http(port, "POST", "/v1/completions", body, auth)
+        for h in held:
+            eng.scheduler.waiting.remove(h)
+        assert st == 503 and hdrs["retry-after"] == "1"
+        free0 = eng.block_manager.num_free_blocks
+        stream = asyncio.create_task(
+            _http(port, "POST", "/v1/completions", body, auth))
+        while eng.scheduler.num_running == 0:
+            assert not stream.done(), "the stream ended before it was seen"
+            await asyncio.sleep(0.01)
+        drain = asyncio.create_task(server.drain())
+        await asyncio.sleep(0)
+        st, hdrs, h = await _http(port, "GET", "/health")
+        assert st == 503 and json.loads(h) == {"status": "draining",
+                                              "inflight": 1}
+        assert hdrs["retry-after"] == "1"
+        st, hdrs, _ = await _http(port, "POST", "/v1/completions", body, auth)
+        assert st == 503 and hdrs["retry-after"] == "5"
+        st, _, text = await stream
+        await drain
+        evs, done = _events(text)
+        assert st == 200 and done
+        assert evs[-1]["choices"][0]["finish_reason"] == "length"
+        assert eng.block_manager.num_free_blocks == free0
+        assert eng.scheduler.num_running == 0
+    finally:
+        await server.stop()
+        eng.shutdown()
+
+
+async def test_drain_timeout_aborts_and_returns_blocks():
+    """A stream longer than the drain timeout is aborted at the timeout,
+    its dispatch in flight is fetched first, and its blocks come back."""
+    eng = _port_engine()
+    server = OpenAIServer(eng, port=0, drain_timeout=0.2)
+    await server.start()
+    try:
+        free0 = eng.block_manager.num_free_blocks
+        stream = asyncio.create_task(_http(server.port, "POST",
+                                           "/v1/completions", {
+            "prompt": "too long", "max_tokens": 200, "temperature": 0.0,
+            "ignore_eos": True, "stream": True}))
+        while eng.scheduler.num_running == 0:
+            assert not stream.done(), "the stream ended before it was seen"
+            await asyncio.sleep(0.01)
+        await server.drain()
+        st, _, text = await stream
+        evs, done = _events(text)
+        assert st == 200 and done
+        assert evs[-1]["choices"][0]["finish_reason"] == "abort"
+        for _ in range(100):
+            if eng.block_manager.num_free_blocks == free0:
+                break
+            await asyncio.sleep(0.01)
+        assert eng.block_manager.num_free_blocks == free0
+    finally:
+        await server.stop()
+        eng.shutdown()
+
+
+def test_launch_entry_runs_the_decode_train():
+    """``entry()``: the decode train of one 4-row, 4-step dispatch at
+    tiny-llama and its inputs; run on the CPU it runs eagerly and writes
+    every row's 4 tokens."""
+    from production_stack_tpu_torch.launch import entry
+
+    fn, (bf, k) = entry(device="cpu")
+    assert fn(bf, k) is False
+    assert tuple(bf.toks_all.shape) == (4, 4) and k == 4
+    assert bool((bf.last[:4] == bf.toks_all[-1]).all())
+
+
+@pytest.mark.parametrize("n_engines", [1])
+def test_launch_engines_starts_and_sigterms_cpu_engines(n_engines, tmp_path):
+    handle = launch_engines(
+        "tiny-llama", n_engines,
+        ["--max-model-len", "128", "--num-kv-blocks", "32", "--max-num-seqs",
+         "2", "--served-model-name", "tiny"],
+        device="cpu", log_dir=str(tmp_path), startup_timeout_s=120)
+    try:
+        assert len(handle.urls) == n_engines == len(handle.ready_seconds)
+        port = int(handle.urls[0].rsplit(":", 1)[1])
+        st, _, body = asyncio.run(_http(port, "GET", "/v1/models"))
+        assert st == 200 and json.loads(body)["data"][0]["id"] == "tiny"
+        assert handle.argvs[0][1:3] == ["-m",
+                                        "production_stack_tpu_torch.server.api_server"]
+    finally:
+        codes = handle.stop(timeout_s=60)
+    assert codes == [0] * n_engines
+    assert "Drain complete" in open(handle.log_paths[0]).read()
