@@ -1,8 +1,10 @@
 """Engine configuration: the fields of ``production_stack_tpu/engine/config.py``
-that the port's serving path reads, under the same names, plus ``device``.
+that the port's serving path reads, under the same names, defaults and
+environment variables, plus ``device``.
 """
 
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -74,6 +76,37 @@ class EngineConfig:
     # Seconds any collective of the tp group may wait: a lost rank is an
     # error within it.
     tp_timeout_s: float = 600.0
+    # --- prefill/decode disaggregation ---
+    # "unified" serves prompts end to end. "prefill" computes a prompt's KV
+    # and first token, publishes them to the remote KV store under the
+    # request's transfer key and finishes ("handoff"); it forms no decode
+    # batch except for router-flagged fallback traffic. "decode" restores
+    # published KV into its own pool and continues the stream from token 1;
+    # it forms no prefill batch except for fallback traffic. A non-unified
+    # role requires kv_remote_url (the handoff rides the offload store).
+    role: str = "unified"
+    # --- KV offload (the LMCache env names of the reference's chart) ---
+    kv_offload_cpu: bool = field(
+        default_factory=lambda: os.environ.get(
+            "LMCACHE_LOCAL_CPU", "").lower() == "true")
+    kv_offload_max_cpu_gb: float = field(
+        default_factory=lambda: float(
+            os.environ.get("LMCACHE_MAX_LOCAL_CPU_SIZE", "0") or 0))
+    kv_remote_url: Optional[str] = field(
+        default_factory=lambda: os.environ.get("LMCACHE_REMOTE_URL") or None)
+    kv_remote_serde: str = field(
+        default_factory=lambda: os.environ.get("LMCACHE_REMOTE_SERDE",
+                                               "naive"))
+    # Restore-over-recompute admission (kv_offload/manager.py): restore a
+    # tier-resident prefix when its estimated transfer time (bytes / link
+    # rate) beats its estimated prefill time (tokens / prefill rate).
+    # Coarse knobs with the reference's defaults, not measurements.
+    kv_restore_link_gbps: float = field(
+        default_factory=lambda: float(
+            os.environ.get("PSTPU_KV_RESTORE_LINK_GBPS", "2.0")))
+    kv_restore_prefill_tok_s: float = field(
+        default_factory=lambda: float(
+            os.environ.get("PSTPU_KV_RESTORE_PREFILL_TOK_S", "4000")))
     seed: int = 0
     served_model_name: Optional[str] = None
     # Peak HBM bandwidth (GB/s) of one card, the ceiling of the live
@@ -97,6 +130,7 @@ class EngineConfig:
                 f"(supported: {', '.join(KV_CACHE_DTYPES)})"
             )
         self.validate_parallelism()
+        self.validate_kv_tier()
 
     @property
     def torch_device(self) -> torch.device:
@@ -134,6 +168,32 @@ class EngineConfig:
                 f"{mc.num_heads}/{mc.num_kv_heads} heads. Use a tp that "
                 f"divides both, or --kv-cache-dtype bfloat16.")
         check_tp(mc, tp)
+
+    @property
+    def kv_offload_enabled(self) -> bool:
+        return bool(self.kv_offload_cpu or self.kv_remote_url)
+
+    def validate_kv_tier(self) -> None:
+        """The role and the offload tier against the other knobs."""
+        from production_stack_tpu_torch.disagg.transfer import ENGINE_ROLES
+
+        if self.role not in ENGINE_ROLES:
+            raise ValueError(f"Unknown engine role {self.role!r} "
+                             f"(supported: {', '.join(ENGINE_ROLES)})")
+        if self.role != "unified" and not self.kv_remote_url:
+            raise ValueError(
+                f"engine role {self.role!r} requires kv_remote_url "
+                f"(LMCACHE_REMOTE_URL / --kv-remote-url): the prefill->"
+                f"decode KV handoff rides the shared offload store")
+        if self.tensor_parallel_size > 1 and (
+                self.kv_offload_enabled or self.role != "unified"):
+            raise ValueError(
+                f"KV offload and the disagg handoff at "
+                f"--tensor-parallel-size {self.tensor_parallel_size} are not "
+                f"ported: the reference reads every tp rank's kv heads into "
+                f"one whole logical block per blob, so a tp = 2 pool "
+                f"restores into tp = 1; serve with --tensor-parallel-size 1 "
+                f"or without --kv-offload-cpu / --kv-remote-url / --role")
 
     def resolved_attn_impl(self, model_config) -> str:
         """Resolve the decode attention implementation for ``model_config``

@@ -23,6 +23,17 @@ runner.py) and resume an interrupted stream (``generate(resume_tokens=,
 resume_seed=)``). Tracing and the flight recorder are not ported yet
 (ROADMAP).
 
+The KV tier (the reference's): with ``kv_offload_cpu`` or
+``kv_remote_url`` a ``KVOffloadManager`` spills every block that fills
+and restores tier-resident prefixes at admission; ``prewarm`` pulls the
+shared tier's hot chains into the device prefix cache between steps. A
+role-split engine has a ``DisaggCoordinator``: a prefill hop
+(``generate(handoff_key=)``) publishes its KV and first token and finishes
+with reason "handoff"; a decode hop (``generate(handoff_state=)``) writes
+the manifest's blocks into this pool between steps and continues the
+stream with no recompute. Block reads and writes run on the dispatch
+stream (runner.py), so they are ordered with the dispatches.
+
 With ``tensor_parallel_size`` > 1 this process is tp rank 0: the engine
 starts ranks 1..tp-1 as worker processes (``parallel/worker.py``) before
 building its runner, and stops and joins them at ``stop``. Decode runs
@@ -32,6 +43,7 @@ requests, and every later one, raise.
 """
 
 import asyncio
+import contextlib
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -131,11 +143,36 @@ class ServingEngine:
             self.runner.num_kv_blocks, config.block_size,
             config.enable_prefix_caching,
         )
+        self.offload = None
+        if config.kv_offload_enabled:
+            from production_stack_tpu_torch.kv_offload.manager import (
+                KVOffloadManager,
+            )
+
+            gb = config.kv_offload_max_cpu_gb or 4.0
+            self.offload = KVOffloadManager(
+                self.runner, self.block_manager,
+                host_pool_bytes=(int(gb * (1 << 30))
+                                 if config.kv_offload_cpu else 0),
+                remote_url=config.kv_remote_url,
+                serde=config.kv_remote_serde,
+                bytes_per_token=config.kv_cache_bytes_per_token(
+                    self.model_config),
+                link_gbps=config.kv_restore_link_gbps,
+                prefill_tok_s=config.kv_restore_prefill_tok_s,
+            )
+        self.disagg = None
+        if config.role != "unified":
+            from production_stack_tpu_torch.disagg import DisaggCoordinator
+
+            self.disagg = DisaggCoordinator(config, self.runner,
+                                            self.block_manager)
         self.scheduler = Scheduler(
-            config, self.block_manager,
+            config, self.block_manager, offload=self.offload,
             decode_window_budget=self.runner.decode_window_blocks,
             prefill_window_budget=self.runner.prefill_window_blocks,
         )
+        self.scheduler.on_restore = self._on_restore
         self._streams: Dict[str, _StreamState] = {}
         self._pending_aborts: Set[str] = set()
         self._new_work = asyncio.Event()
@@ -144,6 +181,14 @@ class ServingEngine:
         # One worker thread: every device call of the runner comes from it.
         self._executor = ThreadPoolExecutor(max_workers=1,
                                             thread_name_prefix="runner")
+        # Decode-hop restores (Sequence, HandoffManifest) and POST /prewarm
+        # pulls (request, future) wait for the loop, which applies them
+        # between dispatches; publishes in flight are awaited at loop exit.
+        self._pending_restores: List = []
+        self._pending_prewarms: List = []
+        self._publish_tasks: Set = set()
+        self.startup_prewarm_seconds = 0.0
+        self.prewarmed_blocks_total = 0
         self.start_time = time.monotonic()
         self.prompt_tokens_total = 0
         self.generation_tokens_total = 0
@@ -208,13 +253,18 @@ class ServingEngine:
                         self.tp.backend)
 
     async def stop(self) -> None:
-        """Stop the engine loop; at tp > 1 also end the worker ranks (their
-        final reports land in ``tp_reports``) and join them."""
+        """Stop the engine loop and the KV tier's thread and connections;
+        at tp > 1 also end the worker ranks (their final reports land in
+        ``tp_reports``) and join them."""
         self._running = False
         self._new_work.set()
         if self._loop_task:
             await self._loop_task
             self._loop_task = None
+        if self.offload is not None:
+            self.offload.close()
+        if self.disagg is not None:
+            self.disagg.close()
         if self.tp is not None and self.tp_reports is None:
             await asyncio.get_running_loop().run_in_executor(
                 self._executor, self._stop_ranks)
@@ -232,11 +282,16 @@ class ServingEngine:
             self.tp.close()
 
     def shutdown(self) -> None:
-        """Release the worker thread (after ``stop``); end the worker ranks
-        if ``stop`` did not."""
+        """Release the worker threads and the KV tier's (after ``stop``, or
+        for an engine never started); end the worker ranks if ``stop`` did
+        not."""
         if self.tp is not None and self.tp_reports is None:
             self._executor.submit(self._stop_ranks).result()
         self._executor.shutdown(wait=True)
+        if self.offload is not None:
+            self.offload.close()
+        if self.disagg is not None:
+            self.disagg.close()
 
     def _lost(self) -> Optional[str]:
         """Why the tp group is lost, or None (always None at tp = 1)."""
@@ -255,6 +310,18 @@ class ServingEngine:
         """Request ids with a live output stream (drain aborts these)."""
         return list(self._streams)
 
+    @property
+    def offload_blocks_resident(self) -> int:
+        """KV blocks resident in the host offload pool
+        (pstpu:kv_offload_blocks)."""
+        if self.offload is None or self.offload.host_pool is None:
+            return 0
+        return self.offload.host_pool.stats()["entries"]
+
+    def _on_restore(self, request_id: str, tokens: int,
+                    seconds: float) -> None:
+        self.lifecycle.restore_round_trip.observe(seconds)
+
     async def rank_reports(self, reset: bool = False) -> List[Dict]:
         """Every tp rank's report (``ModelRunner.tp_query``), taken between
         dispatches on the runner thread; ``reset`` zeroes each rank's
@@ -271,6 +338,9 @@ class ServingEngine:
         request_id: Optional[str] = None,
         resume_tokens: Optional[List[int]] = None,
         resume_seed: Optional[int] = None,
+        handoff_key: Optional[str] = None,
+        handoff_state=None,
+        disagg_fallback: bool = False,
     ) -> AsyncIterator[RequestOutput]:
         """Submit a request; yields streaming RequestOutput deltas.
 
@@ -282,18 +352,37 @@ class ServingEngine:
         resolved seed base, replaces the seed, so the continuation is the
         uninterrupted stream's. Its text starts where the delivered text
         stopped. Resuming a finished stream (resume_tokens as long as
-        max_tokens) is refused."""
+        max_tokens) is refused.
+
+        Disagg hops: ``handoff_key`` makes this the prefill hop (prefill,
+        sample token 1, publish KV and chain state under the key, finish
+        with reason "handoff"); ``handoff_state`` (a HandoffManifest) makes
+        it the decode hop (write the published blocks into this pool and
+        continue from token 1). ``disagg_fallback`` marks router-flagged
+        degrade-to-unified traffic, which a role-split engine serves end
+        to end."""
         request_id = request_id or random_uuid("req-")
         sampling = sampling or SamplingParams()
         if self._lost() is not None:
             raise RuntimeError(f"engine unavailable: {self._tp_error}")
+        if (handoff_key or handoff_state is not None) and self.disagg is None:
+            raise ValueError("disagg handoff requested but this engine has "
+                             "no coordinator (--role unified)")
         if resume_tokens:
+            if handoff_key or handoff_state is not None:
+                raise ValueError("resume_tokens cannot be combined with a "
+                                 "disagg handoff")
             if len(resume_tokens) >= sampling.max_tokens:
                 raise ValueError(
                     f"resume_tokens ({len(resume_tokens)}) must be shorter "
                     f"than max_tokens ({sampling.max_tokens})")
             if resume_seed is not None:
                 sampling = replace(sampling, seed=int(resume_seed))
+        if handoff_state is not None:
+            async for out in self._generate_from_handoff(
+                    handoff_state, sampling, request_id):
+                yield out
+            return
         if prompt_token_ids is None:
             assert prompt is not None
             prompt_token_ids = self.tokenizer.encode(prompt)
@@ -304,6 +393,9 @@ class ServingEngine:
             prompt_token_ids=list(prompt_token_ids),
             sampling=sampling,
             eos_token_id=self.tokenizer.eos_token_id,
+            handoff_key=handoff_key,
+            # A resumed request is served end to end on any role.
+            disagg_fallback=disagg_fallback or bool(resume_tokens),
         )
         state = _StreamState(
             queue=asyncio.Queue(), detok=IncrementalDetokenizer(self.tokenizer)
@@ -327,6 +419,15 @@ class ServingEngine:
         self._streams[request_id] = state
         self.prompt_tokens_total += len(prompt_token_ids)
         self._new_work.set()
+        async with contextlib.aclosing(self._outputs(seq, state)) as outs:
+            async for out in outs:
+                yield out
+
+    async def _outputs(self, seq: Sequence, state: _StreamState
+                       ) -> AsyncIterator[RequestOutput]:
+        """A request's output stream until it finishes; a consumer that
+        stops early aborts the request (callers close it at once, with
+        ``contextlib.aclosing``)."""
         try:
             while True:
                 out = await state.queue.get()
@@ -336,9 +437,219 @@ class ServingEngine:
                 if out.finished:
                     break
         finally:
-            self._streams.pop(request_id, None)
+            self._streams.pop(seq.request_id, None)
             if not seq.status.is_finished:
-                self.abort(request_id)
+                self.abort(seq.request_id)
+
+    async def _generate_from_handoff(
+        self, mani, sampling: SamplingParams, request_id: str
+    ) -> AsyncIterator[RequestOutput]:
+        """Decode hop: continue a stream from a consumed transfer bundle.
+        A finished bundle (the prefill engine hit EOS, max_tokens or a stop
+        at token 1) replays the recorded result; a live one queues a
+        restore the loop applies between dispatches. Token counters are
+        not bumped: the prefill engine counted this request."""
+        if mani.finish_reason is not None:
+            yield RequestOutput(
+                request_id=request_id,
+                text_delta=mani.final_text or "",
+                token_ids=list(mani.output_token_ids),
+                finished=True,
+                finish_reason=mani.finish_reason,
+                num_prompt_tokens=len(mani.prompt_token_ids),
+                num_output_tokens=len(mani.output_token_ids),
+                num_cached_tokens=mani.num_computed_tokens,
+                logprobs=(list(mani.output_logprobs)
+                          if sampling.logprobs is not None
+                          and mani.output_logprobs is not None else None),
+            )
+            return
+        cfg = self.config
+        if mani.block_size != cfg.block_size:
+            raise ValueError(
+                f"handoff block_size {mani.block_size} != engine block_size "
+                f"{cfg.block_size} (pools must share the KV layout)")
+        if mani.kv_cache_dtype != cfg.kv_cache_dtype:
+            raise ValueError(
+                f"handoff kv_cache_dtype {mani.kv_cache_dtype!r} != engine "
+                f"kv_cache_dtype {cfg.kv_cache_dtype!r} (role-split pools "
+                f"must share --kv-cache-dtype)")
+        need = mani.num_blocks
+        if (need > self.block_manager.num_blocks - 1
+                or len(mani.prompt_token_ids) >= cfg.max_model_len):
+            raise ValueError(
+                "handoff bundle exceeds this engine's KV pool / max_model_len")
+        if need * cfg.block_size < mani.num_computed_tokens:
+            raise ValueError("handoff bundle is missing KV blocks")
+        seq = Sequence(
+            request_id=request_id,
+            prompt_token_ids=list(mani.prompt_token_ids),
+            sampling=sampling,
+            eos_token_id=self.tokenizer.eos_token_id,
+            # The lease is consumed: if preempted, recompute here is the
+            # row's only path, so the decode-role prefill gate admits it.
+            disagg_fallback=True,
+        )
+        state = _StreamState(
+            queue=asyncio.Queue(), detok=IncrementalDetokenizer(self.tokenizer)
+        )
+        self._streams[request_id] = state
+        # Registered before the restore applies: an abort while queued
+        # finds it.
+        self.scheduler.seqs[request_id] = seq
+        self._pending_restores.append((seq, mani))
+        self._new_work.set()
+        async with contextlib.aclosing(self._outputs(seq, state)) as outs:
+            async for out in outs:
+                yield out
+
+    # ----------------------------------------------------------- prewarm
+    async def prewarm(self, top_k: int = 8, max_blocks: int = 256) -> dict:
+        """Pull the shared tier's hottest prefix chains into the device
+        prefix cache (POST /prewarm). Queued for the loop, which applies it
+        between dispatches; resolves with the pull's telemetry, a no-op
+        result (never an exception) without a shared tier."""
+        if self.offload is None or self.offload.remote is None:
+            return {"chains": 0, "blocks": 0,
+                    "reason": "no shared tier configured (LMCACHE_REMOTE_URL"
+                              " / --kv-remote-url)"}
+        if not self._running:
+            return {"chains": 0, "blocks": 0, "reason": "engine not running"}
+        fut = asyncio.get_running_loop().create_future()
+        self._pending_prewarms.append(
+            ({"top_k": int(top_k), "max_blocks": int(max_blocks)}, fut))
+        self._new_work.set()
+        return await fut
+
+    async def _apply_prewarms(self) -> None:
+        """Serve queued prewarm pulls between dispatches (the store fetch
+        and the block writes run on the runner thread; no dispatch is
+        issued meanwhile)."""
+        loop = asyncio.get_running_loop()
+        pending, self._pending_prewarms = self._pending_prewarms, []
+        for req, fut in pending:
+            t0 = time.monotonic()
+            try:
+                res = await loop.run_in_executor(
+                    self._executor, self.offload.prewarm_hot_chains,
+                    req["top_k"], req["max_blocks"])
+            except Exception as e:  # noqa: BLE001 — the loop must survive
+                logger.exception("Prewarm pull failed")
+                res = {"chains": 0, "blocks": 0,
+                       "reason": f"prewarm failed: {e}"}
+            res["seconds"] = round(time.monotonic() - t0, 4)
+            self.startup_prewarm_seconds += res["seconds"]
+            self.prewarmed_blocks_total += res.get("blocks", 0)
+            if not fut.done():
+                fut.set_result(res)
+
+    # --------------------------------------------------- disagg handoff plane
+    async def _apply_restores(self) -> None:
+        """Write queued decode-hop bundles into the pool, between
+        dispatches: blocks are allocated, the manifest's KV written (on the
+        runner thread; the loop awaits it, so the next dispatch is enqueued
+        after it), the sampled tokens replayed through the normal append
+        path, and the row joins RUNNING. A pool too full re-queues the
+        restore; a failed restore aborts only its own request."""
+        loop = asyncio.get_running_loop()
+        pending, self._pending_restores = self._pending_restores, []
+        leftover = []
+        for seq, mani in pending:
+            if seq.status.is_finished:
+                continue  # aborted while queued
+            try:
+                blocks = (self.block_manager.allocate_blocks(mani.num_blocks)
+                          if mani.num_blocks else [])
+                if blocks is None:
+                    leftover.append((seq, mani))
+                    continue
+                seq.block_ids = blocks
+                if mani.num_blocks:
+                    await loop.run_in_executor(
+                        self._executor, self.runner.write_blocks, blocks,
+                        mani.k, mani.v, mani.k_scale, mani.v_scale)
+                seq.num_computed_tokens = mani.num_computed_tokens
+                seq.num_cached_tokens = mani.num_computed_tokens
+                seq.status = SequenceStatus.RUNNING
+                self.scheduler.running.append(seq)
+                for i, tok in enumerate(mani.output_token_ids):
+                    if seq.status.is_finished:
+                        break
+                    lp = (mani.output_logprobs[i] if mani.output_logprobs
+                          and i < len(mani.output_logprobs) else None)
+                    self.scheduler._append_token(seq, tok, lp)
+                # The restored full blocks join this engine's prefix cache
+                # (and its offload tier).
+                self.scheduler._register_full_blocks(seq)
+                self._process_output(seq)
+            except Exception:  # noqa: BLE001 — the loop must survive
+                logger.exception("Handoff restore failed; aborting %s",
+                                 seq.request_id)
+                aborted = self.scheduler.abort(seq.request_id)
+                if aborted is not None:
+                    self._process_output(aborted)
+        self._pending_restores.extend(leftover)
+
+    async def _publish_handoffs(self, produced: List[Sequence]) -> None:
+        """Prefill hop completion: a row that just produced its first token
+        and carries a transfer key gets a background publish (block read,
+        pack, store put) off the runner thread, so the dispatch pipeline
+        does not wait for it. Meanwhile the row stays RUNNING but out of decode
+        batches and preemption; then it finishes (FINISHED_HANDOFF, its
+        blocks freed into the prefix cache) and the /disagg/prefill answer
+        is emitted. A failed publish aborts the row: a prefill-role engine
+        never starts decoding."""
+        if self.disagg is None:
+            return
+        for seq in produced:
+            if seq.handoff_key is None or seq.handoff_done \
+                    or not seq.prefill_done:
+                continue
+            seq.handoff_done = True
+            st = self._streams.get(seq.request_id)
+            final_text = (st.text if (st is not None and seq.status.is_finished)
+                          else None)
+            task = asyncio.ensure_future(self._publish_one(seq, final_text))
+            self._publish_tasks.add(task)
+            task.add_done_callback(self._publish_tasks.discard)
+
+    async def _publish_one(self, seq: Sequence,
+                           final_text: Optional[str]) -> None:
+        loop = asyncio.get_running_loop()
+        try:
+            ok = await loop.run_in_executor(
+                None, self.disagg.publish_handoff, seq, final_text)
+        except Exception:  # noqa: BLE001 — publish must fail cleanly
+            logger.exception("KV handoff publish task failed")
+            ok = False
+        # finish and emit in one loop slice: the scheduler never sees a
+        # half-finished handoff row.
+        if not seq.status.is_finished:
+            self.scheduler.finish(
+                seq.request_id,
+                SequenceStatus.FINISHED_HANDOFF if ok
+                else SequenceStatus.FINISHED_ABORTED)
+        self._emit_handoff_output(seq)
+
+    def _emit_handoff_output(self, seq: Sequence) -> None:
+        """The one (final) emission of a prefill-hop row: its incremental
+        outputs are held back (``_process_output``), so the /disagg/prefill
+        answer reflects the publish's outcome."""
+        st = self._streams.get(seq.request_id)
+        if st is None:
+            return
+        st.queue.put_nowait(RequestOutput(
+            request_id=seq.request_id,
+            text_delta=st.text,
+            token_ids=list(seq.output_token_ids),
+            finished=True,
+            finish_reason=seq.finish_reason(),
+            num_prompt_tokens=seq.num_prompt_tokens,
+            num_output_tokens=len(seq.output_token_ids),
+            num_cached_tokens=seq.num_cached_tokens,
+            logprobs=(list(seq.output_logprobs)
+                      if seq.sampling.logprobs is not None else None),
+        ))
 
     def abort(self, request_id: str) -> None:
         """Deferred abort: applied by the engine loop between dispatches."""
@@ -393,6 +704,7 @@ class ServingEngine:
                 (now, now - issue_time, accepted, row_steps))
             for seq in produced:
                 self._process_output(seq)
+            await self._publish_handoffs(produced)
 
         def next_batch():
             if not overlap:
@@ -405,6 +717,10 @@ class ServingEngine:
 
         while self._running:
             self._apply_pending_aborts()
+            if self._pending_restores:
+                await self._apply_restores()
+            if self._pending_prewarms:
+                await self._apply_prewarms()
             issue_failed = False
             while len(in_flight) < depth:
                 batch = next_batch()
@@ -461,7 +777,7 @@ class ServingEngine:
             if issue_failed:
                 continue
             self._new_work.clear()
-            if not self.scheduler.has_work():
+            if not self.scheduler.has_work() and not self._pending_restores:
                 try:
                     await asyncio.wait_for(self._new_work.wait(), timeout=1.0)
                 except asyncio.TimeoutError:
@@ -469,9 +785,18 @@ class ServingEngine:
             else:
                 # Work exists but nothing schedulable: yield and retry.
                 await asyncio.sleep(0.001)
-        # Stopping: apply what is in flight, so no accepted token is lost.
+        # Stopping: apply what is in flight, so no accepted token is lost,
+        # and let publishes in flight reach the store.
+        for _req, fut in self._pending_prewarms:
+            if not fut.done():
+                fut.set_result({"chains": 0, "blocks": 0,
+                                "reason": "engine stopping"})
+        self._pending_prewarms.clear()
         while in_flight:
             await apply_oldest()
+        if self._publish_tasks:
+            await asyncio.gather(*list(self._publish_tasks),
+                                 return_exceptions=True)
 
     def _record_fetch(self, batch, issue_time: float, now: float) -> None:
         """A fetched dispatch's duration, by train kind; a decode's in the
@@ -567,6 +892,12 @@ class ServingEngine:
                         seq.request_id, SequenceStatus.FINISHED_STOPPED
                     )
                 finished = True
+        if seq.handoff_key is not None:
+            # A prefill-hop row emits once, after its publish
+            # (_emit_handoff_output); an abort still ends its stream.
+            if seq.status is SequenceStatus.FINISHED_ABORTED:
+                self._emit_handoff_output(seq)
+            return
         hold = 0 if finished or not stops else max(len(s) for s in stops) - 1
         emit_upto = max(len(st.text) - hold, st.sent)
         text_delta = st.text[st.sent:emit_upto]
@@ -619,10 +950,44 @@ class ServingEngine:
         return out
 
     # ------------------------------------------------------------------ stats
+    def _offload_stat(self, attr: str):
+        return getattr(self.offload, attr, 0) if self.offload else 0
+
     def stats(self) -> Dict:
         r = self.runner
+        disagg = self.disagg.stats() if self.disagg is not None else {
+            "kv_handoffs_total": 0,
+            "kv_handoff_bytes_total": 0,
+            "kv_handoff_seconds_total": 0.0,
+            "kv_handoff_failures_total": 0,
+        }
         return {
+            "disagg_role": self.config.role,
+            **disagg,
             "engine_uptime_seconds": time.monotonic() - self.start_time,
+            "kv_offload_blocks": self.offload_blocks_resident,
+            # The KV tier: the device prefix index, and the offload
+            # manager's restore, spill and shared-tier counters (the last
+            # four are the port's: the reference only logs failures).
+            "prefix_index_size": self.block_manager.prefix_index_size,
+            "kv_restore_saved_tokens_total": self._offload_stat(
+                "restore_saved_tokens_total"),
+            "kv_shared_tier_hits_total": self._offload_stat(
+                "shared_tier_hits_total"),
+            "kv_shared_tier_misses_total": self._offload_stat(
+                "shared_tier_misses_total"),
+            "kv_chain_evictions_total": self._offload_stat(
+                "chain_evictions_total"),
+            "kv_spilled_blocks_total": self._offload_stat(
+                "spilled_blocks_total"),
+            "kv_restore_declined_tokens_total": self._offload_stat(
+                "restore_declined_tokens_total"),
+            "kv_spill_failures_total": self._offload_stat(
+                "spill_failures_total"),
+            "kv_restore_failures_total": self._offload_stat(
+                "restore_failures_total"),
+            "startup_prewarm_seconds": self.startup_prewarm_seconds,
+            "prewarmed_blocks_total": self.prewarmed_blocks_total,
             "device": str(r.device),
             "attn_impl": r.attn_impl,
             "kv_cache_dtype": self.config.kv_cache_dtype,

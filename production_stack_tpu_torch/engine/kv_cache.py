@@ -2,8 +2,8 @@
 
 Mirror of ``production_stack_tpu/engine/kv_cache.py`` (host-side
 bookkeeping for the runner's device pools ``[L, Hkv, num_slots, Dh]``),
-without the offload hooks (spill pins, digests, adopted blocks), which come
-with the offload port (ROADMAP).
+with the offload tier's hooks: spill pins, chain parents, the
+``/prefix_index`` digest and blocks adopted under a known hash (prewarm).
 
   * Block 0 is the reserved null block (padding writes land there).
   * Full blocks are content-addressed: hash chain H(prev, tokens) -> block.
@@ -12,6 +12,9 @@ with the offload port (ROADMAP).
     dry.
   * Shared blocks are always FULL; writes only target a sequence's private
     tail block, so no copy-on-write is needed.
+
+``_block_hash`` is the JAX package's, so store keys and ``/prefix_index``
+entries agree across the two packages.
 """
 
 import hashlib
@@ -40,14 +43,25 @@ class BlockPoolManager:
         self._ref: Dict[int, int] = {}
         self._hash_to_block: Dict[bytes, int] = {}
         self._block_to_hash: Dict[int, bytes] = {}
+        # content hash -> the prev_hash it was registered under (the seed
+        # for chain roots): the spill thread carries chain links into the
+        # shared tier.
+        self._hash_parent: Dict[bytes, bytes] = {}
         # evictable: blocks with ref 0 still holding cached content (LRU order)
         self._evictable: "OrderedDict[int, None]" = OrderedDict()
+        # blocks queued for offload spill: not reclaimed until the
+        # device-to-host read is done (kv_offload/manager.py)
+        self._spill_pinned: set = set()
         self.prefix_queries_total = 0
         self.prefix_hits_total = 0
 
     @property
     def num_free_blocks(self) -> int:
-        return len(self._free) + len(self._evictable)
+        # Spill-pinned evictable blocks cannot be reclaimed, so they do not
+        # count as free.
+        pinned_evictable = sum(
+            1 for b in self._spill_pinned if b in self._evictable)
+        return len(self._free) + len(self._evictable) - pinned_evictable
 
     @property
     def num_used_blocks(self) -> int:
@@ -61,12 +75,51 @@ class BlockPoolManager:
         if self._free:
             return self._free.pop()
         for blk in self._evictable:
+            if blk in self._spill_pinned:
+                continue
             del self._evictable[blk]
             h = self._block_to_hash.pop(blk, None)
             if h is not None:
                 self._hash_to_block.pop(h, None)
+                self._hash_parent.pop(h, None)
             return blk
         return None
+
+    # ---------------------------------------------------------- offload hooks
+    def pin_for_spill(self, blk: int) -> None:
+        self._spill_pinned.add(blk)
+
+    def unpin_for_spill(self, blk: int) -> None:
+        self._spill_pinned.discard(blk)
+
+    def hash_of_block(self, blk: int) -> Optional[bytes]:
+        return self._block_to_hash.get(blk)
+
+    def contains_hash(self, h: bytes) -> bool:
+        """Is this content hash resident in the device prefix index?"""
+        return h in self._hash_to_block
+
+    def parent_hash(self, h: bytes) -> Optional[bytes]:
+        """Parent hash in ``h``'s chain (the seed for chain roots); None if
+        ``h`` is no longer registered."""
+        return self._hash_parent.get(h)
+
+    @property
+    def prefix_index_size(self) -> int:
+        """Content-addressed blocks resident on the device (the
+        pstpu:prefix_index_size gauge)."""
+        return len(self._hash_to_block)
+
+    def prefix_digest(self, max_entries: int = 8192) -> Tuple[List[str], bool]:
+        """(entries, truncated): the first 16 hex chars of every
+        content-addressed block hash, the ``/prefix_index`` answer the
+        router's prefix-aware routing scores prompts against."""
+        entries = []
+        for h in self._hash_to_block:
+            entries.append(h.hex()[:16])
+            if len(entries) >= max_entries:
+                return entries, True
+        return entries, False
 
     def can_allocate(self, n: int) -> bool:
         return self.num_free_blocks >= n
@@ -77,19 +130,27 @@ class BlockPoolManager:
         out = []
         for _ in range(n):
             blk = self._pop_free_block()
+            if blk is None:
+                # Accounting and reclaimability disagree (a spill pin
+                # landed mid-allocation): roll back, never crash the loop.
+                self.free_blocks(out)
+                return None
             self._ref[blk] = 1
             out.append(blk)
         return out
 
-    def lookup_prefix(self, token_ids: Sequence[int]) -> Tuple[List[int], int]:
+    def lookup_prefix(self, token_ids: Sequence[int],
+                      seed: bytes = b"") -> Tuple[List[int], int]:
         """Longest cached full-block prefix of ``token_ids`` as
         (cached_block_ids, num_cached_tokens); at least one prompt token is
-        always left uncached so prefill has a position to sample from."""
+        always left uncached so prefill has a position to sample from.
+        ``seed`` namespaces the hash chain (the reference's LoRA
+        adapters; b"" for the base model)."""
         if not self.enable_prefix_caching:
             return [], 0
         usable_full_blocks = (len(token_ids) - 1) // self.block_size
         blocks: List[int] = []
-        prev = b""
+        prev = seed
         for i in range(usable_full_blocks):
             chunk = token_ids[i * self.block_size:(i + 1) * self.block_size]
             h = _block_hash(prev, chunk)
@@ -101,13 +162,13 @@ class BlockPoolManager:
         return blocks, len(blocks) * self.block_size
 
     def allocate_prompt(
-        self, token_ids: Sequence[int]
+        self, token_ids: Sequence[int], seed: bytes = b""
     ) -> Optional[Tuple[List[int], int]]:
         """Block table for a new prompt, reusing cached prefixes:
         (block_ids, num_cached_tokens), or None if out of blocks."""
         if self.num_free_blocks == 0:
             return None
-        cached, n_cached = self.lookup_prefix(token_ids)
+        cached, n_cached = self.lookup_prefix(token_ids, seed)
         total_blocks = -(-len(token_ids) // self.block_size)
         n_new = total_blocks - len(cached)
         # Pin the cached blocks FIRST: reviving an evictable block shrinks
@@ -145,7 +206,25 @@ class BlockPoolManager:
             return h  # duplicate content raced in; keep the earlier block
         self._hash_to_block[h] = blk
         self._block_to_hash[blk] = h
+        self._hash_parent[h] = prev_hash
         return h
+
+    def adopt_full_block(self, blk: int, h: bytes,
+                         parent_hash: bytes) -> bool:
+        """Content-address a block whose hash is already known (a prewarm
+        restore arrives keyed by store hash, with no tokens to re-derive it
+        from). The caller owns ``blk`` and has written its KV; freeing it
+        afterwards parks it evictable, where prompts hit it like a locally
+        computed prefix block. False (nothing registered) when the hash is
+        already resident."""
+        if not self.enable_prefix_caching or not h:
+            return False
+        if h in self._hash_to_block:
+            return False
+        self._hash_to_block[h] = blk
+        self._block_to_hash[blk] = h
+        self._hash_parent[h] = parent_hash
+        return True
 
     def free_blocks(self, blocks: Sequence[int]) -> None:
         for blk in blocks:
@@ -159,3 +238,14 @@ class BlockPoolManager:
                 self._evictable.move_to_end(blk)
             else:
                 self._free.append(blk)
+
+    def reset_prefix_cache(self) -> None:
+        """Drop every evictable cached block from the prefix index (blocks
+        in use keep theirs)."""
+        for blk in list(self._evictable):
+            self._free.append(blk)
+            h = self._block_to_hash.pop(blk, None)
+            if h is not None:
+                self._hash_to_block.pop(h, None)
+                self._hash_parent.pop(h, None)
+        self._evictable.clear()

@@ -5,10 +5,10 @@ Counterpart of ``production_stack_tpu/engine/metrics.py``, on the standard
 library. ``engine_families`` lists every series the JAX package's engine
 renders, under the same names and label sets (``vllm:*`` for the router's
 ``EngineStatsScraper`` and the reference dashboard, ``pstpu:*`` for this
-stack), read from ``engine.stats()``. A series of a feature the port does
-not have yet (speculation, disaggregation, the offload tiers, tracing)
-renders at 0, as the reference renders it for an engine without the
-feature. Two renderers read that one list: the text renderer the server
+stack), read from ``engine.stats()``: the offload, restore, shared-tier,
+chain-eviction and handoff series read the KV tier's counters. A series of
+a feature the port does not have yet (speculation, tracing) renders at 0,
+as the reference renders it for an engine without the feature. Two renderers read that one list: the text renderer the server
 serves (``server/metrics.py``) and ``EngineMetricsCollector`` for a
 ``prometheus_client`` registry, which imports ``prometheus_client`` only
 when it collects (the port does not need the package).
@@ -100,8 +100,8 @@ class DispatchDurationHistograms:
 class LifecycleHistograms:
     """Per-phase request latency: queue wait (arrival to first issue),
     prefill (first issue to the final chunk's fetch), each fused decode
-    dispatch (issue to fetch), and shared-tier restores (none in the port:
-    it has no offload tier)."""
+    dispatch (issue to fetch), and the offload tier's restores at admission
+    (the host and remote round trips with the scatter)."""
 
     def __init__(self):
         self.queue_wait = Histogram(TTFT_BUCKETS)

@@ -1,12 +1,15 @@
 """ModelRunner: owns the device state and issues the serving dispatches.
 
 Counterpart of ``production_stack_tpu/engine/runner.py`` (main path only):
-  * The KV pool is two tensors ``[L, Hkv, num_slots, Dh]`` (the JAX layout,
-    so offload bytes stay compatible later), updated IN PLACE — the JAX
-    package donated its pools to each dispatch and rebound the results.
-    ``kv_cache_dtype="int8"`` stores int8 payload pools plus bf16 scale
-    pools ``[L, Hkv, num_slots]``; fresh K/V is quantized once, before it is
-    written, and every reader dequantizes (ops/quantization.py).
+  * The KV pool is two tensors ``[L, Hkv, num_slots, Dh]`` (the JAX
+    layout, so offloaded blocks are the JAX package's bytes), updated IN
+    PLACE — the JAX package donated its pools to each dispatch and rebound
+    the results. ``kv_cache_dtype="int8"`` stores int8 payload pools plus
+    bf16 scale pools ``[L, Hkv, num_slots]``; fresh K/V is quantized once,
+    before it is written, and every reader dequantizes
+    (ops/quantization.py). ``read_blocks`` / ``write_blocks`` move whole
+    blocks between the pools and the host for the offload tier and the
+    disagg handoff, in place and on the dispatch stream.
   * A dispatch is issued (``execute_async``: staged, enqueued, no wait)
     and fetched later through its ``DispatchHandle``, so the pipelined
     engine loop can issue the next dispatch first. Every dispatch runs on
@@ -52,6 +55,7 @@ Counterpart of ``production_stack_tpu/engine/runner.py`` (main path only):
 
 import contextlib
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -79,6 +83,7 @@ from production_stack_tpu_torch.engine.scheduler import (
     ScheduledBatch,
     decode_step_cap,
 )
+from production_stack_tpu_torch.kv_offload.serde import BF16, dtype_name
 from production_stack_tpu_torch.models import llama
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.models.weights import dtype_of
@@ -103,6 +108,29 @@ logger = init_logger(__name__)
 # Staging slots: a slot is reused four dispatches later; with at most two
 # dispatches outstanding, its copies have run and its fetch has read it.
 _NUM_SLOTS = 4
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy (bfloat16 as ``serde.BF16``, the same
+    bytes)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16)
+    return t.numpy()
+
+
+_TORCH_OF = {np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,
+             np.dtype(np.float16): torch.float16,
+             np.dtype(np.float32): torch.float32}
+
+
+def _to_torch(arr: np.ndarray, pin: bool = False) -> torch.Tensor:
+    """A numpy array (bfloat16 as ``serde.BF16`` or ml_dtypes') copied into
+    a host tensor of its dtype, in pinned memory when ``pin``."""
+    bf16 = dtype_name(arr.dtype) == "bfloat16"
+    src = arr.view(np.int16) if bf16 else arr
+    t = torch.empty(src.shape, dtype=_TORCH_OF[src.dtype], pin_memory=pin)
+    np.copyto(t.numpy(), src, casting="no")
+    return t.view(torch.bfloat16) if bf16 else t
 
 
 class DispatchHandle:
@@ -199,6 +227,14 @@ class ModelRunner:
             n = self.tp.min_int(n)
         self.num_kv_blocks = n
         self._alloc_kv_pools()
+        # Every dispatch runs on the stream current when the runner was
+        # built (the device's default stream); the offload tier's block
+        # reads and writes are enqueued on the same stream, from whichever
+        # thread, so they run in enqueue order with the dispatches. The
+        # lock keeps a spill read out of a graph capture window.
+        self.dispatch_stream = (torch.cuda.current_stream(self.device)
+                                if self.device.type == "cuda" else None)
+        self.kv_io_lock = threading.Lock()
         self.b_max = _bucket(config.max_num_seqs, 1, max(1, config.max_num_seqs))
         # Device-resident last-token vectors of recent token-producing
         # dispatches, newest first, on every rank: (dispatch number, [b_max]
@@ -481,8 +517,9 @@ class ModelRunner:
             # The arena holds every family first; the logprob variants are
             # captured apart, so their share of the graph pool is read.
             self.decode_train.reserve(keys)
-            self.decode_train.capture([k for k in keys if not k[4]])
-            self.decode_train.capture([k for k in keys if k[4]])
+            with self.kv_io_lock:
+                self.decode_train.capture([k for k in keys if not k[4]])
+                self.decode_train.capture([k for k in keys if k[4]])
         else:
             self.decode_train.reserve(keys)
             for key in keys:
@@ -938,6 +975,94 @@ class ModelRunner:
         if batch.kind == "decode":
             return self._issue_decode(batch)
         return self._issue_prefill(batch)
+
+    # ------------------------------------------------------------ KV offload
+    def _pools(self) -> List[torch.Tensor]:
+        """The pools a block spans: K and V payload, and (int8) their scale
+        pools."""
+        if self.kv_quantized:
+            return [self.kv_k, self.kv_v, self.kv_k_scale, self.kv_v_scale]
+        return [self.kv_k, self.kv_v]
+
+    def _block_view(self, pool: torch.Tensor) -> torch.Tensor:
+        """``[L, Hkv, nblk, bs(, Dh)]`` view of a pool (the same storage)."""
+        bs = self.config.block_size
+        return pool.view(pool.shape[0], pool.shape[1], self.num_kv_blocks,
+                         bs, *pool.shape[3:])
+
+    def _io_stream(self):
+        return (torch.cuda.stream(self.dispatch_stream)
+                if self.dispatch_stream is not None
+                else contextlib.nullcontext())
+
+    def read_blocks(self, block_ids: List[int]):
+        """Device-to-host read of whole KV blocks (the reference's
+        ``read_blocks``): (k, v, k_scale, v_scale) numpy arrays, payload
+        ``[n, L, Hkv, bs, Dh]`` in the pool's storage dtype (bfloat16 as
+        ``kv_offload.serde.BF16``), plus the per-slot scales ``[n, L, Hkv,
+        bs]`` of an int8 pool (None otherwise). A gather through the
+        ``[L, Hkv, nblk, bs, Dh]`` view of each pool, then one copy into
+        pinned host memory, on the dispatch stream: it runs after every
+        dispatch enqueued before it, whichever thread calls. This rank's
+        kv heads only: the config refuses the KV tier at tp > 1."""
+        cuda = self.device.type == "cuda"
+        with self.kv_io_lock, self._io_stream():
+            idx = torch.as_tensor(list(block_ids), dtype=torch.long,
+                                  device=self.device)
+            hosts = []
+            for pool in self._pools():
+                g = self._block_view(pool).index_select(2, idx).movedim(2, 0)
+                h = torch.empty(g.shape, dtype=g.dtype, pin_memory=cuda)
+                h.copy_(g, non_blocking=cuda)
+                hosts.append(h)
+            if cuda:
+                done = torch.cuda.Event()
+                done.record(self.dispatch_stream)
+                done.synchronize()
+        out = [_to_numpy(h) for h in hosts]
+        if not self.kv_quantized:
+            out += [None, None]
+        return tuple(out)
+
+    def read_blocks_retry(self, block_ids: List[int], attempts: int = 3):
+        """``read_blocks`` with the reference's retry. Reads never race a
+        donation here (the pools are updated in place), so a failure is
+        retried only against a transient device error."""
+        for attempt in range(attempts):
+            try:
+                return self.read_blocks(block_ids)
+            except RuntimeError:
+                if attempt == attempts - 1:
+                    raise
+                time.sleep(0.01)
+
+    def write_blocks(self, block_ids: List[int], k_np, v_np,
+                     k_scale=None, v_scale=None) -> None:
+        """Host-to-device restore of whole KV blocks (the reference's
+        ``write_blocks``): ``[n, L, Hkv, bs, Dh]`` payloads, and an int8
+        pool's ``[n, L, Hkv, bs]`` scales (it restores bit-identically, no
+        requantization). Staged in pinned memory, copied and scattered on
+        the dispatch stream with ``index_copy_`` into the pool tensors
+        themselves: the decode graphs captured their addresses, so the
+        pools are never rebound. The next dispatch runs after the scatter
+        (same stream)."""
+        if self.kv_quantized and k_scale is None:
+            raise ValueError(
+                "restoring into an int8 KV pool requires per-slot scales "
+                "(blob written by a kv_cache_dtype=bfloat16 engine?)")
+        cuda = self.device.type == "cuda"
+        arrays = [k_np, v_np] + ([k_scale, v_scale] if self.kv_quantized
+                                 else [])
+        with self._io_stream():
+            idx = torch.as_tensor(list(block_ids), dtype=torch.long,
+                                  device=self.device)
+            for pool, arr in zip(self._pools(), arrays):
+                src = _to_torch(arr, pin=cuda).to(
+                    self.device, non_blocking=cuda).to(pool.dtype)
+                self._block_view(pool).index_copy_(2, idx, src.movedim(0, 2))
+        if self.kv_quantized:
+            self.kv_quant_tokens_written += (len(block_ids)
+                                             * self.config.block_size)
 
     # ------------------------------------------------------ tensor parallel
     def _rank_report(self) -> Dict:

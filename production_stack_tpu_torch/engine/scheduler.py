@@ -6,9 +6,13 @@ waiting prompts per batched prefill; otherwise all running sequences decode
 together in one fused K-step dispatch; when the block pool is exhausted the
 lowest-priority running sequence is preempted by recompute. A resumed
 request (``Sequence.resume_base``) enters the same prefill path with its
-delivered tokens pre-seeded as output. Offload restores, disagg roles,
-LoRA namespaces and speculative reconciliation are not ported yet
-(ROADMAP).
+delivered tokens pre-seeded as output. At admission the offload tier may
+restore blocks past the device prefix cache (``offload.try_restore``), and
+every block that fills is offered to its spill thread. A prefill-role
+engine forms no decode batch and a decode-role engine no prefill batch,
+except for traffic the router flagged as fallback; a prefill hop's row
+(``handoff_key``) never decodes and is never preempted. LoRA namespaces
+and speculative reconciliation are not ported yet (ROADMAP).
 """
 
 import enum
@@ -52,6 +56,9 @@ class SequenceStatus(enum.Enum):
     FINISHED_STOPPED = "stop"
     FINISHED_LENGTH = "length"
     FINISHED_ABORTED = "abort"
+    # Prefill hop complete: KV and chain state published to the remote
+    # store; a decode engine continues the stream.
+    FINISHED_HANDOFF = "handoff"
 
     @property
     def is_finished(self) -> bool:
@@ -59,6 +66,7 @@ class SequenceStatus(enum.Enum):
             SequenceStatus.FINISHED_STOPPED,
             SequenceStatus.FINISHED_LENGTH,
             SequenceStatus.FINISHED_ABORTED,
+            SequenceStatus.FINISHED_HANDOFF,
         )
 
 
@@ -81,6 +89,14 @@ class Sequence:
     # resume_base; they are never counted as generated here.
     resume_base: int = 0
     _resume_counted: bool = False
+    # Disagg prefill hop: once prefilled and token 1 sampled, the engine
+    # publishes KV and chain state under this key and finishes the row
+    # (FINISHED_HANDOFF); it never joins a decode batch.
+    handoff_key: Optional[str] = None
+    handoff_done: bool = False
+    # Router-flagged fallback traffic: served end to end on this engine
+    # whatever its role.
+    disagg_fallback: bool = False
     # Monotonic time of the first dispatch issue (closes queue wait).
     first_issue_time: Optional[float] = None
     # Tokens sampled by an issued-but-unapplied dispatch (num_computed_tokens
@@ -135,10 +151,13 @@ class ScheduledBatch:
 
 class Scheduler:
     def __init__(self, config: EngineConfig, block_manager: BlockPoolManager,
-                 decode_window_budget: Optional[int] = None,
+                 offload=None, decode_window_budget: Optional[int] = None,
                  prefill_window_budget: Optional[int] = None):
         self.config = config
         self.block_manager = block_manager
+        self.offload = offload  # KVOffloadManager (host/remote KV tiers)
+        # on_restore(request_id, tokens, seconds) after an admission restore
+        self.on_restore = None
         # Window budgets (in blocks) cap bucket(rows) x bucket(max_blocks)
         # of a dispatch that gathers a window; None = unlimited.
         self.decode_window_budget = decode_window_budget or (1 << 30)
@@ -229,6 +248,10 @@ class Scheduler:
         for cand in list(self.waiting):
             if len(cands) >= max_rows:
                 break
+            if self.config.role == "decode" and not cand.disagg_fallback:
+                # A decode-role engine prefills only fallback traffic
+                # (decode-hop rows are restored straight to RUNNING).
+                continue
             if not cand.block_ids:
                 alloc = self.block_manager.allocate_prompt(cand.all_token_ids)
                 if alloc is None:
@@ -237,6 +260,19 @@ class Scheduler:
                 cand.num_computed_tokens = cand.num_cached_tokens
                 cand._prev_hash = b""
                 newly_allocated.add(cand.request_id)
+                if self.offload is not None:
+                    # The host/remote tiers may extend the cached prefix
+                    # past what the device still holds; the scatter is
+                    # enqueued before this batch's prefill.
+                    t_restore = time.monotonic()
+                    restored = self.offload.try_restore(
+                        cand.all_token_ids, cand.block_ids,
+                        cand.num_computed_tokens)
+                    cand.num_computed_tokens += restored
+                    cand.num_cached_tokens += restored
+                    if restored and self.on_restore is not None:
+                        self.on_restore(cand.request_id, restored,
+                                        time.monotonic() - t_restore)
             cands.append(cand)
         if not cands:
             return None
@@ -303,6 +339,10 @@ class Scheduler:
                 continue  # preempted by an earlier iteration of this pass
             if seq.pending_prefill_apply:
                 continue
+            if seq.handoff_key is not None:
+                continue  # a prefill hop finishes at token 1, by handoff
+            if self.config.role == "prefill" and not seq.disagg_fallback:
+                continue  # a prefill-role engine decodes only fallback rows
             pos = seq.num_computed_tokens
             produced = len(seq.output_token_ids) + seq.inflight_steps
             if (
@@ -372,6 +412,10 @@ class Scheduler:
     def _pick_preemption_victim(self, exclude: Seq[Sequence]) -> Optional[Sequence]:
         for seq in reversed(self.running):
             if seq in exclude:
+                continue
+            if seq.handoff_key is not None:
+                # Its blocks may be mid-read by the handoff publish; it
+                # finishes right after it.
                 continue
             return seq
         return None
@@ -521,5 +565,7 @@ class Scheduler:
             h = self.block_manager.register_full_block(
                 seq.block_ids[i], seq._prev_hash, tokens[i * bs:(i + 1) * bs]
             )
+            if self.offload is not None:
+                self.offload.on_block_registered(h, seq.block_ids[i])
             seq._prev_hash = h
             seq._num_hashed_blocks += 1

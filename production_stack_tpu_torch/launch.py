@@ -11,6 +11,11 @@ at the URLs this prints), and of ``__graft_entry__.py:entry``.
 
 prints ``{"urls": [...], "ready_s": [...], "pids": [...]}`` on one line,
 then serves until SIGTERM or SIGINT, which drains and stops every engine.
+``--kv-server`` first starts the port's cache server
+(``kv_offload/server.py``) and points every engine at it
+(``--kv-remote-url``; its URL is printed as ``kv_url``); ``--roles
+prefill,decode`` gives engine i the i-th role, the disaggregated pair the
+router's ``--routing-logic disagg`` drives.
 """
 
 import argparse
@@ -76,21 +81,77 @@ class EngineHandle:
         return codes
 
 
-def launch_engines(model: str, num_engines: int = 1,
-                   engine_args: Optional[List[str]] = None,
-                   device: str = "cuda", log_dir: Optional[str] = None,
-                   startup_timeout_s: float = 1800.0) -> EngineHandle:
-    """Start ``num_engines`` port engines serving ``model`` on ``device``
-    (extra server flags in ``engine_args``), each on a free port, and
-    wait until every ``/health`` answers 200. Logs go to ``log_dir`` (a
-    fresh temporary directory by default). An engine that exits or is not
-    healthy within ``startup_timeout_s`` stops them all and raises."""
-    log_dir = log_dir or tempfile.mkdtemp(prefix="pstpu-torch-engines-")
-    os.makedirs(log_dir, exist_ok=True)
+def _child_env() -> dict:
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [_PKG_PARENT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                          if p])
+    return env
+
+
+@dataclass
+class KVServerHandle:
+    """A running cache server: its ``kv://`` URL, process and log."""
+    url: str
+    port: int
+    proc: subprocess.Popen = field(repr=False)
+    log_path: str = ""
+
+    def stop(self, timeout_s: float = 10.0) -> int:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+        try:
+            return self.proc.wait(timeout_s)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            return self.proc.wait()
+
+
+def launch_kv_server(max_bytes: int = 8 << 30, log_dir: Optional[str] = None,
+                     startup_timeout_s: float = 60.0) -> KVServerHandle:
+    """Start the port's cache server (``python -m
+    production_stack_tpu_torch.kv_offload.server``) on a free port and wait
+    until it accepts connections."""
+    log_dir = log_dir or tempfile.mkdtemp(prefix="pstpu-torch-kv-")
+    os.makedirs(log_dir, exist_ok=True)
+    port = free_port()
+    path = os.path.join(log_dir, f"kv-server-{port}.log")
+    with open(path, "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "production_stack_tpu_torch.kv_offload.server",
+             "--host", "127.0.0.1", "--port", str(port),
+             "--max-bytes", str(max_bytes)],
+            stdout=log, stderr=subprocess.STDOUT, env=_child_env())
+    handle = KVServerHandle(f"kv://127.0.0.1:{port}", port, proc, path)
+    deadline = time.monotonic() + startup_timeout_s
+    while True:
+        try:
+            socket.create_connection(("127.0.0.1", port), 0.5).close()
+            return handle
+        except OSError:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                handle.stop()
+                raise RuntimeError(f"kv server on port {port} did not "
+                                   f"start; log: {path}")
+            time.sleep(0.1)
+
+
+def launch_engines(model: str, num_engines: int = 1,
+                   engine_args: Optional[List[str]] = None,
+                   device: str = "cuda", log_dir: Optional[str] = None,
+                   startup_timeout_s: float = 1800.0,
+                   per_engine_args: Optional[List[List[str]]] = None,
+                   ) -> EngineHandle:
+    """Start ``num_engines`` port engines serving ``model`` on ``device``
+    (extra server flags in ``engine_args``, and engine i's own in
+    ``per_engine_args[i]``, e.g. ``["--role", "prefill"]``), each on a
+    free port, and wait until every ``/health`` answers 200. Logs go to
+    ``log_dir`` (a fresh temporary directory by default). An engine that
+    exits or is not healthy within ``startup_timeout_s`` stops them all
+    and raises."""
+    log_dir = log_dir or tempfile.mkdtemp(prefix="pstpu-torch-engines-")
+    os.makedirs(log_dir, exist_ok=True)
+    env = _child_env()
     procs, argvs, urls, logs, ready = [], [], [], [], []
     t0 = time.monotonic()
     handle = EngineHandle(urls, ready, argvs, procs, logs)
@@ -101,7 +162,8 @@ def launch_engines(model: str, num_engines: int = 1,
                     "production_stack_tpu_torch.server.api_server",
                     "--model", model, "--device", device,
                     "--host", "127.0.0.1", "--port", str(port),
-                    *(engine_args or [])]
+                    *(engine_args or []),
+                    *(per_engine_args[i] if per_engine_args else [])]
             path = os.path.join(log_dir, f"engine-{i}-{port}.log")
             with open(path, "wb") as log:
                 procs.append(subprocess.Popen(argv, stdout=log,
@@ -172,18 +234,44 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda")
     p.add_argument("--log-dir", default=None)
     p.add_argument("--startup-timeout", type=float, default=1800.0)
+    p.add_argument("--kv-server", action="store_true",
+                   help="start the port's cache server and pass its URL to "
+                        "every engine as --kv-remote-url")
+    p.add_argument("--roles", default=None,
+                   help="comma list, one disagg role per engine "
+                        "(unified, prefill, decode)")
     args = p.parse_args(argv)
-    handle = launch_engines(args.model, args.num_engines, extra, args.device,
-                            args.log_dir, args.startup_timeout)
+    per_engine = None
+    if args.roles:
+        roles = args.roles.split(",")
+        if len(roles) != args.num_engines:
+            p.error(f"--roles names {len(roles)} roles for "
+                    f"{args.num_engines} engines")
+        per_engine = [["--role", r] for r in roles]
+    kv = None
+    if args.kv_server:
+        kv = launch_kv_server(log_dir=args.log_dir)
+        extra = ["--kv-remote-url", kv.url, *extra]
+    try:
+        handle = launch_engines(args.model, args.num_engines, extra,
+                                args.device, args.log_dir,
+                                args.startup_timeout, per_engine)
+    except BaseException:
+        if kv is not None:
+            kv.stop()
+        raise
     print(json.dumps({"urls": handle.urls, "ready_s": handle.ready_seconds,
                       "pids": [pr.pid for pr in handle.procs],
-                      "logs": handle.log_paths}), flush=True)
+                      "logs": handle.log_paths,
+                      **({"kv_url": kv.url} if kv else {})}), flush=True)
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: stop.set())
     while not stop.is_set() and all(pr.poll() is None for pr in handle.procs):
         stop.wait(1.0)
     handle.stop()
+    if kv is not None:
+        kv.stop()
 
 
 if __name__ == "__main__":

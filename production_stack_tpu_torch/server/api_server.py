@@ -13,7 +13,15 @@ aiohttp) for what an engine behind the stack's router serves:
     (a list of strings or of token-id lists; choices prompt-major), and
     mid-stream resume (``resume_tokens``, ``resume_seed``);
   * GET /v1/models, /health, /metrics (Prometheus text, the reference's
-    series), /version.
+    series), /version;
+  * the KV tier's routes: GET /prefix_index (the device prefix index's
+    digest, which the router's prefix-aware routing polls), POST /prewarm
+    (pull the shared tier's hottest chains into the device prefix cache)
+    and POST /disagg/prefill (the prefill hop of a disaggregated request:
+    prefill, sample token 1, publish KV under the transfer key);
+  * GET /debug/kernels (the port's own diagnostic: the paged kernel's
+    launch counts from its device counter, with ``engine.stats()``) and
+    POST /debug/kernels/reset (set the counts to 0).
 
 The router's contract: bearer auth on /v1/* when ``--api-key`` is set
 (401 otherwise); ``--max-queue-len`` sheds generation requests with 503 and
@@ -22,18 +30,23 @@ turns 503 ``draining``, new POSTs 503, in-flight requests finish or are
 aborted at ``--drain-timeout``; a second SIGTERM exits at once); with the
 ``x-pstpu-resume`` request header every streamed chunk of a single-choice
 request carries ``pstpu: {toks, off, seed}``, what the router needs to
-resume the stream on another engine.
+resume the stream on another engine. A role-split engine (``--role
+prefill|decode``) answers plain generation requests 503 ``wrong_role``
+unless they carry ``x-pstpu-disagg-fallback``; a decode hop arrives with
+``x-pstpu-disagg: decode`` and ``x-pstpu-transfer-key`` on either
+completion route, and its stream continues the published one.
 
 HTTP/1.1 with one request per connection (``Connection: close``); a
 streamed response is close-delimited. Tool calling, /v1/embeddings,
-/rerank, /prefix_index, /prewarm, /disagg/* and /debug/* are not ported
-yet (ROADMAP).
+/rerank and the reference's /debug/* routes are not ported yet (ROADMAP).
 
 Run: ``python -m production_stack_tpu_torch.server.api_server --model
 llama-3b --port 8000`` (on the card; ``--device cpu`` for a CPU run). With
 ``--tensor-parallel-size N`` the server process is tp rank 0 and starts N-1
 worker processes (NCCL when the machine has N cards, gloo when the ranks
-share one).
+share one). ``--kv-offload-cpu`` and ``--kv-remote-url kv://host:port``
+(the port's cache server: ``python -m
+production_stack_tpu_torch.kv_offload.server``) turn the offload tiers on.
 """
 
 import argparse
@@ -45,25 +58,32 @@ import signal
 import time
 from dataclasses import replace
 from typing import Optional, Tuple
+from urllib.parse import parse_qs
 
 import torch  # noqa: F401 — every module of the port is a torch module
 
+from production_stack_tpu_torch.disagg.transfer import (
+    DISAGG_ENDPOINT_HEADER,
+    DISAGG_FALLBACK_HEADER,
+    DISAGG_KEY_HEADER,
+    DISAGG_ROLE_HEADER,
+    ENGINE_ROLES,
+    RESUME_HEADER,
+)
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.engine import ServingEngine
 from production_stack_tpu_torch.engine.sampling import SamplingParams, seed_base
+from production_stack_tpu_torch.ops import paged_attention as pa
 from production_stack_tpu_torch.server.metrics import render_engine_metrics
 from production_stack_tpu_torch.utils import init_logger, random_uuid
 
 logger = init_logger(__name__)
 
 VERSION = "0.1.0"
-# The router sets this header on the streams it proxies: only then do the
-# chunks carry the resume payload (direct clients get plain OpenAI chunks).
-RESUME_HEADER = "x-pstpu-resume"
 _REASONS = {200: "OK", 400: "Bad Request", 401: "Unauthorized",
             404: "Not Found", 405: "Method Not Allowed",
             413: "Payload Too Large", 500: "Internal Server Error",
-            503: "Service Unavailable"}
+            501: "Not Implemented", 503: "Service Unavailable"}
 _MAX_BODY = 16 << 20
 
 
@@ -177,7 +197,7 @@ class OpenAIServer:
                                self._inflight)
 
     # ---------------------------------------------------------------- HTTP
-    async def _read_request(self, reader) -> Tuple[str, str, dict, bytes]:
+    async def _read_request(self, reader) -> Tuple[str, str, str, dict, bytes]:
         line = await reader.readline()
         parts = line.decode("latin-1").strip().split()
         if len(parts) != 3:
@@ -194,7 +214,8 @@ class OpenAIServer:
         if n > _MAX_BODY:
             raise _HttpError(413, "request body too large")
         body = await reader.readexactly(n) if n else b""
-        return method, target.split("?", 1)[0], headers, body
+        path, _, query = target.partition("?")
+        return method, path, query, headers, body
 
     @staticmethod
     def _head(status: int, content_type: str, headers: Optional[dict] = None,
@@ -222,8 +243,9 @@ class OpenAIServer:
     async def _handle(self, reader, writer) -> None:
         try:
             try:
-                method, path, headers, body = await self._read_request(reader)
-                await self._route(writer, method, path, headers, body)
+                method, path, query, headers, body = \
+                    await self._read_request(reader)
+                await self._route(writer, method, path, query, headers, body)
             except _HttpError as e:
                 await self._send_json(writer, e.status,
                                       _error_body(e.status, e.message, e.etype),
@@ -240,13 +262,19 @@ class OpenAIServer:
         finally:
             writer.close()
 
-    async def _route(self, writer, method: str, path: str, headers: dict,
-                     body: bytes) -> None:
+    async def _route(self, writer, method: str, path: str, query: str,
+                     headers: dict, body: bytes) -> None:
         routes = {
             ("GET", "/health"): self.health,
             ("GET", "/metrics"): self.metrics,
             ("GET", "/version"): self.version,
             ("GET", "/v1/models"): self.models,
+            ("GET", "/prefix_index"):
+                lambda w, h, b: self.prefix_index(w, parse_qs(query)),
+            ("POST", "/prewarm"): self.prewarm,
+            ("POST", "/disagg/prefill"): self.disagg_prefill,
+            ("GET", "/debug/kernels"): self.debug_kernels,
+            ("POST", "/debug/kernels/reset"): self.debug_kernels_reset,
             ("POST", "/v1/completions"): self.completions,
             ("POST", "/v1/chat/completions"): self.chat_completions,
         }
@@ -293,6 +321,167 @@ class OpenAIServer:
 
     async def version(self, writer, headers: dict, body: bytes) -> None:
         await self._send_json(writer, 200, {"version": VERSION})
+
+    async def prefix_index(self, writer, query: dict) -> None:
+        """The device prefix index's digest: the first 16 hex chars of
+        every content-addressed block hash and the block size they were
+        chained at (the reference's ``/prefix_index``)."""
+        try:
+            max_entries = min(int(query.get("max_entries", ["8192"])[0]),
+                              65536)
+        except ValueError:
+            raise _HttpError(400, "max_entries must be an integer")
+        entries, truncated = self.engine.block_manager.prefix_digest(
+            max_entries)
+        await self._send_json(writer, 200, {
+            "block_size": self.engine.config.block_size,
+            "model": self.model_name,
+            "entries": entries,
+            "truncated": truncated,
+        })
+
+    async def debug_kernels(self, writer, headers: dict, body: bytes) -> None:
+        """The paged kernel's launch counts by variant (its device counter,
+        which counts graph replays; {} off the card), with the engine's
+        stats, so a process driving this server can hold the counts to
+        the decode steps. Waits for the device's queued work."""
+        counts = (pa.launch_counts() if self.engine.runner.device.type == "cuda"
+                  else {})
+        await self._send_json(writer, 200, {"launch_counts": counts,
+                                            "stats": self.engine.stats()})
+
+    async def debug_kernels_reset(self, writer, headers: dict,
+                                  body: bytes) -> None:
+        if self.engine.runner.device.type == "cuda":
+            pa.reset_launch_counts()
+        await self._send_json(writer, 200, {"status": "ok"})
+
+    async def prewarm(self, writer, headers: dict, raw: bytes) -> None:
+        """Pull the shared KV tier's top-k hottest chains into the device
+        prefix cache, between dispatches. Only KV bytes move: tokens never
+        change."""
+        body = self._parse(raw) if raw else {}
+        top_k = body.get("top_k", 8)
+        max_blocks = body.get("max_blocks", 256)
+        for name, v in (("top_k", top_k), ("max_blocks", max_blocks)):
+            if type(v) is not int or not 1 <= v <= 65536:
+                raise _HttpError(400, f"'{name}' must be an integer in "
+                                      f"[1, 65536]")
+        result = await self.engine.prewarm(top_k=top_k, max_blocks=max_blocks)
+        await self._send_json(writer, 200, {"status": "ok", **result})
+
+    # ----------------------------------------------------- disagg (role split)
+    def _role_gate(self, headers: dict) -> None:
+        """503 (retryable) for a generation request a role-split engine
+        does not serve end to end, unless the router flagged it as fallback
+        or it is the decode hop this engine exists for."""
+        role = self.engine.config.role
+        if role == "unified" or headers.get(DISAGG_FALLBACK_HEADER):
+            return
+        if role == "decode" and headers.get(DISAGG_ROLE_HEADER) == "decode":
+            return
+        raise _HttpError(
+            503, f"Engine serves disagg role {role!r}; plain generation "
+                 f"requests must go to the unified pool (or carry "
+                 f"{DISAGG_FALLBACK_HEADER})",
+            "wrong_role", {"Retry-After": "1"})
+
+    async def _fetch_handoff(self, headers: dict):
+        """The decode hop's manifest (None when the request is not a decode
+        hop). The bundle is read, checked against this engine's KV layout
+        and only then consumed (delete-after-consume), so a bundle this
+        engine cannot use stays for another."""
+        if headers.get(DISAGG_ROLE_HEADER) != "decode":
+            return None
+        disagg = self.engine.disagg
+        if disagg is None:
+            raise _HttpError(503, "This engine has no disagg coordinator "
+                                  "(--role)", "wrong_role",
+                             {"Retry-After": "1"})
+        key = headers.get(DISAGG_KEY_HEADER)
+        if not key:
+            raise _HttpError(400, f"{DISAGG_KEY_HEADER} header required")
+        loop = asyncio.get_running_loop()
+        mani = await loop.run_in_executor(None, disagg.fetch_handoff, key)
+        if mani is None:
+            raise _HttpError(503, f"Handoff transfer {key!r} unavailable",
+                             "handoff_unavailable", {"Retry-After": "1"})
+        cfg = self.engine.config
+        if mani.finish_reason is None and (
+                mani.block_size != cfg.block_size
+                or mani.num_blocks > self.engine.block_manager.num_blocks - 1
+                or len(mani.prompt_token_ids) >= cfg.max_model_len):
+            raise _HttpError(503, "Handoff bundle incompatible with this "
+                                  "engine's KV layout/capacity",
+                             "handoff_incompatible", {"Retry-After": "1"})
+        await loop.run_in_executor(None, disagg.consume_handoff, key)
+        return mani
+
+    async def disagg_prefill(self, writer, headers: dict, raw: bytes) -> None:
+        """Hop 1 of a disaggregated request (router-internal, not
+        streamed): prefill the prompt, sample token 1, publish KV and chain
+        state under the transfer key, and report the outcome."""
+        if self.engine.disagg is None:
+            raise _HttpError(501, "Disagg handoff disabled (--role unified)",
+                             "wrong_role")
+        if self.engine.config.role == "decode":
+            raise _HttpError(503, "Engine serves disagg role 'decode'; "
+                                  "prefill hops belong to the prefill pool",
+                             "wrong_role", {"Retry-After": "1"})
+        key = headers.get(DISAGG_KEY_HEADER)
+        if not key:
+            raise _HttpError(400, f"{DISAGG_KEY_HEADER} header required")
+        chat = headers.get(DISAGG_ENDPOINT_HEADER, "completions") == "chat"
+        body = self._parse(raw)
+        self._check(body, chat=chat)
+        if chat:
+            messages = body.get("messages")
+            if not messages or not isinstance(messages, list):
+                raise _HttpError(400, "'messages' is required")
+            try:
+                prompt = self.engine.tokenizer.apply_chat_template(
+                    messages, add_generation_prompt=True)
+            except (KeyError, TypeError) as e:
+                raise _HttpError(400, f"Could not apply chat template: {e}")
+            submit = {"prompt": prompt}
+            sampling = SamplingParams.from_request(body,
+                                                   default_max_tokens=256)
+        else:
+            prompt = body.get("prompt")
+            if isinstance(prompt, list) and prompt and all(
+                    type(x) is int for x in prompt):
+                vocab = self.engine.tokenizer.vocab_size
+                if any(not 0 <= t < vocab for t in prompt):
+                    raise _HttpError(400, f"prompt token ids must be in "
+                                          f"[0, {vocab})")
+                submit = {"prompt_token_ids": list(prompt)}
+            elif isinstance(prompt, str):
+                submit = {"prompt": prompt}
+            else:
+                raise _HttpError(400, "disagg prefill requires a single "
+                                      "string prompt or one list of token "
+                                      "ids")
+            sampling = SamplingParams.from_request(body, default_max_tokens=16)
+        request_id = headers.get("x-request-id") or random_uuid("cmpl-")
+        final = None
+        try:
+            async for out in self.engine.generate(
+                    **submit, sampling=sampling, request_id=request_id,
+                    handoff_key=key):
+                final = out
+        except ValueError as e:
+            raise _HttpError(400, str(e))
+        if final is None or final.finish_reason == "abort":
+            raise _HttpError(503, "KV handoff publish failed",
+                             "handoff_failed", {"Retry-After": "1"})
+        await self._send_json(writer, 200, {
+            "status": "handoff",
+            "key": key,
+            "finished": final.finish_reason != "handoff",
+            "finish_reason": final.finish_reason,
+            "prompt_tokens": final.num_prompt_tokens,
+            "cached_tokens": final.num_cached_tokens,
+        })
 
     async def models(self, writer, headers: dict, body: bytes) -> None:
         await self._send_json(writer, 200, {"object": "list", "data": [{
@@ -346,6 +535,7 @@ class OpenAIServer:
             raise _HttpError(400, "'logprobs' must be an integer in [0, 5]")
 
     async def completions(self, writer, headers: dict, raw: bytes) -> None:
+        self._role_gate(headers)
         body = self._parse(raw)
         prompt = body.get("prompt")
 
@@ -371,9 +561,11 @@ class OpenAIServer:
         self._check(body, chat=False)
         sampling = SamplingParams.from_request(body, default_max_tokens=16)
         await self._generate(writer, headers, body, prompts, sampling,
-                             chat=False)
+                             chat=False,
+                             handoff=await self._fetch_handoff(headers))
 
     async def chat_completions(self, writer, headers: dict, raw: bytes) -> None:
+        self._role_gate(headers)
         body = self._parse(raw)
         messages = body.get("messages")
         if not messages or not isinstance(messages, list):
@@ -386,7 +578,8 @@ class OpenAIServer:
             raise _HttpError(400, f"Could not apply chat template: {e}")
         sampling = SamplingParams.from_request(body, default_max_tokens=256)
         await self._generate(writer, headers, body, [prompt], sampling,
-                             chat=True)
+                             chat=True,
+                             handoff=await self._fetch_handoff(headers))
 
     # ------------------------------------------------------------ logprobs
     def _token_str(self, tid: int) -> str:
@@ -467,9 +660,11 @@ class OpenAIServer:
         return list(resume_tokens), resume_seed
 
     async def _generate(self, writer, headers: dict, body: dict, prompts: list,
-                        sampling: SamplingParams, chat: bool) -> None:
+                        sampling: SamplingParams, chat: bool,
+                        handoff=None) -> None:
         """Run len(prompts) * n generations and answer them as OpenAI
-        choices (prompt-major), streamed or not."""
+        choices (prompt-major), streamed or not. ``handoff``: a decode
+        hop's manifest, whose token ids replace the prompt."""
         waiting = self.engine.scheduler.num_waiting
         if self.max_queue_len and waiting >= self.max_queue_len:
             raise _HttpError(503, f"Engine overloaded: {waiting} requests "
@@ -480,6 +675,10 @@ class OpenAIServer:
         num_choices = len(prompts) * n
         resume_tokens, resume_seed = self._check_resume(body, sampling,
                                                         num_choices)
+        if handoff is not None and num_choices != 1:
+            raise _HttpError(400, "disagg decode hop requires n=1 and a "
+                                  "single prompt")
+        fallback = bool(headers.get(DISAGG_FALLBACK_HEADER))
         n_resume = len(resume_tokens) if resume_tokens else 0
         max_len = self.engine.config.max_model_len
         for p in prompts:
@@ -500,6 +699,10 @@ class OpenAIServer:
                   else {"prompt": prompt})
             if resume_tokens:
                 kw.update(resume_tokens=resume_tokens, resume_seed=resume_seed)
+            if handoff is not None:
+                kw["handoff_state"] = handoff
+            if fallback:
+                kw["disagg_fallback"] = True
             return self.engine.generate(**kw, sampling=sp, request_id=rid)
 
         created = int(time.time())
@@ -708,6 +911,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--drain-timeout", type=float, default=30.0,
                    help="seconds a SIGTERM drain waits for in-flight "
                         "requests before aborting them")
+    p.add_argument("--role", default="unified", choices=list(ENGINE_ROLES),
+                   help="prefill/decode disaggregation role: 'prefill' "
+                        "computes prompt KV + token 1 and publishes them to "
+                        "the remote KV store; 'decode' restores published "
+                        "KV and continues the stream; a non-unified role "
+                        "requires --kv-remote-url or LMCACHE_REMOTE_URL")
+    p.add_argument("--kv-remote-url", default=None,
+                   help="shared KV store URL (kv://host:port) for the "
+                        "offload tier and the disagg handoff (default: "
+                        "$LMCACHE_REMOTE_URL)")
+    p.add_argument("--kv-offload-cpu", action="store_true", default=None,
+                   help="spill full KV blocks to a host-RAM tier and restore "
+                        "from it (default: $LMCACHE_LOCAL_CPU == 'true')")
+    p.add_argument("--kv-offload-max-cpu-gb", type=float, default=None,
+                   help="host-RAM tier size in GB (default: "
+                        "$LMCACHE_MAX_LOCAL_CPU_SIZE, else 4)")
     p.add_argument("--hbm-peak-gbps", type=float, default=None,
                    help="the card's peak HBM bandwidth in GB/s, the ceiling "
                         "of pstpu:live_hbm_bw_pct (default: looked up from "
@@ -727,7 +946,13 @@ def main(argv=None) -> None:
         overlap_dispatch=not args.no_overlap_dispatch,
         attn_impl=args.attn_impl, seed=args.seed,
         tensor_parallel_size=args.tensor_parallel_size,
-        hbm_peak_gbps=args.hbm_peak_gbps,
+        hbm_peak_gbps=args.hbm_peak_gbps, role=args.role,
+        # Unset flags keep the config's environment defaults.
+        **{k: v for k, v in (
+            ("kv_remote_url", args.kv_remote_url),
+            ("kv_offload_cpu", args.kv_offload_cpu),
+            ("kv_offload_max_cpu_gb", args.kv_offload_max_cpu_gb))
+           if v is not None},
     )
 
     async def run():

@@ -314,20 +314,25 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter (conftest imports jax into this one): every
     module of the port, the tensor-parallel modules and the worker entry
     point (what a spawned rank imports), the metrics, roofline and
-    launcher modules among them, and chip_smoke.py, import without jax;
-    and without prometheus_client (the card's machine may not have it)."""
+    launcher modules, the KV tier's modules (offload tiers, the cache
+    server, the disagg handoff) among them, and chip_smoke.py, import
+    without jax; and without prometheus_client or ml_dtypes (the card's
+    machine may not have them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import production_stack_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "need = {'production_stack_tpu_torch.' + m for m in "
         "('parallel.mesh', 'parallel.sharding', 'parallel.worker', "
-        "'server.metrics', 'engine.metrics', 'perf.roofline', 'launch')}\n"
+        "'server.metrics', 'engine.metrics', 'perf.roofline', 'launch', "
+        "'kv_offload.serde', 'kv_offload.chain_lru', 'kv_offload.host_pool', "
+        "'kv_offload.remote', 'kv_offload.server', 'kv_offload.manager', "
+        "'disagg.transfer', 'disagg.coordinator')}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', "
-        "'production_stack_tpu', 'prometheus_client')]\n"
+        "'production_stack_tpu', 'prometheus_client', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -335,7 +340,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20
+    assert int(proc.stdout.split()[-1]) >= 28
 
 
 async def test_stop_strings_cut_text_and_tokens():

@@ -15,6 +15,7 @@ lower id first).
 import asyncio
 import functools
 import json
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -23,12 +24,14 @@ import pytest
 import torch
 from aiohttp.test_utils import TestClient, TestServer
 
+from production_stack_tpu.engine import runner as jax_runner
 from production_stack_tpu.engine import sampling as jsampling
 from production_stack_tpu.engine.config import EngineConfig as JaxConfig
 from production_stack_tpu.engine.engine import ServingEngine as JaxEngine
 from production_stack_tpu.engine.sampling import SamplingParams as JaxSampling
 from production_stack_tpu.models.config import resolve_model_config as jax_resolve
 from production_stack_tpu.models.llama import init_params as jax_init
+from production_stack_tpu.server import api_server as jax_api
 from production_stack_tpu.server.api_server import APIServer as JaxServer
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.engine import ServingEngine
@@ -351,10 +354,28 @@ def _payloads(text):
     return evs, toks
 
 
-async def test_jax_stream_resumed_on_the_port():
+async def test_jax_stream_resumed_on_the_port(monkeypatch):
     """The router's cross-engine failover: an unseeded stream the JAX
     engine began, cut after a chunk, resumed on the port from that chunk's
-    pstpu payload, ends in the JAX stream's tokens and text."""
+    pstpu payload, ends in the JAX stream's tokens and text.
+
+    An unseeded stream's seed derives from ``hash(request_id)``: a random
+    id, hashed under the process's own PYTHONHASHSEED. At this model's
+    512-token vocab most tokens decode to no text (ids >= 256 are not
+    bytes, 128-255 are incomplete UTF-8), and the server writes a chunk
+    only once its text grows, so about one random stream in seven shows
+    its first text in the final chunk, which then carries all 20 tokens
+    and leaves nothing to resume. The JAX server's request id is fixed and
+    its seed derived from it by CRC-32 (the stream stays unseeded: the
+    server resolves the seed and relays it), so the stream always arrives
+    in chunks of 5, 8, 4 and 3 tokens."""
+    monkeypatch.setattr(jax_api, "random_uuid",
+                        lambda prefix="": prefix + "resume-3")
+    monkeypatch.setattr(
+        jax_runner, "resolved_seed_base",
+        lambda rid, sp: (sp.seed if sp.seed is not None
+                         else zlib.crc32(rid.encode()) & 0x7FFFFFFF)
+        & 0xFFFFFFFF)
     async with _Servers() as s:
         resp = await s.jax.post("/v1/completions", json=_RESUME, headers=_HDR)
         evs, toks = _payloads(await resp.text())
