@@ -99,7 +99,24 @@ serving):
      read from ``/debug/kernels``; the prefill engine forms no decode
      batch); decode ms per step with spilling on and off, alternated. In
      every round: no eager decode dispatch, the kernel's count 28 x decode
-     steps, every spill, restore and handoff failure counter 0.
+     steps, every spill, restore and handoff failure counter 0;
+ 10. spec: speculative decoding, two pairs at full width and depth (random
+     bf16 weights from --seed, bf16 KV, block 16, N = 4): llama-3b drafting
+     for itself (the ceiling) and a llama-3b draft for llama-3-8b (the
+     floor); per pair spec off (the paged kernel, its count layers x
+     decode steps), linear, tree (W = 3) and adaptive, each an engine
+     behind the HTTP server with its graphs captured at warm-up, serving
+     the same 4 streams (2 greedy, 2 seeded) x 64 tokens: ms per dispatch
+     and per token by CUDA events, tok/s, TTFT, acceptance, draft depth,
+     tokens per target step, cycles run and live, graph families, pool
+     bytes, peak memory, gamma-0 dispatches; it fails on an eager decode
+     dispatch after warm-up, a /metrics spec series that differs from
+     stats(), graph replays that differ from the strict eager train on the
+     same batches, or bf16 tokens that part from spec-off's before a step
+     whose sampler margin is under 2 x ``tp_logit_bound``; a profiled round
+     of spec off and linear per pair; then float32 tiny-llama with the
+     tiny-llama and tiny-opt drafts, every mode's tokens equal to
+     spec-off's bit for bit.
 
 Stdout carries the card line, one ``<phase> summary {...}`` line of JSON
 per phase (timings beside the SM clock nvidia-smi sampled meanwhile) and
@@ -2299,7 +2316,8 @@ def surface_phase(torch, pa, device, seed, card, model="llama-3b"):
         # 8. the logprob ops' device time: one family's step graph with
         # and without them, replayed alternately; and the ops alone.
         full_mb = engine.runner._decode_mb(1)
-        keys = [(4, full_mb, 32, False, 0), (4, full_mb, 32, False, 8)]
+        keys = [(4, full_mb, 32, False, 0, False),
+                (4, full_mb, 32, False, 8, False)]
         ms = {k: [] for k in keys}
         with SmMhz() as clock:
             for k in (keys[0], keys[1], keys[1], keys[0]):
@@ -3001,15 +3019,440 @@ def kvtier_phase(torch, pa, device, seed, card, kv_cache_dtype, kv_url,
     return launches, out
 
 
+# ---------------------------------------------------------------- phase 10
+SPEC_N = 4                  # draft-ahead tokens
+SPEC_TOKENS = 64            # tokens per request
+# (pair, target, draft): the ceiling (a self-draft accepts nearly
+# everything) and the floor (a random llama-3b drafting for a random
+# llama-3-8b accepts nearly nothing).
+SPEC_PAIRS = (("self", "llama-3b", "llama-3b"),
+              ("cross", "llama-3-8b", "llama-3b"))
+SPEC_MODES = (("off", {}),
+              ("linear", {"speculative_num_tokens": SPEC_N}),
+              ("tree", {"speculative_num_tokens": SPEC_N,
+                        "speculative_tree_width": 3}),
+              ("adaptive", {"speculative_num_tokens": SPEC_N,
+                            "speculative_adaptive": True}))
+# Seeded streams sample unfiltered: their pick is the argmax of logits / T
+# plus the row's Gumbel field, so the token bar's margin is exact (a top-p
+# or top-k set has an edge a logit change can move as well; the float32
+# identity below covers filtered sampling bit for bit).
+SPEC_SAMPLINGS = ({"temperature": 0.0}, {"temperature": 0.0},
+                  {"temperature": 0.8, "seed": 1234},
+                  {"temperature": 0.7, "seed": 7})
+SPEC_SERIES = ("pstpu:spec_enabled", "pstpu:spec_draft_tokens_total",
+               "pstpu:spec_accepted_tokens_total", "pstpu:spec_acceptance_rate",
+               "pstpu:spec_acceptance_rate_window", "pstpu:spec_draft_depth",
+               "pstpu:spec_tree_nodes_total", "pstpu:spec_acceptance_ema",
+               "pstpu:spec_gamma0_dispatches_total")
+
+
+def spec_prompts(seed: int):
+    """4 prompts of ~300-480 ByteTokenizer tokens."""
+    rng = random.Random(seed + 8)
+    words = ("a draft proposes tokens and the target verifies them in one "
+             "forward while the scheduler keeps every stream on the card").split()
+    out = []
+    for i in range(4):
+        text = []
+        while sum(len(w) + 1 for w in text) < 300 + 60 * i:
+            text.append(rng.choice(words))
+        out.append(" ".join(text))
+    return out
+
+
+def spec_config(target, draft, fields, seed, device="cuda", **over):
+    """One engine of the spec phase: bf16 weights and KV, block 16, 1024
+    blocks, 4 rows (the decode families of 1, 2 and 4 rows), graphs
+    captured at warm-up; speculation per ``fields`` (the draft named only
+    when on)."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+
+    fields = {**({"speculative_model": draft} if fields else {}), **fields}
+    return EngineConfig(**{
+        "model": target, "dtype": "bfloat16", "device": device,
+        "max_model_len": 2048, "block_size": 16, "num_kv_blocks": 1024,
+        "max_num_seqs": 4, "num_decode_steps": 32, "seed": seed,
+        "enable_warmup": True, **fields, **over})
+
+
+def spec_http_round(torch, pa, engine, gate, prompts, what):
+    """The 4 requests (2 greedy, 2 seeded, streamed completions with the
+    pstpu payload) behind the port's server, held until all 4 wait so they
+    form one prefill batch; then /metrics. Returns (token ids per stream,
+    a row of numbers, the stats, the exposition)."""
+    from production_stack_tpu_torch.server.api_server import OpenAIServer
+
+    r = engine.runner
+    out = {}
+
+    async def run():
+        server = OpenAIServer(engine, "127.0.0.1", 0)
+        await server.start()
+        base = f"http://127.0.0.1:{server.port}"
+        loop = asyncio.get_running_loop()
+        for key in ("decode_steps_total", "decode_tokens_total",
+                    "decode_seconds_total", "decode_device_seconds_total",
+                    "prefill_seconds_total"):
+            setattr(r, key, 0)
+        engine.decode_dispatches_total = engine.prefill_dispatches_total = 0
+        train = r.decode_train
+        eager0, graph0 = train.eager_dispatches_total, train.graph_dispatches_total
+        st0 = engine.stats()
+        if r.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        pa.reset_launch_counts()
+        gate["want"] = 4
+        t0 = time.monotonic()
+
+        def one(i):
+            body = {"prompt": prompts[i], "max_tokens": SPEC_TOKENS,
+                    "stream": True, "ignore_eos": True, **SPEC_SAMPLINGS[i]}
+            t = time.monotonic()
+            st, evs, t_first, t_end = http("POST", base + "/v1/completions",
+                                           body, True,
+                                           headers={"x-pstpu-resume": "1"})
+            if st != 200 or evs[-1] != "[DONE]":
+                fail(f"spec {what}: request {i}: HTTP {st}")
+            toks = [t for e in evs[:-1] for t in e.get("pstpu", {}).get("toks", [])]
+            return toks, t_first - t
+
+        with SmMhz() as clock:
+            res = await asyncio.gather(*[loop.run_in_executor(None, one, i)
+                                         for i in range(4)])
+        wall = time.monotonic() - t0
+        stats = engine.stats()
+        out["launches"] = pa.launch_counts()
+        st, _, text = await loop.run_in_executor(
+            None, request, "GET", base + "/metrics")
+        if st != 200:
+            fail(f"spec {what}: /metrics HTTP {st}")
+        out.update(res=res, wall=wall, clock=clock.summary(), stats=stats,
+                   st0=st0, text=text,
+                   eager=train.eager_dispatches_total - eager0,
+                   graph=train.graph_dispatches_total - graph0,
+                   peak=(torch.cuda.max_memory_allocated() / 2**30
+                         if r.device.type == "cuda" else None))
+        await server.stop()
+
+    asyncio.run(run())
+    toks = [t for t, _ in out["res"]]
+    for i, t in enumerate(toks):
+        if len(t) != SPEC_TOKENS:
+            fail(f"spec {what}: stream {i} gave {len(t)} tokens")
+    st, st0 = out["stats"], out["st0"]
+    if r.device.type == "cuda" and (out["eager"] or not out["graph"]):
+        fail(f"spec {what}: {out['eager']} eager decode dispatches after "
+             f"warm-up ({out['graph']} replayed)")
+    # /metrics against stats(): the spec series read the runner's counters
+    # (gauges rendered to 6 significant digits).
+    series = parse_metrics(out["text"])
+    for name in SPEC_SERIES:
+        got = series.get(name)
+        want = float(st[name.split(":")[1]])
+        if not got or abs(got[0][1] - want) > 1e-5 * max(1.0, abs(want)):
+            fail(f"spec {what}: /metrics {name} {got} != stats() {want}")
+    d = lambda k: st[k] - st0[k]  # noqa: E731
+    dispatches = st["decode_dispatches_total"]
+    emitted = st["decode_tokens_total"]
+    dev_s = st["decode_device_seconds_total"]
+    live = d("spec_live_cycles_total")
+    row = {
+        "wall_s": out["wall"], "aggregate_tok_s": 4 * SPEC_TOKENS / out["wall"],
+        "ttft_s": [f for _, f in out["res"]],
+        "decode_dispatches": dispatches, "decode_tokens": emitted,
+        "ms_per_dispatch_events": 1e3 * dev_s / dispatches if dispatches else None,
+        "ms_per_token_events": 1e3 * dev_s / emitted if emitted else None,
+        # a stream's cadence: the 4 rows decode together
+        "ms_per_row_token_events": (1e3 * dev_s * len(toks) / emitted
+                                    if emitted else None),
+        "decode_steps": st["decode_steps_total"],
+        "drafts": d("spec_draft_tokens_total"),
+        "accepted": d("spec_accepted_tokens_total"),
+        "acceptance": (d("spec_accepted_tokens_total")
+                       / d("spec_draft_tokens_total")
+                       if d("spec_draft_tokens_total") else None),
+        "draft_depth_mean": (d("spec_draft_tokens_total") / live
+                             if live else None),
+        "tokens_per_target_step": emitted / live if live else 1.0,
+        "cycles_run": d("spec_cycles_run_total"),
+        "cycles_live": d("spec_cycles_live_total"),
+        "gamma0_dispatches": d("spec_gamma0_dispatches_total"),
+        "graph_families": st["graph_families"],
+        "graph_families_spec": st["graph_families_spec"],
+        "graphs_captured": st["graphs_captured"],
+        "graph_spec_nodes_max": st["graph_spec_nodes_max"],
+        "graph_capture_seconds": st["graph_capture_seconds"],
+        "graph_pool_bytes": st["graph_pool_bytes"],
+        "spec_pool_bytes": st["spec_pool_bytes"],
+        "warmup_s": st["startup_warmup_seconds"],
+        "peak_mem_gib": out["peak"], "sm_clock_mhz": out["clock"],
+        "launches": out["launches"],
+    }
+    log(f"spec {what}: {json.dumps(row)}")
+    return toks, row, st
+
+
+def spec_api_round(engine, gate, prompts, eager=False, sink=None,
+                   n_tokens=SPEC_TOKENS):
+    """The 4 requests on the engine API, held by ``gate`` until all wait
+    (one prefill batch), in one event loop with the engine started and
+    stopped inside it (an engine left running in a closed loop hangs the
+    next round; the HTTP round's server stopped it). After the warm-up,
+    ``eager`` sets the graphs aside and ``sink`` keeps every dispatch
+    step's logits. Returns each stream's tokens."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    r = engine.runner
+    saved = r.decode_train.graphs
+
+    async def run():
+        await engine.start()
+        if eager:
+            r.decode_train.graphs = {}
+        r.logits_sink = sink
+        gate["want"] = 4
+
+        async def one(i):
+            last = None
+            async for o in engine.generate(prompt=prompts[i], sampling=SamplingParams(
+                    max_tokens=n_tokens, ignore_eos=True, **SPEC_SAMPLINGS[i])):
+                last = o
+            return last.token_ids
+
+        try:
+            return await asyncio.gather(*[one(i) for i in range(4)])
+        finally:
+            await engine.stop()
+
+    try:
+        return asyncio.run(run())
+    finally:
+        r.decode_train.graphs = saved
+        r.logits_sink = None
+
+
+def spec_eager_logits(torch, engine, gate, prompts, what):
+    """The same 4 requests through the strict eager loop, cold as the HTTP
+    round was (the same prefill batch), every decode step's full f32
+    logits kept: (tokens per stream, sampler margin per stream and token
+    index). Rows run in lockstep (one prefill batch; each decode dispatch
+    takes all 4), so sink entry t holds token t's logits (0: the
+    prefill's)."""
+    engine.block_manager.reset_prefix_cache()
+    sink = []
+    toks = spec_api_round(engine, gate, prompts, eager=True, sink=sink)
+    margins = [[sampler_margin(torch, sink[t][i].float(), SPEC_SAMPLINGS[i], t)
+                for t in range(SPEC_TOKENS)] for i in range(4)]
+    log(f"spec {what}: eager logits of {len(sink)} dispatch steps kept; "
+        f"margins under 0.05 per stream: "
+        f"{[sum(m < 0.05 for m in row) for row in margins]}")
+    return toks, margins
+
+
+def sampler_margin(torch, logits, sampling, gen):
+    """In logit units, how far the sampler's pick at generation index
+    ``gen`` stands above the runner-up: the top-2 gap of the raw logits for
+    a greedy row; of the field an unfiltered seeded row takes its argmax of
+    (logits / T + the row's Gumbel field), times T. A logit change smaller
+    than half of it cannot change the pick."""
+    from production_stack_tpu_torch.engine.sampling import gumbel_noise, token_seed
+
+    temp = sampling.get("temperature", 1.0)
+    if temp <= 0.0:
+        top2 = torch.topk(logits, 2).values
+        return float(top2[0] - top2[1])
+    g = gumbel_noise([token_seed(sampling["seed"], gen)], logits.shape[-1],
+                     logits.device)[0]
+    top2 = torch.topk(logits / temp + g, 2).values
+    return float((top2[0] - top2[1]) * temp)
+
+
+def spec_graph_vs_eager(engine, gate, prompts, what):
+    """Graph replays against the strict eager train on the engine API, on
+    the same batches (both rounds find the same prefix-cache state): tokens
+    bit for bit."""
+    runs = {mode: spec_api_round(engine, gate, prompts, eager=mode == "eager")
+            for mode in ("graph", "eager")}
+    if runs["graph"] != runs["eager"]:
+        bad = [i for i in range(4) if runs["graph"][i] != runs["eager"][i]]
+        fail(f"spec {what}: graph replay tokens differ from the strict eager "
+             f"train on streams {bad}")
+    return True
+
+
+def spec_trace(torch, engine, gate, prompts, what):
+    """One engine-API round of the 4 requests under torch.profiler (graph
+    replays): busy share, device ms by kernel class, the top kernels."""
+    tr = trace_requests(
+        torch, lambda n: spec_api_round(engine, gate, prompts, n_tokens=n),
+        SPEC_TOKENS)
+    log(f"spec {what} trace {json.dumps(tr)}")
+    return {k: tr[k] for k in ("wall_s", "device_busy_s", "busy_share",
+                               "ms_by_class", "top_ms")}
+
+
+def spec_token_bar(on, off, margins, bound):
+    """Tokens of a spec-on round equal spec-off's up to the first index
+    where spec-off's sampler margin (``sampler_margin``) is under
+    ``bound``: returns (each stream's first divergence index or None, and
+    the margin there; whether the bar holds)."""
+    firsts, ok = [], True
+    for i in range(4):
+        t = next((t for t in range(SPEC_TOKENS) if on[i][t] != off[i][t]), None)
+        firsts.append(None if t is None else [t, margins[i][t]])
+        if t is not None and all(m >= bound for m in margins[i][:t + 1]):
+            ok = False
+    return firsts, ok
+
+
+def spec_phase(torch, pa, device, seed, card, pairs=SPEC_PAIRS):
+    """Speculative decoding at full width and depth, both pairs, four
+    modes each behind the HTTP server; returns the summary."""
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+    from production_stack_tpu_torch.models import get_model_fns
+    from production_stack_tpu_torch.models.config import resolve_model_config
+
+    prompts = spec_prompts(seed)
+    out = {"card": card, "n": SPEC_N, "tokens": SPEC_TOKENS, "pairs": {}}
+    launches_off = 0
+    for pair, target, draft in pairs:
+        mc, dmc = resolve_model_config(target), resolve_model_config(draft)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        t0 = time.monotonic()
+        params = get_model_fns(mc)[0](mc, gen, torch.bfloat16, device)
+        draft_params = None
+        if draft != target:
+            gen.manual_seed(seed + 1)
+            draft_params = get_model_fns(dmc)[0](dmc, gen, torch.bfloat16, device)
+        log(f"spec {pair}: {target} <- {draft} weights in "
+            f"{time.monotonic() - t0:.1f} s")
+        bound = 2 * tp_logit_bound(mc.num_layers, 4 * SPEC_TOKENS)
+        rows, off = {}, None
+        for mode, fields in SPEC_MODES:
+            what = f"{pair} {mode}"
+            t0 = time.monotonic()
+            engine = ServingEngine(spec_config(target, draft, fields, seed,
+                                               device=device.type),
+                                   params=params, draft_params=draft_params)
+            up_s = time.monotonic() - t0
+            gate = gate_schedule(engine)
+            toks, row, st = spec_http_round(torch, pa, engine, gate, prompts,
+                                            what)
+            row["engine_up_s"] = up_s
+            row["attn_impl"] = st["attn_impl"]
+            if mode == "off":
+                off = toks
+                eager_toks, margins = spec_eager_logits(torch, engine, gate,
+                                                        prompts, what)
+                row["eager_equal_graph"] = eager_toks == toks
+                if not row["eager_equal_graph"]:
+                    fail(f"spec {what}: strict eager tokens differ from the "
+                         "graph round's")
+                # The paged kernel, exactly once per layer and decode step
+                # (spec-off resolves to it on the card).
+                n, steps = row["launches"][pa.BF16], st["decode_steps_total"]
+                if device.type == "cuda" and (
+                        engine.runner.attn_impl != "paged"
+                        or n != mc.num_layers * steps or not steps):
+                    fail(f"spec {what}: {n} paged-kernel launches over "
+                         f"{steps} decode steps of {mc.num_layers} layers "
+                         f"(attn {engine.runner.attn_impl})")
+                launches_off += n
+            else:
+                first, ok = spec_token_bar(toks, off, margins, bound)
+                row["first_divergence"] = first
+                row["margin_bound"] = bound
+                if not ok:
+                    fail(f"spec {what}: tokens part from spec-off at "
+                         f"{first} ([index, margin] per stream) where every "
+                         f"spec-off margin up to it is at least {bound:.4f}")
+                # Eager rejection-path rounds are slow at 8b (63 cycles):
+                # the cross pair holds its linear mode to strict eager.
+                if pair == "self" or mode == "linear":
+                    row["graph_equal_eager"] = spec_graph_vs_eager(
+                        engine, gate, prompts, what)
+                if st["spec_draft_tokens_total"] <= 0 and mode != "adaptive":
+                    fail(f"spec {what}: no draft proposals counted")
+            if mode in ("off", "linear") and device.type == "cuda":
+                row["trace"] = spec_trace(torch, engine, gate, prompts, what)
+            rows[mode] = row
+            engine.shutdown()
+            del engine
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        out["pairs"][pair] = {"target": target, "draft": draft, "modes": rows}
+        del params, draft_params
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return launches_off, out
+
+
+def spec_f32_identity(torch, device, seed):
+    """float32 on the card, tiny-llama with the tiny-llama self-draft and
+    the tiny-opt cross draft: the four modes' tokens equal spec-off's bit
+    for bit, greedy, seeded and seeded with top-p / top-k, graphs
+    captured."""
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    prompts = ["four mode parity on the card", "a second stream"]
+    sps = [SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True),
+           SamplingParams(temperature=0.9, seed=1234, max_tokens=24,
+                          ignore_eos=True),
+           SamplingParams(temperature=0.8, top_p=0.9, top_k=50, seed=5,
+                          max_tokens=24, ignore_eos=True)]
+
+    def serve(fields, draft):
+        cfg = spec_config("tiny-llama", draft, fields, seed, device=device.type,
+                          dtype="float32", max_model_len=256, num_kv_blocks=128,
+                          num_decode_steps=8)
+        engine = ServingEngine(cfg)
+
+        async def run():
+            await engine.start()
+            got = []
+            for p in prompts:
+                for sp in sps:
+                    last = None
+                    async for o in engine.generate(prompt=p, sampling=sp):
+                        last = o
+                    got.append(last.token_ids)
+            st = engine.stats()
+            await engine.stop()
+            return got, st
+
+        got, st = asyncio.run(run())
+        engine.shutdown()
+        return got, st
+
+    off, _ = serve({}, None)
+    out = {}
+    for draft in ("tiny-llama", "tiny-opt"):
+        for mode, fields in SPEC_MODES[1:]:
+            got, st = serve(fields, draft)
+            if got != off:
+                fail(f"spec f32 {draft} {mode}: tokens differ from spec-off")
+            if device.type == "cuda" and st["decode_eager_dispatches_total"]:
+                fail(f"spec f32 {draft} {mode}: eager decode dispatches")
+            out[f"{draft} {mode}"] = {"equal": True,
+                                      "acceptance": st["spec_acceptance_rate"]}
+    log(f"spec f32 identity: {json.dumps(out)}")
+    return out
+
+
 def main() -> None:
     t_main = time.monotonic()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="kernel,serving,graphs,check,tp,surface,kvtier",
+                    default="kernel,serving,graphs,check,tp,surface,kvtier,spec",
                     help="comma list of kernel,serving,graphs,check,tp,surface,"
-                         "kvtier,trace (build always runs; trace profiles one "
-                         "more served round after serving)")
+                         "kvtier,spec,trace (build always runs; trace profiles "
+                         "one more served round after serving)")
     ap.add_argument("--tp-kernel-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # a rank of the tp phase's kernel check
     ap.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
@@ -3088,6 +3531,9 @@ def main() -> None:
     # launches by main path: each path's counts are set to 0 just before
     # it and read just after it.
     by_path = {"bf16": {}, "int8": {}}
+    # (phase, its start): the summary's seconds per phase.
+    marks = [("build", t_main)]
+    marks.append(("serving", time.monotonic()))
     if "serving" in phases:
         rows = {}
         for kv in ("bfloat16", "int8"):
@@ -3102,6 +3548,7 @@ def main() -> None:
             "kv_blocks", "wall_s", "ttft_s_streamed", "decode_ms_per_step_events",
             "aggregate_tok_s", "dispatch_overlap_ratio", "peak_mem_gib", "decode_steps",
             "launches", "graphs", "sm_clock_mhz")} for kv, r in rows.items()})
+    marks.append(("graphs", time.monotonic()))
     if "graphs" in phases:
         rows = graphs_phase(torch, pa, device, args.seed, card)
         window = graphs_window_check(torch, args.seed)
@@ -3121,6 +3568,7 @@ def main() -> None:
                 "graph_pool_bytes_logprobs")} for r in rows if r["mode"] == "graph"],
             "overlap_round": [r["overlap_round"] for r in rows if r.get("overlap_round")],
             "tokens_graph_equal_eager": True, **window})
+    marks.append(("check", time.monotonic()))
     if "check" in phases:
         summary("check", {"bf16": check_phase(torch, device, args.seed, False),
                           "int8": check_phase(torch, device, args.seed, True),
@@ -3129,6 +3577,7 @@ def main() -> None:
     # each run is one main path of paged_flash_decode_stats_tp (its launch
     # counts, summed over the ranks, set to 0 before it and read after it).
     tp_launches, tp_rows = None, {}
+    marks.append(("tp", time.monotonic()))
     if "tp" in phases:
         tp = {}
         tp_launches = 0
@@ -3150,6 +3599,7 @@ def main() -> None:
             "kernel": {v: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "library_ms", "max_abs_err")}
                        for v, r in tp_rows.items()}})
+    marks.append(("surface", time.monotonic()))
     if "surface" in phases:
         n, surface = surface_phase(torch, pa, device, args.seed, card)
         by_path["bf16"]["surface"] = n
@@ -3158,6 +3608,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     # The KV tier: one cache server for both KV dtypes (their keys live in
     # separate namespaces); each dtype's run is one main path.
+    marks.append(("kvtier", time.monotonic()))
     if "kvtier" in phases:
         from production_stack_tpu_torch.launch import launch_kv_server
 
@@ -3194,7 +3645,39 @@ def main() -> None:
             "stats": r["stats"]} for kv, r in kvt.items()})
         gc.collect()
         torch.cuda.empty_cache()
+    # Speculative decoding: both pairs, four modes each; the spec-off
+    # rounds are main paths of the bf16 kernel variant.
+    marks.append(("spec", time.monotonic()))
+    if "spec" in phases:
+        n, spec = spec_phase(torch, pa, device, args.seed, card)
+        by_path["bf16"]["spec"] = n
+        spec["f32_identity"] = spec_f32_identity(torch, device, args.seed)
+        keys = ("ms_per_dispatch_events", "ms_per_row_token_events",
+                "ms_per_token_events", "aggregate_tok_s", "ttft_s", "acceptance", "draft_depth_mean",
+                "tokens_per_target_step", "cycles_run", "cycles_live",
+                "gamma0_dispatches", "graph_families", "graphs_captured",
+                "graph_pool_bytes", "graph_capture_seconds", "peak_mem_gib",
+                "first_divergence", "decode_dispatches", "decode_tokens")
+        summary("spec", {
+            "card": card, "n": SPEC_N, "tokens": SPEC_TOKENS,
+            "fields": list(keys),
+            "pairs": {pair: {mode: [r.get(k) for k in keys]
+                             for mode, r in v["modes"].items()}
+                      for pair, v in spec["pairs"].items()},
+            "sm_clock_mhz": {f"{pair} {mode}": (
+                r["sm_clock_mhz"]["mean"] if isinstance(r["sm_clock_mhz"], dict)
+                else None) for pair, v in spec["pairs"].items()
+                for mode, r in v["modes"].items()},
+            "f32_identity": spec["f32_identity"],
+            "trace": {f"{pair} {mode}": {k: r["trace"][k] for k in (
+                "wall_s", "device_busy_s", "busy_share", "ms_by_class")}
+                for pair, v in spec["pairs"].items()
+                for mode, r in v["modes"].items() if "trace" in r},
+            "graph_equal_eager": True, "metrics_equal_stats": True})
+        gc.collect()
+        torch.cuda.empty_cache()
     rows = []
+    marks.append(("kernel", time.monotonic()))
     if "kernel" in phases:
         graph_check(torch, pa, device, args.seed, main_lens)
         rows = kernel_phase(torch, pa, device, args.seed, main_lens)
@@ -3243,7 +3726,9 @@ def main() -> None:
         **{key: tp_row.get(key) for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     })
-    summary("smoke", {"seconds": time.monotonic() - t_main})
+    marks.append(("end", time.monotonic()))
+    summary("smoke", {"seconds": time.monotonic() - t_main, "phase_seconds": {
+        a[0]: b[1] - a[1] for a, b in zip(marks, marks[1:]) if b[1] - a[1] > 0.5}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,12 @@ from production_stack_tpu_torch.ops.quantization import (
 )
 
 _ITEMSIZE = {"bfloat16": 2, "float16": 2, "float32": 4}
+_SPEC_MESH_ERROR = (
+    "--speculative-num-tokens is incompatible with "
+    "--tensor-parallel-size/--sequence-parallel-size > 1: speculative "
+    "decoding currently requires a single-device mesh (tp=sp=1) — the "
+    "draft-KV ring pools and the batched verify chunk are not mesh-sharded "
+    "yet.")
 
 
 @dataclass
@@ -107,6 +113,33 @@ class EngineConfig:
     kv_restore_prefill_tok_s: float = field(
         default_factory=lambda: float(
             os.environ.get("PSTPU_KV_RESTORE_PREFILL_TOK_S", "4000")))
+    # --- speculative decoding (the reference's fields and defaults) ---
+    # Draft-ahead tokens N per verify: each cycle of the speculative decode
+    # train runs the DRAFT model N+1 single-token steps, scores the chunk
+    # with ONE target forward, and accepts the longest prefix of proposals
+    # equal to the target's own (seeded) samples, so spec-on output is
+    # token-identical to spec-off, greedy and seeded. 0 disables.
+    speculative_num_tokens: int = 0
+    # The draft (a named config; the target itself for a self-draft). It
+    # must share the target's vocabulary. Its KV lives in per-sequence
+    # rings in the compute dtype, outside the paged pool.
+    speculative_model: Optional[str] = None
+    # Draft KV ring length in tokens per sequence (0 = max_model_len).
+    speculative_draft_window: int = 1024
+    # Per-sequence draft depth gamma in [0, N] from an acceptance EMA
+    # (runner.SpecGammaController); a dispatch whose rows all sit at
+    # gamma 0 runs the plain decode train.
+    speculative_adaptive: bool = False
+    # Token-tree width W: W alternatives at the first speculated position,
+    # verified in the same target forward under a tree attention bias
+    # (ops/tree_mask.py). 1 = linear speculation.
+    speculative_tree_width: int = 1
+    # The adaptive controller's shape: the newest observation's weight,
+    # the expected-value floor (gamma = largest g with ema^g >= it), and
+    # the re-probe period of a gamma-0 row (0: never).
+    speculative_ema_decay: float = 0.35
+    speculative_gamma_threshold: float = 0.5
+    speculative_probe_period: int = 16
     seed: int = 0
     served_model_name: Optional[str] = None
     # Peak HBM bandwidth (GB/s) of one card, the ceiling of the live
@@ -130,6 +163,16 @@ class EngineConfig:
                 f"(supported: {', '.join(KV_CACHE_DTYPES)})"
             )
         self.validate_parallelism()
+        if not self.speculative_num_tokens and (
+            self.speculative_adaptive or self.speculative_tree_width > 1
+        ):
+            raise ValueError(
+                "--speculative-adaptive/--speculative-tree-width modify the "
+                "speculative decode train and require "
+                "--speculative-num-tokens > 0 (plus --speculative-model)"
+            )
+        if self.speculative_num_tokens:
+            self.resolved_draft_config()
         self.validate_kv_tier()
 
     @property
@@ -144,8 +187,7 @@ class EngineConfig:
     def validate_parallelism(self) -> None:
         """The tp degree against the other knobs (the reference's
         ``validate_parallelism``); raises a ValueError naming the flags at
-        fault. Speculation is not ported, so its tp rule has no
-        counterpart here."""
+        fault."""
         from production_stack_tpu_torch.models.config import (
             resolve_model_config,
         )
@@ -155,9 +197,17 @@ class EngineConfig:
         if tp < 1:
             raise ValueError(
                 f"--tensor-parallel-size must be >= 1, got {tp}")
+        if self.speculative_num_tokens and tp > 1:
+            raise ValueError(_SPEC_MESH_ERROR + " Drop the speculative flags "
+                             "to serve on the mesh, or serve speculatively "
+                             "on one chip.")
         if tp == 1:
             return
         mc = resolve_model_config(self.model)
+        if mc.arch != "llama":
+            raise ValueError(
+                f"--tensor-parallel-size {tp} serves the llama family only; "
+                f"model {self.model!r} is arch {mc.arch!r}")
         if self.kv_cache_quantized and (mc.num_kv_heads % tp
                                         or mc.num_heads % tp):
             raise ValueError(
@@ -195,9 +245,90 @@ class EngineConfig:
                 f"restores into tp = 1; serve with --tensor-parallel-size 1 "
                 f"or without --kv-offload-cpu / --kv-remote-url / --role")
 
+    @property
+    def speculative_enabled(self) -> bool:
+        return self.speculative_num_tokens > 0
+
+    def resolved_draft_config(self):
+        """The speculative draft's ModelConfig, validated against this
+        engine's target (the reference's ``resolved_draft_config``, its
+        refusals and messages); raises ValueError on every pairing the
+        draft/verify train cannot serve."""
+        from production_stack_tpu_torch.models.config import (
+            resolve_model_config,
+        )
+
+        n = self.speculative_num_tokens
+        if n < 0 or n > 16:
+            raise ValueError(
+                f"--speculative-num-tokens must be in [0, 16], got {n}"
+            )
+        if not self.speculative_model:
+            raise ValueError(
+                "--speculative-num-tokens > 0 requires --speculative-model "
+                "(the draft; e.g. facebook/opt-125m, or the target model "
+                "itself for a self-draft parity configuration)"
+            )
+        if self.kv_cache_quantized:
+            raise ValueError(
+                "speculative decoding requires --kv-cache-dtype bfloat16: "
+                "the batched verify step attends the in-chunk draft KV "
+                "unquantized, so int8 pools would break the spec-on == "
+                "spec-off token-identity bar (draft KV is always kept in "
+                "the compute dtype)"
+            )
+        if self.tensor_parallel_size > 1:
+            raise ValueError(_SPEC_MESH_ERROR)
+        w = self.speculative_tree_width
+        if w < 1 or w > 8:
+            raise ValueError(
+                f"--speculative-tree-width must be in [1, 8], got {w} "
+                f"(width 1 is linear speculation; wider trees multiply "
+                f"verify-chunk FLOPs with sharply diminishing acceptance "
+                f"returns past the first few alternatives)"
+            )
+        if not 0.0 < self.speculative_ema_decay <= 1.0:
+            raise ValueError(
+                f"speculative_ema_decay must be in (0, 1], got "
+                f"{self.speculative_ema_decay}"
+            )
+        if self.speculative_gamma_threshold <= 0.0:
+            raise ValueError(
+                f"speculative_gamma_threshold must be > 0, got "
+                f"{self.speculative_gamma_threshold} (values > 1 pin every "
+                f"row to gamma=0 — the spec-off-degradation test "
+                f"configuration)"
+            )
+        if self.speculative_probe_period < 0:
+            raise ValueError(
+                f"speculative_probe_period must be >= 0, got "
+                f"{self.speculative_probe_period}"
+            )
+        target = resolve_model_config(self.model)
+        draft = resolve_model_config(self.speculative_model)
+        if draft.vocab_size != target.vocab_size:
+            raise ValueError(
+                f"speculative draft {self.speculative_model!r} is tokenizer-"
+                f"incompatible with target {self.model!r}: draft vocab "
+                f"{draft.vocab_size} != target vocab {target.vocab_size} "
+                f"(draft proposals are accepted by token id, so the two "
+                f"models must share one tokenizer/vocabulary)"
+            )
+        return draft
+
+    @property
+    def speculative_ring_len(self) -> int:
+        """Draft KV ring length in tokens (0 = track the full context)."""
+        w = self.speculative_draft_window
+        if w <= 0:
+            return self.max_model_len
+        return min(w, self.max_model_len)
+
     def resolved_attn_impl(self, model_config) -> str:
         """Resolve the decode attention implementation for ``model_config``
-        (see the attn_impl field comment)."""
+        (see the attn_impl field comment). Speculation runs on the window
+        path: ``auto`` resolves to it and ``paged`` is an error, as in the
+        reference (which departs from its own default the same way)."""
         on_cuda = self.torch_device.type == "cuda"
         # tp > 1: each rank runs the kernel over its own kv heads
         # (paged_flash_decode_stats_tp), exact only when tp divides both
@@ -215,7 +346,14 @@ class EngineConfig:
             and (not on_cuda or self.dtype == "bfloat16")
         )
         v = self.attn_impl
-        if v == "window":
+        if self.speculative_enabled and v == "paged":
+            raise ValueError(
+                "speculative decoding requires the window attention path "
+                "(the paged flash-decode kernel serves single-token "
+                "queries; the batched verify step is a multi-token chunk) "
+                "— drop attn_impl=paged or --speculative-num-tokens"
+            )
+        if v == "window" or (self.speculative_enabled and v == "auto"):
             return "window"
         if v == "paged":
             if not supported:

@@ -1,5 +1,7 @@
 """The fused K-step decode train as head / step / tail over static buffers,
-and its CUDA graphs per (b, mb, K, penalties, logprobs) family.
+the speculative draft/verify train as head / cycles (N + 1 draft steps and
+a verify) / tail, and their CUDA graphs per (b, mb, K, penalties,
+logprobs, speculative) family.
 
 Counterpart of the body of ``production_stack_tpu/engine/runner.py``
 ``_decode_impl`` (the reference compiles the whole train as one XLA program
@@ -39,8 +41,30 @@ At tensor_parallel_size > 1 nothing is captured: the forward's collectives
 (gloo, host-staged, when ranks share a card) cannot be captured, and NCCL
 capture is not ported yet. Every rank runs the train eagerly, and each
 decode dispatch counts in ``decode_eager_dispatches_total``.
+
+The speculative train (``speculative_num_tokens`` N > 0; the reference's
+``_decode_spec``) replaces the step with a CYCLE: N + 1 draft-model steps
+from each row's last accepted token (one draft-step graph replayed N + 1
+times, the step index a device scalar; its KV in the row's draft ring,
+gathered from the runner's ring pools by slot in the head and scattered
+back in the tail), ONE target forward over the [b, N + 1] verify chunk
+(N + W nodes under the tree bias at tree width W > 1), the target's own
+samples under the generation-index seed schedule, the deterministic accept
+rule (``sampling.speculative_accept`` / ``speculative_tree_accept``), and
+the commit of the accepted path's KV into an intra-dispatch ring that the
+tail scatters to the pool once. A cycle emits 1 to N + 1 tokens per row; the
+reference loops ``while cycle < K and any(budget > 0)``, which a graph
+cannot hold, so ``run`` replays the first ceil(max budget / (N + 1))
+cycles unconditionally (no dispatch ends sooner) and then groups of
+``SPEC_GROUP`` cycles while a pinned "any budget left" flag says so. A
+cycle after every row's budget is spent writes nothing but its own
+(ignored) record, so the replayed count never changes a token. Scatters
+that the reference drops (padding rows, rows at gamma 0, rejected tail
+entries) land in a TRASH row or slot one past the live ones, never in
+another row's entries.
 """
 
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -52,9 +76,12 @@ from production_stack_tpu_torch.engine.sampling import (
     compute_logprobs,
     gumbel_noise,
     sample_tokens,
+    sampling_scores,
+    speculative_accept,
+    speculative_tree_accept,
     token_seeds,
+    top_k_like_jax,
 )
-from production_stack_tpu_torch.models import llama
 from production_stack_tpu_torch.ops import paged_attention as pa
 from production_stack_tpu_torch.ops.attention import gather_window
 from production_stack_tpu_torch.ops.quantization import (
@@ -71,12 +98,16 @@ POS_SENTINEL = 2**30  # ring_pos value for not-yet-written entries
 # buffer (the reference's layout, floats and uint32 bitcast). Decode:
 # 0 tokens0, 1 pos0, 2 budget, 3 seed_base, 4 gen0, 5 temperature,
 # 6 top_k, 7 top_p, 8 adapter, 9 presence, 10 frequency, 11 chain_src,
-# 12 spec slot, 13 spec gamma (8, 12 and 13 stay 0: LoRA and speculation
-# are not ported).
+# 12 the row's draft-ring slot (the trash slot for padding rows), 13 its
+# draft depth gamma in [0, N] (8 stays 0: LoRA is not ported; 12 and 13
+# are read by the speculative train only).
 NUM_SCALARS = 14
+# Cycles the speculative train replays between two reads of its "any
+# budget left" flag, once no row can have finished.
+SPEC_GROUP = 2
 
-# (b, mb, K, has_penalties, logprobs bucket; 0 = no logprobs)
-FamilyKey = Tuple[int, int, int, bool, int]
+# (b, mb, K, has_penalties, logprobs bucket (0 = no logprobs), speculative)
+FamilyKey = Tuple[int, int, int, bool, int, bool]
 
 
 @dataclass
@@ -107,8 +138,47 @@ class DecodeBuffers:
 
 
 @dataclass
+class SpecBuffers:
+    """One speculative family's views into the arena. Rings carry one row
+    past the batch (index b), the trash of masked scatters."""
+    b: int
+    mb: int
+    k: int
+    packed: torch.Tensor        # int32 [NUM_SCALARS*b + b*mb] (input)
+    counts: Optional[torch.Tensor]  # int32 [b, V] (input; carried)
+    toks: torch.Tensor          # int32 [b] last accepted token
+    pos: torch.Tensor           # int32 [b] next position
+    gen_off: torch.Tensor       # int64 [b] tokens emitted this dispatch
+    rem: torch.Tensor           # int32 [b] budget left
+    base: torch.Tensor          # int32 [b] next intra-dispatch ring entry
+    j: torch.Tensor             # int64 [1] cycle index
+    i: torch.Tensor             # int64 [1] draft step index in the cycle
+    dtok: torch.Tensor          # int32 [b] the draft step's input token
+    props: torch.Tensor         # int32 [b, N+1] the cycle's draft samples
+    l1: Optional[torch.Tensor]  # f32 [b, V] step 0's sampling field (tree)
+    flag: torch.Tensor          # int32 [1] any row with budget left
+    ring_k: torch.Tensor        # [L, Hkv, b+1, K+N+1, Dh] target KV
+    ring_v: torch.Tensor
+    ring_pos: torch.Tensor      # int32 [b+1, K+N+1]
+    dr_k: torch.Tensor          # [Ld, Hd, b+1, R, Dd] draft rings
+    dr_v: torch.Tensor
+    dr_pos: torch.Tensor        # int32 [b+1, R]
+    win: Tuple[torch.Tensor, torch.Tensor]
+    stats: torch.Tensor         # int32 [4, b] drafts, accepted, tree nodes,
+    #                             live cycles (output)
+    toks_all: torch.Tensor      # int32 [K, N+1, b] verify samples (output)
+    emits: torch.Tensor         # int32 [K, b] tokens emitted per cycle
+    last: torch.Tensor          # int32 [b_max] (output)
+    lpk: int = 0
+    lp_chosen: Optional[torch.Tensor] = None   # f32 [K, N+1, b]
+    lp_top: Optional[torch.Tensor] = None      # f32 [K, N+1, b, lpk]
+    lp_ids: Optional[torch.Tensor] = None      # int32 [K, N+1, b, lpk]
+
+
+@dataclass
 class FamilyGraphs:
-    """The three graphs of one family and their node counts."""
+    """The graphs of one family (head, step, tail; speculative: head,
+    draft, verify, tail) and their node counts."""
     graphs: Dict[str, "torch.cuda.CUDAGraph"] = field(default_factory=dict)
     nodes: Dict[str, int] = field(default_factory=dict)
 
@@ -134,6 +204,10 @@ class DecodeTrain:
         # batch at b > 1), and those that replayed graphs.
         self.eager_dispatches_total = 0
         self.graph_dispatches_total = 0
+        # Speculative cycles run (replayed or eager), over all dispatches.
+        self.spec_cycles_total = 0
+        self._flag_host = None      # pinned int32 [1]: the cycle flag read
+        self._flag_event = None
         self._warned: set = set()
 
     # ------------------------------------------------------------ buffers
@@ -153,7 +227,11 @@ class DecodeTrain:
         return buf[:n].view(shape)
 
     def buffers(self, b: int, mb: int, k: int, pen: bool,
-                lpk: int = 0) -> DecodeBuffers:
+                lpk: int = 0, spec: bool = False):
+        """The family's buffers: ``DecodeBuffers``, or ``SpecBuffers`` for a
+        speculative family."""
+        if spec:
+            return self._spec_buffers(b, mb, k, pen, lpk)
         r = self.r
         nl, hkv, dh = self._shapes
         ring = (nl, hkv, b, k, dh)
@@ -192,8 +270,56 @@ class DecodeTrain:
                     if lpk else None),
         )
 
+    def _spec_buffers(self, b: int, mb: int, k: int, pen: bool,
+                      lpk: int) -> SpecBuffers:
+        r = self.r
+        nl, hkv, dh = self._shapes
+        dmc = r.spec_draft_config
+        n1 = r.spec_n + 1
+        s_ring = k + n1
+        r_len = r.spec_ring_len
+        dring = (dmc.num_layers, dmc.num_kv_heads, b + 1, r_len, dmc.head_dim_)
+        win = (nl, hkv, b, mb * r.config.block_size, dh)
+
+        def i32(name, *shape):
+            return self._view(name, shape, torch.int32)
+
+        return SpecBuffers(
+            b=b, mb=mb, k=k,
+            packed=i32("packed", NUM_SCALARS * b + b * mb),
+            counts=(i32("counts", b, r.model_config.vocab_size)
+                    if pen else None),
+            toks=i32("toks", b), pos=i32("s_pos", b),
+            gen_off=self._view("s_gen_off", (b,), torch.int64),
+            rem=i32("s_rem", b), base=i32("s_base", b),
+            j=self._view("j", (1,), torch.int64),
+            i=self._view("s_i", (1,), torch.int64),
+            dtok=i32("s_dtok", b), props=i32("s_props", b, n1),
+            l1=(self._view("s_l1", (b, r.model_config.vocab_size),
+                           torch.float32) if r.spec_tree_width > 1 else None),
+            flag=i32("s_flag", 1),
+            ring_k=self._view("s_ring_k", (nl, hkv, b + 1, s_ring, dh), r.dtype),
+            ring_v=self._view("s_ring_v", (nl, hkv, b + 1, s_ring, dh), r.dtype),
+            ring_pos=i32("s_ring_pos", b + 1, s_ring),
+            dr_k=self._view("s_dr_k", dring, r.dtype),
+            dr_v=self._view("s_dr_v", dring, r.dtype),
+            dr_pos=i32("s_dr_pos", b + 1, r_len),
+            win=(self._view("win_k", win, r.dtype),
+                 self._view("win_v", win, r.dtype)),
+            stats=i32("s_stats", 4, b),
+            toks_all=i32("s_toks_all", k, n1, b),
+            emits=i32("s_emits", k, b),
+            last=i32("last", self.b_max),
+            lpk=lpk,
+            lp_chosen=(self._view("s_lp_chosen", (k, n1, b), torch.float32)
+                       if lpk else None),
+            lp_top=(self._view("s_lp_top", (k, n1, b, lpk), torch.float32)
+                    if lpk else None),
+            lp_ids=i32("s_lp_ids", k, n1, b, lpk) if lpk else None,
+        )
+
     @staticmethod
-    def _scalars(bf: DecodeBuffers) -> torch.Tensor:
+    def _scalars(bf) -> torch.Tensor:
         return bf.packed[:NUM_SCALARS * bf.b].view(NUM_SCALARS, bf.b)
 
     # ---------------------------------------------------- head/step/tail
@@ -252,12 +378,12 @@ class DecodeTrain:
         else:
             (win_k, win_v), win_len, paged = bf.win, pos0, None
         ones = torch.ones((bf.b,), dtype=torch.int32, device=r.device)
-        hidden, k_new, v_new = llama.forward(
+        hidden, k_new, v_new = r.model_forward(
             r.params, mc, bf.toks[:, None], positions, ones, win_k, win_v,
             win_len, bf.ring_k, bf.ring_v, bf.ring_pos, paged=paged, tp=r.tp,
         )
-        logits = llama.compute_logits(r.params, mc, hidden[:, 0], r.head_f32,
-                                      tp=r.tp)
+        logits = r.model_logits(r.params, mc, hidden[:, 0], r.head_f32,
+                                tp=r.tp)
         if r.logits_sink is not None:
             r.logits_sink.append(logits.clone())
         eff = logits
@@ -321,41 +447,379 @@ class DecodeTrain:
         bf.last.zero_()
         bf.last[:bf.b].copy_(bf.toks)
 
+    # ------------------------------------ speculative head / cycle / tail
+    def spec_head(self, bf: SpecBuffers) -> None:
+        """Cycle state from the packed scalars, the rows' draft rings
+        gathered from the runner's ring pools by slot (padding rows read a
+        live slot harmlessly; their writes go to the trash), the window."""
+        r = self.r
+        bs = r.config.block_size
+        sc = self._scalars(bf)
+        tables = bf.packed[NUM_SCALARS * bf.b:].view(bf.b, bf.mb)
+        bf.toks.copy_(sc[0])
+        bf.pos.copy_(sc[1])
+        bf.rem.copy_(sc[2])
+        bf.gen_off.zero_()
+        bf.base.zero_()
+        bf.j.zero_()
+        bf.i.zero_()
+        bf.dtok.copy_(sc[0])
+        bf.props.zero_()
+        if bf.l1 is not None:
+            bf.l1.zero_()
+        bf.ring_k.zero_()
+        bf.ring_v.zero_()
+        bf.ring_pos.fill_(POS_SENTINEL)
+        slot_c = torch.clamp(sc[12], 0, r.spec_num_slots - 1).long()
+        bf.dr_k[:, :, :bf.b].copy_(r.spec_k[:, :, slot_c])
+        bf.dr_v[:, :, :bf.b].copy_(r.spec_v[:, :, slot_c])
+        bf.dr_pos[:bf.b].copy_(r.spec_pos[slot_c])
+        bf.stats.zero_()
+        bf.toks_all.zero_()
+        bf.emits.zero_()
+        if bf.lpk:
+            bf.lp_chosen.zero_()
+            bf.lp_top.zero_()
+            bf.lp_ids.zero_()
+        wk, wv = gather_window(r.kv_k, r.kv_v, tables, bs, None, None,
+                               out_dtype=r.dtype)
+        bf.win[0].copy_(wk)
+        bf.win[1].copy_(wv)
+        bf.flag.copy_((bf.rem > 0).any().int()[None])
+
+    def spec_cycle(self, bf: SpecBuffers) -> None:
+        """One draft / verify / accept cycle (the body of the reference's
+        ``_decode_spec`` while loop): N + 1 draft steps, then the verify.
+        Captured as two graphs, the draft step replayed N + 1 times."""
+        for _ in range(self.r.spec_n + 1):
+            self.spec_draft_step(bf)
+        self.spec_verify(bf)
+
+    def _spec_row_state(self, bf: SpecBuffers):
+        """(scalars, seed bases, gen index of the cycle's first token,
+        temperatures, top-k, top-p, gamma, gamma > 0, sampled rows, live
+        rows) of the cycle."""
+        sc = self._scalars(bf)
+        gamma = torch.clamp(sc[13], 0, self.r.spec_n)
+        temps = sc[5].view(torch.float32)
+        return (sc, sc[3], (sc[4].long() & 0xFFFFFFFF) + bf.gen_off, temps,
+                sc[6], sc[7].view(torch.float32), gamma, gamma > 0,
+                temps > 0.0, bf.rem > 0)
+
+    def spec_draft_step(self, bf: SpecBuffers) -> None:
+        """Draft step i of the cycle (i a device scalar, so one captured
+        graph serves every step): one draft-model token from ``dtok`` at
+        position pos + i into the row's draft ring, sampled with the seed
+        the target uses at that generation index (common random numbers);
+        step 0 also keeps its sampling field (the tree's alternates)."""
+        r, dmc = self.r, self.r.spec_draft_config
+        dev = r.device
+        b = bf.b
+        _, seed_b, gen, temps, top_k, top_p, _, g_on, sampled, live = \
+            self._spec_row_state(bf)
+        r_len = r.spec_ring_len
+        i = bf.i
+        dpos = (bf.pos + i).int()
+        dpos_c = torch.clamp(dpos, 0, r.spec_draft_max_pos - 1)
+        ones = torch.ones((b,), dtype=torch.int32, device=dev)
+        hid, dk, dv = r.draft_forward(
+            r.spec_params, dmc, bf.dtok[:, None], dpos_c[:, None], ones,
+            None, None, None, bf.dr_k[:, :, :b], bf.dr_v[:, :, :b],
+            bf.dr_pos[:b])
+        # gamma-0 rows and spent rows leave their draft ring untouched.
+        iota_b = torch.arange(b, device=dev)
+        widx = torch.where(live & g_on, iota_b * r_len + dpos % r_len,
+                           b * r_len)
+        bf.dr_k.view(*bf.dr_k.shape[:2], -1, bf.dr_k.shape[-1]).index_copy_(
+            2, widx, dk[:, :, :, 0])
+        bf.dr_v.view(*bf.dr_v.shape[:2], -1, bf.dr_v.shape[-1]).index_copy_(
+            2, widx, dv[:, :, :, 0])
+        bf.dr_pos.view(-1).index_copy_(0, widx, dpos)
+        logits_d = r.draft_logits(r.spec_params, dmc, hid[:, 0],
+                                  r.spec_head_f32)
+        gumbel = gumbel_noise(token_seeds(seed_b, gen + i),
+                              r.model_config.vocab_size, dev, rows=sampled)
+        prop = sample_tokens(logits_d, temps, top_k, top_p, gumbel).int()
+        bf.props.index_copy_(1, i, prop[:, None])
+        if bf.l1 is not None:
+            # The runner-ups of the field the sampler argmaxes: the tree's
+            # depth-1 alternates.
+            bf.l1.copy_(torch.where(i == 0, sampling_scores(
+                logits_d, temps, gumbel), bf.l1))
+        bf.dtok.copy_(prop)
+        i.add_(1)
+
+    def spec_verify(self, bf: SpecBuffers) -> None:
+        """The cycle's one target forward over the verify chunk, the
+        target's samples, the accept rule, the commit of the accepted path,
+        the draft-ring rollback; then j += 1 and the next cycle's draft
+        starts from the last accepted token."""
+        r, mc = self.r, self.r.model_config
+        dev = r.device
+        b, n, tw = bf.b, r.spec_n, r.spec_tree_width
+        n1 = n + 1
+        vocab = mc.vocab_size
+        sc, seed_b, gen, temps, top_k, top_p, gamma, g_on, sampled, live = \
+            self._spec_row_state(bf)
+        presence = sc[9].view(torch.float32)
+        frequency = sc[10].view(torch.float32)
+        iota_b = torch.arange(b, device=dev)
+        iota_n1 = torch.arange(n1, device=dev)
+        r_len = r.spec_ring_len
+        s_ring = bf.ring_pos.shape[1]
+        props_t = bf.props
+        l1 = bf.l1
+
+        # One target forward over the verify chunk.
+        if tw > 1:
+            l1 = l1.scatter(1, props_t[:, :1].long(),
+                            torch.full((b, 1), float("-inf"), device=dev))
+            alt_idx = top_k_like_jax(l1, tw - 1)[1].int()        # [b, W-1]
+            v_toks = torch.cat([bf.toks[:, None], props_t[:, :1], alt_idx,
+                                props_t[:, 1:n]], dim=1)         # [b, T_v]
+            node_gen = r.spec_tree_depths_dev
+            chunk_bias = r.spec_tree_bias
+        else:
+            v_toks = torch.cat([bf.toks[:, None], props_t[:, :n]], dim=1)
+            node_gen = iota_n1
+            chunk_bias = None
+        t_v = v_toks.shape[1]
+        v_pos = bf.pos[:, None] + node_gen[None, :].int()
+        v_pos_c = torch.clamp(v_pos, max=r.config.max_model_len - 1)
+        full = torch.full((b,), t_v, dtype=torch.int32, device=dev)
+        hid, k_new, v_new = r.model_forward(
+            r.params, mc, v_toks, v_pos_c, full, bf.win[0], bf.win[1],
+            sc[1], bf.ring_k[:, :, :b], bf.ring_v[:, :, :b],
+            bf.ring_pos[:b], chunk_bias=chunk_bias)
+        logits = r.model_logits(r.params, mc, hid, r.head_f32)  # [b, T_v, V]
+        seeds = token_seeds(seed_b[:, None], (gen[:, None]
+                                              + node_gen[None, :]))
+        if bf.counts is not None:
+            # Sequential over the main chain: position i's penalties count
+            # this cycle's earlier samples, as the one-token scan would.
+            chain = r.spec_main_chain.tolist() if tw > 1 else range(n1)
+            cnt = bf.counts.clone()
+            z_main = []
+            for c in chain:
+                eff = apply_penalties(logits[:, c], cnt, presence, frequency)
+                g = gumbel_noise(seeds[:, c], vocab, dev, rows=sampled)
+                zi = sample_tokens(eff, temps, top_k, top_p, g).int()
+                cnt[iota_b, zi.long()] += 1
+                z_main.append(zi)
+            z_main = torch.stack(z_main, dim=1)
+            if tw > 1:
+                # An alternate's only penalty delta is its own depth-0
+                # emission.
+                z = torch.zeros((b, t_v), dtype=torch.int32, device=dev)
+                z[:, r.spec_main_chain_dev] = z_main
+                for a in range(2, tw + 1):
+                    cnt_a = bf.counts.clone()
+                    cnt_a[iota_b, v_toks[:, a].long()] += 1
+                    eff_a = apply_penalties(logits[:, a], cnt_a, presence,
+                                            frequency)
+                    g = gumbel_noise(seeds[:, a], vocab, dev, rows=sampled)
+                    z[:, a] = sample_tokens(eff_a, temps, top_k, top_p,
+                                            g).int()
+            else:
+                z = z_main
+        else:
+            def rep(x):  # each row's value once per chunk node
+                return x[:, None].expand(b, t_v).reshape(-1)
+
+            g = gumbel_noise(seeds.reshape(-1), vocab, dev, rows=rep(sampled))
+            z = sample_tokens(logits.reshape(b * t_v, vocab), rep(temps),
+                              rep(top_k), rep(top_p), g).view(b, t_v).int()
+
+        # Accept and emit.
+        if tw > 1:
+            emit, acc, path_idx, main_len = speculative_tree_accept(
+                v_toks, z, r.spec_tree_parents, r.spec_tree_depths,
+                bf.rem, gamma)
+            z_path = torch.gather(z, 1, path_idx)
+            kidx = path_idx[None, None, :, :, None].expand(
+                k_new.shape[0], k_new.shape[1], b, n1, k_new.shape[-1])
+            k_path = torch.gather(k_new, 3, kidx)
+            v_path = torch.gather(v_new, 3, kidx)
+        else:
+            emit, acc = speculative_accept(props_t[:, :n], z, bf.rem,
+                                           gamma=gamma)
+            path_idx = iota_n1[None, :].expand(b, n1)
+            main_len = emit
+            z_path, k_path, v_path = z, k_new, v_new
+        c_pos = bf.pos[:, None] + iota_n1[None, :].int()        # [b, N+1]
+        valid_i = iota_n1[None, :] < emit[:, None]
+        if bf.counts is not None:
+            rows = iota_b[:, None].expand(b, n1)
+            bf.counts.index_put_((rows, z_path.long()), valid_i.int(),
+                                 accumulate=True)
+        if bf.lpk:
+            logits_path = (torch.gather(logits, 1, path_idx[:, :, None].expand(
+                b, n1, vocab)) if tw > 1 else logits)
+            lp_c, lp_t, lp_i = compute_logprobs(
+                logits_path.reshape(b * n1, vocab), z_path.reshape(-1), bf.lpk)
+            bf.lp_chosen.index_copy_(0, bf.j, lp_c.view(b, n1).t()[None])
+            bf.lp_top.index_copy_(
+                0, bf.j, lp_t.view(b, n1, bf.lpk).transpose(0, 1)[None])
+            bf.lp_ids.index_copy_(
+                0, bf.j, lp_i.view(b, n1, bf.lpk).transpose(0, 1)[None])
+
+        # Commit the accepted path's target KV at [base, base + emit) of
+        # the intra-dispatch ring; the rest goes to the trash row.
+        nl, hkv, dh = self._shapes
+        flat_r = torch.where(valid_i, iota_b[:, None] * s_ring
+                             + bf.base[:, None] + iota_n1[None, :],
+                             b * s_ring).reshape(-1)
+        rk_flat = bf.ring_k.view(nl, hkv, -1, dh)
+        rv_flat = bf.ring_v.view(nl, hkv, -1, dh)
+        rk_flat.index_copy_(2, flat_r, k_path.reshape(nl, hkv, b * n1, dh))
+        rv_flat.index_copy_(2, flat_r, v_path.reshape(nl, hkv, b * n1, dh))
+        bf.ring_pos.view(-1).index_copy_(0, flat_r, c_pos.reshape(-1))
+
+        # Draft-ring rollback: entries written from a token the target did
+        # not emit are masked; gamma-0 rows wrote nothing.
+        inval = ((iota_n1[None, :] >= main_len[:, None])
+                 & live[:, None] & g_on[:, None])
+        rb_idx = torch.where(inval, iota_b[:, None] * r_len + c_pos % r_len,
+                             b * r_len).reshape(-1)
+        bf.dr_pos.view(-1).index_fill_(0, rb_idx, POS_SENTINEL)
+
+        new_tok = torch.gather(z_path, 1,
+                               torch.clamp(emit - 1, 0, n)[:, None].long())[:, 0]
+        bf.toks.copy_(torch.where(emit > 0, new_tok, bf.toks))
+        bf.pos.add_(emit)
+        bf.gen_off.add_(emit)
+        bf.base.add_(emit)
+        bf.rem.sub_(emit)
+        zero = torch.zeros_like(gamma)
+        bf.stats[0].add_(torch.where(live, gamma, zero))
+        bf.stats[1].add_(torch.where(live, acc, zero))
+        bf.stats[2].add_(torch.where(live & g_on, tw - 1 + gamma, zero))
+        bf.stats[3].add_(live.int())
+        bf.toks_all.index_copy_(0, bf.j, z_path.t()[None])
+        bf.emits.index_copy_(0, bf.j, emit[None])
+        bf.j.add_(1)
+        bf.i.zero_()
+        bf.dtok.copy_(bf.toks)
+        bf.flag.copy_((bf.rem > 0).any().int()[None])
+
+    def spec_tail(self, bf: SpecBuffers) -> None:
+        """ONE pool scatter of the committed target KV (slots from the
+        ring's positions; uncommitted entries to the null block), the draft
+        rings back to their slots (padding rows to the trash slot), the
+        last-token vector."""
+        r = self.r
+        bs = r.config.block_size
+        nl, hkv, dh = self._shapes
+        b = bf.b
+        sc = self._scalars(bf)
+        tables = bf.packed[NUM_SCALARS * b:].view(b, bf.mb)
+        ring_pos = bf.ring_pos[:b]
+        valid = ring_pos < POS_SENTINEL
+        blk = torch.gather(tables, 1,
+                           torch.clamp(ring_pos // bs, 0, bf.mb - 1).long())
+        slots = torch.where(valid, blk * bs + ring_pos % bs,
+                            torch.zeros_like(blk)).reshape(-1).long()
+        r.kv_k[:, :, slots] = bf.ring_k[:, :, :b].reshape(nl, hkv, -1, dh)
+        r.kv_v[:, :, slots] = bf.ring_v[:, :, :b].reshape(nl, hkv, -1, dh)
+        slot_idx = sc[12].long()
+        r.spec_k.index_copy_(2, slot_idx, bf.dr_k[:, :, :b])
+        r.spec_v.index_copy_(2, slot_idx, bf.dr_v[:, :, :b])
+        r.spec_pos.index_copy_(0, slot_idx, bf.dr_pos[:b])
+        bf.last.zero_()
+        bf.last[:b].copy_(bf.toks)
+
+    def _spec_any_live(self, bf: SpecBuffers) -> bool:
+        """The host's read of the cycle flag (pinned, one event wait)."""
+        if self.r.device.type != "cuda":
+            return bool(bf.flag.item())
+        if self._flag_host is None:
+            self._flag_host = torch.empty((1,), dtype=torch.int32,
+                                          pin_memory=True)
+            self._flag_event = torch.cuda.Event()
+        self._flag_host.copy_(bf.flag, non_blocking=True)
+        self._flag_event.record()
+        self._flag_event.synchronize()
+        return bool(self._flag_host[0])
+
+    def _run_spec(self, fns, bf: SpecBuffers, max_cycles: int) -> int:
+        """head, the cycles, tail; returns the cycles run. No row finishes
+        before ceil(max budget / (N + 1)) cycles; after those, groups of
+        SPEC_GROUP while the flag says a budget is left, at most
+        ``max_cycles`` (the largest budget: every live cycle emits)."""
+        head, cycle, tail = fns
+        head()
+        first = min(max_cycles, math.ceil(max_cycles / (self.r.spec_n + 1)))
+        done = 0
+        for _ in range(first):
+            cycle()
+        done = first
+        while done < max_cycles and self._spec_any_live(bf):
+            for _ in range(min(SPEC_GROUP, max_cycles - done)):
+                cycle()
+                done += 1
+        tail()
+        self.spec_cycles_total += done
+        return done
+
     # -------------------------------------------------------------- run
-    def run(self, key: FamilyKey, bf: DecodeBuffers, n_steps: int) -> bool:
+    def run(self, key: FamilyKey, bf, n_steps: int):
         """The train of one dispatch on the current stream: the family's
-        graphs when captured, else eagerly. Returns whether it replayed."""
+        graphs when captured, else eagerly. ``n_steps``: the plain train's
+        steps, or the speculative train's cycle bound (the largest row
+        budget). Returns whether it replayed (plain) or the cycles run
+        (speculative)."""
         fam = self.graphs.get(key)
+        spec = key[5]
         if fam is None:
             if self.r.device.type == "cuda":
                 self.eager_dispatches_total += 1
                 if self.graphs and key not in self._warned:
                     self._warned.add(key)
                     logger.warning(
-                        "decode family (b, mb, K, penalties, logprobs)=%s "
-                        "was not captured: its dispatches run eagerly", key)
+                        "decode family (b, mb, K, penalties, logprobs, "
+                        "speculative)=%s was not captured: its dispatches "
+                        "run eagerly", key)
+            if spec:
+                return self._run_spec(
+                    (lambda: self.spec_head(bf), lambda: self.spec_cycle(bf),
+                     lambda: self.spec_tail(bf)), bf, n_steps)
             self.head(bf)
             for _ in range(n_steps):
                 self.step(bf)
             self.tail(bf)
             return False
         g = fam.graphs
+        self.graph_dispatches_total += 1
+        if spec:
+            def cycle():
+                for _ in range(self.r.spec_n + 1):
+                    g["draft"].replay()
+                g["verify"].replay()
+
+            return self._run_spec((g["head"].replay, cycle, g["tail"].replay),
+                                  bf, n_steps)
         g["head"].replay()
         for _ in range(n_steps):
             g["step"].replay()
         g["tail"].replay()
-        self.graph_dispatches_total += 1
         return True
 
-    def dummy_dispatch(self, key: FamilyKey) -> DecodeBuffers:
+    def dummy_dispatch(self, key: FamilyKey):
         """The warm-up dispatch of a family: all-zero inputs, so every row
         has budget 0 and table 0 and the train writes only the null block
-        (pool contents survive). One step, as a capture needs."""
+        (pool contents survive; a speculative family's rows name the trash
+        slot). One step or cycle, as a capture needs."""
         bf = self.buffers(*key)
         bf.packed.zero_()
-        bf.prev_last.zero_()
         if bf.counts is not None:
             bf.counts.zero_()
+        if key[5]:
+            self._scalars(bf)[12].fill_(self.r.spec_num_slots)
+            self.spec_head(bf)
+            self.spec_cycle(bf)
+            self.spec_tail(bf)
+            return bf
+        bf.prev_last.zero_()
         self.head(bf)
         self.step(bf)
         self.tail(bf)
@@ -397,8 +861,12 @@ class DecodeTrain:
                 bf = self.dummy_dispatch(key)
             torch.cuda.current_stream(device).wait_stream(stream)
             fam = FamilyGraphs()
-            for name, fn in (("head", self.head), ("step", self.step),
-                             ("tail", self.tail)):
+            fns = ((("head", self.spec_head), ("draft", self.spec_draft_step),
+                    ("verify", self.spec_verify), ("tail", self.spec_tail))
+                   if key[5] else
+                   (("head", self.head), ("step", self.step),
+                    ("tail", self.tail)))
+            for name, fn in fns:
                 graph = torch.cuda.CUDAGraph(keep_graph=True)
                 with torch.cuda.graph(graph, pool=self.pool, stream=stream):
                     fn(bf)
@@ -414,20 +882,33 @@ class DecodeTrain:
         if keys and all(key[4] for key in keys):
             self.pool_bytes_logprobs += grown
         logger.info(
-            "decode graphs: %d families, %d graphs, %d nodes per step "
-            "graph (max), %.2f s to capture, graph pool %.1f MiB",
-            len(self.graphs), 3 * len(self.graphs),
-            max(f.nodes["step"] for f in self.graphs.values()),
+            "decode graphs: %d families, %d graphs, %d nodes per step, draft "
+            "or verify graph (max), %.2f s to capture, graph pool %.1f MiB",
+            len(self.graphs), self._graphs_captured(), self._body_nodes_max(),
             self.capture_seconds, self.pool_bytes / 2**20)
+
+    def _graphs_captured(self) -> int:
+        return sum(len(f.graphs) for f in self.graphs.values())
+
+    def _body_nodes_max(self, spec: Optional[bool] = None) -> int:
+        """The most nodes of one graph replayed per step (plain: the step;
+        speculative: the draft step or the verify), over the families of
+        the kind asked for."""
+        return max((n for key, f in self.graphs.items()
+                    if spec is None or key[5] == spec
+                    for name, n in f.nodes.items()
+                    if name in ("step", "draft", "verify")), default=0)
 
     def stats(self) -> Dict:
         fams = self.graphs.values()
         return {
             "graph_families": len(self.graphs),
-            "graphs_captured": 3 * len(self.graphs),
+            "graph_families_spec": sum(1 for key in self.graphs if key[5]),
+            "graphs_captured": self._graphs_captured(),
             "graph_nodes_total": sum(sum(f.nodes.values()) for f in fams),
-            "graph_step_nodes_max": max((f.nodes["step"] for f in fams),
-                                        default=0),
+            "graph_step_nodes_max": self._body_nodes_max(False),
+            "graph_spec_nodes_max": self._body_nodes_max(True),
+            "spec_cycles_total": self.spec_cycles_total,
             "graph_capture_seconds": self.capture_seconds,
             "graph_pool_bytes": self.pool_bytes,
             "graph_families_logprobs": sum(1 for key in self.graphs

@@ -14,7 +14,11 @@ previous tokens reach the host chains them on the device. With overlap, a
 round may hold a prefill and a decode at once. Aborts are applied by the
 loop between rounds; a block freed under an in-flight dispatch is reused
 only by a later dispatch, which runs after it on the one compute stream.
-``async_pipeline=False`` is the strict issue -> fetch -> apply loop.
+``async_pipeline=False`` is the strict issue -> fetch -> apply loop, and
+so is a speculative engine's loop (``speculative_num_tokens`` > 0: a
+dispatch emits a variable number of tokens, the scheduler reconciles each
+row's position at apply, and a finished row's draft-ring slot is
+released).
 The loop keeps the reference's request-latency, lifecycle and per-train
 dispatch-duration histograms and a rolling window of dispatches, from
 which ``stats()`` derives the live throughput and roofline gauges
@@ -109,7 +113,8 @@ class _StreamState:
 
 class ServingEngine:
     def __init__(self, config: EngineConfig, params: Optional[Dict] = None,
-                 num_kv_blocks: Optional[int] = None):
+                 num_kv_blocks: Optional[int] = None,
+                 draft_params: Optional[Dict] = None):
         self._startup_t0 = time.monotonic()
         self.startup_total_seconds = 0.0
         self.startup_warmup_seconds = 0.0
@@ -133,6 +138,7 @@ class ServingEngine:
             self.runner = ModelRunner(
                 config, self.model_config, params=params,
                 num_kv_blocks=num_kv_blocks, tp=self.tp,
+                draft_params=draft_params,
             )
         except BaseException:
             if self.tp is not None:
@@ -670,6 +676,11 @@ class ServingEngine:
         # Clamped to 2: a third outstanding decode could need start tokens
         # from two unapplied dispatches (the single-source invariant).
         depth = min(2, cfg.pipeline_depth) if cfg.async_pipeline else 1
+        if cfg.speculative_num_tokens:
+            # A speculative dispatch emits a variable number of tokens, so
+            # the scheduler cannot advance past an unfetched one: strict
+            # issue -> fetch -> apply (the reference's rule).
+            depth = 1
         overlap = cfg.overlap_dispatch and depth >= 2
         in_flight: deque = deque()  # (batch, DispatchHandle), FIFO
 
@@ -803,7 +814,8 @@ class ServingEngine:
         lifecycle's decode-train histogram; a row's prefill phase when its
         final chunk comes back."""
         self.dispatch_hists.observe(
-            "decode" if batch.kind == "decode" else "prefill",
+            "prefill" if batch.kind != "decode"
+            else "decode_spec" if batch.spec_mode != "off" else "decode",
             now - issue_time)
         if batch.kind == "decode":
             self.lifecycle.decode_train.observe(now - issue_time)
@@ -837,6 +849,8 @@ class ServingEngine:
                                          - seq.arrival_time)
         if seq.status.is_finished:
             self._ttft_recorded.discard(seq.request_id)
+            # Its draft-ring slot goes back (idempotent; no-op spec off).
+            self.runner.release_spec_slot(seq.request_id)
             if seq.status is not SequenceStatus.FINISHED_ABORTED:
                 self.histograms.e2e.observe(time.monotonic()
                                             - seq.arrival_time)
@@ -1027,6 +1041,9 @@ class ServingEngine:
             "mesh_devices": self.config.mesh_devices,
             "hbm_kv_bytes_per_device": r.per_device_hbm_kv_bytes(),
             "tp_backend": self.tp.backend if self.tp is not None else None,
+            # Speculative decoding: the reference's keys and the port's
+            # cycle counts.
+            **r.spec_stats(),
             **r.decode_train.stats(),
             **self._live_perf(),
         }

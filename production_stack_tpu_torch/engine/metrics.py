@@ -6,9 +6,10 @@ library. ``engine_families`` lists every series the JAX package's engine
 renders, under the same names and label sets (``vllm:*`` for the router's
 ``EngineStatsScraper`` and the reference dashboard, ``pstpu:*`` for this
 stack), read from ``engine.stats()``: the offload, restore, shared-tier,
-chain-eviction and handoff series read the KV tier's counters. A series of
-a feature the port does not have yet (speculation, tracing) renders at 0,
-as the reference renders it for an engine without the feature. Two renderers read that one list: the text renderer the server
+chain-eviction and handoff series read the KV tier's counters, the
+``pstpu:spec_*`` series the speculative runner's. A series of a feature
+the port does not have yet (tracing) renders at 0, as the reference renders
+it for an engine without the feature. Two renderers read that one list: the text renderer the server
 serves (``server/metrics.py``) and ``EngineMetricsCollector`` for a
 ``prometheus_client`` registry, which imports ``prometheus_client`` only
 when it collects (the port does not need the package).
@@ -82,9 +83,10 @@ class RequestLatencyHistograms:
 
 
 class DispatchDurationHistograms:
-    """Issue-to-fetch duration of every dispatch by train kind (prefill
-    chunk, fused decode; ``decode_spec`` stays empty: speculation is not
-    ported)."""
+    """Issue-to-fetch duration of every dispatch by train kind: prefill
+    chunk, plain fused decode, speculative decode (``decode_spec``; as in
+    the reference, it also counts an adaptive engine's all-gamma-0
+    dispatches)."""
 
     TRAINS = ("prefill", "decode", "decode_spec")
 

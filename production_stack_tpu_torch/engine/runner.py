@@ -38,6 +38,19 @@ Counterpart of ``production_stack_tpu/engine/runner.py`` (main path only):
     dispatch (the scheduler keeps fresh prefill rows out of decode until
     their prefill applies).
   * Seeds are derived on the device from ``seed_base`` and ``gen0``.
+  * Speculative decoding (``speculative_num_tokens`` N > 0; the reference's
+    spec state and ``_decode_spec``): the draft model's params (shared with
+    the target for a self-draft) and its per-sequence KV rings
+    ``[Ld, Hd, S + 1, R, Dd]`` (S slots, the last one the trash of padding
+    rows; R ring tokens) in the compute dtype, updated in place. Prefill
+    runs the draft over each chunk into the row's ring; a row whose context
+    the ring has not seen (a prefix-cache hit, a restore, a handoff) is
+    caught up by an eager draft ingest before its prefill or decode. A
+    decode dispatch runs the speculative train of ``decode_graphs.py``
+    (draft N + 1, verify once, accept on the device); its fetch returns
+    each row's accepted tokens, a variable count, and feeds the adaptive
+    controller (``SpecGammaController``); a batch whose rows all sit at
+    gamma 0 runs the plain train (``spec_gamma0_dispatches_total``).
   * Tensor parallelism (``tensor_parallel_size`` > 1, ``parallel/``): each
     rank's runner holds its param shard and the pools of its kv heads, and
     every dispatch splits in two. The host part, on rank 0 only, packs the
@@ -57,6 +70,7 @@ import contextlib
 import os
 import threading
 import time
+from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -65,11 +79,13 @@ import torch
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.decode_graphs import (
     NUM_SCALARS,
+    POS_SENTINEL,
     DecodeTrain,
     FamilyKey,
 )
 from production_stack_tpu_torch.engine.sampling import (
     LOGPROB_BUCKETS,
+    adaptive_gamma,
     apply_penalties,
     compute_logprobs,
     gumbel_noise,
@@ -84,7 +100,7 @@ from production_stack_tpu_torch.engine.scheduler import (
     decode_step_cap,
 )
 from production_stack_tpu_torch.kv_offload.serde import BF16, dtype_name
-from production_stack_tpu_torch.models import llama
+from production_stack_tpu_torch.models import get_model_fns
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.models.weights import dtype_of
 from production_stack_tpu_torch.ops import paged_attention as pa
@@ -92,6 +108,11 @@ from production_stack_tpu_torch.ops.attention import gather_window
 from production_stack_tpu_torch.ops.quantization import (
     SCALE_DTYPE,
     quantize_kv,
+)
+from production_stack_tpu_torch.ops.tree_mask import (
+    main_chain_indices,
+    tree_attention_bias,
+    tree_structure,
 )
 from production_stack_tpu_torch.parallel import mesh
 from production_stack_tpu_torch.parallel.sharding import shard_params
@@ -161,16 +182,71 @@ _DIGEST_MULT = 1000003
 _DIGEST_MOD = 2147483647
 
 
+class SpecGammaController:
+    """Host-side per-sequence draft-depth controller (the reference's):
+    an acceptance EMA per request from the per-row draft/accept counts
+    every speculative fetch reads, and each row's next depth from
+    ``adaptive_gamma``. A row at gamma 0 is re-probed with gamma 1 every
+    ``probe_period`` dispatches. Deterministic given its observations."""
+
+    def __init__(self, n_max: int, decay: float, threshold: float,
+                 probe_period: int):
+        self.n_max = n_max
+        self.decay = decay
+        self.threshold = threshold
+        self.probe_period = probe_period
+        self._ema: Dict[str, float] = {}
+        self._since_probe: Dict[str, int] = {}
+
+    def update(self, request_id: str, drafted: int, accepted: int) -> None:
+        """Fold one dispatch's (drafted, accepted) counts into the
+        request's EMA; a dispatch that drafted nothing is no observation."""
+        if drafted <= 0:
+            return
+        obs = min(1.0, accepted / drafted)
+        prev = self._ema.get(request_id, 1.0)
+        self._ema[request_id] = (1.0 - self.decay) * prev + self.decay * obs
+
+    def gamma(self, request_id: str) -> int:
+        """Draft depth of the request's NEXT dispatch (full depth before
+        the first observation)."""
+        g = adaptive_gamma(self._ema.get(request_id, 1.0), self.n_max,
+                           self.threshold)
+        if g == 0 and self.probe_period > 0:
+            waited = self._since_probe.get(request_id, 0) + 1
+            if waited >= self.probe_period:
+                self._since_probe[request_id] = 0
+                return 1
+            self._since_probe[request_id] = waited
+        return g
+
+    def ema(self, request_id: str) -> float:
+        return self._ema.get(request_id, 1.0)
+
+    def forget(self, request_id: str) -> None:
+        self._ema.pop(request_id, None)
+        self._since_probe.pop(request_id, None)
+
+    def mean_ema(self) -> float:
+        """Mean EMA over tracked sequences (pstpu:spec_acceptance_ema)."""
+        if not self._ema:
+            return 0.0
+        return sum(self._ema.values()) / len(self._ema)
+
+
 class ModelRunner:
     def __init__(self, config: EngineConfig, model_config: ModelConfig,
                  params: Optional[Dict] = None,
                  num_kv_blocks: Optional[int] = None,
                  tp: Optional[mesh.TPGroup] = None,
-                 broadcast_params: bool = False):
+                 broadcast_params: bool = False,
+                 draft_params: Optional[Dict] = None):
         """``tp``: this process's rank of the tensor-parallel group (None at
         tensor_parallel_size 1). ``params`` are FULL params; at tp > 1 rank
         0's are broadcast to the workers (which pass ``broadcast_params``)
-        and each rank keeps its shard."""
+        and each rank keeps its shard. ``draft_params``: the speculative
+        draft's params when it is not the target itself (else random from
+        config.seed)."""
         self.config = config
         self.model_config = model_config
         if (tp.size if tp is not None else 1) != config.tensor_parallel_size:
@@ -181,10 +257,10 @@ class ModelRunner:
         self.rank = tp.rank if self.tp is not None else 0
         self.device = (self.tp.device if self.tp is not None
                        else resolve_device(config.device))
-        if model_config.arch != "llama":
-            raise ValueError(
-                f"arch {model_config.arch!r} is not ported (llama family only)"
-            )
+        # (init_params, forward, compute_logits, lm_head_f32) of the arch:
+        # llama, or OPT (window path, tp 1; config.validate_parallelism).
+        init_fn, self.model_forward, self.model_logits, head_fn = \
+            get_model_fns(model_config)
         if os.path.isdir(config.model):
             raise ValueError(
                 "loading a HuggingFace checkpoint directory is not ported yet; "
@@ -206,8 +282,8 @@ class ModelRunner:
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
-            params = llama.init_params(model_config, gen, self.dtype,
-                                       self.device, rank=self.rank, tp=tp_size)
+            params = init_fn(model_config, gen, self.dtype, self.device,
+                             rank=self.rank, tp=tp_size)
         else:
             params = shard_params(params, model_config, self.rank, tp_size)
             params = {
@@ -216,7 +292,8 @@ class ModelRunner:
                 for k, v in params.items()
             }
         self.params = params
-        self.head_f32 = llama.lm_head_f32(params, model_config)
+        self.head_f32 = head_fn(params, model_config)
+        self._init_spec(draft_params)
         if self.tp is not None:
             # Every rank's weights are resident before any rank reads the
             # free memory its pool may take.
@@ -287,6 +364,263 @@ class ModelRunner:
             self.kv_v_scale = torch.zeros_like(self.kv_k_scale)
         else:
             self.kv_k_scale = self.kv_v_scale = None
+
+    # -------------------------------------------------- speculative state
+    def _init_spec(self, draft_params: Optional[Dict]) -> None:
+        """The draft model, its ring pools (allocated before the KV pool is
+        sized from free memory), slots, tree constants, controller and the
+        acceptance counters (the reference's spec ``__init__`` block)."""
+        cfg = self.config
+        self.spec_n = int(cfg.speculative_num_tokens)
+        self.spec_tree_width = int(cfg.speculative_tree_width)
+        self.spec_adaptive = bool(cfg.speculative_adaptive)
+        self._spec_controller: Optional[SpecGammaController] = None
+        # Counters (accumulated at fetch): proposals drafted and accepted,
+        # tree nodes verified, the served depth's numerator, per-row live
+        # cycles, all-gamma-0 dispatches; per dispatch: cycles run and the
+        # most live cycles of a row (their difference is replay waste).
+        self.spec_draft_tokens_total = 0
+        self.spec_accepted_tokens_total = 0
+        self.spec_tree_nodes_total = 0
+        self.spec_draft_depth_sum = 0
+        self.spec_live_cycles_total = 0
+        self.spec_gamma0_dispatches_total = 0
+        self.spec_cycles_run_total = 0
+        self.spec_cycles_live_total = 0
+        self.spec_dispatches_total = 0
+        self._spec_window: "deque[Tuple[int, int]]" = deque(maxlen=64)
+        if not self.spec_n:
+            self.spec_ring_len = 1
+            return
+        self.spec_draft_config = dmc = cfg.resolved_draft_config()
+        d_init, self.draft_forward, self.draft_logits, d_head = \
+            get_model_fns(dmc)
+        if cfg.speculative_model == cfg.model:
+            # Self-draft: the target's params outright.
+            self.spec_params, self.spec_head_f32 = self.params, self.head_f32
+        else:
+            if draft_params is None:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(cfg.seed)
+                draft_params = d_init(dmc, gen, self.dtype, self.device)
+                logger.warning(
+                    "speculative draft %r has RANDOM weights (config.seed %d):"
+                    " expect ~zero acceptance — speculation will cost "
+                    "throughput, not add it", cfg.speculative_model, cfg.seed)
+            else:
+                draft_params = {
+                    k: ({n: t.to(self.device, self.dtype)
+                         for n, t in v.items()}
+                        if k == "layers" else v.to(self.device, self.dtype))
+                    for k, v in draft_params.items()}
+            self.spec_params = draft_params
+            self.spec_head_f32 = d_head(draft_params, dmc)
+        self.spec_ring_len = cfg.speculative_ring_len
+        # Every running row plus a prefill batch of fresh prompts can hold
+        # a slot at once; LRU eviction is the backstop.
+        self.spec_num_slots = cfg.max_num_seqs + cfg.max_prefill_seqs
+        self._alloc_spec_pools()
+        self._spec_slots: "OrderedDict[str, int]" = OrderedDict()
+        self._spec_free = list(range(self.spec_num_slots))
+        # Per request: the position (exclusive) its draft ring is warm to.
+        self._spec_warmed: Dict[str, int] = {}
+        if self.spec_tree_width > 1:
+            parents, depths = tree_structure(self.spec_n, self.spec_tree_width)
+            self.spec_tree_parents, self.spec_tree_depths = parents, depths
+            self.spec_tree_depths_dev = torch.from_numpy(
+                depths.astype(np.int64)).to(self.device)
+            self.spec_tree_bias = torch.from_numpy(
+                tree_attention_bias(parents)).to(self.device)
+            self.spec_main_chain = main_chain_indices(self.spec_n,
+                                                      self.spec_tree_width)
+            self.spec_main_chain_dev = torch.from_numpy(
+                self.spec_main_chain.astype(np.int64)).to(self.device)
+        if self.spec_adaptive:
+            self._spec_controller = SpecGammaController(
+                self.spec_n, cfg.speculative_ema_decay,
+                cfg.speculative_gamma_threshold, cfg.speculative_probe_period)
+
+    def _alloc_spec_pools(self) -> None:
+        """Draft-KV ring pools [Ld, Hd, S + 1, R, Dd] in the compute dtype
+        and the position plane [S + 1, R] (sentinel = unwritten); slot S is
+        the trash of padding rows."""
+        dmc = self.spec_draft_config
+        s, r = self.spec_num_slots + 1, self.spec_ring_len
+        shape = (dmc.num_layers, dmc.num_kv_heads, s, r, dmc.head_dim_)
+        self.spec_k = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        self.spec_v = torch.zeros_like(self.spec_k)
+        self.spec_pos = torch.full((s, r), POS_SENTINEL, dtype=torch.int32,
+                                   device=self.device)
+        logger.info("Speculative draft-KV rings: %d slots x %d tokens "
+                    "(%.1f MiB, draft=%s)", s - 1, r,
+                    2 * self.spec_k.numel() * self.spec_k.element_size()
+                    / 2**20, dmc.name)
+
+    @property
+    def spec_pool_bytes(self) -> int:
+        if not self.spec_n:
+            return 0
+        return sum(t.numel() * t.element_size()
+                   for t in (self.spec_k, self.spec_v, self.spec_pos))
+
+    def spec_slot(self, request_id: str) -> int:
+        """Get or allocate the sequence's draft-ring slot; a fresh one has
+        its positions reset (LRU eviction when none is free)."""
+        slot = self._spec_slots.get(request_id)
+        if slot is not None:
+            self._spec_slots.move_to_end(request_id)
+            return slot
+        if self._spec_free:
+            slot = self._spec_free.pop()
+        else:
+            evicted, slot = self._spec_slots.popitem(last=False)
+            # The evicted stream's ring is gone: so is its warm ledger.
+            self._spec_warmed.pop(evicted, None)
+            logger.warning(
+                "Draft-ring slots exhausted; evicting %s (cold draft "
+                "context lowers acceptance for that stream only)", evicted)
+        with self._io_stream():
+            self.spec_pos[slot].fill_(POS_SENTINEL)
+        self._spec_slots[request_id] = slot
+        self._spec_warmed[request_id] = 0
+        return slot
+
+    def release_spec_slot(self, request_id: str) -> None:
+        """Return a finished sequence's draft-ring slot (idempotent)."""
+        if not self.spec_n:
+            return
+        self._spec_warmed.pop(request_id, None)
+        if self._spec_controller is not None:
+            self._spec_controller.forget(request_id)
+        slot = self._spec_slots.pop(request_id, None)
+        if slot is not None:
+            self._spec_free.append(slot)
+
+    @property
+    def spec_draft_max_pos(self) -> int:
+        """Position clamp of DRAFT forwards: any position for rotary
+        (llama) drafts, the table size for OPT's learned positions."""
+        dmc = self.spec_draft_config
+        if dmc.arch == "opt":
+            return min(self.config.max_model_len, dmc.max_position_embeddings)
+        return self.config.max_model_len
+
+    def _spec_ring_write(self, dk, dv, positions, keep, slot_idx,
+                         reset) -> None:
+        """Run-once draft ring update of rows ``slot_idx`` [b] from a draft
+        forward's K/V [Ld, Hd, b, t, Dd] at ``positions`` [b, t], entries
+        where ``keep``; rows where ``reset`` first forget their ring. The
+        rings are gathered, written through a trash row and scattered back
+        in place (the decode graphs hold the pools' addresses)."""
+        b = slot_idx.shape[0]
+        r_len = self.spec_ring_len
+        slot_c = torch.clamp(slot_idx, 0, self.spec_num_slots - 1).long()
+        ld, hd, dd = dk.shape[0], dk.shape[1], dk.shape[-1]
+        drk = torch.empty((ld, hd, b + 1, r_len, dd), dtype=self.dtype,
+                          device=self.device)
+        drv = torch.empty_like(drk)
+        drp = torch.empty((b + 1, r_len), dtype=torch.int32, device=self.device)
+        drk[:, :, :b] = self.spec_k[:, :, slot_c]
+        drv[:, :, :b] = self.spec_v[:, :, slot_c]
+        drp[:b] = torch.where(reset[:, None], POS_SENTINEL,
+                              self.spec_pos[slot_c])
+        rows = torch.arange(b, device=self.device)[:, None]
+        widx = torch.where(keep, rows * r_len + positions % r_len,
+                           b * r_len).reshape(-1)
+        t = positions.shape[1]
+        drk.view(ld, hd, -1, dd).index_copy_(2, widx, dk.reshape(ld, hd, b * t, dd))
+        drv.view(ld, hd, -1, dd).index_copy_(2, widx, dv.reshape(ld, hd, b * t, dd))
+        drp.view(-1).index_copy_(0, widx, positions.reshape(-1).int())
+        self.spec_k.index_copy_(2, slot_idx.long(), drk[:, :, :b])
+        self.spec_v.index_copy_(2, slot_idx.long(), drv[:, :, :b])
+        self.spec_pos.index_copy_(0, slot_idx.long(), drp[:b])
+
+    def _spec_catch_up(self, seq, upto: int) -> None:
+        """Ensure the sequence's draft ring covers context up to ``upto``
+        (exclusive): ingest the most recent min(R, upto) tokens it has not
+        seen, through the draft, eagerly (the reference's
+        ``_spec_catch_up`` and ``_spec_ingest_jit``). Acceptance only,
+        never output correctness."""
+        rid = seq.request_id
+        warmed = self._spec_warmed.get(rid, 0)
+        if warmed >= upto:
+            return
+        r_len = self.spec_ring_len
+        lo = max(0, upto - r_len, min(warmed, upto))
+        toks = seq.all_token_ids[lo:upto]
+        if not toks:
+            self._spec_warmed[rid] = upto
+            return
+        slot = self.spec_slot(rid)
+        t = _bucket(len(toks), 16, max(16, 1 << (r_len - 1).bit_length()))
+        dev = self.device
+        with torch.no_grad(), self._io_stream():
+            padded = torch.zeros((1, t), dtype=torch.int32)
+            padded[0, :len(toks)] = torch.tensor(toks, dtype=torch.int32)
+            padded = padded.to(dev)
+            positions = lo + torch.arange(t, dtype=torch.int32,
+                                          device=dev)[None, :]
+            length = torch.full((1,), len(toks), dtype=torch.int32, device=dev)
+            slot_idx = torch.full((1,), slot, dtype=torch.int32, device=dev)
+            slot_c = slot_idx.long()
+            _, dk, dv = self.draft_forward(
+                self.spec_params, self.spec_draft_config, padded,
+                torch.clamp(positions, max=self.spec_draft_max_pos - 1),
+                length, None, None, None, self.spec_k[:, :, slot_c],
+                self.spec_v[:, :, slot_c], self.spec_pos[slot_c])
+            in_chunk = torch.arange(t, device=dev)[None, :] < len(toks)
+            self._spec_ring_write(dk, dv, positions, in_chunk, slot_idx,
+                                  torch.zeros((1,), dtype=torch.bool,
+                                              device=dev))
+        self._spec_warmed[rid] = upto
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Lifetime share of draft proposals that survived verification."""
+        if not self.spec_draft_tokens_total:
+            return 0.0
+        return self.spec_accepted_tokens_total / self.spec_draft_tokens_total
+
+    @property
+    def spec_acceptance_rate_window(self) -> float:
+        """Acceptance over the last <= 64 fetches."""
+        drafts = sum(d for d, _ in self._spec_window)
+        if not drafts:
+            return 0.0
+        return sum(a for _, a in self._spec_window) / drafts
+
+    @property
+    def spec_draft_depth_mean(self) -> float:
+        """Mean served draft depth per live verify cycle."""
+        if not self.spec_live_cycles_total:
+            return 0.0
+        return self.spec_draft_depth_sum / self.spec_live_cycles_total
+
+    @property
+    def spec_acceptance_ema_mean(self) -> float:
+        if self._spec_controller is None:
+            return 0.0
+        return self._spec_controller.mean_ema()
+
+    def spec_stats(self) -> Dict:
+        """The reference's ``stats()`` spec keys, and the port's cycle
+        counts (cycles run against the most live cycles of a row)."""
+        return {
+            "spec_enabled": 1 if self.spec_n else 0,
+            "spec_draft_tokens_total": self.spec_draft_tokens_total,
+            "spec_accepted_tokens_total": self.spec_accepted_tokens_total,
+            "spec_acceptance_rate": self.spec_acceptance_rate,
+            "spec_acceptance_rate_window": self.spec_acceptance_rate_window,
+            "spec_draft_depth": self.spec_draft_depth_mean,
+            "spec_tree_nodes_total": self.spec_tree_nodes_total,
+            "spec_acceptance_ema": self.spec_acceptance_ema_mean,
+            "spec_gamma0_dispatches_total": self.spec_gamma0_dispatches_total,
+            "spec_live_cycles_total": self.spec_live_cycles_total,
+            "spec_dispatches_total": self.spec_dispatches_total,
+            "spec_cycles_run_total": self.spec_cycles_run_total,
+            "spec_cycles_live_total": self.spec_cycles_live_total,
+            "spec_pool_bytes": self.spec_pool_bytes,
+        }
 
     @property
     def kv_pool_bytes(self) -> int:
@@ -488,12 +822,21 @@ class ModelRunner:
         """The variants ``warmup`` captures, as the reference warms them:
         the default sampling variant and the first logprob bucket's of
         every decode family, and the penalty variant at b = 1. Others (the
-        top bucket, penalties at b > 1) run eagerly."""
+        top bucket, penalties at b > 1) run eagerly. A speculative engine
+        captures the speculative train's variants, and the plain train's
+        too when adaptive (its all-gamma-0 dispatches)."""
         fams = self.reachable_decode_families()
         lpk = LOGPROB_BUCKETS[0]
-        return ([(b, mb, k, False, 0) for b, mb, k in fams]
-                + [(b, mb, k, False, lpk) for b, mb, k in fams]
-                + [(b, mb, k, True, 0) for b, mb, k in fams if b == 1])
+
+        def keys(spec):
+            return ([(b, mb, k, False, 0, spec) for b, mb, k in fams]
+                    + [(b, mb, k, False, lpk, spec) for b, mb, k in fams]
+                    + [(b, mb, k, True, 0, spec) for b, mb, k in fams
+                       if b == 1])
+
+        if not self.spec_n:
+            return keys(False)
+        return keys(True) + (keys(False) if self.spec_adaptive else [])
 
     def warmup(self) -> None:
         """Before serving: on the card, capture head, step and tail of
@@ -673,8 +1016,33 @@ class ModelRunner:
         f32 = sc.view(np.float32)
         u32 = sc.view(np.uint32)
         sc[11, :] = -1
+        spec = bool(self.spec_n)
+        gammas: Optional[List[int]] = None
+        if spec:
+            # Padding rows name the trash slot.
+            sc[12, :] = self.spec_num_slots
+            if self._spec_controller is not None:
+                gammas = [self._spec_controller.gamma(s.request_id)
+                          for s in seqs]
+                if not any(gammas):
+                    # Every row at gamma 0: the plain train, no draft work.
+                    spec = False
+                    self.spec_gamma0_dispatches_total += 1
+            batch.spec_mode = (
+                "off-degrade" if not spec
+                else "adaptive" if self.spec_adaptive
+                else "tree" if self.spec_tree_width > 1
+                else "linear")
         chain_entry = None  # the ONE dispatch this dispatch chains from
         for i, s in enumerate(seqs):
+            if spec:
+                g = gammas[i] if gammas is not None else self.spec_n
+                sc[13, i] = g
+                if g > 0:
+                    # Context the ring has not seen (restores, handoffs)
+                    # first; gamma-0 rows draft nothing this dispatch.
+                    self._spec_catch_up(s, s.num_computed_tokens)
+                    sc[12, i] = self.spec_slot(s.request_id)
             pos = s.num_computed_tokens
             if pos < len(s.all_token_ids):
                 sc[0, i] = s.all_token_ids[pos]
@@ -718,6 +1086,9 @@ class ModelRunner:
         if counts is not None:
             counts = torch.from_numpy(counts)
         steps = list(batch.decode_steps)
+        if spec:
+            return self._issue_decode_spec(batch, slot, b, mb, lpk, counts,
+                                           gammas, t_issue)
         n_steps = k if cfg.decode_loop == "scan" else max(steps)
         chain_src = -1 if chain_entry is None else chain_entry["dispatch"]
         with self._dispatch_lock():
@@ -755,6 +1126,100 @@ class ModelRunner:
 
         return DispatchHandle(fetch)
 
+    def _issue_decode_spec(self, batch: ScheduledBatch, slot: _Slot, b: int,
+                           mb: int, lpk: int, counts: Optional[torch.Tensor],
+                           gammas: Optional[List[int]],
+                           t_issue: float) -> DispatchHandle:
+        """Issue a speculative decode dispatch (the reference's spec branch
+        of ``_issue_decode``; the engine loop is strict, so no row chains).
+        Its fetch returns each row's accepted tokens, a variable count up
+        to its budget, and updates the ring ledger, the controller and the
+        acceptance counters."""
+        seqs, k = batch.seqs, batch.num_steps
+        n, n1 = len(seqs), self.spec_n + 1
+        steps = list(batch.decode_steps)
+        # Issue-time positions: advance_at_issue runs after this returns.
+        poss = [s.num_computed_tokens for s in seqs]
+        row_gammas = gammas if gammas is not None else [self.spec_n] * n
+        n_packed = NUM_SCALARS * b + b * mb
+        key = (b, mb, k, counts is not None, lpk, True)
+        train = self.decode_train
+        bf = train.buffers(*key)
+        parts = [bf.toks_all, bf.emits, bf.stats]
+        if lpk:
+            parts += [bf.lp_chosen, bf.lp_top, bf.lp_ids]
+        n_out = sum(t.numel() for t in parts)
+        if slot.out.numel() < n_out:
+            slot.out = torch.empty((n_out,), dtype=torch.int32,
+                                   pin_memory=self.device.type == "cuda")
+        bf.packed.copy_(slot.inp[:n_packed], non_blocking=True)
+        if counts is not None:
+            bf.counts.copy_(counts)
+        cycles = train.run(key, bf, max(steps))
+        self._push_rows(self._push_last(bf.last.clone()), seqs, range(n))
+        self._dispatches += 1
+        self.spec_dispatches_total += 1
+        self.spec_cycles_run_total += cycles
+        out_buf, start, end = slot.out, slot.start, slot.end
+        offs = self._copy_out(out_buf, parts)
+        if end is not None:
+            end.record()
+
+        def fetch():
+            if end is not None:
+                end.synchronize()
+                self.decode_device_seconds_total += \
+                    start.elapsed_time(end) / 1e3
+            host = out_buf.numpy()
+            out = host[offs[0]:offs[0] + k * n1 * b].reshape(k, n1, b)
+            em = host[offs[1]:offs[1] + k * b].reshape(k, b)
+            st = host[offs[2]:offs[2] + 4 * b].reshape(4, b)
+            tokens = []
+            for i in range(n):
+                row = [int(out[c, t, i]) for c in range(k)
+                       for t in range(em[c, i])]
+                tokens.append(row)
+                rid = seqs[i].request_id
+                if row_gammas[i] > 0:
+                    # The dispatch wrote draft KV for the emitted tokens; a
+                    # gamma-0 row wrote none, so its ledger stays.
+                    self._spec_warmed[rid] = poss[i] + len(row)
+                if self._spec_controller is not None:
+                    self._spec_controller.update(rid, int(st[0, i]),
+                                                 int(st[1, i]))
+            d_tot, a_tot = int(st[0].sum()), int(st[1].sum())
+            self.spec_draft_tokens_total += d_tot
+            self.spec_accepted_tokens_total += a_tot
+            self._spec_window.append((d_tot, a_tot))
+            self.spec_draft_depth_sum += d_tot
+            self.spec_tree_nodes_total += int(st[2].sum())
+            self.spec_live_cycles_total += int(st[3].sum())
+            self.spec_cycles_live_total += int(st[3].max(initial=0))
+            self.decode_tokens_total += sum(len(t) for t in tokens)
+            lps = None
+            if lpk:
+                lpc = host[offs[3]:offs[3] + k * n1 * b].view(
+                    np.float32).reshape(k, n1, b)
+                lpt = host[offs[4]:offs[4] + k * n1 * b * lpk].view(
+                    np.float32).reshape(k, n1, b, lpk)
+                lpi = host[offs[5]:offs[5] + k * n1 * b * lpk].reshape(
+                    k, n1, b, lpk)
+                lps = []
+                for i, s in enumerate(seqs):
+                    want = s.sampling.logprobs
+                    if want is None:
+                        lps.append(None)
+                        continue
+                    lps.append([
+                        (float(lpc[c, t, i]),
+                         [(int(lpi[c, t, i, r]), float(lpt[c, t, i, r]))
+                          for r in range(min(want, lpk))])
+                        for c in range(k) for t in range(em[c, i])])
+            self.decode_seconds_total += time.monotonic() - t_issue
+            return tokens, lps
+
+        return DispatchHandle(fetch)
+
     def _decode_device(self, slot: _Slot, b: int, mb: int, k: int,
                        n_steps: int, chain_src: int,
                        counts: Optional[torch.Tensor], lpk: int = 0):
@@ -762,7 +1227,7 @@ class ModelRunner:
         train over the packed inputs in ``slot``. Returns (dispatch number,
         the train's buffers)."""
         n_packed = NUM_SCALARS * b + b * mb
-        key = (b, mb, k, counts is not None, lpk)
+        key = (b, mb, k, counts is not None, lpk, False)
         train = self.decode_train
         bf = train.buffers(*key)
         bf.packed.copy_(slot.inp[:n_packed], non_blocking=True)
@@ -824,6 +1289,13 @@ class ModelRunner:
             start, ln = batch.chunk_starts[i], batch.chunk_lens[i]
             sc[0, i] = start
             sc[1, i] = ln
+            if self.spec_n:
+                # A cached or restored prefix never prefilled here: replay
+                # it through the draft first, then the chunk's draft KV
+                # joins the row's ring (row 12: its slot).
+                self._spec_catch_up(s, start)
+                sc[12, i] = self.spec_slot(s.request_id)
+                self._spec_warmed[s.request_id] = start + ln
             u32[2, i] = seed_base(s.request_id, s.sampling)
             u32[3, i] = len(s.output_token_ids)
             sp = s.sampling
@@ -914,17 +1386,20 @@ class ModelRunner:
             win_len = chunk_start
         else:
             win_k = win_v = win_len = None
-        hidden, k_new, v_new = llama.forward(
+        hidden, k_new, v_new = self.model_forward(
             self.params, mc, token_ids, positions, chunk_lens,
             win_k, win_v, win_len, tp=self.tp,
         )
         del win_k, win_v
+        if self.spec_n:
+            self._prefill_draft(token_ids, positions, chunk_start, chunk_lens,
+                                in_chunk, scalars[12])
         next_tokens, lp = None, ()
         if any(finals):
             logit_idx = torch.clamp(chunk_lens - 1, min=0).long()
             last_hidden = hidden[torch.arange(b, device=self.device), logit_idx]
-            logits = llama.compute_logits(self.params, mc, last_hidden,
-                                          self.head_f32, tp=self.tp)
+            logits = self.model_logits(self.params, mc, last_hidden,
+                                       self.head_f32, tp=self.tp)
             if self.logits_sink is not None:
                 self.logits_sink.append(logits.clone())
             if counts is not None:
@@ -965,6 +1440,24 @@ class ModelRunner:
             self._digest_add(next_tokens)
         self._dispatches += 1
         return d, next_tokens, lp
+
+    def _prefill_draft(self, token_ids, positions, chunk_start, chunk_lens,
+                       in_chunk, slot_idx) -> None:
+        """The draft over a prefill chunk, into each row's ring: rows whose
+        chunk starts at 0 forget their ring first (a fresh or re-prefilled
+        sequence), and only the last min(t, R) chunk tokens are kept (their
+        ring indices are then distinct)."""
+        slot_c = torch.clamp(slot_idx, 0, self.spec_num_slots - 1).long()
+        reset = chunk_start == 0
+        drp = torch.where(reset[:, None], POS_SENTINEL, self.spec_pos[slot_c])
+        _, dk, dv = self.draft_forward(
+            self.spec_params, self.spec_draft_config, token_ids,
+            torch.clamp(positions, max=self.spec_draft_max_pos - 1),
+            chunk_lens, None, None, None, self.spec_k[:, :, slot_c],
+            self.spec_v[:, :, slot_c], drp)
+        chunk_end = chunk_start + chunk_lens
+        keep = in_chunk & (positions >= chunk_end[:, None] - self.spec_ring_len)
+        self._spec_ring_write(dk, dv, positions, keep, slot_idx, reset)
 
     # ---------------------------------------------------------------- execute
     def execute_async(self, batch: ScheduledBatch) -> DispatchHandle:

@@ -19,12 +19,20 @@ equal the JAX package's (see ``gumbel_noise``).
 ``compute_logprobs`` gives the OpenAI ``logprobs`` fields from the RAW f32
 logits (before penalties and temperature), inside the decode train and
 after the prefill sample; ``LOGPROB_BUCKETS`` bound the top-k widths a
-dispatch computes (the reference's ``runner.LOGPROB_BUCKETS``).
+dispatch computes (the reference's ``runner.LOGPROB_BUCKETS``). Its top-k
+is ``top_k_like_jax``: ``jax.lax.top_k``'s selection and order among tied
+values, which ``torch.topk`` does not promise.
+
+Speculative decoding: ``speculative_accept`` (linear) and
+``speculative_tree_accept`` (token tree) are the reference's deterministic
+accept rules, tensor functions with no host read, so they run inside a
+captured graph; ``adaptive_gamma`` is the host-side draft-depth policy.
 """
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 TOP_CANDIDATES = 128  # candidate pool for the filtered (top-k/top-p) branch
@@ -321,12 +329,149 @@ def compute_logprobs(
     """(chosen logprob [B], top-k logprobs [B, k], top-k ids [B, k] int32)
     for the OpenAI ``logprobs`` fields, from the RAW logits: the model's
     distribution, not the penalty- and temperature-shaped one it sampled
-    from. The reference's ``compute_logprobs``; ``torch.topk`` promises no
-    order among equal values, ``jax.lax.top_k`` puts the lower id first."""
+    from. The reference's ``compute_logprobs``, its top-k ids and order
+    those of ``jax.lax.top_k`` (``top_k_like_jax``)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     chosen_lp = torch.gather(logp, 1, chosen.long()[:, None])[:, 0]
     if k <= 0:
         z = logp.new_zeros((logits.shape[0], 0))
         return chosen_lp, z, z.int()
-    top_lp, top_ids = torch.topk(logp, k, dim=-1)
+    top_lp, top_ids = top_k_like_jax(logp, k)
     return chosen_lp, top_lp, top_ids.int()
+
+
+def top_k_like_jax(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis of ``x`` [B, V]: (values [B, k],
+    ids [B, k] int64), ordered by value descending and, among equal values,
+    by id ascending; among values tied at the k-th place the lowest ids are
+    kept. ``torch.topk`` promises neither. The k-th value ``t`` comes from
+    ``torch.topk`` (its values are exact whatever its order); every id above
+    ``t`` is kept, then the lowest ids equal to ``t`` by a running count over
+    the vocabulary; the kept ids are taken in id order and sorted stably by
+    value. No host read: it runs inside a captured graph."""
+    v = x.shape[-1]
+    t = torch.topk(x, k, dim=-1).values[:, -1:]                  # [B, 1]
+    above = x > t
+    tied = x == t
+    need = k - above.sum(dim=-1, keepdim=True)
+    keep = above | (tied & (torch.cumsum(tied.int(), dim=-1) <= need))
+    ids = torch.arange(v, 0, -1, device=x.device)[None, :]      # V - id
+    kept = torch.topk(torch.where(keep, ids, torch.zeros_like(ids)), k,
+                      dim=-1).values
+    kept = v - kept                                              # id order
+    vals = torch.gather(x, -1, kept)
+    vals, order = torch.sort(vals, dim=-1, descending=True, stable=True)
+    return vals, torch.gather(kept, -1, order)
+
+
+# ----------------------------------------------------------- speculation
+def speculative_accept(
+    proposals: torch.Tensor,   # [B, N] draft tokens for positions 1..N
+    samples: torch.Tensor,     # [B, N+1] the target's own (seeded) samples
+    budget: torch.Tensor,      # [B] tokens the row may still emit
+    gamma: Optional[torch.Tensor] = None,  # [B] per-row draft depth cap
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's deterministic accept rule for one linear cycle:
+    proposal i is accepted iff it EQUALS the target's own sample at that
+    position and every earlier proposal was accepted, so the emitted tokens
+    are the target's samples (token-identical to spec-off); proposals at
+    index >= gamma[row] count as mismatches. Returns (emit [B], accepted
+    [B]) int32: emit = min(accepted + 1, budget) tokens, samples[:emit];
+    accepted counts surviving proposals before the budget clip."""
+    agree = proposals == samples[:, :-1]                         # [B, N]
+    if gamma is not None:
+        n = proposals.shape[1]
+        agree = agree & (torch.arange(n, device=proposals.device)[None, :]
+                         < gamma[:, None])
+    accepted = torch.cumprod(agree.int(), dim=1).sum(dim=1).int()
+    emit = torch.minimum(accepted + 1, torch.clamp(budget, min=0).int())
+    return emit, accepted
+
+
+# Device copies of a tree's (parents, depths), by device and layout: made
+# on the first (eager) call, so a captured call copies nothing from the
+# host.
+_TREE_CONSTS: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _tree_consts(parents, depths, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    p = np.asarray(parents, np.int64)
+    d = np.asarray(depths, np.int64)
+    key = (str(device), p.tobytes(), d.tobytes())
+    consts = _TREE_CONSTS.get(key)
+    if consts is None:
+        consts = _TREE_CONSTS[key] = (torch.from_numpy(p).to(device),
+                                      torch.from_numpy(d).to(device))
+    return consts
+
+
+def speculative_tree_accept(
+    v_toks: torch.Tensor,   # [B, T] token at each tree node (node 0 = t0)
+    z: torch.Tensor,        # [B, T] the target's own sample at each node
+    parents,                # [T] numpy (static): ops/tree_mask.py
+    depths,                 # [T] numpy (static)
+    budget: torch.Tensor,   # [B] tokens the row may still emit
+    gamma: torch.Tensor,    # [B] per-row draft depth cap
+) -> Tuple[torch.Tensor, ...]:
+    """The reference's deterministic tree walk: from the root, emit the
+    target's sample at the current node and step to the child whose DRAFT
+    token equals it (siblings are distinct, so at most one matches); no
+    match ends the walk. Children deeper than gamma[row] are never taken.
+    Returns (emit [B], accepted [B], path_idx [B, N+1], main_len [B]):
+    emitted tokens are z along path_idx[:emit]; accepted is the walk length
+    - 1 before the budget clip; path_idx repeats the last visited node once
+    the walk ends; main_len counts the draft-ring entries still valid (the
+    draft wrote only the main chain, so a walk onto a sibling keeps t0's
+    entry alone)."""
+    b = v_toks.shape[0]
+    dev = v_toks.device
+    n_max = int(np.max(depths))          # main-chain draft depth N
+    par, dep = _tree_consts(parents, depths, dev)
+    alive = budget > 0
+    cur = torch.zeros((b,), dtype=torch.int64, device=dev)
+    emit_w = torch.zeros((b,), dtype=torch.int32, device=dev)
+    first_child = cur
+    cols = []
+    for d in range(n_max + 1):
+        cols.append(cur)
+        emit_w = emit_w + alive.int()
+        if d == n_max:
+            break                        # deepest nodes have no children
+        zc = torch.gather(z, 1, cur[:, None])[:, 0]
+        match = ((par[None, :] == cur[:, None])
+                 & (v_toks == zc[:, None])
+                 & (dep[None, :] <= gamma[:, None])
+                 & alive[:, None])
+        has = match.any(dim=1)
+        nxt = torch.argmax(match.int(), dim=1)
+        if d == 0:
+            first_child = torch.where(has, nxt, torch.zeros_like(nxt))
+        cur = torch.where(has, nxt, cur)
+        alive = alive & has
+    path_idx = torch.stack(cols, dim=1)                 # [B, N+1]
+    accepted = torch.clamp(emit_w - 1, min=0)
+    emit = torch.minimum(emit_w, torch.clamp(budget, min=0).int())
+    # Node 1 is the main chain's depth-1 node (ops/tree_mask.py layout);
+    # sibling branches have no children.
+    main_acc = torch.where(first_child == 1, accepted,
+                           torch.zeros_like(accepted))
+    main_len = torch.minimum(main_acc + 1, emit)
+    return emit, accepted, path_idx, main_len
+
+
+def adaptive_gamma(alpha: float, n_max: int, threshold: float) -> int:
+    """The reference's draft-depth policy (host-side, pure): the largest g
+    in [0, n_max] with alpha**g >= threshold. threshold > 1 pins gamma to
+    0; alpha >= 1 gives n_max."""
+    if threshold > 1.0:
+        return 0
+    if alpha >= 1.0:
+        return n_max
+    if alpha <= 0.0:
+        return 0
+    g = 0
+    ev = 1.0
+    while g < n_max and ev * alpha >= threshold:
+        ev *= alpha
+        g += 1
+    return g

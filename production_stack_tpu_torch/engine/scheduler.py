@@ -147,6 +147,10 @@ class ScheduledBatch:
     decode_steps: List[int] = field(default_factory=list)
     epochs: List[int] = field(default_factory=list)
     finals: List[bool] = field(default_factory=list)
+    # Set by the runner at decode issue: which speculative variant ran —
+    # "off" (speculation disabled), "linear", "tree", "adaptive", or
+    # "off-degrade" (every row at gamma 0: the plain train).
+    spec_mode: str = "off"
 
 
 class Scheduler:
@@ -501,6 +505,14 @@ class Scheduler:
                 if not self._apply_valid(seq, batch.epochs[i]):
                     continue
                 seq.inflight_steps -= batch.decode_steps[i]
+                if self.config.speculative_num_tokens:
+                    # A speculative dispatch emits a variable count (at most
+                    # its budget), and advance_at_issue advanced by the
+                    # budget: reconcile the KV position to what the device
+                    # committed (the speculative loop is strict, so no
+                    # dispatch was issued in between).
+                    seq.num_computed_tokens -= max(
+                        0, batch.decode_steps[i] - len(toks))
                 took = False
                 lps = logprob_lists[i] if logprob_lists else None
                 for j, tok in enumerate(toks):

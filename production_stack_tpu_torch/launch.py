@@ -15,7 +15,9 @@ then serves until SIGTERM or SIGINT, which drains and stops every engine.
 (``kv_offload/server.py``) and points every engine at it
 (``--kv-remote-url``; its URL is printed as ``kv_url``); ``--roles
 prefill,decode`` gives engine i the i-th role, the disaggregated pair the
-router's ``--routing-logic disagg`` drives.
+router's ``--routing-logic disagg`` drives. Arguments after ``--`` go to
+every engine's server as they are, e.g. ``--speculative-num-tokens 4
+--speculative-model llama-3b`` for speculative decoding.
 """
 
 import argparse
@@ -208,7 +210,7 @@ def entry(device: str = "cuda"):
     runner = ModelRunner(cfg, resolve_model_config(cfg.model))
     b, k = 4, 4
     mb = runner._decode_mb(1)
-    key = (b, mb, k, False, 0)
+    key = (b, mb, k, False, 0, False)
     bf = runner.decode_train.buffers(*key)
     packed = np.zeros((NUM_SCALARS * b + b * mb,), np.int32)
     sc = packed[:NUM_SCALARS * b].reshape(NUM_SCALARS, b)

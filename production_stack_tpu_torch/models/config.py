@@ -1,7 +1,8 @@
 """Model architecture config, copied from
 ``production_stack_tpu/models/config.py`` (the port imports nothing of the
-JAX package). Only the llama family is served by the port so far; the OPT
-configs stay in the table so names resolve identically."""
+JAX package). The llama family serves on both attention paths; the OPT
+family (``models/opt.py``) on the window path, as a target or as a
+speculative draft."""
 
 import json
 import os

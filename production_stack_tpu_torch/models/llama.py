@@ -213,6 +213,7 @@ def _layer_body(
                                 #  block_tables, kv_lens, bs)
     layer_idx: int = 0,
     tp=None,                    # TPGroup when tensor_parallel_size > 1
+    chunk_bias=None,            # [T, T] additive in-chunk bias (tree verify)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, t, d = hidden.shape
     dh = cfg.head_dim_
@@ -266,6 +267,7 @@ def _layer_body(
         attn = window_attention(
             q, k, v, positions, chunk_lens,
             win_k, win_v, win_len, ring_k, ring_v, ring_pos,
+            chunk_bias=chunk_bias,
         )
     o = attn.reshape(b, t, h * dh) @ lp["wo"]
     hidden = hidden + (o if tp is None else tp.all_reduce(o))
@@ -296,6 +298,8 @@ def forward(
                  #  v_scale | None, block_tables [B,Mb], kv_lens [B],
                  #  block_size) — paged decode path
     tp=None,     # TPGroup when tensor_parallel_size > 1 (Hkv: this rank's)
+    chunk_bias=None,  # [T, T] additive in-chunk bias: the speculative
+                      # token-tree verify (ops/tree_mask.py), window path
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (hidden [B,T,D], k_new [L,Hkv,B,T,Dh], v_new [L,Hkv,B,T,Dh])."""
     hidden = params["embed"][token_ids.long()]
@@ -316,7 +320,7 @@ def forward(
             ring_k[i] if ring_k is not None else None,
             ring_v[i] if ring_v is not None else None,
             ring_pos,
-            paged=paged, layer_idx=i, tp=tp,
+            paged=paged, layer_idx=i, tp=tp, chunk_bias=chunk_bias,
         )
         k_out.append(k_l)
         v_out.append(v_l)

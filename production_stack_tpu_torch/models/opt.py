@@ -1,0 +1,160 @@
+"""OPT-family decoder (facebook/opt-125m, tiny-opt) in PyTorch.
+
+Counterpart of ``production_stack_tpu/models/opt.py``, in the idiom of
+``models/llama.py``: a plain param dict with decoder layers STACKED on a
+leading ``L`` axis, projections oriented ``x @ w``, a Python loop over
+layers. OPT's architecture: LayerNorm with bias (normalized in f32, cast
+back to the activation dtype before the affine), learned position
+embeddings with OPT's +2 offset, a ReLU MLP, the LM head tied to the
+embedding. It serves on the window path only (the paged kernel is
+llama-family by policy, ``engine/config.py:resolved_attn_impl``), at
+tensor_parallel_size 1; the speculative engine takes it as a draft.
+"""
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from production_stack_tpu_torch.models.config import ModelConfig
+from production_stack_tpu_torch.ops.attention import window_attention
+
+Params = Dict
+_OPT_POS_OFFSET = 2  # HF OPTLearnedPositionalEmbedding offset
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
+
+
+def _check_tp(tp: int) -> None:
+    if tp != 1:
+        raise ValueError("the OPT family is served at tensor_parallel_size 1 "
+                         f"only, got {tp}")
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype: torch.dtype = torch.bfloat16,
+                device: Optional[torch.device] = None,
+                rank: int = 0, tp: int = 1) -> Params:
+    """Random weights (the JAX package's scheme: N(0, 1/fan_in), unit
+    norms, zero biases), drawn on ``device`` from ``generator``."""
+    _check_tp(tp)
+    device = device if device is not None else generator.device
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    h, dh, nl, v = cfg.num_heads, cfg.head_dim_, cfg.num_layers, cfg.vocab_size
+
+    def w(shape, fan_in):
+        return (torch.randn(shape, generator=generator, device=device,
+                            dtype=torch.float32) * fan_in ** -0.5).to(dtype)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    layers = {
+        "ln1_w": ones(nl, d), "ln1_b": zeros(nl, d),
+        "ln2_w": ones(nl, d), "ln2_b": zeros(nl, d),
+        "wq": w((nl, d, h * dh), d), "bq": zeros(nl, h * dh),
+        "wk": w((nl, d, h * dh), d), "bk": zeros(nl, h * dh),
+        "wv": w((nl, d, h * dh), d), "bv": zeros(nl, h * dh),
+        "wo": w((nl, h * dh, d), h * dh), "bo": zeros(nl, d),
+        "fc1": w((nl, d, f), d), "fc1_b": zeros(nl, f),
+        "fc2": w((nl, f, d), f), "fc2_b": zeros(nl, d),
+    }
+    return {
+        "embed": w((v, d), d),
+        "pos_embed": w((cfg.max_position_embeddings + _OPT_POS_OFFSET, d), d),
+        "layers": layers,
+        "final_ln_w": ones(d),
+        "final_ln_b": zeros(d),
+    }
+
+
+def _layer_body(cfg: ModelConfig, hidden: torch.Tensor, lp: Dict,
+                positions, chunk_lens, win_k, win_v, win_len,
+                ring_k, ring_v, ring_pos, chunk_bias=None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, t, d = hidden.shape
+    h, dh = cfg.num_heads, cfg.head_dim_
+
+    x = layer_norm(hidden, lp["ln1_w"], lp["ln1_b"])
+    q = (x @ lp["wq"] + lp["bq"]).reshape(b, t, h, dh)
+    k = (x @ lp["wk"] + lp["bk"]).reshape(b, t, h, dh)
+    v = (x @ lp["wv"] + lp["bv"]).reshape(b, t, h, dh)
+    attn = window_attention(
+        q, k, v, positions, chunk_lens,
+        win_k, win_v, win_len, ring_k, ring_v, ring_pos,
+        chunk_bias=chunk_bias,
+    )
+    hidden = hidden + attn.reshape(b, t, h * dh) @ lp["wo"] + lp["bo"]
+
+    x = layer_norm(hidden, lp["ln2_w"], lp["ln2_b"])
+    # OPT's activation is ReLU (HF OPTConfig's default, facebook/opt-125m's).
+    mlp = torch.relu(x @ lp["fc1"] + lp["fc1_b"]) @ lp["fc2"] + lp["fc2_b"]
+    return hidden + mlp, k.permute(2, 0, 1, 3), v.permute(2, 0, 1, 3)
+
+
+def forward(
+    params: Params,
+    cfg: ModelConfig,
+    token_ids: torch.Tensor,     # [B, T]
+    positions: torch.Tensor,     # [B, T]
+    chunk_lens: torch.Tensor,    # [B]
+    win_k: Optional[torch.Tensor] = None,
+    win_v: Optional[torch.Tensor] = None,
+    win_len: Optional[torch.Tensor] = None,
+    ring_k: Optional[torch.Tensor] = None,
+    ring_v: Optional[torch.Tensor] = None,
+    ring_pos: Optional[torch.Tensor] = None,
+    *,
+    paged=None,
+    tp=None,
+    chunk_bias=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Same contract as ``models/llama.py:forward``, window path only."""
+    assert paged is None, "paged decode is llama-family only (policy)"
+    assert tp is None, "the OPT family is served at tensor_parallel_size 1"
+    hidden = (params["embed"][token_ids.long()]
+              + params["pos_embed"][positions.long() + _OPT_POS_OFFSET])
+    hidden = hidden.to(win_k.dtype if win_k is not None
+                       else params["embed"].dtype)
+    layers = params["layers"]
+    k_out, v_out = [], []
+    for i in range(cfg.num_layers):
+        lp = {name: leaf[i] for name, leaf in layers.items()}
+        hidden, k_l, v_l = _layer_body(
+            cfg, hidden, lp, positions, chunk_lens,
+            win_k[i] if win_k is not None else None,
+            win_v[i] if win_v is not None else None,
+            win_len,
+            ring_k[i] if ring_k is not None else None,
+            ring_v[i] if ring_v is not None else None,
+            ring_pos, chunk_bias=chunk_bias,
+        )
+        k_out.append(k_l)
+        v_out.append(v_l)
+    hidden = layer_norm(hidden, params["final_ln_w"], params["final_ln_b"])
+    return hidden, torch.stack(k_out), torch.stack(v_out)
+
+
+def lm_head_f32(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The tied output projection [D, V] widened to f32 once (see
+    ``models/llama.py:lm_head_f32``)."""
+    return params["embed"].t().float().contiguous()
+
+
+def compute_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
+                   head_f32: Optional[torch.Tensor] = None,
+                   tp=None) -> torch.Tensor:
+    """hidden [..., D] -> logits [..., V] in float32 (the reference's bf16
+    dot with f32 accumulation, exact in f32 here)."""
+    assert tp is None, "the OPT family is served at tensor_parallel_size 1"
+    if head_f32 is None:
+        head_f32 = lm_head_f32(params, cfg)
+    return torch.matmul(hidden.float(), head_f32)

@@ -2,11 +2,11 @@
 and the port's own random init.
 
 ``params_from_jax`` takes the JAX params exported as numpy
-(``jax.tree.map(np.asarray, params)``) and returns the same stacked-layer
-dict as torch tensors, so a test can make both frameworks compute with the
+(``jax.tree.map(np.asarray, params)``, llama or OPT) and returns the same
+stacked-layer dict as torch tensors, so a test can make both frameworks compute with the
 same weights; ``kv_pools_from_jax`` carries the JAX runner's KV pools (state,
 not weights) across the same way. The port's own random init is
-``models/llama.py:init_params``.
+``models/llama.py:init_params`` / ``models/opt.py:init_params``.
 Checkpoint loading from a HuggingFace directory is not ported yet (ROADMAP).
 """
 
@@ -42,13 +42,16 @@ def params_from_jax(np_tree: Dict, cfg: ModelConfig,
                     dtype: torch.dtype = torch.bfloat16,
                     device: Optional[torch.device] = None,
                     rank: int = 0, tp: int = 1) -> Dict:
-    """JAX llama param tree (numpy leaves) -> the port's param dict, same
-    keys, same ``[L, ...]`` layouts, ``x @ w`` orientation; with ``tp`` >
-    1, tp rank ``rank``'s shard of it (parallel/sharding.py)."""
+    """JAX llama or OPT param tree (numpy leaves) -> the port's param dict,
+    same keys, same ``[L, ...]`` layouts, ``x @ w`` orientation; with ``tp``
+    > 1, tp rank ``rank``'s shard of it (parallel/sharding.py; llama
+    only)."""
     from production_stack_tpu_torch.parallel.sharding import shard_params
 
-    if cfg.arch != "llama":
+    if cfg.arch not in ("llama", "opt"):
         raise ValueError(f"params_from_jax: arch {cfg.arch!r} is not ported")
+    if cfg.arch == "opt" and tp > 1:
+        raise ValueError("params_from_jax: OPT trees are not sharded (tp 1)")
     device = device if device is not None else torch.device("cpu")
     out = {
         k: _to_tensor(v, dtype, device)

@@ -46,11 +46,15 @@ def window_attention(
     ring_pos: Optional[torch.Tensor] = None,  # [B, R] position per entry
     *,
     scale: Optional[float] = None,
+    chunk_bias: Optional[torch.Tensor] = None,  # [T, T] additive f32
 ) -> torch.Tensor:
     """Dense attention against up to three key segments: the gathered
     history window (valid where s < win_len), the intra-dispatch ring (valid
     where ring_pos < position) and the chunk itself (causal, valid where
-    key_idx < chunk_len). Returns [B, T, H, Dh] in q.dtype."""
+    key_idx < chunk_len). ``chunk_bias``: the token tree's [T, T] additive
+    bias (ops/tree_mask.py), added to the in-chunk causal mask, for one
+    query block only (a verify chunk is N + W <= 24 tokens). Returns
+    [B, T, H, Dh] in q.dtype."""
     b, t, h, dh = q.shape
     hkv = k_chunk.shape[2]
     g = h // hkv
@@ -84,6 +88,10 @@ def window_attention(
             & (positions[:, None, :] <= pos_q[:, :, None]),
             zero, neg,
         )                                                        # [B, TQ, T]
+        if chunk_bias is not None:
+            # Clamped add: both masks bottom out at the f32 floor, and
+            # floor + floor would overflow it.
+            cb = torch.maximum(cb + chunk_bias[None, :, :], neg)
         segs = []
         vals = []
         if win_k is not None:
@@ -116,6 +124,8 @@ def window_attention(
     if t <= QBLOCK:
         out = q_block(qf, positions)
     else:
+        assert chunk_bias is None, \
+            "chunk_bias (tree speculation) requires t <= QBLOCK"
         assert t % QBLOCK == 0, "token bucket must be a multiple of QBLOCK"
         outs = [
             q_block(qf[:, :, :, i:i + QBLOCK], positions[:, i:i + QBLOCK])

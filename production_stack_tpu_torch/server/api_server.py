@@ -931,6 +931,29 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="the card's peak HBM bandwidth in GB/s, the ceiling "
                         "of pstpu:live_hbm_bw_pct (default: looked up from "
                         "the card's name; H100 SXM 3350)")
+    p.add_argument("--speculative-num-tokens", type=int, default=0,
+                   help="speculative decoding: draft-ahead tokens N per "
+                        "verify (0 disables). Spec-on output is "
+                        "token-identical to spec-off for greedy and seeded "
+                        "sampling; requires --speculative-model, the window "
+                        "attention path, bf16 KV cache and tp=1")
+    p.add_argument("--speculative-model", default=None,
+                   help="the draft model (a named config; the target itself "
+                        "for a self-draft); must share the target's "
+                        "vocabulary — a mismatch is a clean startup error")
+    p.add_argument("--speculative-draft-window", type=int, default=None,
+                   help="draft-KV ring length in tokens per sequence "
+                        "(default: EngineConfig's, 1024; 0 = full context)")
+    p.add_argument("--speculative-adaptive", action="store_true",
+                   help="per-sequence adaptive draft depth: an acceptance "
+                        "EMA picks each row's gamma every dispatch; a batch "
+                        "whose rows all sit at gamma 0 runs the plain decode "
+                        "train. Requires --speculative-num-tokens > 0")
+    p.add_argument("--speculative-tree-width", type=int, default=1,
+                   help="token-tree width W: W - 1 extra depth-1 alternates "
+                        "from the draft's own top-k in the same verify "
+                        "forward (1 = linear speculation; max 8). Requires "
+                        "--speculative-num-tokens > 0")
     return p.parse_args(argv)
 
 
@@ -947,11 +970,16 @@ def main(argv=None) -> None:
         attn_impl=args.attn_impl, seed=args.seed,
         tensor_parallel_size=args.tensor_parallel_size,
         hbm_peak_gbps=args.hbm_peak_gbps, role=args.role,
-        # Unset flags keep the config's environment defaults.
+        speculative_num_tokens=args.speculative_num_tokens,
+        speculative_model=args.speculative_model,
+        speculative_adaptive=args.speculative_adaptive,
+        speculative_tree_width=args.speculative_tree_width,
+        # Unset flags keep the config's (environment) defaults.
         **{k: v for k, v in (
             ("kv_remote_url", args.kv_remote_url),
             ("kv_offload_cpu", args.kv_offload_cpu),
-            ("kv_offload_max_cpu_gb", args.kv_offload_max_cpu_gb))
+            ("kv_offload_max_cpu_gb", args.kv_offload_max_cpu_gb),
+            ("speculative_draft_window", args.speculative_draft_window))
            if v is not None},
     )
 

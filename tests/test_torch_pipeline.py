@@ -341,11 +341,12 @@ def test_reachable_families_equal_jax(impl, max_num_seqs):
     assert len(keys) == len(set(keys))
     fams = set(runner.reachable_decode_families())
     # The reference's warm variants: (penalties, logprobs bucket) (False, 0)
-    # and (False, 8) of every family, (True, 0) at b = 1.
-    assert {k[:3] for k in keys if k[3:] == (False, 0)} == fams
-    assert {k[:3] for k in keys if k[3:] == (False, 8)} == fams
+    # and (False, 8) of every family, (True, 0) at b = 1; none speculative.
+    assert {k[:3] for k in keys if k[3:5] == (False, 0)} == fams
+    assert {k[:3] for k in keys if k[3:5] == (False, 8)} == fams
     assert {k[:3] for k in keys if k[3]} == {f for f in fams if f[0] == 1}
-    assert all(k[3:] in ((False, 0), (False, 8), (True, 0)) for k in keys)
+    assert all(k[3:] in ((False, 0, False), (False, 8, False),
+                         (True, 0, False)) for k in keys)
 
 
 @pytest.mark.parametrize("impl", ["paged", "window"])

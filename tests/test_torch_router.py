@@ -14,6 +14,7 @@ import asyncio
 import functools
 import json
 import re
+import time
 import types
 
 import jax
@@ -117,14 +118,27 @@ async def test_router_streams_a_port_engine_like_jax_and_scrapes_it():
                             "".join(e["choices"][0]["delta"].get("content", "")
                                     for e in evs)))
             assert got[0] == got[1] and len(got[0][0]) == 10
+        # The scraper keeps the snapshot of its last pass, which may have
+        # read the engine while the router's last stream still ran there
+        # (a request running, the live gauge already set by the first
+        # stream). Read a snapshot of a pass that BEGAN after the streams
+        # ended: the pass completing after one that completed after them.
         scraper = get_engine_stats_scraper()
-        for _ in range(100):
-            stats = scraper.get_engine_stats().get(url)
-            if stats is not None and stats.live_tok_per_s > 0:
-                break
+        t_done, passes, stats = time.time(), [], None
+        for _ in range(300):
+            last = scraper._last_scrape
+            if last > t_done and last not in passes:
+                passes.append(last)
+            if len(passes) >= 2:
+                stats = scraper.get_engine_stats().get(url)
+                if stats is not None:
+                    break
             await asyncio.sleep(0.1)
-        assert stats is not None and stats.live_tok_per_s > 0
-        assert stats.num_running_requests == 0 and stats.num_queuing_requests == 0
+        assert len(passes) >= 2, "no scrape pass after the streams ended"
+        assert stats is not None, f"{url} was not scraped"
+        assert stats.live_tok_per_s > 0
+        assert (stats.num_running_requests, stats.num_queuing_requests) == \
+            (0, 0)
     finally:
         await router.close()
         await jclient.close()
@@ -161,6 +175,61 @@ async def test_exposition_matches_the_jax_renderer_and_the_registry():
     fams = list(EngineMetricsCollector(eng).collect())
     names = {f.name + ("_total" if f.type == "counter" else "") for f in fams}
     assert names == set(mine)
+    eng.shutdown()
+
+
+SPEC_SERIES = ("pstpu:spec_enabled", "pstpu:spec_draft_tokens_total",
+               "pstpu:spec_accepted_tokens_total", "pstpu:spec_acceptance_rate",
+               "pstpu:spec_acceptance_rate_window", "pstpu:spec_draft_depth",
+               "pstpu:spec_tree_nodes_total", "pstpu:spec_acceptance_ema",
+               "pstpu:spec_gamma0_dispatches_total")
+
+
+async def test_spec_on_exposition_matches_the_jax_renderer():
+    """A speculative port engine (self-draft, tree width 2, adaptive): its
+    exposition has the JAX renderer's series and label sets, the spec
+    series read its counters (non-zero after traffic), the decode_spec
+    train's histogram counts its dispatches, and every name is
+    registered."""
+    eng = _port_engine(speculative_num_tokens=3, speculative_model=MODEL,
+                       speculative_tree_width=2, speculative_adaptive=True)
+    await eng.start()
+    try:
+        async for _ in eng.generate(prompt="metrics", sampling=SamplingParams(
+                max_tokens=12, temperature=0.0, ignore_eos=True)):
+            pass
+    finally:
+        await eng.stop()
+    text = render_engine_metrics(eng, MODEL)
+    shim = types.SimpleNamespace(
+        stats=eng.stats, histograms=jax_metrics.RequestLatencyHistograms(),
+        lifecycle=jax_metrics.LifecycleHistograms(),
+        dispatch_hists=jax_metrics.DispatchDurationHistograms())
+    mine = _series(text)
+    assert mine == _series(jax_render(shim, MODEL))
+    registered = {s.name for s in REGISTRY if ENGINE_TEXT in s.surfaces}
+    assert set(mine) <= registered
+    st = eng.stats()
+    values = {}
+    for line in text.splitlines():
+        name = line.split("{")[0]
+        if name in SPEC_SERIES:
+            values[name] = float(line.rsplit(" ", 1)[1])
+    assert set(values) == set(SPEC_SERIES)
+    for name in SPEC_SERIES:
+        key = name.split(":")[1]
+        assert values[name] == pytest.approx(float(st[key])), name
+    for name in ("pstpu:spec_enabled", "pstpu:spec_draft_tokens_total",
+                 "pstpu:spec_accepted_tokens_total",
+                 "pstpu:spec_tree_nodes_total", "pstpu:spec_draft_depth"):
+        assert values[name] > 0, name
+    # The EMA gauge averages live sequences: the finished one is forgotten.
+    assert values["pstpu:spec_acceptance_ema"] == 0.0
+    spec_count = re.search(
+        r'pstpu:dispatch_duration_seconds_count\{model_name="%s",'
+        r'train="decode_spec"\} (\d+)' % MODEL, text)
+    assert spec_count and int(spec_count.group(1)) == \
+        st["decode_dispatches_total"] > 0
     eng.shutdown()
 
 

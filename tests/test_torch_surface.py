@@ -139,11 +139,28 @@ def test_compute_logprobs_matches_jax():
         assert tt.shape == jt.shape == (6, k) and ti.dtype == np.int32
         if k:
             assert np.abs(tt - jt).max() <= 1e-5
-            gaps = np.abs(np.diff(jt, axis=1, prepend=np.inf))
-            nxt = np.abs(np.diff(jt, axis=1, append=-np.inf))
-            clear = (gaps > 1e-5) & (nxt > 1e-5)
-            assert np.array_equal(ti[clear], ji[clear])
+            np.testing.assert_array_equal(ti, ji)
     assert [logprobs_bucket(k) for k in (0, 5, 8, 9, 20)] == [8, 8, 8, 20, 20]
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 20])
+def test_compute_logprobs_on_tied_logits_matches_jax(k):
+    """Logits tied within and across the top k (a row of one value, rows of
+    a few repeated values): the top-k ids and logprobs are jax.lax.top_k's,
+    lower id first among equals and the lowest ids kept at the k-th place,
+    bit for bit."""
+    rng = np.random.default_rng(k)
+    logits = rng.integers(-2, 3, (6, 512)).astype(np.float32)
+    logits[0] = 0.5
+    logits[1, 100:140] = 9.0
+    chosen = rng.integers(0, 512, 6).astype(np.int32)
+    jc, jt, ji = (np.asarray(x) for x in jsampling.compute_logprobs(
+        jnp.asarray(logits), jnp.asarray(chosen), k))
+    tc, tt, ti = (x.numpy() for x in compute_logprobs(
+        torch.from_numpy(logits), torch.from_numpy(chosen), k))
+    np.testing.assert_array_equal(ti, ji)
+    assert np.abs(tt - jt).max() <= 1e-6 and np.abs(tc - jc).max() <= 1e-6
+    assert (np.diff(ti[0]) > 0).all()
 
 
 def test_sampling_scores_match_jax():
@@ -197,11 +214,7 @@ async def test_engine_logprobs_match_jax(seeded):
         assert abs(pc - jc) <= LP_TOL and pc <= 0.0
         assert len(ptop) == len(jtop) == 5
         assert max(abs(a[1] - b[1]) for a, b in zip(ptop, jtop)) <= LP_TOL
-        vals = [v for _, v in jtop]
-        for r, ((pi, _), (ji, _)) in enumerate(zip(ptop, jtop)):
-            if all(abs(vals[r] - vals[q]) > 1e-5 for q in (r - 1, r + 1)
-                   if 0 <= q < len(vals)):
-                assert pi == ji
+        assert [i for i, _ in ptop] == [i for i, _ in jtop]
         if not seeded:
             assert ptop[0][0] == tok and abs(ptop[0][1] - pc) <= 1e-6
 
@@ -224,7 +237,7 @@ async def test_logprob_decode_rows_use_the_logprob_variant_family():
         await eng.stop()
         eng.shutdown()
     assert {k[4] for k in keys} == {8, 20}
-    assert all(k[:4] + (8,) in eng.runner.decode_graph_keys()
+    assert all(k[:4] + (8, False) in eng.runner.decode_graph_keys()
                for k in keys if k[4] == 8)
 
 
@@ -424,3 +437,111 @@ async def test_port_to_port_resume_and_finished_stream_refused():
     finally:
         await server.stop()
         eng.shutdown()
+
+
+# ------------------------------------------------------------ speculation
+_SPEC_SERIES = ("pstpu:spec_enabled", "pstpu:spec_draft_tokens_total",
+                "pstpu:spec_accepted_tokens_total",
+                "pstpu:spec_acceptance_rate",
+                "pstpu:spec_acceptance_rate_window", "pstpu:spec_draft_depth",
+                "pstpu:spec_tree_nodes_total", "pstpu:spec_acceptance_ema",
+                "pstpu:spec_gamma0_dispatches_total")
+
+
+def _close(a, b, path="body"):
+    """``a`` equals ``b``, floats within LP_TOL (speculation computes a
+    token's logprobs from the verify forward's logits, spec-off from the
+    step's: the same tokens, f32 values that differ in rounding); ids and
+    timestamps aside."""
+    if isinstance(a, dict):
+        keys = set(a) - {"id", "created"}
+        assert keys == set(b) - {"id", "created"}, path
+        for k in keys:
+            _close(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, list):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _close(x, y, f"{path}[{i}]")
+    elif isinstance(a, float):
+        assert a == pytest.approx(b, abs=LP_TOL), path
+    else:
+        assert a == b, path
+
+
+def _merged(evs):
+    """A completion stream's one choice as one body: its text, logprob
+    lists and finish reason over all chunks."""
+    text, lp, finish = "", {}, None
+    for e in evs:
+        c = e["choices"][0]
+        text += c["text"]
+        finish = c["finish_reason"] or finish
+        for k, v in (c.get("logprobs") or {}).items():
+            lp[k] = lp.get(k, []) + v
+    return {"text": text, "logprobs": lp, "finish_reason": finish}
+
+
+async def test_spec_server_serves_like_spec_off_and_exports_its_counters():
+    """A speculative port server (self-draft, N = 3) against a spec-off one
+    on the same weights: a streamed completion with logprobs, n = 2 over
+    two prompts (seeded), a chat with a stop string taken from the middle
+    of the spec-off text, and a stream resumed from its pstpu payload give
+    the same bodies; its /metrics then carries the spec series at the
+    engine's counters, non-zero."""
+    servers = [OpenAIServer(_port_engine(), port=0),
+               OpenAIServer(_port_engine(speculative_num_tokens=3,
+                                         speculative_model=MODEL), port=0)]
+    for s in servers:
+        await s.start()
+    off, on = (s.port for s in servers)
+    try:
+        plain = {"prompt": "a speculative stream", "max_tokens": 24,
+                 "temperature": 0.0, "ignore_eos": True}
+        st, _, text = await _http(off, "POST", "/v1/completions", plain)
+        base = json.loads(text)["choices"][0]["text"]
+        assert st == 200 and len(base) >= 4
+        mid = len(base) // 2
+        bodies = [
+            ("/v1/completions", {**plain, "stream": True, "logprobs": 2}),
+            ("/v1/completions", {"prompt": ["one two", "three four five"],
+                                 "n": 2, "max_tokens": 6, "temperature": 0.7,
+                                 "seed": 3, "ignore_eos": True}),
+            ("/v1/completions", {**plain, "stop": [base[mid:mid + 2]]}),
+            ("/v1/chat/completions", {**_CHAT, "max_tokens": 10,
+                                      "temperature": 0.0, "ignore_eos": True,
+                                      "logprobs": True, "top_logprobs": 2}),
+        ]
+        for path, body in bodies:
+            (so, _, to), (sn, _, tn) = [await _http(p, "POST", path, body)
+                                        for p in (off, on)]
+            assert so == sn == 200, (path, body)
+            if body.get("stream"):
+                _close(_merged(_events(tn)[0]), _merged(_events(to)[0]))
+            else:
+                _close(json.loads(tn), json.loads(to))
+            if "stop" in body:
+                assert json.loads(tn)["choices"][0]["finish_reason"] == "stop"
+        # Resume a spec-on stream from its payload on the spec-on server.
+        st, _, text = await _http(on, "POST", "/v1/completions", _RESUME, _HDR)
+        evs, toks = _payloads(text)
+        st, _, text = await _http(on, "POST", "/v1/completions", {
+            **_RESUME, "resume_tokens": toks[:5],
+            "resume_seed": evs[0]["pstpu"]["seed"]}, _HDR)
+        rtoks = [t for e in _events(text)[0] for t in e["pstpu"]["toks"]]
+        assert st == 200 and toks[:5] + rtoks == toks
+        st, _, metrics = await _http(on, "GET", "/metrics")
+        stats = servers[1].engine.stats()
+        got = {line.split("{")[0]: float(line.rsplit(" ", 1)[1])
+               for line in metrics.splitlines()
+               if line.split("{")[0] in _SPEC_SERIES}
+        assert set(got) == set(_SPEC_SERIES)
+        for name, value in got.items():
+            assert value == pytest.approx(float(stats[name.split(":")[1]]))
+        assert got["pstpu:spec_enabled"] == 1
+        assert got["pstpu:spec_draft_tokens_total"] > 0
+        assert 0 < got["pstpu:spec_accepted_tokens_total"] <= \
+            got["pstpu:spec_draft_tokens_total"]
+    finally:
+        for s in servers:
+            await s.stop()
+            s.engine.shutdown()
