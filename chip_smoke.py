@@ -114,9 +114,32 @@ serving):
      stats(), graph replays that differ from the strict eager train on the
      same batches, or bf16 tokens that part from spec-off's before a step
      whose sampler margin is under 2 x ``tp_logit_bound``; a profiled round
-     of spec off and linear per pair; then float32 tiny-llama with the
+     of ``SPEC_TRACE_TOKENS`` per request of spec off and linear per pair
+     (each step's seconds in the summary); then float32 tiny-llama with the
      tiny-llama and tiny-opt drafts, every mode's tokens equal to
-     spec-off's bit for bit.
+     spec-off's bit for bit;
+ 11. ckpt: llama-3b's random bf16 params from --seed written as an HF
+     checkpoint directory (config.json, HF names and [out, in] tensors, two
+     safetensors shards and their index, by the port's own writer) under
+     the gitignored output directory, removed at the phase's end; the
+     named-config engine serves 4 streams (2 greedy, 2 seeded) x 64 tokens
+     behind the port's server; an engine made from the server's flags with
+     ``--model <dir>`` loads it (seconds, GB/s against a plain read of the
+     files, the peak host RSS over the load, the tokenizer class: the byte
+     tokenizer, no tokenizer file being written), every leaf equal to the
+     written one bit for bit and the config to llama-3b's in every field
+     but the name, and serves the same 4 streams: tokens equal the named
+     config's; then two PEFT adapters (a: rank 8 on q_proj and v_proj; b:
+     rank 16 on all seven projections) with ``--lora-modules``: /v1/models,
+     one batch mixing the base model, a, b and a (the base row equals the
+     no-adapter engine's, the adapter rows differ from the base model's),
+     graph replay = the eager train = the served round on the engine API,
+     no prefix block shared across adapters (hit counters), the stack and
+     graph-pool bytes, decode ms per step by CUDA events with and without
+     adapters alternated; every round replays graphs only and counts 28 x
+     decode steps of the bf16 kernel, 0 of int8; last, at llama-3b width
+     cut to 2 layers in float32, an adapter row's logits against a model
+     with merged weights, W + A.B.alpha/r, within ``CKPT_F32_BOUND``.
 
 Stdout carries the card line, one ``<phase> summary {...}`` line of JSON
 per phase (timings beside the SM clock nvidia-smi sampled meanwhile) and
@@ -3022,6 +3045,10 @@ def kvtier_phase(torch, pa, device, seed, card, kv_cache_dtype, kv_url,
 # ---------------------------------------------------------------- phase 10
 SPEC_N = 4                  # draft-ahead tokens
 SPEC_TOKENS = 64            # tokens per request
+# Tokens per request of the profiled round of each pair's off and linear
+# modes: the host processes every profiler record, so the round's time
+# grows with the tokens it traces. The checks keep SPEC_TOKENS.
+SPEC_TRACE_TOKENS = 16
 # (pair, target, draft): the ceiling (a self-draft accepts nearly
 # everything) and the floor (a random llama-3b drafting for a random
 # llama-3-8b accepts nearly nothing).
@@ -3286,7 +3313,7 @@ def spec_trace(torch, engine, gate, prompts, what):
     replays): busy share, device ms by kernel class, the top kernels."""
     tr = trace_requests(
         torch, lambda n: spec_api_round(engine, gate, prompts, n_tokens=n),
-        SPEC_TOKENS)
+        SPEC_TRACE_TOKENS)
     log(f"spec {what} trace {json.dumps(tr)}")
     return {k: tr[k] for k in ("wall_s", "device_busy_s", "busy_share",
                                "ms_by_class", "top_ms")}
@@ -3304,6 +3331,19 @@ def spec_token_bar(on, off, margins, bound):
         if t is not None and all(m >= bound for m in margins[i][:t + 1]):
             ok = False
     return firsts, ok
+
+
+class Laps(dict):
+    """Wall seconds per named step, each from the end of the one before."""
+
+    def __init__(self):
+        super().__init__()
+        self.t = time.monotonic()
+
+    def __call__(self, step: str) -> None:
+        now = time.monotonic()
+        self[step] = now - self.t
+        self.t = now
 
 
 def spec_phase(torch, pa, device, seed, card, pairs=SPEC_PAIRS):
@@ -3332,20 +3372,23 @@ def spec_phase(torch, pa, device, seed, card, pairs=SPEC_PAIRS):
         rows, off = {}, None
         for mode, fields in SPEC_MODES:
             what = f"{pair} {mode}"
-            t0 = time.monotonic()
+            lap = Laps()
             engine = ServingEngine(spec_config(target, draft, fields, seed,
                                                device=device.type),
                                    params=params, draft_params=draft_params)
-            up_s = time.monotonic() - t0
+            lap("up")
             gate = gate_schedule(engine)
             toks, row, st = spec_http_round(torch, pa, engine, gate, prompts,
                                             what)
-            row["engine_up_s"] = up_s
+            lap("served")
+            row["engine_up_s"] = lap["up"]
+            row["step_s"] = lap
             row["attn_impl"] = st["attn_impl"]
             if mode == "off":
                 off = toks
                 eager_toks, margins = spec_eager_logits(torch, engine, gate,
                                                         prompts, what)
+                lap("eager_logits")
                 row["eager_equal_graph"] = eager_toks == toks
                 if not row["eager_equal_graph"]:
                     fail(f"spec {what}: strict eager tokens differ from the "
@@ -3373,16 +3416,20 @@ def spec_phase(torch, pa, device, seed, card, pairs=SPEC_PAIRS):
                 if pair == "self" or mode == "linear":
                     row["graph_equal_eager"] = spec_graph_vs_eager(
                         engine, gate, prompts, what)
+                    lap("graph_vs_eager")
                 if st["spec_draft_tokens_total"] <= 0 and mode != "adaptive":
                     fail(f"spec {what}: no draft proposals counted")
             if mode in ("off", "linear") and device.type == "cuda":
                 row["trace"] = spec_trace(torch, engine, gate, prompts, what)
+                lap("trace")
             rows[mode] = row
             engine.shutdown()
             del engine
             gc.collect()
             if device.type == "cuda":
                 torch.cuda.empty_cache()
+            lap("down")
+            log(f"spec {what} step seconds {json.dumps(lap)}")
         out["pairs"][pair] = {"target": target, "draft": draft, "modes": rows}
         del params, draft_params
         gc.collect()
@@ -3444,15 +3491,599 @@ def spec_f32_identity(torch, device, seed):
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+CKPT_TOKENS = 64            # tokens per request
+CKPT_SAMPLINGS = ({"temperature": 0.0}, {"temperature": 0.0},
+                  {"temperature": 0.8, "seed": 1234},
+                  {"temperature": 0.7, "seed": 7})
+# The float32 merged-weight check: logits of the engine's adapter row
+# against a model whose weights carry the adapter (W + A.B.alpha/r), both
+# in f32 with TF32 off; they differ by summation order only (measured
+# ~1e-5 on the CPU at tiny width). The adapter itself must move the
+# logits by far more than the bound.
+CKPT_F32_LAYERS = 2
+CKPT_F32_BOUND = 2e-3
+
+
+def hf_config_json(mc) -> dict:
+    """config.json of a llama-family ModelConfig, in HF's field names."""
+    return {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": mc.vocab_size, "hidden_size": mc.hidden_size,
+        "intermediate_size": mc.intermediate_size,
+        "num_hidden_layers": mc.num_layers,
+        "num_attention_heads": mc.num_heads,
+        "num_key_value_heads": mc.num_kv_heads,
+        **({"head_dim": mc.head_dim} if mc.head_dim else {}),
+        "max_position_embeddings": mc.max_position_embeddings,
+        "rope_theta": mc.rope_theta, "rms_norm_eps": mc.rms_norm_eps,
+        "tie_word_embeddings": mc.tie_word_embeddings,
+        "attention_bias": mc.attention_bias, "torch_dtype": "bfloat16",
+    }
+
+
+def write_hf_checkpoint(torch, params, mc, path, num_shards=1):
+    """Write the port's llama param dict as an HF checkpoint directory:
+    HF tensor names, ``[out, in]`` projections, ``num_shards`` safetensors
+    files (with ``model.safetensors.index.json`` when more than one) by the
+    port's writer, and config.json from ``mc``. Tensors may live on the
+    card: each is copied to the host as it is written. Returns the files,
+    bytes and seconds."""
+    from production_stack_tpu_torch.models import safetensors_io
+    from production_stack_tpu_torch.models.weights import _LLAMA_MAP, _LLAMA_TOP
+
+    t0 = time.monotonic()
+    os.makedirs(path, exist_ok=True)
+    layer_names = {ours: (suffix, tr) for suffix, (ours, tr) in _LLAMA_MAP.items()}
+    top_names = {ours: (name, tr) for name, (ours, tr) in _LLAMA_TOP.items()}
+    tensors = {}
+    for ours, t in params.items():
+        if ours != "layers":
+            name, tr = top_names[ours]
+            tensors[name] = t.t() if tr else t
+    for i in range(mc.num_layers):
+        for ours, stack in params["layers"].items():
+            suffix, tr = layer_names[ours]
+            tensors[f"model.layers.{i}.{suffix}"] = stack[i].t() if tr else stack[i]
+    if num_shards > 1:
+        files = safetensors_io.save_sharded(tensors, path, num_shards)
+    else:
+        files = ["model.safetensors"]
+        safetensors_io.save_file(tensors, os.path.join(path, files[0]),
+                                 {"format": "pt"})
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config_json(mc), f, indent=2)
+    nbytes = sum(os.path.getsize(os.path.join(path, n)) for n in files)
+    return {"files": files, "bytes": nbytes, "seconds": time.monotonic() - t0}
+
+
+def params_equal(torch, got, want):
+    """Names of the leaves of two param dicts that differ in name, dtype,
+    shape or any bit ([] when every leaf is equal)."""
+    def leaves(p):
+        out = {k: v for k, v in p.items() if k != "layers"}
+        out.update({f"layers.{k}": v for k, v in p["layers"].items()})
+        return out
+
+    g, w = leaves(got), leaves(want)
+    return sorted(k for k in g.keys() | w.keys()
+                  if k not in g or k not in w or g[k].dtype != w[k].dtype
+                  or g[k].shape != w[k].shape or not torch.equal(g[k], w[k]))
+
+
+def write_peft_adapter(torch, path, mc, rank, targets, alpha, generator,
+                       scale=1.0):
+    """A PEFT adapter directory (bf16 ``adapter_model.safetensors`` and
+    ``adapter_config.json``): per layer and target lora_A [r, in] and
+    lora_B [out, r], random and nonzero (``models/lora.py``'s draw, from
+    ``generator``)."""
+    from production_stack_tpu_torch.models import lora, safetensors_io
+
+    ad = lora.init_random_adapter("w", mc, generator, rank=rank,
+                                  targets=targets, scale=scale)
+    tensors = {}
+    for target in targets:
+        a, b = ad.layers[target]
+        grp = "mlp" if target.startswith("w_") else "self_attn"
+        for i in range(mc.num_layers):
+            pre = (f"base_model.model.model.layers.{i}.{grp}."
+                   f"{lora.TARGET_TO_PEFT[target]}")
+            tensors[f"{pre}.lora_A.weight"] = a[i].t()
+            tensors[f"{pre}.lora_B.weight"] = b[i].t()
+    os.makedirs(path, exist_ok=True)
+    safetensors_io.save_file(tensors, os.path.join(path, "adapter_model.safetensors"))
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"r": rank, "lora_alpha": alpha, "peft_type": "LORA",
+                   "target_modules": [lora.TARGET_TO_PEFT[t] for t in targets]}, f)
+    return path
+
+
+def ckpt_server_config(model, served, seed, device, *extra):
+    """The engine config the port's server builds from its flags for the
+    ckpt phase: ``--model`` (a named config or a directory) served as
+    ``served``, bf16 KV, block 16, 1024 blocks, 4 rows, graphs captured at
+    warm-up (the server's default)."""
+    from production_stack_tpu_torch.server.api_server import (
+        config_from_args,
+        parse_args,
+    )
+
+    return config_from_args(parse_args([
+        "--model", model, "--served-model-name", served,
+        "--device", device.type, "--max-model-len", "2048", "--num-kv-blocks", "1024",
+        "--max-num-seqs", "4", "--num-decode-steps", "32", "--attn-impl", "paged",
+        "--seed", str(seed), *extra]))
+
+
+class RssPeak:
+    """This process's resident set, sampled every 10 ms while a block runs:
+    ``base`` and ``peak`` of VmRSS, and the peaks of its anonymous and
+    file-backed parts (RssAnon, RssFile), in bytes."""
+
+    KEYS = ("VmRSS", "RssAnon", "RssFile")
+
+    def __enter__(self):
+        self.base = self.read()
+        self.peaks = dict(self.base)
+        self._stop = threading.Event()
+
+        def run():
+            while not self._stop.wait(0.01):
+                self._sample()
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        for k, v in self.read().items():
+            self.peaks[k] = max(self.peaks.get(k, 0), v)
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(5)
+        self._sample()
+        return False
+
+    def summary(self):
+        """GiB: VmRSS at the start and its peak, and the peak over the
+        start of each part the kernel reports ("not read" when it does
+        not)."""
+        gib = 2**30
+        out = {"rss_base_gib": self.base.get("VmRSS", "not read"),
+               "rss_peak_gib": self.peaks.get("VmRSS", "not read")}
+        for key, name in (("VmRSS", "rss"), ("RssAnon", "rss_anon"),
+                          ("RssFile", "rss_file")):
+            out[f"{name}_peak_over_base_gib"] = (
+                (self.peaks[key] - self.base[key]) / gib if key in self.base
+                else "not read")
+        return {k: v / gib if isinstance(v, int) else v for k, v in out.items()}
+
+    @classmethod
+    def read(cls):
+        out = {}
+        with open("/proc/self/status") as f:
+            for line in f:
+                key = line.split(":")[0]
+                if key in cls.KEYS:
+                    out[key] = int(line.split()[1]) * 1024
+        return out
+
+
+def plain_read_gbps(files) -> float:
+    """GB/s of a plain read of the files into one reused 64 MiB buffer."""
+    buf = bytearray(64 << 20)
+    t0, n = time.monotonic(), 0
+    for path in files:
+        with open(path, "rb", buffering=0) as f:
+            while True:
+                got = f.readinto(buf)
+                if not got:
+                    break
+                n += got
+    return n / (time.monotonic() - t0) / 1e9
+
+
+def ckpt_http_round(torch, pa, engine, gate, prompts, models, what):
+    """The 4 streamed completions (``CKPT_SAMPLINGS``, ``models[i]`` each:
+    the base model or an adapter) behind the port's server, held until all
+    4 wait so they form one prefill batch, the prefix cache emptied first
+    (every round starts cold). Checks /v1/models, every stream's length, no
+    eager decode dispatch, and the paged kernel's own count: 28 x decode
+    steps of the bf16 variant, 0 of int8. Returns (token ids per stream,
+    a row of numbers)."""
+    from production_stack_tpu_torch.server.api_server import OpenAIServer
+
+    r = engine.runner
+    out = {}
+
+    async def run():
+        server = OpenAIServer(engine, "127.0.0.1", 0)
+        await server.start()
+        base = f"http://127.0.0.1:{server.port}"
+        loop = asyncio.get_running_loop()
+        st, body, _, _ = await loop.run_in_executor(
+            None, http, "GET", base + "/v1/models")
+        out["models"] = [m["id"] for m in body["data"]] if st == 200 else st
+        engine.block_manager.reset_prefix_cache()
+        for key in ("decode_steps_total", "decode_tokens_total",
+                    "decode_seconds_total", "decode_device_seconds_total",
+                    "prefill_seconds_total"):
+            setattr(r, key, 0)
+        engine.decode_dispatches_total = engine.prefill_dispatches_total = 0
+        train = r.decode_train
+        eager0, graph0 = train.eager_dispatches_total, train.graph_dispatches_total
+        if r.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        pa.reset_launch_counts()
+        gate["want"] = 4
+        t0 = time.monotonic()
+
+        def one(i):
+            body = {"model": models[i], "prompt": prompts[i],
+                    "max_tokens": CKPT_TOKENS, "stream": True,
+                    "ignore_eos": True, **CKPT_SAMPLINGS[i]}
+            t = time.monotonic()
+            st, evs, t_first, _ = http("POST", base + "/v1/completions", body,
+                                       True, headers={"x-pstpu-resume": "1"})
+            if st != 200 or evs[-1] != "[DONE]":
+                fail(f"ckpt {what}: request {i}: HTTP {st}")
+            toks = [t for e in evs[:-1] for t in e.get("pstpu", {}).get("toks", [])]
+            return toks, t_first - t
+
+        with SmMhz() as clock:
+            res = await asyncio.gather(*[loop.run_in_executor(None, one, i)
+                                         for i in range(4)])
+        out.update(res=res, wall=time.monotonic() - t0, clock=clock.summary(),
+                   launches=pa.launch_counts(), stats=engine.stats(),
+                   eager=train.eager_dispatches_total - eager0,
+                   graph=train.graph_dispatches_total - graph0,
+                   peak=(torch.cuda.max_memory_allocated() / 2**30
+                         if r.device.type == "cuda" else None))
+        await server.stop()
+
+    asyncio.run(run())
+    toks = [t for t, _ in out["res"]]
+    if any(len(t) != CKPT_TOKENS for t in toks):
+        fail(f"ckpt {what}: stream lengths {[len(t) for t in toks]}")
+    st = out["stats"]
+    steps = st["decode_steps_total"]
+    nl = engine.model_config.num_layers
+    if r.device.type != "cuda":
+        log(f"ckpt {what}: off the card: the graph and launch checks skipped")
+    elif out["eager"] or not out["graph"]:
+        fail(f"ckpt {what}: {out['eager']} eager decode dispatches after "
+             f"warm-up ({out['graph']} replayed)")
+    elif out["launches"] != {pa.BF16: nl * steps, pa.INT8: 0}:
+        fail(f"ckpt {what}: kernel launches {out['launches']} for {steps} "
+             f"decode steps of {nl} layers")
+    dev_s = st["decode_device_seconds_total"]
+    row = {
+        "models_listed": out["models"], "wall_s": out["wall"],
+        "aggregate_tok_s": 4 * CKPT_TOKENS / out["wall"],
+        "ttft_s": [f for _, f in out["res"]], "decode_steps": steps,
+        "decode_dispatches": st["decode_dispatches_total"],
+        "decode_ms_per_step_events": 1e3 * dev_s / steps if steps else None,
+        "launches": out["launches"][pa.BF16],
+        "graph_pool_bytes": st["graph_pool_bytes"],
+        "graph_families": st["graph_families"],
+        "peak_mem_gib": out["peak"], "sm_clock_mhz": out["clock"],
+    }
+    log(f"ckpt {what}: {json.dumps(row)}")
+    return toks, row
+
+
+def ckpt_api_round(engine, gate, prompts, models, eager=False):
+    """The 4 requests on the engine API, cold (the prefix cache emptied)
+    and held by ``gate`` until all wait; ``eager`` sets the captured graphs
+    aside and runs the strict loop (the strict eager train on the same
+    batches). Returns (each stream's tokens, the round's eager and
+    replayed decode dispatches)."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    r, cfg = engine.runner, engine.config
+    train = r.decode_train
+    saved = train.graphs, cfg.async_pipeline, cfg.overlap_dispatch
+    e0, g0 = train.eager_dispatches_total, train.graph_dispatches_total
+
+    async def run():
+        await engine.start()
+        engine.block_manager.reset_prefix_cache()
+        if eager:
+            train.graphs = {}
+            cfg.async_pipeline = cfg.overlap_dispatch = False
+        gate["want"] = len(prompts)
+
+        async def one(i):
+            last = None
+            ad = None if models[i] == engine.config.model_name else models[i]
+            async for o in engine.generate(
+                    prompt=prompts[i], lora_adapter=ad,
+                    sampling=SamplingParams(max_tokens=CKPT_TOKENS,
+                                            ignore_eos=True, **CKPT_SAMPLINGS[i])):
+                last = o
+            return last.token_ids
+
+        try:
+            return await asyncio.gather(*[one(i) for i in range(len(prompts))])
+        finally:
+            await engine.stop()
+
+    try:
+        toks = asyncio.run(run())
+    finally:
+        train.graphs, cfg.async_pipeline, cfg.overlap_dispatch = saved
+    return toks, (train.eager_dispatches_total - e0,
+                  train.graph_dispatches_total - g0)
+
+
+def ckpt_prefix_isolation(engine, prompt):
+    """The same prompt under adapter a, then the base model, then a again:
+    the base request hits no block a computed (the hit counter stands
+    still), a's second request hits them. Returns the counts."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    bm = engine.block_manager
+    counts = {}
+
+    async def run():
+        await engine.start()
+        bm.reset_prefix_cache()
+        try:
+            for tag, ad in (("a", "a"), ("base", None), ("a again", "a")):
+                h0 = bm.prefix_hits_total
+                async for _ in engine.generate(
+                        prompt=prompt, lora_adapter=ad, sampling=SamplingParams(
+                            max_tokens=4, temperature=0.0, ignore_eos=True)):
+                    pass
+                counts[tag] = bm.prefix_hits_total - h0
+        finally:
+            await engine.stop()
+
+    asyncio.run(run())
+    if counts["base"] != 0 or counts["a again"] <= 0:
+        fail(f"ckpt: prefix blocks shared across adapters: hits {counts}")
+    return counts
+
+
+def ckpt_merged_check(torch, device, seed, root, model="llama-3b"):
+    """The adapter arithmetic at llama-3b width, depth cut to
+    ``CKPT_F32_LAYERS``, in float32: an engine on the checkpoint (bf16
+    file, loaded as f32) with adapter m (rank 16 on all seven targets)
+    serves one greedy row under m; its logits at every generated position
+    (the prefill's and each decode step's) against a plain forward of the
+    same tokens through a model whose weights are merged, W + A.B.alpha/r.
+    Fails past ``CKPT_F32_BOUND``, or when the adapter moves the logits by
+    less than 10x the bound (an adapter that was not applied)."""
+    from dataclasses import replace
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.models import llama, lora
+    from production_stack_tpu_torch.models.config import resolve_model_config
+
+    mc = replace(resolve_model_config(model), num_layers=CKPT_F32_LAYERS)
+    gen = torch.Generator(device).manual_seed(seed + 1)
+    p16 = llama.init_params(mc, gen, torch.bfloat16, device)
+    d = os.path.join(root, "f32")
+    write_hf_checkpoint(torch, p16, mc, d)
+    targets = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    dm = write_peft_adapter(torch, os.path.join(root, "m"), mc, 16, targets,
+                            32, torch.Generator(device).manual_seed(seed + 2))
+    eng = ServingEngine(EngineConfig(
+        model=d, dtype="float32", device=device.type, max_model_len=512,
+        num_kv_blocks=64, max_num_seqs=1, num_decode_steps=8,
+        decode_loop="while", lora_modules={"m": dm}))
+    prompt = list(range(100, 140))
+    n_gen = 9
+    sink = []
+
+    async def run():
+        await eng.start()
+        eng.runner.logits_sink = sink
+        try:
+            last = None
+            async for o in eng.generate(prompt_token_ids=prompt, lora_adapter="m",
+                                        sampling=SamplingParams(
+                                            max_tokens=n_gen, temperature=0.0,
+                                            ignore_eos=True)):
+                last = o
+            return last.token_ids
+        finally:
+            eng.runner.logits_sink = None
+            await eng.stop()
+
+    toks = asyncio.run(run())
+    got = torch.stack([sink[j][0] for j in range(n_gen)])      # [n_gen, V]
+    eng.shutdown()
+    ad = lora.load_peft_adapter("m", dm, mc, dtype=torch.float32)
+    base = {k: (v.float() if k != "layers" else {n: t.float() for n, t in v.items()})
+            for k, v in p16.items()}
+    merged = {**base, "layers": dict(base["layers"])}
+    for t, (a, b) in ad.layers.items():
+        merged["layers"][t] = base["layers"][t] + torch.bmm(a.to(device), b.to(device))
+    seq = prompt + toks[:-1]
+    n = len(seq)
+
+    def logits_of(params):
+        ids = torch.tensor([seq], dtype=torch.int32, device=device)
+        pos = torch.arange(n, dtype=torch.int32, device=device)[None]
+        hid, _, _ = llama.forward(params, mc, ids, pos,
+                                  torch.tensor([n], dtype=torch.int32, device=device))
+        return llama.compute_logits(params, mc, hid[0, len(prompt) - 1:])
+
+    with torch.no_grad():
+        want = logits_of(merged)
+        plain = logits_of(base)
+    err = float((got - want).abs().max())
+    moved = float((plain - want).abs().max())
+    argmax_equal = bool((want.argmax(-1) == torch.tensor(toks, device=device)).all())
+    row = {"layers": CKPT_F32_LAYERS, "tokens": n_gen, "max_abs_logit_diff": err,
+           "bound": CKPT_F32_BOUND, "adapter_moves_logits_by": moved,
+           "argmax_equal": argmax_equal}
+    log(f"ckpt merged-weight check: {json.dumps(row)}")
+    if not err <= CKPT_F32_BOUND or moved < 10 * CKPT_F32_BOUND:
+        fail(f"ckpt merged-weight check: {row}")
+    del p16, base, merged
+    return row
+
+
+def ckpt_phase(torch, pa, device, seed, card, model="llama-3b"):
+    """The ``ckpt`` phase (see the module docstring): ``model`` written as
+    an HF checkpoint directory, loaded and served behind the port's server,
+    then with two PEFT adapters. Returns (the bf16 kernel's launches over
+    the served rounds, the summary)."""
+    import shutil
+    import tempfile
+
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+    from production_stack_tpu_torch.models import llama, lora
+    from production_stack_tpu_torch.models.config import resolve_model_config
+
+    mc = resolve_model_config(model)
+    served = model
+    prompts = spec_prompts(seed + 1)
+    out = {"card": card}
+    launches = 0
+    # ~6.4 GB of checkpoint: under the gitignored output directory, and
+    # removed whatever happens.
+    os.makedirs(os.path.dirname(DETAIL_LOG), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ckpt-", dir=os.path.dirname(DETAIL_LOG))
+    try:
+        # 1. write: the named config's draw from --seed, as an HF directory
+        gen = torch.Generator(device).manual_seed(seed)
+        params = llama.init_params(mc, gen, torch.bfloat16, device)
+        ckdir = os.path.join(root, "model")
+        info = write_hf_checkpoint(torch, params, mc, ckdir, num_shards=2)
+        out["write"] = {"bytes": info["bytes"], "files": len(info["files"]),
+                        "seconds": info["seconds"],
+                        "gbps": info["bytes"] / info["seconds"] / 1e9}
+        log(f"ckpt write: {json.dumps(info)}")
+
+        # 2. the named-config engine from the same seed: the tokens to match
+        named = ServingEngine(ckpt_server_config(model, served, seed, device))
+        want, row = ckpt_http_round(torch, pa, named, gate_schedule(named),
+                                    prompts, [served] * 4, "named config")
+        launches += row["launches"]
+        out["named"] = row
+        named.shutdown()
+        del named
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 3. load: the server's --model <dir>
+        with RssPeak() as rss:
+            eng = ServingEngine(ckpt_server_config(ckdir, served, seed, device))
+        r = eng.runner
+        files = [os.path.join(ckdir, n) for n in info["files"]]
+        load_s = r.startup_weight_load_seconds
+        out["load"] = {
+            "seconds": load_s, "gbps": info["bytes"] / load_s / 1e9,
+            "plain_read_gbps": plain_read_gbps(files), **rss.summary(),
+            "tokenizer": type(eng.tokenizer).__name__,
+        }
+        if out["load"]["tokenizer"] != "ByteTokenizer":
+            fail(f"ckpt: tokenizer {out['load']['tokenizer']} (no tokenizer "
+                 "file was written)")
+        fields = [f for f in mc.__dataclass_fields__ if f != "name"]
+        diff = [f for f in fields if getattr(eng.model_config, f) != getattr(mc, f)]
+        if diff:
+            fail(f"ckpt: the directory's config differs from llama-3b in {diff}")
+        bad = params_equal(torch, r.params, params)
+        if bad:
+            fail(f"ckpt: loaded leaves differ from the written params: {bad}")
+        out["load"]["leaves_equal"] = len(params["layers"]) + len(params) - 1
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        gate = gate_schedule(eng)
+        got, row = ckpt_http_round(torch, pa, eng, gate, prompts,
+                                   [served] * 4, "checkpoint")
+        launches += row["launches"]
+        out["checkpoint"] = row
+        if got != want:
+            fail("ckpt: tokens served from the checkpoint differ from the named "
+                 f"config's on streams {[i for i in range(4) if got[i] != want[i]]}")
+
+        # 4. LoRA: two PEFT adapters beside the checkpoint
+        dgen = torch.Generator(device).manual_seed(seed + 100)
+        da = write_peft_adapter(torch, os.path.join(root, "a"), mc, 8,
+                                ("wq", "wv"), 16, dgen)
+        db = write_peft_adapter(torch, os.path.join(root, "b"), mc, 16,
+                                ("wq", "wk", "wv", "wo", "w_gate", "w_up",
+                                 "w_down"), 32, dgen)
+        leng = ServingEngine(ckpt_server_config(
+            ckdir, served, seed, device, "--lora-modules", f"a={da}", f"b={db}"))
+        lgate = gate_schedule(leng)
+        models = [served, "a", "b", "a"]
+        ltoks, row = ckpt_http_round(torch, pa, leng, lgate, prompts, models,
+                                     "lora")
+        launches += row["launches"]
+        out["lora"] = row
+        if row["models_listed"] != [served, "a", "b"]:
+            fail(f"ckpt: /v1/models lists {row['models_listed']}")
+        if ltoks[0] != got[0]:
+            fail("ckpt: the base row beside adapter rows differs from the "
+                 "no-adapter engine's in the same batch shape")
+        same = [i for i in (1, 2, 3) if ltoks[i] == got[i]]
+        if same:
+            fail(f"ckpt: adapter rows {same} equal the base model's tokens")
+        graph_toks, graph_n = ckpt_api_round(leng, lgate, prompts, models)
+        eager_toks, eager_n = ckpt_api_round(leng, lgate, prompts, models,
+                                             eager=True)
+        out["graph_vs_eager"] = {"graph_run_eager_replayed": graph_n,
+                                 "eager_run_eager_replayed": eager_n}
+        if not graph_toks == eager_toks == ltoks:
+            fail("ckpt: LoRA graph replay, the strict eager train and the "
+                 "served round differ")
+        if device.type == "cuda" and (graph_n[0] or not graph_n[1]
+                                      or not eager_n[0] or eager_n[1]):
+            fail(f"ckpt: decode dispatches (eager, replayed): graph run "
+                 f"{graph_n}, strict eager run {eager_n}")
+        out["prefix_hits"] = ckpt_prefix_isolation(leng, prompts[1])
+        out["lora_stack_bytes"] = lora.stack_bytes(leng.runner.lora_stacks)
+        out["graph_pool_bytes"] = {"base": eng.stats()["graph_pool_bytes"],
+                                   "lora": leng.stats()["graph_pool_bytes"]}
+        # Decode ms per step, no adapters against adapters, alternated.
+        timing = []
+        for what, e, g, ms in (("base", eng, gate, [served] * 4),
+                               ("lora", leng, lgate, models),
+                               ("lora", leng, lgate, models),
+                               ("base", eng, gate, [served] * 4)):
+            t, row = ckpt_http_round(torch, pa, e, g, prompts, ms, f"timed {what}")
+            launches += row["launches"]
+            if t != (ltoks if what == "lora" else got):
+                fail(f"ckpt timed {what}: tokens differ from the first round")
+            timing.append([what, row["decode_ms_per_step_events"],
+                           sum(row["ttft_s"]) / 4, row["aggregate_tok_s"],
+                           row["sm_clock_mhz"]["mean"]
+                           if isinstance(row["sm_clock_mhz"], dict) else None])
+        out["timing_fields"] = ["engine", "ms_per_step_events", "ttft_s_mean",
+                                "tok_s", "sm_clock_mhz_mean"]
+        out["timing"] = timing
+        eng.shutdown()
+        leng.shutdown()
+        del eng, leng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 5. the adapter arithmetic in float32 against merged weights
+        out["merged_f32"] = ckpt_merged_check(torch, device, seed, root, model)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, out
+
+
 def main() -> None:
     t_main = time.monotonic()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="kernel,serving,graphs,check,tp,surface,kvtier,spec",
+                    default="kernel,serving,graphs,check,tp,surface,kvtier,spec,ckpt",
                     help="comma list of kernel,serving,graphs,check,tp,surface,"
-                         "kvtier,spec,trace (build always runs; trace profiles "
-                         "one more served round after serving)")
+                         "kvtier,spec,ckpt,trace (build always runs; trace "
+                         "profiles one more served round after serving)")
     ap.add_argument("--tp-kernel-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # a rank of the tp phase's kernel check
     ap.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
@@ -3651,7 +4282,9 @@ def main() -> None:
     if "spec" in phases:
         n, spec = spec_phase(torch, pa, device, args.seed, card)
         by_path["bf16"]["spec"] = n
+        t0 = time.monotonic()
         spec["f32_identity"] = spec_f32_identity(torch, device, args.seed)
+        f32_s = time.monotonic() - t0
         keys = ("ms_per_dispatch_events", "ms_per_row_token_events",
                 "ms_per_token_events", "aggregate_tok_s", "ttft_s", "acceptance", "draft_depth_mean",
                 "tokens_per_target_step", "cycles_run", "cycles_live",
@@ -3669,11 +4302,27 @@ def main() -> None:
                 else None) for pair, v in spec["pairs"].items()
                 for mode, r in v["modes"].items()},
             "f32_identity": spec["f32_identity"],
+            # Where the phase's time goes: wall seconds per step of each
+            # engine (up: build and warm-up; served; eager_logits;
+            # graph_vs_eager; trace; down), then the float32 identity.
+            "step_seconds": {f"{pair} {mode}": r["step_s"]
+                             for pair, v in spec["pairs"].items()
+                             for mode, r in v["modes"].items()},
+            "f32_identity_seconds": f32_s,
             "trace": {f"{pair} {mode}": {k: r["trace"][k] for k in (
                 "wall_s", "device_busy_s", "busy_share", "ms_by_class")}
                 for pair, v in spec["pairs"].items()
                 for mode, r in v["modes"].items() if "trace" in r},
             "graph_equal_eager": True, "metrics_equal_stats": True})
+        gc.collect()
+        torch.cuda.empty_cache()
+    # HF checkpoint directory and LoRA adapters: every served round is a
+    # main path of the bf16 kernel variant.
+    marks.append(("ckpt", time.monotonic()))
+    if "ckpt" in phases:
+        n, ck = ckpt_phase(torch, pa, device, args.seed, card)
+        by_path["bf16"]["ckpt"] = n
+        summary("ckpt", ck)
         gc.collect()
         torch.cuda.empty_cache()
     rows = []

@@ -5,7 +5,7 @@ environment variables, plus ``device``.
 
 import os
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -140,6 +140,13 @@ class EngineConfig:
     speculative_ema_decay: float = 0.35
     speculative_gamma_threshold: float = 0.5
     speculative_probe_period: int = 16
+    # --- LoRA (vLLM --lora-modules convention: name -> PEFT checkpoint dir)
+    lora_modules: Dict[str, str] = field(default_factory=dict)
+    # --- weights ---
+    # "auto" / "safetensors": a local HF checkpoint directory (``model``, or
+    # the speculative draft) is loaded (models/weights.py:load_hf_params);
+    # "dummy", or a named config: random weights from ``seed``.
+    load_format: str = "auto"               # "auto" | "safetensors" | "dummy"
     seed: int = 0
     served_model_name: Optional[str] = None
     # Peak HBM bandwidth (GB/s) of one card, the ceiling of the live

@@ -99,8 +99,11 @@ POS_SENTINEL = 2**30  # ring_pos value for not-yet-written entries
 # 0 tokens0, 1 pos0, 2 budget, 3 seed_base, 4 gen0, 5 temperature,
 # 6 top_k, 7 top_p, 8 adapter, 9 presence, 10 frequency, 11 chain_src,
 # 12 the row's draft-ring slot (the trash slot for padding rows), 13 its
-# draft depth gamma in [0, N] (8 stays 0: LoRA is not ported; 12 and 13
-# are read by the speculative train only).
+# draft depth gamma in [0, N] (12 and 13 are read by the speculative train
+# only). Row 8 is the row's LoRA adapter index (0 = the base model, and
+# every padding row): the step and the verify read it on the device, and
+# the registry's stacks are static tensors of the runner, so one captured
+# graph serves any mix of adapters and the family key does not name them.
 NUM_SCALARS = 14
 # Cycles the speculative train replays between two reads of its "any
 # budget left" flag, once no row can have finished.
@@ -381,6 +384,7 @@ class DecodeTrain:
         hidden, k_new, v_new = r.model_forward(
             r.params, mc, bf.toks[:, None], positions, ones, win_k, win_v,
             win_len, bf.ring_k, bf.ring_v, bf.ring_pos, paged=paged, tp=r.tp,
+            lora=r.lora_of(sc),
         )
         logits = r.model_logits(r.params, mc, hidden[:, 0], r.head_f32,
                                 tp=r.tp)
@@ -590,7 +594,7 @@ class DecodeTrain:
         hid, k_new, v_new = r.model_forward(
             r.params, mc, v_toks, v_pos_c, full, bf.win[0], bf.win[1],
             sc[1], bf.ring_k[:, :, :b], bf.ring_v[:, :, :b],
-            bf.ring_pos[:b], chunk_bias=chunk_bias)
+            bf.ring_pos[:b], chunk_bias=chunk_bias, lora=r.lora_of(sc))
         logits = r.model_logits(r.params, mc, hid, r.head_f32)  # [b, T_v, V]
         seeds = token_seeds(seed_b[:, None], (gen[:, None]
                                               + node_gen[None, :]))

@@ -27,6 +27,12 @@ runner.py) and resume an interrupted stream (``generate(resume_tokens=,
 resume_seed=)``). Tracing and the flight recorder are not ported yet
 (ROADMAP).
 
+LoRA (the reference's): the adapters of ``lora_modules`` are loaded into a
+``LoRARegistry`` at start, and ``generate(lora_adapter=name)`` serves the
+base model plus that adapter; a request's prefix-cache chain is seeded with
+the adapter's name (``Sequence.hash_seed``), on the device and in the
+offload tiers.
+
 The KV tier (the reference's): with ``kv_offload_cpu`` or
 ``kv_remote_url`` a ``KVOffloadManager`` spills every block that fills
 and restores tier-resident prefixes at admission; ``prewarm`` pulls the
@@ -75,6 +81,7 @@ from production_stack_tpu_torch.engine.tokenizer import (
     get_tokenizer,
 )
 from production_stack_tpu_torch.models.config import resolve_model_config
+from production_stack_tpu_torch.models.lora import load_registry
 from production_stack_tpu_torch.ops import paged_attention as pa
 from production_stack_tpu_torch.parallel import worker
 from production_stack_tpu_torch.parallel.mesh import TPGroup
@@ -135,10 +142,12 @@ class ServingEngine:
                     config, rank, port, broadcast_params=params is not None,
                     num_kv_blocks=num_kv_blocks))
         try:
+            self.lora_registry = load_registry(config.lora_modules,
+                                               self.model_config)
             self.runner = ModelRunner(
                 config, self.model_config, params=params,
                 num_kv_blocks=num_kv_blocks, tp=self.tp,
-                draft_params=draft_params,
+                draft_params=draft_params, lora_registry=self.lora_registry,
             )
         except BaseException:
             if self.tp is not None:
@@ -347,6 +356,7 @@ class ServingEngine:
         handoff_key: Optional[str] = None,
         handoff_state=None,
         disagg_fallback: bool = False,
+        lora_adapter: Optional[str] = None,
     ) -> AsyncIterator[RequestOutput]:
         """Submit a request; yields streaming RequestOutput deltas.
 
@@ -366,7 +376,8 @@ class ServingEngine:
         it the decode hop (write the published blocks into this pool and
         continue from token 1). ``disagg_fallback`` marks router-flagged
         degrade-to-unified traffic, which a role-split engine serves end
-        to end."""
+        to end. ``lora_adapter`` selects a registered adapter by name (None
+        = base); an unknown name raises KeyError."""
         request_id = request_id or random_uuid("req-")
         sampling = sampling or SamplingParams()
         if self._lost() is not None:
@@ -374,6 +385,8 @@ class ServingEngine:
         if (handoff_key or handoff_state is not None) and self.disagg is None:
             raise ValueError("disagg handoff requested but this engine has "
                              "no coordinator (--role unified)")
+        if (handoff_key or handoff_state is not None) and lora_adapter:
+            raise ValueError("disagg handoff does not support LoRA adapters")
         if resume_tokens:
             if handoff_key or handoff_state is not None:
                 raise ValueError("resume_tokens cannot be combined with a "
@@ -394,11 +407,18 @@ class ServingEngine:
             prompt_token_ids = self.tokenizer.encode(prompt)
         if not prompt_token_ids:
             prompt_token_ids = [self.tokenizer.eos_token_id or 0]
+        adapter_idx = 0
+        if lora_adapter is not None:
+            if self.lora_registry is None:
+                raise ValueError("no LoRA adapters are registered")
+            adapter_idx = self.lora_registry.adapter_index(lora_adapter)
         seq = Sequence(
             request_id=request_id,
             prompt_token_ids=list(prompt_token_ids),
             sampling=sampling,
             eos_token_id=self.tokenizer.eos_token_id,
+            adapter_idx=adapter_idx,
+            adapter_name=lora_adapter if adapter_idx else None,
             handoff_key=handoff_key,
             # A resumed request is served end to end on any role.
             disagg_fallback=disagg_fallback or bool(resume_tokens),
@@ -1012,6 +1032,7 @@ class ServingEngine:
             "num_requests_waiting": self.scheduler.num_waiting,
             "queue_depth": self.scheduler.num_running + self.scheduler.num_waiting,
             "resume_restored_tokens_total": self.resume_restored_tokens_total,
+            "startup_weight_load_seconds": r.startup_weight_load_seconds,
             "startup_warmup_seconds": self.startup_warmup_seconds,
             "startup_total_seconds": self.startup_total_seconds,
             "kv_cache_usage": self.block_manager.usage(),

@@ -51,6 +51,15 @@ Counterpart of ``production_stack_tpu/engine/runner.py`` (main path only):
     each row's accepted tokens, a variable count, and feeds the adaptive
     controller (``SpecGammaController``); a batch whose rows all sit at
     gamma 0 runs the plain train (``spec_gamma0_dispatches_total``).
+  * Weights: a local HF checkpoint directory (``config.model``, and the
+    speculative draft's) is loaded by ``models/weights.py:load_hf_params``
+    straight into device stacks (this rank's shard); a named config, or
+    ``load_format="dummy"``, draws random weights from ``seed``.
+  * LoRA: the engine's registry (``models/lora.py``) is stacked once on the
+    device; each row's adapter index rides packed scalar row 8 of prefill
+    and decode dispatches, and the prefill forward, the decode step and the
+    speculative verify add the per-row delta (the draft runs the base
+    model, as the reference's).
   * Tensor parallelism (``tensor_parallel_size`` > 1, ``parallel/``): each
     rank's runner holds its param shard and the pools of its kv heads, and
     every dispatch splits in two. The host part, on rank 0 only, packs the
@@ -102,7 +111,8 @@ from production_stack_tpu_torch.engine.scheduler import (
 from production_stack_tpu_torch.kv_offload.serde import BF16, dtype_name
 from production_stack_tpu_torch.models import get_model_fns
 from production_stack_tpu_torch.models.config import ModelConfig
-from production_stack_tpu_torch.models.weights import dtype_of
+from production_stack_tpu_torch.models.lora import shard_stacks
+from production_stack_tpu_torch.models.weights import dtype_of, load_hf_params
 from production_stack_tpu_torch.ops import paged_attention as pa
 from production_stack_tpu_torch.ops.attention import gather_window
 from production_stack_tpu_torch.ops.quantization import (
@@ -240,13 +250,17 @@ class ModelRunner:
                  num_kv_blocks: Optional[int] = None,
                  tp: Optional[mesh.TPGroup] = None,
                  broadcast_params: bool = False,
-                 draft_params: Optional[Dict] = None):
+                 draft_params: Optional[Dict] = None,
+                 lora_registry=None):
         """``tp``: this process's rank of the tensor-parallel group (None at
         tensor_parallel_size 1). ``params`` are FULL params; at tp > 1 rank
         0's are broadcast to the workers (which pass ``broadcast_params``)
-        and each rank keeps its shard. ``draft_params``: the speculative
-        draft's params when it is not the target itself (else random from
-        config.seed)."""
+        and each rank keeps its shard. Without ``params`` every rank loads
+        its shard of the checkpoint directory ``config.model``, or draws it
+        from config.seed (``_load_or_init_params``). ``draft_params``: the
+        speculative draft's params when it is not the target itself (else
+        loaded or drawn the same way). ``lora_registry``: the engine's
+        ``models/lora.py:LoRARegistry`` (None: no adapters)."""
         self.config = config
         self.model_config = model_config
         if (tp.size if tp is not None else 1) != config.tensor_parallel_size:
@@ -261,11 +275,6 @@ class ModelRunner:
         # llama, or OPT (window path, tp 1; config.validate_parallelism).
         init_fn, self.model_forward, self.model_logits, head_fn = \
             get_model_fns(model_config)
-        if os.path.isdir(config.model):
-            raise ValueError(
-                "loading a HuggingFace checkpoint directory is not ported yet; "
-                "serve a named config (random weights from config.seed)"
-            )
         # "paged": decode attends against the pool inside the CUDA
         # flash-decode kernel (its plain twin on the CPU). "window": decode
         # gathers the live KV into a contiguous per-dispatch window.
@@ -279,11 +288,10 @@ class ModelRunner:
         self.local_kv_heads = config.local_kv_heads(model_config)
         if self.tp is not None and (params is not None or broadcast_params):
             params = self.tp.broadcast_params(params)
+        t0 = time.monotonic()
         if params is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(config.seed)
-            params = init_fn(model_config, gen, self.dtype, self.device,
-                             rank=self.rank, tp=tp_size)
+            params, _ = self._load_or_init_params(model_config, config.model,
+                                                  init_fn)
         else:
             params = shard_params(params, model_config, self.rank, tp_size)
             params = {
@@ -293,6 +301,13 @@ class ModelRunner:
             }
         self.params = params
         self.head_f32 = head_fn(params, model_config)
+        self.startup_weight_load_seconds = time.monotonic() - t0
+        # Every registered LoRA adapter stacked per target, on the device
+        # (this rank's slice at tp > 1): rows select theirs by the index in
+        # packed scalar row 8 (models/lora.py). None without adapters.
+        self.lora_stacks = (
+            shard_stacks(lora_registry.stacks(self.device), self.rank, tp_size)
+            if lora_registry is not None else None)
         self._init_spec(draft_params)
         if self.tp is not None:
             # Every rank's weights are resident before any rank reads the
@@ -348,6 +363,25 @@ class ModelRunner:
         if self.tp is not None:
             self.rank_info = self.tp.gather_object(self.rank_info[0])
 
+    def _load_or_init_params(self, model_config: ModelConfig, source: str,
+                             init_fn) -> Tuple[Dict, bool]:
+        """A model's params (this rank's shard) on the device: loaded from
+        the local HF checkpoint directory ``source``, or drawn from
+        config.seed (named configs, ``load_format="dummy"``). ONE loader for
+        the target and the speculative draft (the reference's). Returns
+        (params, loaded_from_checkpoint). A checkpoint with a missing
+        tensor raises: nothing falls back to random weights."""
+        cfg = self.config
+        tp_size = cfg.tensor_parallel_size
+        if cfg.load_format != "dummy" and os.path.isdir(source):
+            return load_hf_params(model_config, source, self.dtype,
+                                  self.device, rank=self.rank,
+                                  tp=tp_size), True
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(cfg.seed)
+        return init_fn(model_config, gen, self.dtype, self.device,
+                       rank=self.rank, tp=tp_size), False
+
     # ------------------------------------------------------------------ sizing
     def _alloc_kv_pools(self) -> None:
         """Payload pools in the storage dtype, plus (int8) the per-(slot,
@@ -400,13 +434,14 @@ class ModelRunner:
             self.spec_params, self.spec_head_f32 = self.params, self.head_f32
         else:
             if draft_params is None:
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(cfg.seed)
-                draft_params = d_init(dmc, gen, self.dtype, self.device)
-                logger.warning(
-                    "speculative draft %r has RANDOM weights (config.seed %d):"
-                    " expect ~zero acceptance — speculation will cost "
-                    "throughput, not add it", cfg.speculative_model, cfg.seed)
+                draft_params, loaded = self._load_or_init_params(
+                    dmc, cfg.speculative_model, d_init)
+                if not loaded and cfg.load_format != "dummy":
+                    logger.warning(
+                        "speculative draft %r has RANDOM weights (config.seed "
+                        "%d; not a local checkpoint dir): expect ~zero "
+                        "acceptance — speculation will cost throughput, not "
+                        "add it", cfg.speculative_model, cfg.seed)
             else:
                 draft_params = {
                     k: ({n: t.to(self.device, self.dtype)
@@ -1079,6 +1114,7 @@ class ModelRunner:
             f32[5, i] = sp.temperature
             sc[6, i] = sp.top_k
             f32[7, i] = sp.top_p
+            sc[8, i] = s.adapter_idx
             f32[9, i] = sp.presence_penalty
             f32[10, i] = sp.frequency_penalty
             bt[i, :len(s.block_ids)] = s.block_ids
@@ -1259,7 +1295,8 @@ class ModelRunner:
         reference's ``_issue_prefill`` + ``_prefill_impl``); its fetch
         returns the sampled token of rows whose prompt completes in this
         chunk. Packed rows: 0 chunk_start, 1 chunk_len, 2 seed_base,
-        3 gen0, 4 temperature, 5 top_k, 6 top_p, 9 presence, 10 frequency;
+        3 gen0, 4 temperature, 5 top_k, 6 top_p, 8 adapter, 9 presence,
+        10 frequency;
         then the block tables, the chunk's tokens and (the descriptor's
         ``finals``) one flag per row."""
         t_issue = time.monotonic()
@@ -1302,6 +1339,7 @@ class ModelRunner:
             f32[4, i] = sp.temperature
             sc[5, i] = sp.top_k
             f32[6, i] = sp.top_p
+            sc[8, i] = s.adapter_idx
             f32[9, i] = sp.presence_penalty
             f32[10, i] = sp.frequency_penalty
             bt[i, :len(s.block_ids)] = s.block_ids
@@ -1388,7 +1426,7 @@ class ModelRunner:
             win_k = win_v = win_len = None
         hidden, k_new, v_new = self.model_forward(
             self.params, mc, token_ids, positions, chunk_lens,
-            win_k, win_v, win_len, tp=self.tp,
+            win_k, win_v, win_len, tp=self.tp, lora=self.lora_of(scalars),
         )
         del win_k, win_v
         if self.spec_n:
@@ -1458,6 +1496,12 @@ class ModelRunner:
         chunk_end = chunk_start + chunk_lens
         keep = in_chunk & (positions >= chunk_end[:, None] - self.spec_ring_len)
         self._spec_ring_write(dk, dv, positions, keep, slot_idx, reset)
+
+    def lora_of(self, scalars: torch.Tensor):
+        """The forward's ``lora`` argument of a dispatch: each row's adapter
+        index (packed scalar row 8) and the stacks; None without adapters
+        (the reference's ``(adapter_idx, lora_stacks)``)."""
+        return (scalars[8], self.lora_stacks) if self.lora_stacks else None
 
     # ---------------------------------------------------------------- execute
     def execute_async(self, batch: ScheduledBatch) -> DispatchHandle:

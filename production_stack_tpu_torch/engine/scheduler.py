@@ -97,6 +97,11 @@ class Sequence:
     # Router-flagged fallback traffic: served end to end on this engine
     # whatever its role.
     disagg_fallback: bool = False
+    # LoRA adapter index in the engine's registry (0 = base model) rides the
+    # packed buffer so one batch can mix adapters; adapter_name keys the
+    # prefix-cache namespace (models/lora.py).
+    adapter_idx: int = 0
+    adapter_name: Optional[str] = None
     # Monotonic time of the first dispatch issue (closes queue wait).
     first_issue_time: Optional[float] = None
     # Tokens sampled by an issued-but-unapplied dispatch (num_computed_tokens
@@ -132,6 +137,15 @@ class Sequence:
 
     def finish_reason(self) -> Optional[str]:
         return self.status.value if self.status.is_finished else None
+
+    @property
+    def hash_seed(self) -> bytes:
+        """Prefix-cache hash-chain seed: KV under different LoRA adapters is
+        different KV, so each adapter gets its own chain namespace on the
+        device and in the host/remote offload tiers. Keyed by adapter
+        NAME, not registry index: indices are engine-local and would
+        collide across engines sharing a remote KV tier."""
+        return b"" if not self.adapter_name else f"lora:{self.adapter_name}".encode()
 
 
 @dataclass
@@ -257,12 +271,13 @@ class Scheduler:
                 # (decode-hop rows are restored straight to RUNNING).
                 continue
             if not cand.block_ids:
-                alloc = self.block_manager.allocate_prompt(cand.all_token_ids)
+                alloc = self.block_manager.allocate_prompt(
+                    cand.all_token_ids, seed=cand.hash_seed)
                 if alloc is None:
                     continue  # starved; a later cand may already hold blocks
                 cand.block_ids, cand.num_cached_tokens = alloc
                 cand.num_computed_tokens = cand.num_cached_tokens
-                cand._prev_hash = b""
+                cand._prev_hash = cand.hash_seed
                 newly_allocated.add(cand.request_id)
                 if self.offload is not None:
                     # The host/remote tiers may extend the cached prefix
@@ -271,7 +286,7 @@ class Scheduler:
                     t_restore = time.monotonic()
                     restored = self.offload.try_restore(
                         cand.all_token_ids, cand.block_ids,
-                        cand.num_computed_tokens)
+                        cand.num_computed_tokens, seed=cand.hash_seed)
                     cand.num_computed_tokens += restored
                     cand.num_cached_tokens += restored
                     if restored and self.on_restore is not None:
@@ -307,7 +322,7 @@ class Scheduler:
                 cand.block_ids = []
                 cand.num_computed_tokens = 0
                 cand.num_cached_tokens = 0
-                cand._prev_hash = b""
+                cand._prev_hash = cand.hash_seed
                 cand._num_hashed_blocks = 0
         starts = [s.num_computed_tokens for s in seqs]
         lens = [
@@ -435,7 +450,7 @@ class Scheduler:
         seq.num_computed_tokens = 0
         seq.inflight_steps = 0
         seq.pending_prefill_apply = False
-        seq._prev_hash = b""
+        seq._prev_hash = seq.hash_seed
         seq._num_hashed_blocks = 0
         seq.status = SequenceStatus.WAITING
         self.waiting.appendleft(seq)

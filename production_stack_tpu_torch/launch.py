@@ -17,7 +17,13 @@ then serves until SIGTERM or SIGINT, which drains and stops every engine.
 prefill,decode`` gives engine i the i-th role, the disaggregated pair the
 router's ``--routing-logic disagg`` drives. Arguments after ``--`` go to
 every engine's server as they are, e.g. ``--speculative-num-tokens 4
---speculative-model llama-3b`` for speculative decoding.
+--speculative-model llama-3b`` for speculative decoding, or
+``--lora-modules NAME=PATH ...`` for PEFT adapters. ``--model`` may be a
+local HuggingFace checkpoint directory; engines run in the launcher's
+working directory, so relative paths resolve as they do here:
+
+  python -m production_stack_tpu_torch.launch --model ./ckpt -- \\
+      --lora-modules a=./adapters/a b=./adapters/b
 """
 
 import argparse

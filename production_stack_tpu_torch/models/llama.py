@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from production_stack_tpu_torch.models.config import ModelConfig
+from production_stack_tpu_torch.models.lora import lora_delta
 from production_stack_tpu_torch.ops.attention import (
     _NEG_INF,
     dense_decode_stats,
@@ -214,16 +215,24 @@ def _layer_body(
     layer_idx: int = 0,
     tp=None,                    # TPGroup when tensor_parallel_size > 1
     chunk_bias=None,            # [T, T] additive in-chunk bias (tree verify)
+    lora=None,                  # (adapter_idx [B], {target: (A, B)} ONE layer)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, t, d = hidden.shape
     dh = cfg.head_dim_
     # This rank's heads (all of them at tp = 1).
     h, hkv = lp["wq"].shape[-1] // dh, lp["wk"].shape[-1] // dh
 
+    def proj(x, target):
+        out = x @ lp[target]
+        if lora is not None and target in lora[1]:
+            la, lb = lora[1][target]
+            out = out + lora_delta(x, la, lb, lora[0])
+        return out
+
     x = rms_norm(hidden, lp["attn_norm"], cfg.rms_norm_eps)
-    q = x @ lp["wq"]
-    k = x @ lp["wk"]
-    v = x @ lp["wv"]
+    q = proj(x, "wq")
+    k = proj(x, "wk")
+    v = proj(x, "wv")
     if cfg.attention_bias:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -269,12 +278,14 @@ def _layer_body(
             win_k, win_v, win_len, ring_k, ring_v, ring_pos,
             chunk_bias=chunk_bias,
         )
-    o = attn.reshape(b, t, h * dh) @ lp["wo"]
+    # Row-parallel products (and their LoRA deltas, over this rank's input
+    # rows of A) are partial sums until the all-reduce.
+    o = proj(attn.reshape(b, t, h * dh), "wo")
     hidden = hidden + (o if tp is None else tp.all_reduce(o))
 
     x = rms_norm(hidden, lp["mlp_norm"], cfg.rms_norm_eps)
-    gated = silu(x @ lp["w_gate"]) * (x @ lp["w_up"])
-    mlp = gated @ lp["w_down"]
+    gated = silu(proj(x, "w_gate")) * proj(x, "w_up")
+    mlp = proj(gated, "w_down")
     if tp is not None:
         mlp = tp.all_reduce(mlp)
     # New KV in pool layout [Hkv, B, T, Dh] for the runner's single scatter.
@@ -300,8 +311,11 @@ def forward(
     tp=None,     # TPGroup when tensor_parallel_size > 1 (Hkv: this rank's)
     chunk_bias=None,  # [T, T] additive in-chunk bias: the speculative
                       # token-tree verify (ops/tree_mask.py), window path
+    lora=None,   # (adapter_idx [B], {target: (A [L,Na+1,in,r], B [L,Na+1,r,out])})
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (hidden [B,T,D], k_new [L,Hkv,B,T,Dh], v_new [L,Hkv,B,T,Dh])."""
+    """Returns (hidden [B,T,D], k_new [L,Hkv,B,T,Dh], v_new [L,Hkv,B,T,Dh]).
+    ``lora``: each row's adapter index and the registry's stacks (models/
+    lora.py), indexed by layer like the params; index 0 adds exactly 0."""
     hidden = params["embed"][token_ids.long()]
     if tp is not None:
         # embed is split on D: every rank's columns of the same rows.
@@ -321,6 +335,8 @@ def forward(
             ring_v[i] if ring_v is not None else None,
             ring_pos,
             paged=paged, layer_idx=i, tp=tp, chunk_bias=chunk_bias,
+            lora=(None if lora is None else
+                  (lora[0], {n: (a[i], b[i]) for n, (a, b) in lora[1].items()})),
         )
         k_out.append(k_l)
         v_out.append(v_l)

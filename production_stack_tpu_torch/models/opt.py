@@ -116,9 +116,11 @@ def forward(
     paged=None,
     tp=None,
     chunk_bias=None,
+    lora=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Same contract as ``models/llama.py:forward``, window path only."""
     assert paged is None, "paged decode is llama-family only (policy)"
+    assert lora is None, "LoRA serving is llama-family only"
     assert tp is None, "the OPT family is served at tensor_parallel_size 1"
     hidden = (params["embed"][token_ids.long()]
               + params["pos_embed"][positions.long() + _OPT_POS_OFFSET])

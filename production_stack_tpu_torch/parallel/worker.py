@@ -4,7 +4,8 @@
 ``python -m production_stack_tpu_torch.parallel.worker --rank R --port P
 --spec JSON`` (``argv`` builds the line). A worker joins rank 0's group
 (``parallel/mesh.py``), builds the same ``ModelRunner`` over its own shard
-(its params drawn from the same seed, or rank 0's broadcast), runs rank 0's
+(its params loaded from the same checkpoint directory, drawn from the same
+seed, or rank 0's broadcast; its slice of the same LoRA adapters), runs rank 0's
 dispatch descriptors in order until the stop descriptor
 (``ModelRunner.serve``), reports and exits. It dies with its parent.
 """
@@ -21,6 +22,7 @@ import torch
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.runner import ModelRunner
 from production_stack_tpu_torch.models.config import resolve_model_config
+from production_stack_tpu_torch.models.lora import load_registry
 from production_stack_tpu_torch.parallel.mesh import TPGroup, die_with_parent
 from production_stack_tpu_torch.utils import init_logger
 
@@ -53,9 +55,10 @@ def main(args: Optional[List[str]] = None) -> None:
     group = TPGroup.join(a.rank, cfg.tensor_parallel_size, a.port,
                          torch.device(cfg.device), cfg.tp_timeout_s)
     try:
-        runner = ModelRunner(cfg, resolve_model_config(cfg.model),
-                             num_kv_blocks=spec["num_kv_blocks"], tp=group,
-                             broadcast_params=spec["broadcast_params"])
+        mc = resolve_model_config(cfg.model)
+        runner = ModelRunner(cfg, mc, num_kv_blocks=spec["num_kv_blocks"],
+                             tp=group, broadcast_params=spec["broadcast_params"],
+                             lora_registry=load_registry(cfg.lora_modules, mc))
         runner.serve()
         logger.info("tp rank %d: stopped after %d dispatches", a.rank,
                     runner._dispatches)

@@ -41,7 +41,12 @@ streamed response is close-delimited. Tool calling, /v1/embeddings,
 /rerank and the reference's /debug/* routes are not ported yet (ROADMAP).
 
 Run: ``python -m production_stack_tpu_torch.server.api_server --model
-llama-3b --port 8000`` (on the card; ``--device cpu`` for a CPU run). With
+llama-3b --port 8000`` (on the card; ``--device cpu`` for a CPU run).
+``--model`` is a named config (random weights from ``--seed``) or a local
+HuggingFace checkpoint directory (its weights, and its tokenizer where
+``transformers`` loads it); ``--lora-modules NAME=PATH ...`` serves PEFT
+adapters beside it, picked per request by ``model=NAME`` and listed on
+/v1/models. With
 ``--tensor-parallel-size N`` the server process is tp rank 0 and starts N-1
 worker processes (NCCL when the machine has N cards, gloo when the ranks
 share one). ``--kv-offload-cpu`` and ``--kv-remote-url kv://host:port``
@@ -433,7 +438,9 @@ class OpenAIServer:
             raise _HttpError(400, f"{DISAGG_KEY_HEADER} header required")
         chat = headers.get(DISAGG_ENDPOINT_HEADER, "completions") == "chat"
         body = self._parse(raw)
-        self._check(body, chat=chat)
+        # A handoff carries no adapter (the reference's hop serves the base
+        # model only).
+        self._check(body, chat=chat, adapters=False)
         if chat:
             messages = body.get("messages")
             if not messages or not isinstance(messages, list):
@@ -483,12 +490,25 @@ class OpenAIServer:
             "cached_tokens": final.num_cached_tokens,
         })
 
+    def _served_models(self):
+        """Base model plus registered LoRA adapter names: requesting
+        model=<adapter> serves base + that adapter (vLLM --lora-modules
+        convention; engine.lora_registry)."""
+        names = [self.model_name]
+        if self.engine.lora_registry is not None:
+            names += self.engine.lora_registry.names
+        return names
+
+    def _lora_name(self, body: dict) -> Optional[str]:
+        model = body.get("model", self.model_name)
+        return model if model != self.model_name else None
+
     async def models(self, writer, headers: dict, body: bytes) -> None:
+        created = int(time.time())
         await self._send_json(writer, 200, {"object": "list", "data": [{
-            "id": self.model_name, "object": "model",
-            "created": int(time.time()), "owned_by": "production-stack-tpu",
-            "root": None, "parent": None,
-        }]})
+            "id": name, "object": "model", "created": created,
+            "owned_by": "production-stack-tpu", "root": None, "parent": None,
+        } for name in self._served_models()]})
 
     @staticmethod
     def _parse(body: bytes) -> dict:
@@ -500,11 +520,13 @@ class OpenAIServer:
             raise _HttpError(400, "Request body must be a JSON object")
         return obj
 
-    def _check(self, body: dict, chat: bool) -> None:
-        """The model, and the reference's ``_check_unsupported``: 400 for an
+    def _check(self, body: dict, chat: bool, adapters: bool = True) -> None:
+        """The model (the base model, or with ``adapters`` a registered LoRA
+        adapter), and the reference's ``_check_unsupported``: 400 for an
         accepted but unimplemented parameter, never a silent drop."""
         model = body.get("model", self.model_name)
-        if model != self.model_name:
+        served = self._served_models() if adapters else [self.model_name]
+        if model not in served:
             raise _HttpError(404, f"Model '{model}' not found", "model_not_found")
         if body.get("logit_bias"):
             raise _HttpError(400, "'logit_bias' is not supported")
@@ -694,9 +716,13 @@ class OpenAIServer:
              else f"{request_id}-{p_idx * n + c_idx}")
             for p_idx, prompt in enumerate(prompts) for c_idx in range(n)]
 
+        lora = self._lora_name(body)
+
         def submit(prompt, sp, rid):
             kw = ({"prompt_token_ids": prompt} if isinstance(prompt, list)
                   else {"prompt": prompt})
+            if lora is not None:
+                kw["lora_adapter"] = lora
             if resume_tokens:
                 kw.update(resume_tokens=resume_tokens, resume_seed=resume_seed)
             if handoff is not None:
@@ -949,6 +975,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "EMA picks each row's gamma every dispatch; a batch "
                         "whose rows all sit at gamma 0 runs the plain decode "
                         "train. Requires --speculative-num-tokens > 0")
+    p.add_argument("--lora-modules", nargs="*", default=[],
+                   metavar="NAME=PATH",
+                   help="LoRA adapters to serve (vLLM convention): "
+                        "requests with model=NAME get base + adapter")
     p.add_argument("--speculative-tree-width", type=int, default=1,
                    help="token-tree width W: W - 1 extra depth-1 alternates "
                         "from the draft's own top-k in the same verify "
@@ -957,9 +987,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def main(argv=None) -> None:
-    args = parse_args(argv)
-    cfg = EngineConfig(
+def _parse_lora_modules(items) -> dict:
+    """--lora-modules NAME=PATH entries -> dict, with a usable error."""
+    out = {}
+    for kv in items or []:
+        if "=" not in kv:
+            raise SystemExit(
+                f"--lora-modules entries must be NAME=PATH (got {kv!r})"
+            )
+        name, path = kv.split("=", 1)
+        out[name] = path
+    return out
+
+
+def config_from_args(args: argparse.Namespace) -> EngineConfig:
+    """The engine's config from the server's flags."""
+    return EngineConfig(
         model=args.model, served_model_name=args.served_model_name,
         device=args.device, dtype=args.dtype,
         kv_cache_dtype=args.kv_cache_dtype, max_model_len=args.max_model_len,
@@ -981,7 +1024,13 @@ def main(argv=None) -> None:
             ("kv_offload_max_cpu_gb", args.kv_offload_max_cpu_gb),
             ("speculative_draft_window", args.speculative_draft_window))
            if v is not None},
+        lora_modules=_parse_lora_modules(args.lora_modules),
     )
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    cfg = config_from_args(args)
 
     async def run():
         engine = ServingEngine(cfg)

@@ -582,3 +582,55 @@ async def test_lost_worker_fails_the_engine_within_the_timeout():
     finally:
         await asyncio.wait_for(eng.stop(), 30)
         eng.shutdown()
+
+
+async def _serve_lora(engine, adapters):
+    async def one(p, extra, ad):
+        toks = None
+        fields = dict(max_tokens=12, temperature=0.0, ignore_eos=True)
+        fields.update(extra)
+        async for out in engine.generate(prompt=p, lora_adapter=ad,
+                                         sampling=SamplingParams(**fields)):
+            toks = out.token_ids
+        return toks
+
+    await engine.start()
+    try:
+        return await asyncio.gather(*[
+            one(p, s, ad) for p, s, ad in zip(_PROMPTS, _SAMPLINGS, adapters)])
+    finally:
+        await engine.stop()
+
+
+async def test_tp2_checkpoint_and_adapters_match_tp1(tmp_path):
+    """Every rank loads its shard of one checkpoint directory and its slice
+    of two PEFT adapters (column-parallel targets split B's columns,
+    row-parallel ones A's rows, their partial deltas all-reduced with the
+    partial products): greedy and seeded tokens of a batch mixing the base
+    model and both adapters, float32, equal the tp = 1 engine's on the same
+    directories; the adapters move tokens."""
+    from tests.test_torch_lora import ALL7, write_adapter
+
+    mc = resolve_model_config("tiny-llama-8kv")
+    d = str(tmp_path / "ckpt")
+    chip_smoke.write_hf_checkpoint(
+        torch, llama.init_params(mc, torch.Generator().manual_seed(2),
+                                 torch.float32), mc, d)
+    lora = {"a": write_adapter(tmp_path / "a", mc, 4, ("wq", "wv"), 1, alpha=8),
+            "b": write_adapter(tmp_path / "b", mc, 8, ALL7, 2, alpha=16)}
+    cfg = dict(model=d, device="cpu", dtype="float32", max_model_len=256,
+               num_kv_blocks=64, num_decode_steps=8, tp_timeout_s=120,
+               lora_modules=lora)
+    mix = [None, "a", "b", "a"]
+    base = ServingEngine(EngineConfig(**cfg))
+    want = await _serve_lora(base, mix)
+    plain = await _serve_lora(base, [None] * 4)
+    base.shutdown()
+    eng = ServingEngine(EngineConfig(**cfg, tensor_parallel_size=2))
+    try:
+        got = await _serve_lora(eng, mix)
+    finally:
+        eng.shutdown()
+    assert got == want
+    assert got[0] == plain[0] and all(got[i] != plain[i] for i in (1, 2, 3))
+    _check_reports(eng, 2)

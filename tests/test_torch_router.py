@@ -13,6 +13,7 @@ queue-depth admission, SIGTERM drain, and the launcher's engine processes.
 import asyncio
 import functools
 import json
+import os
 import re
 import time
 import types
@@ -350,3 +351,86 @@ def test_launch_engines_starts_and_sigterms_cpu_engines(n_engines, tmp_path):
         codes = handle.stop(timeout_s=60)
     assert codes == [0] * n_engines
     assert "Drain complete" in open(handle.log_paths[0]).read()
+
+
+async def test_router_routes_model_a_to_a_port_engine_with_adapters(tmp_path):
+    """The real router in front of a port engine serving two PEFT adapters
+    beside its base model (the static discovery lists the engine under each
+    served name): ``model=a`` through the router gives the tokens of
+    ``model=a`` straight at the engine, and they differ from the base
+    model's."""
+    from production_stack_tpu.router.app import build_app
+    from tests.test_torch_lora import ALL7, write_adapter
+
+    mc = resolve_model_config(MODEL)
+    lora = {"a": write_adapter(tmp_path / "a", mc, 4, ("wq", "wv"), 1, alpha=8),
+            "b": write_adapter(tmp_path / "b", mc, 8, ALL7, 2, alpha=16)}
+    server = OpenAIServer(_port_engine(lora_modules=lora), port=0)
+    await server.start()
+    url = f"http://127.0.0.1:{server.port}"
+    router = TestClient(TestServer(build_app(
+        router_args([url] * 3, [MODEL, "a", "b"]))))
+    await router.start_server()
+    hdr = {"x-pstpu-resume": "1"}
+    try:
+        got = {}
+        for model in (MODEL, "a"):
+            body = {"model": model, "stream": True, "max_tokens": 8,
+                    "ignore_eos": True, "temperature": 0.0,
+                    "messages": [{"role": "user", "content": "route me"}]}
+            resp = await router.post("/v1/chat/completions", json=body,
+                                     headers=hdr)
+            assert resp.status == 200
+            evs, done = _events(await resp.text())
+            assert done
+            st, _, text = await _http(server.port, "POST",
+                                      "/v1/chat/completions", body, hdr)
+            direct, _ = _events(text)
+            got[model] = [t for e in evs for t in e["pstpu"]["toks"]]
+            assert got[model] == [t for e in direct for t in e["pstpu"]["toks"]]
+            assert len(got[model]) == 8
+        assert got["a"] != got[MODEL]
+        resp = await router.get("/v1/models")
+        assert {m["id"] for m in (await resp.json())["data"]} == {MODEL, "a", "b"}
+    finally:
+        await router.close()
+        await server.stop()
+        server.engine.shutdown()
+
+
+def test_launch_engines_pass_a_checkpoint_directory_and_adapters(tmp_path):
+    """A checkpoint directory as ``--model`` and ``--lora-modules`` after
+    ``--`` reach every engine as they were given (relative paths here: the
+    engine runs in the launcher's working directory): the engine serves
+    the directory's weights and lists the adapter."""
+    import chip_smoke
+    from production_stack_tpu_torch.models import llama
+    from tests.test_torch_lora import write_adapter
+
+    mc = resolve_model_config("tiny-llama")
+    d = tmp_path / "ckpt"
+    chip_smoke.write_hf_checkpoint(
+        torch, llama.init_params(mc, torch.Generator().manual_seed(1),
+                                 torch.float32), mc, str(d))
+    a = write_adapter(tmp_path / "a", mc, 4, ("wq", "wv"), 1, alpha=8)
+    rel = os.path.relpath(d)
+    handle = launch_engines(
+        rel, 1, ["--max-model-len", "128", "--num-kv-blocks", "32",
+                 "--max-num-seqs", "2", "--served-model-name", "tiny",
+                 "--dtype", "float32", "--lora-modules",
+                 f"a={os.path.relpath(a)}"],
+        device="cpu", log_dir=str(tmp_path / "logs"), startup_timeout_s=120)
+    try:
+        argv = handle.argvs[0]
+        assert argv[argv.index("--model") + 1] == rel
+        assert argv[argv.index("--lora-modules") + 1] == f"a={os.path.relpath(a)}"
+        port = int(handle.urls[0].rsplit(":", 1)[1])
+        st, _, body = asyncio.run(_http(port, "GET", "/v1/models"))
+        assert st == 200
+        assert [m["id"] for m in json.loads(body)["data"]] == ["tiny", "a"]
+        st, _, body = asyncio.run(_http(port, "POST", "/v1/completions", {
+            "model": "a", "prompt": "hi", "max_tokens": 3,
+            "temperature": 0.0, "ignore_eos": True}))
+        assert st == 200 and json.loads(body)["usage"]["completion_tokens"] == 3
+    finally:
+        assert handle.stop(timeout_s=60) == [0]
