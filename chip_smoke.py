@@ -77,10 +77,20 @@ serving):
      /metrics mid-round and after; a top_logprobs 20 request served eagerly;
      n = 2 and a 2-prompt completion; resume from a stream's pstpu payload
      (equal tokens reported at llama-3b bf16); the logprob ops' device time;
-     drain with a stream in flight (every block returned); then, on the
-     engine API, logprobs from graphs + pipeline against the strict eager
-     loop on the same batches, bit for bit; and resume on tiny-llama-128dh
-     in float32, identical;
+     drain with a stream in flight (every block returned); before the
+     drain, the observability steps: the same streams with the flight
+     recorder and an OTLP tracer (a localhost collector) on, off, off, on
+     (each on round's ``/debug/requests/{x-request-id}`` phases cover the
+     request and name its decode dispatches, ``/debug/timeline`` lists it,
+     its spans sit under the client's ``traceparent``, none dropped), one
+     round in a ``POST /debug/profile`` window (a second arm 409, the
+     trace's paged-kernel records against its counter), /v1/embeddings of
+     the prompts while a round decodes (tokens unchanged; norms, alone
+     against batched, rerank scores against dot products; embed and rerank
+     ms) and a forced ``tool_choice`` streamed and not (the same message);
+     then, on the engine API, logprobs from graphs + pipeline against the
+     strict eager loop on the same batches, bit for bit; and resume on
+     tiny-llama-128dh in float32, identical;
   9. kvtier: the port's cache server (``kv_offload/server.py``) as a
      process, then per KV dtype (bf16, then int8) llama-3b (full width and
      depth, random bf16 weights from --seed, block 16, 1024 blocks, decode
@@ -2084,6 +2094,447 @@ def graph_vs_eager_dummy(torch, train, key):
             for name, a, b in zip(("toks", "chosen_lp", "top_lp", "top_ids"), *outs)}
 
 
+# The observability rounds' checks: a phase boundary may lag the previous
+# phase's end by the loop's host time between a fetch and the next issue.
+OBS_PHASE_GAP_S = 0.1
+OBS_COVERAGE_MIN = 0.95
+OBS_PROFILE_S = 2.0
+# bf16 embeddings of one input alone and in a batch of 4 (other GEMM row
+# counts and token buckets): max L2 distance of the unit vectors.
+EMBED_BATCH_BOUND = 0.05
+EMBED_LONG_TOKENS = 4000
+SURFACE_TRACEPARENT = "00-{tid}-{sid}-01"
+
+
+class OtlpCollector:
+    """A localhost OTLP/HTTP JSON collector on a thread (the standard
+    library's HTTP server): every POST /v1/traces batch, kept."""
+
+    def __init__(self):
+        import http.server
+
+        batches = self.batches = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                batches.append(json.loads(self.rfile.read(n)))
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def spans(self):
+        return [sp for b in self.batches for rs in b["resourceSpans"]
+                for ss in rs["scopeSpans"] for sp in ss["spans"]]
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(5)
+
+
+def check_timeline(name, found, max_tokens, steps_of_round):
+    """One stream's /debug/requests record: events from enqueue to finish,
+    decode issue and fetch events paired, one per decode dispatch of its
+    rows, its tokens the stream's; phases queue_wait, prefill, decode in
+    order, queue wait ending where prefill starts, each later phase starting
+    within ``OBS_PHASE_GAP_S`` of the previous one's end, together covering
+    at least ``OBS_COVERAGE_MIN`` of enqueue to finish. Returns (decode steps
+    of its dispatches, coverage, largest gap)."""
+    recs = found["records"]
+    if len(recs) != 1 or not recs[0]["finished"] or recs[0]["events_dropped"]:
+        fail(f"surface: {name}: timeline {[(r['finished'], r['events_dropped']) for r in recs]}")
+    ev = recs[0]["events"]
+    names = [e["event"] for e in ev]
+    issues = [e for e in ev if e["event"] == "decode_issue"]
+    fetches = [e for e in ev if e["event"] == "decode_fetch"]
+    if names[0] != "enqueue" or names[-1] != "finish" or \
+            [e["step"] for e in issues] != [e["step"] for e in fetches] or \
+            not set(e["step"] for e in issues) <= steps_of_round or \
+            1 + sum(e["tokens"] for e in fetches) != max_tokens or \
+            ev[-1]["output_tokens"] != max_tokens:
+        fail(f"surface: {name}: events {names}, decode steps "
+             f"{[e['step'] for e in issues]} / {[e['step'] for e in fetches]} "
+             f"(round's {sorted(steps_of_round)}), tokens "
+             f"{[e['tokens'] for e in fetches]}")
+    ph = recs[0]["phases"]
+    if [p["name"] for p in ph] != ["queue_wait", "prefill", "decode"] or \
+            ph[0]["end"] != ph[1]["start"]:
+        fail(f"surface: {name}: phases {ph}")
+    gaps = [b["start"] - a["end"] for a, b in zip(ph, ph[1:])]
+    gaps.append(ev[-1]["t"] - ph[-1]["end"])
+    duration = ev[-1]["t"] - ev[0]["t"]
+    coverage = sum(p["end"] - p["start"] for p in ph) / duration
+    if min(gaps) < 0 or max(gaps) > OBS_PHASE_GAP_S or coverage < OBS_COVERAGE_MIN:
+        fail(f"surface: {name}: phase gaps {gaps} s, coverage {coverage} of "
+             f"{duration} s")
+    return {e["step"] for e in issues}, coverage, max(gaps)
+
+
+def check_spans(name, spans, trace_id, client_span, path, request_ids):
+    """The OTLP spans of one stream: its server span "engine <path>" in the
+    client's trace, parented to the client's span, status 200; its phase
+    spans (queue_wait, prefill, decode) parented to the server span, inside
+    it."""
+    mine = [sp for sp in spans if sp["traceId"] == trace_id]
+    server = [sp for sp in mine if sp["name"] == f"engine {path}"]
+    if len(server) != 1 or server[0].get("parentSpanId") != client_span or \
+            server[0]["kind"] != 2:
+        fail(f"surface: {name}: server spans {server}")
+    attrs = {a["key"]: a["value"] for a in server[0]["attributes"]}
+    if attrs.get("http.status_code") != {"intValue": "200"}:
+        fail(f"surface: {name}: server span attributes {attrs}")
+    phases = sorted(sp["name"] for sp in mine if sp["name"].startswith("engine."))
+    rids = {a["value"]["stringValue"] for sp in mine for a in sp["attributes"]
+            if a["key"] == "request.id"}
+    s0, s1 = int(server[0]["startTimeUnixNano"]), int(server[0]["endTimeUnixNano"])
+    inside = all(s0 <= int(sp["startTimeUnixNano"]) <= int(sp["endTimeUnixNano"]) <= s1
+                 for sp in mine if sp["name"].startswith("engine."))
+    if phases != ["engine.decode", "engine.prefill", "engine.queue_wait"] or \
+            rids != set(request_ids) or not inside or any(
+                sp.get("parentSpanId") != server[0]["spanId"]
+                for sp in mine if sp["name"].startswith("engine.")):
+        fail(f"surface: {name}: phase spans {phases}, request ids {rids}, inside "
+             f"the server span {inside}")
+    return len(mine)
+
+
+def trace_kernel_events(path):
+    """A Chrome trace's CUDA kernel events: (count, the paged kernel's
+    count, cudaGraphLaunch runtime calls, the first few kernel names)."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launches = sum(1 for e in events if e.get("name") == "cudaGraphLaunch")
+    paged = sum("paged_decode" in e.get("name", "") for e in kernels)
+    names = sorted({e.get("name", "")[:60] for e in kernels})[:8]
+    return len(kernels), paged, launches, names
+
+
+async def observability_steps(torch, pa, engine, base, auth, ex, gate, round_bodies,
+                              want_toks, n_layers, max_tokens, prompts):
+    """The surface phase's observability, embedding and tool steps on its
+    warm llama-3b server: (1) the 4 streams with the flight recorder and
+    an OTLP tracer (a localhost collector) attached and detached, alternated
+    on, off, off, on: every on round's timelines and spans checked; (2) one
+    round inside a ``POST /debug/profile`` window (a second arm 409, the
+    status finished, the trace's CUDA kernels); (3) /v1/embeddings of the 4
+    prompts while a round decodes, unit norms, alone against batched,
+    rerank scores against the embeddings, the embed's ms for the 4 prompts
+    and for one ~4000-token prompt, the rerank's ms; (4) a forced
+    ``tool_choice`` chat request, streamed and not. Every round's tokens
+    equal ``want_toks``, only graphs replay, and the kernel counts
+    ``n_layers`` x decode steps."""
+    import numpy as np
+
+    from production_stack_tpu_torch import tracing
+
+    r = engine.runner
+    train = r.decode_train
+    sched = engine.scheduler
+    recorder = engine.recorder
+    collector = OtlpCollector()
+    out = {"fields": ["round", "attached", "ms_per_step_events", "ttft_s_mean",
+                      "wall_s", "decode_steps", "sm_clock_mhz_mean"], "rounds": []}
+
+    def attach(on):
+        engine.recorder = recorder if on else None
+        if on:
+            os.environ["OTEL_EXPORTER_OTLP_ENDPOINT"] = collector.url
+            os.environ["OTEL_SERVICE_NAME"] = "chip-smoke-engine"
+        else:
+            os.environ.pop("OTEL_EXPORTER_OTLP_ENDPOINT", None)
+        tracing.reset_tracer()
+
+    async def one_round(name, during=None, eager_ok=False):
+        """The 4 streams, each with its x-request-id and traceparent;
+        ``during`` runs once the round's rows decode. Returns the round's
+        facts and ``during``'s result."""
+        gate["want"] = 4
+        pa.reset_launch_counts()
+        steps0, dev0 = r.decode_steps_total, r.decode_device_seconds_total
+        eager0, d0 = train.eager_dispatches_total, engine.decode_dispatches_total
+        tag = f"{len(out['rounds']):02d}"
+        ids = [f"obs-{tag}-{i}" for i in range(4)]
+        tps = [(f"{tag}{i:02d}" + "ab" * 14, f"{i + 1:016x}") for i in range(4)]
+        t0 = time.monotonic()
+        with SmMhz() as clock:
+            streams = asyncio.gather(*[
+                ex(sse_stream, base + path, body, {
+                    **auth, "x-request-id": ids[i], "traceparent":
+                    SURFACE_TRACEPARENT.format(tid=tps[i][0], sid=tps[i][1])})
+                for i, (path, body) in enumerate(round_bodies(False))])
+            extra = None
+            if during is not None:
+                while sched.num_running == 0 and not streams.done():
+                    await asyncio.sleep(0.002)
+                extra = await during()
+            res = await streams
+            wall = time.monotonic() - t0
+        steps = r.decode_steps_total - steps0
+        launches = pa.launch_counts()
+        toks = [stream_tokens(c) for _, c, *_ in res]
+        eager = train.eager_dispatches_total - eager0
+        if any(st != 200 for st, *_ in res) or toks != want_toks:
+            fail(f"surface: {name}: HTTP {[st for st, *_ in res]}, tokens equal to the "
+                 f"logprobs-off round's: {[a == b for a, b in zip(toks, want_toks)]}")
+        if (eager and not eager_ok) or steps <= 0 or \
+                launches[pa.BF16] != n_layers * steps or launches[pa.INT8]:
+            fail(f"surface: {name}: {eager} eager decode dispatches, launches "
+                 f"{launches} over {steps} decode steps")
+        row = {"ms_per_step_events": 1e3 * (r.decode_device_seconds_total - dev0) / steps,
+               "ttft_s": [res[i][3] - gate["open"] for i in (0, 1, 3)],
+               "wall_s": wall, "decode_steps": steps,
+               "decode_dispatches": engine.decode_dispatches_total - d0,
+               "sm_clock_mhz": clock.summary()}
+        return row, ids, tps, extra
+
+    def keep(name, attached, row):
+        clock = row["sm_clock_mhz"]
+        out["rounds"].append([name, attached, row["ms_per_step_events"],
+                              sum(row["ttft_s"]) / 3, row["wall_s"], row["decode_steps"],
+                              clock["mean"] if isinstance(clock, dict) else clock])
+
+    try:
+        # 1. recorder and tracer attached / detached, alternated
+        coverage, gaps, n_spans, dropped = [], [], 0, 0
+        for i, on in enumerate((True, False, False, True)):
+            attach(on)
+            d_before = engine._step_counter
+            row, ids, tps, _ = await one_round(f"observability round {i}")
+            keep(f"recorder+tracer {'on' if on else 'off'}", on, row)
+            if not on:
+                continue
+            steps_of_round = set(range(d_before, engine._step_counter))
+            decode_steps = set()
+            for j, rid in enumerate(ids):
+                st, _, body = await ex(request, "GET", base + f"/debug/requests/{rid}",
+                                       None, auth)
+                if st != 200:
+                    fail(f"surface: /debug/requests/{rid}: HTTP {st}")
+                found = json.loads(body)
+                steps_j, cov, gap = check_timeline(rid, found, max_tokens, steps_of_round)
+                decode_steps |= steps_j
+                coverage.append(cov)
+                gaps.append(gap)
+                ids[j] = (rid, found["records"][0]["request_id"])
+            if len(decode_steps) != row["decode_dispatches"]:
+                fail(f"surface: the timelines name {len(decode_steps)} decode dispatches, "
+                     f"the engine counted {row['decode_dispatches']}")
+            st, _, body = await ex(request, "GET", base + "/debug/timeline?max_requests=4",
+                                   None, auth)
+            listed = {q["request_id"] for q in json.loads(body)["requests"]}
+            if st != 200 or listed != {eid for _, eid in ids}:
+                fail(f"surface: /debug/timeline lists {listed}")
+            dropped += engine.stats()["trace_spans_dropped_total"]
+            tracing.reset_tracer()   # posts what is queued
+            want = {tid for tid, _ in tps}
+            t_wait = time.monotonic()
+            while sum(sp["traceId"] in want for sp in collector.spans()) < 16 and \
+                    time.monotonic() - t_wait < 10:
+                await asyncio.sleep(0.05)
+            for j, (path, _) in enumerate(round_bodies(False)):
+                n_spans += check_spans(ids[j][0], collector.spans(), tps[j][0],
+                                       tps[j][1], path, [ids[j][1]])
+        if dropped:
+            fail(f"surface: {dropped} trace spans dropped")
+        out["timelines"] = {"coverage_min": min(coverage), "largest_gap_s": max(gaps),
+                            "spans_checked": n_spans, "spans_dropped": dropped}
+        attach(False)
+        log(f"surface observability so far {json.dumps(out)}")
+
+        # 2. one round inside a profiler window
+        async def profiled(name, eager=False):
+            prof_dir = os.path.join(os.path.dirname(DETAIL_LOG), f"profile-{os.getpid()}")
+            st, _, body = await ex(request, "POST", base + "/debug/profile", {
+                "duration_s": OBS_PROFILE_S, "trace_dir": prof_dir}, auth)
+            st2, _, _ = await ex(request, "POST", base + "/debug/profile",
+                                 {"duration_s": 1.0}, auth)
+            if st != 200 or st2 != 409:
+                fail(f"surface: /debug/profile arm {st} {body}, second arm {st2}")
+            saved = train.graphs
+            if eager:
+                train.graphs = {}
+            try:
+                row, *_ = await one_round(name, eager_ok=eager)
+            finally:
+                train.graphs = saved
+            keep(name, False, row)
+            t_wait = time.monotonic()
+            while True:
+                st, _, body = await ex(request, "GET", base + "/debug/profile", None, auth)
+                status = json.loads(body)
+                if status["active"] is None or time.monotonic() - t_wait > 120:
+                    break
+                await asyncio.sleep(0.2)
+            last = status.get("last") or {}
+            if status["active"] is not None or "trace_file" not in last:
+                fail(f"surface: the profile did not finish: {status}")
+            n_k, n_paged, n_graph, names = trace_kernel_events(last["trace_file"])
+            facts = {"kernel_events": n_k, "paged_kernel_events": n_paged,
+                     "graph_launch_calls": n_graph, "kernel_names": names,
+                     "trace_mib": os.path.getsize(last["trace_file"]) / 2**20,
+                     "finish_wait_s": time.monotonic() - t_wait,
+                     "window_s": last["stopped_at"] - last["started_at"],
+                     "paged_launches_counted": n_layers * row["decode_steps"]}
+            for f in os.listdir(prof_dir):
+                os.remove(os.path.join(prof_dir, f))
+            os.rmdir(prof_dir)
+            return facts
+
+        out["profile"] = await profiled("profiler window")
+        if not out["profile"]["kernel_events"]:
+            fail(f"surface: the profiled round's trace holds no CUDA kernel event: "
+                 f"{out['profile']}")
+        if out["profile"]["paged_kernel_events"]:
+            out["profile"]["graph_replays"] = "kernels inside replayed graphs reported"
+        else:
+            # The profiler saw the graphs only as whole launches: one eager
+            # round shows the kernels by name.
+            out["profile"]["graph_replays"] = "whole graph launches only"
+            out["profile_eager"] = await profiled("profiler window, eager round", True)
+            if not out["profile_eager"]["paged_kernel_events"]:
+                fail(f"surface: no paged kernel event in the profiled rounds: "
+                     f"{out['profile']} {out['profile_eager']}")
+
+        log(f"surface observability so far {json.dumps(out)}")
+        # 3. embeddings while a round decodes, then alone, and rerank
+        async def embed_mid_round():
+            t = time.monotonic()
+            st, _, body = await ex(request, "POST", base + "/v1/embeddings",
+                                   {"input": prompts}, auth)
+            return st, body, time.monotonic() - t
+
+        e0 = r.embed_seconds_total
+        row, _, _, (st, body, mid_s) = await one_round("round with embeds", embed_mid_round)
+        keep("embeds mid-round", False, row)
+        if st != 200:
+            fail(f"surface: /v1/embeddings mid-round: HTTP {st} {body[:300]}")
+        batched = np.array([d["embedding"] for d in json.loads(body)["data"]])
+        norms = np.linalg.norm(batched, axis=1)
+        alone, alone_ms = [], []
+        for p in prompts:
+            t = time.monotonic()
+            st, _, body = await ex(request, "POST", base + "/v1/embeddings", {"input": p}, auth)
+            alone_ms.append(1e3 * (time.monotonic() - t))
+            alone.append(json.loads(body)["data"][0]["embedding"])
+        dist = np.linalg.norm(np.array(alone) - batched, axis=1)
+        t = time.monotonic()
+        st4, _, body4 = await ex(request, "POST", base + "/v1/embeddings",
+                                 {"input": prompts}, auth)
+        batch_ms = 1e3 * (time.monotonic() - t)
+        long_prompt = (" ".join(prompts) * 2)[:EMBED_LONG_TOKENS]
+        t = time.monotonic()
+        st5, _, body5 = await ex(request, "POST", base + "/v1/embeddings",
+                                 {"input": long_prompt}, auth)
+        long_ms = 1e3 * (time.monotonic() - t)
+        docs = [p[:400] for p in prompts[1:]]
+        query = prompts[0][:200]
+        t = time.monotonic()
+        st6, _, body6 = await ex(request, "POST", base + "/rerank",
+                                 {"query": query, "documents": docs}, auth)
+        rerank_ms = 1e3 * (time.monotonic() - t)
+        st7, _, body7 = await ex(request, "POST", base + "/v1/embeddings",
+                                 {"input": [query] + docs}, auth)
+        if 200 != st4 or 200 != st5 or 200 != st6 or 200 != st7:
+            fail(f"surface: embeddings / rerank HTTP {st4} {st5} {st6} {st7}")
+        ev = np.array([d["embedding"] for d in json.loads(body7)["data"]])
+        score_err = max(abs(x["relevance_score"] - float(ev[x["index"] + 1] @ ev[0]))
+                        for x in json.loads(body6)["results"])
+        long_usage = json.loads(body5)["usage"]["prompt_tokens"]
+        if np.abs(norms - 1).max() > 1e-3 or dist.max() > EMBED_BATCH_BOUND or \
+                score_err > 1e-3 or long_usage != EMBED_LONG_TOKENS:
+            fail(f"surface: embedding norms {norms}, alone vs batched L2 {dist} (bound "
+                 f"{EMBED_BATCH_BOUND}), rerank score vs dot product {score_err}, long "
+                 f"prompt tokens {long_usage}")
+        out["embed"] = {
+            "mid_round_ms": 1e3 * mid_s, "batch4_ms": batch_ms, "alone_ms": alone_ms,
+            "prompt_tokens_4": json.loads(body4)["usage"]["prompt_tokens"],
+            "long_ms": long_ms, "long_tokens": long_usage, "rerank_ms": rerank_ms,
+            "rerank_tokens": json.loads(body6)["usage"]["prompt_tokens"],
+            "norm_max_abs_err": float(np.abs(norms - 1).max()),
+            "alone_vs_batched_l2": dist.tolist(), "bound": EMBED_BATCH_BOUND,
+            "rerank_vs_dot_max_abs": score_err,
+            "runner_embed_seconds": r.embed_seconds_total - e0}
+
+        log(f"surface observability so far {json.dumps(out)}")
+        # 4. a forced tool_choice, streamed and not: the same final message
+        tools = [{"type": "function", "function": {
+            "name": "get_weather", "parameters": {
+                "type": "object", "properties": {"location": {"type": "string"}}}}}]
+        # With logprobs: most of llama-3b's ids are no text under the byte
+        # tokenizer, so the entries (deferred to the finishing chunk with
+        # tools) tell the two answers' tokens apart.
+        tbody = {"messages": [{"role": "user", "content": prompts[2][:300]}],
+                 "tools": tools, "max_tokens": 24, "temperature": 0.0,
+                 "ignore_eos": True, "logprobs": True, "tool_choice": {
+                     "type": "function", "function": {"name": "get_weather"}}}
+        messages = []
+        for stream in (False, True):
+            pa.reset_launch_counts()
+            steps0, eager0 = r.decode_steps_total, train.eager_dispatches_total
+            if stream:
+                st, chunks, *_ = await ex(sse_stream, base + "/v1/chat/completions",
+                                          {**tbody, "stream": True}, auth)
+                deltas = [c["choices"][0] for c in chunks if c["choices"]]
+                calls = [d["delta"]["tool_calls"] for d in deltas
+                         if d["delta"].get("tool_calls")]
+                msg = {"content": "".join(d["delta"].get("content") or ""
+                                          for d in deltas),
+                       "tool_calls": calls[0] if calls else None,
+                       "finish_reason": deltas[-1]["finish_reason"],
+                       "logprobs": [(e["token"], e["logprob"]) for d in deltas
+                                    for e in (d.get("logprobs") or {}).get(
+                                        "content", [])]}
+            else:
+                st, _, body = await ex(request, "POST", base + "/v1/chat/completions",
+                                       tbody, auth)
+                ch = json.loads(body)["choices"][0]
+                msg = {"content": ch["message"]["content"] or "",
+                       "tool_calls": ch["message"].get("tool_calls"),
+                       "finish_reason": ch["finish_reason"],
+                       "logprobs": [(e["token"], e["logprob"])
+                                    for e in ch["logprobs"]["content"]]}
+            if msg["tool_calls"]:
+                msg["tool_calls"] = [{k: v for k, v in c.items() if k not in ("id", "index")}
+                                     for c in msg["tool_calls"]]
+            steps = r.decode_steps_total - steps0
+            launches = pa.launch_counts()
+            if st != 200 or train.eager_dispatches_total != eager0 or \
+                    launches[pa.BF16] != n_layers * steps or steps <= 0:
+                fail(f"surface: tool call (stream {stream}): HTTP {st}, launches "
+                     f"{launches} over {steps} steps")
+            messages.append(msg)
+        if messages[0] != messages[1] or len(messages[0]["logprobs"]) != 24:
+            fail(f"surface: a forced tool_choice's final message, streamed "
+                 f"{messages[1]} != not streamed {messages[0]}")
+        out["tool_call"] = {"finish_reason": messages[0]["finish_reason"],
+                            "parsed_as_call": bool(messages[0]["tool_calls"]),
+                            "content_chars": len(messages[0]["content"]),
+                            "logprob_entries_equal": len(messages[0]["logprobs"]),
+                            "streamed_equals_unstreamed": True}
+    finally:
+        # The server's own state again: the recorder on, tracing off.
+        engine.recorder = recorder
+        os.environ.pop("OTEL_EXPORTER_OTLP_ENDPOINT", None)
+        tracing.reset_tracer()
+        collector.close()
+    on = [x[2] for x in out["rounds"] if x[0] == "recorder+tracer on"]
+    off = [x[2] for x in out["rounds"] if x[0] == "recorder+tracer off"]
+    out["recorder_tracer_ms_per_step_delta"] = sum(on) / len(on) - sum(off) / len(off)
+    log(f"surface observability {json.dumps(out)}")
+    return out
+
+
 def surface_phase(torch, pa, device, seed, card, model="llama-3b"):
     """llama-3b (full width and depth, random bf16 weights, bf16 KV of 2049
     blocks, decode graphs captured at warm-up) behind ``OpenAIServer`` with
@@ -2365,6 +2816,12 @@ def surface_phase(torch, pa, device, seed, card, model="llama-3b"):
             "ops_alone_device_ms_b4": lp_ms,
             "ops_alone_ms_by_kernel": {k[:60]: v for k, v in lp_by_kernel.items()},
             "sm_clock_mhz": clock.summary()}
+
+        # 9. observability, embeddings, tools (the same 4 streams as the
+        # logprobs-off round, whose tokens every round here must give).
+        out["observability"] = await observability_steps(
+            torch, pa, engine, base, auth, ex, gate, round_bodies, rounds[False]["toks"],
+            n_layers, max_tokens, prompts)
 
         # 7. drain with one stream in flight
         free0 = engine.block_manager.num_free_blocks

@@ -1,6 +1,12 @@
 """Engine configuration: the fields of ``production_stack_tpu/engine/config.py``
 that the port's serving path reads, under the same names, defaults and
 environment variables, plus ``device``.
+
+Three of the reference's fields name features the port has not ported:
+``sequence_parallel_size``, ``data_parallel_size`` and
+``compilation_cache_dir``. They are accepted at their inert values (1, 1,
+unset or empty) and any other value is a ``ValueError`` naming the
+feature (``validate_unported``): never accepted and then ignored.
 """
 
 import os
@@ -82,6 +88,13 @@ class EngineConfig:
     # Seconds any collective of the tp group may wait: a lost rank is an
     # error within it.
     tp_timeout_s: float = 600.0
+    # The reference's sp (ring-attention prefill) and dp axes: not ported,
+    # 1 only (validate_unported).
+    sequence_parallel_size: int = 1
+    data_parallel_size: int = 1
+    # The reference's persistent XLA compile cache; the port's counterpart
+    # (a persistent graph cache) is not ported: unset or "" only.
+    compilation_cache_dir: Optional[str] = None
     # --- prefill/decode disaggregation ---
     # "unified" serves prompts end to end. "prefill" computes a prompt's KV
     # and first token, publishes them to the remote KV store under the
@@ -153,6 +166,16 @@ class EngineConfig:
     # roofline gauge (pstpu:live_hbm_bw_pct); None: looked up from the
     # card's name (perf/roofline.py), 0 when the card is not in the table.
     hbm_peak_gbps: Optional[float] = None
+    # --- observability (the reference's) ---
+    # The per-request flight recorder and the /debug routes (timelines,
+    # profiler captures, the port's kernel counts). Recorder appends are
+    # O(1) host appends from the engine loop, so it is on by default; False
+    # records nothing and every /debug route is a plain 404.
+    debug_endpoints: bool = True
+    # At most this many recent request timelines, each of at most
+    # flight_recorder_max_events events (overflow is counted).
+    flight_recorder_capacity: int = 256
+    flight_recorder_max_events: int = 512
 
     def __post_init__(self):
         if self.decode_loop not in ("scan", "while"):
@@ -169,6 +192,7 @@ class EngineConfig:
                 f"Unknown kv_cache_dtype {self.kv_cache_dtype!r} "
                 f"(supported: {', '.join(KV_CACHE_DTYPES)})"
             )
+        self.validate_unported()
         self.validate_parallelism()
         if not self.speculative_num_tokens and (
             self.speculative_adaptive or self.speculative_tree_width > 1
@@ -190,6 +214,25 @@ class EngineConfig:
     def mesh_devices(self) -> int:
         """Devices (ranks) the engine's tp group occupies."""
         return self.tensor_parallel_size
+
+    def validate_unported(self) -> None:
+        """Refuse a value of a reference field whose feature the port has
+        not ported yet (a ValueError naming it)."""
+        for flag, feature, v in (
+                ("--sequence-parallel-size", "sequence parallelism (ring-"
+                 "attention prefill)", self.sequence_parallel_size),
+                ("--data-parallel-size", "data parallelism (batch-sharded "
+                 "decode in one engine)", self.data_parallel_size)):
+            if v != 1:
+                raise ValueError(
+                    f"{flag} {v}: {feature} is not ported yet; the port "
+                    f"serves at {flag} 1")
+        if self.compilation_cache_dir:
+            raise ValueError(
+                f"--compilation-cache-dir {self.compilation_cache_dir!r}: a "
+                f"persistent graph cache is not ported yet; the port "
+                f"captures its CUDA graphs at every start (leave the flag "
+                f"unset or empty)")
 
     def validate_parallelism(self) -> None:
         """The tp degree against the other knobs (the reference's
@@ -352,7 +395,10 @@ class EngineConfig:
             # CPU runs its plain version
             and (not on_cuda or self.dtype == "bfloat16")
         )
-        v = self.attn_impl
+        # The reference's legacy names: "xla" is the window path, "pallas"
+        # the paged kernel.
+        v = {"xla": "window", "pallas": "paged"}.get(self.attn_impl,
+                                                      self.attn_impl)
         if self.speculative_enabled and v == "paged":
             raise ValueError(
                 "speculative decoding requires the window attention path "

@@ -24,8 +24,19 @@ dispatch-duration histograms and a rolling window of dispatches, from
 which ``stats()`` derives the live throughput and roofline gauges
 (``_live_perf``). A request may carry logprobs (computed on the device, see
 runner.py) and resume an interrupted stream (``generate(resume_tokens=,
-resume_seed=)``). Tracing and the flight recorder are not ported yet
-(ROADMAP).
+resume_seed=)``).
+
+Observability (the reference's): with ``debug_endpoints`` a
+``FlightRecorder`` (``engine/flight_recorder.py``) keeps each recent
+request's timeline, appended at enqueue and resume, at each dispatch's
+issue (``_record_issue``, anchored before the runner's issue call so the
+phases tile the request) and fetch (``_record_fetch``, with the batch's
+speculative acceptance), at preemption, restore, handoff and finish. Every
+hook is an O(rows) host append on the loop thread and reads no device
+value. ``stats()["trace_spans_dropped_total"]`` reads the tracer
+(``tracing.py``). ``embed`` serves /v1/embeddings and /rerank: mean-pooled,
+L2-normalised trunk states, computed on the worker thread between
+dispatches without touching the KV pool (``runner.embed``).
 
 LoRA (the reference's): the adapters of ``lora_modules`` are loaded into a
 ``LoRARegistry`` at start, and ``generate(lora_adapter=name)`` serves the
@@ -63,6 +74,7 @@ from typing import AsyncIterator, Dict, List, Optional, Set
 import torch
 
 from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.flight_recorder import FlightRecorder
 from production_stack_tpu_torch.engine.kv_cache import BlockPoolManager
 from production_stack_tpu_torch.engine.metrics import (
     DispatchDurationHistograms,
@@ -89,6 +101,7 @@ from production_stack_tpu_torch.perf.roofline import (
     peak_gbps_for,
     roofline_components,
 )
+from production_stack_tpu_torch.tracing import spans_dropped_total
 from production_stack_tpu_torch.utils import init_logger, random_uuid, resolve_device
 
 logger = init_logger(__name__)
@@ -188,6 +201,13 @@ class ServingEngine:
             prefill_window_budget=self.runner.prefill_window_blocks,
         )
         self.scheduler.on_restore = self._on_restore
+        self.scheduler.on_preempt = self._on_preempt
+        # The per-request flight recorder; None without the debug surface.
+        self.recorder = (FlightRecorder(
+            capacity=config.flight_recorder_capacity,
+            max_events=config.flight_recorder_max_events)
+            if config.debug_endpoints else None)
+        self._step_counter = 0
         self._streams: Dict[str, _StreamState] = {}
         self._pending_aborts: Set[str] = set()
         self._new_work = asyncio.Event()
@@ -333,9 +353,16 @@ class ServingEngine:
             return 0
         return self.offload.host_pool.stats()["entries"]
 
+    def _on_preempt(self, request_id: str) -> None:
+        if self.recorder is not None:
+            self.recorder.event(request_id, "preempt")
+
     def _on_restore(self, request_id: str, tokens: int,
                     seconds: float) -> None:
         self.lifecycle.restore_round_trip.observe(seconds)
+        if self.recorder is not None:
+            self.recorder.event(request_id, "restore", {
+                "tokens": tokens, "seconds": round(seconds, 6)})
 
     async def rank_reports(self, reset: bool = False) -> List[Dict]:
         """Every tp rank's report (``ModelRunner.tp_query``), taken between
@@ -443,6 +470,14 @@ class ServingEngine:
             state.sent = max(len(pre) - hold, 0)
         self.scheduler.add_sequence(seq)
         self._streams[request_id] = state
+        if self.recorder is not None:
+            self.recorder.start(request_id,
+                                prompt_tokens=len(prompt_token_ids))
+            self.recorder.event(request_id, "enqueue", {
+                "prompt_tokens": len(prompt_token_ids)})
+            if resume_tokens:
+                self.recorder.event(request_id, "resume", {
+                    "resume_tokens": len(resume_tokens)})
         self.prompt_tokens_total += len(prompt_token_ids)
         self._new_work.set()
         async with contextlib.aclosing(self._outputs(seq, state)) as outs:
@@ -523,6 +558,12 @@ class ServingEngine:
         # Registered before the restore applies: an abort while queued
         # finds it.
         self.scheduler.seqs[request_id] = seq
+        if self.recorder is not None:
+            self.recorder.start(request_id,
+                                prompt_tokens=len(mani.prompt_token_ids))
+            self.recorder.event(request_id, "enqueue", {
+                "prompt_tokens": len(mani.prompt_token_ids),
+                "disagg_decode_hop": True})
         self._pending_restores.append((seq, mani))
         self._new_work.set()
         async with contextlib.aclosing(self._outputs(seq, state)) as outs:
@@ -597,6 +638,10 @@ class ServingEngine:
                 seq.num_computed_tokens = mani.num_computed_tokens
                 seq.num_cached_tokens = mani.num_computed_tokens
                 seq.status = SequenceStatus.RUNNING
+                if self.recorder is not None:
+                    self.recorder.event(seq.request_id, "handoff_restore", {
+                        "blocks": mani.num_blocks,
+                        "tokens": mani.num_computed_tokens})
                 self.scheduler.running.append(seq)
                 for i, tok in enumerate(mani.output_token_ids):
                     if seq.status.is_finished:
@@ -648,6 +693,9 @@ class ServingEngine:
         except Exception:  # noqa: BLE001 — publish must fail cleanly
             logger.exception("KV handoff publish task failed")
             ok = False
+        if self.recorder is not None:
+            self.recorder.event(seq.request_id, "handoff_publish",
+                                {"ok": ok})
         # finish and emit in one loop slice: the scheduler never sees a
         # half-finished handoff row.
         if not seq.status.is_finished:
@@ -677,6 +725,23 @@ class ServingEngine:
                       if seq.sampling.logprobs is not None else None),
         ))
 
+    async def embed(self, texts: List[str]):
+        """Embed texts: (mean-pooled, L2-normalised trunk states [n, D]
+        float32 numpy, prompt tokens). Each text is tokenized (an empty one
+        as the EOS token) and cut to max_model_len. The forward runs on the
+        worker thread, between dispatches, and touches no KV block."""
+        if self._lost() is not None:
+            raise RuntimeError(f"engine unavailable: {self._tp_error}")
+        token_lists = [
+            (self.tokenizer.encode(t) or [self.tokenizer.eos_token_id or 0])[
+                :self.config.max_model_len]
+            for t in texts]
+        vecs = await asyncio.get_running_loop().run_in_executor(
+            self._executor, self.runner.embed, token_lists)
+        n_tokens = sum(len(t) for t in token_lists)
+        self.prompt_tokens_total += n_tokens
+        return vecs, n_tokens
+
     def abort(self, request_id: str) -> None:
         """Deferred abort: applied by the engine loop between dispatches."""
         self._pending_aborts.add(request_id)
@@ -702,7 +767,8 @@ class ServingEngine:
             # issue -> fetch -> apply (the reference's rule).
             depth = 1
         overlap = cfg.overlap_dispatch and depth >= 2
-        in_flight: deque = deque()  # (batch, DispatchHandle), FIFO
+        in_flight: deque = deque()  # (batch, step, DispatchHandle, issue), FIFO
+        r = self.runner
 
         def abort_batch(batch):
             for seq in batch.seqs:
@@ -711,11 +777,14 @@ class ServingEngine:
                     self._process_output(aborted)
 
         async def apply_oldest():
-            batch, handle, issue_time = in_flight.popleft()
+            batch, step, handle, issue_time = in_flight.popleft()
             self.fetches_total += 1
             if in_flight:
                 # Another dispatch executes while this fetch waits.
                 self.overlapped_fetches_total += 1
+            # The speculative counters grow at fetch: their growth over
+            # this fetch is this dispatch's.
+            spec0 = (r.spec_accepted_tokens_total, r.spec_draft_tokens_total)
             try:
                 tokens, lps = await loop.run_in_executor(self._executor,
                                                          handle.fetch)
@@ -725,7 +794,9 @@ class ServingEngine:
                 self._last_fetch_done = time.monotonic()
                 return
             self._last_fetch_done = now = time.monotonic()
-            self._record_fetch(batch, issue_time, now)
+            self._record_fetch(batch, step, tokens, issue_time, now,
+                               r.spec_accepted_tokens_total - spec0[0],
+                               r.spec_draft_tokens_total - spec0[1])
             produced, accepted = self.scheduler.apply_results(batch, tokens,
                                                               lps)
             self.generation_tokens_total += accepted
@@ -740,7 +811,7 @@ class ServingEngine:
         def next_batch():
             if not overlap:
                 return self.scheduler.schedule()
-            kinds = {b.kind for b, _, _ in in_flight}
+            kinds = {b.kind for b, *_ in in_flight}
             # With a prefill in flight, decode gets the free slot first
             # (its streams must not stall behind a chunk train).
             return self.scheduler.schedule(
@@ -763,7 +834,12 @@ class ServingEngine:
                         or s.sampling.frequency_penalty for s in batch.seqs):
                     while in_flight:
                         await apply_oldest()
-                issue_mono = time.monotonic()
+                step = self._step_counter
+                self._step_counter += 1
+                # Taken before the issue call: its time belongs to this
+                # dispatch's phase (issue -> fetch), so the phases tile the
+                # request (_record_issue).
+                issue_wall, issue_mono = time.time(), time.monotonic()
                 try:
                     handle = await loop.run_in_executor(
                         self._executor, self.runner.execute_async, batch)
@@ -792,13 +868,9 @@ class ServingEngine:
                     self.decode_dispatches_total += 1
                 else:
                     self.prefill_dispatches_total += 1
-                for seq in batch.seqs:
-                    if seq.first_issue_time is None:
-                        seq.first_issue_time = issue_mono
-                        self.lifecycle.queue_wait.observe(
-                            issue_mono - seq.arrival_time)
+                self._record_issue(batch, step, issue_wall, issue_mono)
                 self.scheduler.advance_at_issue(batch)
-                in_flight.append((batch, handle, issue_mono))
+                in_flight.append((batch, step, handle, issue_mono))
             if in_flight:
                 # Applying may finish rows and free blocks, unblocking
                 # admission: the next iteration schedules right after.
@@ -829,21 +901,72 @@ class ServingEngine:
             await asyncio.gather(*list(self._publish_tasks),
                                  return_exceptions=True)
 
-    def _record_fetch(self, batch, issue_time: float, now: float) -> None:
-        """A fetched dispatch's duration, by train kind; a decode's in the
-        lifecycle's decode-train histogram; a row's prefill phase when its
-        final chunk comes back."""
+    def _record_issue(self, batch, step: int, t_wall: float,
+                      t_mono: float) -> None:
+        """Dispatch-issue anchor (the reference's): closes each fresh row's
+        queue wait (histogram and "schedule" event) and appends each row's
+        issue event. ``t_wall`` / ``t_mono`` are taken before the runner's
+        issue call, so the issue's own time belongs to the dispatch's phase
+        and the phases tile the request. O(rows) host appends; no device
+        value is read."""
+        rec = self.recorder
+        for idx, seq in enumerate(batch.seqs):
+            if seq.first_issue_time is None:
+                seq.first_issue_time = t_mono
+                self.lifecycle.queue_wait.observe(t_mono - seq.arrival_time)
+                if rec is not None:
+                    rec.event(seq.request_id, "schedule", {
+                        "wait_s": round(t_mono - seq.arrival_time, 6),
+                    }, t=t_wall)
+            if rec is None:
+                continue
+            if batch.kind == "prefill":
+                rec.event(seq.request_id, "prefill_issue", {
+                    "step": step, "chunk": batch.chunk_lens[idx],
+                    "start": batch.chunk_starts[idx],
+                }, t=t_wall)
+            else:
+                data = {"step": step, "rows": len(batch.seqs),
+                        "k": batch.num_steps}
+                if batch.spec_mode != "off":
+                    data["spec_mode"] = batch.spec_mode
+                rec.event(seq.request_id, "decode_issue", data, t=t_wall)
+
+    def _record_fetch(self, batch, step: int, token_lists, issue_time: float,
+                      now: float, spec_accepted_delta: int = 0,
+                      spec_drafts_delta: int = 0) -> None:
+        """Dispatch-fetch anchor: the dispatch's duration by train kind; a
+        decode's in the lifecycle's decode-train histogram; a row's prefill
+        phase when its final chunk comes back; and each row's fetch event
+        (prefill: final flag and cached tokens; decode: tokens, ms and the
+        batch's speculative acceptance)."""
+        rec = self.recorder
         self.dispatch_hists.observe(
             "prefill" if batch.kind != "decode"
             else "decode_spec" if batch.spec_mode != "off" else "decode",
             now - issue_time)
         if batch.kind == "decode":
             self.lifecycle.decode_train.observe(now - issue_time)
-            return
         for idx, seq in enumerate(batch.seqs):
-            if batch.finals and batch.finals[idx] and \
-                    seq.first_issue_time is not None:
-                self.lifecycle.prefill.observe(now - seq.first_issue_time)
+            if batch.kind != "decode":
+                final = bool(batch.finals[idx]) if batch.finals else False
+                if final and seq.first_issue_time is not None:
+                    self.lifecycle.prefill.observe(now - seq.first_issue_time)
+                if rec is not None:
+                    rec.event(seq.request_id, "prefill_fetch", {
+                        "step": step, "final": final,
+                        "cached_tokens": seq.num_cached_tokens})
+            elif rec is not None:
+                data = {"step": step,
+                        "tokens": (len(token_lists[idx])
+                                   if idx < len(token_lists) else 0),
+                        "ms": round((now - issue_time) * 1000, 2)}
+                # Batch-level: a dispatch accepts for all its rows at once.
+                if spec_accepted_delta:
+                    data["spec_accepted_batch"] = spec_accepted_delta
+                if spec_drafts_delta:
+                    data["spec_drafts_batch"] = spec_drafts_delta
+                rec.event(seq.request_id, "decode_fetch", data)
 
     def _fail_all(self, err: Exception) -> None:
         """End every open stream with ``err`` (raised by its generate())."""
@@ -869,6 +992,11 @@ class ServingEngine:
                                          - seq.arrival_time)
         if seq.status.is_finished:
             self._ttft_recorded.discard(seq.request_id)
+            if self.recorder is not None:
+                # Idempotent: a stop-string finish below calls it again.
+                self.recorder.finish(
+                    seq.request_id, reason=seq.finish_reason(),
+                    output_tokens=len(seq.output_token_ids))
             # Its draft-ring slot goes back (idempotent; no-op spec off).
             self.runner.release_spec_slot(seq.request_id)
             if seq.status is not SequenceStatus.FINISHED_ABORTED:
@@ -926,6 +1054,9 @@ class ServingEngine:
                         seq.request_id, SequenceStatus.FINISHED_STOPPED
                     )
                 finished = True
+        if finished and self.recorder is not None:
+            self.recorder.finish(seq.request_id, reason=seq.finish_reason(),
+                                 output_tokens=len(seq.output_token_ids))
         if seq.handoff_key is not None:
             # A prefill-hop row emits once, after its publish
             # (_emit_handoff_output); an abort still ends its stream.
@@ -1056,6 +1187,10 @@ class ServingEngine:
             "decode_seconds_total": r.decode_seconds_total,
             "decode_device_seconds_total": r.decode_device_seconds_total,
             "prefill_seconds_total": r.prefill_seconds_total,
+            # The embedding path (the port's keys): calls and the host
+            # seconds they took.
+            "embed_calls_total": r.embed_calls_total,
+            "embed_seconds_total": r.embed_seconds_total,
             # Tensor parallelism: the group's size and devices, the backend
             # its rule picked, and each rank's pool bytes.
             "mesh_tp_size": self.config.tensor_parallel_size,
@@ -1064,6 +1199,9 @@ class ServingEngine:
             "tp_backend": self.tp.backend if self.tp is not None else None,
             # Speculative decoding: the reference's keys and the port's
             # cycle counts.
+            # OTLP spans the exporter queue had to drop (0 with tracing
+            # off).
+            "trace_spans_dropped_total": spans_dropped_total(),
             **r.spec_stats(),
             **r.decode_train.stats(),
             **self._live_perf(),

@@ -7,9 +7,11 @@ renders, under the same names and label sets (``vllm:*`` for the router's
 ``EngineStatsScraper`` and the reference dashboard, ``pstpu:*`` for this
 stack), read from ``engine.stats()``: the offload, restore, shared-tier,
 chain-eviction and handoff series read the KV tier's counters, the
-``pstpu:spec_*`` series the speculative runner's. A series of a feature
-the port does not have yet (tracing) renders at 0, as the reference renders
-it for an engine without the feature. Two renderers read that one list: the text renderer the server
+``pstpu:spec_*`` series the speculative runner's,
+``pstpu:trace_spans_dropped_total`` the tracer's queue-full drops
+(``tracing.py``; 0 with tracing off). A series whose key ``stats()`` lacks
+renders at 0, as the reference renders it for an engine without the
+feature. Two renderers read that one list: the text renderer the server
 serves (``server/metrics.py``) and ``EngineMetricsCollector`` for a
 ``prometheus_client`` registry, which imports ``prometheus_client`` only
 when it collects (the port does not need the package).

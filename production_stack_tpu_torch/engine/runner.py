@@ -358,6 +358,9 @@ class ModelRunner:
         self.decode_tokens_total = 0      # tokens within row budgets
         # Decode dispatches that read start tokens on the device.
         self.chained_dispatches_total = 0
+        # Embedding forwards (runner.embed): calls and their host seconds.
+        self.embed_calls_total = 0
+        self.embed_seconds_total = 0.0
         # Every rank's report at start (device, pool and weight bytes).
         self.rank_info: List[Dict] = [self._rank_report()]
         if self.tp is not None:
@@ -1513,6 +1516,66 @@ class ModelRunner:
             return self._issue_decode(batch)
         return self._issue_prefill(batch)
 
+    # -------------------------------------------------------------- embedding
+    def embed(self, token_lists: List[List[int]]) -> np.ndarray:
+        """[n, D] float32 embeddings of tokenized inputs (the reference's
+        ``embed``): the trunk forward with no KV pool and no window, mean
+        pooling over each input's valid tokens in f32, L2 normalisation
+        (norm floored at 1e-9). Rows pad to the power-of-two bucket of at
+        most ``max_num_seqs`` (more inputs go in chunks of that many),
+        tokens to the power-of-two bucket >= 16 of the longest input. Run
+        between dispatches on the engine's worker thread; at tp > 1 every
+        rank runs its shard's forward (an EMBED descriptor)."""
+        t0 = time.monotonic()
+        cap = max(1, self.config.max_num_seqs)
+        hi = 16
+        while hi < self.config.max_model_len:
+            hi *= 2
+        outs = []
+        for ofs in range(0, len(token_lists), cap):
+            chunk = token_lists[ofs:ofs + cap]
+            n = len(chunk)
+            b = _bucket(n, 1, cap)
+            t = _bucket(max((len(x) for x in chunk), default=1), 16, hi)
+            packed = torch.zeros((b * t + b,), dtype=torch.int32)
+            ids = packed[:b * t].view(b, t).numpy()
+            lens = packed[b * t:].numpy()
+            for i, toks in enumerate(chunk):
+                toks = toks[:t]
+                ids[i, :len(toks)] = toks
+                lens[i] = len(toks)
+            with self._dispatch_lock():
+                if self.tp is not None:
+                    self.tp.send_header(mesh.EMBED, b, t)
+                    self.tp.bcast(packed)
+                out = self._embed_device(packed, b, t)
+            outs.append(out[:n].cpu().numpy())
+        self.embed_calls_total += 1
+        self.embed_seconds_total += time.monotonic() - t0
+        return np.concatenate(outs, axis=0)
+
+    def _embed_device(self, packed: torch.Tensor, b: int, t: int
+                      ) -> torch.Tensor:
+        """The device part of ``embed``, on every rank: token ids [b, t]
+        and lengths [b] from ``packed`` -> [b, D] float32 (full D on every
+        rank). Holds ``kv_io_lock``: never inside a graph capture."""
+        with self.kv_io_lock, self._io_stream():
+            dev = packed.to(self.device)
+            token_ids = dev[:b * t].view(b, t)
+            lens = dev[b * t:]
+            t_iota = torch.arange(t, dtype=torch.int32, device=self.device)
+            positions = t_iota[None, :].expand(b, t)
+            hidden, _, _ = self.model_forward(
+                self.params, self.model_config, token_ids, positions, lens,
+                tp=self.tp)
+            mask = (t_iota[None, :] < lens[:, None]).float()[:, :, None]
+            denom = torch.clamp(lens.float(), min=1.0)[:, None]
+            pooled = (hidden.float() * mask).sum(1) / denom
+            norm = torch.clamp(
+                torch.linalg.vector_norm(pooled, dim=-1, keepdim=True),
+                min=1e-9)
+            return pooled / norm
+
     # ------------------------------------------------------------ KV offload
     def _pools(self) -> List[torch.Tensor]:
         """The pools a block spans: K and V payload, and (int8) their scale
@@ -1661,6 +1724,12 @@ class ModelRunner:
                 continue
             if kind == mesh.STOP:
                 return self._answer_query(False)
+            if kind == mesh.EMBED:
+                b, t = h[1:3]
+                packed = torch.empty((b * t + b,), dtype=torch.int32)
+                tp.bcast(packed)
+                self._embed_device(packed, b, t)
+                continue
             if kind == mesh.DECODE:
                 d, b, mb, k, n_steps, chain_src, pen, lpk = h[1:9]
                 n_payload = NUM_SCALARS * b + b * mb

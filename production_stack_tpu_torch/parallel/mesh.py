@@ -52,7 +52,9 @@ logger = init_logger(__name__)
 AXIS_TP = "tp"
 
 # Descriptor kinds (entry 0 of a descriptor header) and the header length.
-NOOP, DECODE, PREFILL, QUERY, STOP = range(5)
+# EMBED is the embedding forward (/v1/embeddings, /rerank): no KV pool, no
+# dispatch number.
+NOOP, DECODE, PREFILL, QUERY, STOP, EMBED = range(6)
 HEADER_LEN = 12
 
 # The directory that holds the package: a worker process imports it from

@@ -19,12 +19,33 @@ aiohttp) for what an engine behind the stack's router serves:
     (pull the shared tier's hottest chains into the device prefix cache)
     and POST /disagg/prefill (the prefill hop of a disaggregated request:
     prefill, sample token 1, publish KV under the transfer key);
-  * GET /debug/kernels (the port's own diagnostic: the paged kernel's
-    launch counts from its device counter, with ``engine.stats()``) and
-    POST /debug/kernels/reset (set the counts to 0).
+  * POST /v1/embeddings (mean-pooled, L2-normalised trunk states; ``input``
+    a string or a list of strings) and POST /v1/rerank, /rerank (documents
+    ordered by cosine similarity to the query, ``top_n``);
+  * tool calling on chat completions (``tools``, ``tool_choice``;
+    ``server/tool_calling.py``): schemas injected into the system message,
+    a forced choice's JSON prefix appended to the prompt, ``tool_calls``
+    parsed from the output (one buffered delta when streaming) with
+    finish_reason "tool_calls";
+  * the debug surface, registered only with ``debug_endpoints`` (else every
+    /debug route is a plain 404): GET /debug/requests/{id} (a request's
+    flight-recorder timeline and phases, by the engine's id, the client's
+    ``x-request-id`` or the response id), GET /debug/timeline (recent
+    requests, newest first; ``max_requests`` clamped to [0, 1024]), POST
+    /debug/profile (a bounded torch.profiler window, ``duration_s`` in (0,
+    300], 409 while one runs) and GET /debug/profile (its status), and the
+    port's own GET /debug/kernels (the paged kernel's launch counts from
+    its device counter, with ``engine.stats()``) and POST
+    /debug/kernels/reset (set the counts to 0).
 
-The router's contract: bearer auth on /v1/* when ``--api-key`` is set
-(401 otherwise); ``--max-queue-len`` sheds generation requests with 503 and
+Tracing: with ``OTEL_EXPORTER_OTLP_ENDPOINT`` set (``OTEL_SERVICE_NAME``
+names the service) every /v1 request is an OTLP server span "engine
+<path>" continuing the client's ``traceparent``, and each of its requests'
+recorder phases is exported as an "engine.<phase>" child span when it ends
+(``tracing.py``).
+
+The router's contract: bearer auth on /v1/*, /disagg/*, /debug/* and
+/rerank when ``--api-key`` is set (401 otherwise); ``--max-queue-len`` sheds generation requests with 503 and
 ``Retry-After`` while the wait queue is that deep; SIGTERM drains (/health
 turns 503 ``draining``, new POSTs 503, in-flight requests finish or are
 aborted at ``--drain-timeout``; a second SIGTERM exits at once); with the
@@ -37,8 +58,7 @@ unless they carry ``x-pstpu-disagg-fallback``; a decode hop arrives with
 completion route, and its stream continues the published one.
 
 HTTP/1.1 with one request per connection (``Connection: close``); a
-streamed response is close-delimited. Tool calling, /v1/embeddings,
-/rerank and the reference's /debug/* routes are not ported yet (ROADMAP).
+streamed response is close-delimited.
 
 Run: ``python -m production_stack_tpu_torch.server.api_server --model
 llama-3b --port 8000`` (on the card; ``--device cpu`` for a CPU run).
@@ -56,6 +76,7 @@ production_stack_tpu_torch.kv_offload.server``) turn the offload tiers on.
 
 import argparse
 import asyncio
+import contextvars
 import hmac
 import json
 import os
@@ -63,7 +84,7 @@ import signal
 import time
 from dataclasses import replace
 from typing import Optional, Tuple
-from urllib.parse import parse_qs
+from urllib.parse import parse_qs, unquote
 
 import torch  # noqa: F401 — every module of the port is a torch module
 
@@ -79,17 +100,38 @@ from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.engine import ServingEngine
 from production_stack_tpu_torch.engine.sampling import SamplingParams, seed_base
 from production_stack_tpu_torch.ops import paged_attention as pa
+from production_stack_tpu_torch.profiling import (
+    DeviceProfiler,
+    ProfilerBusy,
+    ProfilerNotReady,
+)
 from production_stack_tpu_torch.server.metrics import render_engine_metrics
+from production_stack_tpu_torch.server.tool_calling import (
+    StreamingToolBuffer,
+    build_tool_context,
+    inject_tool_messages,
+    parse_tool_calls,
+    validate_tools,
+)
+from production_stack_tpu_torch.tracing import get_tracer, reset_tracer
 from production_stack_tpu_torch.utils import init_logger, random_uuid
 
 logger = init_logger(__name__)
 
 VERSION = "0.1.0"
 _REASONS = {200: "OK", 400: "Bad Request", 401: "Unauthorized",
-            404: "Not Found", 405: "Method Not Allowed",
+            404: "Not Found", 405: "Method Not Allowed", 409: "Conflict",
             413: "Payload Too Large", 500: "Internal Server Error",
             501: "Not Implemented", 503: "Service Unavailable"}
 _MAX_BODY = 16 << 20
+_TRACER_NAME = "pstpu-engine"
+_DEBUG_REQUESTS = "/debug/requests/"
+# Per request (each connection is its own task): the server span of a /v1
+# request while tracing is on, and the status its response head carried.
+_TRACE_SPAN: contextvars.ContextVar = contextvars.ContextVar(
+    "pstpu_trace_span", default=None)
+_STATUS: contextvars.ContextVar = contextvars.ContextVar(
+    "pstpu_response_status", default=None)
 
 
 def _error_body(status: int, message: str,
@@ -129,6 +171,14 @@ class OpenAIServer:
         self._drain_task: Optional[asyncio.Task] = None
         self.on_drained = None    # called after a SIGTERM drain (main: exit)
         self.on_second_sigterm = None
+        # POST /debug/profile's torch.profiler window, armed and stopped on
+        # the engine's worker thread; None without the debug surface.
+        self.profiler = None
+        if engine.config.debug_endpoints:
+            self.profiler = DeviceProfiler(
+                executor=engine._executor, lock=engine.runner.kv_io_lock,
+                not_ready=lambda: (None if self.engine.is_healthy else
+                                   "the engine is not serving yet (warm-up)"))
 
     async def start(self) -> None:
         """Start the engine loop and listen; ``port=0`` picks a free port
@@ -152,7 +202,10 @@ class OpenAIServer:
             except asyncio.TimeoutError:
                 logger.warning("stopping with connections still open")
             self._server = None
+        if self.profiler is not None:
+            await self.profiler.close()
         await self.engine.stop()
+        reset_tracer()  # posts the spans still queued
 
     # ---------------------------------------------------------------- drain
     def install_signal_handlers(self, loop) -> None:
@@ -225,6 +278,7 @@ class OpenAIServer:
     @staticmethod
     def _head(status: int, content_type: str, headers: Optional[dict] = None,
               length: Optional[int] = None) -> bytes:
+        _STATUS.set(status)
         extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
         if length is not None:
             extra += f"Content-Length: {length}\r\n"
@@ -267,8 +321,7 @@ class OpenAIServer:
         finally:
             writer.close()
 
-    async def _route(self, writer, method: str, path: str, query: str,
-                     headers: dict, body: bytes) -> None:
+    def _routes(self, query: str) -> dict:
         routes = {
             ("GET", "/health"): self.health,
             ("GET", "/metrics"): self.metrics,
@@ -278,23 +331,87 @@ class OpenAIServer:
                 lambda w, h, b: self.prefix_index(w, parse_qs(query)),
             ("POST", "/prewarm"): self.prewarm,
             ("POST", "/disagg/prefill"): self.disagg_prefill,
-            ("GET", "/debug/kernels"): self.debug_kernels,
-            ("POST", "/debug/kernels/reset"): self.debug_kernels_reset,
             ("POST", "/v1/completions"): self.completions,
             ("POST", "/v1/chat/completions"): self.chat_completions,
+            ("POST", "/v1/embeddings"): self.embeddings,
+            ("POST", "/v1/rerank"): self.rerank,
+            ("POST", "/rerank"): self.rerank,
         }
+        if self.engine.config.debug_endpoints:
+            # Not registered without the debug surface: /debug/* is then a
+            # plain 404, like a path that never existed.
+            routes.update({
+                ("GET", "/debug/timeline"):
+                    lambda w, h, b: self.debug_timeline(w, parse_qs(query)),
+                ("POST", "/debug/profile"): self.debug_profile_start,
+                ("GET", "/debug/profile"): self.debug_profile_status,
+                ("GET", "/debug/kernels"): self.debug_kernels,
+                ("POST", "/debug/kernels/reset"): self.debug_kernels_reset,
+            })
+        return routes
+
+    def _match(self, method: str, path: str, query: str = ""):
+        """The handler of a request, ``(writer, headers, body) -> None``;
+        raises the 404 or 405."""
+        routes = self._routes(query)
         handler = routes.get((method, path))
+        if (handler is None and self.engine.config.debug_endpoints
+                and path.startswith(_DEBUG_REQUESTS)
+                and "/" not in path[len(_DEBUG_REQUESTS):]
+                and path != _DEBUG_REQUESTS):
+            # GET /debug/requests/{request_id}
+            if method != "GET":
+                raise _HttpError(405, f"{method} not allowed on {path}")
+            rid = unquote(path[len(_DEBUG_REQUESTS):])
+            return lambda w, h, b: self.debug_request(w, rid)
         if handler is None:
             if any(p == path for _, p in routes):
                 raise _HttpError(405, f"{method} not allowed on {path}")
             raise _HttpError(404, f"route {path} not found")
-        if self.api_key and path.startswith("/v1"):
+        return handler
+
+    async def _route(self, writer, method: str, path: str, query: str,
+                     headers: dict, body: bytes) -> None:
+        handler = self._match(method, path, query)
+        tracer = get_tracer(_TRACER_NAME) if path.startswith("/v1") else None
+        if tracer is None:
+            await self._admit(writer, method, path, headers, body, handler)
+            return
+        # The engine's server span continues the caller's trace; the
+        # request's phase spans parent under it (_emit_lifecycle_spans).
+        span = tracer.start_span(
+            f"engine {path}", parent=headers.get("traceparent"),
+            attributes={"http.method": method, "model": self.model_name})
+        _TRACE_SPAN.set(span)
+        ok, status = True, None
+        try:
+            await self._admit(writer, method, path, headers, body, handler)
+            status = _STATUS.get()
+        except _HttpError as e:
+            status = e.status
+            raise
+        except BaseException:
+            ok = False
+            raise
+        finally:
+            if status is not None:
+                span.attributes["http.status_code"] = status
+            tracer.end_span(span, ok=ok)
+
+    async def _admit(self, writer, method: str, path: str, headers: dict,
+                     body: bytes, handler) -> None:
+        """Bearer auth, then (serving POSTs) the drain gate and the
+        in-flight count, as the reference's middlewares."""
+        if self.api_key and (path.startswith(("/v1", "/disagg", "/debug"))
+                             or path == "/rerank"):
             got = headers.get("authorization", "")
             if not hmac.compare_digest(got.encode(),
                                        f"Bearer {self.api_key}".encode()):
                 raise _HttpError(401, "Invalid or missing API key",
                                  "authentication_error")
-        if method != "POST":
+        if method != "POST" or not (
+                path.startswith(("/v1", "/disagg"))
+                or path in ("/rerank", "/prewarm")):
             await handler(writer, headers, body)
             return
         if self._draining:
@@ -360,6 +477,148 @@ class OpenAIServer:
         if self.engine.runner.device.type == "cuda":
             pa.reset_launch_counts()
         await self._send_json(writer, 200, {"status": "ok"})
+
+    # ------------------------------------------------- observability (debug)
+    async def debug_request(self, writer, request_id: str) -> None:
+        """A request's flight-recorder timeline: the engine's id, the
+        client's x-request-id and the response id all resolve."""
+        if self.engine.recorder is None:
+            raise _HttpError(404, "Flight recorder disabled", "not_found")
+        found = self.engine.recorder.get(request_id)
+        if found is None:
+            raise _HttpError(404, f"No flight record for {request_id!r} "
+                                  f"(evicted from the ring, or never served "
+                                  f"by this engine)", "not_found")
+        await self._send_json(writer, 200, found)
+
+    async def debug_timeline(self, writer, query: dict) -> None:
+        """The most recent requests' summaries, newest first."""
+        if self.engine.recorder is None:
+            raise _HttpError(404, "Flight recorder disabled", "not_found")
+        try:
+            # Clamped both ways: 0 or less means none, never everything.
+            max_requests = min(max(0, int(query.get("max_requests",
+                                                     ["64"])[0])), 1024)
+        except ValueError:
+            raise _HttpError(400, "max_requests must be an integer")
+        await self._send_json(writer, 200,
+                              self.engine.recorder.timeline(max_requests))
+
+    async def debug_profile_start(self, writer, headers: dict,
+                                  raw: bytes) -> None:
+        """Arm a bounded torch.profiler window (one at a time)."""
+        if not self.profiler.available():
+            raise _HttpError(404, "Device profiling unavailable", "not_found")
+        body = self._parse(raw) if raw else {}
+        duration = body.get("duration_s", 5.0)
+        if isinstance(duration, bool) or not isinstance(
+                duration, (int, float)) or not 0 < float(duration) <= 300:
+            raise _HttpError(400, "'duration_s' must be a number in (0, 300]")
+        trace_dir = body.get("trace_dir")
+        if trace_dir is not None and not isinstance(trace_dir, str):
+            raise _HttpError(400, "'trace_dir' must be a string path")
+        try:
+            info = await self.profiler.arm(float(duration),
+                                           trace_dir=trace_dir)
+        except ProfilerBusy as e:
+            raise _HttpError(409, str(e), "conflict")
+        except ProfilerNotReady as e:
+            raise _HttpError(503, f"Profiler cannot start yet: {e}",
+                             "service_unavailable", {"Retry-After": "1"})
+        except Exception as e:  # noqa: BLE001 — a failed arm must not 500
+            logger.exception("Device profiling arm failed")
+            raise _HttpError(503, f"Profiler failed to start: {e}",
+                             "service_unavailable", {"Retry-After": "1"})
+        await self._send_json(writer, 200, {"status": "armed", **info})
+
+    async def debug_profile_status(self, writer, headers: dict,
+                                   body: bytes) -> None:
+        await self._send_json(writer, 200, self.profiler.status())
+
+    def _emit_lifecycle_spans(self, request_ids) -> None:
+        """Export each request's recorder phases as OTLP spans under the
+        /v1 request's server span (a no-op without tracing or a
+        recorder)."""
+        span = _TRACE_SPAN.get()
+        rec = self.engine.recorder
+        tracer = get_tracer(_TRACER_NAME)
+        if span is None or rec is None or tracer is None:
+            return
+        for rid in request_ids:
+            found = rec.get(rid)
+            if not found:
+                continue
+            for record in found["records"]:
+                for phase in record.get("phases", ()):
+                    if phase["end"] < phase["start"]:
+                        continue  # clock skew guard; zero length is valid
+                    tracer.record_span(
+                        f"engine.{phase['name']}", parent=span.traceparent,
+                        start_s=phase["start"], end_s=phase["end"],
+                        attributes={"request.id": rid, **phase["attrs"]})
+
+    # ------------------------------------------------------------ embeddings
+    def _check_base_model(self, body: dict) -> None:
+        model = body.get("model", self.model_name)
+        if model != self.model_name:
+            raise _HttpError(404, f"Model '{model}' not found",
+                             "model_not_found")
+
+    async def embeddings(self, writer, headers: dict, raw: bytes) -> None:
+        body = self._parse(raw)
+        inputs = body.get("input")
+        if inputs is None:
+            raise _HttpError(400, "'input' is required")
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        if not inputs or not all(isinstance(x, str) for x in inputs):
+            raise _HttpError(400, "'input' must be a string or list of "
+                                  "strings")
+        self._check_base_model(body)
+        vecs, n_tokens = await self.engine.embed(inputs)
+        await self._send_json(writer, 200, {
+            "object": "list",
+            "data": [{"object": "embedding", "index": i,
+                      "embedding": vec.tolist()}
+                     for i, vec in enumerate(vecs)],
+            "model": self.model_name,
+            "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens},
+        })
+
+    async def rerank(self, writer, headers: dict, raw: bytes) -> None:
+        """Documents by cosine similarity of their embeddings to the
+        query's (the embeddings are L2-normalised: a dot product)."""
+        body = self._parse(raw)
+        query = body.get("query")
+        documents = body.get("documents")
+        if not isinstance(query, str) or not isinstance(documents, list) \
+                or not all(isinstance(d, str) for d in documents):
+            raise _HttpError(400, "'query' (str) and 'documents' (list[str]) "
+                                  "are required")
+        self._check_base_model(body)
+        if not documents:
+            await self._send_json(writer, 200, {
+                "id": random_uuid("rerank-"), "model": self.model_name,
+                "results": [],
+                "usage": {"prompt_tokens": 0, "total_tokens": 0}})
+            return
+        top_n = body.get("top_n")
+        if top_n is None:
+            top_n = len(documents)
+        elif not isinstance(top_n, int) or top_n < 0:
+            raise _HttpError(400, "'top_n' must be a non-negative integer")
+        vecs, n_tokens = await self.engine.embed([query] + documents)
+        scores = vecs[1:] @ vecs[0]
+        order = scores.argsort()[::-1]
+        await self._send_json(writer, 200, {
+            "id": random_uuid("rerank-"),
+            "model": self.model_name,
+            "results": [{"index": int(i),
+                         "document": {"text": documents[int(i)]},
+                         "relevance_score": float(scores[int(i)])}
+                        for i in order[:top_n]],
+            "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens},
+        })
 
     async def prewarm(self, writer, headers: dict, raw: bytes) -> None:
         """Pull the shared KV tier's top-k hottest chains into the device
@@ -530,8 +789,6 @@ class OpenAIServer:
             raise _HttpError(404, f"Model '{model}' not found", "model_not_found")
         if body.get("logit_bias"):
             raise _HttpError(400, "'logit_bias' is not supported")
-        if body.get("tools"):
-            raise _HttpError(400, "'tools' is not supported by this server")
         if not chat and body.get("suffix"):
             raise _HttpError(400, "'suffix' is not supported")
         if not chat and body.get("echo"):
@@ -593,15 +850,27 @@ class OpenAIServer:
         if not messages or not isinstance(messages, list):
             raise _HttpError(400, "'messages' is required")
         self._check(body, chat=True)
+        terr = validate_tools(body)
+        if terr is not None:
+            raise _HttpError(400, terr)
+        tool_ctx = build_tool_context(body)
         try:
+            if tool_ctx is not None:
+                messages = inject_tool_messages(messages, tool_ctx)
             prompt = self.engine.tokenizer.apply_chat_template(
                 messages, add_generation_prompt=True)
-        except (KeyError, TypeError) as e:
+        except (KeyError, TypeError, ValueError, AttributeError) as e:
+            # Malformed messages or tool history are the client's fault.
             raise _HttpError(400, f"Could not apply chat template: {e}")
+        if tool_ctx is not None and tool_ctx.forced_prefix:
+            # Prompt-side forcing: the assistant turn starts with the
+            # call's JSON prefix (server/tool_calling.py).
+            prompt += tool_ctx.forced_prefix
         sampling = SamplingParams.from_request(body, default_max_tokens=256)
         await self._generate(writer, headers, body, [prompt], sampling,
                              chat=True,
-                             handoff=await self._fetch_handoff(headers))
+                             handoff=await self._fetch_handoff(headers),
+                             tool_ctx=tool_ctx)
 
     # ------------------------------------------------------------ logprobs
     def _token_str(self, tid: int) -> str:
@@ -656,7 +925,7 @@ class OpenAIServer:
 
     # ------------------------------------------------------------ generate
     def _check_resume(self, body: dict, sampling: SamplingParams,
-                      num_choices: int):
+                      num_choices: int, tool_ctx=None):
         """The request's resume tokens and seed, validated (the
         reference's rules)."""
         resume_tokens = body.get("resume_tokens")
@@ -673,6 +942,8 @@ class OpenAIServer:
         if num_choices != 1:
             raise _HttpError(400, "mid-stream resume requires n=1 and a "
                                   "single prompt")
+        if tool_ctx is not None:
+            raise _HttpError(400, "mid-stream resume does not support tools")
         if len(resume_tokens) >= sampling.max_tokens:
             raise _HttpError(400, "resume_tokens must be shorter than "
                                   "max_tokens (the stream would already "
@@ -683,10 +954,11 @@ class OpenAIServer:
 
     async def _generate(self, writer, headers: dict, body: dict, prompts: list,
                         sampling: SamplingParams, chat: bool,
-                        handoff=None) -> None:
+                        handoff=None, tool_ctx=None) -> None:
         """Run len(prompts) * n generations and answer them as OpenAI
         choices (prompt-major), streamed or not. ``handoff``: a decode
-        hop's manifest, whose token ids replace the prompt."""
+        hop's manifest, whose token ids replace the prompt. ``tool_ctx``:
+        the request's active tools (chat only)."""
         waiting = self.engine.scheduler.num_waiting
         if self.max_queue_len and waiting >= self.max_queue_len:
             raise _HttpError(503, f"Engine overloaded: {waiting} requests "
@@ -696,7 +968,7 @@ class OpenAIServer:
         n = max(1, sampling.n)
         num_choices = len(prompts) * n
         resume_tokens, resume_seed = self._check_resume(body, sampling,
-                                                        num_choices)
+                                                        num_choices, tool_ctx)
         if handoff is not None and num_choices != 1:
             raise _HttpError(400, "disagg decode hop requires n=1 and a "
                                   "single prompt")
@@ -715,6 +987,15 @@ class OpenAIServer:
              request_id if num_choices == 1
              else f"{request_id}-{p_idx * n + c_idx}")
             for p_idx, prompt in enumerate(prompts) for c_idx in range(n)]
+        child_rids = [rid for *_, rid in children]
+        if self.engine.recorder is not None:
+            # The client's x-request-id and the response id both resolve to
+            # the engine's per-choice ids on /debug/requests/{id}.
+            ext = headers.get("x-request-id")
+            if ext:
+                self.engine.recorder.alias(ext, child_rids)
+            if request_id != child_rids[0]:
+                self.engine.recorder.alias(request_id, child_rids)
 
         lora = self._lora_name(body)
 
@@ -738,7 +1019,9 @@ class OpenAIServer:
                 "model": self.model_name}
         if body.get("stream"):
             await self._stream(writer, headers, body, sampling, chat, children,
-                               submit, head, resume_tokens, resume_seed)
+                               submit, head, resume_tokens, resume_seed,
+                               tool_ctx)
+            self._emit_lifecycle_spans(child_rids)
             return
 
         async def collect(idx, prompt, sp, rid):
@@ -759,9 +1042,23 @@ class OpenAIServer:
         for idx, text, final in sorted(results, key=lambda r: r[0]):
             finals.append(final)
             if chat:
-                choice = {"index": idx,
-                          "message": {"role": "assistant", "content": text},
-                          "finish_reason": final.finish_reason}
+                tool_calls = None
+                if tool_ctx is not None:
+                    tool_calls = parse_tool_calls(
+                        tool_ctx.full_text(text),
+                        valid_names={t["function"]["name"]
+                                     for t in tool_ctx.tools})
+                if tool_calls is not None:
+                    choice = {"index": idx,
+                              "message": {"role": "assistant",
+                                          "content": None,
+                                          "tool_calls": tool_calls},
+                              "finish_reason": "tool_calls"}
+                else:
+                    choice = {"index": idx,
+                              "message": {"role": "assistant",
+                                          "content": text},
+                              "finish_reason": final.finish_reason}
                 if sampling.logprobs is not None:
                     choice["logprobs"] = {
                         "content": self._chat_logprobs_content(final)}
@@ -772,12 +1069,14 @@ class OpenAIServer:
                               self._completion_logprobs_slice(final, 0, 0)[0]
                               if final.logprobs is not None else None)}
             choices.append(choice)
+        self._emit_lifecycle_spans(child_rids)
         await self._send_json(writer, 200, {**head, "choices": choices,
                                             "usage": self._usage(finals)})
 
     async def _stream(self, writer, headers: dict, body: dict,
                       sampling: SamplingParams, chat: bool, children, submit,
-                      head: dict, resume_tokens, resume_seed) -> None:
+                      head: dict, resume_tokens, resume_seed,
+                      tool_ctx=None) -> None:
         num_choices = len(children)
         writer.write(self._head(200, "text/event-stream", {
             "Cache-Control": "no-cache", "x-request-id": head["id"]}))
@@ -794,8 +1093,12 @@ class OpenAIServer:
         n_resume = len(resume_tokens) if resume_tokens else 0
         want_lp = sampling.logprobs is not None
         # With stop strings a later match can trim tokens already sampled,
-        # so their logprob entries ride the finishing chunk.
-        defer_lp = want_lp and bool(sampling.stop)
+        # and with tools the text may turn out to be a call: the logprob
+        # entries ride the finishing chunk.
+        defer_lp = want_lp and (bool(sampling.stop) or tool_ctx is not None)
+        # With tools, a choice's text is held until it cannot be a call.
+        tool_bufs = ([StreamingToolBuffer(tool_ctx) for _ in range(num_choices)]
+                     if tool_ctx is not None else None)
         # A resumed stream's client holds the role delta and the resumed
         # tokens already.
         first_sent = [bool(resume_tokens)] * num_choices
@@ -823,15 +1126,28 @@ class OpenAIServer:
                 send_lp = (want_lp and out.logprobs is not None and ready
                            and (not defer_lp or out.finished))
                 if chat:
+                    content = out.text_delta
+                    if tool_bufs is not None and content:
+                        content = tool_bufs[idx].feed(content)
                     delta = {}
                     if not first_sent[idx] and (out.text_delta
                                                 or not out.finished):
                         delta["role"] = "assistant"
                         first_sent[idx] = True
-                    if out.text_delta:
-                        delta["content"] = out.text_delta
+                    if content:
+                        delta["content"] = content
+                    finish_reason = out.finish_reason
+                    if tool_bufs is not None and out.finished:
+                        calls, residual = tool_bufs[idx].finish()
+                        if calls is not None:
+                            delta.pop("content", None)
+                            delta["tool_calls"] = [{**c, "index": i}
+                                                   for i, c in enumerate(calls)]
+                            finish_reason = "tool_calls"
+                        elif residual:
+                            delta["content"] = delta.get("content", "") + residual
                     choice = {"index": idx, "delta": delta,
-                              "finish_reason": out.finish_reason}
+                              "finish_reason": finish_reason}
                     if send_lp:
                         new = self._chat_logprobs_content(out, lp_sent[idx])
                         lp_sent[idx] = len(out.token_ids)
@@ -908,8 +1224,20 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "per-(slot, head) bf16 scales (~2x the blocks per "
                         "byte, half the decode kernel's pool bytes)")
     p.add_argument("--max-model-len", type=int, default=4096)
-    p.add_argument("--num-kv-blocks", type=int, default=None)
+    p.add_argument("--block-size", type=int, default=16,
+                   help="KV cache block size in tokens")
+    p.add_argument("--num-kv-blocks", type=int, default=None,
+                   help="KV pool size in blocks (default: sized from "
+                        "--gpu-memory-utilization)")
+    p.add_argument("--gpu-memory-utilization", type=float, default=0.9,
+                   help="fraction of the card's free memory for the KV "
+                        "pool (vLLM-compatible flag name)")
+    p.add_argument("--no-enable-prefix-caching", action="store_true",
+                   help="disable hash-chained prefix caching")
     p.add_argument("--max-num-seqs", type=int, default=64)
+    p.add_argument("--max-num-batched-tokens", type=int, default=None,
+                   help="prefill chunk token budget (default: EngineConfig "
+                        "tuned value)")
     p.add_argument("--num-decode-steps", type=int, default=32)
     p.add_argument("--decode-loop", default="scan", choices=["scan", "while"],
                    help="fused-decode loop: scan runs all K steps of a "
@@ -923,10 +1251,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--pipeline-depth", type=int, default=2,
                    help="dispatches outstanding at once (1 = strict "
                         "issue-fetch-apply; clamped to 2)")
-    p.add_argument("--attn-impl", default="auto")
+    p.add_argument("--attn-impl", default="auto",
+                   choices=["auto", "window", "paged", "xla", "pallas"],
+                   help="decode attention path: auto picks the paged "
+                        "flash-decode kernel on the card when it takes the "
+                        "model, else the gathered window ('xla' and "
+                        "'pallas' are the reference's names of window and "
+                        "paged)")
     p.add_argument("--tensor-parallel-size", type=int, default=1,
                    help="tp ranks, one process each (heads split over them; "
                         "tp must divide both head counts)")
+    p.add_argument("--sequence-parallel-size", type=int, default=1,
+                   help="sp degree (ring-attention prefill): not ported "
+                        "yet, 1 only")
+    p.add_argument("--data-parallel-size", type=int, default=1,
+                   help="dp replica count within this process: not ported "
+                        "yet, 1 only")
+    p.add_argument("--compilation-cache-dir", default=None,
+                   help="the reference's persistent compile-cache "
+                        "directory: a persistent graph cache is not ported "
+                        "yet, so only unset or an empty string (disabled) "
+                        "is accepted")
+    p.add_argument("--no-overlap-weight-load", action="store_true",
+                   help="load weights serially before warm-up: the port "
+                        "always does (the reference overlaps the checkpoint "
+                        "read with its compile prepass)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--api-key", default=os.environ.get("VLLM_API_KEY"),
                    help="require 'Authorization: Bearer <key>' on /v1/* "
@@ -984,6 +1333,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "from the draft's own top-k in the same verify "
                         "forward (1 = linear speculation; max 8). Requires "
                         "--speculative-num-tokens > 0")
+    p.add_argument("--flight-recorder-capacity", type=int, default=None,
+                   help="flight-recorder ring size in request records "
+                        "(default: EngineConfig tuned value, 256)")
+    p.add_argument("--flight-recorder-max-events", type=int, default=None,
+                   help="max events kept per flight record before overflow "
+                        "counting starts (default: EngineConfig tuned "
+                        "value, 512)")
+    p.add_argument("--no-debug-endpoints", action="store_true",
+                   help="disable the /debug surface (flight-recorder "
+                        "timelines at /debug/requests/{id} and "
+                        "/debug/timeline, torch.profiler captures at "
+                        "/debug/profile, kernel counts at /debug/kernels): "
+                        "/debug/* then 404s and nothing is recorded")
     return p.parse_args(argv)
 
 
@@ -1006,12 +1368,19 @@ def config_from_args(args: argparse.Namespace) -> EngineConfig:
         model=args.model, served_model_name=args.served_model_name,
         device=args.device, dtype=args.dtype,
         kv_cache_dtype=args.kv_cache_dtype, max_model_len=args.max_model_len,
-        num_kv_blocks=args.num_kv_blocks, max_num_seqs=args.max_num_seqs,
+        block_size=args.block_size, num_kv_blocks=args.num_kv_blocks,
+        hbm_utilization=args.gpu_memory_utilization,
+        enable_prefix_caching=not args.no_enable_prefix_caching,
+        max_num_seqs=args.max_num_seqs,
         num_decode_steps=args.num_decode_steps, decode_loop=args.decode_loop,
         enable_warmup=not args.no_warmup, pipeline_depth=args.pipeline_depth,
         overlap_dispatch=not args.no_overlap_dispatch,
         attn_impl=args.attn_impl, seed=args.seed,
         tensor_parallel_size=args.tensor_parallel_size,
+        sequence_parallel_size=args.sequence_parallel_size,
+        data_parallel_size=args.data_parallel_size,
+        compilation_cache_dir=args.compilation_cache_dir,
+        debug_endpoints=not args.no_debug_endpoints,
         hbm_peak_gbps=args.hbm_peak_gbps, role=args.role,
         speculative_num_tokens=args.speculative_num_tokens,
         speculative_model=args.speculative_model,
@@ -1022,7 +1391,10 @@ def config_from_args(args: argparse.Namespace) -> EngineConfig:
             ("kv_remote_url", args.kv_remote_url),
             ("kv_offload_cpu", args.kv_offload_cpu),
             ("kv_offload_max_cpu_gb", args.kv_offload_max_cpu_gb),
-            ("speculative_draft_window", args.speculative_draft_window))
+            ("speculative_draft_window", args.speculative_draft_window),
+            ("max_num_batched_tokens", args.max_num_batched_tokens),
+            ("flight_recorder_capacity", args.flight_recorder_capacity),
+            ("flight_recorder_max_events", args.flight_recorder_max_events))
            if v is not None},
         lora_modules=_parse_lora_modules(args.lora_modules),
     )

@@ -315,7 +315,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     module of the port, the tensor-parallel modules and the worker entry
     point (what a spawned rank imports), the metrics, roofline and
     launcher modules, the KV tier's modules (offload tiers, the cache
-    server, the disagg handoff) among them, and chip_smoke.py, import
+    server, the disagg handoff) and the observability and tool-calling
+    modules among them, and chip_smoke.py, import
     without jax; and without prometheus_client or ml_dtypes (the card's
     machine may not have them)."""
     code = (
@@ -327,7 +328,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'server.metrics', 'engine.metrics', 'perf.roofline', 'launch', "
         "'kv_offload.serde', 'kv_offload.chain_lru', 'kv_offload.host_pool', "
         "'kv_offload.remote', 'kv_offload.server', 'kv_offload.manager', "
-        "'disagg.transfer', 'disagg.coordinator')}\n"
+        "'disagg.transfer', 'disagg.coordinator', 'tracing', 'profiling', "
+        "'engine.flight_recorder', 'server.tool_calling')}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"

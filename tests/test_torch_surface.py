@@ -100,12 +100,18 @@ def _events(text):
 
 class _Servers:
     """The JAX server (aiohttp test client) and the port's (a socket),
-    over the same weights."""
+    over the same weights, with the same config overrides and API key."""
+
+    def __init__(self, api_key=None, **over):
+        self.api_key, self.over = api_key, over
 
     async def __aenter__(self):
-        self.jax = TestClient(TestServer(JaxServer(_jax_engine()).build_app()))
+        self.jax_engine = _jax_engine(**self.over)
+        self.jax = TestClient(TestServer(JaxServer(
+            self.jax_engine, api_key=self.api_key).build_app()))
         await self.jax.start_server()
-        self.port_server = OpenAIServer(_port_engine(), port=0)
+        self.port_server = OpenAIServer(_port_engine(**self.over), port=0,
+                                        api_key=self.api_key)
         await self.port_server.start()
         self.port = self.port_server.port
         return self
@@ -123,6 +129,16 @@ class _Servers:
         if body.get("stream"):
             return (resp.status, jtext), (st, ptext)
         return (resp.status, json.loads(jtext)), (st, json.loads(ptext))
+
+    async def raw(self, method, path, body=None, headers=None):
+        """(JAX status, text), (port status, text) of any request."""
+        kw = {"headers": headers or {}}
+        if body is not None:
+            kw["json"] = body
+        resp = await self.jax.request(method, path, **kw)
+        jtext = await resp.text()
+        st, _, ptext = await _http(self.port, method, path, body, headers)
+        return (resp.status, jtext), (st, ptext)
 
 
 # -------------------------------------------------------------- function
