@@ -110,6 +110,26 @@ serving):
      batch); decode ms per step with spilling on and off, alternated. In
      every round: no eager decode dispatch, the kernel's count 28 x decode
      steps, every spill, restore and handoff failure counter 0;
+     then kvtier-tp, the tier at tp = 2: per KV dtype (bf16, then int8)
+     llama-3-8b (full width and depth, random bf16 weights from --seed,
+     block 16, 1024 blocks) at tp = 2 with both ranks on this card, with the
+     host and remote tiers of its own cache server: the same 4 prompts x
+     16 tokens (2 greedy, 2 seeded) cold, from the device prefix cache (the
+     twin) and after ``reset_prefix_cache`` from the host pool (= the twin
+     bit for bit); ``/prefix_index`` against ``prefix_digest``; whole-block
+     ``read_blocks`` / ``write_blocks`` GB/s at tp = 2 (with the gloo
+     exchange's host seconds) and tp = 1 against a pinned copy; the twin's
+     tokens forced through the engine with its prefix restored from the
+     host pool (restored blocks = the tier's blobs byte for byte): the
+     reference logits; a fresh tp = 2 engine in a second process restores
+     from the remote tier (= the twin bit for bit); a fresh tp = 1 engine
+     restores the tp = 2 blobs: forced logits within ``tp_logit_bound`` of
+     the reference, argmax equal where its top-2 margin exceeds twice the
+     bound, and its served tokens equal the twin's up to a step whose
+     margin is at most twice the bound; a tp = 2 prefill / tp = 1 decode
+     pair from ``launch.py`` under the same token bar. Each tp = 2 rank's
+     counter reads 32 x its decode steps of the run's variant and 0 of the
+     other; every failure counter 0;
  10. spec: speculative decoding, two pairs at full width and depth (random
      bf16 weights from --seed, bf16 KV, block 16, N = 4): llama-3b drafting
      for itself (the ceiling) and a llama-3b draft for llama-3-8b (the
@@ -2948,9 +2968,9 @@ def surface_phase(torch, pa, device, seed, card, model="llama-3b"):
 
 # ------------------------------------------------------------ phase 9: kvtier
 KVTIER_BLOCKS = 1024                # 4 rows x ~2300 tokens + headroom
-KVTIER_TOKENS = 64                  # output tokens per stream, restore rounds
+KVTIER_TOKENS = 32                  # output tokens per stream, restore rounds
 KVTIER_DISAGG_TOKENS = 32
-KVTIER_SPILL_TOKENS = 128
+KVTIER_SPILL_TOKENS = 64
 KVTIER_WATCHDOG_S = 600
 KVTIER_SAMPLINGS = (dict(temperature=0.0), dict(temperature=0.8, top_p=0.9, seed=1234),
                     dict(temperature=0.0), dict(temperature=0.7, seed=7))
@@ -3133,16 +3153,21 @@ def kvtier_link_rates(torch, runner, blocks, reps=3):
     out = {"blocks": len(blocks)}
     with SmMhz() as clock:
         best = {"read_blocks": 1e9, "write_blocks": 1e9, "plain_d2h": 1e9, "plain_h2d": 1e9}
+        total = {"read_blocks": 0.0, "write_blocks": 0.0}
         for _ in range(reps):
             sync()
             t0 = time.monotonic()
             arrays = runner.read_blocks(blocks)
-            best["read_blocks"] = min(best["read_blocks"], time.monotonic() - t0)
+            dt = time.monotonic() - t0
+            best["read_blocks"] = min(best["read_blocks"], dt)
+            total["read_blocks"] += dt
             sync()
             t0 = time.monotonic()
             runner.write_blocks(blocks, *arrays)
             sync()
-            best["write_blocks"] = min(best["write_blocks"], time.monotonic() - t0)
+            dt = time.monotonic() - t0
+            best["write_blocks"] = min(best["write_blocks"], dt)
+            total["write_blocks"] += dt
         nbytes = sum(a.nbytes for a in arrays if a is not None)
         host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=cuda)
         dev = torch.empty(nbytes, dtype=torch.uint8, device=runner.device)
@@ -3160,6 +3185,7 @@ def kvtier_link_rates(torch, runner, blocks, reps=3):
     out["bytes"] = nbytes
     out.update({f"{k}_gbps": nbytes / s / 1e9 for k, s in best.items()})
     out.update({f"{k}_ms": 1e3 * s for k, s in best.items()})
+    out.update({f"{k}_total_s": s for k, s in total.items()})
     out["sm_clock_mhz"] = clock.summary()
     del host, dev
     return out
@@ -3497,6 +3523,560 @@ def kvtier_phase(torch, pa, device, seed, card, kv_cache_dtype, kv_url,
         torch.cuda.empty_cache()
     log(f"kvtier result {json.dumps(out)}")
     return launches, out
+
+
+# ------------------------------------------------------ phase 9b: kvtier-tp
+KVTIER_TP_BLOCKS = 1024             # 4 cold rows x ~2200 tokens + headroom
+KVTIER_TP_TOKENS = 16               # output tokens per stream
+KVTIER_TP_WATCHDOG_S = 900
+# 2 greedy, 2 seeded streams, unfiltered: a seeded row's pick is the argmax
+# of logits / T + its Gumbel field, so ``sampler_margin`` is its margin.
+KVTIER_TP_SAMPLINGS = (dict(temperature=0.0), dict(temperature=0.8, seed=1234),
+                       dict(temperature=0.0), dict(temperature=0.7, seed=7))
+
+
+def kvtier_tp_config(kv_cache_dtype, seed, tp, model=TP_MODEL, device="cuda", **over):
+    """EngineConfig fields of every kvtier-tp engine: llama-3-8b at full width
+    and depth, random bf16 weights from ``seed``, block 16, the paged kernel,
+    4 rows, K = 16; tp = 2 ranks share the card (no graph is captured at tp >
+    1), a tp = 1 engine captures its decode graphs at warm-up."""
+    fields = dict(model=model, dtype="bfloat16", attn_impl="paged", device=device,
+                  max_model_len=4096, num_decode_steps=KVTIER_TP_TOKENS,
+                  max_num_seqs=4, seed=seed, num_kv_blocks=KVTIER_TP_BLOCKS,
+                  kv_cache_dtype=kv_cache_dtype, enable_warmup=True,
+                  tensor_parallel_size=tp, **over)
+    if tp > 1:
+        fields["tp_timeout_s"] = TP_TIMEOUT_S
+    return fields
+
+
+def kvtier_tp_server_args(kv_cache_dtype, seed):
+    """``kvtier_tp_config``'s fields as the server's flags (tp per engine)."""
+    return ["--dtype", "bfloat16", "--attn-impl", "paged", "--max-model-len", "4096",
+            "--num-decode-steps", str(KVTIER_TP_TOKENS), "--max-num-seqs", "4",
+            "--seed", str(seed), "--num-kv-blocks", str(KVTIER_TP_BLOCKS),
+            "--kv-cache-dtype", kv_cache_dtype]
+
+
+async def kvtier_tp_round(pa, engine, gate, prompts, samplings, what):
+    """Serve ``prompts`` concurrently on the engine API as one batch (a tp >
+    1 engine, all eager): every stream's length; each rank's kernel counter
+    exactly layers x its decode steps of the run's variant and 0 of the
+    other (read from every rank, reset just before the round); every
+    KV-tier failure counter 0. Returns (tokens per stream, a row)."""
+    r = engine.runner
+    st0 = engine.stats()
+    hist = engine.lifecycle.restore_round_trip
+    restore0 = (hist.sum, hist.count)
+    before = await engine.rank_reports(reset=True)
+    steps0 = r.decode_steps_total
+    gate["want"] = len(prompts)
+    t0 = time.monotonic()
+
+    async def one(p, sp):
+        first = last = None
+        async for o in engine.generate(prompt=p, sampling=sp):
+            if first is None:
+                first = time.monotonic() - t0
+            last = o
+        return last, first
+
+    with SmMhz() as clock:
+        res = await asyncio.gather(*[one(p, sp) for p, sp in zip(prompts, samplings)])
+        wall = time.monotonic() - t0
+    after = await engine.rank_reports()
+    st = engine.stats()
+    steps = r.decode_steps_total - steps0
+    n_layers = engine.model_config.num_layers
+    variant = pa.INT8 if engine.config.kv_cache_quantized else pa.BF16
+    other = pa.BF16 if variant == pa.INT8 else pa.INT8
+    for i, (o, _) in enumerate(res):
+        if len(o.token_ids) != samplings[i].max_tokens:
+            fail(f"kvtier-tp {what}: stream {i} gave {len(o.token_ids)} tokens")
+    per_rank = []
+    for b_rep, a_rep in zip(before, after):
+        counts = a_rep["launch_counts"]
+        rank_steps = a_rep["decode_steps_total"] - b_rep["decode_steps_total"]
+        per_rank.append(counts.get(variant, 0))
+        if r.device.type != "cuda":
+            continue
+        if steps <= 0 or rank_steps != steps or counts[variant] != n_layers * steps \
+                or counts[other]:
+            fail(f"kvtier-tp {what}: rank {a_rep['rank']} counted {counts} over "
+                 f"{rank_steps} decode steps (rank 0: {steps}): want {n_layers} x "
+                 f"steps of {variant}, none of {other}")
+    if r.device.type != "cuda":
+        log(f"kvtier-tp {what}: on {r.device}: no kernel counter to hold (a rehearsal)")
+    bad = {k: st[k] for k in ("kv_spill_failures_total", "kv_restore_failures_total",
+                              "kv_handoff_failures_total") if st[k]}
+    if bad:
+        fail(f"kvtier-tp {what}: failure counters {bad}")
+    row = {"wall_s": wall, "ttft_s": [f for _, f in res], "decode_steps": steps,
+           "launches_per_rank": per_rank,
+           "restored_tokens": (st["kv_restore_saved_tokens_total"]
+                               - st0["kv_restore_saved_tokens_total"]),
+           "restore_s": hist.sum - restore0[0], "restores": hist.count - restore0[1],
+           "prefix_hit_tokens": st["prefix_cache_hits"] - st0["prefix_cache_hits"],
+           "cached_tokens": [o.num_cached_tokens for o, _ in res],
+           "sm_clock_mhz": clock.summary()}
+    log(f"kvtier-tp {what}: {json.dumps(row)}")
+    return [o.token_ids for o, _ in res], row
+
+
+def kvtier_tier_blobs(engine, token_ids, n):
+    """The tier's blobs of a prompt's first ``n`` full blocks, unpacked:
+    from the host pool where it holds them, else from the remote tier."""
+    from production_stack_tpu_torch.engine.kv_cache import _block_hash
+    from production_stack_tpu_torch.kv_offload.serde import unpack_chain
+
+    off = engine.offload
+    bs = engine.config.block_size
+    prev, keys = b"", []
+    for i in range(n):
+        prev = _block_hash(prev, token_ids[i * bs:(i + 1) * bs])
+        keys.append(off._store_key(prev))
+    if off.host_pool is not None and all(off.host_pool.contains(k) for k in keys):
+        blobs = [off.host_pool.get(k) for k in keys]
+    else:
+        blobs = off.remote.multi_get(keys)
+    return [off.unpack(unpack_chain(b)[1]) for b in blobs]
+
+
+def kvtier_forced(torch, engine, prompt_ids, forced, steps):
+    """Teacher forcing through the KV tier, with the engine idle, on its
+    runner thread: each prompt's blocks are allocated in the engine's block
+    manager, its tier-resident prefix restored (``offload.try_restore``:
+    the host pool, else the remote tier), its tail prefilled, then
+    ``steps`` one-step decode dispatches whose step-s input token is
+    ``forced[i][s]``. Row 0's restored blocks, read back through
+    ``read_blocks`` (every rank's heads), must equal the tier's blobs byte
+    for byte. Returns (the f32 logits [steps + 1, B, V] on the CPU, the
+    tokens each row restored)."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.scheduler import ScheduledBatch, Sequence
+
+    runner, bm, off = engine.runner, engine.block_manager, engine.offload
+    bs = engine.config.block_size
+    seqs, restored, held = [], [], []
+    # Every step's logits reach the sink only eagerly: no graph replays here.
+    graphs, runner.decode_train.graphs = runner.decode_train.graphs, {}
+    try:
+        for i, ids in enumerate(prompt_ids):
+            s = Sequence(f"kvtier-forced-{i}", list(ids), SamplingParams(
+                temperature=0.0, max_tokens=4 * steps, ignore_eos=True))
+            blocks, cached = bm.allocate_prompt(s.all_token_ids, seed=s.hash_seed)
+            held.append(blocks)
+            got = off.try_restore(s.all_token_ids, blocks, cached, seed=s.hash_seed)
+            more = -(-(len(ids) + steps + 1) // bs) - len(blocks)
+            extra = bm.allocate_blocks(more) if more > 0 else []
+            if extra is None:
+                fail("kvtier-tp forced: the pool is full")
+            held.append(extra)
+            s.block_ids = blocks + extra
+            s.num_computed_tokens = cached + got
+            restored.append(got)
+            if i == 0:
+                n = (cached + got) // bs
+                want = kvtier_tier_blobs(engine, s.all_token_ids, n)
+                have = runner.read_blocks(blocks[cached // bs:n])
+                for j, blob in enumerate(want[cached // bs:]):
+                    for a, b in zip(have, blob):
+                        if (a is None) != (b is None) or (
+                                a is not None and a[j].tobytes() != b.tobytes()):
+                            fail(f"kvtier-tp forced: restored block {j} of row 0 "
+                                 "differs from the tier's blob")
+            seqs.append(s)
+        runner.logits_sink = sink = []
+        runner.execute_async(ScheduledBatch(
+            "prefill", seqs, chunk_starts=[s.num_computed_tokens for s in seqs],
+            chunk_lens=[s.num_tokens - s.num_computed_tokens for s in seqs]
+        )).fetch()
+        for s in seqs:
+            s.num_computed_tokens = s.num_tokens
+        for step in range(steps):
+            for i, s in enumerate(seqs):
+                s.output_token_ids.append(forced[i][step])
+            runner.execute_async(ScheduledBatch(
+                "decode", seqs, num_steps=1, decode_steps=[1] * len(seqs))).fetch()
+            for s in seqs:
+                s.num_computed_tokens += 1
+        runner.logits_sink = None
+        return torch.stack([x[:len(seqs)].float().cpu() for x in sink]), restored
+    finally:
+        runner.logits_sink = None
+        runner.decode_train.graphs = graphs
+        for blocks in held:
+            bm.free_blocks(blocks)
+
+
+def kvtier_tp_bar(torch, name, lg, ref, tokens, twin, samplings, bound):
+    """The tp phase's check of a cross-mesh path: teacher-forced logits ``lg``
+    (None for an HTTP path) within ``bound`` of the reference ``ref`` (tp = 2,
+    the twin's tokens forced), and each stream's tokens equal to the twin's
+    up to a step whose sampler margin under ``ref`` is at most twice the
+    bound. Returns the row."""
+    row = {"bound": bound}
+    if lg is not None:
+        diff = (lg - ref).abs()
+        row.update(max_abs_logit_diff=diff.max().item(), mean_abs_logit_diff=diff.mean().item())
+        if not (math.isfinite(row["max_abs_logit_diff"]) and row["max_abs_logit_diff"] <= bound):
+            fail(f"kvtier-tp {name}: max |logit diff| {row['max_abs_logit_diff']:.4f} over "
+                 f"the bound {bound:.4f}")
+        top2 = ref.topk(2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) > 2 * bound
+        if not bool((lg.argmax(-1) == ref.argmax(-1))[decided].all()):
+            fail(f"kvtier-tp {name}: argmax differs where the reference's top-2 margin "
+                 f"exceeds twice the bound")
+    firsts = []
+    for i, (got, want) in enumerate(zip(tokens, twin)):
+        t = next((t for t, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        if t is None and len(got) != len(want):
+            t = min(len(got), len(want))
+        if t is None:
+            firsts.append(None)
+            continue
+        margin = sampler_margin(torch, ref[t, i], samplings[i], t) \
+            if t < ref.shape[0] else None
+        firsts.append([t, margin])
+        if margin is None or margin > 2 * bound:
+            fail(f"kvtier-tp {name}: stream {i} parts from the tp = 2 twin at token {t} "
+                 f"where the twin's sampler margin {margin} exceeds twice the bound")
+    row["first_divergence"] = firsts
+    log(f"kvtier-tp {name}: {json.dumps(row)}")
+    return row
+
+
+def kvtier_tp_peer_main(seed, kv_cache_dtype, kv_url, model, device):
+    """The second process of the kvtier-tp phase: a fresh tp = 2 engine on the
+    same cache server; on a line from stdin it restores the 4 streams'
+    prefix from the remote tier and serves them (round 4). Prints
+    ``kvtier-tp-peer ready``, then one ``kvtier-tp-peer {json}`` line."""
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.ops import paged_attention as pa
+
+    out = {}
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        t0 = time.monotonic()
+        engine = ServingEngine(EngineConfig(**kvtier_tp_config(
+            kv_cache_dtype, seed, TP, model, device, kv_remote_url=kv_url)))
+        gate = gate_schedule(engine)
+        await engine.start()
+        out["engine_up_s"] = time.monotonic() - t0
+        print("kvtier-tp-peer ready", flush=True)
+        await loop.run_in_executor(None, sys.stdin.readline)
+        try:
+            out["tokens"], out["row"] = await kvtier_tp_round(
+                pa, engine, gate, kvtier_prompts(seed),
+                [SamplingParams(max_tokens=KVTIER_TP_TOKENS, ignore_eos=True, **s)
+                 for s in KVTIER_TP_SAMPLINGS],
+                f"{kv_cache_dtype} remote restore, a fresh tp = {TP} engine")
+        finally:
+            await engine.stop()
+            engine.shutdown()
+
+    asyncio.run(run())
+    print("kvtier-tp-peer " + json.dumps(out), flush=True)
+
+
+def kvtier_tp_pair(pa, pd, model, n_layers, prompts, kv_cache_dtype, name):
+    """The 4 streams over both hops of the pair ``launch.py`` started (a tp =
+    2 prefill engine, a tp = 1 decode engine), concurrently, as the router
+    drives them: POST /disagg/prefill (completions), then the stream from
+    the decode engine with the transfer key. Returns (tokens per stream,
+    the decode engine's launches, a row)."""
+    pre, dec = pd.urls
+    request("POST", dec + "/debug/kernels/reset")
+    d0 = json.loads(request("GET", dec + "/debug/kernels")[2])["stats"]
+    p0 = json.loads(request("GET", pre + "/debug/kernels")[2])["stats"]
+    rows = [None] * len(prompts)
+
+    def one(i):
+        body = {"model": model, "prompt": prompts[i], "max_tokens": KVTIER_TP_TOKENS,
+                "ignore_eos": True, "stream": True, **KVTIER_TP_SAMPLINGS[i]}
+        key = f"pstpu-transfer:kvtier-tp-{kv_cache_dtype}-{i}"
+        t0 = time.monotonic()
+        st, _, text = request("POST", pre + "/disagg/prefill", body, {
+            "x-pstpu-transfer-key": key, "x-pstpu-endpoint": "completions",
+            "x-request-id": key})
+        hop1 = time.monotonic() - t0
+        if st != 200 or json.loads(text).get("status") != "handoff":
+            rows[i] = {"error": f"hop 1: {st} {text[:300]}"}
+            return
+        st, chunks, _, tf, te = sse_stream(dec + "/v1/completions", body, {
+            "x-pstpu-disagg": "decode", "x-pstpu-transfer-key": key,
+            "x-pstpu-resume": "1"})
+        rows[i] = {"hop1_s": hop1, "ttft_s": tf - t0, "total_s": te - t0,
+                   "tokens": stream_tokens(chunks), "status": st}
+
+    with SmMhz() as clock:
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+    for i, r in enumerate(rows):
+        if r is None or "error" in r or r["status"] != 200:
+            fail(f"kvtier-tp {name}: stream {i}: {r}")
+    d1 = json.loads(request("GET", dec + "/debug/kernels")[2])
+    p1 = json.loads(request("GET", pre + "/debug/kernels")[2])["stats"]
+    dstats = d1["stats"]
+    steps = dstats["decode_steps_total"] - d0["decode_steps_total"]
+    variant = pa.INT8 if kv_cache_dtype == "int8" else pa.BF16
+    launches = d1["launch_counts"].get(variant, 0)
+    if d1["launch_counts"] and (launches != n_layers * steps or not steps):
+        fail(f"kvtier-tp {name}: the decode engine counted {d1['launch_counts']} for "
+             f"{steps} decode steps")
+    eager = dstats["decode_eager_dispatches_total"] - d0["decode_eager_dispatches_total"]
+    if d1["launch_counts"] and eager:
+        fail(f"kvtier-tp {name}: {eager} eager decode dispatches on the tp = 1 decode engine")
+    if p1["decode_dispatches_total"]:
+        fail(f"kvtier-tp {name}: the prefill engine formed "
+             f"{p1['decode_dispatches_total']} decode batches")
+    for side, s in (("prefill", p1), ("decode", dstats)):
+        bad = {k: s[k] for k in ("kv_handoff_failures_total", "kv_spill_failures_total",
+                                 "kv_restore_failures_total") if s[k]}
+        if bad:
+            fail(f"kvtier-tp {name}: {side} engine failure counters {bad}")
+    n = len(prompts)
+    row = {"ttft_s": [r["ttft_s"] for r in rows], "hop1_s": [r["hop1_s"] for r in rows],
+           "decode_steps": steps, "decode_launches": launches,
+           "handoff_bytes_per_request": (p1["kv_handoff_bytes_total"]
+                                         - p0["kv_handoff_bytes_total"]) / n,
+           "handoff_publish_s_per_request": (p1["kv_handoff_seconds_total"]
+                                             - p0["kv_handoff_seconds_total"]) / n,
+           "prefill_restored_tokens": (p1["kv_restore_saved_tokens_total"]
+                                       - p0["kv_restore_saved_tokens_total"]),
+           "sm_clock_mhz": clock.summary()}
+    log(f"kvtier-tp {name}: {json.dumps(row)}")
+    return [r["tokens"] for r in rows], launches, row
+
+
+def kvtier_tp_phase(torch, pa, device, seed, card, kv_cache_dtype, kv_url, model=TP_MODEL):
+    """The KV tier at tp = 2 for one KV dtype (see the module docstring).
+    Returns (each tp = 2 rank's launches summed over the tp rounds, the tp =
+    1 launches of the cross-mesh rounds, the summary)."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.launch import launch_engines
+    from production_stack_tpu_torch.models.config import resolve_model_config
+    from production_stack_tpu_torch.server.api_server import OpenAIServer
+
+    kv = kv_cache_dtype
+    faulthandler.dump_traceback_later(KVTIER_TP_WATCHDOG_S, exit=True)
+    cuda = device.type == "cuda"
+    mc = resolve_model_config(model)
+    out = {"card": card, "kv_cache_dtype": kv, "model": model, "tp": TP}
+    tp_launches, tp1_launches = 0, 0
+    log_dir = os.path.join(os.path.dirname(DETAIL_LOG), f"kvtier-tp-{kv}")
+    os.makedirs(log_dir, exist_ok=True)
+    peer_log = open(os.path.join(log_dir, "peer.log"), "w")
+    # Round 4's fresh tp = 2 engine warms up in its own process beside this one.
+    peer = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--kvtier-tp-peer", kv,
+         "--kv-url", kv_url, "--seed", str(seed), "--kvtier-model", model,
+         "--kvtier-device", device.type],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=peer_log, text=True)
+    prompts = kvtier_prompts(seed)
+    samplings = [SamplingParams(max_tokens=KVTIER_TP_TOKENS, ignore_eos=True, **s)
+                 for s in KVTIER_TP_SAMPLINGS]
+    prompt_ids = None
+    rounds = {}
+    engine = server = gate = pd = None
+    loop = asyncio.new_event_loop()
+    pd_holder = {}
+    pair = None
+    try:
+        t_up = time.monotonic()
+        engine = ServingEngine(EngineConfig(**kvtier_tp_config(
+            kv, seed, TP, model, device.type, kv_remote_url=kv_url, kv_offload_cpu=True)))
+        gate = gate_schedule(engine)
+        prompt_ids = [engine.tokenizer.encode(p) for p in prompts]
+
+        async def start():
+            s = OpenAIServer(engine, "127.0.0.1", 0)
+            await s.start()
+            return s
+
+        server = loop.run_until_complete(start())
+        out["engine_up_s"] = time.monotonic() - t_up
+
+        def rnd(what):
+            toks, row = loop.run_until_complete(kvtier_tp_round(
+                pa, engine, gate, prompts, samplings, f"{kv} {what}"))
+            rounds[what] = row
+            return toks
+
+        # 1-3: cold, the device prefix cache (the twin), the host pool
+        rnd("cold recompute")
+        out["spill_wait_s"] = loop.run_until_complete(
+            kvtier_wait_spilled(engine, f"tp {kv}"))
+        out["blocks_spilled"] = engine.offload.spilled_blocks_total
+        twin = rnd("device prefix cache")
+        engine.block_manager.reset_prefix_cache()
+        restored = rnd("host-pool restore")
+        if restored != twin:
+            fail(f"kvtier-tp {kv}: tokens after the host-pool restore differ from the "
+                 f"device-cached round's: {[a == b for a, b in zip(restored, twin)]}")
+        if rounds["host-pool restore"]["restored_tokens"] <= 0:
+            fail(f"kvtier-tp {kv}: the host-pool round restored nothing")
+        st, _, text = loop.run_until_complete(loop.run_in_executor(
+            None, request, "GET", f"http://127.0.0.1:{server.port}/prefix_index"))
+        entries, _ = engine.block_manager.prefix_digest()
+        if st != 200 or json.loads(text)["entries"] != entries or not entries:
+            fail(f"kvtier-tp {kv}: /prefix_index {st} differs from prefix_digest")
+        out["prefix_index_entries"] = len(entries)
+        # whole-block reads and writes at tp = 2, and the gloo exchange's share
+        blocks = sorted(engine.block_manager._block_to_hash)[:128]
+        io0 = engine.tp.block_io_seconds
+        out["link_tp2"] = kvtier_link_rates(torch, engine.runner, blocks)
+        # the timed reads and writes' host seconds inside the gloo exchange
+        # (the untimed 4-block read before them included)
+        out["link_tp2"]["block_exchange_host_s"] = engine.tp.block_io_seconds - io0
+        # the reference: the twin's tokens forced through this engine, its
+        # prefix restored from its host pool
+        engine.block_manager.reset_prefix_cache()
+        t0 = time.monotonic()
+        ref, got = loop.run_until_complete(loop.run_in_executor(
+            engine._executor, kvtier_forced, torch, engine, prompt_ids, twin,
+            KVTIER_TP_TOKENS))
+        out["forced_tp2"] = {"seconds": time.monotonic() - t0, "restored_tokens": got}
+        if min(got) <= 0:
+            fail(f"kvtier-tp {kv}: the forced tp = 2 run restored {got}")
+        bound = tp_logit_bound(mc.num_layers, ref.numel())
+        st = engine.stats()
+        out["stats_tp2"] = {k: st[k] for k in (
+            "kv_spilled_blocks_total", "kv_offload_blocks", "prefix_index_size",
+            "kv_restore_saved_tokens_total", "kv_shared_tier_hits_total",
+            "kv_shared_tier_misses_total", "kv_spill_failures_total",
+            "kv_restore_failures_total")}
+        reports = loop.run_until_complete(engine.rank_reports())
+        out["peak_gib_per_rank"] = [rep["peak_bytes"] / 2**30 for rep in reports]
+        loop.run_until_complete(server.stop())
+        engine.shutdown()
+        tp_launches += sum(sum(r["launches_per_rank"]) for r in rounds.values())
+        del engine, server, gate
+        engine = server = gate = None
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        # 4: the remote tier, a fresh tp = 2 engine in the peer process
+        line = peer.stdout.readline()
+        if line.strip() != "kvtier-tp-peer ready":
+            fail(f"kvtier-tp {kv}: peer process said {line!r} (exit {peer.poll()})")
+        peer.stdin.write("go\n")
+        peer.stdin.flush()
+        # 5: a fresh tp = 1 engine restores the tp = 2 blobs (built meanwhile)
+        t_up = time.monotonic()
+        engine = ServingEngine(EngineConfig(**kvtier_tp_config(
+            kv, seed, 1, model, device.type, kv_remote_url=kv_url)))
+        gate = gate_schedule(engine)
+        writes = time_block_writes(torch, engine)
+        loop.run_until_complete(engine.start())
+        out["engine_up_s_tp1"] = time.monotonic() - t_up
+        line = peer.stdout.readline()
+        peer.wait(300)
+        if not line.startswith("kvtier-tp-peer {") or peer.returncode != 0:
+            fail(f"kvtier-tp {kv}: peer process ended {peer.returncode} with {line!r}")
+        got = json.loads(line[len("kvtier-tp-peer "):])
+        if got["tokens"] != twin:
+            fail(f"kvtier-tp {kv}: the remote tier's tokens (a fresh tp = 2 engine) "
+                 "differ from the device-cached round's")
+        rounds["remote"] = got["row"]
+        out["engine_up_s_peer"] = got["engine_up_s"]
+        tp_launches += sum(got["row"]["launches_per_rank"])
+        if got["row"]["restored_tokens"] <= 0:
+            fail(f"kvtier-tp {kv}: the remote round restored nothing")
+
+        # 6: the pair starts while the tp = 1 engine runs round 5
+        def start_pair():
+            try:
+                pd_holder["pd"] = launch_engines(
+                    model, 2, engine_args=[*kvtier_tp_server_args(kv, seed),
+                                           "--kv-remote-url", kv_url],
+                    device=device.type, log_dir=log_dir, startup_timeout_s=600,
+                    per_engine_args=[["--role", "prefill", "--tensor-parallel-size",
+                                      str(TP), "--no-warmup"], ["--role", "decode"]])
+            except BaseException as e:  # noqa: BLE001 — reported by the phase
+                pd_holder["error"] = e
+
+        pair = threading.Thread(target=start_pair, daemon=True)
+        pair.start()
+        t0 = time.monotonic()
+        lg1, got = loop.run_until_complete(loop.run_in_executor(
+            engine._executor, kvtier_forced, torch, engine, prompt_ids, twin,
+            KVTIER_TP_TOKENS))
+        out["forced_tp1"] = {"seconds": time.monotonic() - t0, "restored_tokens": got}
+        if min(got) <= 0:
+            fail(f"kvtier-tp {kv}: the tp = 1 engine restored {got} from the tp = 2 blobs")
+        out["cross_tp1_forced"] = kvtier_tp_bar(
+            torch, f"{kv} tp = 1 restoring tp = 2 blobs, forced", lg1, ref, [], [],
+            KVTIER_TP_SAMPLINGS, bound)
+        toks, row = loop.run_until_complete(kvtier_round(
+            torch, pa, engine, gate, prompts, samplings,
+            f"{kv} tp = 1 restoring tp = 2 blobs", writes))
+        rounds["tp1 restore"] = row
+        tp1_launches += row["launches"]
+        if row["restored_tokens"] <= 0:
+            fail(f"kvtier-tp {kv}: the tp = 1 round restored nothing")
+        out["cross_tp1_served"] = kvtier_tp_bar(
+            torch, f"{kv} tp = 1 restoring tp = 2 blobs, served", None, ref, toks, twin,
+            KVTIER_TP_SAMPLINGS, bound)
+        out["link_tp1"] = kvtier_link_rates(
+            torch, engine.runner, sorted(engine.block_manager._block_to_hash)[:128])
+        loop.run_until_complete(engine.stop())
+        engine.shutdown()
+        del engine, gate, writes
+        engine = gate = None
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        # 6: the prefill (tp = 2) / decode (tp = 1) pair from launch.py
+        pair.join(600)
+        if "error" in pd_holder or "pd" not in pd_holder:
+            fail(f"kvtier-tp {kv}: the prefill/decode pair did not start: "
+                 f"{pd_holder.get('error')}")
+        pd = pd_holder["pd"]
+        out["pair_up_s"] = pd.ready_seconds
+        toks, n, out["pair"] = kvtier_tp_pair(pa, pd, model, mc.num_layers, prompts, kv,
+                                              f"{kv} tp = 2 prefill -> tp = 1 decode")
+        tp1_launches += n
+        out["pair"]["bar"] = kvtier_tp_bar(
+            torch, f"{kv} tp = 2 prefill -> tp = 1 decode", None, ref, toks, twin,
+            KVTIER_TP_SAMPLINGS, bound)
+        out["rounds"] = rounds
+        out["ttft_s"] = {k: sum(v["ttft_s"]) / len(v["ttft_s"]) for k, v in rounds.items()}
+        out["ttft_s"]["pair"] = sum(out["pair"]["ttft_s"]) / len(out["pair"]["ttft_s"])
+    finally:
+        if peer.poll() is None:
+            peer.kill()
+            peer.wait()
+        if pair is not None:
+            pair.join(600)
+        if "pd" in pd_holder:
+            pd_holder["pd"].stop()
+        if server is not None:
+            loop.run_until_complete(server.stop())
+        if engine is not None:
+            engine.shutdown()
+        loop.close()
+        peer_log.close()
+        faulthandler.cancel_dump_traceback_later()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    out["launches_tp2_ranks"] = tp_launches
+    out["launches_tp1"] = tp1_launches
+    log(f"kvtier-tp result {json.dumps(out)}")
+    return tp_launches, tp1_launches, out
 
 
 # ---------------------------------------------------------------- phase 10
@@ -4537,10 +5117,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="kernel,serving,graphs,check,tp,surface,kvtier,spec,ckpt",
+                    default="kernel,serving,graphs,check,tp,surface,kvtier,kvtier-tp,"
+                            "spec,ckpt",
                     help="comma list of kernel,serving,graphs,check,tp,surface,"
-                         "kvtier,spec,ckpt,trace (build always runs; trace "
-                         "profiles one more served round after serving)")
+                         "kvtier,kvtier-tp,spec,ckpt,trace (build always runs; "
+                         "trace profiles one more served round after serving)")
     ap.add_argument("--tp-kernel-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # a rank of the tp phase's kernel check
     ap.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
@@ -4551,11 +5132,17 @@ def main() -> None:
     ap.add_argument("--kv-url", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--kvtier-model", default="llama-3b", help=argparse.SUPPRESS)
     ap.add_argument("--kvtier-device", default="cuda", help=argparse.SUPPRESS)
+    # the kvtier-tp phase's second process (its round 4)
+    ap.add_argument("--kvtier-tp-peer", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if args.kvtier_peer is not None:
         kvtier_peer_main(args.seed, args.kvtier_peer, args.kv_url,
                          args.kvtier_model, args.kvtier_device)
+        return
+    if args.kvtier_tp_peer is not None:
+        kvtier_tp_peer_main(args.seed, args.kvtier_tp_peer, args.kv_url,
+                            args.kvtier_model, args.kvtier_device)
         return
     if args.tp_kernel_rank is not None:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4733,6 +5320,53 @@ def main() -> None:
             "stats": r["stats"]} for kv, r in kvt.items()})
         gc.collect()
         torch.cuda.empty_cache()
+    # The KV tier at tp = 2 (llama-3-8b, both ranks on this card), per KV
+    # dtype: its tp = 2 rounds are main paths of paged_flash_decode_stats_tp
+    # (each rank's launches, summed), its tp = 1 cross-mesh rounds main
+    # paths of the run's variant.
+    kvtp_launches = None
+    marks.append(("kvtier-tp", time.monotonic()))
+    if "kvtier-tp" in phases:
+        from production_stack_tpu_torch.launch import launch_kv_server
+
+        kv_server = launch_kv_server(max_bytes=16 << 30,
+                                     log_dir=os.path.dirname(DETAIL_LOG))
+        try:
+            kvtp = {}
+            kvtp_launches = 0
+            for kv in ("bfloat16", "int8"):
+                n2, n1, kvtp[kv] = kvtier_tp_phase(torch, pa, device, args.seed, card,
+                                                   kv, kv_server.url)
+                kvtp_launches += n2
+                by_path["int8" if kv == "int8" else "bf16"]["kvtier-tp"] = n1
+        finally:
+            kv_server.stop()
+        summary("kvtier-tp", {kv: {
+            "ttft_s": r["ttft_s"],
+            "link_tp2": {k: v for k, v in r["link_tp2"].items()
+                         if k.endswith(("gbps", "ms", "bytes", "_s"))},
+            "link_tp1": {k: v for k, v in r["link_tp1"].items()
+                         if k.endswith(("gbps", "ms", "bytes"))},
+            "restored_tokens": {k: v["restored_tokens"] for k, v in r["rounds"].items()},
+            "restore_s": {k: v["restore_s"] for k, v in r["rounds"].items()},
+            "forced": {"tp2": r["forced_tp2"], "tp1": r["forced_tp1"]},
+            "cross_tp1_forced": r["cross_tp1_forced"],
+            "first_divergence": {"tp1 served": r["cross_tp1_served"]["first_divergence"],
+                                 "pair": r["pair"]["bar"]["first_divergence"]},
+            "pair": {k: r["pair"][k] for k in (
+                "ttft_s", "hop1_s", "decode_steps", "decode_launches",
+                "handoff_bytes_per_request", "handoff_publish_s_per_request",
+                "prefill_restored_tokens")},
+            "launches_tp2_ranks": r["launches_tp2_ranks"], "launches_tp1": r["launches_tp1"],
+            "engine_up_s": [r["engine_up_s"], r["engine_up_s_peer"], r["engine_up_s_tp1"],
+                            r["pair_up_s"]],
+            "spill_wait_s": r["spill_wait_s"], "blocks_spilled": r["blocks_spilled"],
+            "peak_gib_per_rank": r["peak_gib_per_rank"], "stats_tp2": r["stats_tp2"],
+            "sm_clock_mhz": {k: v["sm_clock_mhz"]["mean"]
+                             if isinstance(v["sm_clock_mhz"], dict) else None
+                             for k, v in r["rounds"].items()}} for kv, r in kvtp.items()})
+        gc.collect()
+        torch.cuda.empty_cache()
     # Speculative decoding: both pairs, four modes each; the spec-off
     # rounds are main paths of the bf16 kernel variant.
     marks.append(("spec", time.monotonic()))
@@ -4820,14 +5454,18 @@ def main() -> None:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
     # The tp op's numbers at a rank's shape (H 16, Hkv 4), bf16 pools; its
-    # launches over both tp runs and both ranks.
+    # launches over both ranks of the tp phase's runs and the kvtier-tp
+    # phase's tp = 2 rounds.
     tp_row = tp_rows.get("bf16", {})
+    tp_paths = {k: v for k, v in (("tp", tp_launches), ("kvtier-tp", kvtp_launches))
+                if v is not None}
     kernels.append({
         "name": "paged_flash_decode_stats_tp",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": TP_KERNEL_REPLACES,
-        "launches": tp_launches,
+        "launches": sum(tp_paths.values()) if tp_paths else None,
+        "launches_by_path": tp_paths,
         "max_abs_err": max((r["max_abs_err"] for r in tp_rows.values()), default=None),
         **{key: tp_row.get(key) for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

@@ -285,15 +285,6 @@ class EngineConfig:
                 f"engine role {self.role!r} requires kv_remote_url "
                 f"(LMCACHE_REMOTE_URL / --kv-remote-url): the prefill->"
                 f"decode KV handoff rides the shared offload store")
-        if self.tensor_parallel_size > 1 and (
-                self.kv_offload_enabled or self.role != "unified"):
-            raise ValueError(
-                f"KV offload and the disagg handoff at "
-                f"--tensor-parallel-size {self.tensor_parallel_size} are not "
-                f"ported: the reference reads every tp rank's kv heads into "
-                f"one whole logical block per blob, so a tp = 2 pool "
-                f"restores into tp = 1; serve with --tensor-parallel-size 1 "
-                f"or without --kv-offload-cpu / --kv-remote-url / --role")
 
     @property
     def speculative_enabled(self) -> bool:
@@ -434,6 +425,14 @@ class EngineConfig:
             per_slot = model_config.head_dim_ * _ITEMSIZE[self.dtype]
         return 2 * model_config.num_layers * self.local_kv_heads(
             model_config) * per_slot
+
+    def kv_wire_bytes_per_token(self, model_config) -> int:
+        """Bytes one token's KV takes in a blob of whole logical blocks
+        (every kv head, whatever the tp): what crosses the link when the
+        offload tier restores it, and the reference's
+        ``kv_cache_bytes_per_token``."""
+        return (self.kv_cache_bytes_per_token(model_config)
+                * self.tensor_parallel_size)
 
     def window_bytes_per_block(self, model_config) -> int:
         """Bytes of one block of a gathered window on one rank: windows

@@ -58,9 +58,13 @@ stream (runner.py), so they are ordered with the dispatches.
 With ``tensor_parallel_size`` > 1 this process is tp rank 0: the engine
 starts ranks 1..tp-1 as worker processes (``parallel/worker.py``) before
 building its runner, and stops and joins them at ``stop``. Decode runs
-eagerly (no graph is captured). A lost rank (a worker that exited, or a
-collective that failed or timed out) makes the engine unhealthy; its
-requests, and every later one, raise.
+eagerly (no graph is captured). The KV tier works at any tp: block reads
+and writes move whole logical blocks (every rank's kv heads, gathered to
+or scattered from rank 0), so a blob spilled or handed off at one tp
+restores at another and in the JAX package, and the restore cost model
+counts the whole block's bytes. A lost rank (a worker that exited, or a
+collective that failed or timed out, a block exchange's included) makes
+the engine unhealthy; its requests, and every later one, raise.
 """
 
 import asyncio
@@ -184,7 +188,9 @@ class ServingEngine:
                                  if config.kv_offload_cpu else 0),
                 remote_url=config.kv_remote_url,
                 serde=config.kv_remote_serde,
-                bytes_per_token=config.kv_cache_bytes_per_token(
+                # A restored blob holds every kv head: the link moves the
+                # whole block at any tp.
+                bytes_per_token=config.kv_wire_bytes_per_token(
                     self.model_config),
                 link_gbps=config.kv_restore_link_gbps,
                 prefill_tok_s=config.kv_restore_prefill_tok_s,
@@ -825,7 +831,20 @@ class ServingEngine:
                 await self._apply_prewarms()
             issue_failed = False
             while len(in_flight) < depth:
-                batch = next_batch()
+                try:
+                    batch = next_batch()
+                except Exception as e:  # noqa: BLE001 — see below
+                    # Admission's restore writes blocks: at tp > 1 a lost
+                    # rank fails the engine, as a failed dispatch does.
+                    if self.tp is None or self._lost() is None:
+                        raise
+                    self._tp_error = self._lost()
+                    logger.error("tensor-parallel group lost at admission: "
+                                 "%s (%s)", self._tp_error, e)
+                    self._fail_all(RuntimeError(
+                        f"engine unavailable: {self._tp_error}"))
+                    self._running = False
+                    break
                 if batch is None:
                     break
                 # Penalty counts are built from APPLIED tokens: drain first.

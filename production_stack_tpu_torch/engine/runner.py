@@ -72,7 +72,11 @@ Counterpart of ``production_stack_tpu/engine/runner.py`` (main path only):
     with the same seeds, so start tokens chain on every rank without a
     broadcast; only rank 0 copies tokens to the host. Each rank keeps a
     device digest of the tokens it sampled, reported with its launch
-    counts (``tp_query``) and at ``tp_stop``.
+    counts (``tp_query``) and at ``tp_stop``. Block I/O at tp > 1 is a
+    descriptor too (``KV_READ`` / ``KV_WRITE``): every rank selects or
+    writes its own kv heads, and rank 0 gathers or scatters them, so a blob
+    holds the whole logical block at any tp. Locks, always in this order:
+    the tp group's ``lock`` (rank 0, tp > 1), then ``kv_io_lock``.
 """
 
 import contextlib
@@ -125,7 +129,11 @@ from production_stack_tpu_torch.ops.tree_mask import (
     tree_structure,
 )
 from production_stack_tpu_torch.parallel import mesh
-from production_stack_tpu_torch.parallel.sharding import shard_params
+from production_stack_tpu_torch.parallel.sharding import (
+    join_kv_blocks,
+    shard_kv_blocks,
+    shard_params,
+)
 from production_stack_tpu_torch.utils import (
     init_logger,
     pow2_bucket as _bucket,
@@ -1595,44 +1603,99 @@ class ModelRunner:
                 if self.dispatch_stream is not None
                 else contextlib.nullcontext())
 
+    def _block_shape(self, pool: torch.Tensor, n: int, whole: bool):
+        """``[n, L, Hkv, bs(, Dh)]`` of ``n`` blocks of ``pool``: every kv
+        head when ``whole``, else this rank's."""
+        heads = self.model_config.num_kv_heads if whole else pool.shape[1]
+        return (n, pool.shape[0], heads, self.config.block_size,
+                *pool.shape[3:])
+
+    def _io_chunk(self) -> int:
+        """Blocks per block-exchange collective at tp > 1 (one block of
+        this rank's K pool per row)."""
+        k = self.kv_k
+        return mesh.TPGroup.block_chunk(
+            k.numel() // self.num_kv_blocks * k.element_size())
+
     def read_blocks(self, block_ids: List[int]):
         """Device-to-host read of whole KV blocks (the reference's
         ``read_blocks``): (k, v, k_scale, v_scale) numpy arrays, payload
         ``[n, L, Hkv, bs, Dh]`` in the pool's storage dtype (bfloat16 as
         ``kv_offload.serde.BF16``), plus the per-slot scales ``[n, L, Hkv,
-        bs]`` of an int8 pool (None otherwise). A gather through the
-        ``[L, Hkv, nblk, bs, Dh]`` view of each pool, then one copy into
-        pinned host memory, on the dispatch stream: it runs after every
-        dispatch enqueued before it, whichever thread calls. This rank's
-        kv heads only: the config refuses the KV tier at tp > 1."""
-        cuda = self.device.type == "cuda"
-        with self.kv_io_lock, self._io_stream():
-            idx = torch.as_tensor(list(block_ids), dtype=torch.long,
-                                  device=self.device)
-            hosts = []
-            for pool in self._pools():
-                g = self._block_view(pool).index_select(2, idx).movedim(2, 0)
-                h = torch.empty(g.shape, dtype=g.dtype, pin_memory=cuda)
-                h.copy_(g, non_blocking=cuda)
-                hosts.append(h)
-            if cuda:
-                done = torch.cuda.Event()
-                done.record(self.dispatch_stream)
-                done.synchronize()
+        bs]`` of an int8 pool (None otherwise). Every kv head at any tp: at
+        tp > 1 a ``KV_READ`` descriptor makes each rank select its heads
+        and rank 0 gathers them (``_read_device``). A gather through the
+        ``[L, Hkv, nblk, bs, Dh]`` view of each pool, then a copy to host
+        memory, on the dispatch stream: it runs after every dispatch
+        enqueued before it, whichever thread calls."""
+        ids = torch.tensor(list(block_ids), dtype=torch.long)
+        if self.tp is None or not ids.numel():
+            hosts = self._read_device(ids)
+        else:
+            with self._dispatch_lock():
+                try:
+                    step = self._io_chunk()
+                    self.tp.send_header(mesh.KV_READ, ids.numel(),
+                                        int(self.kv_quantized), step)
+                    self.tp.bcast(ids)
+                    hosts = self._read_device(ids, step)
+                except Exception as e:
+                    # The ranks are out of step: the group is lost.
+                    self.tp.mark_lost("block read", e)
+                    raise
         out = [_to_numpy(h) for h in hosts]
         if not self.kv_quantized:
             out += [None, None]
         return tuple(out)
 
+    def _read_device(self, ids: torch.Tensor, step: int = 0
+                     ) -> Optional[List[torch.Tensor]]:
+        """The device part of ``read_blocks``, on every rank: each pool's
+        blocks ``ids`` as host tensors ``[n, L, Hkv, bs(, Dh)]`` (None on
+        ranks 1..tp-1). At tp > 1 each rank selects its heads ``step``
+        blocks at a time (rank 0's choice, sent in the descriptor) and rank
+        0 gathers them in rank order."""
+        cuda = self.device.type == "cuda"
+        n = ids.numel()
+        with self.kv_io_lock, self._io_stream():
+            idx = ids.to(self.device)
+            if self.tp is None:
+                hosts = []
+                for pool in self._pools():
+                    g = self._block_view(pool).index_select(2, idx).movedim(2, 0)
+                    h = torch.empty(g.shape, dtype=g.dtype, pin_memory=cuda)
+                    h.copy_(g, non_blocking=cuda)
+                    hosts.append(h)
+                if cuda:
+                    done = torch.cuda.Event()
+                    done.record(self.dispatch_stream)
+                    done.synchronize()
+                return hosts
+            root = self.rank == 0
+            hosts = [torch.empty(self._block_shape(pool, n, True),
+                                 dtype=pool.dtype) if root else None
+                     for pool in self._pools()]
+            for a in range(0, n, max(1, step)):
+                for pool, h in zip(self._pools(), hosts):
+                    g = self._block_view(pool).index_select(
+                        2, idx[a:a + step]).movedim(2, 0)
+                    parts = self.tp.gather_to_root(g)
+                    if root:
+                        join_kv_blocks(parts, out=h[a:a + step])
+            return hosts if root else None
+
     def read_blocks_retry(self, block_ids: List[int], attempts: int = 3):
         """``read_blocks`` with the reference's retry. Reads never race a
         donation here (the pools are updated in place), so a failure is
-        retried only against a transient device error."""
+        retried only against a transient device error, and never once the
+        tp group is lost: a retry would send a descriptor to a dead
+        group."""
         for attempt in range(attempts):
             try:
                 return self.read_blocks(block_ids)
             except RuntimeError:
-                if attempt == attempts - 1:
+                if attempt == attempts - 1 or (
+                        self.tp is not None and self.tp.lost()):
                     raise
                 time.sleep(0.01)
 
@@ -1641,11 +1704,12 @@ class ModelRunner:
         """Host-to-device restore of whole KV blocks (the reference's
         ``write_blocks``): ``[n, L, Hkv, bs, Dh]`` payloads, and an int8
         pool's ``[n, L, Hkv, bs]`` scales (it restores bit-identically, no
-        requantization). Staged in pinned memory, copied and scattered on
-        the dispatch stream with ``index_copy_`` into the pool tensors
-        themselves: the decode graphs captured their addresses, so the
-        pools are never rebound. The next dispatch runs after the scatter
-        (same stream)."""
+        requantization). Every kv head at any tp: at tp > 1 a ``KV_WRITE``
+        descriptor makes rank 0 scatter each rank its heads. Copied and
+        scattered on the dispatch stream with ``index_copy_`` into the pool
+        tensors themselves: the decode graphs captured their addresses, so
+        the pools are never rebound. The next dispatch runs after the
+        scatter (same stream)."""
         if self.kv_quantized and k_scale is None:
             raise ValueError(
                 "restoring into an int8 KV pool requires per-slot scales "
@@ -1653,16 +1717,54 @@ class ModelRunner:
         cuda = self.device.type == "cuda"
         arrays = [k_np, v_np] + ([k_scale, v_scale] if self.kv_quantized
                                  else [])
-        with self._io_stream():
-            idx = torch.as_tensor(list(block_ids), dtype=torch.long,
-                                  device=self.device)
-            for pool, arr in zip(self._pools(), arrays):
-                src = _to_torch(arr, pin=cuda).to(
-                    self.device, non_blocking=cuda).to(pool.dtype)
-                self._block_view(pool).index_copy_(2, idx, src.movedim(0, 2))
+        ids = torch.tensor(list(block_ids), dtype=torch.long)
+        if self.tp is None:
+            hosts = [_to_torch(a, pin=cuda) for a in arrays]
+            self._write_device(ids, hosts)
+        elif ids.numel():
+            hosts = [_to_torch(a).to(pool.dtype)
+                     for pool, a in zip(self._pools(), arrays)]
+            with self._dispatch_lock():
+                try:
+                    step = self._io_chunk()
+                    self.tp.send_header(mesh.KV_WRITE, ids.numel(),
+                                        int(self.kv_quantized), step)
+                    self.tp.bcast(ids)
+                    self._write_device(ids, hosts, step)
+                except Exception as e:
+                    self.tp.mark_lost("block write", e)
+                    raise
         if self.kv_quantized:
             self.kv_quant_tokens_written += (len(block_ids)
                                              * self.config.block_size)
+
+    def _write_device(self, ids: torch.Tensor,
+                      hosts: Optional[List[torch.Tensor]],
+                      step: int = 0) -> None:
+        """The device part of ``write_blocks``, on every rank: each pool's
+        blocks ``ids`` from rank 0's host tensors ``hosts`` (every kv head;
+        None on ranks 1..tp-1). At tp > 1 rank 0 scatters each rank its
+        heads ``step`` blocks at a time."""
+        cuda = self.device.type == "cuda"
+        n = ids.numel()
+        with self.kv_io_lock, self._io_stream():
+            idx = ids.to(self.device)
+            if self.tp is None:
+                for pool, h in zip(self._pools(), hosts):
+                    src = h.to(self.device, non_blocking=cuda).to(pool.dtype)
+                    self._block_view(pool).index_copy_(2, idx, src.movedim(0, 2))
+                return
+            tp = self.tp.size
+            for a in range(0, n, max(1, step)):
+                rows = min(step, n - a)
+                for i, pool in enumerate(self._pools()):
+                    parts = (None if hosts is None else
+                             [shard_kv_blocks(hosts[i][a:a + rows], r, tp)
+                              for r in range(tp)])
+                    src = self.tp.scatter_from_root(
+                        parts, self._block_shape(pool, rows, False), pool.dtype)
+                    self._block_view(pool).index_copy_(
+                        2, idx[a:a + rows], src.movedim(0, 2))
 
     # ------------------------------------------------------ tensor parallel
     def _rank_report(self) -> Dict:
@@ -1729,6 +1831,19 @@ class ModelRunner:
                 packed = torch.empty((b * t + b,), dtype=torch.int32)
                 tp.bcast(packed)
                 self._embed_device(packed, b, t)
+                continue
+            if kind in (mesh.KV_READ, mesh.KV_WRITE):
+                n, quantized, step = h[1:4]
+                if bool(quantized) != self.kv_quantized:
+                    raise RuntimeError(
+                        f"block I/O descriptor for a {'int8' if quantized else 'unquantized'} "
+                        f"pool reached rank {self.rank}")
+                ids = torch.empty((n,), dtype=torch.int64)
+                tp.bcast(ids)
+                if kind == mesh.KV_READ:
+                    self._read_device(ids, step)
+                else:
+                    self._write_device(ids, None, step)
                 continue
             if kind == mesh.DECODE:
                 d, b, mb, k, n_steps, chain_src, pen, lpk = h[1:9]

@@ -20,7 +20,20 @@ device prefix cache (``POST /prewarm``).
 
 Best effort, as in the reference: a store that is down makes a restore
 return 0 and a spill drop its blocks; the port counts both
-(``restore_failures_total``, ``spill_failures_total``).
+(``restore_failures_total``, ``spill_failures_total``). A block write that
+fails (at tp > 1, a lost rank) counts a restore failure and raises: the
+engine fails, it does not recompute quietly.
+
+Threads and locks. Three threads move blocks through the runner: the spill
+thread (``_spill_batch``: ``read_blocks_retry``), the engine's threads
+(``try_restore`` from the scheduler on the event loop, ``prewarm_hot_chains``
+on the runner thread: ``write_blocks``) and the default executor (the
+handoff publish: ``read_blocks_retry``). At tp > 1 each call is one block
+I/O descriptor under the tp group's lock. Every thread takes the locks in
+one order: the tp group's ``lock`` (tp > 1), then the runner's
+``kv_io_lock``; this module's ``_lock`` guards only the spill queue and is
+never held across block I/O, so no thread holds ``kv_io_lock`` (or
+``_lock``) while it waits for the tp lock.
 """
 
 import struct
@@ -349,14 +362,18 @@ class KVOffloadManager:
         blks = [b for b, _ in hits]
         k_np = np.stack([d[0] for _, d in hits])
         v_np = np.stack([d[1] for _, d in hits])
-        if self._kv_quantized:
-            self.runner.write_blocks(
-                blks, k_np, v_np,
-                np.stack([d[2] for _, d in hits]),
-                np.stack([d[3] for _, d in hits]),
-            )
-        else:
-            self.runner.write_blocks(blks, k_np, v_np)
+        try:
+            if self._kv_quantized:
+                self.runner.write_blocks(
+                    blks, k_np, v_np,
+                    np.stack([d[2] for _, d in hits]),
+                    np.stack([d[3] for _, d in hits]),
+                )
+            else:
+                self.runner.write_blocks(blks, k_np, v_np)
+        except Exception:
+            self.restore_failures_total += 1
+            raise
         restored = len(hits) * bs
         self.restored_tokens_total += restored
         self.restore_saved_tokens_total += restored

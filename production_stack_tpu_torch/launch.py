@@ -15,7 +15,10 @@ then serves until SIGTERM or SIGINT, which drains and stops every engine.
 (``kv_offload/server.py``) and points every engine at it
 (``--kv-remote-url``; its URL is printed as ``kv_url``); ``--roles
 prefill,decode`` gives engine i the i-th role, the disaggregated pair the
-router's ``--routing-logic disagg`` drives. Arguments after ``--`` go to
+router's ``--routing-logic disagg`` drives, and ``--tensor-parallel-sizes
+2,1`` engine i the i-th ``--tensor-parallel-size`` (a tp = 2 prefill engine
+handing off to a tp = 1 decode engine: blocks move whole, every kv head,
+whatever either side's tp). Arguments after ``--`` go to
 every engine's server as they are, e.g. ``--speculative-num-tokens 4
 --speculative-model llama-3b`` for speculative decoding, or
 ``--lora-modules NAME=PATH ...`` for PEFT adapters. ``--model`` may be a
@@ -248,14 +251,23 @@ def main(argv=None) -> None:
     p.add_argument("--roles", default=None,
                    help="comma list, one disagg role per engine "
                         "(unified, prefill, decode)")
+    p.add_argument("--tensor-parallel-sizes", default=None,
+                   help="comma list, one --tensor-parallel-size per engine "
+                        "(e.g. 2,1 with --roles prefill,decode)")
     args = p.parse_args(argv)
     per_engine = None
-    if args.roles:
-        roles = args.roles.split(",")
-        if len(roles) != args.num_engines:
-            p.error(f"--roles names {len(roles)} roles for "
+    for name, flag, value in (
+            ("--roles", "--role", args.roles),
+            ("--tensor-parallel-sizes", "--tensor-parallel-size",
+             args.tensor_parallel_sizes)):
+        if not value:
+            continue
+        values = value.split(",")
+        if len(values) != args.num_engines:
+            p.error(f"{name} names {len(values)} values for "
                     f"{args.num_engines} engines")
-        per_engine = [["--role", r] for r in roles]
+        per_engine = [(per_engine[i] if per_engine else []) + [flag, v]
+                      for i, v in enumerate(values)]
     kv = None
     if args.kv_server:
         kv = launch_kv_server(log_dir=args.log_dir)

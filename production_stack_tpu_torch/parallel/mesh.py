@@ -17,9 +17,19 @@ Backend, a rule (logged, and reported by ``ServingEngine.stats()`` as
     every CPU run.
 
 Two groups: the compute group (the default group, on that backend) carries
-the model's collectives; a separate gloo group carries the dispatch
-descriptors rank 0 broadcasts (CPU int tensors) and the few control
-messages (pool agreement, rank reports). Every collective carries the
+the model's collectives and the KV tier's block exchange; a separate gloo
+group carries the dispatch descriptors rank 0 broadcasts (CPU int tensors)
+and the few control messages (pool agreement, rank reports).
+
+Block I/O (the offload tier, ``/prewarm``, the prefill/decode handoff) reads
+and writes whole logical blocks, every kv head: a ``KV_READ`` descriptor
+makes every rank select its heads of the named blocks and gather them to
+rank 0 (``gather_to_root``), which joins them in rank order; a ``KV_WRITE``
+makes rank 0 scatter each rank its heads (``scatter_from_root``) and every
+rank write them into its pool (the head ranges are ``sharding.py``'s). Both move raw bits (bf16 as 16 bits, int8 as
+is) in chunks of at most ``BLOCK_IO_CHUNK_BYTES`` per rank, through their
+own staging buffers (tags ``kvio-*``), so a large read leaves no large
+pinned buffer behind the decode path's small ones. Every collective carries the
 group's timeout, so a lost rank is an error within it, never a hang. Rank
 0 sends an empty descriptor after ``timeout / 4`` without one, so an idle
 worker's wait for the next descriptor stays inside the timeout.
@@ -53,9 +63,15 @@ AXIS_TP = "tp"
 
 # Descriptor kinds (entry 0 of a descriptor header) and the header length.
 # EMBED is the embedding forward (/v1/embeddings, /rerank): no KV pool, no
-# dispatch number.
-NOOP, DECODE, PREFILL, QUERY, STOP, EMBED = range(6)
+# dispatch number. KV_READ and KV_WRITE are block I/O: (kind, blocks,
+# whether int8 scales follow, blocks per collective), then the block ids;
+# no dispatch number.
+NOOP, DECODE, PREFILL, QUERY, STOP, EMBED, KV_READ, KV_WRITE = range(8)
 HEADER_LEN = 12
+
+# Bytes of one rank's slice that one block-exchange collective moves at
+# most: the size of block I/O's staging buffers, whatever the batch.
+BLOCK_IO_CHUNK_BYTES = 32 << 20
 
 # The directory that holds the package: a worker process imports it from
 # there whether or not the package is installed.
@@ -100,6 +116,11 @@ def die_with_parent(parent_pid: int) -> None:
         os._exit(1)
 
 
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the collectives move it: bf16 as its raw 16 bits."""
+    return t.view(torch.float16) if t.dtype == torch.bfloat16 else t
+
+
 def rank_order_sum(parts, dtype: torch.dtype) -> torch.Tensor:
     """The float32 sum of ``parts`` (one per rank) in rank order, rounded
     once to ``dtype``: the all-reduce's arithmetic."""
@@ -139,8 +160,10 @@ class TPGroup:
         self._closed = False
         # Set once a collective or a heartbeat failed: the group is lost.
         self.error: Optional[str] = None
-        # Host seconds inside compute collectives (staging included).
+        # Host seconds inside compute collectives (staging included), and
+        # inside block I/O's gathers and scatters.
         self.collective_seconds = 0.0
+        self.block_io_seconds = 0.0
         self._stop_beat = threading.Event()
         self._beat = None
         if rank == 0 and size > 1:
@@ -201,11 +224,12 @@ class TPGroup:
 
     # ------------------------------------------------- compute collectives
     def _buffer(self, tag: str, numel: int, dtype) -> torch.Tensor:
-        """A pinned host staging buffer of at least ``numel`` elements."""
+        """A host staging buffer of at least ``numel`` elements (pinned
+        when this rank runs on a card)."""
         buf = self._staging.get((tag, dtype))
         if buf is None or buf.numel() < numel:
             buf = torch.empty((max(numel, 1 << 16),), dtype=dtype,
-                              pin_memory=True)
+                              pin_memory=self.device.type == "cuda")
             self._staging[(tag, dtype)] = buf
         return buf[:numel]
 
@@ -214,7 +238,7 @@ class TPGroup:
         device. bf16 travels as its raw 16 bits (a gather only copies)."""
         t0 = time.perf_counter()
         x = x.contiguous()
-        wire = x.view(torch.float16) if x.dtype == torch.bfloat16 else x
+        wire = _wire(x)
         shape = (self.size,) + tuple(wire.shape)
         stage = self.backend == "gloo" and x.is_cuda
         if stage:
@@ -251,11 +275,92 @@ class TPGroup:
         with record_function("tp.all_reduce"):
             return rank_order_sum(self._gather(x).unbind(0), x.dtype)
 
+    # ------------------------------------------------------- block I/O
+    @staticmethod
+    def block_chunk(row_bytes: int) -> int:
+        """Blocks per block-exchange collective when one block of one
+        rank's slice is ``row_bytes``."""
+        return max(1, BLOCK_IO_CHUNK_BYTES // max(1, row_bytes))
+
+    def mark_lost(self, what: str, e: Exception) -> None:
+        """Record that ``what`` failed on this rank: the group is lost."""
+        self.error = self.error or f"tp {what} failed on rank {self.rank}: {e}"
+
+    def gather_to_root(self, x: torch.Tensor) -> Optional[List[torch.Tensor]]:
+        """Every rank: send ``x`` (a chunk of its blocks, on its device) to
+        rank 0, which gets every rank's tensor in rank order as host
+        tensors (views of a staging buffer: valid until the next block
+        exchange); None on the other ranks."""
+        t0 = time.perf_counter()
+        x = x.contiguous()
+        wire = _wire(x)
+        nccl = self.backend == "nccl"
+        if x.is_cuda and not nccl:
+            # Waits for this rank's queued device work (the selection).
+            src = self._buffer("kvio-in", wire.numel(),
+                               wire.dtype).view(wire.shape)
+            src.copy_(wire)
+        else:
+            src = wire
+        parts = None
+        if self.rank == 0:
+            if nccl:
+                parts = [torch.empty_like(wire) for _ in range(self.size)]
+            else:
+                parts = list(self._buffer(
+                    "kvio-out", self.size * wire.numel(), wire.dtype
+                ).view((self.size,) + tuple(wire.shape)).unbind(0))
+        try:
+            with record_function("tp.block_gather"):
+                dist.gather(src, parts, dst=0)
+        except Exception as e:
+            self.mark_lost("block gather", e)
+            raise
+        if parts is not None:
+            parts = [p.view(x.dtype).cpu() if nccl else p.view(x.dtype)
+                     for p in parts]
+        self.block_io_seconds += time.perf_counter() - t0
+        return parts
+
+    def scatter_from_root(self, parts: Optional[List[torch.Tensor]], shape,
+                          dtype: torch.dtype) -> torch.Tensor:
+        """Every rank: receive its tensor of rank 0's host tensors
+        ``parts`` (one per rank in rank order, each ``shape`` and
+        ``dtype``; None on the other ranks), on this rank's device."""
+        t0 = time.perf_counter()
+        wire_dtype = torch.float16 if dtype == torch.bfloat16 else dtype
+        nccl = self.backend == "nccl"
+        staged = self.device.type == "cuda" and not nccl
+        if nccl:
+            recv = torch.empty(shape, dtype=wire_dtype, device=self.device)
+        elif staged:
+            n = 1
+            for d in shape:
+                n *= d
+            recv = self._buffer("kvio-in", n, wire_dtype).view(shape)
+        else:
+            recv = torch.empty(shape, dtype=wire_dtype)
+        if parts is not None:
+            parts = [_wire(p) for p in parts]
+            if nccl:
+                parts = [p.to(self.device) for p in parts]
+        try:
+            with record_function("tp.block_scatter"):
+                dist.scatter(recv, parts, src=0)
+        except Exception as e:
+            self.mark_lost("block scatter", e)
+            raise
+        got = recv.view(dtype)
+        if staged:
+            got = got.to(self.device)   # synchronous: the buffer is reused
+        self.block_io_seconds += time.perf_counter() - t0
+        return got
+
     # ------------------------------------------------ descriptors, control
     def bcast(self, t: torch.Tensor) -> None:
         """Broadcast the CPU tensor ``t`` from rank 0 in place (rank 0
         sends, the others receive into ``t``) on the descriptor group."""
-        wire = t.view(torch.float16) if t.dtype == torch.bfloat16 else t
+        wire = _wire(t)
         try:
             dist.broadcast(wire, 0, group=self._cpu)
         except Exception as e:
@@ -263,7 +368,10 @@ class TPGroup:
             raise
 
     def send_header(self, kind: int, *args: int) -> None:
-        """Rank 0: the header of the next descriptor."""
+        """Rank 0: the header of the next descriptor. A lost group gets
+        none: it raises the loss instead."""
+        if self.error:
+            raise RuntimeError(self.error)
         h = torch.zeros((HEADER_LEN,), dtype=torch.int64)
         h[0] = kind
         if args:

@@ -16,12 +16,18 @@ same rules by leaf name:
 Splits are contiguous blocks: rank r holds q heads [r*H/tp, (r+1)*H/tp)
 and the kv heads of those GQA groups, [r*Hkv/tp, (r+1)*Hkv/tp).
 
+A batch of whole KV blocks (the offload tier's and the handoff's payload
+[n, L, Hkv, bs, Dh], an int8 pool's scales [n, L, Hkv, bs]) splits into
+the same head ranges along its head axis (``shard_kv_blocks``), and
+``join_kv_blocks`` puts the ranks' slices back in rank order: the blob a
+tp > 1 pool writes is the one a tp = 1 pool writes.
+
 Where the JAX package replicates a leaf whose dim tp does not divide
 (``_shard_if_divisible``), the port raises a ``ValueError``: the
 replication fallback is not ported (ROADMAP).
 """
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -82,3 +88,20 @@ def shard_kv_pool(pool: torch.Tensor, rank: int, tp: int) -> torch.Tensor:
     """Rank ``rank``'s kv heads of a payload pool [L, Hkv, slots, Dh] or a
     scale pool [L, Hkv, slots]."""
     return _split(pool, 1, rank, tp) if tp > 1 else pool
+
+
+# The head axis of a block batch [n, L, Hkv, bs(, Dh)].
+BLOCK_HEAD_AXIS = 2
+
+
+def shard_kv_blocks(blocks: torch.Tensor, rank: int, tp: int) -> torch.Tensor:
+    """Rank ``rank``'s kv heads of a block batch [n, L, Hkv, bs, Dh] (or
+    scales [n, L, Hkv, bs]): the heads ``shard_kv_pool`` gives the rank."""
+    return _split(blocks, BLOCK_HEAD_AXIS, rank, tp) if tp > 1 else blocks
+
+
+def join_kv_blocks(parts, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The inverse of ``shard_kv_blocks``: every rank's slice of a block
+    batch, in rank order, joined along the head axis (into ``out`` when
+    given)."""
+    return torch.cat(list(parts), BLOCK_HEAD_AXIS, out=out)

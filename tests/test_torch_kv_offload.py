@@ -706,14 +706,32 @@ def test_runner_block_reads_and_writes_in_place(kv):
 
 
 def test_offload_refused_at_tp_above_one():
-    with pytest.raises(ValueError, match="tensor-parallel-size 2"):
-        EngineConfig(model="tiny-llama-8kv", device="cpu",
-                     tensor_parallel_size=2, kv_offload_cpu=True)
-    with pytest.raises(ValueError, match="requires kv_remote_url"):
-        EngineConfig(model=MODEL, device="cpu", role="prefill",
-                     kv_remote_url=None)
-    with pytest.raises(ValueError, match="Unknown engine role"):
-        EngineConfig(model=MODEL, device="cpu", role="both")
+    """What the KV tier still refuses, at tp = 1 and at tp = 2 alike: a
+    role without the store's URL, and an unknown role (the tier itself is
+    served at tp > 1: ``test_kv_tier_accepted_at_tp_above_one``)."""
+    for tp in (1, 2):
+        model = "tiny-llama-8kv" if tp > 1 else MODEL
+        with pytest.raises(ValueError, match="requires kv_remote_url"):
+            EngineConfig(model=model, device="cpu", role="prefill",
+                         kv_remote_url=None, tensor_parallel_size=tp)
+        with pytest.raises(ValueError, match="Unknown engine role"):
+            EngineConfig(model=model, device="cpu", role="both",
+                         tensor_parallel_size=tp)
+
+
+def test_kv_tier_accepted_at_tp_above_one():
+    """A tp = 2 config with the host tier, the remote tier or a
+    prefill/decode role is accepted, and its restore cost model counts
+    every kv head (the whole block a blob carries)."""
+    url = "kv://127.0.0.1:1"
+    for over in (dict(kv_offload_cpu=True), dict(kv_remote_url=url),
+                 dict(role="prefill", kv_remote_url=url),
+                 dict(role="decode", kv_remote_url=url)):
+        cfg = EngineConfig(model="tiny-llama-8kv", device="cpu",
+                           tensor_parallel_size=2, **over)
+        mc = resolve_model_config(cfg.model)
+        assert cfg.kv_wire_bytes_per_token(mc) == \
+            2 * cfg.kv_cache_bytes_per_token(mc)
 
 
 # ------------------------------------------------- engines, both packages
