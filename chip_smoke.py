@@ -42,14 +42,27 @@ serving):
      more served round are held against the counter;
   5. graphs: per KV dtype, the strict eager loop and the graph + pipeline
      + overlap loop alternated (eager, graph, graph, eager) on the same 4
-     requests; the graph runs' warm-up (families, graphs, nodes, capture
-     seconds, graph pool), tokens equal to the eager loop's bit for bit,
-     no eager decode dispatch, launch counts, a round with a prefill
-     landing mid-decode whose fetches overlap; decode ms per step by CUDA
-     events and by wall clock, TTFT, aggregate tokens/s, peak memory and
-     the step's byte bound for each run; then the window path with
-     decode_loop="while" on a small model (bf16 and int8 pools), eager
-     against graphs, bit for bit;
+     requests, on one eager engine and one graph engine (the serving
+     phase's config, its KV pool sized from free memory; restarted for
+     its second run); the graph runs' warm-up (decode and prefill
+     families, graphs, nodes, capture seconds, graph pool and its prefill
+     share), tokens equal to the eager loop's bit for bit, no eager decode
+     or prefill dispatch, launch counts, a round with a prefill landing
+     mid-decode whose fetches overlap; decode ms per step by CUDA events
+     and by wall clock, TTFT, aggregate tokens/s, peak memory and the
+     step's byte bound for each run. The prefill part, on the graph
+     engine: KV blocks with and without the prefill graphs' reserve, the
+     reserve against the pool's measured prefill share; 4 x ~64 and 4 x
+     ~2,048-token prompts with the prefill graphs set aside (eager) and
+     replayed, alternated, tokens bit for bit, TTFT; the largest
+     decode-dispatch gap across a landing 2,047-token prompt, eager and
+     replayed; one 4-row prefill replayed at b = 8 against b = 4 (an extra
+     graph) by CUDA events, and one replay's host ms against one eager
+     run's; then the graph tokens against an exact-row engine
+     (``max_prefill_seqs`` 4, prefill at b = 4) up to the first step whose
+     sampler margin is at most 2 x ``tp_logit_bound``. Then the window
+     path with decode_loop="while" on a small model (bf16 and int8
+     pools), eager against graphs, bit for bit;
   6. check: one decode step at llama-3b width (depth cut to 2 layers)
      through the kernel path against the plain window path, over a bf16
      pool and over an int8 pool; the seeded-sampling Gumbel field on the
@@ -92,9 +105,10 @@ serving):
      strict eager loop on the same batches, bit for bit; and resume on
      tiny-llama-128dh in float32, identical;
   9. kvtier: the port's cache server (``kv_offload/server.py``) as a
-     process, then per KV dtype (bf16, then int8) llama-3b (full width and
-     depth, random bf16 weights from --seed, block 16, 1024 blocks, decode
-     graphs captured) with the host and remote tiers: 4 streams sharing a
+     process, then per KV dtype (bf16, then int8) llama-3b (full width,
+     depth cut to ``CUT_LAYERS``: a checkpoint directory of random bf16
+     weights from --seed, ``cut_model``; block 16, 1024 blocks, decode and
+     prefill graphs captured) with the host and remote tiers: 4 streams sharing a
      ~2048-token prefix served cold, then from the device prefix cache (the
      twin), then after ``reset_prefix_cache`` restored from the host pool
      (tokens equal the twin's bit for bit); a second engine process on the
@@ -108,11 +122,12 @@ serving):
      same request; the decode engine replays its graphs, its kernel count
      read from ``/debug/kernels``; the prefill engine forms no decode
      batch); decode ms per step with spilling on and off, alternated. In
-     every round: no eager decode dispatch, the kernel's count 28 x decode
-     steps, every spill, restore and handoff failure counter 0;
+     every round: no eager decode dispatch, the kernel's count layers x
+     decode steps, every spill, restore and handoff failure counter 0;
      then kvtier-tp, the tier at tp = 2: per KV dtype (bf16, then int8)
-     llama-3-8b (full width and depth, random bf16 weights from --seed,
-     block 16, 1024 blocks) at tp = 2 with both ranks on this card, with the
+     llama-3-8b (full width, depth cut to ``CUT_LAYERS``, random bf16
+     weights from --seed, block 16, 1024 blocks) at tp = 2 with both ranks
+     on this card, with the
      host and remote tiers of its own cache server: the same 4 prompts x
      16 tokens (2 greedy, 2 seeded) cold, from the device prefix cache (the
      twin) and after ``reset_prefix_cache`` from the host pool (= the twin
@@ -128,10 +143,11 @@ serving):
      bound, and its served tokens equal the twin's up to a step whose
      margin is at most twice the bound; a tp = 2 prefill / tp = 1 decode
      pair from ``launch.py`` under the same token bar. Each tp = 2 rank's
-     counter reads 32 x its decode steps of the run's variant and 0 of the
+     counter reads layers x its decode steps of the run's variant and 0 of the
      other; every failure counter 0;
- 10. spec: speculative decoding, two pairs at full width and depth (random
-     bf16 weights from --seed, bf16 KV, block 16, N = 4): llama-3b drafting
+ 10. spec: speculative decoding, two pairs at full width, depth cut to
+     ``CUT_LAYERS`` (random bf16 weights from --seed, bf16 KV, block 16,
+     N = 4): llama-3b drafting
      for itself (the ceiling) and a llama-3b draft for llama-3-8b (the
      floor); per pair spec off (the paged kernel, its count layers x
      decode steps), linear, tree (W = 3) and adaptive, each an engine
@@ -182,12 +198,14 @@ Run: ``python3 chip_smoke.py`` from the root of the repository.
 
 import argparse
 import asyncio
+import atexit
 import faulthandler
 import gc
 import json
 import math
 import os
 import random
+import shutil
 import subprocess
 import sys
 import threading
@@ -206,6 +224,19 @@ KERNEL_REPLACES = {
 TP_KERNEL_REPLACES = ("production_stack_tpu/ops/pallas/paged_attention.py:376 "
                       "paged_flash_decode_stats_tp")
 BF16_KV_BLOCKS = 8 * 4096 // 16 + 1   # 8 sequences x 4096 tokens + null block
+# The kvtier, kvtier-tp and spec phases run their models at full width cut to
+# this many layers: checkpoint directories of random bf16 weights from --seed
+# (``cut_model``), written under the output directory and removed at exit.
+# Their many engines each capture decode and prefill graphs at warm-up; at
+# full depth the script would not stay inside its time limit.
+CUT_LAYERS = 8
+# The prefill token budget (``max_num_batched_tokens``) of the engines of the
+# surface, kvtier, kvtier-tp, spec and ckpt phases: their warm-up captures
+# the prefill families of chunks up to 512 tokens (33 graphs at llama-3b
+# with 4 rows), not up to the default 4,096 (69 graphs), so the script
+# stays inside its time limit; serving and graphs keep the server's
+# default.
+WARM_PREFILL_BUDGET = 512
 # out is bf16 in both versions and their fp32 sums differ only in order, so
 # they differ by at most one bf16 rounding step (< 2**-7 relative, inside
 # OUT_RTOL). A typical |out| is ~0.03 at kv_len in the thousands, so each
@@ -228,8 +259,14 @@ _detail = None
 
 
 def fail(msg: str) -> None:
-    log(f"FAIL: {msg}")
+    """Stop the run: the message goes to the detail log, stdout and stderr
+    (a reader of either stream's tail sees why), with the calling stack in
+    the detail log."""
+    import traceback
+
+    log(f"FAIL: {msg}\n{''.join(traceback.format_stack()[:-1])}")
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -446,8 +483,8 @@ def device_profile(torch, fn, n_calls: int, what: str, per_call=None):
     gaps excluded): (ms per call summed over every kernel, {kernel name: ms
     per call}, kernel launches per call). A trace with no device time, or
     with another count of launches per call than ``per_call`` (CUPTI can
-    drop records), is taken again, up to three times; no device time at
-    all fails the run."""
+    drop records), is taken again, up to three times; None when no trace
+    recorded any device time (the caller times by CUDA events)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
@@ -471,7 +508,7 @@ def device_profile(torch, fn, n_calls: int, what: str, per_call=None):
             if per_call is None or found[2] == per_call:
                 return found
     if found is None:
-        fail(f"{what}: torch.profiler recorded no device time")
+        log(f"{what}: torch.profiler recorded no device time in 3 traces")
     return found
 
 
@@ -516,9 +553,14 @@ def events_ms(torch, fn, n_calls: int, what: str, reps: int = 5):
     return start.elapsed_time(end) / (reps * n_calls), how
 
 
-def device_ms(torch, fn, n_calls: int, what: str) -> float:
-    """Mean device time per call (ms), every kernel of the call summed."""
-    return device_profile(torch, fn, n_calls, what)[0]
+def device_ms(torch, fn, n_calls: int, what: str):
+    """Mean device time per call (ms), every kernel of the call summed, and
+    how it was read: by torch.profiler, or by CUDA events when its traces
+    hold no device time."""
+    found = device_profile(torch, fn, n_calls, what)
+    if found is None:
+        return events_ms(torch, fn, n_calls, what)
+    return found[0], "torch.profiler"
 
 
 def bound_of(kv_lens, b, h, hkv, dh, bs, quant=False):
@@ -742,21 +784,38 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
                                               enable_gqa=True)
 
     what = f"{name} [{'int8' if quant else 'bf16'}]"
+    n_calls = 2 * n_layers
     with SmMhz() as clock:
-        ms, ms_by_kernel, per_call = device_profile(torch, kern, 2 * n_layers,
-                                                    f"{what} kernel", per_call=1)
-    if len(ms_by_kernel) != 1 or not 0 < per_call <= 1:
-        fail(f"{what}: {per_call} device kernels per call "
-             f"({sorted(ms_by_kernel)}); the kernel is one launch per call")
-    # CUPTI may drop a record (per_call < 1): the mean recorded launch.
-    ms /= per_call
-    ms_by_kernel = {k: v / per_call for k, v in ms_by_kernel.items()}
-    plain_ms = device_ms(torch, plain, min(8, n_layers), f"{what} plain")
-    library_ms = device_ms(torch, sdpa, 4 * n_lib, f"{what} SDPA")
+        found = device_profile(torch, kern, n_calls, f"{what} kernel",
+                               per_call=1)
+    if found is None:
+        # CUPTI lost every trace: one launch per call is read from the
+        # wrapper's own counter (and graph_check's one node per call),
+        # the time by CUDA events.
+        pa.reset_launch_counts()
+        for i in range(n_calls):
+            kern(i)
+        torch.cuda.synchronize()
+        launched = sum(pa.launch_counts().values())
+        if launched != n_calls:
+            fail(f"{what}: {launched} launches counted for {n_calls} calls; "
+                 "the kernel is one launch per call")
+        (ms, ms_by), ms_by_kernel, per_call = (
+            events_ms(torch, kern, n_calls, f"{what} kernel"), {}, None)
+    else:
+        ms, ms_by_kernel, per_call = found
+        ms_by = "torch.profiler"
+        if len(ms_by_kernel) != 1 or not 0 < per_call <= 1:
+            fail(f"{what}: {per_call} device kernels per call "
+                 f"({sorted(ms_by_kernel)}); the kernel is one launch per call")
+        # CUPTI may drop a record (per_call < 1): the mean recorded launch.
+        ms /= per_call
+        ms_by_kernel = {k: v / per_call for k, v in ms_by_kernel.items()}
+    plain_ms, _ = device_ms(torch, plain, min(8, n_layers), f"{what} plain")
+    library_ms, library_by = device_ms(torch, sdpa, 4 * n_lib, f"{what} SDPA")
     bound_ms, bound_by = bound_of(kv_lens, b, h, hkv, dh, bs, quant)
     # No reading can beat the bound: one below it lost records, and the
     # time is read again by CUDA events around replayed graphs of the calls.
-    ms_by = library_by = "torch.profiler"
     if ms < bound_ms:
         log(f"{what}: profiler reading {ms:.5f} ms is below the bound "
             f"{bound_ms:.5f} ms; timing by CUDA events")
@@ -910,27 +969,27 @@ def trace_requests(torch, loop_run, n_tokens):
             "top_ms": [[name[:100], us / 1e3] for name, us in top]}
 
 
-def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
-                  trace=False):
-    """Serve llama-3b over HTTP with a KV pool of ``kv_cache_dtype``; the
-    int8 pool gets the bf16 pool's bytes (so ~1.97x its blocks). Returns
-    the launch counts of this run's main path."""
+def serving_config(seed, kv_cache_dtype, device="cuda", model="llama-3b"):
+    """The serving phase's engine config: the server's defaults (decode and
+    prefill graphs captured at warm-up, the pipelined two-slot loop, the KV
+    pool sized from free memory, less the prefill graphs' reserve)."""
     from production_stack_tpu_torch.engine.config import EngineConfig
+
+    return EngineConfig(model=model, dtype="bfloat16", attn_impl="paged",
+                        device=device, max_model_len=4096, num_decode_steps=32,
+                        seed=seed, enable_warmup=True, kv_cache_dtype=kv_cache_dtype)
+
+
+def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
+                  trace=False, keep=False):
+    """Serve llama-3b over HTTP with a KV pool of ``kv_cache_dtype``.
+    Returns the launch counts of this run's main path, the summary, and
+    the engine (stopped, still warm) when ``keep``, else None."""
     from production_stack_tpu_torch.engine.engine import ServingEngine
-    from production_stack_tpu_torch.models.config import resolve_model_config
     from production_stack_tpu_torch.server.api_server import OpenAIServer
 
     max_tokens = 64
-    # The server's defaults: decode graphs captured at warm-up, the
-    # pipelined two-slot loop.
-    common = dict(model="llama-3b", dtype="bfloat16", attn_impl="paged",
-                  device="cuda", max_model_len=4096, num_decode_steps=32,
-                  seed=seed, enable_warmup=True)
-    mc = resolve_model_config("llama-3b")
-    # 8 sequences x 4096 tokens of bf16 KV (~3.8 GB) + the null block
-    pool_bytes = BF16_KV_BLOCKS * EngineConfig(**common).kv_cache_bytes_per_block(mc)
-    cfg = EngineConfig(**common, kv_cache_dtype=kv_cache_dtype)
-    cfg.num_kv_blocks = pool_bytes // cfg.kv_cache_bytes_per_block(mc)
+    cfg = serving_config(seed, kv_cache_dtype)
     variant = pa.INT8 if cfg.kv_cache_quantized else pa.BF16
     t0 = time.monotonic()
     engine = ServingEngine(cfg)
@@ -1038,7 +1097,9 @@ def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
         await server.stop()
 
     asyncio.run(run())
-    engine.shutdown()
+    if not keep:
+        engine.shutdown()
+        engine = None
     stats = results["_stats"]
     ttfts = []
     for name in ("completion greedy", "completion seeded",
@@ -1102,7 +1163,7 @@ def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
         "sm_clock_mhz": results["_clock"],
     }
     log(f"serving result {json.dumps(summary)}")
-    return counts, summary
+    return counts, summary, engine
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1144,16 +1205,25 @@ def graph_prompts(seed: int):
     return out
 
 
-def graphs_phase(torch, pa, device, seed, card, model="llama-3b"):
-    """Per KV dtype: the strict eager loop (no warm-up graphs, no pipeline)
-    and the graph + pipeline + overlap loop serve the same 4 requests (2
-    greedy, 2 seeded, 64 tokens), alternated eager, graph, graph, eager in
-    this one call. Each graph run logs its warm-up (families, graphs, nodes,
-    capture seconds, graph pool); it must give the eager tokens bit for bit,
-    make no eager decode dispatch, launch its kernel variant once per layer
-    and decode step (the kernel's own count) and the other variant never. The first graph run then
-    serves a round whose prefill lands mid-decode: its fetches must
-    overlap. Returns one summary row per run."""
+def graphs_phase(torch, pa, device, seed, card, kv, engine=None,
+                 model="llama-3b"):
+    """With a ``kv`` pool: the strict eager loop (no warm-up graphs, no
+    pipeline) and the graph + pipeline + overlap loop serve the same 4
+    requests (2 greedy, 2 seeded, 64 tokens), alternated eager, graph,
+    graph, eager in this one call, on two engines: an eager one on the same
+    weights, and the graph one, the serving phase's warm ``engine`` (or one
+    of its config, warmed at its first start), restarted for each graph run
+    (its graphs stay valid). Its KV pool is sized from free memory, so the
+    prefill graphs' reserve is what keeps its capture from running out of
+    memory. Each graph run
+    logs its warm-up (families, graphs, nodes, capture seconds, graph pool,
+    decode and prefill); it must give the eager tokens bit for bit, make no
+    eager decode or prefill dispatch, launch its kernel variant once per
+    layer and decode step (the kernel's own count) and the other variant
+    never. The first graph run then serves a round whose prefill lands
+    mid-decode (its fetches must overlap) and the prefill part
+    (``prefill_part``) runs on its engine. Returns (one summary row per
+    run, the prefill part's row); shuts both engines down."""
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.engine import ServingEngine
     from production_stack_tpu_torch.engine.sampling import SamplingParams
@@ -1161,9 +1231,13 @@ def graphs_phase(torch, pa, device, seed, card, model="llama-3b"):
     from production_stack_tpu_torch.models.config import resolve_model_config
 
     mc = resolve_model_config(model)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    params = llama.init_params(mc, gen, torch.bfloat16, device)
+    if engine is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        params = llama.init_params(mc, gen, torch.bfloat16, device)
+        engine = ServingEngine(serving_config(seed, kv, device.type, model),
+                               params=params)
+    params = engine.runner.params
     prompts = graph_prompts(seed)
     samplings = [dict(temperature=0.0), dict(temperature=0.0),
                  dict(temperature=0.8, top_p=0.9, seed=1234),
@@ -1173,156 +1247,460 @@ def graphs_phase(torch, pa, device, seed, card, model="llama-3b"):
                            overlap_dispatch=False),
              "graph": dict(enable_warmup=True, async_pipeline=True,
                            overlap_dispatch=True)}
-    rows = []
-    for kv in ("bfloat16", "int8"):
-        quant = kv == "int8"
-        variant, other = (pa.INT8, pa.BF16) if quant else (pa.BF16, pa.INT8)
-        tokens = {}
-        for i, mode in enumerate(("eager", "graph", "graph", "eager")):
-            cfg = EngineConfig(model=model, dtype="bfloat16",
-                               attn_impl="paged", device=device.type,
-                               max_model_len=4096, num_decode_steps=32,
-                               seed=seed, kv_cache_dtype=kv,
-                               num_kv_blocks=(2 if quant else 1) * BF16_KV_BLOCKS,
-                               **modes[mode])
-            engine = ServingEngine(cfg, params=params)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            times = {}
+    rows, prefill_row = [], None
+    quant = kv == "int8"
+    variant, other = (pa.INT8, pa.BF16) if quant else (pa.BF16, pa.INT8)
+    tokens = {}
+    common = dict(model=model, dtype="bfloat16", attn_impl="paged",
+                  device=device.type, max_model_len=4096, num_decode_steps=32,
+                  seed=seed, kv_cache_dtype=kv)
+    engines = {
+        "eager": ServingEngine(EngineConfig(
+            **common, num_kv_blocks=(2 if quant else 1) * BF16_KV_BLOCKS,
+            **modes["eager"]), params=params),
+        "graph": engine}
+    for i, mode in enumerate(("eager", "graph", "graph", "eager")):
+        engine = engines[mode]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = {}
 
-            async def one(k, prompt, extra, n=max_tokens):
-                t_sub, t_first, toks = time.monotonic(), None, []
-                async for out in engine.generate(prompt=prompt, sampling=SamplingParams(
-                        max_tokens=n, ignore_eos=True, **extra)):
-                    if t_first is None and out.token_ids:
-                        t_first = time.monotonic()
-                    toks = out.token_ids
-                times[k] = (t_sub, t_first, time.monotonic())
-                return toks
+        async def one(k, prompt, extra, n=max_tokens):
+            t_sub, t_first, toks = time.monotonic(), None, []
+            async for out in engine.generate(prompt=prompt, sampling=SamplingParams(
+                    max_tokens=n, ignore_eos=True, **extra)):
+                if t_first is None and out.token_ids:
+                    t_first = time.monotonic()
+                toks = out.token_ids
+            times[k] = (t_sub, t_first, time.monotonic())
+            return toks
 
-            async def serve():
-                t_warm = time.monotonic()
-                await engine.start()
-                warm_s = time.monotonic() - t_warm
-                # One short untimed request first (cuBLAS handles, the
-                # prefill shapes' first use), as the serving phase does.
-                await one("warm-up", "warm up", dict(temperature=0.0), 4)
-                pa.reset_launch_counts()
-                r = engine.runner
-                r.decode_steps_total = r.decode_tokens_total = 0
-                r.decode_device_seconds_total = 0.0
-                r.chained_dispatches_total = 0
-                r.decode_train.eager_dispatches_total = 0
-                engine.decode_dispatches_total = 0
-                # The 4 requests are created together: they are all queued
-                # before the engine loop schedules again, so every loop
-                # mode forms the same batches.
-                t0 = time.monotonic()
-                tasks = [asyncio.create_task(one(k, p, samplings[k]))
-                         for k, p in enumerate(prompts)]
-                with SmMhz() as clock:
-                    got = await asyncio.wait_for(asyncio.gather(*tasks), 600)
-                wall = time.monotonic() - t0
-                times["_clock"] = clock.summary()
-                launches = pa.launch_counts()
-                stats = engine.stats()
-                overlap = None
-                if mode == "graph" and i == 1:
-                    overlap = await overlap_round()
-                await engine.stop()
-                return got, wall, warm_s, t0, launches, stats, overlap
+        async def serve():
+            t_warm = time.monotonic()
+            await engine.start()
+            warm_s = time.monotonic() - t_warm
+            engine.block_manager.reset_prefix_cache()
+            # One short untimed request first (cuBLAS handles, the
+            # prefill shapes' first use), as the serving phase does.
+            await one("warm-up", "warm up", dict(temperature=0.0), 4)
+            pa.reset_launch_counts()
+            r = engine.runner
+            r.decode_steps_total = r.decode_tokens_total = 0
+            r.decode_device_seconds_total = 0.0
+            r.chained_dispatches_total = 0
+            r.decode_train.eager_dispatches_total = 0
+            r.prefill_train.eager_dispatches_total = 0
+            r.prefill_train.graph_dispatches_total = 0
+            engine.decode_dispatches_total = 0
+            # The 4 requests are created together: they are all queued
+            # before the engine loop schedules again, so every loop
+            # mode forms the same batches.
+            t0 = time.monotonic()
+            tasks = [asyncio.create_task(one(k, p, samplings[k]))
+                     for k, p in enumerate(prompts)]
+            with SmMhz() as clock:
+                got = await asyncio.wait_for(asyncio.gather(*tasks), 600)
+            wall = time.monotonic() - t0
+            times["_clock"] = clock.summary()
+            launches = pa.launch_counts()
+            stats = engine.stats()
+            overlap = None
+            if mode == "graph" and i == 1:
+                overlap = await overlap_round()
+            await engine.stop()
+            return got, wall, warm_s, t0, launches, stats, overlap
 
-            async def wait_until(cond):
-                deadline = time.monotonic() + 120
-                while not cond():
-                    if time.monotonic() > deadline:
-                        fail("graphs: the overlap round made no progress")
-                    await asyncio.sleep(0.001)
+        async def wait_until(cond):
+            deadline = time.monotonic() + 120
+            while not cond():
+                if time.monotonic() > deadline:
+                    fail("graphs: the overlap round made no progress")
+                await asyncio.sleep(0.001)
 
-            async def overlap_round():
-                """A decode stream, then a prompt landing mid-decode."""
-                engine.fetches_total = engine.overlapped_fetches_total = 0
-                d0 = engine.decode_dispatches_total
-                long = asyncio.create_task(one("long", prompts[0] + " again",
-                                               dict(temperature=0.0)))
-                await wait_until(lambda: engine.decode_dispatches_total >= d0 + 2)
-                late = asyncio.create_task(one("late", prompts[1] + " late",
-                                               dict(temperature=0.8, seed=3)))
-                await asyncio.wait_for(asyncio.gather(long, late), 300)
-                st = engine.stats()
-                return {"fetches": st["fetches_total"],
-                        "overlapped_fetches": st["overlapped_fetches_total"],
-                        "dispatch_overlap_ratio": st["dispatch_overlap_ratio"]}
+        async def overlap_round():
+            """A decode stream, then a prompt landing mid-decode."""
+            engine.fetches_total = engine.overlapped_fetches_total = 0
+            d0 = engine.decode_dispatches_total
+            long = asyncio.create_task(one("long", prompts[0] + " again",
+                                           dict(temperature=0.0)))
+            await wait_until(lambda: engine.decode_dispatches_total >= d0 + 2)
+            late = asyncio.create_task(one("late", prompts[1] + " late",
+                                           dict(temperature=0.8, seed=3)))
+            await asyncio.wait_for(asyncio.gather(long, late), 300)
+            st = engine.stats()
+            return {"fetches": st["fetches_total"],
+                    "overlapped_fetches": st["overlapped_fetches_total"],
+                    "dispatch_overlap_ratio": st["dispatch_overlap_ratio"]}
 
-            got, wall, warm_s, t0, launches, st, overlap = asyncio.run(serve())
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            engine.shutdown()
-            del engine
-            gc.collect()
-            torch.cuda.empty_cache()
-            name = f"graphs [{kv} KV] run {i + 1} {mode}"
-            if any(len(t) != max_tokens for t in got):
-                fail(f"{name}: {[len(t) for t in got]} tokens, want {max_tokens}")
-            steps = st["decode_steps_total"]
-            ttft = [times[k][1] - times[k][0] for k in range(len(prompts))]
-            # Client-side wall time per decode step: every row gets one
-            # token per step, so a row's first-to-last token time over its
-            # tokens after the first.
-            wall_step = [(times[k][2] - times[k][1]) / (max_tokens - 1)
-                         for k in range(len(prompts))]
-            row = {
-                "card": card, "kv_cache_dtype": kv, "run": i + 1, "mode": mode,
-                "decode_steps": steps,
-                "decode_dispatches": st["decode_dispatches_total"],
-                "decode_ms_per_step_events": 1e3 * st["decode_device_seconds_total"] / steps,
-                "decode_ms_per_step_wall": 1e3 * sum(wall_step) / len(wall_step),
-                "ttft_s": ttft, "wall_s": wall,
-                "aggregate_tok_s": len(prompts) * max_tokens / wall,
-                "peak_mem_gib": peak, "launches": launches,
-                "step_bound_ms": step_bound_ms(
-                    mc, [len(p) + max_tokens // 2 for p in prompts], quant),
-                "f32_head_extra_ms": f32_head_extra_ms(mc),
-                "decode_eager_dispatches": st["decode_eager_dispatches_total"],
-                "chained_dispatches": st["chained_dispatches_total"],
-                "dispatch_overlap_ratio": st["dispatch_overlap_ratio"],
-                "sm_clock_mhz": times["_clock"],
-            }
-            if mode == "graph":
-                row.update(warmup_s=warm_s, overlap_round=overlap,
-                           **{k: st[k] for k in (
-                               "graph_families", "graphs_captured",
-                               "graph_nodes_total", "graph_step_nodes_max",
-                               "graph_capture_seconds", "graph_pool_bytes",
-                               "graph_families_logprobs",
-                               "graph_pool_bytes_logprobs")})
-                row["graph_pool_mib"] = st["graph_pool_bytes"] / 2**20
-                if st["decode_eager_dispatches_total"]:
-                    fail(f"{name}: {st['decode_eager_dispatches_total']} eager "
-                         "decode dispatches after warm-up")
-                n_layers = mc.num_layers
-                if launches[variant] != n_layers * steps or launches[other]:
-                    fail(f"{name}: {launches} launches over {steps} decode steps: "
-                         f"want {n_layers} x steps of {variant} and none of {other}")
-                if overlap is not None and not overlap["dispatch_overlap_ratio"] > 0:
-                    fail(f"{name}: no fetch overlapped another dispatch in the "
-                         f"round with a prefill landing mid-decode ({overlap})")
-            if mode in tokens and got != tokens[mode]:
-                fail(f"{name}: tokens differ from the earlier {mode} run")
-            tokens.setdefault(mode, got)
-            if "eager" in tokens and "graph" in tokens and \
-                    tokens["eager"] != tokens["graph"]:
-                diff = [k for k in range(4) if tokens["eager"][k] != tokens["graph"][k]]
-                fail(f"{name}: graph + pipeline tokens differ from the strict "
-                     f"eager loop's in requests {diff}")
-            log(f"graphs run {json.dumps(row)}")
-            rows.append(row)
-        log(f"graphs [{kv} KV]: the graph + pipeline + overlap loop gives the "
-            "strict eager loop's tokens bit for bit (2 greedy, 2 seeded, "
-            f"{max_tokens} tokens each)")
+        got, wall, warm_s, t0, launches, st, overlap = asyncio.run(serve())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        name = f"graphs [{kv} KV] run {i + 1} {mode}"
+        if any(len(t) != max_tokens for t in got):
+            fail(f"{name}: {[len(t) for t in got]} tokens, want {max_tokens}")
+        steps = st["decode_steps_total"]
+        ttft = [times[k][1] - times[k][0] for k in range(len(prompts))]
+        # Client-side wall time per decode step: every row gets one
+        # token per step, so a row's first-to-last token time over its
+        # tokens after the first.
+        wall_step = [(times[k][2] - times[k][1]) / (max_tokens - 1)
+                     for k in range(len(prompts))]
+        row = {
+            "card": card, "kv_cache_dtype": kv, "run": i + 1, "mode": mode,
+            "decode_steps": steps,
+            "decode_dispatches": st["decode_dispatches_total"],
+            "decode_ms_per_step_events": 1e3 * st["decode_device_seconds_total"] / steps,
+            "decode_ms_per_step_wall": 1e3 * sum(wall_step) / len(wall_step),
+            "ttft_s": ttft, "wall_s": wall,
+            "aggregate_tok_s": len(prompts) * max_tokens / wall,
+            "peak_mem_gib": peak, "launches": launches,
+            "step_bound_ms": step_bound_ms(
+                mc, [len(p) + max_tokens // 2 for p in prompts], quant),
+            "f32_head_extra_ms": f32_head_extra_ms(mc),
+            "decode_eager_dispatches": st["decode_eager_dispatches_total"],
+            "prefill_eager_dispatches": st["prefill_eager_dispatches_total"],
+            "prefill_graph_dispatches": st["prefill_graph_dispatches_total"],
+            "chained_dispatches": st["chained_dispatches_total"],
+            "dispatch_overlap_ratio": st["dispatch_overlap_ratio"],
+            "kv_blocks": st["kv_num_blocks"],
+            "sm_clock_mhz": times["_clock"],
+        }
+        if mode == "graph":
+            row.update(warmup_s=warm_s, overlap_round=overlap,
+                       **{k: st[k] for k in (
+                           "graph_families", "graphs_captured",
+                           "graph_nodes_total", "graph_step_nodes_max",
+                           "graph_capture_seconds", "graph_pool_bytes",
+                           "graph_families_logprobs",
+                           "graph_pool_bytes_logprobs",
+                           "prefill_graph_families", "prefill_graph_nodes_max",
+                           "prefill_warm_seconds", "prefill_capture_seconds",
+                           "graph_pool_bytes_prefill")})
+            row["graph_pool_mib"] = st["graph_pool_bytes"] / 2**20
+            if st["decode_eager_dispatches_total"]:
+                fail(f"{name}: {st['decode_eager_dispatches_total']} eager "
+                     "decode dispatches after warm-up")
+            # Every request here is of the default sampling variant.
+            if st["prefill_eager_dispatches_total"] or \
+                    not st["prefill_graph_dispatches_total"]:
+                fail(f"{name}: {st['prefill_eager_dispatches_total']} eager and "
+                     f"{st['prefill_graph_dispatches_total']} replayed prefill "
+                     "dispatches after warm-up: want every one replayed")
+            n_layers = mc.num_layers
+            if launches[variant] != n_layers * steps or launches[other]:
+                fail(f"{name}: {launches} launches over {steps} decode steps: "
+                     f"want {n_layers} x steps of {variant} and none of {other}")
+            if overlap is not None and not overlap["dispatch_overlap_ratio"] > 0:
+                fail(f"{name}: no fetch overlapped another dispatch in the "
+                     f"round with a prefill landing mid-decode ({overlap})")
+        if mode in tokens and got != tokens[mode]:
+            fail(f"{name}: tokens differ from the earlier {mode} run")
+        tokens.setdefault(mode, got)
+        if "eager" in tokens and "graph" in tokens and \
+                tokens["eager"] != tokens["graph"]:
+            diff = [k for k in range(4) if tokens["eager"][k] != tokens["graph"][k]]
+            fail(f"{name}: graph + pipeline tokens differ from the strict "
+                 f"eager loop's in requests {diff}")
+        log(f"graphs run {json.dumps(row)}")
+        rows.append(row)
+        if mode == "graph" and i == 1:
+            prefill_row = prefill_part(torch, engines["graph"], kv, card)
+    log(f"graphs [{kv} KV]: the graph + pipeline + overlap loop gives the "
+        "strict eager loop's tokens bit for bit (2 greedy, 2 seeded, "
+        f"{max_tokens} tokens each)")
+    for e in engines.values():
+        e.shutdown()
+    del engines, engine, e
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefill_row["exact_rows"] = prefill_exact_rows(
+        torch, params, common, kv, prefill_row.pop("tokens"))
+    log(f"prefill result {json.dumps(prefill_row)}")
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return rows
+    return rows, prefill_row
+
+
+# The prefill part of the graphs phase: prompts of ~64 and ~2,048 tokens
+# (each long prompt <= 2,048 tokens, so 4 of them take two 1,024-token
+# chunks and every row finishes in the second), decode tokens per stream.
+PREFILL_SHORT = 64
+PREFILL_LONG = 2048
+PREFILL_TOKENS = 32
+
+
+def prefill_prompts(seed: int, n_tokens: int, vocab: int):
+    """4 token-id prompts of n_tokens - 1 - 4 i tokens, ids from ``seed``."""
+    rng = random.Random(seed * 7919 + n_tokens)
+    return [[rng.randrange(3, vocab) for _ in range(n_tokens - 1 - 4 * i)]
+            for i in range(4)]
+
+
+class PrefillGraphsAside:
+    """Inside: the engine's prefill graphs set aside (its prefill runs the
+    same functions eagerly), when ``eager``. Entered after ``engine.start``
+    and left before ``engine.stop``: a start's warm-up would capture them
+    again."""
+
+    def __init__(self, engine, eager):
+        self.train, self.eager = engine.runner.prefill_train, eager
+
+    def __enter__(self):
+        self.saved = self.train.graphs
+        if self.eager:
+            self.train.graphs = {}
+
+    def __exit__(self, *exc):
+        self.train.graphs = self.saved
+
+
+def prefill_round(engine, prompts, sink=None, n_tokens=PREFILL_TOKENS,
+                  eager=False):
+    """The 4 prompts on the engine API, created together once the engine
+    is up (all are queued before its loop schedules again, so one prefill
+    dispatch takes them all); the engine is started and stopped inside the
+    round's event loop; ``eager`` sets its prefill graphs aside. Returns
+    (each stream's tokens, each stream's TTFT in s)."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    async def one(ids, extra):
+        t0, t_first, toks = time.monotonic(), None, []
+        async for out in engine.generate(prompt_token_ids=ids, sampling=SamplingParams(
+                max_tokens=n_tokens, ignore_eos=True, **extra)):
+            if t_first is None and out.token_ids:
+                t_first = time.monotonic()
+            toks = out.token_ids
+        return toks, t_first - t0
+
+    async def run():
+        await engine.start()
+        engine.runner.logits_sink = sink
+        try:
+            with PrefillGraphsAside(engine, eager):
+                tasks = [asyncio.create_task(one(ids, SPEC_SAMPLINGS[i]))
+                         for i, ids in enumerate(prompts)]
+                return await asyncio.wait_for(asyncio.gather(*tasks), 600)
+        finally:
+            engine.runner.logits_sink = None
+            await engine.stop()
+
+    got = asyncio.run(run())
+    return [g[0] for g in got], [g[1] for g in got]
+
+
+def prefill_landing_gap(torch, engine, short, long_prompt, eager=False):
+    """Four streams decode; once two decode dispatches ran, ``long_prompt``
+    lands (``eager``: with the prefill graphs set aside). Returns the
+    largest gap (s) between the starts of two consecutive decode dispatch
+    issues with the landing prompt's prefill issued between them, and the
+    prefill issues' host seconds."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    runner = engine.runner
+    issue = runner.execute_async
+    marks = []
+
+    def recorded(batch):
+        t0 = time.monotonic()
+        h = issue(batch)
+        marks.append((batch.kind, t0, time.monotonic()))
+        return h
+
+    async def one(ids, n):
+        async for _ in engine.generate(prompt_token_ids=ids, sampling=SamplingParams(
+                max_tokens=n, temperature=0.0, ignore_eos=True)):
+            pass
+
+    async def run():
+        await engine.start()
+        with PrefillGraphsAside(engine, eager):
+            tasks = [asyncio.create_task(one(ids, 160)) for ids in short]
+            deadline = time.monotonic() + 120
+            while sum(k == "decode" for k, _, _ in marks) < 2:
+                if time.monotonic() > deadline:
+                    fail("prefill: the landing round made no decode progress")
+                await asyncio.sleep(0.001)
+            tasks.append(asyncio.create_task(one(long_prompt, 8)))
+            await asyncio.wait_for(asyncio.gather(*tasks), 300)
+        await engine.stop()
+
+    runner.execute_async = recorded
+    try:
+        asyncio.run(run())
+    finally:
+        runner.execute_async = issue
+    gaps, prefill_host = [], []
+    last_decode = None
+    between = False
+    for kind, t0, t1 in marks:
+        if kind == "decode":
+            if last_decode is not None and between:
+                gaps.append(t0 - last_decode)
+            last_decode, between = t0, False
+        elif last_decode is not None:
+            between = True
+            prefill_host.append(t1 - t0)
+    if not gaps:
+        fail("prefill: no prefill landed between two decode dispatches")
+    return max(gaps), prefill_host
+
+
+def prefill_padding_cost(torch, runner, t, reps=3, rounds=2):
+    """One 4-row prefill at (t, full_mb, no window) replayed at b = 8 (the
+    reference's row family) against b = 4 (one extra graph, captured here
+    only), alternated 8, 4, 4, 8 in ``rounds`` rounds: device ms by CUDA
+    events; and the host ms of one replay against one eager run of the
+    same functions at b = 8."""
+    train = runner.prefill_train
+    full_mb = max(f[2] for f in runner.reachable_prefill_families())
+    keys = {b: (b, t, full_mb, False, False, 0) for b in (8, 4)}
+    if keys[8] not in train.graphs:
+        fail(f"prefill: family {keys[8]} was not captured at warm-up")
+    saved = (train.capture_seconds, train.pool_bytes,
+             runner.decode_train.pool_bytes, train.warmed.copy(),
+             train.warm_seconds)
+    with runner.kv_io_lock:
+        train.warm([keys[4]])
+        train.capture([keys[4]])
+    extra_pool = train.pool_bytes - saved[1]
+    train.capture_seconds, train.pool_bytes, runner.decode_train.pool_bytes = saved[:3]
+    train.warmed, train.warm_seconds = saved[3:]
+    bufs = {b: train.buffers(*k) for b, k in keys.items()}
+    for bf in bufs.values():
+        train._zero_inputs(bf)
+    ms = {8: [], 4: []}
+    for _ in range(rounds):
+        for b in (8, 4, 4, 8):
+            g = train.graphs[keys[b]]
+            g.replay()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                g.replay()
+            end.record()
+            end.synchronize()
+            ms[b].append(start.elapsed_time(end) / reps)
+    host = {}
+    for mode in ("replay", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        if mode == "replay":
+            train.graphs[keys[8]].replay()
+        else:
+            train.prefill(bufs[8])
+        host[mode] = (time.monotonic() - t0) * 1e3
+        torch.cuda.synchronize()
+    del train.graphs[keys[4]], train.nodes[keys[4]]
+    return {"key_b8": list(keys[8]), "ms_b8": ms[8], "ms_b4": ms[4],
+            "pad_ratio": (sum(ms[8]) / len(ms[8])) / (sum(ms[4]) / len(ms[4])),
+            "extra_graph_pool_bytes": extra_pool,
+            "host_ms_replay": host["replay"], "host_ms_eager": host["eager"]}
+
+
+def prefill_part(torch, engine, kv, card):
+    """Prefill graphs on the graphs phase's graph engine (warm, idle): its
+    prefill families, capture seconds, the prefill share of the graph pool
+    against the reserve reckoned from the shapes, KV blocks with and
+    without the reserve. Then 4 x ~64 and 4 x ~2,048-token prompts,
+    alternated eager (graphs set aside: the same functions over the same
+    buffers), graph, graph, eager: tokens bit for bit, no eager prefill
+    dispatch in a graph round (default variants), TTFT; the largest
+    decode-dispatch gap across a landing long prompt, eager and graph; the
+    padding cost of 8 rows against 4; peak memory. Returns its row (with
+    the graph tokens under "tokens", for ``prefill_exact_rows``)."""
+    r = engine.runner
+    train = r.prefill_train
+    vocab = r.model_config.vocab_size
+    seed = engine.config.seed
+    torch.cuda.reset_peak_memory_stats()
+    row = {"card": card, "kv_cache_dtype": kv}
+    prompts = {"short": prefill_prompts(seed, PREFILL_SHORT, vocab),
+               "long": prefill_prompts(seed, PREFILL_LONG, vocab)}
+    toks = {}
+    for size, ps in prompts.items():
+        runs, ttft = [], []
+        for mode in ("eager", "graph", "graph", "eager"):
+            engine.block_manager.reset_prefix_cache()
+            e0, g0 = train.eager_dispatches_total, train.graph_dispatches_total
+            got, tt = prefill_round(engine, ps, eager=mode == "eager")
+            eager = train.eager_dispatches_total - e0
+            replayed = train.graph_dispatches_total - g0
+            if mode == "graph" and (eager or not replayed):
+                fail(f"prefill [{kv} KV] {size}: {eager} eager and {replayed} "
+                     "replayed prefill dispatches in a graph round")
+            if mode == "eager" and replayed:
+                fail(f"prefill [{kv} KV] {size}: {replayed} replays with the "
+                     "graphs set aside")
+            runs.append(got)
+            ttft.append(tt)
+        if any(x != runs[0] for x in runs):
+            bad = [i for i in range(4) if len({str(x[i]) for x in runs}) > 1]
+            fail(f"prefill [{kv} KV] {size}: graph replays differ from the strict "
+                 f"eager run of the same functions on streams {bad}")
+        if any(len(t) != PREFILL_TOKENS for t in runs[0]):
+            fail(f"prefill [{kv} KV] {size}: {[len(t) for t in runs[0]]} tokens")
+        toks[size] = runs[0]
+        row[f"ttft_s_{size}"] = {m: [sum(ttft[i]) / 4 for i in idx] for m, idx in (
+            ("eager", (0, 3)), ("graph", (1, 2)))}
+        log(f"prefill [{kv} KV] {size}: eager, graph, graph, eager equal bit for "
+            f"bit; TTFT mean {row[f'ttft_s_{size}']}")
+    st = engine.stats()
+    row.update({k: st[k] for k in (
+        "kv_num_blocks", "kv_blocks_without_prefill_graphs", "prefill_reserve_bytes",
+        "prefill_graph_families", "prefill_graph_nodes_max", "prefill_warm_seconds",
+        "prefill_capture_seconds", "graph_pool_bytes", "graph_pool_bytes_prefill",
+        "graph_capture_seconds", "startup_warmup_seconds", "kv_pool_bytes")})
+    gap = {}
+    for mode in ("eager", "graph", "graph", "eager"):
+        engine.block_manager.reset_prefix_cache()
+        g, host = prefill_landing_gap(torch, engine, prompts["short"],
+                                      prompts["long"][0], eager=mode == "eager")
+        gap.setdefault(mode, []).append([g, host])
+    row["landing_gap_s"] = {m: [x[0] for x in v] for m, v in gap.items()}
+    row["landing_prefill_host_s"] = {m: [x[1] for x in v] for m, v in gap.items()}
+    row["padding"] = {t: prefill_padding_cost(torch, r, t) for t in (128, 1024)}
+    row["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    row["tokens"] = toks
+    return row
+
+
+def prefill_exact_rows(torch, params, common, kv, toks):
+    """The exact-row shape (prefill before rows were padded to the
+    reference's families): the same 4-prompt rounds on an engine with
+    ``max_prefill_seqs`` 4 (4 rows prefilled at b = 4), strict and eager,
+    its logits kept: the graph engine's tokens (b = 8) must equal its up to
+    the first step whose sampler margin is at most 2 x ``tp_logit_bound``
+    (bf16 GEMM bits depend on the row count). Returns each round's first
+    divergences and the bound."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+    from production_stack_tpu_torch.models.config import resolve_model_config
+
+    mc = resolve_model_config(common["model"])
+    exact = ServingEngine(EngineConfig(**common, num_kv_blocks=BF16_KV_BLOCKS * (
+        2 if kv == "int8" else 1), max_prefill_seqs=4, async_pipeline=False,
+        overlap_dispatch=False), params=params)
+    bound = tp_logit_bound(mc.num_layers, mc.vocab_size * PREFILL_TOKENS * 4)
+    out = {"bound": bound}
+    for size, want in toks.items():
+        n = PREFILL_SHORT if size == "short" else PREFILL_LONG
+        sink = []
+        got, _ = prefill_round(exact, prefill_prompts(common["seed"], n, mc.vocab_size),
+                               sink=sink)
+        margins = [[sampler_margin(torch, sink[t][i].float(), SPEC_SAMPLINGS[i], t)
+                    for t in range(PREFILL_TOKENS)] for i in range(4)]
+        firsts, ok = spec_token_bar(want, got, margins, 2 * bound)
+        out[size] = firsts
+        if not ok:
+            fail(f"prefill [{kv} KV] {size}: graph tokens (b = 8) part from the "
+                 f"exact-row eager engine's (b = 4) where its margin exceeds "
+                 f"2 x {bound}: {firsts}")
+    exact.shutdown()
+    del exact
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def graphs_window_check(torch, seed):
@@ -2498,6 +2876,12 @@ async def observability_steps(torch, pa, engine, base, auth, ex, gate, round_bod
                  "tools": tools, "max_tokens": 24, "temperature": 0.0,
                  "ignore_eos": True, "logprobs": True, "tool_choice": {
                      "type": "function", "function": {"name": "get_weather"}}}
+        # An untimed priming request first: both answers then find the same
+        # prefix-cache state (a cache hit prefills only the prompt's tail,
+        # whose bf16 GEMMs have another row count than the cold prompt's).
+        st, _, _ = await ex(request, "POST", base + "/v1/chat/completions", tbody, auth)
+        if st != 200:
+            fail(f"surface: tool call priming request: HTTP {st}")
         messages = []
         for stream in (False, True):
             pa.reset_launch_counts()
@@ -2580,7 +2964,8 @@ def surface_phase(torch, pa, device, seed, card, model="llama-3b"):
     faulthandler.dump_traceback_later(SURFACE_WATCHDOG_S, exit=True)
     cfg = EngineConfig(model=model, dtype="bfloat16", attn_impl="paged",
                        device=device.type, max_model_len=4096, num_decode_steps=32,
-                       seed=seed, enable_warmup=True, num_kv_blocks=BF16_KV_BLOCKS)
+                       seed=seed, enable_warmup=True, num_kv_blocks=BF16_KV_BLOCKS,
+                       max_num_batched_tokens=WARM_PREFILL_BUDGET)
     torch.cuda.reset_peak_memory_stats()
     t_up = time.monotonic()
     engine = ServingEngine(cfg)
@@ -2829,7 +3214,9 @@ def surface_phase(torch, pa, device, seed, card, model="llama-3b"):
             buf[1].index_copy_(0, j, t[None])
             buf[2].index_copy_(0, j, ids[None])
 
-        lp_ms, lp_by_kernel, _ = device_profile(torch, lp_ops, 32, "logprob ops")
+        found = device_profile(torch, lp_ops, 32, "logprob ops")
+        lp_ms, lp_by_kernel = (found[:2] if found is not None else
+                               (events_ms(torch, lp_ops, 32, "logprob ops")[0], {}))
         out["logprob_cost"] = {
             "step_graph_ms_lpk0": ms[keys[0]], "step_graph_ms_lpk8": ms[keys[1]],
             "delta_ms_per_step": (sum(ms[keys[1]]) - sum(ms[keys[0]])) / 2,
@@ -2883,10 +3270,11 @@ def surface_phase(torch, pa, device, seed, card, model="llama-3b"):
                                                                 logprobs=8),
                         dict(temperature=0.0), dict(temperature=0.7, seed=5, logprobs=2)]
         got = {}
-        saved = train.graphs
+        saved, saved_prefill = train.graphs, engine.runner.prefill_train.graphs
         for mode in ("priming", "graph", "eager"):
             cfg.async_pipeline = cfg.overlap_dispatch = mode == "graph"
             train.graphs = saved if mode == "graph" else {}
+            engine.runner.prefill_train.graphs = saved_prefill if mode == "graph" else {}
             e0, g0 = train.eager_dispatches_total, train.graph_dispatches_total
 
             async def one(p, extra):
@@ -2906,6 +3294,7 @@ def surface_phase(torch, pa, device, seed, card, model="llama-3b"):
                                          train.graph_dispatches_total - g0)
         del got["priming"]
         train.graphs = saved
+        engine.runner.prefill_train.graphs = saved_prefill
         if got["graph"] != got["eager"]:
             rows = []
             for (gt, gl), (et, el) in zip(got["graph"], got["eager"]):
@@ -2977,14 +3366,16 @@ KVTIER_SAMPLINGS = (dict(temperature=0.0), dict(temperature=0.8, top_p=0.9, seed
 
 
 def kvtier_config(kv_cache_dtype, seed, model="llama-3b", device="cuda", **over):
-    """EngineConfig fields of every kvtier engine: llama-3b at full width and
-    depth, random bf16 weights from ``seed``, block 16, paged kernel, decode
-    graphs captured at warm-up (4 rows at most, so warm-up stays short).
-    ``model``/``device``: a small model on the CPU rehearses the phase."""
+    """EngineConfig fields of every kvtier engine: ``model`` (llama-3b cut to
+    ``CUT_LAYERS`` in the full run), block 16, paged kernel, decode and
+    prefill graphs captured at warm-up (4 rows at most and a 512-token
+    prefill budget, so warm-up stays short). ``model``/``device``: a small
+    model on the CPU rehearses the phase."""
     return dict(model=model, dtype="bfloat16", attn_impl="paged", device=device,
                 max_model_len=4096, num_decode_steps=32, max_num_seqs=4, seed=seed,
                 num_kv_blocks=KVTIER_BLOCKS, kv_cache_dtype=kv_cache_dtype,
-                enable_warmup=True, **over)
+                max_num_batched_tokens=WARM_PREFILL_BUDGET, enable_warmup=True,
+                **over)
 
 
 def kvtier_server_args(kv_cache_dtype, seed):
@@ -2992,7 +3383,8 @@ def kvtier_server_args(kv_cache_dtype, seed):
     flags (the server's other defaults are EngineConfig's)."""
     return ["--dtype", "bfloat16", "--attn-impl", "paged", "--max-model-len", "4096",
             "--num-decode-steps", "32", "--max-num-seqs", "4", "--seed", str(seed),
-            "--num-kv-blocks", str(KVTIER_BLOCKS), "--kv-cache-dtype", kv_cache_dtype]
+            "--num-kv-blocks", str(KVTIER_BLOCKS), "--kv-cache-dtype", kv_cache_dtype,
+            "--max-num-batched-tokens", str(WARM_PREFILL_BUDGET)]
 
 
 def kvtier_prompts(seed):
@@ -3544,6 +3936,7 @@ def kvtier_tp_config(kv_cache_dtype, seed, tp, model=TP_MODEL, device="cuda", **
                   max_model_len=4096, num_decode_steps=KVTIER_TP_TOKENS,
                   max_num_seqs=4, seed=seed, num_kv_blocks=KVTIER_TP_BLOCKS,
                   kv_cache_dtype=kv_cache_dtype, enable_warmup=True,
+                  max_num_batched_tokens=WARM_PREFILL_BUDGET,
                   tensor_parallel_size=tp, **over)
     if tp > 1:
         fields["tp_timeout_s"] = TP_TIMEOUT_S
@@ -3555,7 +3948,8 @@ def kvtier_tp_server_args(kv_cache_dtype, seed):
     return ["--dtype", "bfloat16", "--attn-impl", "paged", "--max-model-len", "4096",
             "--num-decode-steps", str(KVTIER_TP_TOKENS), "--max-num-seqs", "4",
             "--seed", str(seed), "--num-kv-blocks", str(KVTIER_TP_BLOCKS),
-            "--kv-cache-dtype", kv_cache_dtype]
+            "--kv-cache-dtype", kv_cache_dtype,
+            "--max-num-batched-tokens", str(WARM_PREFILL_BUDGET)]
 
 
 async def kvtier_tp_round(pa, engine, gate, prompts, samplings, what):
@@ -4112,16 +4506,18 @@ SPEC_SERIES = ("pstpu:spec_enabled", "pstpu:spec_draft_tokens_total",
 
 
 def spec_prompts(seed: int):
-    """4 prompts of ~300-480 ByteTokenizer tokens."""
+    """4 prompts of ~90-120 ByteTokenizer tokens: with the phases' prefill
+    budget (``WARM_PREFILL_BUDGET``) one prefill dispatch takes all four
+    whole, so the rows decode in lockstep."""
     rng = random.Random(seed + 8)
     words = ("a draft proposes tokens and the target verifies them in one "
              "forward while the scheduler keeps every stream on the card").split()
     out = []
     for i in range(4):
         text = []
-        while sum(len(w) + 1 for w in text) < 300 + 60 * i:
+        while sum(len(w) + 1 for w in text) < 90 + 8 * i:
             text.append(rng.choice(words))
-        out.append(" ".join(text))
+        out.append(" ".join(text)[:118])
     return out
 
 
@@ -4137,6 +4533,7 @@ def spec_config(target, draft, fields, seed, device="cuda", **over):
         "model": target, "dtype": "bfloat16", "device": device,
         "max_model_len": 2048, "block_size": 16, "num_kv_blocks": 1024,
         "max_num_seqs": 4, "num_decode_steps": 32, "seed": seed,
+        "max_num_batched_tokens": WARM_PREFILL_BUDGET,
         "enable_warmup": True, **fields, **over})
 
 
@@ -4268,12 +4665,12 @@ def spec_api_round(engine, gate, prompts, eager=False, sink=None,
     from production_stack_tpu_torch.engine.sampling import SamplingParams
 
     r = engine.runner
-    saved = r.decode_train.graphs
+    saved = r.decode_train.graphs, r.prefill_train.graphs
 
     async def run():
         await engine.start()
         if eager:
-            r.decode_train.graphs = {}
+            r.decode_train.graphs = r.prefill_train.graphs = {}
         r.logits_sink = sink
         gate["want"] = 4
 
@@ -4292,7 +4689,7 @@ def spec_api_round(engine, gate, prompts, eager=False, sink=None,
     try:
         return asyncio.run(run())
     finally:
-        r.decode_train.graphs = saved
+        r.decode_train.graphs, r.prefill_train.graphs = saved
         r.logits_sink = None
 
 
@@ -4363,7 +4760,7 @@ def spec_token_bar(on, off, margins, bound):
     the margin there; whether the bar holds)."""
     firsts, ok = [], True
     for i in range(4):
-        t = next((t for t in range(SPEC_TOKENS) if on[i][t] != off[i][t]), None)
+        t = next((t for t in range(len(off[i])) if on[i][t] != off[i][t]), None)
         firsts.append(None if t is None else [t, margins[i][t]])
         if t is not None and all(m >= bound for m in margins[i][:t + 1]):
             ok = False
@@ -4384,7 +4781,8 @@ class Laps(dict):
 
 
 def spec_phase(torch, pa, device, seed, card, pairs=SPEC_PAIRS):
-    """Speculative decoding at full width and depth, both pairs, four
+    """Speculative decoding at full width, both pairs (their depth as
+    ``pairs`` gives it: ``cut_model``'s directories in the full run), four
     modes each behind the HTTP server; returns the summary."""
     from production_stack_tpu_torch.engine.engine import ServingEngine
     from production_stack_tpu_torch.models import get_model_fns
@@ -4594,6 +4992,33 @@ def write_hf_checkpoint(torch, params, mc, path, num_shards=1):
     return {"files": files, "bytes": nbytes, "seconds": time.monotonic() - t0}
 
 
+def cut_model(torch, device, seed, model, dirs):
+    """``model`` at full width cut to ``CUT_LAYERS`` layers, as an HF
+    checkpoint directory of random bf16 weights from ``seed`` (the port's
+    writer), written at the first call and kept in ``dirs`` (model name ->
+    directory) for the later ones; every process of a phase loads the same
+    weights from it."""
+    from dataclasses import replace
+
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import resolve_model_config
+
+    if model not in dirs:
+        mc = replace(resolve_model_config(model), num_layers=CUT_LAYERS)
+        path = os.path.join(os.path.dirname(DETAIL_LOG), f"cut-{model}-{CUT_LAYERS}l")
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        params = llama.init_params(mc, gen, torch.bfloat16, device)
+        info = write_hf_checkpoint(torch, params, mc, path)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"cut model: {model} at {CUT_LAYERS} layers written to {path} "
+            f"({info['bytes']} bytes in {info['seconds']:.1f} s)")
+        dirs[model] = path
+    return dirs[model]
+
+
 def params_equal(torch, got, want):
     """Names of the leaves of two param dicts that differ in name, dtype,
     shape or any bit ([] when every leaf is equal)."""
@@ -4649,6 +5074,7 @@ def ckpt_server_config(model, served, seed, device, *extra):
         "--model", model, "--served-model-name", served,
         "--device", device.type, "--max-model-len", "2048", "--num-kv-blocks", "1024",
         "--max-num-seqs", "4", "--num-decode-steps", "32", "--attn-impl", "paged",
+        "--max-num-batched-tokens", str(WARM_PREFILL_BUDGET),
         "--seed", str(seed), *extra]))
 
 
@@ -4820,14 +5246,15 @@ def ckpt_api_round(engine, gate, prompts, models, eager=False):
 
     r, cfg = engine.runner, engine.config
     train = r.decode_train
-    saved = train.graphs, cfg.async_pipeline, cfg.overlap_dispatch
+    saved = (train.graphs, cfg.async_pipeline, cfg.overlap_dispatch,
+             r.prefill_train.graphs)
     e0, g0 = train.eager_dispatches_total, train.graph_dispatches_total
 
     async def run():
         await engine.start()
         engine.block_manager.reset_prefix_cache()
         if eager:
-            train.graphs = {}
+            train.graphs = r.prefill_train.graphs = {}
             cfg.async_pipeline = cfg.overlap_dispatch = False
         gate["want"] = len(prompts)
 
@@ -4849,7 +5276,8 @@ def ckpt_api_round(engine, gate, prompts, models, eager=False):
     try:
         toks = asyncio.run(run())
     finally:
-        train.graphs, cfg.async_pipeline, cfg.overlap_dispatch = saved
+        (train.graphs, cfg.async_pipeline, cfg.overlap_dispatch,
+         r.prefill_train.graphs) = saved
     return toks, (train.eager_dispatches_total - e0,
                   train.graph_dispatches_total - g0)
 
@@ -5136,6 +5564,11 @@ def main() -> None:
     ap.add_argument("--kvtier-tp-peer", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    if (args.kvtier_peer, args.kvtier_tp_peer, args.tp_kernel_rank) != (None,) * 3:
+        # A helper process keeps its own detail log: opening the run's
+        # would truncate it under the parent's writes.
+        global DETAIL_LOG
+        DETAIL_LOG = DETAIL_LOG[:-len(".log")] + f".{os.getpid()}.log"
     if args.kvtier_peer is not None:
         kvtier_peer_main(args.seed, args.kvtier_peer, args.kv_url,
                          args.kvtier_model, args.kvtier_device)
@@ -5208,39 +5641,66 @@ def main() -> None:
     by_path = {"bf16": {}, "int8": {}}
     # (phase, its start): the summary's seconds per phase.
     marks = [("build", t_main)]
-    marks.append(("serving", time.monotonic()))
-    if "serving" in phases:
-        rows = {}
-        for kv in ("bfloat16", "int8"):
-            variant = "int8" if kv == "int8" else "bf16"
-            counts, rows[kv] = serving_phase(
+    # Serving, then the graphs phase on the serving engine (still warm),
+    # per KV dtype: one engine's graphs are captured once for both.
+    marks.append(("serving+graphs", time.monotonic()))
+    phase_s = {"serving": 0.0, "graphs": 0.0}
+    serving_rows, rows, pre = {}, [], {}
+    for kv in ("bfloat16", "int8"):
+        variant = "int8" if kv == "int8" else "bf16"
+        engine = None
+        t0 = time.monotonic()
+        if "serving" in phases:
+            counts, serving_rows[kv], engine = serving_phase(
                 torch, pa, device, args.seed, prompts, card, kv,
-                trace="trace" in phases and kv == "bfloat16")
+                trace="trace" in phases and kv == "bfloat16",
+                keep="graphs" in phases)
             by_path[variant]["serving"] = counts[pa.INT8 if variant == "int8" else pa.BF16]
-            gc.collect()
-            torch.cuda.empty_cache()
+        t1 = time.monotonic()
+        if "graphs" in phases:
+            runs, pre[kv] = graphs_phase(torch, pa, device, args.seed, card, kv,
+                                         engine=engine)
+            rows += runs
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_s["serving"] += t1 - t0
+        phase_s["graphs"] += time.monotonic() - t1
+    if serving_rows:
         summary("serving", {kv: {k: r[k] for k in (
             "kv_blocks", "wall_s", "ttft_s_streamed", "decode_ms_per_step_events",
             "aggregate_tok_s", "dispatch_overlap_ratio", "peak_mem_gib", "decode_steps",
-            "launches", "graphs", "sm_clock_mhz")} for kv, r in rows.items()})
-    marks.append(("graphs", time.monotonic()))
+            "launches", "graphs", "sm_clock_mhz")} for kv, r in serving_rows.items()})
     if "graphs" in phases:
-        rows = graphs_phase(torch, pa, device, args.seed, card)
+        summary("prefill", {kv: {k: r[k] for k in (
+            "kv_num_blocks", "kv_blocks_without_prefill_graphs", "prefill_reserve_bytes",
+            "prefill_graph_families", "prefill_graph_nodes_max", "prefill_warm_seconds",
+            "prefill_capture_seconds", "graph_pool_bytes", "graph_pool_bytes_prefill",
+            "graph_capture_seconds", "startup_warmup_seconds", "ttft_s_short",
+            "ttft_s_long", "landing_gap_s", "landing_prefill_host_s", "padding",
+            "peak_mem_gib", "exact_rows")} for kv, r in pre.items()})
+        t0 = time.monotonic()
         window = graphs_window_check(torch, args.seed)
+        phase_s["graphs"] += time.monotonic() - t0
         summary("graphs", {"runs": [
             [r["kv_cache_dtype"], r["run"], r["mode"], r["decode_ms_per_step_events"],
              r["decode_ms_per_step_wall"], sum(r["ttft_s"]) / len(r["ttft_s"]),
              r["aggregate_tok_s"], r["peak_mem_gib"], r["decode_eager_dispatches"],
              r["step_bound_ms"],
-             r["sm_clock_mhz"]["mean"] if isinstance(r["sm_clock_mhz"], dict) else None]
+             r["sm_clock_mhz"]["mean"] if isinstance(r["sm_clock_mhz"], dict) else None,
+             r["prefill_eager_dispatches"], r["prefill_graph_dispatches"]]
             for r in rows],
             "run_fields": ["kv", "run", "mode", "ms_per_step_events", "ms_per_step_wall",
                            "ttft_s_mean", "tok_s", "peak_gib", "eager_dispatches",
-                           "step_bound_ms", "sm_clock_mhz_mean"],
+                           "step_bound_ms", "sm_clock_mhz_mean",
+                           "prefill_eager_dispatches", "prefill_graph_dispatches"],
             "warmup": [{k: r[k] for k in (
                 "kv_cache_dtype", "run", "warmup_s", "graph_families", "graphs_captured",
                 "graph_capture_seconds", "graph_pool_bytes", "graph_families_logprobs",
-                "graph_pool_bytes_logprobs")} for r in rows if r["mode"] == "graph"],
+                "graph_pool_bytes_logprobs", "prefill_graph_families",
+                "prefill_warm_seconds", "prefill_capture_seconds",
+                "graph_pool_bytes_prefill", "kv_blocks")}
+                for r in rows if r["mode"] == "graph"],
             "overlap_round": [r["overlap_round"] for r in rows if r.get("overlap_round")],
             "tokens_graph_equal_eager": True, **window})
     marks.append(("check", time.monotonic()))
@@ -5283,17 +5743,22 @@ def main() -> None:
         torch.cuda.empty_cache()
     # The KV tier: one cache server for both KV dtypes (their keys live in
     # separate namespaces); each dtype's run is one main path.
+    # The depth-cut checkpoint directories, removed at exit (``fail`` too).
+    cut_dirs = {}
+    atexit.register(lambda: [shutil.rmtree(d, ignore_errors=True)
+                             for d in cut_dirs.values()])
     marks.append(("kvtier", time.monotonic()))
     if "kvtier" in phases:
         from production_stack_tpu_torch.launch import launch_kv_server
 
+        model = cut_model(torch, device, args.seed, "llama-3b", cut_dirs)
         kv_server = launch_kv_server(max_bytes=16 << 30,
                                      log_dir=os.path.dirname(DETAIL_LOG))
         try:
             kvt = {}
             for kv in ("bfloat16", "int8"):
                 n, kvt[kv] = kvtier_phase(torch, pa, device, args.seed, card, kv,
-                                          kv_server.url)
+                                          kv_server.url, model=model)
                 by_path["int8" if kv == "int8" else "bf16"]["kvtier"] = n
         finally:
             kv_server.stop()
@@ -5329,6 +5794,7 @@ def main() -> None:
     if "kvtier-tp" in phases:
         from production_stack_tpu_torch.launch import launch_kv_server
 
+        model = cut_model(torch, device, args.seed, TP_MODEL, cut_dirs)
         kv_server = launch_kv_server(max_bytes=16 << 30,
                                      log_dir=os.path.dirname(DETAIL_LOG))
         try:
@@ -5336,7 +5802,7 @@ def main() -> None:
             kvtp_launches = 0
             for kv in ("bfloat16", "int8"):
                 n2, n1, kvtp[kv] = kvtier_tp_phase(torch, pa, device, args.seed, card,
-                                                   kv, kv_server.url)
+                                                   kv, kv_server.url, model=model)
                 kvtp_launches += n2
                 by_path["int8" if kv == "int8" else "bf16"]["kvtier-tp"] = n1
         finally:
@@ -5371,7 +5837,10 @@ def main() -> None:
     # rounds are main paths of the bf16 kernel variant.
     marks.append(("spec", time.monotonic()))
     if "spec" in phases:
-        n, spec = spec_phase(torch, pa, device, args.seed, card)
+        pairs = [(pair, cut_model(torch, device, args.seed, target, cut_dirs),
+                  cut_model(torch, device, args.seed, draft, cut_dirs))
+                 for pair, target, draft in SPEC_PAIRS]
+        n, spec = spec_phase(torch, pa, device, args.seed, card, pairs=pairs)
         by_path["bf16"]["spec"] = n
         t0 = time.monotonic()
         spec["f32_identity"] = spec_f32_identity(torch, device, args.seed)
@@ -5471,8 +5940,12 @@ def main() -> None:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     })
     marks.append(("end", time.monotonic()))
-    summary("smoke", {"seconds": time.monotonic() - t_main, "phase_seconds": {
-        a[0]: b[1] - a[1] for a, b in zip(marks, marks[1:]) if b[1] - a[1] > 0.5}})
+    phase_seconds = {a[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])
+                     if b[1] - a[1] > 0.5}
+    phase_seconds.update({k: v for k, v in phase_s.items() if v > 0.5})
+    phase_seconds.pop("serving+graphs", None)
+    summary("smoke", {"seconds": time.monotonic() - t_main,
+                      "phase_seconds": phase_seconds})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,7 +29,9 @@ and shared by all families. That is safe because every dispatch, prefill
 and decode, runs on one compute stream: a dispatch's head re-initializes
 all state, and its outputs are copied out right after its tail, before the
 next dispatch touches the arena. The graphs' own temporaries come from one
-shared graph memory pool, for the same reason.
+shared graph memory pool, for the same reason; the prefill graphs
+(``engine/prefill_graphs.py``) are captured into it too, and
+``graph_pool_bytes`` is the whole pool.
 
 On the CPU (and on the card without warmup) the same three functions run
 eagerly; on the card ``capture`` records one graph of each per family, and
@@ -186,34 +188,18 @@ class FamilyGraphs:
     nodes: Dict[str, int] = field(default_factory=dict)
 
 
-class DecodeTrain:
-    """Runs a decode dispatch's train for one ModelRunner: eagerly, or by
-    replaying the graphs ``capture`` recorded for its family."""
+class GraphArena:
+    """One arena tensor per named buffer, whose families' buffers are views
+    at its start (see the module docstring), and the graphs captured over
+    it: the base of the decode train and of the prefill train
+    (``engine/prefill_graphs.py``). A subclass's ``buffers(*key)`` makes a
+    family's views."""
 
     def __init__(self, runner):
         self.r = runner
-        mc = runner.model_config
-        self.b_max = runner.b_max
-        self._shapes = (mc.num_layers, runner.local_kv_heads, mc.head_dim_)
         self._arena: Dict[str, torch.Tensor] = {}
-        self.graphs: Dict[FamilyKey, FamilyGraphs] = {}
-        self.pool = None
-        self.capture_seconds = 0.0
-        self.pool_bytes = 0
-        # The graph pool's growth while the logprob variants were captured.
-        self.pool_bytes_logprobs = 0
-        # Decode dispatches that ran the train eagerly on the card (no
-        # warmup, or a family outside the captured set, e.g. a penalty
-        # batch at b > 1), and those that replayed graphs.
-        self.eager_dispatches_total = 0
-        self.graph_dispatches_total = 0
-        # Speculative cycles run (replayed or eager), over all dispatches.
-        self.spec_cycles_total = 0
-        self._flag_host = None      # pinned int32 [1]: the cycle flag read
-        self._flag_event = None
-        self._warned: set = set()
+        self.graphs: Dict = {}
 
-    # ------------------------------------------------------------ buffers
     def _view(self, name: str, shape, dtype) -> torch.Tensor:
         """A view of ``shape`` at the start of arena ``name``. The arena
         grows until graphs are captured; after that, a family larger than
@@ -229,6 +215,41 @@ class DecodeTrain:
             self._arena[name] = buf = fresh
         return buf[:n].view(shape)
 
+    def reserve(self, keys) -> None:
+        """Grow the arena to the largest of ``keys`` before any capture
+        (a captured graph holds the arena's addresses)."""
+        for key in keys:
+            self.buffers(*key)
+
+
+class DecodeTrain(GraphArena):
+    """Runs a decode dispatch's train for one ModelRunner: eagerly, or by
+    replaying the graphs ``capture`` recorded for its family."""
+
+    def __init__(self, runner):
+        super().__init__(runner)
+        mc = runner.model_config
+        self.b_max = runner.b_max
+        self._shapes = (mc.num_layers, runner.local_kv_heads, mc.head_dim_)
+        self.graphs: Dict[FamilyKey, FamilyGraphs] = {}
+        self.pool = None
+        self.capture_seconds = 0.0
+        # The shared graph pool's bytes (prefill captures add theirs).
+        self.pool_bytes = 0
+        # The graph pool's growth while the logprob variants were captured.
+        self.pool_bytes_logprobs = 0
+        # Decode dispatches that ran the train eagerly on the card (no
+        # warmup, or a family outside the captured set, e.g. a penalty
+        # batch at b > 1), and those that replayed graphs.
+        self.eager_dispatches_total = 0
+        self.graph_dispatches_total = 0
+        # Speculative cycles run (replayed or eager), over all dispatches.
+        self.spec_cycles_total = 0
+        self._flag_host = None      # pinned int32 [1]: the cycle flag read
+        self._flag_event = None
+        self._warned: set = set()
+
+    # ------------------------------------------------------------ buffers
     def buffers(self, b: int, mb: int, k: int, pen: bool,
                 lpk: int = 0, spec: bool = False):
         """The family's buffers: ``DecodeBuffers``, or ``SpecBuffers`` for a
@@ -828,12 +849,6 @@ class DecodeTrain:
         self.step(bf)
         self.tail(bf)
         return bf
-
-    def reserve(self, keys: List[FamilyKey]) -> None:
-        """Grow the arena to the largest of ``keys`` before any capture
-        (a captured graph holds the arena's addresses)."""
-        for key in keys:
-            self.buffers(*key)
 
     def capture(self, keys: List[FamilyKey]) -> None:
         """Record head, step and tail of every family in ``keys`` as CUDA

@@ -1178,6 +1178,11 @@ class ServingEngine:
             "kv_pool_bytes": r.kv_pool_bytes,
             "kv_quant_bytes_saved_total": r.kv_quant_bytes_saved_total,
             "kv_num_blocks": r.num_kv_blocks,
+            # A pool sized from free memory: the bytes reserved for the
+            # prefill graphs' temporaries, and the blocks without them.
+            "prefill_reserve_bytes": r.prefill_reserve_bytes,
+            "kv_blocks_without_prefill_graphs":
+                r.kv_blocks_without_prefill_graphs,
             "num_requests_running": self.scheduler.num_running,
             "num_requests_waiting": self.scheduler.num_waiting,
             "queue_depth": self.scheduler.num_running + self.scheduler.num_waiting,
@@ -1223,5 +1228,6 @@ class ServingEngine:
             "trace_spans_dropped_total": spans_dropped_total(),
             **r.spec_stats(),
             **r.decode_train.stats(),
+            **r.prefill_train.stats(),
             **self._live_perf(),
         }

@@ -22,11 +22,16 @@ Counterpart of ``production_stack_tpu/engine/runner.py`` (main path only):
     rows (``LOGPROB_BUCKETS``); the decode train's logprob variant and the
     prefill's final sample compute them from the raw logits on the device,
     and the fetch cuts each row's entries to its own width.
-  * A prefill dispatch (eager) computes slot mappings, gathers the history
-    window once, runs the forward, samples from the last token's logits and
-    scatters the chunk's KV once. Its chunk length and block-table width
-    pad to the reference's buckets; its rows are not padded (no graph
-    replays prefill yet, and a padding row costs a full forward).
+  * A prefill dispatch runs the chunk of ``engine/prefill_graphs.py``
+    (slot mappings, the history window gathered once, the forward, the
+    draft over the chunk, every row's sample from its last token's logits,
+    the one scatter of the chunk's KV), replayed from the CUDA graph
+    ``warmup`` captured for its (b, t, mb, has_window) family and sampling
+    variant, or eagerly. Its rows, chunk length and block-table width pad
+    to the reference's families: rows to 1 or the ``max_prefill_seqs``
+    bucket (``prefill_rows``); padding rows have chunk length 0 and table
+    0 and write only the null block (and the draft rings' trash slot). At
+    tp > 1 nothing is captured and rows are not padded.
   * A decode dispatch runs the fused K-step train of
     ``engine/decode_graphs.py`` (head / step / tail), replayed from CUDA
     graphs captured by ``warmup`` for its (b, mb, K) family, or eagerly.
@@ -96,16 +101,15 @@ from production_stack_tpu_torch.engine.decode_graphs import (
     DecodeTrain,
     FamilyKey,
 )
+from production_stack_tpu_torch.engine.prefill_graphs import (
+    PrefillKey,
+    PrefillTrain,
+)
 from production_stack_tpu_torch.engine.sampling import (
     LOGPROB_BUCKETS,
     adaptive_gamma,
-    apply_penalties,
-    compute_logprobs,
-    gumbel_noise,
     logprobs_bucket,
-    sample_tokens,
     seed_base,
-    token_seeds,
 )
 from production_stack_tpu_torch.engine.scheduler import (
     INTERACTIVE_DECODE_STEPS,
@@ -118,11 +122,8 @@ from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.models.lora import shard_stacks
 from production_stack_tpu_torch.models.weights import dtype_of, load_hf_params
 from production_stack_tpu_torch.ops import paged_attention as pa
-from production_stack_tpu_torch.ops.attention import gather_window
-from production_stack_tpu_torch.ops.quantization import (
-    SCALE_DTYPE,
-    quantize_kv,
-)
+from production_stack_tpu_torch.ops.attention import QBLOCK
+from production_stack_tpu_torch.ops.quantization import SCALE_DTYPE
 from production_stack_tpu_torch.ops.tree_mask import (
     main_chain_indices,
     tree_attention_bias,
@@ -321,6 +322,9 @@ class ModelRunner:
             # Every rank's weights are resident before any rank reads the
             # free memory its pool may take.
             self.tp.barrier()
+        # Set by _derive_num_blocks when the pool is sized from free memory.
+        self.prefill_reserve_bytes = 0
+        self.kv_blocks_without_prefill_graphs: Optional[int] = None
         n = num_kv_blocks or config.num_kv_blocks or self._derive_num_blocks()
         if self.tp is not None:
             # Block ids are global: every rank holds the same count.
@@ -353,6 +357,7 @@ class ModelRunner:
         self._digest = (torch.zeros((1,), dtype=torch.int64, device=self.device)
                         if self.tp is not None else None)
         self.decode_train = DecodeTrain(self)
+        self.prefill_train = PrefillTrain(self)
         self._slots = [_Slot() for _ in range(_NUM_SLOTS)]
         self._slot_idx = 0
         # Host clock from issue to fetch per dispatch (pipelined dispatches
@@ -707,6 +712,11 @@ class ModelRunner:
         resident); the CPU gets a conservative 2 GiB. The pool costs its
         storage bytes (int8 payload + scales when quantized); gathered
         windows hold dequantized compute-dtype K/V and cost those bytes.
+        On the card at tp = 1 warm-up captures every prefill family as a
+        CUDA graph, whose temporaries the graph pool holds for the engine's
+        life: the largest family's peak (``prefill_peak_bytes``) is
+        reserved. Without graphs (the CPU, tp > 1) prefill takes its
+        temporaries transiently, and only its history window is reserved.
         Bytes are this rank's (its kv heads); tp ranks sharing one card
         each take their share of its free memory (the caller then takes the
         minimum over ranks)."""
@@ -720,12 +730,21 @@ class ModelRunner:
         else:
             free_bytes = 2 << 30
         budget = int(free_bytes * cfg.hbm_utilization)
+        graphs = self.device.type == "cuda" and self.tp is None
         if self.attn_impl == "window":
-            n = budget // (bytes_per_block + window_bytes_per_block)
+            # Windows are counted per block; the graphs' other temporaries
+            # are reserved.
+            extra = max((self.prefill_peak_bytes(*f, window=False)
+                         for f in self.reachable_prefill_families(1 << 30)),
+                        default=0) if graphs else 0
+            reserve_bytes = min(extra, budget // 2)
+            n_eager = budget // (bytes_per_block + window_bytes_per_block)
+            n = (budget - reserve_bytes) // (bytes_per_block
+                                             + window_bytes_per_block)
         else:
             # Paged decode never copies the pool, but chunked prefill still
             # gathers a [rows, max_blocks] history window: reserve it.
-            reserve_bytes = min(
+            window_reserve = min(
                 _bucket(cfg.max_prefill_seqs, 1, max(1, cfg.max_num_seqs))
                 * _bucket(cfg.max_blocks_per_seq, 1,
                           max(1, cfg.max_blocks_per_seq))
@@ -733,17 +752,73 @@ class ModelRunner:
                 budget // 2,
             )
             self._prefill_window_blocks = max(
-                1, reserve_bytes // window_bytes_per_block
+                1, window_reserve // window_bytes_per_block
             )
+            reserve_bytes = window_reserve
+            if graphs:
+                reserve_bytes = min(budget // 2, max(
+                    [window_reserve] + [
+                        self.prefill_peak_bytes(*f)
+                        for f in self.reachable_prefill_families(
+                            self._prefill_window_blocks)]))
+            n_eager = (budget - window_reserve) // bytes_per_block
             n = (budget - reserve_bytes) // bytes_per_block
-        n = max(2, min(n, cfg.max_blocks_per_seq * cfg.max_num_seqs + 1))
+        cap = cfg.max_blocks_per_seq * cfg.max_num_seqs + 1
+        n = max(2, min(n, cap))
+        # The prefill reserve and the blocks the pool would have without it.
+        self.prefill_reserve_bytes = reserve_bytes
+        self.kv_blocks_without_prefill_graphs = max(2, min(n_eager, cap))
         logger.info(
             "KV pool: %d blocks x %d tokens (%.1f MiB, kv_cache_dtype=%s, "
-            "attn=%s, device=%s)",
+            "attn=%s, device=%s; prefill reserve %.1f MiB, %d blocks "
+            "without prefill graphs)",
             n, cfg.block_size, n * bytes_per_block / (1 << 20),
             cfg.kv_cache_dtype, self.attn_impl, self.device,
+            reserve_bytes / (1 << 20), self.kv_blocks_without_prefill_graphs,
         )
         return n
+
+    def prefill_peak_bytes(self, b: int, t: int, mb: int, has_window: bool,
+                           window: bool = True) -> int:
+        """Device bytes a prefill dispatch of family (b, t, mb, has_window)
+        holds at its peak, reckoned from its shapes (this rank's heads): the
+        gathered window (K and V ``[L, Hkv, b, mb * bs, Dh]`` in the compute
+        dtype; left out when not ``window``); the chunk's K/V ``[L, Hkv, b,
+        t, Dh]`` twice (the forward's per-layer outputs and their stack);
+        the residual stream; the larger of one layer's attention (per
+        query block of ``QBLOCK``: three f32 score-sized blocks ``[Hkv, b,
+        G * tq, mb * bs + t]``, f32 copies of the layer's keys and values,
+        the f32 output ``[b, t, H, Dh]`` and its concatenation) and its MLP
+        (five ``[b, t, F]`` activations); the sampler's f32 ``[b, V]``
+        fields; and the draft's own forward on a speculative engine. A
+        captured graph holds this for the engine's life (the pool is
+        shared, so the largest family sets it)."""
+        mc, cfg = self.model_config, self.config
+        tp = cfg.tensor_parallel_size
+        e = self.dtype.itemsize
+        nl, hkv, dh = mc.num_layers, self.local_kv_heads, mc.head_dim_
+        h = mc.num_heads // tp
+        s_win = mb * cfg.block_size if has_window else 0
+        win = 2 * nl * hkv * b * s_win * dh * e if window else 0
+        kv = 4 * nl * hkv * b * t * dh * e
+        tq = min(t, QBLOCK)
+        attn = (3 * hkv * b * (h // max(1, hkv)) * tq * (s_win + t) * 4
+                + 2 * hkv * b * (s_win + t) * dh * 4
+                + 2 * b * t * h * dh * 4
+                + b * t * (h + 2 * hkv) * dh * e)
+        mlp = 5 * b * t * (mc.intermediate_size // tp) * e
+        resid = 4 * b * t * mc.hidden_size * e
+        head = 6 * b * mc.vocab_size * 4
+        draft = 0
+        if self.spec_n:
+            d = self.spec_draft_config
+            draft = (4 * d.num_layers * d.num_kv_heads * b * t * d.head_dim_ * e
+                     + 2 * d.num_layers * d.num_kv_heads * (b + 1)
+                     * self.spec_ring_len * d.head_dim_ * e
+                     + max(3 * b * d.num_heads * tq
+                           * (t + self.spec_ring_len) * 4,
+                           5 * b * t * d.intermediate_size * e))
+        return win + kv + max(attn, mlp) + resid + head + draft
 
     @property
     def decode_window_blocks(self) -> int:
@@ -820,10 +895,15 @@ class ModelRunner:
                     fams.add((nb, mb, dk))
         return sorted(fams)
 
-    def reachable_prefill_families(self) -> List[Tuple[int, int, int, bool]]:
+    def reachable_prefill_families(self, window_blocks: Optional[int] = None
+                                   ) -> List[Tuple[int, int, int, bool]]:
         """Every (b, t, mb, has_window) prefill family reachable under this
-        config (the reference's set; prefill runs eagerly in the port)."""
+        config (the reference's set); ``warmup`` captures each as a CUDA
+        graph. ``window_blocks``: the prefill window budget to enumerate
+        under (default: the runner's)."""
         cfg = self.config
+        if window_blocks is None:
+            window_blocks = self.prefill_window_blocks
         full_mb = _bucket(cfg.max_blocks_per_seq, 1,
                           max(1, cfg.max_blocks_per_seq))
         t_max = _bucket(cfg.max_num_batched_tokens, 16,
@@ -845,16 +925,27 @@ class ModelRunner:
                 ):
                     fams.add((pb, t, full_mb, False))
                     for mb in win_mbs:
-                        if pb * mb <= self.prefill_window_blocks:
+                        if pb * mb <= window_blocks:
                             fams.add((pb, t, mb, True))
                 t *= 2
         return sorted(fams)
 
+    def prefill_rows(self, n: int) -> int:
+        """Rows of a prefill dispatch of ``n`` sequences: the reference's
+        two row families, 1 and the ``max_prefill_seqs`` bucket (a straggler
+        batch of 2 to 7 rows pads to 8 at the default), so the dispatch has
+        a captured family's shape. At tp > 1 nothing is captured: the exact
+        ``n``."""
+        cfg = self.config
+        if n == 1 or self.tp is not None:
+            return n
+        return _bucket(max(n, cfg.max_prefill_seqs), 1, max(1, cfg.max_num_seqs))
+
     def prefill_shape(self, batch: ScheduledBatch) -> Tuple[int, int, bool]:
         """(t, mb, has_window) of a prefill dispatch: its chunk-length and
-        block-table buckets, as the reference's. With the reference's row
-        family (1, or the ``max_prefill_seqs`` bucket) they make its
-        (b, t, mb, has_window) family in ``reachable_prefill_families``."""
+        block-table buckets, as the reference's. With its rows
+        (``prefill_rows``) they make its (b, t, mb, has_window) family in
+        ``reachable_prefill_families``."""
         cfg = self.config
         t = _bucket(max(batch.chunk_lens),
                     prefill_t_floor(cfg.max_num_batched_tokens),
@@ -884,37 +975,81 @@ class ModelRunner:
             return keys(False)
         return keys(True) + (keys(False) if self.spec_adaptive else [])
 
+    def prefill_graph_keys(self) -> List[PrefillKey]:
+        """The prefill variants ``warmup`` captures, by the reference's
+        rule (its ``warmup``): the default sampling variant of every
+        family; the first logprob bucket's of every b = 1 family; the
+        penalty variant at (1, t_floor, full_mb, False) only. Others (the
+        top logprob bucket, logprobs or penalties at b > 1) run eagerly."""
+        cfg = self.config
+        t_floor = prefill_t_floor(cfg.max_num_batched_tokens)
+        lpk = LOGPROB_BUCKETS[0]
+        keys = []
+        for b, t, mb, hw in self.reachable_prefill_families():
+            keys.append((b, t, mb, hw, False, 0))
+            if b == 1:
+                keys.append((b, t, mb, hw, False, lpk))
+                if t == t_floor and not hw:
+                    keys.append((b, t, mb, hw, True, 0))
+        return keys
+
+    def _prefill_arena_keys(self) -> List[PrefillKey]:
+        """The captured keys and the largest eager variant (penalties and
+        the top logprob bucket at the widest row family): the prefill
+        arena's size."""
+        keys = self.prefill_graph_keys()
+        b, t, mb, hw = max(self.reachable_prefill_families())
+        return keys + [(b, t, mb, hw, True, LOGPROB_BUCKETS[-1])]
+
     def warmup(self) -> None:
         """Before serving: on the card, capture head, step and tail of
         every decode graph family (``DecodeTrain.capture``; the kernel
-        library is built first); on the CPU, run each family's all-zero
-        dummy dispatch eagerly. Dummy dispatches have budget 0 and table 0
-        in every row, so they write only the null block: the pool's other
-        blocks survive warmup. Prefill stays eager and is not warmed. At
-        tp > 1 no family is captured (gloo collectives cannot be captured,
-        and NCCL capture is not ported): decode runs eagerly."""
+        library is built first), then one graph of every prefill family of
+        ``prefill_graph_keys`` into the same pool (``PrefillTrain.capture``;
+        each family runs once eagerly before anything is captured,
+        ``PrefillTrain.warm``); on the CPU, run each family's all-zero dummy
+        dispatch eagerly.
+        Dummy dispatches have budget 0, chunk length 0 and table 0 in every
+        row, so they write only the null block: the pool's other blocks
+        survive warmup.
+        A capture that fails, or a prefill family warm-up missed, fails
+        warm-up with the family named. At tp > 1 no family is captured
+        (gloo collectives cannot be captured, and NCCL capture is not
+        ported): decode and prefill run eagerly, prefill at its exact row
+        count."""
         t0 = time.monotonic()
         cuda = self.device.type == "cuda"
         if cuda and self.attn_impl == "paged":
             pa.build_kernels()
         if self.tp is not None:
-            logger.info("warmup: tp=%d: no decode family captured (decode "
-                        "runs eagerly)", self.tp.size)
+            logger.info("warmup: tp=%d: no decode or prefill family captured "
+                        "(both run eagerly)", self.tp.size)
             return
         keys = self.decode_graph_keys()
+        pkeys = self.prefill_graph_keys()
+        prefill = self.prefill_train
+        # The arenas hold every family first (captured graphs hold their
+        # addresses).
+        self.decode_train.reserve(keys)
+        prefill.reserve(self._prefill_arena_keys())
         if cuda:
-            # The arena holds every family first; the logprob variants are
-            # captured apart, so their share of the graph pool is read.
-            self.decode_train.reserve(keys)
             with self.kv_io_lock:
+                prefill.warm(pkeys)
+                # The logprob variants are captured apart, so their share
+                # of the graph pool is read.
                 self.decode_train.capture([k for k in keys if not k[4]])
                 self.decode_train.capture([k for k in keys if k[4]])
+                prefill.capture(pkeys)
         else:
-            self.decode_train.reserve(keys)
             for key in keys:
                 self.decode_train.dummy_dispatch(key)
-        logger.info("warmup: %d decode families in %.2f s (%s)", len(keys),
-                    time.monotonic() - t0, "CUDA graphs" if cuda else "eager")
+            for key in pkeys:
+                prefill.dummy_dispatch(key)
+                prefill.warmed.add(key)
+        prefill.check(pkeys)
+        logger.info("warmup: %d decode and %d prefill families in %.2f s (%s)",
+                    len(keys), len(pkeys), time.monotonic() - t0,
+                    "CUDA graphs" if cuda else "eager")
 
     # --------------------------------------------------------------- helpers
     def _slot(self, n_in: int, n_out: int) -> _Slot:
@@ -1303,20 +1438,21 @@ class ModelRunner:
     # ----------------------------------------------------------------- prefill
     def _issue_prefill(self, batch: ScheduledBatch) -> DispatchHandle:
         """Issue one (multi-sequence) prefill chunk dispatch (the
-        reference's ``_issue_prefill`` + ``_prefill_impl``); its fetch
-        returns the sampled token of rows whose prompt completes in this
-        chunk. Packed rows: 0 chunk_start, 1 chunk_len, 2 seed_base,
-        3 gen0, 4 temperature, 5 top_k, 6 top_p, 8 adapter, 9 presence,
-        10 frequency;
-        then the block tables, the chunk's tokens and (the descriptor's
-        ``finals``) one flag per row."""
+        reference's ``_issue_prefill``); its fetch returns the sampled token
+        of rows whose prompt completes in this chunk. Rows pad to
+        ``prefill_rows``. Packed rows: 0 chunk_start, 1 chunk_len,
+        2 seed_base, 3 gen0, 4 temperature, 5 top_k, 6 top_p, 8 adapter,
+        9 presence, 10 frequency, 12 draft-ring slot; then the block tables,
+        the chunk's tokens and (the descriptor's ``finals``) one flag per
+        row."""
         t_issue = time.monotonic()
         seqs = batch.seqs
-        b = len(seqs)
+        n = len(seqs)
+        b = self.prefill_rows(n)
         t, mb, has_window = self.prefill_shape(batch)
         finals = [
             batch.chunk_starts[i] + batch.chunk_lens[i] >= seqs[i].num_tokens
-            for i in range(b)
+            for i in range(n)
         ]
 
         n_sc = NUM_SCALARS * b
@@ -1330,9 +1466,12 @@ class ModelRunner:
         sc = packed[:n_sc].reshape(NUM_SCALARS, b)
         bt = packed[n_sc:n_sc + b * mb].reshape(b, mb)
         toks = packed[n_sc + b * mb:n_packed].reshape(b, t)
-        packed[n_packed:] = finals
+        packed[n_packed:n_packed + n] = finals
         f32 = sc.view(np.float32)
         u32 = sc.view(np.uint32)
+        if self.spec_n:
+            # Padding rows name the trash slot.
+            sc[12, :] = self.spec_num_slots
         for i, s in enumerate(seqs):
             start, ln = batch.chunk_starts[i], batch.chunk_lens[i]
             sc[0, i] = start
@@ -1366,19 +1505,19 @@ class ModelRunner:
                 self.tp.bcast(slot.inp[:n_packed + b])
                 if counts is not None:
                     self.tp.bcast(counts)
-            d, next_tokens, lp = self._prefill_device(
-                slot, b, t, mb, has_window, finals, counts, lpk)
+            d, bf = self._prefill_device(slot, b, t, mb, has_window, finals,
+                                         counts, lpk)
 
-        if next_tokens is None:
+        if not any(finals):
             if slot.end is not None:
                 slot.end.record()
             self.prefill_seconds_total += time.monotonic() - t_issue
-            return DispatchHandle(lambda: ([[] for _ in range(b)], None))
+            return DispatchHandle(lambda: ([[] for _ in range(n)], None))
         # Final rows' sampled tokens are chainable by the next decode
         # without a host round trip.
-        self._push_rows(d, seqs, [i for i in range(b) if finals[i]])
+        self._push_rows(d, seqs, [i for i in range(n) if finals[i]])
         out_buf, end = slot.out, slot.end
-        offs = self._copy_out(out_buf, [next_tokens, *lp])
+        offs = self._copy_out(out_buf, bf.outputs())
         if end is not None:
             end.record()
 
@@ -1388,7 +1527,7 @@ class ModelRunner:
             host = out_buf.numpy()
             out = host[:b]
             self.prefill_seconds_total += time.monotonic() - t_issue
-            tokens = [[int(out[i])] if finals[i] else [] for i in range(b)]
+            tokens = [[int(out[i])] if finals[i] else [] for i in range(n)]
             lps = (self._gather_logprobs(seqs, [int(f) for f in finals],
                                          host, offs, 1, b, lpk)
                    if lpk else None)
@@ -1399,96 +1538,35 @@ class ModelRunner:
     def _prefill_device(self, slot: _Slot, b: int, t: int, mb: int,
                         has_window: bool, finals: List[bool],
                         counts: Optional[torch.Tensor], lpk: int = 0):
-        """The device part of a prefill dispatch, on every rank: slot
-        mappings, the history window, the forward, sampling (when a row's
-        prompt completes) and the one scatter of the chunk's KV. Returns
-        (dispatch number, the sampled tokens or None, the logprob arrays
-        of ``compute_logprobs`` or ())."""
-        cfg, mc = self.config, self.model_config
-        bs = cfg.block_size
-        n_sc = NUM_SCALARS * b
-        n_packed = n_sc + b * mb + b * t
-        dev = torch.empty((n_packed,), dtype=torch.int32, device=self.device)
-        dev.copy_(slot.inp[:n_packed], non_blocking=True)
-        scalars = dev[:n_sc].view(NUM_SCALARS, b)
-        chunk_start, chunk_lens = scalars[0], scalars[1]
-        temps = scalars[4].view(torch.float32)
-        top_k = scalars[5]
-        top_p = scalars[6].view(torch.float32)
-        block_tables = dev[n_sc:n_sc + b * mb].view(b, mb)
-        token_ids = dev[n_sc + b * mb:].view(b, t)
-
-        t_iota = torch.arange(t, dtype=torch.int32, device=self.device)
-        positions = torch.clamp(chunk_start[:, None] + t_iota[None, :],
-                                max=cfg.max_model_len - 1)           # [b, t]
-        in_chunk = t_iota[None, :] < chunk_lens[:, None]
-        blk_idx = torch.clamp(positions // bs, 0, mb - 1)
-        blk = torch.gather(block_tables, 1, blk_idx.long())
-        slot_mapping = torch.where(in_chunk, blk * bs + positions % bs,
-                                   torch.zeros_like(blk))
-        if has_window:
-            # The history window dequantizes; the chunk attends its own
-            # fresh K/V unquantized.
-            win_k, win_v = gather_window(
-                self.kv_k, self.kv_v, block_tables, bs, self.kv_k_scale,
-                self.kv_v_scale, out_dtype=self.dtype)
-            win_len = chunk_start
-        else:
-            win_k = win_v = win_len = None
-        hidden, k_new, v_new = self.model_forward(
-            self.params, mc, token_ids, positions, chunk_lens,
-            win_k, win_v, win_len, tp=self.tp, lora=self.lora_of(scalars),
-        )
-        del win_k, win_v
-        if self.spec_n:
-            self._prefill_draft(token_ids, positions, chunk_start, chunk_lens,
-                                in_chunk, scalars[12])
-        next_tokens, lp = None, ()
+        """The device part of a prefill dispatch, on every rank: stage the
+        packed inputs (and penalty counts) into the prefill arena, run the
+        family's chunk (``PrefillTrain.run``: its graph, or the functions
+        eagerly) and, when a row's prompt completes, keep the last-token
+        vector for chaining. Returns (dispatch number, the family's
+        buffers)."""
+        n_packed = NUM_SCALARS * b + b * mb + b * t
+        key = (b, t, mb, has_window, counts is not None, lpk)
+        train = self.prefill_train
+        bf = train.buffers(*key)
+        bf.packed.copy_(slot.inp[:n_packed], non_blocking=True)
+        if counts is not None:
+            bf.counts.copy_(counts)
+        # A logits sink reads each dispatch's logits: the functions run
+        # eagerly.
+        logits = train.run(key, bf, eager=self.logits_sink is not None)
+        d = self._dispatches
         if any(finals):
-            logit_idx = torch.clamp(chunk_lens - 1, min=0).long()
-            last_hidden = hidden[torch.arange(b, device=self.device), logit_idx]
-            logits = self.model_logits(self.params, mc, last_hidden,
-                                       self.head_f32, tp=self.tp)
             if self.logits_sink is not None:
                 self.logits_sink.append(logits.clone())
-            if counts is not None:
-                logits_eff = apply_penalties(
-                    logits, counts.to(self.device),
-                    scalars[9].view(torch.float32),
-                    scalars[10].view(torch.float32))
-            else:
-                logits_eff = logits
-            gumbel = gumbel_noise(token_seeds(scalars[2], scalars[3]),
-                                  logits.shape[1], self.device,
-                                  rows=temps > 0.0)
-            next_tokens = sample_tokens(logits_eff, temps, top_k, top_p,
-                                        gumbel).int()
-            if lpk:
-                lp = compute_logprobs(logits, next_tokens, lpk)
-
-        nl, hkv, dh = mc.num_layers, self.local_kv_heads, mc.head_dim_
-        flat_slots = slot_mapping.reshape(-1).long()
-        k_flat = k_new.reshape(nl, hkv, b * t, dh)
-        v_flat = v_new.reshape(nl, hkv, b * t, dh)
+            # A copy: the next prefill overwrites the arena's vector while
+            # a decode may still chain from this one.
+            self._push_last(bf.last.clone())
+            self._digest_add(bf.tokens)
         if self.kv_quantized:
-            # Quantized before the one scatter: compute-dtype K/V never
-            # lands in an int8 pool.
-            k_flat, k_sc = quantize_kv(k_flat)
-            v_flat, v_sc = quantize_kv(v_flat)
-            self.kv_k_scale[:, :, flat_slots] = k_sc
-            self.kv_v_scale[:, :, flat_slots] = v_sc
+            # Row 1 holds each row's chunk length (0 in padding rows).
             self.kv_quant_tokens_written += int(slot.inp[b:2 * b].sum())
-        self.kv_k[:, :, flat_slots] = k_flat
-        self.kv_v[:, :, flat_slots] = v_flat
-        d = self._dispatches
-        if next_tokens is not None:
-            last = torch.zeros((self.b_max,), dtype=torch.int32,
-                               device=self.device)
-            last[:b] = next_tokens
-            self._push_last(last)
-            self._digest_add(next_tokens)
         self._dispatches += 1
-        return d, next_tokens, lp
+        return d, bf
 
     def _prefill_draft(self, token_ids, positions, chunk_start, chunk_lens,
                        in_chunk, slot_idx) -> None:

@@ -201,25 +201,31 @@ def gather_window(
     windows [L, Hkv, B, Mb*bs, Dh] (slot s holds absolute position s),
     indexed by BLOCK so each gathered element is a contiguous bs*Dh run.
     Int8 pools (scales given) gather payload and scales and dequantize the
-    window to ``out_dtype`` (default bf16)."""
+    window to ``out_dtype`` (default bf16), one layer at a time: the f32
+    temporaries of the dequantization then cost one layer's window, not
+    L."""
     b, mb = block_tables.shape
     n_layers, hkv, num_slots, dh = kv_k.shape
     nb = num_slots // block_size
     s_tot = mb * block_size
     idx = block_tables.long()
-    win_k = kv_k.view(n_layers, hkv, nb, block_size, dh)[:, :, idx]
-    win_v = kv_v.view(n_layers, hkv, nb, block_size, dh)[:, :, idx]
-    win_k = win_k.reshape(n_layers, hkv, b, s_tot, dh)
-    win_v = win_v.reshape(n_layers, hkv, b, s_tot, dh)
-    if k_scale is not None:
-        out_dtype = out_dtype or torch.bfloat16
-        ks = k_scale.view(n_layers, hkv, nb, block_size)[:, :, idx]
-        vs = v_scale.view(n_layers, hkv, nb, block_size)[:, :, idx]
-        win_k = dequantize_kv(win_k, ks.reshape(n_layers, hkv, b, s_tot),
-                              out_dtype)
-        win_v = dequantize_kv(win_v, vs.reshape(n_layers, hkv, b, s_tot),
-                              out_dtype)
-    return win_k, win_v
+    if k_scale is None:
+        win_k = kv_k.view(n_layers, hkv, nb, block_size, dh)[:, :, idx]
+        win_v = kv_v.view(n_layers, hkv, nb, block_size, dh)[:, :, idx]
+        return (win_k.reshape(n_layers, hkv, b, s_tot, dh),
+                win_v.reshape(n_layers, hkv, b, s_tot, dh))
+    out_dtype = out_dtype or torch.bfloat16
+    wins = []
+    for pool, scale in ((kv_k, k_scale), (kv_v, v_scale)):
+        win = torch.empty((n_layers, hkv, b, s_tot, dh), dtype=out_dtype,
+                          device=pool.device)
+        for layer in range(n_layers):
+            q = pool[layer].view(hkv, nb, block_size, dh)[:, idx]
+            s = scale[layer].view(hkv, nb, block_size)[:, idx]
+            win[layer] = dequantize_kv(q.reshape(hkv, b, s_tot, dh),
+                                       s.reshape(hkv, b, s_tot), out_dtype)
+        wins.append(win)
+    return wins[0], wins[1]
 
 
 def gather_kv_pages(pool: torch.Tensor, block_tables: torch.Tensor,

@@ -37,6 +37,7 @@ from production_stack_tpu_torch.engine.sampling import (
 from production_stack_tpu_torch.models.config import resolve_model_config
 from production_stack_tpu_torch.models.weights import params_from_jax
 from production_stack_tpu_torch.ops import paged_attention as pa
+from production_stack_tpu_torch.utils import prefill_t_floor
 
 MODEL = "tiny-llama-128dh"
 CPU = torch.device("cpu")
@@ -347,6 +348,19 @@ def test_reachable_families_equal_jax(impl, max_num_seqs):
     assert {k[:3] for k in keys if k[3]} == {f for f in fams if f[0] == 1}
     assert all(k[3:] in ((False, 0, False), (False, 8, False),
                          (True, 0, False)) for k in keys)
+    # Prefill, the reference's warm rule: the default variant of every
+    # family, the first logprob bucket at b = 1, penalties only at (1,
+    # t_floor, full_mb, False).
+    pkeys = runner.prefill_graph_keys()
+    assert len(pkeys) == len(set(pkeys))
+    pfams = set(ref.reachable_prefill_families())
+    t_floor = prefill_t_floor(runner.config.max_num_batched_tokens)
+    want = {f + (False, 0) for f in pfams}
+    want |= {f + (False, 8) for f in pfams if f[0] == 1}
+    want |= {f + (True, 0) for f in pfams
+             if f[0] == 1 and f[1] == t_floor and not f[3]}
+    assert set(pkeys) == want
+    assert any(k[0] > 1 for k in pkeys) == (max_num_seqs > 1)
 
 
 @pytest.mark.parametrize("impl", ["paged", "window"])
