@@ -32,7 +32,8 @@ serving):
   4. serving, twice: llama-3b at full width (random bf16 weights from
      --seed) behind the port's HTTP server with its defaults (decode CUDA
      graphs captured at warm-up, the pipelined two-slot loop) and a bf16
-     KV pool, then with an int8 KV pool of the same bytes; each: one
+     KV pool at full depth, then with an int8 KV pool, depth cut to
+     ``CUT_LAYERS`` (``cut_model``'s directory); each: one
      untimed warm-up request, then 4 concurrent requests (greedy and
      seeded, completions and streamed chat), /v1/models and /health; every
      decode dispatch must replay graphs, and the run's kernel variant must
@@ -63,33 +64,57 @@ serving):
      sampler margin is at most 2 x ``tp_logit_bound``. Then the window
      path with decode_loop="while" on a small model (bf16 and int8
      pools), eager against graphs, bit for bit;
-  6. check: one decode step at llama-3b width (depth cut to 2 layers)
+  6. elastic: fast start at the serving config (llama-3b, full width and
+     depth, bf16 KV). The serving phase's engine is the cold start (a): its
+     weights filled on a background thread beside warm-up, and its
+     ``--compilation-cache-dir`` (``ELASTIC_CACHE``, emptied when the script
+     starts) gets the warm-up manifest; /metrics' startup gauges give its
+     seconds by phase. Before the graphs phase takes (a), it serves the
+     elastic rounds: the serving phase's 4 streams x 64 tokens (its prompts
+     and seeds), one logprobs request, one with penalties, two logprobs
+     requests decoding at b = 2, and one logprobs request of a ~2,000-token
+     prompt, each round held until its requests wait. After (a) is gone an
+     identical engine (b) starts, finds the manifest, holds a ballast of
+     the memory the block cap left spare (so its warm-up and first uses run
+     in the room a pool sized from free memory leaves; peak and free bytes
+     printed) and captures the default variants only: its deferred count is the
+     reference's rule's, its KV blocks (a)'s; the graph pool and its prefill
+     share are printed. Its rounds must give (a)'s tokens and logprobs bit
+     for bit, the last four each capturing deferred variants at first use
+     (seconds and the worker thread's hold printed), no eager decode
+     dispatch, the prefill's eager dispatches equal to (a)'s, and the bf16
+     kernel's count layers x decode steps (plus one dummy step per decode
+     variant captured at first use). The overlap against a serial
+     load runs in the ckpt phase on its checkpoint directory;
+  7. check: one decode step at llama-3b width (depth cut to 2 layers)
      through the kernel path against the plain window path, over a bf16
      pool and over an int8 pool; the seeded-sampling Gumbel field on the
      card bit for bit against the CPU's;
-  7. tp: llama-3-8b (Meta-Llama-3-8B shapes, full width and depth, random
-     bf16 weights from --seed) at tensor_parallel_size 2, both ranks on
+  8. tp: llama-3-8b (Meta-Llama-3-8B shapes, full width, depth cut to
+     ``CUT_LAYERS``, random bf16 weights from --seed: ``cut_model``'s
+     directory, shared with kvtier-tp) at tensor_parallel_size 2, both ranks on
      this card (rank 1 a worker process; gloo, host-staged), bf16 then
      int8 KV: the tp = 1 runner's greedy tokens forced through the tp = 2
      runners (max |logit diff| within ``tp_logit_bound``, argmax equal
      where tp = 1's top-2 margin exceeds twice it), eager decode ms per
      step of both, the tp = 2 engine behind the HTTP server (4 requests;
-     the ranks' token digests agree; each rank's kernel counter reads 32 x
-     decode steps of the run's variant and 0 of the other; stats), one
+     the ranks' token digests agree; each rank's kernel counter reads
+     layers x decode steps of the run's variant and 0 of the other; stats), one
      profiled step (host ms in the collectives); then
      ``paged_flash_decode_stats_tp`` on each of 2 ranks against its plain
      twin, and its device times at a rank's shape (H 16, Hkv 4);
-  8. surface: llama-3b (full width and depth, random bf16 weights, bf16 KV
+  9. surface: llama-3b (full width, depth cut to ``CUT_LAYERS``: the
+     directory kvtier loads; random bf16 weights, bf16 KV
      of 2049 blocks, decode graphs with their logprob variants captured)
      behind the port's server with an API key and a queue bound: /version,
      401 without the key, the router's /metrics series before traffic;
      after an untimed priming round, the same 4 streams (2 plain, 1
      completions logprobs 5, 1 chat top_logprobs 5) with logprobs off and
      on: tokens equal bit for bit, no eager decode dispatch, the kernel's
-     count 28 x decode steps, well-formed logprobs (greedy: chosen = top-1),
+     count layers x decode steps, well-formed logprobs (greedy: chosen = top-1),
      /metrics mid-round and after; a top_logprobs 20 request served eagerly;
      n = 2 and a 2-prompt completion; resume from a stream's pstpu payload
-     (equal tokens reported at llama-3b bf16); the logprob ops' device time;
+     (equal tokens reported at llama-3b bf16, cut); the logprob ops' device time;
      drain with a stream in flight (every block returned); before the
      drain, the observability steps: the same streams with the flight
      recorder and an OTLP tracer (a localhost collector) on, off, off, on
@@ -104,7 +129,7 @@ serving):
      then, on the engine API, logprobs from graphs + pipeline against the
      strict eager loop on the same batches, bit for bit; and resume on
      tiny-llama-128dh in float32, identical;
-  9. kvtier: the port's cache server (``kv_offload/server.py``) as a
+ 10. kvtier: the port's cache server (``kv_offload/server.py``) as a
      process, then per KV dtype (bf16, then int8) llama-3b (full width,
      depth cut to ``CUT_LAYERS``: a checkpoint directory of random bf16
      weights from --seed, ``cut_model``; block 16, 1024 blocks, decode and
@@ -145,7 +170,7 @@ serving):
      pair from ``launch.py`` under the same token bar. Each tp = 2 rank's
      counter reads layers x its decode steps of the run's variant and 0 of the
      other; every failure counter 0;
- 10. spec: speculative decoding, two pairs at full width, depth cut to
+ 11. spec: speculative decoding, two pairs at full width, depth cut to
      ``CUT_LAYERS`` (random bf16 weights from --seed, bf16 KV, block 16,
      N = 4): llama-3b drafting
      for itself (the ceiling) and a llama-3b draft for llama-3-8b (the
@@ -164,7 +189,7 @@ serving):
      (each step's seconds in the summary); then float32 tiny-llama with the
      tiny-llama and tiny-opt drafts, every mode's tokens equal to
      spec-off's bit for bit;
- 11. ckpt: llama-3b's random bf16 params from --seed written as an HF
+ 12. ckpt: llama-3b's random bf16 params from --seed written as an HF
      checkpoint directory (config.json, HF names and [out, in] tensors, two
      safetensors shards and their index, by the port's own writer) under
      the gitignored output directory, removed at the phase's end; the
@@ -175,7 +200,11 @@ serving):
      tokenizer, no tokenizer file being written), every leaf equal to the
      written one bit for bit and the config to llama-3b's in every field
      but the name, and serves the same 4 streams: tokens equal the named
-     config's; then two PEFT adapters (a: rank 8 on q_proj and v_proj; b:
+     config's; the same directory booted again from the server's flags
+     with ``--no-overlap-weight-load``, without it, and with it again (all
+     finding the manifest the first boot wrote): load seconds, the warm-up seconds beside the
+     load and their share of it, start-to-first-token, tokens equal; then
+     two PEFT adapters (a: rank 8 on q_proj and v_proj; b:
      rank 16 on all seven projections) with ``--lora-modules``: /v1/models,
      one batch mixing the base model, a, b and a (the base row equals the
      no-adapter engine's, the adapter rows differ from the base model's),
@@ -224,12 +253,16 @@ KERNEL_REPLACES = {
 TP_KERNEL_REPLACES = ("production_stack_tpu/ops/pallas/paged_attention.py:376 "
                       "paged_flash_decode_stats_tp")
 BF16_KV_BLOCKS = 8 * 4096 // 16 + 1   # 8 sequences x 4096 tokens + null block
-# The kvtier, kvtier-tp and spec phases run their models at full width cut to
-# this many layers: checkpoint directories of random bf16 weights from --seed
+# Every phase but the main path's bf16 runs (serving, graphs, elastic at
+# llama-3b's full depth) runs its model at full width cut to this many
+# layers: the int8 serving and graphs runs, tp, surface, kvtier, kvtier-tp
+# and spec load checkpoint directories of random bf16 weights from --seed
 # (``cut_model``), written under the output directory and removed at exit.
-# Their many engines each capture decode and prefill graphs at warm-up; at
-# full depth the script would not stay inside its time limit.
-CUT_LAYERS = 8
+# Warm-up graph capture and eager dispatch are host-bound and grow with
+# depth, and their cost varies from one machine to the next: at 8 layers
+# (and tp, surface and int8 serving at full depth) a run took 1,067-1,105 s
+# of the 1,200 s limit on one machine and over 1,200 s on another.
+CUT_LAYERS = 4
 # The prefill token budget (``max_num_batched_tokens``) of the engines of the
 # surface, kvtier, kvtier-tp, spec and ckpt phases: their warm-up captures
 # the prefill families of chunks up to 512 tokens (33 graphs at llama-3b
@@ -256,6 +289,14 @@ STATS_ATOL = 1e-5
 DETAIL_LOG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "chiprun_out", "chip_smoke_detail.log")
 _detail = None
+# --compilation-cache-dir of the serving phase's engines, the elastic
+# phase's, and kvtier's and ckpt's (the warm-up manifests of their
+# configurations): emptied when the script starts, so a rerun on the same
+# machine boots cold first.
+ELASTIC_CACHE = os.path.join(os.path.dirname(DETAIL_LOG), "elastic-cache")
+ELASTIC_TOKENS = 64             # tokens per stream, the streams round
+ELASTIC_FIRST_USE_TOKENS = 32   # tokens per stream, the first-use rounds
+ELASTIC_LONG_PROMPT = 2000      # ByteTokenizer tokens, the long logprobs round
 
 
 def fail(msg: str) -> None:
@@ -971,31 +1012,39 @@ def trace_requests(torch, loop_run, n_tokens):
 
 def serving_config(seed, kv_cache_dtype, device="cuda", model="llama-3b"):
     """The serving phase's engine config: the server's defaults (decode and
-    prefill graphs captured at warm-up, the pipelined two-slot loop, the KV
-    pool sized from free memory, less the prefill graphs' reserve)."""
+    prefill graphs captured at warm-up, the weights filled on a background
+    thread beside it, the pipelined two-slot loop, the KV pool sized from
+    free memory, less the prefill graphs' reserve), with the elastic
+    phase's manifest directory: the serving phase's start is cold and
+    writes the manifest, the elastic phase's second start of the same
+    config finds it."""
     from production_stack_tpu_torch.engine.config import EngineConfig
 
     return EngineConfig(model=model, dtype="bfloat16", attn_impl="paged",
                         device=device, max_model_len=4096, num_decode_steps=32,
-                        seed=seed, enable_warmup=True, kv_cache_dtype=kv_cache_dtype)
+                        seed=seed, enable_warmup=True, kv_cache_dtype=kv_cache_dtype,
+                        overlap_weight_load=True,
+                        compilation_cache_dir=ELASTIC_CACHE)
 
 
 def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
-                  trace=False, keep=False):
-    """Serve llama-3b over HTTP with a KV pool of ``kv_cache_dtype``.
+                  trace=False, keep=False, model="llama-3b"):
+    """Serve llama-3b (``model``: the name at full depth, or a ``cut_model``
+    directory) over HTTP with a KV pool of ``kv_cache_dtype``.
     Returns the launch counts of this run's main path, the summary, and
     the engine (stopped, still warm) when ``keep``, else None."""
     from production_stack_tpu_torch.engine.engine import ServingEngine
     from production_stack_tpu_torch.server.api_server import OpenAIServer
 
     max_tokens = 64
-    cfg = serving_config(seed, kv_cache_dtype)
+    cfg = serving_config(seed, kv_cache_dtype, model=model)
     variant = pa.INT8 if cfg.kv_cache_quantized else pa.BF16
     t0 = time.monotonic()
     engine = ServingEngine(cfg)
     torch.cuda.synchronize()
     log(f"serving [{kv_cache_dtype} KV]: llama-3b engine up in "
-        f"{time.monotonic() - t0:.3f} s (random bf16 weights, "
+        f"{time.monotonic() - t0:.3f} s ({engine.model_config.num_layers} "
+        f"layers, random bf16 weights, "
         f"{engine.runner.num_kv_blocks} KV blocks, "
         f"kv_pool_bytes {engine.runner.kv_pool_bytes}, "
         f"attn={engine.runner.attn_impl}, "
@@ -1063,6 +1112,15 @@ def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
         results["_launches"] = pa.launch_counts()
         results["_stats"] = engine.stats()
         results["_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        # The start's seconds by phase, as the router's scraper reads them.
+        st_m, _, text = await loop.run_in_executor(
+            None, request, "GET", base + "/metrics")
+        if st_m != 200:
+            fail(f"serving [{kv_cache_dtype} KV]: /metrics {st_m}")
+        results["_startup"] = {
+            name[len("pstpu:"):]: vals[0][1]
+            for name, vals in parse_metrics(text).items()
+            if name.startswith("pstpu:startup_")}
         if trace:
             def round_of(n_tokens):
                 # 4 fresh short prompts (one small prefill, no history
@@ -1161,6 +1219,9 @@ def serving_phase(torch, pa, device, seed, prompts, card, kv_cache_dtype,
         "peak_mem_gib": results["_peak_gib"],
         "launches": counts, "decode_steps": steps,
         "sm_clock_mhz": results["_clock"],
+        # /metrics' startup gauges, and the phases stats() splits them into
+        "startup": results["_startup"],
+        "startup_phase_seconds": stats["startup_phase_seconds"],
     }
     log(f"serving result {json.dumps(summary)}")
     return counts, summary, engine
@@ -2160,16 +2221,17 @@ def tp_served(torch, engine, prompts, forced_run, max_tokens=32):
 
 
 def tp_phase(torch, pa, device, seed, card, kv_cache_dtype, model=TP_MODEL):
-    """llama-3-8b at full width and depth (random bf16 weights from
-    ``seed``) at tp = 2, both ranks on this card: the tp = 1 runner's
+    """llama-3-8b at full width (``model``: the name at full depth, or a
+    ``cut_model`` directory; random bf16 weights from ``seed``) at tp = 2,
+    both ranks on this card: the tp = 1 runner's
     teacher-forced greedy run (one prefill of 4 prompts + 16 one-step
     decodes), the same tokens forced through the tp = 2 engine's runner
     (max |logit diff| within ``tp_logit_bound``; equal argmax wherever tp =
     1's top-2 margin exceeds twice the bound), decode ms per step of both
     (eager), then the tp = 2 engine behind the HTTP server (every request
     200 with its tokens; the ranks' token digests agree; each rank's kernel
-    counter reads exactly 32 x decode steps of the run's variant and 0 of
-    the other; stats show tp 2, the rule's backend, per-rank pool bytes
+    counter reads exactly layers x decode steps of the run's variant and 0
+    of the other; stats show tp 2, the rule's backend, per-rank pool bytes
     half the tp = 1 pool's) and one profiled step. Returns the run's
     launches summed over the ranks."""
     from production_stack_tpu_torch.engine.config import EngineConfig
@@ -2940,12 +3002,13 @@ async def observability_steps(torch, pa, engine, base, auth, ex, gate, round_bod
 
 
 def surface_phase(torch, pa, device, seed, card, model="llama-3b"):
-    """llama-3b (full width and depth, random bf16 weights, bf16 KV of 2049
+    """llama-3b at full width (``model``: the name at full depth, or a
+    ``cut_model`` directory; random bf16 weights, bf16 KV of 2049
     blocks, decode graphs captured at warm-up) behind ``OpenAIServer`` with
     an API key and a queue bound: /version and /metrics; the same 4
     streams with logprobs off, then on (1 completions logprobs 5, 1 chat
     top_logprobs 5): their tokens equal, no eager decode dispatch, the
-    kernel's count 28 x steps, the logprob entries well formed; a
+    kernel's count layers x steps, the logprob entries well formed; a
     top_logprobs 20 request served eagerly; n = 2 and a 2-prompt
     completion; resume from a stream's pstpu payload (llama-3b bf16:
     equal tokens reported; tiny-llama-128dh float32: identical); drain; then
@@ -3369,13 +3432,15 @@ def kvtier_config(kv_cache_dtype, seed, model="llama-3b", device="cuda", **over)
     """EngineConfig fields of every kvtier engine: ``model`` (llama-3b cut to
     ``CUT_LAYERS`` in the full run), block 16, paged kernel, decode and
     prefill graphs captured at warm-up (4 rows at most and a 512-token
-    prefill budget, so warm-up stays short). ``model``/``device``: a small
-    model on the CPU rehearses the phase."""
+    prefill budget, so warm-up stays short; an engine that starts after the
+    first one has warmed finds its manifest in ``ELASTIC_CACHE`` and
+    captures the default sampling variants only: kvtier serves no other).
+    ``model``/``device``: a small model on the CPU rehearses the phase."""
     return dict(model=model, dtype="bfloat16", attn_impl="paged", device=device,
                 max_model_len=4096, num_decode_steps=32, max_num_seqs=4, seed=seed,
                 num_kv_blocks=KVTIER_BLOCKS, kv_cache_dtype=kv_cache_dtype,
                 max_num_batched_tokens=WARM_PREFILL_BUDGET, enable_warmup=True,
-                **over)
+                compilation_cache_dir=ELASTIC_CACHE, **over)
 
 
 def kvtier_server_args(kv_cache_dtype, seed):
@@ -3384,7 +3449,8 @@ def kvtier_server_args(kv_cache_dtype, seed):
     return ["--dtype", "bfloat16", "--attn-impl", "paged", "--max-model-len", "4096",
             "--num-decode-steps", "32", "--max-num-seqs", "4", "--seed", str(seed),
             "--num-kv-blocks", str(KVTIER_BLOCKS), "--kv-cache-dtype", kv_cache_dtype,
-            "--max-num-batched-tokens", str(WARM_PREFILL_BUDGET)]
+            "--max-num-batched-tokens", str(WARM_PREFILL_BUDGET),
+            "--compilation-cache-dir", ELASTIC_CACHE]
 
 
 def kvtier_prompts(seed):
@@ -3450,7 +3516,7 @@ async def kvtier_round(torch, pa, engine, gate, prompts, samplings, what,
                        writes=None):
     """Serve ``prompts`` concurrently on the engine API as one batch; check
     every stream's length, no eager decode dispatch, the kernel's own count
-    = 28 x decode steps, and every KV-tier failure counter 0. Returns
+    = layers x decode steps, and every KV-tier failure counter 0. Returns
     (tokens per stream, TTFT per stream, a row of numbers)."""
     r = engine.runner
     train = r.decode_train
@@ -3653,7 +3719,7 @@ def kvtier_disagg(torch, pa, engine, loop, pd, kv_cache_dtype, seed):
     from the decode-role engine with the transfer key. Each stream's tokens
     must equal the unified ``engine``'s on the same request (offload off,
     so it prefills cold as the prefill engine does); the decode engine
-    replays its graphs (its kernel counter 28 x its decode steps), the
+    replays its graphs (its kernel counter layers x its decode steps), the
     prefill engine forms no decode batch. Returns (launches, summary)."""
     pre, dec = pd.urls
     prompts = make_prompts(seed + 900 + (kv_cache_dtype == "int8"), 4)
@@ -4909,6 +4975,12 @@ def spec_f32_identity(torch, device, seed):
 
         got, st = asyncio.run(run())
         engine.shutdown()
+        # Its runner and trains hold each other: collect them (and their
+        # graphs) before the next engine captures, as the spec phase does.
+        del engine
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
         return got, st
 
     off, _ = serve({}, None)
@@ -5437,9 +5509,14 @@ def ckpt_phase(torch, pa, device, seed, card, model="llama-3b"):
         gc.collect()
         torch.cuda.empty_cache()
 
-        # 3. load: the server's --model <dir>
+        # 3. load: the server's --model <dir> (the weights filled on the
+        # loader thread, joined here; this first start of the directory's
+        # config writes its manifest)
         with RssPeak() as rss:
-            eng = ServingEngine(ckpt_server_config(ckdir, served, seed, device))
+            eng = ServingEngine(ckpt_server_config(
+                ckdir, served, seed, device, "--compilation-cache-dir",
+                ELASTIC_CACHE))
+            eng.runner.wait_for_weights()
         r = eng.runner
         files = [os.path.join(ckdir, n) for n in info["files"]]
         load_s = r.startup_weight_load_seconds
@@ -5470,6 +5547,9 @@ def ckpt_phase(torch, pa, device, seed, card, model="llama-3b"):
         if got != want:
             fail("ckpt: tokens served from the checkpoint differ from the named "
                  f"config's on streams {[i for i in range(4) if got[i] != want[i]]}")
+        # the elastic phase's overlap against serial, on the directory
+        out["overlap"] = ckpt_overlap(torch, pa, device, seed, ckdir, served,
+                                      prompts)
 
         # 4. LoRA: two PEFT adapters beside the checkpoint
         dgen = torch.Generator(device).manual_seed(seed + 100)
@@ -5478,8 +5558,11 @@ def ckpt_phase(torch, pa, device, seed, card, model="llama-3b"):
         db = write_peft_adapter(torch, os.path.join(root, "b"), mc, 16,
                                 ("wq", "wk", "wv", "wo", "w_gate", "w_up",
                                  "w_down"), 32, dgen)
+        # The directory's config again (adapters do not key the manifest):
+        # the default variants only, as every round here is of them.
         leng = ServingEngine(ckpt_server_config(
-            ckdir, served, seed, device, "--lora-modules", f"a={da}", f"b={db}"))
+            ckdir, served, seed, device, "--lora-modules", f"a={da}", f"b={db}",
+            "--compilation-cache-dir", ELASTIC_CACHE))
         lgate = gate_schedule(leng)
         models = [served, "a", "b", "a"]
         ltoks, row = ckpt_http_round(torch, pa, leng, lgate, prompts, models,
@@ -5540,16 +5623,356 @@ def ckpt_phase(torch, pa, device, seed, card, model="llama-3b"):
     return launches, out
 
 
+# ---------------------------------------------------------------- elastic
+def elastic_requests(prompts):
+    """The elastic phase's rounds: (name, prompts, sampling fields, tokens
+    per stream). The serving phase's 4 requests (its prompts and seeds),
+    then one logprobs request (b = 1), one with presence and frequency
+    penalties (b = 1; a prompt within the 128-token prefill floor, whose
+    penalty family warm-up captures on a cold start) and two logprobs
+    requests that decode together (b = 2), then one logprobs request whose
+    prompt is ~2,000 tokens (the (1, 2048) prefill family's logprob
+    variant): on a manifest-verified start each of the last four is a first
+    use of deferred variants."""
+    long_prompt = (prompts[3] + " " + prompts[0])[:ELASTIC_LONG_PROMPT]
+    return [
+        ("streams", list(prompts),
+         [dict(temperature=0.0), dict(temperature=0.8, top_p=0.9, seed=1234),
+          dict(temperature=0.0), dict(temperature=0.7, top_k=50, seed=7)],
+         ELASTIC_TOKENS),
+        ("logprobs b=1", [prompts[0]], [dict(temperature=0.0, logprobs=5)],
+         ELASTIC_FIRST_USE_TOKENS),
+        ("penalties b=1", [prompts[1][:100]],
+         [dict(temperature=0.8, seed=3, presence_penalty=0.5,
+               frequency_penalty=0.3)], ELASTIC_FIRST_USE_TOKENS),
+        ("logprobs b=2", [prompts[2][:100], prompts[3][:100]],
+         [dict(temperature=0.0, logprobs=5),
+          dict(temperature=0.7, top_k=50, seed=7, logprobs=5)],
+         ELASTIC_FIRST_USE_TOKENS),
+        ("logprobs long b=1", [long_prompt], [dict(temperature=0.0, logprobs=5)],
+         ELASTIC_FIRST_USE_TOKENS),
+    ]
+
+
+def deferred_by_rule(runner):
+    """The variants a manifest-verified start defers, by the reference's
+    rule (its ``warmup``: len(variants) - 1 per family): decode families
+    warm (logprobs) and, at b = 1, (penalties); single-row prefill families
+    warm (logprobs) and, at (1, t_floor, no window), (penalties)."""
+    from production_stack_tpu_torch.utils import prefill_t_floor
+
+    t_floor = prefill_t_floor(runner.config.max_num_batched_tokens)
+    dec = sum(2 if b == 1 else 1 for b, _, _ in runner.reachable_decode_families())
+    pre = sum(2 if t == t_floor and not hw else 1
+              for b, t, _, hw in runner.reachable_prefill_families() if b == 1)
+    return dec + pre
+
+
+def start_row(engine, up_s):
+    """One engine's start: seconds by phase, variants warmed and deferred,
+    the graph pool and its prefill share, the KV blocks."""
+    st = engine.stats()
+    r = engine.runner
+    return {
+        "up_s": up_s, "total_s": st["startup_total_seconds"],
+        "warmup_s": st["startup_warmup_seconds"],
+        "weight_load_s": st["startup_weight_load_seconds"],
+        "overlapped_s": st["startup_compile_seconds"],
+        "phases": st["startup_phase_seconds"],
+        "variants_warmed": st["startup_cache_miss_families"],
+        "deferred": st["startup_deferred_families"],
+        "decode_graph_families": st["graph_families"],
+        "prefill_graph_families": st["prefill_graph_families"],
+        "graph_pool_bytes": st["graph_pool_bytes"],
+        "graph_pool_bytes_prefill": st["graph_pool_bytes_prefill"],
+        "graph_pool_bytes_logprobs": st["graph_pool_bytes_logprobs"],
+        "kv_num_blocks": r.num_kv_blocks,
+        "weights_ready": st["weights_ready"],
+    }
+
+
+def elastic_rounds(torch, pa, engine, prompts, what, t_built=None):
+    """Start ``engine`` (its warm-up when it is fresh, built at ``t_built``),
+    serve the elastic
+    rounds (``elastic_requests``) on the engine API, each with the prefix
+    cache emptied and held until its requests wait so they form one
+    prefill batch, and stop it. Checks every round's stream lengths, no
+    eager decode dispatch and the kernel's own count: layers x (decode
+    steps + the one dummy step of each decode variant captured at its
+    first use) of the bf16 variant, none of int8. Returns (the start row,
+    one row per round)."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    r = engine.runner
+    nl = engine.model_config.num_layers
+    gate = gate_schedule(engine)
+    rows = []
+    out = {}
+
+    async def run():
+        await engine.start()
+        # Construction to serving for a fresh engine; the serving phase's
+        # engine was started there (its start: startup_total_seconds).
+        out["start"] = start_row(engine, None if t_built is None
+                                 else time.monotonic() - t_built)
+        for name, ps, sps, n in elastic_requests(prompts):
+            engine.block_manager.reset_prefix_cache()
+            c0 = (r.decode_train.eager_dispatches_total,
+                  r.prefill_train.eager_dispatches_total,
+                  r.deferred_captures_total, r.deferred_capture_seconds_total,
+                  r.decode_steps_total, len(r.decode_train.deferred))
+            pa.reset_launch_counts()
+            gate["want"] = len(ps)
+            t = time.monotonic()
+
+            async def one(p, sp):
+                first = last = None
+                async for o in engine.generate(prompt=p, sampling=SamplingParams(
+                        max_tokens=n, ignore_eos=True, **sp)):
+                    if first is None:
+                        first = time.monotonic() - t
+                    last = o
+                return list(last.token_ids), last.logprobs, first
+
+            with SmMhz() as clock:
+                res = await asyncio.gather(*[one(p, sp) for p, sp in zip(ps, sps)])
+            wall = time.monotonic() - t
+            counts = pa.launch_counts()
+            steps = r.decode_steps_total - c0[4]
+            # A decode variant captured at its first use runs one dummy step
+            # (every layer's kernel once) on the capture stream first.
+            first_decode = c0[5] - len(r.decode_train.deferred)
+            row = {"round": name, "wall_s": wall, "ttft_s": [x[2] for x in res],
+                   "tokens": [x[0] for x in res], "logprobs": [x[1] for x in res],
+                   "decode_eager": r.decode_train.eager_dispatches_total - c0[0],
+                   "prefill_eager": r.prefill_train.eager_dispatches_total - c0[1],
+                   "first_use_captures": r.deferred_captures_total - c0[2],
+                   "first_use_hold_s": r.deferred_capture_seconds_total - c0[3],
+                   "first_use_decode_captures": first_decode,
+                   "decode_steps": steps, "launches": counts[pa.BF16],
+                   "sm_clock_mhz": clock.summary()}
+            if any(len(tk) != n for tk in row["tokens"]):
+                fail(f"elastic {what} {name}: stream lengths "
+                     f"{[len(tk) for tk in row['tokens']]}, want {n}")
+            if r.device.type != "cuda":
+                log(f"elastic {what} {name}: off the card: the graph and launch "
+                    "checks skipped")
+            elif row["decode_eager"]:
+                fail(f"elastic {what} {name}: {row['decode_eager']} eager decode "
+                     "dispatches")
+            elif counts != {pa.BF16: nl * (steps + first_decode), pa.INT8: 0} \
+                    or not steps:
+                fail(f"elastic {what} {name}: kernel launches {counts} for "
+                     f"{steps} decode steps of {nl} layers and {first_decode} "
+                     "decode variants captured at first use")
+            log(f"elastic {what} {name}: " + json.dumps(
+                {k: v for k, v in row.items() if k not in ("tokens", "logprobs")}))
+            rows.append(row)
+        await engine.stop()
+
+    asyncio.run(run())
+    return out["start"], rows
+
+
+def elastic_phase(torch, pa, device, seed, card, prompts, cold=None,
+                  model="llama-3b"):
+    """Fast start at the serving phase's config (llama-3b, full width and
+    depth, bf16 KV): ``cold`` is (the start row, the round rows) of the
+    cold, overlapped start (a) (the serving phase's engine, which wrote
+    the manifest), or None to boot (a) here. Boots an identical engine (b),
+    which finds the manifest and holds a ballast of the memory (a)'s block
+    cap left spare (``boot``): its warm-up captures the default variants
+    only, defers the reference's count, keeps (a)'s KV blocks; its rounds
+    give (a)'s tokens and logprobs bit for bit, and each first-use round
+    captures its deferred variants (their seconds: the worker thread's
+    hold), never an eager decode dispatch, and the prefill's eager
+    dispatches equal (a)'s (the 2-row logprobs prefill is a variant no
+    start captures, the reference's rule). Returns (the bf16 kernel's
+    launches over both engines' rounds, the summary)."""
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+
+    def boot(what, ballast=False):
+        """Build an engine of the serving config and serve the rounds on
+        it; with ``ballast``, hold the memory the block cap left spare
+        (the blocks free memory allowed less those the pool took) from
+        right after the pool is sized, so warm-up and the first uses run
+        in the room a pool sized from free memory leaves."""
+        t0 = time.monotonic()
+        engine = ServingEngine(serving_config(seed, "bfloat16", device.type, model))
+        held, room = None, {}
+        if ballast and device.type == "cuda":
+            r = engine.runner
+            spare = ((r.kv_blocks_free_memory - r.num_kv_blocks)
+                     * (r.kv_pool_bytes // r.num_kv_blocks))
+            if spare > 0:
+                held = torch.empty((spare,), dtype=torch.uint8, device=device)
+            torch.cuda.reset_peak_memory_stats(device)
+            room = {"ballast_bytes": max(0, spare),
+                    "kv_blocks_free_memory": r.kv_blocks_free_memory,
+                    "loader_reserve_bytes": r.loader_reserve_bytes,
+                    "prefill_reserve_bytes": r.prefill_reserve_bytes}
+        start, rows = elastic_rounds(torch, pa, engine, prompts, what, t0)
+        if room:
+            room["peak_reserved_bytes"] = torch.cuda.max_memory_reserved(device)
+            room["total_bytes"] = torch.cuda.get_device_properties(
+                device).total_memory
+            room["free_bytes_after_rounds"] = torch.cuda.mem_get_info(device)[0]
+            log(f"elastic {what}: memory {json.dumps(room)}")
+        del held
+        return engine, start, rows, room
+
+    if cold is None:
+        engine, *cold, _ = boot("cold")
+        engine.shutdown()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    cold_start, cold_rows = cold
+    engine, start, rows, room = boot("verified", ballast=True)
+    r = engine.runner
+    captured_d = set(r.decode_train.graphs)
+    captured_p = set(r.prefill_train.graphs)
+    want = deferred_by_rule(r)
+    defaults_d = {k for k in r.decode_graph_keys() if not (k[3] or k[4])}
+    defaults_p = {k for k in r.prefill_graph_keys() if not (k[4] or k[5])}
+    pool_after = engine.stats()["graph_pool_bytes"]
+    engine.shutdown()
+    del engine, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    if start["deferred"] != want or not want:
+        fail(f"elastic: the verified start deferred {start['deferred']} variants, "
+             f"the reference's rule gives {want}")
+    if start["variants_warmed"] != len(defaults_d) + len(defaults_p):
+        fail(f"elastic: the verified start warmed {start['variants_warmed']} "
+             f"variants, want the {len(defaults_d) + len(defaults_p)} defaults")
+    if start["kv_num_blocks"] != cold_start["kv_num_blocks"]:
+        fail(f"elastic: {start['kv_num_blocks']} KV blocks on the verified start, "
+             f"{cold_start['kv_num_blocks']} on the cold one")
+    if device.type == "cuda":
+        firsts = captured_d - defaults_d, captured_p - defaults_p
+        if not defaults_d <= captured_d or not defaults_p <= captured_p:
+            fail("elastic: the verified start did not capture every default "
+                 "variant")
+        log(f"elastic: after the rounds, {len(firsts[0])} decode and "
+            f"{len(firsts[1])} prefill variants were captured at first use")
+    launches = 0
+    table = []
+    for a, b in zip(cold_rows, rows):
+        name = a["round"]
+        launches += a["launches"] + b["launches"]
+        if a["tokens"] != b["tokens"] or a["logprobs"] != b["logprobs"]:
+            fail(f"elastic {name}: the verified start's tokens or logprobs differ "
+                 f"from the cold start's: tokens equal "
+                 f"{[x == y for x, y in zip(a['tokens'], b['tokens'])]}")
+        if a["first_use_captures"]:
+            fail(f"elastic {name}: the cold start captured "
+                 f"{a['first_use_captures']} variants at first use")
+        if (b["first_use_captures"] > 0) != (name != "streams"):
+            fail(f"elastic {name}: {b['first_use_captures']} first-use captures "
+                 "on the verified start")
+        if b["prefill_eager"] != a["prefill_eager"]:
+            fail(f"elastic {name}: {b['prefill_eager']} eager prefill dispatches "
+                 f"on the verified start against {a['prefill_eager']} on the cold")
+        table.append([name, a["wall_s"], b["wall_s"], max(a["ttft_s"]),
+                      max(b["ttft_s"]), b["first_use_captures"],
+                      b["first_use_hold_s"], a["prefill_eager"], b["decode_steps"],
+                      b["launches"]])
+    out = {"card": card, "cold": cold_start, "verified": start,
+           "deferred_by_rule": want,
+           "graph_pool_bytes_after_first_uses": pool_after,
+           "verified_memory": room,
+           "warmup_share": start["warmup_s"] / cold_start["warmup_s"],
+           "rounds_fields": ["round", "wall_s_cold", "wall_s_verified",
+                             "ttft_s_max_cold", "ttft_s_max_verified",
+                             "first_use_captures", "first_use_hold_s",
+                             "prefill_eager", "decode_steps", "launches"],
+           "rounds": table, "tokens_and_logprobs_equal": True}
+    log(f"elastic result {json.dumps(out)}")
+    return launches, out
+
+
+def ckpt_overlap(torch, pa, device, seed, ckdir, served, prompts):
+    """Overlap against serial: the checkpoint directory booted from the
+    server's flags with ``--no-overlap-weight-load``, without it, and with
+    it again (serial boots on both sides of the overlapped one, so the
+    order of the boots is not read as the overlap's effect), each finding
+    the manifest the ckpt phase's first boot of it wrote and serving the 4
+    requests as one batch on the engine API. Load seconds, the warm-up
+    seconds beside the load and their share of it, start-to-serving and
+    start-to-first-token; tokens equal."""
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    rows, toks = {}, {}
+    for mode, extra in (("serial", ["--no-overlap-weight-load"]),
+                        ("overlapped", []),
+                        ("serial again", ["--no-overlap-weight-load"])):
+        t0 = time.monotonic()
+        eng = ServingEngine(ckpt_server_config(
+            ckdir, served, seed, device, "--compilation-cache-dir",
+            ELASTIC_CACHE, *extra))
+        gate = gate_schedule(eng)
+        first = []
+
+        async def run():
+            await eng.start()
+            t_up = time.monotonic() - t0
+            gate["want"] = 4
+
+            async def one(i):
+                last = None
+                async for o in eng.generate(prompt=prompts[i], sampling=SamplingParams(
+                        max_tokens=CKPT_TOKENS, ignore_eos=True, **CKPT_SAMPLINGS[i])):
+                    if not first:
+                        first.append(time.monotonic() - t0)
+                    last = o
+                return list(last.token_ids)
+
+            got = await asyncio.gather(*[one(i) for i in range(4)])
+            await eng.stop()
+            return t_up, got
+
+        t_up, toks[mode] = asyncio.run(run())
+        st = eng.stats()
+        load = st["startup_weight_load_seconds"]
+        rows[mode] = {"up_s": t_up, "first_token_s": first[0], "load_s": load,
+                      "overlapped_s": st["startup_compile_seconds"],
+                      "overlapped_share": st["startup_compile_seconds"] / load,
+                      "warmup_s": st["startup_warmup_seconds"],
+                      "phases": st["startup_phase_seconds"],
+                      "deferred": st["startup_deferred_families"]}
+        if not st["weights_ready"] or not st["startup_deferred_families"]:
+            fail(f"ckpt overlap {mode}: weights ready {st['weights_ready']}, "
+                 f"{st['startup_deferred_families']} deferred variants (the "
+                 "manifest of the first boot was not found)")
+        log(f"ckpt overlap {mode}: {json.dumps(rows[mode])}")
+        eng.shutdown()
+        del eng
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    for mode in ("serial", "serial again"):
+        if rows[mode]["overlapped_s"] != 0.0:
+            fail(f"ckpt overlap: a serial load overlapped {rows[mode]}")
+        if toks[mode] != toks["overlapped"]:
+            fail(f"ckpt overlap: tokens of the overlapped load differ from the "
+                 f"{mode} load's on streams "
+                 f"{[i for i in range(4) if toks[mode][i] != toks['overlapped'][i]]}")
+    return rows
+
+
 def main() -> None:
     t_main = time.monotonic()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="kernel,serving,graphs,check,tp,surface,kvtier,kvtier-tp,"
-                            "spec,ckpt",
-                    help="comma list of kernel,serving,graphs,check,tp,surface,"
-                         "kvtier,kvtier-tp,spec,ckpt,trace (build always runs; "
-                         "trace profiles one more served round after serving)")
+                    default="kernel,serving,graphs,elastic,check,tp,surface,kvtier,"
+                            "kvtier-tp,spec,ckpt",
+                    help="comma list of kernel,serving,graphs,elastic,check,tp,"
+                         "surface,kvtier,kvtier-tp,spec,ckpt,trace (build always "
+                         "runs; trace profiles one more served round after "
+                         "serving)")
     ap.add_argument("--tp-kernel-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # a rank of the tp phase's kernel check
     ap.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
@@ -5595,6 +6018,8 @@ def main() -> None:
               "beside this script (run it from a checkout)", flush=True)
         sys.exit(3)
     sys.path.insert(0, here)
+    # Every run's first start of a configuration is cold.
+    shutil.rmtree(ELASTIC_CACHE, ignore_errors=True)
     from production_stack_tpu_torch.engine.tokenizer import ByteTokenizer
     from production_stack_tpu_torch.ops import paged_attention as pa
     # Full-precision f32 products in every plain reference below.
@@ -5641,36 +6066,63 @@ def main() -> None:
     by_path = {"bf16": {}, "int8": {}}
     # (phase, its start): the summary's seconds per phase.
     marks = [("build", t_main)]
+    # The depth-cut checkpoint directories (``CUT_LAYERS``), removed at exit
+    # (``fail`` too).
+    cut_dirs = {}
+    atexit.register(lambda: [shutil.rmtree(d, ignore_errors=True)
+                             for d in cut_dirs.values()])
     # Serving, then the graphs phase on the serving engine (still warm),
-    # per KV dtype: one engine's graphs are captured once for both.
+    # per KV dtype: one engine's graphs are captured once for both. The
+    # bf16 runs are llama-3b at full depth, the int8 runs its cut.
+    # The elastic phase follows the bf16 graphs: its cold start (a) is the
+    # serving phase's engine (its rounds run before the graphs phase takes
+    # it), its verified start (b) boots once (a) is gone.
     marks.append(("serving+graphs", time.monotonic()))
-    phase_s = {"serving": 0.0, "graphs": 0.0}
-    serving_rows, rows, pre = {}, [], {}
+    phase_s = {"serving": 0.0, "graphs": 0.0, "elastic": 0.0}
+    serving_rows, rows, pre, elastic = {}, [], {}, None
     for kv in ("bfloat16", "int8"):
         variant = "int8" if kv == "int8" else "bf16"
         engine = None
+        cold = None
         t0 = time.monotonic()
+        with_elastic = "elastic" in phases and kv == "bfloat16"
+        model = "llama-3b"
+        if kv == "int8" and phases & {"serving", "graphs"}:
+            model = cut_model(torch, device, args.seed, "llama-3b", cut_dirs)
         if "serving" in phases:
             counts, serving_rows[kv], engine = serving_phase(
                 torch, pa, device, args.seed, prompts, card, kv,
                 trace="trace" in phases and kv == "bfloat16",
-                keep="graphs" in phases)
+                keep="graphs" in phases or with_elastic, model=model)
             by_path[variant]["serving"] = counts[pa.INT8 if variant == "int8" else pa.BF16]
         t1 = time.monotonic()
+        if with_elastic and engine is not None:
+            cold = elastic_rounds(torch, pa, engine, prompts, "cold")
+        t2 = time.monotonic()
         if "graphs" in phases:
             runs, pre[kv] = graphs_phase(torch, pa, device, args.seed, card, kv,
-                                         engine=engine)
+                                         engine=engine, model=model)
             rows += runs
+        elif engine is not None:
+            engine.shutdown()
         del engine
         gc.collect()
         torch.cuda.empty_cache()
+        t3 = time.monotonic()
+        if with_elastic:
+            by_path["bf16"]["elastic"], elastic = elastic_phase(
+                torch, pa, device, args.seed, card, prompts, cold)
         phase_s["serving"] += t1 - t0
-        phase_s["graphs"] += time.monotonic() - t1
+        phase_s["graphs"] += t3 - t2
+        phase_s["elastic"] += t2 - t1 + time.monotonic() - t3
     if serving_rows:
         summary("serving", {kv: {k: r[k] for k in (
             "kv_blocks", "wall_s", "ttft_s_streamed", "decode_ms_per_step_events",
             "aggregate_tok_s", "dispatch_overlap_ratio", "peak_mem_gib", "decode_steps",
-            "launches", "graphs", "sm_clock_mhz")} for kv, r in serving_rows.items()})
+            "launches", "graphs", "sm_clock_mhz", "startup")}
+            for kv, r in serving_rows.items()})
+    if elastic is not None:
+        summary("elastic", elastic)
     if "graphs" in phases:
         summary("prefill", {kv: {k: r[k] for k in (
             "kv_num_blocks", "kv_blocks_without_prefill_graphs", "prefill_reserve_bytes",
@@ -5708,7 +6160,7 @@ def main() -> None:
         summary("check", {"bf16": check_phase(torch, device, args.seed, False),
                           "int8": check_phase(torch, device, args.seed, True),
                           "gumbel_values_differing": check_noise(torch, device)})
-    # The tp phase: llama-3-8b at tp = 2 on this card, bf16 then int8 KV;
+    # The tp phase: llama-3-8b (cut) at tp = 2 on this card, bf16 then int8 KV;
     # each run is one main path of paged_flash_decode_stats_tp (its launch
     # counts, summed over the ranks, set to 0 before it and read after it).
     tp_launches, tp_rows = None, {}
@@ -5716,8 +6168,9 @@ def main() -> None:
     if "tp" in phases:
         tp = {}
         tp_launches = 0
+        model = cut_model(torch, device, args.seed, TP_MODEL, cut_dirs)
         for kv in ("bfloat16", "int8"):
-            n, tp[kv] = tp_phase(torch, pa, device, args.seed, card, kv)
+            n, tp[kv] = tp_phase(torch, pa, device, args.seed, card, kv, model=model)
             tp_launches += n
         gc.collect()
         torch.cuda.empty_cache()
@@ -5736,17 +6189,15 @@ def main() -> None:
                        for v, r in tp_rows.items()}})
     marks.append(("surface", time.monotonic()))
     if "surface" in phases:
-        n, surface = surface_phase(torch, pa, device, args.seed, card)
+        n, surface = surface_phase(
+            torch, pa, device, args.seed, card,
+            model=cut_model(torch, device, args.seed, "llama-3b", cut_dirs))
         by_path["bf16"]["surface"] = n
         summary("surface", surface)
         gc.collect()
         torch.cuda.empty_cache()
     # The KV tier: one cache server for both KV dtypes (their keys live in
     # separate namespaces); each dtype's run is one main path.
-    # The depth-cut checkpoint directories, removed at exit (``fail`` too).
-    cut_dirs = {}
-    atexit.register(lambda: [shutil.rmtree(d, ignore_errors=True)
-                             for d in cut_dirs.values()])
     marks.append(("kvtier", time.monotonic()))
     if "kvtier" in phases:
         from production_stack_tpu_torch.launch import launch_kv_server

@@ -2,11 +2,13 @@
 that the port's serving path reads, under the same names, defaults and
 environment variables, plus ``device``.
 
-Three of the reference's fields name features the port has not ported:
-``sequence_parallel_size``, ``data_parallel_size`` and
-``compilation_cache_dir``. They are accepted at their inert values (1, 1,
-unset or empty) and any other value is a ``ValueError`` naming the
+Two of the reference's fields name features the port has not ported:
+``sequence_parallel_size`` and ``data_parallel_size``. They are accepted
+at their inert value 1 and any other value is a ``ValueError`` naming the
 feature (``validate_unported``): never accepted and then ignored.
+``compilation_cache_dir`` is the directory of the port's warm-up manifest
+(``engine/runner.py:ModelRunner.warmup``); unlike the reference's it
+defaults to unset, so a default start warms every variant.
 """
 
 import os
@@ -92,9 +94,20 @@ class EngineConfig:
     # 1 only (validate_unported).
     sequence_parallel_size: int = 1
     data_parallel_size: int = 1
-    # The reference's persistent XLA compile cache; the port's counterpart
-    # (a persistent graph cache) is not ported: unset or "" only.
+    # The reference's persistent compile-cache directory. CUDA graphs do not
+    # persist, so the port keeps only the reference's warm-up manifest there
+    # (in a subdirectory per card and toolchain): a start that finds the
+    # manifest of its own configuration captures the default sampling
+    # variant of every family and each other variant at its first use.
+    # Unset or "": every start warms every variant (the reference defaults
+    # to $PSTPU_COMPILATION_CACHE or ~/.cache/pstpu_xla).
     compilation_cache_dir: Optional[str] = None
+    # Fill the weights on a background thread while warm-up builds the
+    # kernel library and runs the eager warm runs; captures wait for them
+    # (the reference's default: off; the server turns it on). Ignored with
+    # speculative decoding, without warm-up, at tp > 1 and when params are
+    # passed in.
+    overlap_weight_load: bool = False
     # --- prefill/decode disaggregation ---
     # "unified" serves prompts end to end. "prefill" computes a prompt's KV
     # and first token, publishes them to the remote KV store under the
@@ -227,12 +240,6 @@ class EngineConfig:
                 raise ValueError(
                     f"{flag} {v}: {feature} is not ported yet; the port "
                     f"serves at {flag} 1")
-        if self.compilation_cache_dir:
-            raise ValueError(
-                f"--compilation-cache-dir {self.compilation_cache_dir!r}: a "
-                f"persistent graph cache is not ported yet; the port "
-                f"captures its CUDA graphs at every start (leave the flag "
-                f"unset or empty)")
 
     def validate_parallelism(self) -> None:
         """The tp degree against the other knobs (the reference's

@@ -37,7 +37,10 @@ On the CPU (and on the card without warmup) the same three functions run
 eagerly; on the card ``capture`` records one graph of each per family, and
 a dispatch replays head, step (K times under ``decode_loop="scan"``, or
 ``max(min(budget, K))`` times under "while", a count the host knows) and
-tail: the same operations on the same buffers, so the same bits.
+tail: the same operations on the same buffers, so the same bits. A family
+that a manifest-verified warm-up deferred (``GraphArena.deferred``: the
+logprob and penalty variants) is captured at its first dispatch, through
+the same ``capture`` (``capture_deferred``), before its inputs are staged.
 
 At tensor_parallel_size > 1 nothing is captured: the forward's collectives
 (gloo, host-staged, when ranks share a card) cannot be captured, and NCCL
@@ -199,6 +202,9 @@ class GraphArena:
         self.r = runner
         self._arena: Dict[str, torch.Tensor] = {}
         self.graphs: Dict = {}
+        # Keys a manifest-verified warm-up left to their first dispatch
+        # (``capture_deferred``, from the runner's ``_first_use``).
+        self.deferred: set = set()
 
     def _view(self, name: str, shape, dtype) -> torch.Tensor:
         """A view of ``shape`` at the start of arena ``name``. The arena
@@ -247,6 +253,7 @@ class DecodeTrain(GraphArena):
         self.spec_cycles_total = 0
         self._flag_host = None      # pinned int32 [1]: the cycle flag read
         self._flag_event = None
+        self._stream = None         # the capture stream
         self._warned: set = set()
 
     # ------------------------------------------------------------ buffers
@@ -850,6 +857,16 @@ class DecodeTrain(GraphArena):
         self.tail(bf)
         return bf
 
+    def capture_deferred(self, key: FamilyKey) -> None:
+        """Warm-up's path for one deferred family, at its first dispatch,
+        before that dispatch stages anything: its capture on the card (a
+        dummy dispatch on the capture stream, then the graphs, into the
+        shared pool), its dummy dispatch on the CPU."""
+        if self.r.device.type == "cuda":
+            self.capture([key])
+        else:
+            self.dummy_dispatch(key)
+
     def capture(self, keys: List[FamilyKey]) -> None:
         """Record head, step and tail of every family in ``keys`` as CUDA
         graphs sharing one memory pool. Each function first runs once
@@ -869,7 +886,9 @@ class DecodeTrain(GraphArena):
         torch.cuda.empty_cache()
         reserved0 = torch.cuda.memory_reserved(device)
         t0 = time.monotonic()
-        stream = torch.cuda.Stream(device)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        stream = self._stream
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         for key in keys:

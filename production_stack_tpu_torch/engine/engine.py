@@ -1179,17 +1179,34 @@ class ServingEngine:
             "kv_quant_bytes_saved_total": r.kv_quant_bytes_saved_total,
             "kv_num_blocks": r.num_kv_blocks,
             # A pool sized from free memory: the bytes reserved for the
-            # prefill graphs' temporaries, and the blocks without them.
+            # prefill graphs' temporaries, and the blocks without them; the
+            # bytes reserved for an overlapped loader's temporaries, and the
+            # blocks free memory allowed before the configured cap.
             "prefill_reserve_bytes": r.prefill_reserve_bytes,
             "kv_blocks_without_prefill_graphs":
                 r.kv_blocks_without_prefill_graphs,
+            "loader_reserve_bytes": r.loader_reserve_bytes,
+            "kv_blocks_free_memory": r.kv_blocks_free_memory,
             "num_requests_running": self.scheduler.num_running,
             "num_requests_waiting": self.scheduler.num_waiting,
             "queue_depth": self.scheduler.num_running + self.scheduler.num_waiting,
             "resume_restored_tokens_total": self.resume_restored_tokens_total,
+            # Start (docs/ELASTIC.md §1-2): the loader's seconds, the
+            # warm-up seconds beside it, the warm-up's variants (every one a
+            # miss: CUDA graphs do not persist), those a manifest deferred,
+            # their first-use captures, and the start's phases.
             "startup_weight_load_seconds": r.startup_weight_load_seconds,
+            "startup_compile_seconds": r.startup_compile_seconds,
             "startup_warmup_seconds": self.startup_warmup_seconds,
             "startup_total_seconds": self.startup_total_seconds,
+            "startup_cache_hit_families": r.startup_cache_hit_families,
+            "startup_cache_miss_families": r.startup_cache_miss_families,
+            "startup_deferred_families": r.startup_deferred_families,
+            "startup_phase_seconds": r.startup_phase_seconds,
+            "weights_ready": r.weights_ready,
+            "deferred_captures_total": r.deferred_captures_total,
+            "deferred_capture_seconds_total":
+                r.deferred_capture_seconds_total,
             "kv_cache_usage": self.block_manager.usage(),
             "prefix_cache_hits": self.block_manager.prefix_hits_total,
             "prefix_cache_queries": self.block_manager.prefix_queries_total,

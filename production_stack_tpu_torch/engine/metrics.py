@@ -202,10 +202,12 @@ _HEAD = (
      "Seconds loading model weights at startup",
      "startup_weight_load_seconds"),
     ("pstpu:startup_compile_seconds", _G,
-     "Seconds in an ahead-of-time compile prepass",
+     "Warm-up seconds (kernel build, eager warm runs) that ran while the "
+     "weights were still loading; 0 on a serial load",
      "startup_compile_seconds"),
     ("pstpu:startup_warmup_seconds", _G,
-     "Seconds warming up (capturing decode graphs) before serving",
+     "Seconds warming up before serving: kernel build, eager warm runs, "
+     "decode and prefill CUDA graph capture",
      "startup_warmup_seconds"),
     ("pstpu:startup_prewarm_seconds", _G,
      "Seconds serving POST /prewarm hot-chain pulls",
@@ -214,10 +216,12 @@ _HEAD = (
      "Engine construction to ready-to-serve, seconds",
      "startup_total_seconds"),
     ("pstpu:startup_cache_hit_families", _G,
-     "Warmup variants loaded from a persistent compile cache",
+     "Warmup variants loaded from a persistent cache: always 0, CUDA graphs "
+     "do not persist (a manifest only defers variants to first use)",
      "startup_cache_hit_families"),
     ("pstpu:startup_cache_miss_families", _G,
-     "Warmup variants built from scratch", "startup_cache_miss_families"),
+     "Warmup variants captured from scratch at this start (decode and "
+     "prefill graph families)", "startup_cache_miss_families"),
     ("pstpu:decode_dispatches_total", _C, "Fused decode dispatches issued",
      "decode_dispatches_total"),
     ("pstpu:prefill_dispatches_total", _C, "Prefill chunk dispatches issued",

@@ -53,7 +53,11 @@ dispatch of a captured family replays it: the same operations on the same
 buffers, so the same bits. A dispatch of another family (the top logprob
 bucket, penalties at b > 1) runs eagerly and counts in
 ``eager_dispatches_total``. A capture that fails raises: warm-up fails
-with the family named, and nothing falls back to eager quietly.
+with the family named, and nothing falls back to eager quietly. After a
+manifest-verified warm-up (``runner.warmup``) the non-default variants are
+in ``deferred``: the runner's first dispatch of one first runs warm-up's
+path for it (``capture_deferred``: a warm run and the capture; on the CPU
+its dummy dispatch), before it stages its inputs, then replays it.
 
 At tensor_parallel_size > 1 nothing is captured: the forward's collectives
 (gloo, host-staged, when ranks share a card) cannot be captured. Every rank
@@ -293,6 +297,24 @@ class PrefillTrain(GraphArena):
                     "logprobs)=%s was not captured: its dispatches run "
                     "eagerly", key)
         return self.prefill(bf)
+
+    def capture_deferred(self, key: PrefillKey) -> None:
+        """Warm-up's path for one deferred family, at its first dispatch,
+        before that dispatch stages anything: on the card a warm run of the
+        smallest family of the same sampling variant, then the capture; on
+        the CPU its dummy dispatch. The warm run makes this thread's cuBLAS
+        handle and the variant's first launches outside the capture; the
+        family's own forward shapes ran at warm-up in its default variant.
+        It is not the family itself: the graph pool already holds the
+        default variants, and a warm run of a large family beside it would
+        need memory the pool's sizing (one family's peak) does not leave."""
+        if self.r.device.type == "cuda":
+            self.warm([min(k for k in self.r.prefill_graph_keys()
+                           if k[4:] == key[4:])])
+            self.capture([key])
+        else:
+            self.dummy_dispatch(key)
+            self.warmed.add(key)
 
     def dummy_dispatch(self, key: PrefillKey) -> PrefillBuffers:
         """The warm-up dispatch of a family: all-zero inputs, so every row

@@ -59,7 +59,16 @@ Counterpart of ``production_stack_tpu/engine/runner.py`` (main path only):
   * Weights: a local HF checkpoint directory (``config.model``, and the
     speculative draft's) is loaded by ``models/weights.py:load_hf_params``
     straight into device stacks (this rank's shard); a named config, or
-    ``load_format="dummy"``, draws random weights from ``seed``.
+    ``load_format="dummy"``, draws random weights from ``seed``. With
+    ``overlap_weight_load`` (the server's default; warm-up on, tp 1, no
+    speculation, no params given) every leaf and the f32 head are
+    allocated first, the pool is sized, and a ``weight-loader`` thread
+    fills them in place while ``warmup`` builds the kernels and runs the
+    eager warm runs; ``warmup`` joins it before the first capture.
+  * Fast start: ``compilation_cache_dir`` holds the reference's warm-up
+    manifest (``_warmup_manifest_path``); a start that finds its own
+    captures the default sampling variants only and each other variant
+    at its first dispatch (``_first_use``). No graph persists.
   * LoRA: the engine's registry (``models/lora.py``) is stacked once on the
     device; each row's adapter index rides packed scalar row 8 of prefill
     and decode dispatches, and the prefill forward, the decode step and the
@@ -85,7 +94,10 @@ Counterpart of ``production_stack_tpu/engine/runner.py`` (main path only):
 """
 
 import contextlib
+import hashlib
+import json
 import os
+import re
 import threading
 import time
 from collections import OrderedDict, deque
@@ -117,7 +129,7 @@ from production_stack_tpu_torch.engine.scheduler import (
     decode_step_cap,
 )
 from production_stack_tpu_torch.kv_offload.serde import BF16, dtype_name
-from production_stack_tpu_torch.models import get_model_fns
+from production_stack_tpu_torch.models import empty_params, get_model_fns
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.models.lora import shard_stacks
 from production_stack_tpu_torch.models.weights import dtype_of, load_hf_params
@@ -171,6 +183,30 @@ def _to_torch(arr: np.ndarray, pin: bool = False) -> torch.Tensor:
     t = torch.empty(src.shape, dtype=_TORCH_OF[src.dtype], pin_memory=pin)
     np.copyto(t.numpy(), src, casting="no")
     return t.view(torch.bfloat16) if bf16 else t
+
+
+def resolve_cache_dir(base: str, device: torch.device) -> Optional[str]:
+    """``--compilation-cache-dir``'s directory for this card and toolchain
+    (the reference's ``_setup_compilation_cache``): ``base`` joined with
+    ``cuda-<device name>-torch<version>-cuda<version>``, sanitised as the
+    reference sanitises its fingerprint, created when missing. None, with
+    a warning, when it cannot be made: that start warms every variant and
+    writes no manifest (a cache failure never fails a start)."""
+    kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else device.type)
+    fingerprint = re.sub(
+        r"[^A-Za-z0-9_.-]+", "-",
+        f"{device.type}-{kind}-torch{torch.__version__}"
+        f"-cuda{torch.version.cuda}")
+    path = os.path.join(base, fingerprint)
+    try:
+        os.makedirs(path, exist_ok=True)
+    except OSError:
+        logger.warning("--compilation-cache-dir %r is unusable: warm-up "
+                       "captures every variant, and no manifest is written",
+                       base, exc_info=True)
+        return None
+    return path
 
 
 class DispatchHandle:
@@ -297,8 +333,40 @@ class ModelRunner:
         self.local_kv_heads = config.local_kv_heads(model_config)
         if self.tp is not None and (params is not None or broadcast_params):
             params = self.tp.broadcast_params(params)
+        # Start telemetry (the reference's): the loader's wall seconds, the
+        # warm-up seconds that ran beside it, and the warm-up's variant
+        # counts; the port adds the deferred variants' first-use captures.
+        self.startup_weight_load_seconds = 0.0
+        self.startup_compile_seconds = 0.0
+        self.startup_cache_hit_families = 0
+        self.startup_cache_miss_families = 0
+        self.startup_deferred_families = 0
+        self.startup_phase_seconds: Dict[str, float] = {}
+        self.deferred_captures_total = 0
+        self.deferred_capture_seconds_total = 0.0
+        # --compilation-cache-dir: the warm-up manifest's directory (None:
+        # every start warms every variant).
+        self.compilation_cache_path = (
+            resolve_cache_dir(config.compilation_cache_dir, self.device)
+            if config.compilation_cache_dir else None)
+        self._manifest: Optional[str] = None
+        self._verified = False
+        self._warmed_up = False
+        # The overlapped load (the reference's conditions; at tp > 1 the
+        # load stays serial): every leaf and the f32 head are allocated
+        # here, so the KV pool below is sized net of them, and the
+        # ``weight-loader`` thread, started at the end of __init__, fills
+        # them in place while warm-up runs.
+        self._param_thread: Optional[threading.Thread] = None
+        self._param_error: Optional[BaseException] = None
+        self._weights_done_at: Optional[float] = None
+        overlap = (params is None and self.tp is None
+                   and config.enable_warmup and config.overlap_weight_load
+                   and not config.speculative_enabled)
         t0 = time.monotonic()
-        if params is None:
+        if overlap:
+            params = empty_params(model_config, self.dtype, self.device)
+        elif params is None:
             params, _ = self._load_or_init_params(model_config, config.model,
                                                   init_fn)
         else:
@@ -309,8 +377,15 @@ class ModelRunner:
                 for k, v in params.items()
             }
         self.params = params
-        self.head_f32 = head_fn(params, model_config)
-        self.startup_weight_load_seconds = time.monotonic() - t0
+        if overlap:
+            shape = head_fn(empty_params(model_config, self.dtype,
+                                         torch.device("meta")),
+                            model_config).shape
+            self.head_f32 = torch.zeros(shape, dtype=torch.float32,
+                                        device=self.device)
+        else:
+            self.head_f32 = head_fn(params, model_config)
+            self.startup_weight_load_seconds = time.monotonic() - t0
         # Every registered LoRA adapter stacked per target, on the device
         # (this rank's slice at tp > 1): rows select theirs by the index in
         # packed scalar row 8 (models/lora.py). None without adapters.
@@ -325,6 +400,12 @@ class ModelRunner:
         # Set by _derive_num_blocks when the pool is sized from free memory.
         self.prefill_reserve_bytes = 0
         self.kv_blocks_without_prefill_graphs: Optional[int] = None
+        self.kv_blocks_free_memory: Optional[int] = None
+        # The overlapped loader's temporaries come after the pool is sized
+        # (on the card they are reserved; a serial load's are freed before).
+        self.loader_reserve_bytes = (
+            self._loader_peak_bytes(model_config)
+            if overlap and self.device.type == "cuda" else 0)
         n = num_kv_blocks or config.num_kv_blocks or self._derive_num_blocks()
         if self.tp is not None:
             # Block ids are global: every rank holds the same count.
@@ -378,25 +459,91 @@ class ModelRunner:
         self.rank_info: List[Dict] = [self._rank_report()]
         if self.tp is not None:
             self.rank_info = self.tp.gather_object(self.rank_info[0])
+        if overlap:
+            # Last: the pool above reserved the loader's temporaries
+            # (``loader_reserve_bytes``).
+            self._start_loader(init_fn, head_fn)
 
     def _load_or_init_params(self, model_config: ModelConfig, source: str,
-                             init_fn) -> Tuple[Dict, bool]:
+                             init_fn, out: Optional[Dict] = None
+                             ) -> Tuple[Dict, bool]:
         """A model's params (this rank's shard) on the device: loaded from
         the local HF checkpoint directory ``source``, or drawn from
-        config.seed (named configs, ``load_format="dummy"``). ONE loader for
-        the target and the speculative draft (the reference's). Returns
-        (params, loaded_from_checkpoint). A checkpoint with a missing
-        tensor raises: nothing falls back to random weights."""
+        config.seed (named configs, ``load_format="dummy"``), into ``out``
+        (``models.empty_params``) when given. ONE loader for the target and
+        the speculative draft (the reference's). Returns (params,
+        loaded_from_checkpoint). A checkpoint with a missing tensor raises:
+        nothing falls back to random weights."""
         cfg = self.config
         tp_size = cfg.tensor_parallel_size
         if cfg.load_format != "dummy" and os.path.isdir(source):
             return load_hf_params(model_config, source, self.dtype,
                                   self.device, rank=self.rank,
-                                  tp=tp_size), True
+                                  tp=tp_size, out=out), True
         gen = torch.Generator(device=self.device)
         gen.manual_seed(cfg.seed)
         return init_fn(model_config, gen, self.dtype, self.device,
-                       rank=self.rank, tp=tp_size), False
+                       rank=self.rank, tp=tp_size, out=out), False
+
+    # ------------------------------------------------------ overlapped load
+    def _start_loader(self, init_fn, head_fn) -> None:
+        """Fill ``params`` and ``head_f32`` in place on the ``weight-loader``
+        thread (the reference's ``_load_params_background``), on a stream
+        of its own that first waits for their zero fills."""
+        stream = None
+        if self.device.type == "cuda":
+            stream = torch.cuda.Stream(self.device)
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+        self._param_thread = threading.Thread(
+            target=self._load_params_background,
+            args=(init_fn, head_fn, stream), daemon=True,
+            name="weight-loader")
+        self._param_thread.start()
+
+    def _load_params_background(self, init_fn, head_fn, stream) -> None:
+        t0 = time.monotonic()
+        try:
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                self._load_or_init_params(self.model_config, self.config.model,
+                                          init_fn, out=self.params)
+                head_fn(self.params, self.model_config, out=self.head_f32)
+            if stream is not None:
+                stream.synchronize()
+        except BaseException as e:  # re-raised by wait_for_weights
+            self._param_error = e
+        finally:
+            self._weights_done_at = time.monotonic()
+            self.startup_weight_load_seconds = self._weights_done_at - t0
+
+    def _loader_peak_bytes(self, model_config: ModelConfig) -> int:
+        """The loader's largest transient on the device, reckoned from the
+        shapes: its largest single draw or checkpoint tensor (a top-level
+        leaf, or one layer of a stacked one) read in f32 and cast to the
+        compute dtype, both alive at once (``init_params``,
+        ``load_hf_params``)."""
+        meta = empty_params(model_config, self.dtype, torch.device("meta"))
+        numel = max([t.numel() for k, t in meta.items() if k != "layers"]
+                    + [t[0].numel() for t in meta["layers"].values()])
+        return numel * (4 + self.dtype.itemsize)
+
+    @property
+    def weights_ready(self) -> bool:
+        """The weights are all in place: a serial load, or the loader
+        thread ended without an error."""
+        t = self._param_thread
+        return (t is None or not t.is_alive()) and self._param_error is None
+
+    def wait_for_weights(self) -> None:
+        """Join the weight loader (no-op once joined, or after a serial
+        load) and re-raise its error, every time: a broken checkpoint fails
+        the start as the serial path does, and nothing serves after it."""
+        t = self._param_thread
+        if t is not None:
+            t.join()
+            self._param_thread = None
+        if self._param_error is not None:
+            raise self._param_error
 
     # ------------------------------------------------------------------ sizing
     def _alloc_kv_pools(self) -> None:
@@ -717,6 +864,8 @@ class ModelRunner:
         life: the largest family's peak (``prefill_peak_bytes``) is
         reserved. Without graphs (the CPU, tp > 1) prefill takes its
         temporaries transiently, and only its history window is reserved.
+        An overlapped load reserves its loader's largest transient
+        (``loader_reserve_bytes``), which comes after the pool is sized.
         Bytes are this rank's (its kv heads); tp ranks sharing one card
         each take their share of its free memory (the caller then takes the
         minimum over ranks)."""
@@ -729,7 +878,7 @@ class ModelRunner:
                 self.device, cfg.tensor_parallel_size)
         else:
             free_bytes = 2 << 30
-        budget = int(free_bytes * cfg.hbm_utilization)
+        budget = int(free_bytes * cfg.hbm_utilization) - self.loader_reserve_bytes
         graphs = self.device.type == "cuda" and self.tp is None
         if self.attn_impl == "window":
             # Windows are counted per block; the graphs' other temporaries
@@ -764,6 +913,7 @@ class ModelRunner:
             n_eager = (budget - window_reserve) // bytes_per_block
             n = (budget - reserve_bytes) // bytes_per_block
         cap = cfg.max_blocks_per_seq * cfg.max_num_seqs + 1
+        self.kv_blocks_free_memory = n
         n = max(2, min(n, cap))
         # The prefill reserve and the blocks the pool would have without it.
         self.prefill_reserve_bytes = reserve_bytes
@@ -771,10 +921,12 @@ class ModelRunner:
         logger.info(
             "KV pool: %d blocks x %d tokens (%.1f MiB, kv_cache_dtype=%s, "
             "attn=%s, device=%s; prefill reserve %.1f MiB, %d blocks "
-            "without prefill graphs)",
+            "without prefill graphs; loader reserve %.1f MiB; %d blocks "
+            "free memory allows)",
             n, cfg.block_size, n * bytes_per_block / (1 << 20),
             cfg.kv_cache_dtype, self.attn_impl, self.device,
             reserve_bytes / (1 << 20), self.kv_blocks_without_prefill_graphs,
+            self.loader_reserve_bytes / (1 << 20), self.kv_blocks_free_memory,
         )
         return n
 
@@ -1012,44 +1164,227 @@ class ModelRunner:
         Dummy dispatches have budget 0, chunk length 0 and table 0 in every
         row, so they write only the null block: the pool's other blocks
         survive warmup.
+        Fast start (the reference's ``docs/ELASTIC.md`` §1-2): an
+        overlapped load fills the weights meanwhile; the kernel build and
+        the eager warm runs run beside it, and the weights are joined
+        (``wait_for_weights``, which re-raises the loader's error) before
+        the first capture: graphs hold addresses, but a capture must not
+        share the card with another thread's allocations. With
+        ``compilation_cache_dir`` a start that finds its own manifest
+        (``_warmup_manifest_path``: the previous identical start warmed
+        fully) warms only the default sampling variant of every family;
+        each deferred variant is captured at its first dispatch
+        (``_first_use``). The arenas still reserve every variant
+        and the pool is sized as a cold start sizes it, so that capture
+        fits. A cold start writes the manifest after it warmed fully.
         A capture that fails, or a prefill family warm-up missed, fails
         warm-up with the family named. At tp > 1 no family is captured
         (gloo collectives cannot be captured, and NCCL capture is not
         ported): decode and prefill run eagerly, prefill at its exact row
-        count."""
+        count, and nothing is deferred."""
         t0 = time.monotonic()
         cuda = self.device.type == "cuda"
+        try:
+            self._warmup(t0, cuda)
+        except BaseException:
+            # A failed start leaves no thread writing weights behind it.
+            if self._param_thread is not None:
+                self._param_thread.join()
+            raise
+
+    def _warmup(self, t0: float, cuda: bool) -> None:
+        first = not self._warmed_up
         if cuda and self.attn_impl == "paged":
             pa.build_kernels()
+        phases = {"kernel_build": time.monotonic() - t0}
         if self.tp is not None:
+            self.wait_for_weights()
             logger.info("warmup: tp=%d: no decode or prefill family captured "
                         "(both run eagerly)", self.tp.size)
             return
         keys = self.decode_graph_keys()
         pkeys = self.prefill_graph_keys()
-        prefill = self.prefill_train
+        if first:
+            self._manifest = self._warmup_manifest_path()
+            self._verified = (self._manifest is not None
+                              and os.path.exists(self._manifest))
+        verified = self._verified
+        dwarm, pwarm = keys, pkeys
+        if verified:
+            # The default variants only: penalties off, no logprobs.
+            dwarm = [k for k in keys if not (k[3] or k[4])]
+            pwarm = [k for k in pkeys if not (k[4] or k[5])]
+        train, prefill = self.decode_train, self.prefill_train
         # The arenas hold every family first (captured graphs hold their
-        # addresses).
-        self.decode_train.reserve(keys)
+        # addresses), the deferred ones included.
+        train.reserve(keys)
         prefill.reserve(self._prefill_arena_keys())
+        if first:
+            train.deferred = set(keys) - set(dwarm)
+            prefill.deferred = set(pkeys) - set(pwarm)
         if cuda:
             with self.kv_io_lock:
-                prefill.warm(pkeys)
+                t = time.monotonic()
+                prefill.warm(pwarm)
+                phases["warm_runs"] = time.monotonic() - t
+                self._join_weights(t0)
                 # The logprob variants are captured apart, so their share
                 # of the graph pool is read.
-                self.decode_train.capture([k for k in keys if not k[4]])
-                self.decode_train.capture([k for k in keys if k[4]])
-                prefill.capture(pkeys)
+                t = time.monotonic()
+                train.capture([k for k in dwarm if not k[4]])
+                train.capture([k for k in dwarm if k[4]])
+                phases["decode_capture"] = time.monotonic() - t
+                t = time.monotonic()
+                prefill.capture(pwarm)
+                phases["prefill_capture"] = time.monotonic() - t
         else:
-            for key in keys:
-                self.decode_train.dummy_dispatch(key)
-            for key in pkeys:
+            t = time.monotonic()
+            for key in dwarm:
+                train.dummy_dispatch(key)
+            for key in pwarm:
                 prefill.dummy_dispatch(key)
                 prefill.warmed.add(key)
-        prefill.check(pkeys)
-        logger.info("warmup: %d decode and %d prefill families in %.2f s (%s)",
-                    len(keys), len(pkeys), time.monotonic() - t0,
-                    "CUDA graphs" if cuda else "eager")
+            phases["warm_runs"] = time.monotonic() - t
+            self._join_weights(t0)
+        prefill.check(pwarm)
+        if first:
+            # CUDA graphs do not persist: every variant warmed here was
+            # captured from scratch (a miss), none is a hit. Deferred: the
+            # reference's rule, len(variants) - 1 per family, so an adaptive
+            # speculative engine's plain-train twins are not counted.
+            spec = bool(self.spec_n)
+            self.startup_cache_miss_families = len(dwarm) + len(pwarm)
+            self.startup_cache_hit_families = 0
+            self.startup_deferred_families = (
+                sum(1 for k in keys if (k[3] or k[4]) and k[5] == spec)
+                + sum(1 for k in pkeys if k[4] or k[5])) if verified else 0
+            phases["weight_load"] = self.startup_weight_load_seconds
+            phases["overlap"] = self.startup_compile_seconds
+            self.startup_phase_seconds = phases
+            if self._manifest is not None and not verified:
+                self._write_manifest(self._manifest)
+        self._warmed_up = True
+        if not first:
+            logger.info("warmup: %d decode and %d prefill families already "
+                        "warm (%.2f s)", len(dwarm), len(pwarm),
+                        time.monotonic() - t0)
+            return
+        logger.info(
+            "warmup: %d decode and %d prefill families in %.2f s (%s); start "
+            "phases (s): weight load %.2f, kernel build %.2f, warm runs %.2f, "
+            "decode capture %.2f, prefill capture %.2f, overlapped with the "
+            "load %.2f; %d variants deferred to first use (manifest %s)",
+            len(dwarm), len(pwarm), time.monotonic() - t0,
+            "CUDA graphs" if cuda else "eager",
+            self.startup_weight_load_seconds, phases["kernel_build"],
+            phases.get("warm_runs", 0.0), phases.get("decode_capture", 0.0),
+            phases.get("prefill_capture", 0.0), self.startup_compile_seconds,
+            len(train.deferred) + len(prefill.deferred),
+            "verified" if verified else
+            "written" if self._manifest is not None else "off")
+
+    def _join_weights(self, t0: float) -> None:
+        """Join the weight loader; with an overlapped load, record the
+        warm-up seconds since ``t0`` that ran while it was still working
+        (the reference's prepass seconds)."""
+        loading = self._param_thread is not None
+        t_join = time.monotonic()
+        self.wait_for_weights()
+        if loading:
+            self.startup_compile_seconds = max(
+                0.0, min(t_join, self._weights_done_at) - t0)
+
+    def _warmup_manifest_path(self) -> Optional[str]:
+        """The warm-up manifest of THIS configuration (the reference's
+        ``_warmup_manifest_path``; None without a cache directory): keyed by
+        the reference's fields and both family enumerations, plus the
+        port's graph keys, so any change to what warm-up captures misses to
+        another manifest and the start warms cold. It holds no artifact:
+        CUDA graphs do not persist. Its existence says that a start of this
+        configuration warmed every variant, and lets this one defer the
+        non-default ones to their first use."""
+        if not self.compilation_cache_path:
+            return None
+        cfg = self.config
+        doc = {
+            "model": cfg.model, "dtype": cfg.dtype,
+            "kv_cache_dtype": cfg.kv_cache_dtype,
+            "block_size": cfg.block_size,
+            "num_kv_blocks": self.num_kv_blocks,
+            "attn": self.attn_impl, "decode_loop": cfg.decode_loop,
+            "mesh": [["tp", cfg.tensor_parallel_size]],
+            "b_max": self.b_max,
+            "max_model_len": cfg.max_model_len,
+            "max_num_batched_tokens": cfg.max_num_batched_tokens,
+            "max_prefill_seqs": cfg.max_prefill_seqs,
+            "spec": self.spec_n,
+            "spec_ring": self.spec_ring_len,
+            "spec_adaptive": self.spec_adaptive,
+            "spec_tree": self.spec_tree_width,
+            "logprob_buckets": LOGPROB_BUCKETS,
+            "decode_families": self.reachable_decode_families(),
+            "prefill_families": self.reachable_prefill_families(),
+            "decode_graph_keys": self.decode_graph_keys(),
+            "prefill_graph_keys": self.prefill_graph_keys(),
+        }
+        key = hashlib.blake2b(
+            json.dumps(doc, sort_keys=True, default=str).encode(),
+            digest_size=12).hexdigest()
+        return os.path.join(self.compilation_cache_path,
+                            f"pstpu-warmup-{key}.ok")
+
+    @staticmethod
+    def _write_manifest(path: str) -> None:
+        """Write the manifest atomically (a temporary file, then a rename);
+        a directory that refuses it costs the next start a full warm-up."""
+        tmp = f"{path}.{os.getpid()}.tmp"
+        try:
+            with open(tmp, "w") as f:
+                f.write("complete\n")
+            os.replace(tmp, path)
+        except OSError:
+            logger.warning("could not write the warm-up manifest %s: the "
+                           "next start warms every variant", path,
+                           exc_info=True)
+
+    def _first_use(self, train, key) -> None:
+        """Capture ``key`` at its first dispatch when a manifest-verified
+        warm-up deferred it (``train.capture_deferred``: warm-up's own
+        path, on the capture stream, into the shared pool), under
+        ``kv_io_lock``, before the dispatch stages its inputs: the capture
+        zeroes the arena that every family of the train views. Counted in
+        ``deferred_captures_total`` and ``deferred_capture_seconds_total``,
+        never as an eager dispatch. A failure deletes the warm-up manifest
+        (the next start warms every variant) and raises out of the
+        dispatch: nothing runs in its place."""
+        if key not in train.deferred:
+            return
+        t0 = time.monotonic()
+        try:
+            with self.kv_io_lock:
+                train.capture_deferred(key)
+        except BaseException:
+            self.drop_warmup_manifest()
+            raise
+        train.deferred.discard(key)
+        dt = time.monotonic() - t0
+        self.deferred_captures_total += 1
+        self.deferred_capture_seconds_total += dt
+        logger.info("deferred variant %s captured at its first use in %.3f s",
+                    key, dt)
+
+    def drop_warmup_manifest(self) -> None:
+        """Delete this configuration's manifest (a deferred variant failed
+        to capture): the next start warms every variant."""
+        if self._manifest is None:
+            return
+        try:
+            os.unlink(self._manifest)
+        except FileNotFoundError:
+            pass
+        except OSError:
+            logger.warning("could not delete the warm-up manifest %s",
+                           self._manifest, exc_info=True)
 
     # --------------------------------------------------------------- helpers
     def _slot(self, n_in: int, n_out: int) -> _Slot:
@@ -1326,6 +1661,7 @@ class ModelRunner:
         n_packed = NUM_SCALARS * b + b * mb
         key = (b, mb, k, counts is not None, lpk, True)
         train = self.decode_train
+        self._first_use(train, key)
         bf = train.buffers(*key)
         parts = [bf.toks_all, bf.emits, bf.stats]
         if lpk:
@@ -1411,6 +1747,7 @@ class ModelRunner:
         n_packed = NUM_SCALARS * b + b * mb
         key = (b, mb, k, counts is not None, lpk, False)
         train = self.decode_train
+        self._first_use(train, key)
         bf = train.buffers(*key)
         bf.packed.copy_(slot.inp[:n_packed], non_blocking=True)
         if chain_src >= 0:
@@ -1547,6 +1884,9 @@ class ModelRunner:
         n_packed = NUM_SCALARS * b + b * mb + b * t
         key = (b, t, mb, has_window, counts is not None, lpk)
         train = self.prefill_train
+        # A logits sink runs the functions eagerly: nothing is captured.
+        if self.logits_sink is None:
+            self._first_use(train, key)
         bf = train.buffers(*key)
         bf.packed.copy_(slot.inp[:n_packed], non_blocking=True)
         if counts is not None:
@@ -1598,6 +1938,7 @@ class ModelRunner:
         call returns before any device-to-host wait; ``fetch()`` on the
         handle waits for its tokens. The pipelined engine loop issues the
         next dispatch before fetching this one."""
+        self.wait_for_weights()
         if batch.kind == "decode":
             return self._issue_decode(batch)
         return self._issue_prefill(batch)
@@ -1612,6 +1953,7 @@ class ModelRunner:
         tokens to the power-of-two bucket >= 16 of the longest input. Run
         between dispatches on the engine's worker thread; at tp > 1 every
         rank runs its shard's forward (an EMBED descriptor)."""
+        self.wait_for_weights()
         t0 = time.monotonic()
         cap = max(1, self.config.max_num_seqs)
         hi = 16
@@ -1706,6 +2048,7 @@ class ModelRunner:
         ``[L, Hkv, nblk, bs, Dh]`` view of each pool, then a copy to host
         memory, on the dispatch stream: it runs after every dispatch
         enqueued before it, whichever thread calls."""
+        self.wait_for_weights()
         ids = torch.tensor(list(block_ids), dtype=torch.long)
         if self.tp is None or not ids.numel():
             hosts = self._read_device(ids)
@@ -1788,6 +2131,7 @@ class ModelRunner:
         tensors themselves: the decode graphs captured their addresses, so
         the pools are never rebound. The next dispatch runs after the
         scatter (same stream)."""
+        self.wait_for_weights()
         if self.kv_quantized and k_scale is None:
             raise ValueError(
                 "restoring into an int8 KV pool requires per-slot scales "

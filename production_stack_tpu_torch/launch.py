@@ -21,7 +21,9 @@ handing off to a tp = 1 decode engine: blocks move whole, every kv head,
 whatever either side's tp). Arguments after ``--`` go to
 every engine's server as they are, e.g. ``--speculative-num-tokens 4
 --speculative-model llama-3b`` for speculative decoding, or
-``--lora-modules NAME=PATH ...`` for PEFT adapters. ``--model`` may be a
+``--lora-modules NAME=PATH ...`` for PEFT adapters, or
+``--compilation-cache-dir DIR`` (engines of one configuration share its
+warm-up manifest) and ``--no-overlap-weight-load``. ``--model`` may be a
 local HuggingFace checkpoint directory; engines run in the launcher's
 working directory, so relative paths resolve as they do here:
 

@@ -18,3 +18,12 @@ def get_model_fns(cfg):
     if cfg.arch not in _ARCHS:
         raise ValueError(f"Unknown arch {cfg.arch!r}; available: {list(_ARCHS)}")
     return _ARCHS[cfg.arch]
+
+
+def empty_params(cfg, dtype, device, rank: int = 0, tp: int = 1):
+    """Zeroed params of ``cfg``'s arch at their final shapes (this rank's
+    shard), for ``init_params`` / ``weights.load_hf_params`` to fill in
+    place (the arch's ``empty_params``)."""
+    get_model_fns(cfg)
+    return {"llama": llama, "opt": opt}[cfg.arch].empty_params(
+        cfg, dtype, device, rank, tp)

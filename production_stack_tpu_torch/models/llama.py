@@ -140,21 +140,64 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return table[x.view(torch.int16).long()]
 
 
+def empty_params(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
+                 device: Optional[torch.device] = None,
+                 rank: int = 0, tp: int = 1) -> Params:
+    """Zeroed params of their final shapes (rank ``rank``'s shard at
+    ``tp`` > 1), dtype and device: what ``init_params`` and
+    ``models/weights.py:load_hf_params`` fill in place. Allocating them
+    first lets the runner size its KV pool net of the weights before a
+    background thread fills them."""
+    check_tp(cfg, tp)
+    d, f, dh = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim_
+    h, hkv, nl, v = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers, cfg.vocab_size
+
+    def leaf(name, shape):
+        shape = shard_leaf(name, torch.empty(shape, device="meta"), rank,
+                           tp).shape
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    layers = {
+        "attn_norm": leaf("attn_norm", (nl, d)),
+        "mlp_norm": leaf("mlp_norm", (nl, d)),
+        "wq": leaf("wq", (nl, d, h * dh)),
+        "wk": leaf("wk", (nl, d, hkv * dh)),
+        "wv": leaf("wv", (nl, d, hkv * dh)),
+        "wo": leaf("wo", (nl, h * dh, d)),
+        "w_gate": leaf("w_gate", (nl, d, f)),
+        "w_up": leaf("w_up", (nl, d, f)),
+        "w_down": leaf("w_down", (nl, f, d)),
+    }
+    if cfg.attention_bias:
+        layers["bq"] = leaf("bq", (nl, h * dh))
+        layers["bk"] = leaf("bk", (nl, hkv * dh))
+        layers["bv"] = leaf("bv", (nl, hkv * dh))
+    params = {"embed": leaf("embed", (v, d)), "layers": layers,
+              "final_norm": leaf("final_norm", (d,))}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = leaf("lm_head", (d, v))
+    return params
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
                 device: Optional[torch.device] = None,
-                rank: int = 0, tp: int = 1) -> Params:
+                rank: int = 0, tp: int = 1, out: Optional[Params] = None
+                ) -> Params:
     """Random weights (the JAX package's scheme: N(0, 1/fan_in), unit norms),
-    drawn on ``device`` from ``generator`` (which must live on that device).
+    drawn on ``device`` from ``generator`` (which must live on that device)
+    into ``out`` (``empty_params``; allocated here when None) in place.
     Each stacked leaf is drawn one layer at a time in f32 so the peak extra
     memory is one layer, not the whole model. With ``tp`` > 1 every leaf
     is still drawn in full, in the same order, and rank ``rank`` keeps its
     slice (parallel/sharding.py): the ranks together hold exactly the
     weights a tp=1 engine draws from the same seed."""
     device = device if device is not None else generator.device
-    check_tp(cfg, tp)
+    if out is None:
+        out = empty_params(cfg, dtype, device, rank, tp)
     d, f, dh = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim_
     h, hkv, nl, v = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers, cfg.vocab_size
+    layers = out["layers"]
 
     def draw(name, shape, fan_in):
         x = (torch.randn(shape, generator=generator, device=device,
@@ -162,42 +205,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return shard_leaf(name, x, rank, tp)
 
     def w(name, shape, fan_in):
-        out = None
         for i in range(shape[0]):
-            layer = draw(name, shape[1:], fan_in)
-            if out is None:
-                out = torch.empty((shape[0],) + tuple(layer.shape),
-                                  dtype=dtype, device=device)
-            out[i] = layer
-        return out
+            layers[name][i] = draw(name, shape[1:], fan_in)
 
-    def zeros(name, shape):
-        return shard_leaf(name, torch.zeros(shape, dtype=dtype, device=device),
-                          rank, tp)
-
-    layers = {
-        "attn_norm": torch.ones((nl, d), dtype=dtype, device=device),
-        "mlp_norm": torch.ones((nl, d), dtype=dtype, device=device),
-        "wq": w("wq", (nl, d, h * dh), d),
-        "wk": w("wk", (nl, d, hkv * dh), d),
-        "wv": w("wv", (nl, d, hkv * dh), d),
-        "wo": w("wo", (nl, h * dh, d), h * dh),
-        "w_gate": w("w_gate", (nl, d, f), d),
-        "w_up": w("w_up", (nl, d, f), d),
-        "w_down": w("w_down", (nl, f, d), f),
-    }
-    if cfg.attention_bias:
-        layers["bq"] = zeros("bq", (nl, h * dh))
-        layers["bk"] = zeros("bk", (nl, hkv * dh))
-        layers["bv"] = zeros("bv", (nl, hkv * dh))
-    params = {
-        "embed": draw("embed", (v, d), d),
-        "layers": layers,
-        "final_norm": torch.ones((d,), dtype=dtype, device=device),
-    }
+    layers["attn_norm"].fill_(1)
+    layers["mlp_norm"].fill_(1)
+    w("wq", (nl, d, h * dh), d)
+    w("wk", (nl, d, hkv * dh), d)
+    w("wv", (nl, d, hkv * dh), d)
+    w("wo", (nl, h * dh, d), h * dh)
+    w("w_gate", (nl, d, f), d)
+    w("w_up", (nl, d, f), d)
+    w("w_down", (nl, f, d), f)
+    for name in ("bq", "bk", "bv"):
+        if name in layers:
+            layers[name].zero_()
+    out["embed"].copy_(draw("embed", (v, d), d))
+    out["final_norm"].fill_(1)
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = draw("lm_head", (d, v), d)
-    return params
+        out["lm_head"].copy_(draw("lm_head", (d, v), d))
+    return out
 
 
 def _layer_body(
@@ -344,13 +371,17 @@ def forward(
     return hidden, torch.stack(k_out), torch.stack(v_out)
 
 
-def lm_head_f32(params: Params, cfg: ModelConfig) -> torch.Tensor:
+def lm_head_f32(params: Params, cfg: ModelConfig,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The output projection [D, V] widened to f32 once: ``compute_logits``
     then multiplies bf16 values exactly in f32 with f32 accumulation, as the
     JAX package's ``preferred_element_type=float32`` dot does. From sharded
     params it is this rank's share: [D, V/tp] (``lm_head``) or [D/tp, V]
-    (a tied ``embed``)."""
+    (a tied ``embed``). ``out``: an f32 tensor of that shape to fill in
+    place (the same values)."""
     head = params["embed"].t() if cfg.tie_word_embeddings else params["lm_head"]
+    if out is not None:
+        return out.copy_(head)
     return head.float().contiguous()
 
 

@@ -36,44 +36,72 @@ def _check_tp(tp: int) -> None:
                          f"only, got {tp}")
 
 
+def _shapes(cfg: ModelConfig) -> Dict:
+    """Every leaf's shape: {top-level name: shape, "layers": {name: shape}}."""
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    h, dh, nl, v = cfg.num_heads, cfg.head_dim_, cfg.num_layers, cfg.vocab_size
+    return {
+        "embed": (v, d),
+        "pos_embed": (cfg.max_position_embeddings + _OPT_POS_OFFSET, d),
+        "layers": {
+            "ln1_w": (nl, d), "ln1_b": (nl, d),
+            "ln2_w": (nl, d), "ln2_b": (nl, d),
+            "wq": (nl, d, h * dh), "bq": (nl, h * dh),
+            "wk": (nl, d, h * dh), "bk": (nl, h * dh),
+            "wv": (nl, d, h * dh), "bv": (nl, h * dh),
+            "wo": (nl, h * dh, d), "bo": (nl, d),
+            "fc1": (nl, d, f), "fc1_b": (nl, f),
+            "fc2": (nl, f, d), "fc2_b": (nl, d),
+        },
+        "final_ln_w": (d,),
+        "final_ln_b": (d,),
+    }
+
+
+def empty_params(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
+                 device: Optional[torch.device] = None,
+                 rank: int = 0, tp: int = 1) -> Params:
+    """Zeroed params of their final shapes, dtype and device (see
+    ``models/llama.py:empty_params``)."""
+    _check_tp(tp)
+    return {k: ({n: torch.zeros(s, dtype=dtype, device=device)
+                 for n, s in v.items()} if k == "layers"
+                else torch.zeros(v, dtype=dtype, device=device))
+            for k, v in _shapes(cfg).items()}
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
                 device: Optional[torch.device] = None,
-                rank: int = 0, tp: int = 1) -> Params:
+                rank: int = 0, tp: int = 1, out: Optional[Params] = None
+                ) -> Params:
     """Random weights (the JAX package's scheme: N(0, 1/fan_in), unit
-    norms, zero biases), drawn on ``device`` from ``generator``."""
+    norms, zero biases), drawn on ``device`` from ``generator`` into
+    ``out`` (``empty_params``; allocated here when None) in place."""
     _check_tp(tp)
     device = device if device is not None else generator.device
+    if out is None:
+        out = empty_params(cfg, dtype, device, rank, tp)
     d, f = cfg.hidden_size, cfg.intermediate_size
-    h, dh, nl, v = cfg.num_heads, cfg.head_dim_, cfg.num_layers, cfg.vocab_size
+    h, dh = cfg.num_heads, cfg.head_dim_
+    layers = out["layers"]
 
-    def w(shape, fan_in):
-        return (torch.randn(shape, generator=generator, device=device,
-                            dtype=torch.float32) * fan_in ** -0.5).to(dtype)
+    def w(dst, fan_in):
+        dst.copy_((torch.randn(dst.shape, generator=generator, device=device,
+                               dtype=torch.float32) * fan_in ** -0.5).to(dtype))
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=device)
-
-    layers = {
-        "ln1_w": ones(nl, d), "ln1_b": zeros(nl, d),
-        "ln2_w": ones(nl, d), "ln2_b": zeros(nl, d),
-        "wq": w((nl, d, h * dh), d), "bq": zeros(nl, h * dh),
-        "wk": w((nl, d, h * dh), d), "bk": zeros(nl, h * dh),
-        "wv": w((nl, d, h * dh), d), "bv": zeros(nl, h * dh),
-        "wo": w((nl, h * dh, d), h * dh), "bo": zeros(nl, d),
-        "fc1": w((nl, d, f), d), "fc1_b": zeros(nl, f),
-        "fc2": w((nl, f, d), f), "fc2_b": zeros(nl, d),
-    }
-    return {
-        "embed": w((v, d), d),
-        "pos_embed": w((cfg.max_position_embeddings + _OPT_POS_OFFSET, d), d),
-        "layers": layers,
-        "final_ln_w": ones(d),
-        "final_ln_b": zeros(d),
-    }
+    for name in ("ln1_w", "ln2_w"):
+        layers[name].fill_(1)
+    for name in ("ln1_b", "ln2_b", "bq", "bk", "bv", "bo", "fc1_b", "fc2_b"):
+        layers[name].zero_()
+    for name, fan_in in (("wq", d), ("wk", d), ("wv", d), ("wo", h * dh),
+                         ("fc1", d), ("fc2", f)):
+        w(layers[name], fan_in)
+    w(out["embed"], d)
+    w(out["pos_embed"], d)
+    out["final_ln_w"].fill_(1)
+    out["final_ln_b"].zero_()
+    return out
 
 
 def _layer_body(cfg: ModelConfig, hidden: torch.Tensor, lp: Dict,
@@ -145,9 +173,12 @@ def forward(
     return hidden, torch.stack(k_out), torch.stack(v_out)
 
 
-def lm_head_f32(params: Params, cfg: ModelConfig) -> torch.Tensor:
+def lm_head_f32(params: Params, cfg: ModelConfig,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The tied output projection [D, V] widened to f32 once (see
-    ``models/llama.py:lm_head_f32``)."""
+    ``models/llama.py:lm_head_f32``; ``out`` is filled in place)."""
+    if out is not None:
+        return out.copy_(params["embed"].t())
     return params["embed"].t().float().contiguous()
 
 

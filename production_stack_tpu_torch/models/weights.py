@@ -8,9 +8,10 @@ a LOCAL model directory of ``*.safetensors`` shards (through
 ``pytorch_model*.bin`` files, mapped onto the stacked-layer dict by the
 same name maps, transposed to ``x @ w`` the same way, and refused on the
 same gaps. Each tensor goes to the device as it is read, into its layer
-of a preallocated ``[L, ...]`` stack there, so host memory holds about
-one tensor, not the checkpoint; at tp > 1 each rank keeps only its shard
-(``parallel/sharding.py``).
+of a preallocated ``[L, ...]`` stack there (the caller's, when it
+allocated the params beforehand: the runner fills them on a background
+thread), so host memory holds about one tensor, not the checkpoint; at
+tp > 1 each rank keeps only its shard (``parallel/sharding.py``).
 
 ``params_from_jax`` takes the JAX params exported as numpy
 (``jax.tree.map(np.asarray, params)``, llama or OPT) and returns the same
@@ -132,34 +133,41 @@ def _iter_checkpoint_tensors(model_dir: str) -> Iterator[Tuple[str, torch.Tensor
 
 def load_hf_params(cfg: ModelConfig, model_dir: str,
                    dtype: torch.dtype = torch.bfloat16, device="cuda",
-                   rank: int = 0, tp: int = 1) -> Dict:
+                   rank: int = 0, tp: int = 1,
+                   out: Optional[Dict] = None) -> Dict:
     """Load an HF checkpoint directory into the stacked-layer dict of
     ``models/llama.py`` / ``models/opt.py`` (the JAX ``load_hf_params``:
     its maps, transposes and refusals), in ``dtype`` on ``device`` (the
-    card unless the caller asks for the CPU). Each tensor is cast and
-    transposed on the device and written into its layer of the leaf's
-    ``[L, ...]`` stack there; with ``tp`` > 1 only rank ``rank``'s slice
-    of it is kept (``parallel/sharding.py``)."""
-    from production_stack_tpu_torch.parallel.sharding import (
-        check_tp,
-        shard_leaf,
-    )
+    card unless the caller asks for the CPU). ``out``: the params to fill
+    in place (``models.empty_params``; allocated here when None). Each
+    tensor is cast and transposed on the device and written into its layer
+    of the leaf's ``[L, ...]`` stack there; with ``tp`` > 1 only rank
+    ``rank``'s slice of it is kept (``parallel/sharding.py``). A tensor
+    whose leaf the model has no use for is skipped; one of another shape
+    than its leaf, and a leaf left without a tensor, are refused."""
+    from production_stack_tpu_torch.models import empty_params
+    from production_stack_tpu_torch.parallel.sharding import shard_leaf
 
     device = torch.device(device)
-    if tp > 1:
-        check_tp(cfg, tp)
+    if out is None:
+        out = empty_params(cfg, dtype, device, rank, tp)
     per_layer_map = _LLAMA_MAP if cfg.arch == "llama" else _OPT_MAP
     top_map = _LLAMA_TOP if cfg.arch == "llama" else _OPT_TOP
     nl = cfg.num_layers
+    stacks = out["layers"]                 # our layer leaf -> [L, ...] stack
 
-    def place(ours, tensor, transpose):
+    def place(hf_name, ours, tensor, transpose, dst):
         t = tensor.to(device).to(dtype)
-        t = t.t() if transpose else t
-        return shard_leaf(ours, t, rank, tp)
+        t = shard_leaf(ours, t.t() if transpose else t, rank, tp)
+        if t.shape != dst.shape:
+            raise ValueError(
+                f"Checkpoint tensor {hf_name} has shape {tuple(t.shape)} "
+                f"(rank {rank} of {tp}) where the config's {ours} has "
+                f"{tuple(dst.shape)}")
+        dst.copy_(t)
 
-    stacks: Dict[str, torch.Tensor] = {}   # our layer leaf -> [L, ...] stack
-    filled: Dict[str, set] = {}            # our layer leaf -> layer indices
-    top: Dict[str, torch.Tensor] = {}
+    filled: Dict[str, set] = {k: set() for k in stacks}  # layer indices
+    top_filled = set()
     for hf_name, tensor in _iter_checkpoint_tensors(model_dir):
         m = _LAYER_RE.search(hf_name)
         if m is not None:
@@ -174,47 +182,40 @@ def load_hf_params(cfg: ModelConfig, model_dir: str,
                     f"Checkpoint tensor {hf_name} indexes layer {layer_idx} "
                     f"but the config has only {nl} layers"
                 )
-            t = place(ours, tensor, transpose)
             if ours not in stacks:
-                stacks[ours] = torch.empty((nl,) + tuple(t.shape), dtype=dtype,
-                                           device=device)
-                filled[ours] = set()
-            stacks[ours][layer_idx] = t
+                logger.debug("Skipping tensor %s: the config has no %s",
+                             hf_name, ours)
+                continue
+            place(hf_name, ours, tensor, transpose, stacks[ours][layer_idx])
             filled[ours].add(layer_idx)
         else:
             mapped = top_map.get(hf_name)
-            if mapped is None:
+            if mapped is None or mapped[0] not in out:
+                # a tied config's lm_head among them
                 logger.debug("Skipping unmapped tensor %s", hf_name)
                 continue
             ours, transpose = mapped
-            # A copy of its own: on the CPU ``place`` may return a view of
-            # the file's memory map.
-            top[ours] = place(ours, tensor, transpose).clone(
-                memory_format=torch.contiguous_format)
+            place(hf_name, ours, tensor, transpose, out[ours])
+            top_filled.add(ours)
 
     # Completeness is checked per LAYER-INDEX SET, not by count: a sharded
     # checkpoint that repeats layer 0 and omits layer 7 has the right count
     # but would serve garbage for the missing layer.
     all_layers = set(range(nl))
     holes = {k: sorted(all_layers - s) for k, s in filled.items()
-             if s != all_layers}
+             if s and s != all_layers}
     if holes:
         raise ValueError(f"Incomplete checkpoint: missing layer indices {holes}")
-    absent = _required_layer_leaves(cfg) - set(stacks)
+    absent = sorted(k for k, s in filled.items()
+                    if not s and k in _required_layer_leaves(cfg))
+    absent += sorted(k for k in out if k != "layers" and k not in top_filled)
     if absent:
         raise ValueError(
-            f"Incomplete checkpoint: no tensors at all for {sorted(absent)}"
+            f"Incomplete checkpoint: no tensors at all for {absent}"
         )
-    params: Dict = {"layers": stacks, **top}
-    if cfg.arch == "llama" and cfg.tie_word_embeddings:
-        params.pop("lm_head", None)
-    if cfg.arch == "llama" and "lm_head" not in params \
-            and not cfg.tie_word_embeddings and "embed" in params:
-        # Checkpoints sometimes omit lm_head when tied; honor the config.
-        logger.warning("lm_head missing; falling back to tied embeddings")
     logger.info("Loaded %d layer stacks + %d top-level tensors from %s",
-                len(stacks), len(top), model_dir)
-    return params
+                len(stacks), len(top_filled), model_dir)
+    return out
 
 
 def _to_tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:

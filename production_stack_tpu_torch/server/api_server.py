@@ -1268,14 +1268,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="dp replica count within this process: not ported "
                         "yet, 1 only")
     p.add_argument("--compilation-cache-dir", default=None,
-                   help="the reference's persistent compile-cache "
-                        "directory: a persistent graph cache is not ported "
-                        "yet, so only unset or an empty string (disabled) "
-                        "is accepted")
+                   help="directory of the warm-up manifest (a subdirectory "
+                        "per card and toolchain): a start that finds the "
+                        "manifest of its own configuration captures only the "
+                        "default sampling variants and each other variant "
+                        "at its first use. CUDA graphs themselves do not "
+                        "persist. Unset or empty: every start captures every "
+                        "variant")
     p.add_argument("--no-overlap-weight-load", action="store_true",
-                   help="load weights serially before warm-up: the port "
-                        "always does (the reference overlaps the checkpoint "
-                        "read with its compile prepass)")
+                   help="load the weights before warm-up instead of on a "
+                        "background thread beside the kernel build and the "
+                        "eager warm runs (captures always wait for them; "
+                        "speculative decoding and tp > 1 load serially)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--api-key", default=os.environ.get("VLLM_API_KEY"),
                    help="require 'Authorization: Bearer <key>' on /v1/* "
@@ -1380,6 +1384,7 @@ def config_from_args(args: argparse.Namespace) -> EngineConfig:
         sequence_parallel_size=args.sequence_parallel_size,
         data_parallel_size=args.data_parallel_size,
         compilation_cache_dir=args.compilation_cache_dir,
+        overlap_weight_load=not args.no_overlap_weight_load,
         debug_endpoints=not args.no_debug_endpoints,
         hbm_peak_gbps=args.hbm_peak_gbps, role=args.role,
         speculative_num_tokens=args.speculative_num_tokens,

@@ -590,19 +590,22 @@ def test_every_jax_flag_parses_on_the_port(action):
     ("--data-parallel-size", "1", False),
     ("--data-parallel-size", "4", True),
     ("--compilation-cache-dir", "", False),
-    ("--compilation-cache-dir", "/var/cache/pstpu", True),
+    ("--compilation-cache-dir", "/var/cache/pstpu", False),
     (None, None, False),
 ])
 def test_unported_flags_refused_unless_inert(flag, value, refused):
-    """sp, dp and the compilation cache are not ported: 1 or unset (an
-    empty cache dir) builds, any other value is a ValueError naming the
-    flag and saying so, when the config is built."""
+    """sp and dp are not ported: 1 builds, any other value is a ValueError
+    naming the flag and saying so, when the config is built. The
+    compilation cache directory (the warm-up manifest's) is ported: any
+    value reaches the config as given."""
     argv = ["--model", "tiny-llama", "--device", "cpu"]
     if flag:
         argv += [flag, value]
     args = port_api.parse_args(argv)
     if not refused:
-        port_api.config_from_args(args)
+        cfg = port_api.config_from_args(args)
+        if flag == "--compilation-cache-dir":
+            assert cfg.compilation_cache_dir == value
         return
     with pytest.raises(ValueError) as e:
         port_api.config_from_args(args)
@@ -624,6 +627,7 @@ def test_chart_flags_build_a_port_engine():
             cfg.max_num_batched_tokens, cfg.flight_recorder_capacity,
             cfg.flight_recorder_max_events, cfg.debug_endpoints) == \
         (8, 0.5, False, 128, 16, 64, False)
+    assert cfg.overlap_weight_load is False
     assert cfg.resolved_attn_impl(resolve_model_config("tiny-llama")) == \
         "window"
     eng = _port_engine(flight_recorder_capacity=2, flight_recorder_max_events=8)
