@@ -29,11 +29,11 @@ serving):
      kernel (per CUDA kernel name; exactly one launch per call), the plain
      version and an SDPA yardstick (int8: over K/V dequantized
      beforehand, untimed), the bound and the kernel's share of it;
-  4. serving, twice: llama-3b at full width (random bf16 weights from
-     --seed) behind the port's HTTP server with its defaults (decode CUDA
-     graphs captured at warm-up, the pipelined two-slot loop) and a bf16
-     KV pool at full depth, then with an int8 KV pool, depth cut to
-     ``CUT_LAYERS`` (``cut_model``'s directory); each: one
+  4. serving, twice: llama-3b at full width, depth cut to ``CUT_LAYERS``
+     (``cut_model``'s directory of random bf16 weights from --seed) behind
+     the port's HTTP server with its defaults (decode CUDA graphs captured
+     at warm-up, the pipelined two-slot loop), with a bf16 KV pool, then
+     with an int8 KV pool; each: one
      untimed warm-up request, then 4 concurrent requests (greedy and
      seeded, completions and streamed chat), /v1/models and /health; every
      decode dispatch must replay graphs, and the run's kernel variant must
@@ -64,8 +64,8 @@ serving):
      sampler margin is at most 2 x ``tp_logit_bound``. Then the window
      path with decode_loop="while" on a small model (bf16 and int8
      pools), eager against graphs, bit for bit;
-  6. elastic: fast start at the serving config (llama-3b, full width and
-     depth, bf16 KV). The serving phase's engine is the cold start (a): its
+  6. elastic: fast start at the serving config (llama-3b, full width,
+     depth cut to ``CUT_LAYERS``, bf16 KV). The serving phase's engine is the cold start (a): its
      weights filled on a background thread beside warm-up, and its
      ``--compilation-cache-dir`` (``ELASTIC_CACHE``, emptied when the script
      starts) gets the warm-up manifest; /metrics' startup gauges give its
@@ -103,6 +103,22 @@ serving):
      profiled step (host ms in the collectives); then
      ``paged_flash_decode_stats_tp`` on each of 2 ranks against its plain
      twin, and its device times at a rank's shape (H 16, Hkv 4);
+  8b. sp: the rest of the reference's mesh, every rank a process on this
+     card over gloo. llama-3b at sequence_parallel_size 2, full width and
+     depth, bf16: 4 x 64-token prompts and one of 3,000 tokens at
+     ``max_num_batched_tokens`` 1,024 (a first chunk and two continuation
+     chunks, every one ring-attended); then, cut to ``CUT_LAYERS``, dp = 2
+     x sp = 2 x tp = 2 (8 ranks) and sp = 2 x tp = 3 (6 ranks, the
+     replication fallback: kv heads and the MLP replicated, the window
+     path), 4 x 16-token prompts. Each: an eager tp = 1 runner's greedy
+     tokens forced through the mesh's runner (max |logit diff| within
+     ``tp_logit_bound``), the prompts served greedily on the engine API
+     (tokens equal to tp = 1's up to the first step whose margin is under
+     twice the bound), every rank's ring counts (both kinds where the long
+     prompt ran), pool digest (equal to its (0, 0, t) twin's) and kernel
+     count (layers x decode steps; 0 on the window path); the long
+     prefill's seconds at sp = 2 and tp = 1, the ring's host seconds,
+     eager decode ms per step by events, peak GiB per rank;
   9. surface: llama-3b (full width, depth cut to ``CUT_LAYERS``: the
      directory kvtier loads; random bf16 weights, bf16 KV
      of 2049 blocks, decode graphs with their logprob variants captured)
@@ -189,16 +205,18 @@ serving):
      (each step's seconds in the summary); then float32 tiny-llama with the
      tiny-llama and tiny-opt drafts, every mode's tokens equal to
      spec-off's bit for bit;
- 12. ckpt: llama-3b's random bf16 params from --seed written as an HF
+ 12. ckpt: llama-3b's random bf16 params from --seed, full width cut to
+     ``CUT_LAYERS`` (``cut_model``'s draw), written as an HF
      checkpoint directory (config.json, HF names and [out, in] tensors, two
      safetensors shards and their index, by the port's own writer) under
      the gitignored output directory, removed at the phase's end; the
-     named-config engine serves 4 streams (2 greedy, 2 seeded) x 64 tokens
+     engine drawing the same weights from the seed (``load_format`` dummy)
+     serves 4 streams (2 greedy, 2 seeded) x 64 tokens
      behind the port's server; an engine made from the server's flags with
      ``--model <dir>`` loads it (seconds, GB/s against a plain read of the
      files, the peak host RSS over the load, the tokenizer class: the byte
      tokenizer, no tokenizer file being written), every leaf equal to the
-     written one bit for bit and the config to llama-3b's in every field
+     written one bit for bit and the config to the cut model's in every field
      but the name, and serves the same 4 streams: tokens equal the named
      config's; the same directory booted again from the server's flags
      with ``--no-overlap-weight-load``, without it, and with it again (all
@@ -211,7 +229,7 @@ serving):
      graph replay = the eager train = the served round on the engine API,
      no prefix block shared across adapters (hit counters), the stack and
      graph-pool bytes, decode ms per step by CUDA events with and without
-     adapters alternated; every round replays graphs only and counts 28 x
+     adapters alternated; every round replays graphs only and counts layers x
      decode steps of the bf16 kernel, 0 of int8; last, at llama-3b width
      cut to 2 layers in float32, an adapter row's logits against a model
      with merged weights, W + A.B.alpha/r, within ``CKPT_F32_BOUND``.
@@ -253,15 +271,16 @@ KERNEL_REPLACES = {
 TP_KERNEL_REPLACES = ("production_stack_tpu/ops/pallas/paged_attention.py:376 "
                       "paged_flash_decode_stats_tp")
 BF16_KV_BLOCKS = 8 * 4096 // 16 + 1   # 8 sequences x 4096 tokens + null block
-# Every phase but the main path's bf16 runs (serving, graphs, elastic at
-# llama-3b's full depth) runs its model at full width cut to this many
-# layers: the int8 serving and graphs runs, tp, surface, kvtier, kvtier-tp
-# and spec load checkpoint directories of random bf16 weights from --seed
+# Every phase but the sp phase's sp = 2 run (llama-3b at full depth) runs
+# its model at full width cut to this many layers: serving, graphs,
+# elastic, tp, sp's dp x sp x tp runs, surface, kvtier, kvtier-tp, spec and
+# ckpt load checkpoint directories of random bf16 weights from --seed
 # (``cut_model``), written under the output directory and removed at exit.
 # Warm-up graph capture and eager dispatch are host-bound and grow with
-# depth, and their cost varies from one machine to the next: at 8 layers
-# (and tp, surface and int8 serving at full depth) a run took 1,067-1,105 s
-# of the 1,200 s limit on one machine and over 1,200 s on another.
+# depth, and their cost varies from one machine to the next: with the
+# serving, graphs and elastic bf16 runs at full depth the whole script took
+# 947 s on one machine and 1,049 s on another, against a 1,200 s limit
+# that a machine ~1.35x slower had already overrun.
 CUT_LAYERS = 4
 # The prefill token budget (``max_num_batched_tokens``) of the engines of the
 # surface, kvtier, kvtier-tp, spec and ckpt phases: their warm-up captures
@@ -1935,14 +1954,16 @@ def tp_logit_bound(n_layers: int, n_samples: int, sources: int = 2) -> float:
     return 1.5 * math.sqrt(2 * math.log(n_samples)) * sigma
 
 
-def tp_kernel_rank(torch, pa, group, seed, lens, quant):
-    """Every rank of ``group``: its slice of a main-path-shaped case at
-    llama-3-8b's heads (H 32, Hkv 8, Dh 128, 32 layers; B 4) through
+def tp_kernel_rank(torch, pa, mesh, seed, lens, quant):
+    """Every rank of ``mesh`` (one tp group): its slice of a
+    main-path-shaped case at llama-3-8b's heads (H 32, Hkv 8, Dh 128, 32
+    layers; B 4) through
     ``paged_flash_decode_stats_tp`` against the plain twin on the same
     slice (layers 0 and 31, the kernel phase's tolerances); the slices'
     outputs gathered over the ranks against the one-process kernel over all
     heads (max |diff|, reported). Returns every rank's result (rank 0)."""
     b, h, hkv, dh, n_layers, bs = 4, 32, 8, 128, 32, 16
+    group = mesh.tp
     q, kp, vp, ks, vs, bt, kvl = make_case(torch, b, h, hkv, dh, lens, n_layers,
                                            bs, seed, group.device, quant)
     r, tp = group.rank, group.size
@@ -1978,7 +1999,7 @@ def tp_kernel_rank(torch, pa, group, seed, lens, quant):
                                         (full.float() - one.float()).abs().max().item())
     del q, kp, vp, ks, vs, ql, kl, vl, sc_l
     torch.cuda.empty_cache()
-    return group.gather_object(res)
+    return mesh.gather_object(res)
 
 
 def tp_kernel_rank_main(seed: int, rank: int, port: int, device: str,
@@ -1990,15 +2011,15 @@ def tp_kernel_rank_main(seed: int, rank: int, port: int, device: str,
     from production_stack_tpu_torch.parallel.mesh import die_with_parent
 
     from production_stack_tpu_torch.ops import paged_attention as pa
-    from production_stack_tpu_torch.parallel.mesh import TPGroup
+    from production_stack_tpu_torch.parallel.mesh import RankMesh
 
     die_with_parent(os.getppid())
-    group = TPGroup.join(rank, TP, port, torch.device(device), TP_TIMEOUT_S)
+    mesh = RankMesh.join(rank, 1, 1, TP, port, torch.device(device), TP_TIMEOUT_S)
     try:
         for quant in (False, True):
-            tp_kernel_rank(torch, pa, group, seed, lens, quant)
+            tp_kernel_rank(torch, pa, mesh, seed, lens, quant)
     finally:
-        group.close()
+        mesh.close()
 
 
 def tp_kernel_phase(torch, pa, device, seed, main_lens, card):
@@ -2007,19 +2028,19 @@ def tp_kernel_phase(torch, pa, device, seed, main_lens, card):
     its device times at the per-rank shape (H 16, Hkv 4) on rank 0 alone:
     the kernel through the wrapper, its plain twin, SDPA, the bound.
     Returns the bf16 and int8 rows."""
-    from production_stack_tpu_torch.parallel.mesh import TPGroup
+    from production_stack_tpu_torch.parallel.mesh import RankMesh
 
     here = os.path.abspath(__file__)
-    group = TPGroup.launch(TP, device, TP_TIMEOUT_S, lambda r, port: [
+    mesh = RankMesh.launch(1, 1, TP, device, TP_TIMEOUT_S, lambda r, port: [
         sys.executable, here, "--seed", str(seed), "--tp-kernel-rank", str(r),
         "--tp-port", str(port), "--tp-device", device.type,
         "--tp-lens", ",".join(map(str, main_lens))])
     results = {}
     try:
         for quant in (False, True):
-            results[quant] = tp_kernel_rank(torch, pa, group, seed, main_lens, quant)
+            results[quant] = tp_kernel_rank(torch, pa, mesh, seed, main_lens, quant)
     finally:
-        group.close()
+        mesh.close()
     rows = {}
     for quant in (False, True):
         variant = "int8" if quant else "bf16"
@@ -2369,6 +2390,316 @@ def tp_phase(torch, pa, device, seed, card, kv_cache_dtype, model=TP_MODEL):
     }
     log(f"tp result {json.dumps(summary)}")
     return launches, summary
+
+
+# ------------------------------------------------------------- phase 7b: sp
+SP_MODEL = "llama-3b"
+SP_BUDGET = 1024                    # max_num_batched_tokens of the sp runs
+SP_SHORT = 64                       # tokens of each of the 4 short prompts
+SP_LONG = 3000                      # tokens of the long prompt: 3 chunks
+SP_CUT_TOKENS = 16                  # prompt tokens of the cut meshes' runs
+SP_ROW_BLOCKS = 256                 # blocks per forced row (4096 tokens)
+SP_MESHES = (
+    # (name, dp, sp, tp, cut to CUT_LAYERS, long prompt)
+    ("sp2", 1, 2, 1, False, True),
+    ("dp2-sp2-tp2", 2, 2, 2, True, False),
+    ("sp2-tp3", 1, 2, 3, True, False),
+)
+
+
+def sp_prompts(seed: int, vocab: int, long: bool):
+    """The sp runs' prompt ids, drawn from ``seed``: 4 x ``SP_SHORT`` tokens
+    and, with ``long``, one of ``SP_LONG`` (a first chunk and two
+    continuation chunks at ``SP_BUDGET``); else 4 x ``SP_CUT_TOKENS``."""
+    rng = random.Random(seed * 7919 + 17)
+    n = SP_SHORT if long else SP_CUT_TOKENS
+    out = [[rng.randrange(3, vocab) for _ in range(n - i)] for i in range(4)]
+    if long:
+        out.append([rng.randrange(3, vocab) for _ in range(SP_LONG)])
+    return out
+
+
+def sp_forced(torch, runner, prompt_ids, forced, steps):
+    """Prefill every prompt in chunks of at most ``SP_BUDGET`` tokens
+    through ``runner.execute_async`` (the short prompts in one dispatch, a
+    longer one alone, chunk after chunk), then ``steps`` one-step decode
+    dispatches of every row; step s's input token is ``forced[i][s]``
+    (None: the run's own greedy tokens). Returns (the f32 logits [rows,
+    steps + 1, V] on the CPU, each row's greedy tokens, the sequences, the
+    host seconds of the longest prompt's prefill dispatches)."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.scheduler import ScheduledBatch, Sequence
+
+    n = len(prompt_ids)
+    seqs = []
+    for i, ids in enumerate(prompt_ids):
+        s = Sequence(f"sp-{i}", list(ids), SamplingParams(
+            temperature=0.0, max_tokens=4 * steps, ignore_eos=True))
+        s.block_ids = list(range(1 + i * SP_ROW_BLOCKS, 1 + (i + 1) * SP_ROW_BLOCKS))
+        seqs.append(s)
+    runner.logits_sink = sink = []
+    first = [None] * n
+    greedy = [None] * n
+    long_s = 0.0
+    groups = [[i for i in range(n) if len(prompt_ids[i]) <= SP_BUDGET // n]]
+    groups += [[i] for i in range(n) if i not in groups[0]]
+    for rows in groups:
+        start = 0
+        total = max(len(prompt_ids[i]) for i in rows)
+        while start < total:
+            batch = [i for i in rows if len(prompt_ids[i]) > start]
+            lens = [min(SP_BUDGET // len(batch), len(prompt_ids[i]) - start)
+                    for i in batch]
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = runner.execute_async(ScheduledBatch(
+                "prefill", [seqs[i] for i in batch], chunk_starts=[start] * len(batch),
+                chunk_lens=lens)).fetch()[0]
+            torch.cuda.synchronize()
+            if len(rows) == 1:
+                long_s += time.monotonic() - t0
+            for j, i in enumerate(batch):
+                if out[j]:
+                    greedy[i] = [out[j][0]]
+                    first[i] = sink[-1][j].float().cpu()
+            start += max(lens)
+    for s in seqs:
+        s.num_computed_tokens = s.num_tokens
+    steps_logits = []
+    for step in range(steps):
+        for i, s in enumerate(seqs):
+            s.output_token_ids.append(forced[i][step] if forced else greedy[i][-1])
+        out = runner.execute_async(ScheduledBatch(
+            "decode", seqs, num_steps=1, decode_steps=[1] * n)).fetch()[0]
+        steps_logits.append(sink[-1][:n].float().cpu())
+        for i, s in enumerate(seqs):
+            s.num_computed_tokens += 1
+            greedy[i].append(out[i][0])
+    runner.logits_sink = None
+    logits = torch.stack([torch.stack(first)] + steps_logits, dim=1)
+    return logits, greedy, seqs, long_s
+
+
+def sp_bars(torch, name, lg, ref, served, greedy_ref, bound):
+    """The logits bar (max |logit diff| of the forced runs within
+    ``bound``) and the token bar (each served stream equals the reference's
+    greedy tokens up to the first step whose reference top-2 margin is
+    under twice the bound). Returns the numbers."""
+    diff = (lg - ref).abs()
+    top2 = ref.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    firsts = []
+    for i, got in enumerate(served):
+        want = greedy_ref[i]
+        j = next((j for j in range(min(len(got), len(want))) if got[j] != want[j]),
+                 None)
+        low = next((j for j in range(margin.shape[1]) if margin[i, j] < 2 * bound),
+                   None)
+        firsts.append(j)
+        if j is not None and (low is None or low > j):
+            fail(f"{name}: stream {i} leaves the tp = 1 greedy tokens at step {j}, "
+                 f"before any step whose tp = 1 margin is under 2 x the bound "
+                 f"({2 * bound:.4f}); first low-margin step {low}")
+        if len(got) != len(want):
+            fail(f"{name}: stream {i} gave {len(got)} tokens, want {len(want)}")
+    max_diff = diff.max().item()
+    out = {"max_abs_logit_diff": max_diff, "mean_abs_logit_diff": diff.mean().item(),
+           "bound": bound, "first_divergence": firsts,
+           "min_margin": margin.min().item()}
+    if not (math.isfinite(max_diff) and max_diff <= bound):
+        fail(f"{name}: max |logit diff| {max_diff:.4f} over the bound {bound:.4f}")
+    return out
+
+
+def sp_serve(engine, prompt_ids, max_tokens):
+    """Every prompt as a greedy stream on the engine API, all submitted
+    together; every rank's report with its counts reset just before, and
+    after (with pool digests). Returns (tokens, before, after, rank 0's
+    decode steps, wall seconds)."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    res = {}
+
+    async def run():
+        await engine.start()
+        try:
+            res["before"] = await engine.rank_reports(reset=True)
+            steps0 = engine.runner.decode_steps_total
+
+            async def one(ids):
+                toks = None
+                async for out in engine.generate(
+                        prompt_token_ids=list(ids), sampling=SamplingParams(
+                            temperature=0.0, max_tokens=max_tokens,
+                            ignore_eos=True)):
+                    toks = out.token_ids
+                return toks
+
+            t0 = time.monotonic()
+            res["tokens"] = await asyncio.gather(*[one(p) for p in prompt_ids])
+            res["wall"] = time.monotonic() - t0
+            res["after"] = await engine.rank_reports(pool_digest=True)
+            res["steps"] = engine.runner.decode_steps_total - steps0
+            res["stats"] = engine.stats()
+        finally:
+            await engine.stop()
+
+    asyncio.run(run())
+    return res
+
+
+def sp_reference(torch, common, mc, prompt_ids, timed):
+    """The eager tp = 1 runner's forced greedy run (the reference logits
+    and tokens), its long prefill's host seconds and, when ``timed``, two
+    16-step decode dispatches' ms per step (else None)."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.runner import ModelRunner
+
+    ref = ModelRunner(EngineConfig(**common), mc)
+    lg, greedy, seqs, long_s = sp_forced(torch, ref, prompt_ids, None, TF_STEPS)
+    timing = tp_decode_timing(torch, ref, seqs, [list(g) for g in greedy]) \
+        if timed else None
+    del ref, seqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lg, greedy, long_s, timing
+
+
+def sp_mesh_run(torch, pa, name, dp, sp, tp, model, mc, common, prompt_ids, ref,
+                long):
+    """One mesh's engine (every rank on this card over gloo): the reference
+    tokens forced through its runner (the logits bar), with ``long`` (the
+    full-depth sp = 2 run) its eager decode ms per step, then the prompts
+    served greedily on the engine API (the token bar), with each rank's counts: ring calls of the kinds its chunks
+    took, pools equal to their (0, 0, t) twins', the paged kernel's
+    launches exactly layers x decode steps per rank (0 on the window
+    path). Returns (the summary, the kernel's launches summed over the
+    ranks)."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+
+    lg1, greedy1, long1, timing1 = ref
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    engine = ServingEngine(EngineConfig(
+        **common, data_parallel_size=dp, sequence_parallel_size=sp,
+        tensor_parallel_size=tp, tp_timeout_s=TP_TIMEOUT_S))
+    up = time.monotonic() - t0
+    try:
+        runner = engine.runner
+        paged = runner.attn_impl == "paged"
+        lg, greedy, seqs, long_s = sp_forced(torch, runner, prompt_ids, greedy1,
+                                             TF_STEPS)
+        timing = tp_decode_timing(torch, runner, seqs, [list(g) for g in greedy]) \
+            if long else None
+        del seqs
+        bound = tp_logit_bound(mc.num_layers, lg1.numel())
+        served = sp_serve(engine, prompt_ids, TF_STEPS + 1)
+        reports = engine.tp_reports
+    finally:
+        engine.shutdown()
+    del engine, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    bars = sp_bars(torch, name, lg, lg1, served["tokens"], greedy1, bound)
+    before, after, steps = served["before"], served["after"], served["steps"]
+    launches = 0
+    world = dp * sp * tp
+    if [tuple(r["coords"]) for r in after] != [
+            (d, s, t) for d in range(dp) for s in range(sp) for t in range(tp)]:
+        fail(f"{name}: the ranks report grid points {[r['coords'] for r in after]}")
+    for b_rep, a_rep in zip(before, after):
+        r = a_rep["rank"]
+        counts = a_rep["launch_counts"]
+        rank_steps = a_rep["decode_steps_total"] - b_rep["decode_steps_total"]
+        want = mc.num_layers * steps if paged else 0
+        if steps <= 0 or rank_steps != steps or counts[pa.BF16] != want or \
+                counts[pa.INT8]:
+            fail(f"{name}: rank {r} counted {counts} over {rank_steps} decode "
+                 f"steps (rank 0: {steps}): want {want} of {pa.BF16}, none of "
+                 f"{pa.INT8}")
+        launches += counts[pa.BF16]
+        rings = a_rep["rings"] or {}
+        if rings.get("first", 0) <= 0 or (long and rings.get("continuation", 0) <= 0):
+            fail(f"{name}: rank {r} rang {rings}: want first-chunk"
+                 f"{' and continuation' if long else ''} rings")
+        twin = after[a_rep["coords"][2]]
+        if a_rep["pool_digest"] != twin["pool_digest"]:
+            fail(f"{name}: rank {r}'s pool differs from its (0, 0, "
+                 f"{a_rep['coords'][2]}) twin's (digests "
+                 f"{[x['pool_digest'] for x in after]}, token digests "
+                 f"{[x['token_digest'] for x in after]})")
+    if len({rep["token_digest"] for rep in after}) != 1 or \
+            len({rep["token_digest"] for rep in reports}) != 1:
+        fail(f"{name}: the ranks' token digests differ")
+    st = served["stats"]
+    if (st["mesh_dp_size"], st["mesh_sp_size"], st["mesh_tp_size"],
+            st["mesh_devices"]) != (dp, sp, tp, world):
+        fail(f"{name}: stats show mesh {st['mesh_dp_size']} x {st['mesh_sp_size']} x "
+             f"{st['mesh_tp_size']} over {st['mesh_devices']} ranks")
+    out = {
+        "model": model, "dp": dp, "sp": sp, "tp": tp, "attn": "paged" if paged
+        else "window", "backend": st["tp_backend"], "engine_up_s": up,
+        "decode_steps": steps, "launches_per_rank": [r["launch_counts"][pa.BF16]
+                                                     for r in after],
+        "rings_rank0": after[0]["rings"], "ring_exchanges_rank0": after[0]["ring_exchanges"],
+        "ring_host_s_max": max(r["ring_seconds"] for r in after),
+        "long_prefill_s": long_s, "long_prefill_s_tp1": long1,
+        "served_wall_s": served["wall"],
+        "peak_gib_per_rank": [max(b["peak_bytes"], a["peak_bytes"]) / 2**30
+                              for b, a in zip(before, after)],
+        "logits": bars,
+    }
+    if long:
+        # The second of two 16-step dispatches (the first pays first-use
+        # costs of its shapes).
+        out["decode_ms_per_step_events"] = timing[-1]["ms_per_step_events"]
+        out["decode_ms_per_step_events_tp1"] = timing1[-1]["ms_per_step_events"]
+    log(f"sp [{name}] result {json.dumps(out)}")
+    return out, launches
+
+
+def sp_phase(torch, pa, device, seed, card, cut_dirs, model=SP_MODEL):
+    """Sequence parallelism, data parallelism and the replication fallback
+    on this card (every rank a process sharing it over gloo): ``model``
+    (llama-3b) at sp = 2, full width and depth (4 x 64-token prompts and
+    one of 3,000 tokens, 1,024-token chunks: a first chunk and two
+    continuation chunks, all rung); then cut to ``CUT_LAYERS``
+    (``cut_model``'s directory) dp = 2 x sp = 2 x tp = 2 (8 ranks, the paged
+    kernel per rank) and sp = 2 x tp = 3 (6 ranks: Hkv 8 and the 8,192-wide
+    MLP do not divide by 3, so they replicate and decode takes the window
+    path), 4 x 16-token prompts; each against an eager tp = 1 runner by the
+    logits, token and replica bars (``sp_mesh_run``). Returns (the summary,
+    the paged kernel's launches of the tp = 1 ranks' runs, those of the
+    tp = 2 ranks' runs)."""
+    from production_stack_tpu_torch.models.config import resolve_model_config
+
+    out = {"card": card}
+    launches_plain, launches_tp = 0, 0
+    refs = {}
+    for name, dp, sp, tp, cut, long in SP_MESHES:
+        path = cut_model(torch, device, seed, model, cut_dirs) if cut else model
+        mc = resolve_model_config(path)
+        prompt_ids = sp_prompts(seed, mc.vocab_size, long)
+        # A cut directory's weights are drawn from the seed on every rank
+        # (the draw ``cut_model`` wrote): no rank reads the files.
+        common = dict(model=path, dtype="bfloat16", device=device.type, seed=seed,
+                      load_format="dummy",
+                      max_model_len=SP_ROW_BLOCKS * 16, num_decode_steps=32,
+                      max_num_batched_tokens=SP_BUDGET,
+                      num_kv_blocks=len(prompt_ids) * SP_ROW_BLOCKS + 1)
+        t0 = time.monotonic()
+        if path not in refs:
+            refs[path] = sp_reference(torch, common, mc, prompt_ids, long)
+        row, n = sp_mesh_run(torch, pa, name, dp, sp, tp, path, mc, common,
+                             prompt_ids, refs[path], long)
+        row["seconds"] = time.monotonic() - t0
+        out[name] = row
+        if tp == 1:
+            launches_plain += n
+        else:
+            launches_tp += n
+    return out, launches_plain, launches_tp
 
 
 # ---------------------------------------------------------------- phase 8
@@ -4396,11 +4727,11 @@ def kvtier_tp_phase(torch, pa, device, seed, card, kv_cache_dtype, kv_url, model
         out["prefix_index_entries"] = len(entries)
         # whole-block reads and writes at tp = 2, and the gloo exchange's share
         blocks = sorted(engine.block_manager._block_to_hash)[:128]
-        io0 = engine.tp.block_io_seconds
+        io0 = engine.mesh.block_io_seconds
         out["link_tp2"] = kvtier_link_rates(torch, engine.runner, blocks)
         # the timed reads and writes' host seconds inside the gloo exchange
         # (the untimed 4-block read before them included)
-        out["link_tp2"]["block_exchange_host_s"] = engine.tp.block_io_seconds - io0
+        out["link_tp2"]["block_exchange_host_s"] = engine.mesh.block_io_seconds - io0
         # the reference: the twin's tokens forced through this engine, its
         # prefix restored from its host pool
         engine.block_manager.reset_prefix_cache()
@@ -5466,25 +5797,29 @@ def ckpt_merged_check(torch, device, seed, root, model="llama-3b"):
     return row
 
 
-def ckpt_phase(torch, pa, device, seed, card, model="llama-3b"):
-    """The ``ckpt`` phase (see the module docstring): ``model`` written as
-    an HF checkpoint directory, loaded and served behind the port's server,
-    then with two PEFT adapters. Returns (the bf16 kernel's launches over
-    the served rounds, the summary)."""
+def ckpt_phase(torch, pa, device, seed, card, model="llama-3b",
+               served="llama-3b"):
+    """The ``ckpt`` phase (see the module docstring): ``model`` (a named
+    config, or ``cut_model``'s directory of one) written as an HF checkpoint
+    directory, loaded and served behind the port's server as ``served``,
+    then with two PEFT adapters. The tokens to match come from ``model``'s
+    random weights drawn from ``seed`` (for a directory, its config with
+    ``load_format="dummy"``: the draw ``cut_model`` wrote). Returns (the
+    bf16 kernel's launches over the served rounds, the summary)."""
     import shutil
     import tempfile
+    from dataclasses import replace
 
     from production_stack_tpu_torch.engine.engine import ServingEngine
     from production_stack_tpu_torch.models import llama, lora
     from production_stack_tpu_torch.models.config import resolve_model_config
 
     mc = resolve_model_config(model)
-    served = model
     prompts = spec_prompts(seed + 1)
     out = {"card": card}
     launches = 0
-    # ~6.4 GB of checkpoint: under the gitignored output directory, and
-    # removed whatever happens.
+    # Up to 6.4 GB of checkpoint (llama-3b at full depth): under the
+    # gitignored output directory, and removed whatever happens.
     os.makedirs(os.path.dirname(DETAIL_LOG), exist_ok=True)
     root = tempfile.mkdtemp(prefix="ckpt-", dir=os.path.dirname(DETAIL_LOG))
     try:
@@ -5499,7 +5834,9 @@ def ckpt_phase(torch, pa, device, seed, card, model="llama-3b"):
         log(f"ckpt write: {json.dumps(info)}")
 
         # 2. the named-config engine from the same seed: the tokens to match
-        named = ServingEngine(ckpt_server_config(model, served, seed, device))
+        named = ServingEngine(replace(ckpt_server_config(model, served, seed,
+                                                         device),
+                                      load_format="dummy"))
         want, row = ckpt_http_round(torch, pa, named, gate_schedule(named),
                                     prompts, [served] * 4, "named config")
         launches += row["launches"]
@@ -5531,7 +5868,7 @@ def ckpt_phase(torch, pa, device, seed, card, model="llama-3b"):
         fields = [f for f in mc.__dataclass_fields__ if f != "name"]
         diff = [f for f in fields if getattr(eng.model_config, f) != getattr(mc, f)]
         if diff:
-            fail(f"ckpt: the directory's config differs from llama-3b in {diff}")
+            fail(f"ckpt: the directory's config differs from {model}'s in {diff}")
         bad = params_equal(torch, r.params, params)
         if bad:
             fail(f"ckpt: loaded leaves differ from the written params: {bad}")
@@ -5617,7 +5954,7 @@ def ckpt_phase(torch, pa, device, seed, card, model="llama-3b"):
         torch.cuda.empty_cache()
 
         # 5. the adapter arithmetic in float32 against merged weights
-        out["merged_f32"] = ckpt_merged_check(torch, device, seed, root, model)
+        out["merged_f32"] = ckpt_merged_check(torch, device, seed, root, served)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches, out
@@ -5776,8 +6113,8 @@ def elastic_rounds(torch, pa, engine, prompts, what, t_built=None):
 
 def elastic_phase(torch, pa, device, seed, card, prompts, cold=None,
                   model="llama-3b"):
-    """Fast start at the serving phase's config (llama-3b, full width and
-    depth, bf16 KV): ``cold`` is (the start row, the round rows) of the
+    """Fast start at the serving phase's config (``model``: llama-3b at
+    full width, cut to ``CUT_LAYERS`` in ``main``; bf16 KV): ``cold`` is (the start row, the round rows) of the
     cold, overlapped start (a) (the serving phase's engine, which wrote
     the manifest), or None to boot (a) here. Boots an identical engine (b),
     which finds the manifest and holds a ballast of the memory (a)'s block
@@ -5967,10 +6304,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="kernel,serving,graphs,elastic,check,tp,surface,kvtier,"
-                            "kvtier-tp,spec,ckpt",
+                    default="kernel,serving,graphs,elastic,check,tp,sp,surface,"
+                            "kvtier,kvtier-tp,spec,ckpt",
                     help="comma list of kernel,serving,graphs,elastic,check,tp,"
-                         "surface,kvtier,kvtier-tp,spec,ckpt,trace (build always "
+                         "sp,surface,kvtier,kvtier-tp,spec,ckpt,trace (build always "
                          "runs; trace profiles one more served round after "
                          "serving)")
     ap.add_argument("--tp-kernel-rank", type=int, default=None,
@@ -6072,8 +6409,8 @@ def main() -> None:
     atexit.register(lambda: [shutil.rmtree(d, ignore_errors=True)
                              for d in cut_dirs.values()])
     # Serving, then the graphs phase on the serving engine (still warm),
-    # per KV dtype: one engine's graphs are captured once for both. The
-    # bf16 runs are llama-3b at full depth, the int8 runs its cut.
+    # per KV dtype: one engine's graphs are captured once for both. Both
+    # run llama-3b cut to ``CUT_LAYERS``.
     # The elastic phase follows the bf16 graphs: its cold start (a) is the
     # serving phase's engine (its rounds run before the graphs phase takes
     # it), its verified start (b) boots once (a) is gone.
@@ -6087,7 +6424,7 @@ def main() -> None:
         t0 = time.monotonic()
         with_elastic = "elastic" in phases and kv == "bfloat16"
         model = "llama-3b"
-        if kv == "int8" and phases & {"serving", "graphs"}:
+        if phases & {"serving", "graphs", "elastic"}:
             model = cut_model(torch, device, args.seed, "llama-3b", cut_dirs)
         if "serving" in phases:
             counts, serving_rows[kv], engine = serving_phase(
@@ -6111,7 +6448,7 @@ def main() -> None:
         t3 = time.monotonic()
         if with_elastic:
             by_path["bf16"]["elastic"], elastic = elastic_phase(
-                torch, pa, device, args.seed, card, prompts, cold)
+                torch, pa, device, args.seed, card, prompts, cold, model=model)
         phase_s["serving"] += t1 - t0
         phase_s["graphs"] += t3 - t2
         phase_s["elastic"] += t2 - t1 + time.monotonic() - t3
@@ -6187,6 +6524,19 @@ def main() -> None:
             "kernel": {v: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "library_ms", "max_abs_err")}
                        for v, r in tp_rows.items()}})
+    # The sp phase: sp = 2 at llama-3b's full depth, then dp x sp x tp and the
+    # replication fallback cut; its tp = 1 ranks' runs are main paths of the
+    # bf16 variant, its tp = 2 ranks' of paged_flash_decode_stats_tp (each
+    # rank's launches, summed).
+    sp_launches = None
+    marks.append(("sp", time.monotonic()))
+    if "sp" in phases:
+        sp_summary, n_plain, sp_launches = sp_phase(torch, pa, device, args.seed,
+                                                    card, cut_dirs)
+        by_path["bf16"]["sp"] = n_plain
+        summary("sp", sp_summary)
+        gc.collect()
+        torch.cuda.empty_cache()
     marks.append(("surface", time.monotonic()))
     if "surface" in phases:
         n, surface = surface_phase(
@@ -6331,7 +6681,9 @@ def main() -> None:
     # main path of the bf16 kernel variant.
     marks.append(("ckpt", time.monotonic()))
     if "ckpt" in phases:
-        n, ck = ckpt_phase(torch, pa, device, args.seed, card)
+        n, ck = ckpt_phase(torch, pa, device, args.seed, card,
+                           model=cut_model(torch, device, args.seed, "llama-3b",
+                                           cut_dirs))
         by_path["bf16"]["ckpt"] = n
         summary("ckpt", ck)
         gc.collect()
@@ -6374,10 +6726,11 @@ def main() -> None:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
     # The tp op's numbers at a rank's shape (H 16, Hkv 4), bf16 pools; its
-    # launches over both ranks of the tp phase's runs and the kvtier-tp
-    # phase's tp = 2 rounds.
+    # launches over both ranks of the tp phase's runs, every rank of the sp
+    # phase's dp x sp x tp run and the kvtier-tp phase's tp = 2 rounds.
     tp_row = tp_rows.get("bf16", {})
-    tp_paths = {k: v for k, v in (("tp", tp_launches), ("kvtier-tp", kvtp_launches))
+    tp_paths = {k: v for k, v in (("tp", tp_launches), ("sp", sp_launches),
+                                  ("kvtier-tp", kvtp_launches))
                 if v is not None}
     kernels.append({
         "name": "paged_flash_decode_stats_tp",

@@ -2,10 +2,10 @@
 that the port's serving path reads, under the same names, defaults and
 environment variables, plus ``device``.
 
-Two of the reference's fields name features the port has not ported:
-``sequence_parallel_size`` and ``data_parallel_size``. They are accepted
-at their inert value 1 and any other value is a ``ValueError`` naming the
-feature (``validate_unported``): never accepted and then ignored.
+The parallel degrees (tensor, sequence, data) lay out the reference's
+``dp x sp x tp`` mesh as one process per rank (``parallel/mesh.py``), and
+``validate_parallelism`` makes the reference's checks of them, plus the
+port's own refusals, each named (ROADMAP Queue 3).
 ``compilation_cache_dir`` is the directory of the port's warm-up manifest
 (``engine/runner.py:ModelRunner.warmup``); unlike the reference's it
 defaults to unset, so a default start warms every variant.
@@ -82,17 +82,20 @@ class EngineConfig:
     # prefill while a decode is in flight, and the reverse.
     overlap_dispatch: bool = True
     # --- parallelism ---
-    # Tensor-parallel ranks, one process each (parallel/mesh.py): rank 0
-    # serves, ranks 1..tp-1 are worker processes it starts. Heads are split
-    # over the ranks (parallel/sharding.py), so tp must divide both head
-    # counts.
+    # The mesh is dp x sp x tp ranks, one process each (parallel/mesh.py):
+    # rank 0 serves, ranks 1..world-1 are worker processes it starts.
+    # Tensor parallelism splits heads and projections over tp ranks
+    # (parallel/sharding.py; a leaf whose dim tp does not divide is
+    # replicated, the reference's fallback).
     tensor_parallel_size: int = 1
-    # Seconds any collective of the tp group may wait: a lost rank is an
-    # error within it.
+    # Seconds any collective of the mesh may wait: a lost rank is an error
+    # within it.
     tp_timeout_s: float = 600.0
-    # The reference's sp (ring-attention prefill) and dp axes: not ported,
-    # 1 only (validate_unported).
+    # Sequence parallelism: a prefill chunk's tokens split over sp ranks,
+    # its attention a ring (ops/ring_attention.py); decode replicated.
     sequence_parallel_size: int = 1
+    # Data parallelism: dp replicas of the (sp, tp) ranks, each repeating
+    # its twin's work (the reference's dp axis shards nothing).
     data_parallel_size: int = 1
     # The reference's persistent compile-cache directory. CUDA graphs do not
     # persist, so the port keeps only the reference's warm-up manifest there
@@ -205,7 +208,6 @@ class EngineConfig:
                 f"Unknown kv_cache_dtype {self.kv_cache_dtype!r} "
                 f"(supported: {', '.join(KV_CACHE_DTYPES)})"
             )
-        self.validate_unported()
         self.validate_parallelism()
         if not self.speculative_num_tokens and (
             self.speculative_adaptive or self.speculative_tree_width > 1
@@ -225,39 +227,37 @@ class EngineConfig:
 
     @property
     def mesh_devices(self) -> int:
-        """Devices (ranks) the engine's tp group occupies."""
-        return self.tensor_parallel_size
-
-    def validate_unported(self) -> None:
-        """Refuse a value of a reference field whose feature the port has
-        not ported yet (a ValueError naming it)."""
-        for flag, feature, v in (
-                ("--sequence-parallel-size", "sequence parallelism (ring-"
-                 "attention prefill)", self.sequence_parallel_size),
-                ("--data-parallel-size", "data parallelism (batch-sharded "
-                 "decode in one engine)", self.data_parallel_size)):
-            if v != 1:
-                raise ValueError(
-                    f"{flag} {v}: {feature} is not ported yet; the port "
-                    f"serves at {flag} 1")
+        """Ranks the engine's mesh occupies (dp x sp x tp)."""
+        return (self.data_parallel_size * self.sequence_parallel_size
+                * self.tensor_parallel_size)
 
     def validate_parallelism(self) -> None:
-        """The tp degree against the other knobs (the reference's
-        ``validate_parallelism``); raises a ValueError naming the flags at
-        fault."""
+        """The parallel degrees against the other knobs (the reference's
+        ``validate_parallelism``, its checks and messages, and the port's
+        own refusals); raises a ValueError naming the flags at fault."""
         from production_stack_tpu_torch.models.config import (
             resolve_model_config,
         )
-        from production_stack_tpu_torch.parallel.sharding import check_tp
 
         tp = self.tensor_parallel_size
-        if tp < 1:
+        sp = self.sequence_parallel_size
+        dp = self.data_parallel_size
+        if tp < 1 or sp < 1 or dp < 1:
             raise ValueError(
-                f"--tensor-parallel-size must be >= 1, got {tp}")
-        if self.speculative_num_tokens and tp > 1:
+                "--tensor-parallel-size/--sequence-parallel-size/"
+                "--data-parallel-size must all be >= 1, got "
+                f"tp={tp} sp={sp} dp={dp}")
+        if self.speculative_num_tokens and (tp > 1 or sp > 1):
             raise ValueError(_SPEC_MESH_ERROR + " Drop the speculative flags "
                              "to serve on the mesh, or serve speculatively "
                              "on one chip.")
+        if self.speculative_num_tokens and dp > 1:
+            # The reference serves it; the port's speculative dispatches
+            # have no descriptor for the worker ranks (ROADMAP Queue 3).
+            raise ValueError(
+                f"--speculative-num-tokens with --data-parallel-size {dp} is "
+                "not served by the port: the speculative train runs on rank "
+                "0 only. Serve speculatively at --data-parallel-size 1.")
         if tp == 1:
             return
         mc = resolve_model_config(self.model)
@@ -274,7 +274,6 @@ class EngineConfig:
                 f"tp ranks like the payload pools); model {self.model!r} has "
                 f"{mc.num_heads}/{mc.num_kv_heads} heads. Use a tp that "
                 f"divides both, or --kv-cache-dtype bfloat16.")
-        check_tp(mc, tp)
 
     @property
     def kv_offload_enabled(self) -> bool:
@@ -325,7 +324,7 @@ class EngineConfig:
                 "spec-off token-identity bar (draft KV is always kept in "
                 "the compute dtype)"
             )
-        if self.tensor_parallel_size > 1:
+        if self.tensor_parallel_size > 1 or self.sequence_parallel_size > 1:
             raise ValueError(_SPEC_MESH_ERROR)
         w = self.speculative_tree_width
         if w < 1 or w > 8:
@@ -422,24 +421,28 @@ class EngineConfig:
             raise ValueError(f"Unknown attn_impl {v!r}")
         return "paged" if supported and on_cuda else "window"
 
-    def kv_cache_bytes_per_token(self, model_config) -> int:
-        """Pool bytes one token occupies across all layers ON ONE RANK (its
-        Hkv / tp kv heads): K + V payload in the pool's storage dtype, plus
-        the per-(slot, head) scale when quantized."""
+    def _kv_bytes_per_token(self, model_config, heads: int) -> int:
+        """K + V payload bytes of one token over all layers and ``heads``
+        kv heads, in the pool's storage dtype, plus the per-(slot, head)
+        scale when quantized."""
         if self.kv_cache_quantized:
             per_slot = model_config.head_dim_ + SCALE_ITEMSIZE
         else:
             per_slot = model_config.head_dim_ * _ITEMSIZE[self.dtype]
-        return 2 * model_config.num_layers * self.local_kv_heads(
-            model_config) * per_slot
+        return 2 * model_config.num_layers * heads * per_slot
+
+    def kv_cache_bytes_per_token(self, model_config) -> int:
+        """Pool bytes one token occupies across all layers ON ONE RANK (its
+        kv heads: Hkv / tp, or all Hkv where tp does not divide them)."""
+        return self._kv_bytes_per_token(model_config,
+                                        self.local_kv_heads(model_config))
 
     def kv_wire_bytes_per_token(self, model_config) -> int:
         """Bytes one token's KV takes in a blob of whole logical blocks
-        (every kv head, whatever the tp): what crosses the link when the
+        (every kv head, whatever the mesh): what crosses the link when the
         offload tier restores it, and the reference's
         ``kv_cache_bytes_per_token``."""
-        return (self.kv_cache_bytes_per_token(model_config)
-                * self.tensor_parallel_size)
+        return self._kv_bytes_per_token(model_config, model_config.num_kv_heads)
 
     def window_bytes_per_block(self, model_config) -> int:
         """Bytes of one block of a gathered window on one rank: windows
@@ -452,8 +455,13 @@ class EngineConfig:
         )
 
     def local_kv_heads(self, model_config) -> int:
-        """KV heads each tp rank holds."""
-        return model_config.num_kv_heads // self.tensor_parallel_size
+        """KV heads each tp rank's pool holds: Hkv / tp, or every kv head
+        where tp does not divide Hkv (the replicated pool)."""
+        from production_stack_tpu_torch.parallel.sharding import kv_heads_split
+
+        tp = self.tensor_parallel_size
+        hkv = model_config.num_kv_heads
+        return hkv // tp if kv_heads_split(hkv, tp) else hkv
 
     def kv_cache_bytes_per_block(self, model_config) -> int:
         return self.block_size * self.kv_cache_bytes_per_token(model_config)

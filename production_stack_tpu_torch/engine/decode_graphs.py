@@ -42,10 +42,11 @@ that a manifest-verified warm-up deferred (``GraphArena.deferred``: the
 logprob and penalty variants) is captured at its first dispatch, through
 the same ``capture`` (``capture_deferred``), before its inputs are staged.
 
-At tensor_parallel_size > 1 nothing is captured: the forward's collectives
-(gloo, host-staged, when ranks share a card) cannot be captured, and NCCL
-capture is not ported yet. Every rank runs the train eagerly, and each
-decode dispatch counts in ``decode_eager_dispatches_total``.
+On a mesh of more than one rank (tp, sp or dp > 1) nothing is captured:
+the forward's collectives (gloo, host-staged, when ranks share a card)
+cannot be captured, and NCCL capture is not ported yet. Every rank runs the
+train eagerly, and each decode dispatch counts in
+``decode_eager_dispatches_total``.
 
 The speculative train (``speculative_num_tokens`` N > 0; the reference's
 ``_decode_spec``) replaces the step with a CYCLE: N + 1 draft-model steps
@@ -874,9 +875,9 @@ class DecodeTrain(GraphArena):
         the graph). A failed capture raises: there is no eager fallback
         for a family that was meant to be captured. The arena must hold
         every family captured in any call (``reserve`` them all first)."""
-        if self.r.tp is not None:
-            raise RuntimeError("decode graphs are not captured at "
-                               "tensor_parallel_size > 1")
+        if self.r.mesh is not None:
+            raise RuntimeError("decode graphs are not captured on a mesh "
+                               "of more than one rank")
         self.reserve(keys)
         device = self.r.device
         # The graph pool's bytes: reserved memory before and after, each

@@ -55,16 +55,17 @@ the manifest's blocks into this pool between steps and continues the
 stream with no recompute. Block reads and writes run on the dispatch
 stream (runner.py), so they are ordered with the dispatches.
 
-With ``tensor_parallel_size`` > 1 this process is tp rank 0: the engine
-starts ranks 1..tp-1 as worker processes (``parallel/worker.py``) before
-building its runner, and stops and joins them at ``stop``. Decode runs
-eagerly (no graph is captured). The KV tier works at any tp: block reads
-and writes move whole logical blocks (every rank's kv heads, gathered to
-or scattered from rank 0), so a blob spilled or handed off at one tp
-restores at another and in the JAX package, and the restore cost model
-counts the whole block's bytes. A lost rank (a worker that exited, or a
-collective that failed or timed out, a block exchange's included) makes
-the engine unhealthy; its requests, and every later one, raise.
+On a mesh (``data_parallel_size`` x ``sequence_parallel_size`` x
+``tensor_parallel_size`` > 1 ranks) this process is rank 0: the engine
+starts ranks 1..world-1 as worker processes (``parallel/worker.py``)
+before building its runner, and stops and joins them at ``stop``. Prefill
+and decode run eagerly (no graph is captured). The KV tier works at any
+mesh: block reads and writes move whole logical blocks (every kv head,
+gathered to or scattered from rank 0), so a blob spilled or handed off on
+one mesh restores on another and in the JAX package, and the restore cost
+model counts the whole block's bytes. A lost rank (a worker that exited,
+or a collective that failed or timed out, a block exchange's included)
+makes the engine unhealthy; its requests, and every later one, raise.
 """
 
 import asyncio
@@ -100,7 +101,7 @@ from production_stack_tpu_torch.models.config import resolve_model_config
 from production_stack_tpu_torch.models.lora import load_registry
 from production_stack_tpu_torch.ops import paged_attention as pa
 from production_stack_tpu_torch.parallel import worker
-from production_stack_tpu_torch.parallel.mesh import TPGroup
+from production_stack_tpu_torch.parallel.mesh import RankMesh
 from production_stack_tpu_torch.perf.roofline import (
     peak_gbps_for,
     roofline_components,
@@ -145,15 +146,17 @@ class ServingEngine:
         self.config = config
         self.model_config = resolve_model_config(config.model)
         self.tokenizer = get_tokenizer(config.model, self.model_config)
-        self.tp: Optional[TPGroup] = None
+        # The rank mesh (None on one rank) and every rank's final report.
+        self.mesh: Optional[RankMesh] = None
         self.tp_reports: Optional[List[Dict]] = None  # every rank's, at stop
         self._tp_error: Optional[str] = None
-        if config.tensor_parallel_size > 1:
+        if config.mesh_devices > 1:
             device = resolve_device(config.device)
             if device.type == "cuda" and \
                     config.resolved_attn_impl(self.model_config) == "paged":
                 pa.build_kernels()  # once, before the workers load it
-            self.tp = TPGroup.launch(
+            self.mesh = RankMesh.launch(
+                config.data_parallel_size, config.sequence_parallel_size,
                 config.tensor_parallel_size, device, config.tp_timeout_s,
                 lambda rank, port: worker.argv(
                     config, rank, port, broadcast_params=params is not None,
@@ -163,13 +166,13 @@ class ServingEngine:
                                                self.model_config)
             self.runner = ModelRunner(
                 config, self.model_config, params=params,
-                num_kv_blocks=num_kv_blocks, tp=self.tp,
+                num_kv_blocks=num_kv_blocks, mesh=self.mesh,
                 draft_params=draft_params, lora_registry=self.lora_registry,
             )
         except BaseException:
-            if self.tp is not None:
-                self.tp.error = self.tp.error or "runner failed to start"
-                self.tp.close()
+            if self.mesh is not None:
+                self.mesh.error = self.mesh.error or "runner failed to start"
+                self.mesh.close()
             raise
         self.block_manager = BlockPoolManager(
             self.runner.num_kv_blocks, config.block_size,
@@ -268,9 +271,9 @@ class ServingEngine:
     async def start(self) -> None:
         if self._running:
             return
-        if self.tp is not None and self.tp_reports is not None:
-            raise RuntimeError("a stopped tensor-parallel engine cannot "
-                               "start again: its worker ranks have exited")
+        if self.mesh is not None and self.tp_reports is not None:
+            raise RuntimeError("a stopped engine on a mesh cannot start "
+                               "again: its worker ranks have exited")
         self._new_work = asyncio.Event()
         if self.config.enable_warmup:
             t0 = time.monotonic()
@@ -283,19 +286,21 @@ class ServingEngine:
         self._loop_task = asyncio.create_task(self._run_loop())
         logger.info(
             "Engine started: model=%s kv_blocks=%d block_size=%d attn=%s "
-            "device=%s tp=%d", self.config.model_name,
+            "device=%s dp=%d sp=%d tp=%d", self.config.model_name,
             self.runner.num_kv_blocks, self.config.block_size,
             self.runner.attn_impl, self.runner.device,
+            self.config.data_parallel_size,
+            self.config.sequence_parallel_size,
             self.config.tensor_parallel_size,
         )
-        if self.tp is not None:
-            logger.info("tp=%d over %s: the decode train runs eagerly (no "
-                        "CUDA graph family is captured)", self.tp.size,
-                        self.tp.backend)
+        if self.mesh is not None:
+            logger.info("a mesh of %d ranks over %s: prefill and decode run "
+                        "eagerly (no CUDA graph family is captured)",
+                        self.mesh.size, self.mesh.backend)
 
     async def stop(self) -> None:
         """Stop the engine loop and the KV tier's thread and connections;
-        at tp > 1 also end the worker ranks (their final reports land in
+        on a mesh also end the worker ranks (their final reports land in
         ``tp_reports``) and join them."""
         self._running = False
         self._new_work.set()
@@ -306,7 +311,7 @@ class ServingEngine:
             self.offload.close()
         if self.disagg is not None:
             self.disagg.close()
-        if self.tp is not None and self.tp_reports is None:
+        if self.mesh is not None and self.tp_reports is None:
             await asyncio.get_running_loop().run_in_executor(
                 self._executor, self._stop_ranks)
 
@@ -315,18 +320,18 @@ class ServingEngine:
             if self._lost() is None:
                 self.tp_reports = self.runner.tp_stop()
         except Exception as e:  # noqa: BLE001 — the ranks are lost
-            self._tp_error = f"stopping the tp ranks failed: {e}"
+            self._tp_error = f"stopping the worker ranks failed: {e}"
             logger.error("%s", self._tp_error)
         finally:
             if self.tp_reports is None:
                 self.tp_reports = []
-            self.tp.close()
+            self.mesh.close()
 
     def shutdown(self) -> None:
         """Release the worker threads and the KV tier's (after ``stop``, or
         for an engine never started); end the worker ranks if ``stop`` did
         not."""
-        if self.tp is not None and self.tp_reports is None:
+        if self.mesh is not None and self.tp_reports is None:
             self._executor.submit(self._stop_ranks).result()
         self._executor.shutdown(wait=True)
         if self.offload is not None:
@@ -335,10 +340,10 @@ class ServingEngine:
             self.disagg.close()
 
     def _lost(self) -> Optional[str]:
-        """Why the tp group is lost, or None (always None at tp = 1)."""
-        if self.tp is None:
+        """Why the mesh is lost, or None (always None on one rank)."""
+        if self.mesh is None:
             return None
-        self._tp_error = self._tp_error or self.tp.lost()
+        self._tp_error = self._tp_error or self.mesh.lost()
         return self._tp_error
 
     @property
@@ -370,12 +375,14 @@ class ServingEngine:
             self.recorder.event(request_id, "restore", {
                 "tokens": tokens, "seconds": round(seconds, 6)})
 
-    async def rank_reports(self, reset: bool = False) -> List[Dict]:
-        """Every tp rank's report (``ModelRunner.tp_query``), taken between
+    async def rank_reports(self, reset: bool = False,
+                           pool_digest: bool = False) -> List[Dict]:
+        """Every rank's report (``ModelRunner.tp_query``), taken between
         dispatches on the runner thread; ``reset`` zeroes each rank's
-        launch counts, token digest and peak-memory mark afterwards."""
+        launch counts, token digest, ring counts and peak-memory mark
+        afterwards; ``pool_digest`` adds each rank's pool digest."""
         return await asyncio.get_running_loop().run_in_executor(
-            self._executor, self.runner.tp_query, reset)
+            self._executor, self.runner.tp_query, reset, pool_digest)
 
     # ----------------------------------------------------------------- intake
     async def generate(
@@ -836,7 +843,7 @@ class ServingEngine:
                 except Exception as e:  # noqa: BLE001 — see below
                     # Admission's restore writes blocks: at tp > 1 a lost
                     # rank fails the engine, as a failed dispatch does.
-                    if self.tp is None or self._lost() is None:
+                    if self.mesh is None or self._lost() is None:
                         raise
                     self._tp_error = self._lost()
                     logger.error("tensor-parallel group lost at admission: "
@@ -863,13 +870,12 @@ class ServingEngine:
                     handle = await loop.run_in_executor(
                         self._executor, self.runner.execute_async, batch)
                 except Exception as e:  # noqa: BLE001 — the loop must survive
-                    if self.tp is not None:
-                        # A tp rank is lost: every request fails, the loop
+                    if self.mesh is not None:
+                        # A rank is lost: every request fails, the loop
                         # ends and the engine reports unhealthy.
                         self._tp_error = self._lost() or \
-                            f"tp dispatch failed: {e}"
-                        logger.error("tensor-parallel group lost: %s",
-                                     self._tp_error)
+                            f"mesh dispatch failed: {e}"
+                        logger.error("rank mesh lost: %s", self._tp_error)
                         self._fail_all(RuntimeError(
                             f"engine unavailable: {self._tp_error}"))
                         self._running = False
@@ -1232,12 +1238,14 @@ class ServingEngine:
             # seconds they took.
             "embed_calls_total": r.embed_calls_total,
             "embed_seconds_total": r.embed_seconds_total,
-            # Tensor parallelism: the group's size and devices, the backend
-            # its rule picked, and each rank's pool bytes.
+            # The mesh: its degrees and ranks, the backend its rule picked,
+            # and each rank's pool bytes.
             "mesh_tp_size": self.config.tensor_parallel_size,
+            "mesh_sp_size": self.config.sequence_parallel_size,
+            "mesh_dp_size": self.config.data_parallel_size,
             "mesh_devices": self.config.mesh_devices,
             "hbm_kv_bytes_per_device": r.per_device_hbm_kv_bytes(),
-            "tp_backend": self.tp.backend if self.tp is not None else None,
+            "tp_backend": self.mesh.backend if self.mesh is not None else None,
             # Speculative decoding: the reference's keys and the port's
             # cycle counts.
             # OTLP spans the exporter queue had to drop (0 with tracing

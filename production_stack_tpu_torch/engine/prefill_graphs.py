@@ -10,8 +10,9 @@ run in this order and captured together as ONE graph per family:
     slot, from the packed scalars and block tables;
   * ``forward``: the history window gathered from the pools (an int8 pool
     dequantizes) when the family has one, the model forward over the chunk
-    (LoRA rows by their adapter index, packed scalar row 8), and on a
-    speculative engine the draft over the chunk into each row's draft ring
+    (LoRA rows by their adapter index, packed scalar row 8), each row's
+    hidden state at its last chunk token, and on a speculative engine the
+    draft over the chunk into each row's draft ring
     (``runner._prefill_draft``);
   * ``sample``: every row's logits at its last chunk token, the penalties
     (penalty variant), the Gumbel field from seeds derived on the device,
@@ -59,9 +60,15 @@ in ``deferred``: the runner's first dispatch of one first runs warm-up's
 path for it (``capture_deferred``: a warm run and the capture; on the CPU
 its dummy dispatch), before it stages its inputs, then replays it.
 
-At tensor_parallel_size > 1 nothing is captured: the forward's collectives
-(gloo, host-staged, when ranks share a card) cannot be captured. Every rank
-runs these functions eagerly at the exact row count, without padding.
+On a mesh of more than one rank nothing is captured: the forward's
+collectives (gloo, host-staged, when ranks share a card) cannot be
+captured. Every rank runs these functions eagerly at the exact row count,
+without padding. On an sp engine a chunk rings (``ring``: the reference's
+condition) or runs whole on every sp rank. A ringing chunk's forward keeps
+one token shard per sp rank; after it the shards' K/V are gathered over
+the ring, so every sp rank's pool takes the whole chunk, and so is each
+row's last-token hidden state (from the rank that holds it), so every
+rank samples the same token.
 """
 
 import time
@@ -191,9 +198,22 @@ class PrefillTrain(GraphArena):
                                    torch.zeros_like(blk))
         return positions, in_chunk, slot_mapping
 
+    def ring(self, bf: PrefillBuffers):
+        """The sp ring when this chunk rings its attention (the reference's
+        condition: t > 1, t divisible by sp, and with a window the window
+        slots plus t too; the llama family), else None."""
+        r = self.r
+        sp = r.sp
+        if (sp is None or bf.t <= 1 or bf.t % sp.size
+                or r.model_config.arch != "llama"):
+            return None
+        if bf.has_window and (bf.mb * r.config.block_size + bf.t) % sp.size:
+            return None
+        return sp
+
     def forward(self, bf: PrefillBuffers, positions, in_chunk):
-        """The window, the forward and the draft: (hidden [b, t, D], k_new,
-        v_new [L, Hkv, b, t, Dh])."""
+        """The window, the forward, each row's last-token hidden state and
+        the draft: (last_hidden [b, D], k_new, v_new [L, Hkv, b, t, Dh])."""
         r = self.r
         sc = self._scalars(bf)
         chunk_start, chunk_lens = sc[0], sc[1]
@@ -207,24 +227,33 @@ class PrefillTrain(GraphArena):
             win_len = chunk_start
         else:
             win_k = win_v = win_len = None
+        ring = self.ring(bf)
         hidden, k_new, v_new = r.model_forward(
             r.params, r.model_config, token_ids, positions, chunk_lens,
-            win_k, win_v, win_len, tp=r.tp, lora=r.lora_of(sc))
+            win_k, win_v, win_len, tp=r.tp, lora=r.lora_of(sc), sp=ring)
         del win_k, win_v
         if r.spec_n:
             r._prefill_draft(token_ids, positions, chunk_start, chunk_lens,
                              in_chunk, sc[12])
-        return hidden, k_new, v_new
+        logit_idx = torch.clamp(chunk_lens - 1, min=0).long()
+        rows = torch.arange(bf.b, device=r.device)
+        if ring is None:
+            return hidden[rows, logit_idx], k_new, v_new
+        # hidden, k_new and v_new hold this rank's token shard.
+        n = bf.t // ring.size
+        mine = hidden[rows, torch.clamp(logit_idx - ring.rank * n, 0, n - 1)]
+        last = ring.gather(mine)[logit_idx // n, rows]
+        k_new, v_new = ring.all_gather(torch.stack([k_new, v_new]),
+                                       dim=4).unbind(0)
+        return last, k_new, v_new
 
-    def sample(self, bf: PrefillBuffers, hidden) -> torch.Tensor:
-        """Every row's token from its last chunk token's logits (and its
-        logprobs); ``last``. Returns the raw f32 logits [b, V]."""
+    def sample(self, bf: PrefillBuffers, last_hidden) -> torch.Tensor:
+        """Every row's token from the logits of its last chunk token's
+        hidden state ``last_hidden`` [b, D] (and its logprobs); ``last``.
+        Returns the raw f32 logits [b, V]."""
         r = self.r
         sc = self._scalars(bf)
-        chunk_lens = sc[1]
         temps = sc[4].view(torch.float32)
-        logit_idx = torch.clamp(chunk_lens - 1, min=0).long()
-        last_hidden = hidden[torch.arange(bf.b, device=r.device), logit_idx]
         logits = r.model_logits(r.params, r.model_config, last_hidden,
                                 r.head_f32, tp=r.tp)
         eff = logits
@@ -270,9 +299,9 @@ class PrefillTrain(GraphArena):
     def prefill(self, bf: PrefillBuffers) -> torch.Tensor:
         """The whole chunk (what a graph captures); returns the logits."""
         positions, in_chunk, slot_mapping = self.inputs(bf)
-        hidden, k_new, v_new = self.forward(bf, positions, in_chunk)
-        logits = self.sample(bf, hidden)
-        del hidden
+        last_hidden, k_new, v_new = self.forward(bf, positions, in_chunk)
+        logits = self.sample(bf, last_hidden)
+        del last_hidden
         self.scatter(bf, slot_mapping, k_new, v_new)
         return logits
 
@@ -363,9 +392,9 @@ class PrefillTrain(GraphArena):
         stream. A failed capture raises, naming the family: there is no
         eager fallback for a family that was meant to be captured."""
         r = self.r
-        if r.tp is not None:
-            raise RuntimeError("prefill graphs are not captured at "
-                               "tensor_parallel_size > 1")
+        if r.mesh is not None:
+            raise RuntimeError("prefill graphs are not captured on a mesh "
+                               "of more than one rank")
         device = r.device
         self.reserve(keys)
         torch.cuda.synchronize(device)

@@ -30,8 +30,9 @@ Counterpart of ``production_stack_tpu/engine/runner.py`` (main path only):
     variant, or eagerly. Its rows, chunk length and block-table width pad
     to the reference's families: rows to 1 or the ``max_prefill_seqs``
     bucket (``prefill_rows``); padding rows have chunk length 0 and table
-    0 and write only the null block (and the draft rings' trash slot). At
-    tp > 1 nothing is captured and rows are not padded.
+    0 and write only the null block (and the draft rings' trash slot). On
+    a mesh of more than one rank nothing is captured and rows are not
+    padded.
   * A decode dispatch runs the fused K-step train of
     ``engine/decode_graphs.py`` (head / step / tail), replayed from CUDA
     graphs captured by ``warmup`` for its (b, mb, K) family, or eagerly.
@@ -74,23 +75,27 @@ Counterpart of ``production_stack_tpu/engine/runner.py`` (main path only):
     and decode dispatches, and the prefill forward, the decode step and the
     speculative verify add the per-row delta (the draft runs the base
     model, as the reference's).
-  * Tensor parallelism (``tensor_parallel_size`` > 1, ``parallel/``): each
-    rank's runner holds its param shard and the pools of its kv heads, and
-    every dispatch splits in two. The host part, on rank 0 only, packs the
-    int32 buffer from the ``ScheduledBatch``; the device part runs on every
-    rank from a descriptor (kind, shape key, ``n_steps``, ``finals``,
-    penalty counts, chain source and the packed buffer) that rank 0
-    broadcasts on the tp group's CPU group right before its own device
-    part. Chains are kept per dispatch number on every rank, so a worker
-    needs no ``Sequence``. Every rank samples from the same full logits
-    with the same seeds, so start tokens chain on every rank without a
-    broadcast; only rank 0 copies tokens to the host. Each rank keeps a
+  * The mesh (dp x sp x tp ranks, one process each, ``parallel/``): each
+    rank's runner holds its tp shard of the params and the pools of its kv
+    heads, and every dispatch splits in two. The host part, on rank 0
+    only, packs the int32 buffer from the ``ScheduledBatch``; the device
+    part runs on every rank from a descriptor (kind, shape key,
+    ``n_steps``, ``finals``, penalty counts, chain source and the packed
+    buffer) that rank 0 broadcasts on the mesh's CPU group right before its
+    own device part. Chains are kept per dispatch number on every rank, so
+    a worker needs no ``Sequence``. Every rank samples from the same full
+    logits with the same seeds, so start tokens chain on every rank without
+    a broadcast; only rank 0 copies tokens to the host. Each rank keeps a
     device digest of the tokens it sampled, reported with its launch
-    counts (``tp_query``) and at ``tp_stop``. Block I/O at tp > 1 is a
-    descriptor too (``KV_READ`` / ``KV_WRITE``): every rank selects or
-    writes its own kv heads, and rank 0 gathers or scatters them, so a blob
-    holds the whole logical block at any tp. Locks, always in this order:
-    the tp group's ``lock`` (rank 0, tp > 1), then ``kv_io_lock``.
+    counts and ring counts (``tp_query``) and at ``tp_stop``. A prefill
+    chunk of an sp engine rings its attention over the sp ranks under the
+    reference's condition (``PrefillTrain.ring``); decode runs whole on every
+    rank. Block I/O is a descriptor too (``KV_READ`` / ``KV_WRITE``): the
+    (0, 0) tp group's ranks select their kv heads and rank 0 gathers them
+    (a replicated pool is read on rank 0 alone), and every rank of every
+    replica writes its heads of a blob rank 0 scatters, so a blob holds the
+    whole logical block at any mesh. Locks, always in this order: the
+    mesh's ``lock`` (rank 0, world > 1), then ``kv_io_lock``.
 """
 
 import contextlib
@@ -141,7 +146,7 @@ from production_stack_tpu_torch.ops.tree_mask import (
     tree_attention_bias,
     tree_structure,
 )
-from production_stack_tpu_torch.parallel import mesh
+from production_stack_tpu_torch.parallel import mesh as pmesh
 from production_stack_tpu_torch.parallel.sharding import (
     join_kv_blocks,
     shard_kv_blocks,
@@ -235,6 +240,7 @@ class _Slot:
 # mod _DIGEST_MOD, weights 1..65521 by position; int64 never overflows.
 _DIGEST_MULT = 1000003
 _DIGEST_MOD = 2147483647
+_INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32}
 
 
 class SpecGammaController:
@@ -293,14 +299,14 @@ class ModelRunner:
     def __init__(self, config: EngineConfig, model_config: ModelConfig,
                  params: Optional[Dict] = None,
                  num_kv_blocks: Optional[int] = None,
-                 tp: Optional[mesh.TPGroup] = None,
+                 mesh: Optional[pmesh.RankMesh] = None,
                  broadcast_params: bool = False,
                  draft_params: Optional[Dict] = None,
                  lora_registry=None):
-        """``tp``: this process's rank of the tensor-parallel group (None at
-        tensor_parallel_size 1). ``params`` are FULL params; at tp > 1 rank
-        0's are broadcast to the workers (which pass ``broadcast_params``)
-        and each rank keeps its shard. Without ``params`` every rank loads
+        """``mesh``: this process's rank of the dp x sp x tp mesh (None on
+        one rank). ``params`` are FULL params; on a mesh rank 0's are
+        broadcast to the workers (which pass ``broadcast_params``) and each
+        rank keeps its tp shard. Without ``params`` every rank loads
         its shard of the checkpoint directory ``config.model``, or draws it
         from config.seed (``_load_or_init_params``). ``draft_params``: the
         speculative draft's params when it is not the target itself (else
@@ -308,16 +314,22 @@ class ModelRunner:
         ``models/lora.py:LoRARegistry`` (None: no adapters)."""
         self.config = config
         self.model_config = model_config
-        if (tp.size if tp is not None else 1) != config.tensor_parallel_size:
+        if (mesh.size if mesh is not None else 1) != config.mesh_devices:
             raise ValueError(
-                f"tensor_parallel_size {config.tensor_parallel_size} needs a "
-                f"tp group of that size, got {tp.size if tp else None}")
-        self.tp = tp if config.tensor_parallel_size > 1 else None
-        self.rank = tp.rank if self.tp is not None else 0
-        self.device = (self.tp.device if self.tp is not None
+                f"a mesh of {config.mesh_devices} ranks needs a rank mesh of "
+                f"that size, got {mesh.size if mesh else None}")
+        # The mesh (None on one rank), this rank's tp group and sp ring
+        # (None where that degree is 1), its global and tp ranks.
+        self.mesh = mesh if config.mesh_devices > 1 else None
+        self.tp = self.mesh.tp if self.mesh is not None else None
+        self.sp = self.mesh.sp if self.mesh is not None else None
+        self.rank = self.mesh.rank if self.mesh is not None else 0
+        self.tp_rank = self.tp.rank if self.tp is not None else 0
+        self.device = (self.mesh.device if self.mesh is not None
                        else resolve_device(config.device))
         # (init_params, forward, compute_logits, lm_head_f32) of the arch:
-        # llama, or OPT (window path, tp 1; config.validate_parallelism).
+        # llama, or OPT (window path, tp 1, no chunk rings;
+        # config.validate_parallelism).
         init_fn, self.model_forward, self.model_logits, head_fn = \
             get_model_fns(model_config)
         # "paged": decode attends against the pool inside the CUDA
@@ -331,8 +343,8 @@ class ModelRunner:
         self.kv_quant_tokens_written = 0
         tp_size = config.tensor_parallel_size
         self.local_kv_heads = config.local_kv_heads(model_config)
-        if self.tp is not None and (params is not None or broadcast_params):
-            params = self.tp.broadcast_params(params)
+        if self.mesh is not None and (params is not None or broadcast_params):
+            params = self.mesh.broadcast_params(params)
         # Start telemetry (the reference's): the loader's wall seconds, the
         # warm-up seconds that ran beside it, and the warm-up's variant
         # counts; the port adds the deferred variants' first-use captures.
@@ -352,7 +364,7 @@ class ModelRunner:
         self._manifest: Optional[str] = None
         self._verified = False
         self._warmed_up = False
-        # The overlapped load (the reference's conditions; at tp > 1 the
+        # The overlapped load (the reference's conditions; on a mesh the
         # load stays serial): every leaf and the f32 head are allocated
         # here, so the KV pool below is sized net of them, and the
         # ``weight-loader`` thread, started at the end of __init__, fills
@@ -360,7 +372,7 @@ class ModelRunner:
         self._param_thread: Optional[threading.Thread] = None
         self._param_error: Optional[BaseException] = None
         self._weights_done_at: Optional[float] = None
-        overlap = (params is None and self.tp is None
+        overlap = (params is None and self.mesh is None
                    and config.enable_warmup and config.overlap_weight_load
                    and not config.speculative_enabled)
         t0 = time.monotonic()
@@ -370,7 +382,7 @@ class ModelRunner:
             params, _ = self._load_or_init_params(model_config, config.model,
                                                   init_fn)
         else:
-            params = shard_params(params, model_config, self.rank, tp_size)
+            params = shard_params(params, model_config, self.tp_rank, tp_size)
             params = {
                 k: ({n: t.to(self.device, self.dtype) for n, t in v.items()}
                     if k == "layers" else v.to(self.device, self.dtype))
@@ -390,13 +402,14 @@ class ModelRunner:
         # (this rank's slice at tp > 1): rows select theirs by the index in
         # packed scalar row 8 (models/lora.py). None without adapters.
         self.lora_stacks = (
-            shard_stacks(lora_registry.stacks(self.device), self.rank, tp_size)
+            shard_stacks(lora_registry.stacks(self.device), self.tp_rank,
+                         tp_size)
             if lora_registry is not None else None)
         self._init_spec(draft_params)
-        if self.tp is not None:
+        if self.mesh is not None:
             # Every rank's weights are resident before any rank reads the
             # free memory its pool may take.
-            self.tp.barrier()
+            self.mesh.barrier()
         # Set by _derive_num_blocks when the pool is sized from free memory.
         self.prefill_reserve_bytes = 0
         self.kv_blocks_without_prefill_graphs: Optional[int] = None
@@ -407,9 +420,9 @@ class ModelRunner:
             self._loader_peak_bytes(model_config)
             if overlap and self.device.type == "cuda" else 0)
         n = num_kv_blocks or config.num_kv_blocks or self._derive_num_blocks()
-        if self.tp is not None:
+        if self.mesh is not None:
             # Block ids are global: every rank holds the same count.
-            n = self.tp.min_int(n)
+            n = self.mesh.min_int(n)
         self.num_kv_blocks = n
         self._alloc_kv_pools()
         # Every dispatch runs on the stream current when the runner was
@@ -436,7 +449,7 @@ class ModelRunner:
         # them (chip_smoke.py's teacher-forced check).
         self.logits_sink: Optional[List[torch.Tensor]] = None
         self._digest = (torch.zeros((1,), dtype=torch.int64, device=self.device)
-                        if self.tp is not None else None)
+                        if self.mesh is not None else None)
         self.decode_train = DecodeTrain(self)
         self.prefill_train = PrefillTrain(self)
         self._slots = [_Slot() for _ in range(_NUM_SLOTS)]
@@ -457,8 +470,8 @@ class ModelRunner:
         self.embed_seconds_total = 0.0
         # Every rank's report at start (device, pool and weight bytes).
         self.rank_info: List[Dict] = [self._rank_report()]
-        if self.tp is not None:
-            self.rank_info = self.tp.gather_object(self.rank_info[0])
+        if self.mesh is not None:
+            self.rank_info = self.mesh.gather_object(self.rank_info[0])
         if overlap:
             # Last: the pool above reserved the loader's temporaries
             # (``loader_reserve_bytes``).
@@ -478,12 +491,12 @@ class ModelRunner:
         tp_size = cfg.tensor_parallel_size
         if cfg.load_format != "dummy" and os.path.isdir(source):
             return load_hf_params(model_config, source, self.dtype,
-                                  self.device, rank=self.rank,
+                                  self.device, rank=self.tp_rank,
                                   tp=tp_size, out=out), True
         gen = torch.Generator(device=self.device)
         gen.manual_seed(cfg.seed)
         return init_fn(model_config, gen, self.dtype, self.device,
-                       rank=self.rank, tp=tp_size, out=out), False
+                       rank=self.tp_rank, tp=tp_size, out=out), False
 
     # ------------------------------------------------------ overlapped load
     def _start_loader(self, init_fn, head_fn) -> None:
@@ -823,8 +836,8 @@ class ModelRunner:
     @property
     def kv_pool_bytes(self) -> int:
         """Device bytes of the whole KV pool, payload + scale pools, over
-        all tp ranks."""
-        return (self.num_kv_blocks * self.config.tensor_parallel_size
+        all ranks of the mesh."""
+        return (self.num_kv_blocks * self.config.mesh_devices
                 * self.config.kv_cache_bytes_per_block(self.model_config))
 
     @property
@@ -852,7 +865,7 @@ class ModelRunner:
                        * self.dtype.itemsize)
         saved = max(0, unquantized - cfg.kv_cache_bytes_per_token(mc))
         return (self.kv_quant_tokens_written * saved
-                * cfg.tensor_parallel_size)
+                * cfg.mesh_devices)
 
     def _derive_num_blocks(self) -> int:
         """Size the KV pool from free device memory (after the weights are
@@ -862,11 +875,11 @@ class ModelRunner:
         On the card at tp = 1 warm-up captures every prefill family as a
         CUDA graph, whose temporaries the graph pool holds for the engine's
         life: the largest family's peak (``prefill_peak_bytes``) is
-        reserved. Without graphs (the CPU, tp > 1) prefill takes its
+        reserved. Without graphs (the CPU, a mesh) prefill takes its
         temporaries transiently, and only its history window is reserved.
         An overlapped load reserves its loader's largest transient
         (``loader_reserve_bytes``), which comes after the pool is sized.
-        Bytes are this rank's (its kv heads); tp ranks sharing one card
+        Bytes are this rank's (its kv heads); mesh ranks sharing one card
         each take their share of its free memory (the caller then takes the
         minimum over ranks)."""
         mc, cfg = self.model_config, self.config
@@ -874,12 +887,12 @@ class ModelRunner:
         window_bytes_per_block = cfg.window_bytes_per_block(mc)
         if self.device.type == "cuda":
             free_bytes, _ = torch.cuda.mem_get_info(self.device)
-            free_bytes //= mesh.ranks_per_device(
-                self.device, cfg.tensor_parallel_size)
+            free_bytes //= pmesh.ranks_per_device(self.device,
+                                                  cfg.mesh_devices)
         else:
             free_bytes = 2 << 30
         budget = int(free_bytes * cfg.hbm_utilization) - self.loader_reserve_bytes
-        graphs = self.device.type == "cuda" and self.tp is None
+        graphs = self.device.type == "cuda" and self.mesh is None
         if self.attn_impl == "window":
             # Windows are counted per block; the graphs' other temporaries
             # are reserved.
@@ -1086,10 +1099,10 @@ class ModelRunner:
         """Rows of a prefill dispatch of ``n`` sequences: the reference's
         two row families, 1 and the ``max_prefill_seqs`` bucket (a straggler
         batch of 2 to 7 rows pads to 8 at the default), so the dispatch has
-        a captured family's shape. At tp > 1 nothing is captured: the exact
+        a captured family's shape. On a mesh nothing is captured: the exact
         ``n``."""
         cfg = self.config
-        if n == 1 or self.tp is not None:
+        if n == 1 or self.mesh is not None:
             return n
         return _bucket(max(n, cfg.max_prefill_seqs), 1, max(1, cfg.max_num_seqs))
 
@@ -1178,7 +1191,7 @@ class ModelRunner:
         and the pool is sized as a cold start sizes it, so that capture
         fits. A cold start writes the manifest after it warmed fully.
         A capture that fails, or a prefill family warm-up missed, fails
-        warm-up with the family named. At tp > 1 no family is captured
+        warm-up with the family named. On a mesh no family is captured
         (gloo collectives cannot be captured, and NCCL capture is not
         ported): decode and prefill run eagerly, prefill at its exact row
         count, and nothing is deferred."""
@@ -1197,10 +1210,10 @@ class ModelRunner:
         if cuda and self.attn_impl == "paged":
             pa.build_kernels()
         phases = {"kernel_build": time.monotonic() - t0}
-        if self.tp is not None:
+        if self.mesh is not None:
             self.wait_for_weights()
-            logger.info("warmup: tp=%d: no decode or prefill family captured "
-                        "(both run eagerly)", self.tp.size)
+            logger.info("warmup: a mesh of %d ranks: no decode or prefill "
+                        "family captured (both run eagerly)", self.mesh.size)
             return
         keys = self.decode_graph_keys()
         pkeys = self.prefill_graph_keys()
@@ -1312,7 +1325,9 @@ class ModelRunner:
             "block_size": cfg.block_size,
             "num_kv_blocks": self.num_kv_blocks,
             "attn": self.attn_impl, "decode_loop": cfg.decode_loop,
-            "mesh": [["tp", cfg.tensor_parallel_size]],
+            "mesh": [["dp", cfg.data_parallel_size],
+                     ["sp", cfg.sequence_parallel_size],
+                     ["tp", cfg.tensor_parallel_size]],
             "b_max": self.b_max,
             "max_model_len": cfg.max_model_len,
             "max_num_batched_tokens": cfg.max_num_batched_tokens,
@@ -1477,9 +1492,9 @@ class ModelRunner:
         return counts
 
     def _dispatch_lock(self):
-        """Rank 0 holds the tp group's lock from a descriptor's broadcast to
-        the end of the device work it describes."""
-        return self.tp.lock if self.tp is not None else contextlib.nullcontext()
+        """Rank 0 holds the mesh's lock from a descriptor's broadcast to the
+        end of the device work it describes."""
+        return self.mesh.lock if self.mesh is not None else contextlib.nullcontext()
 
     def _push_last(self, last: torch.Tensor) -> int:
         """Record a token-producing dispatch's device-resident last-token
@@ -1502,7 +1517,8 @@ class ModelRunner:
         del self._chain_rows[self._max_chains:]
 
     def _digest_add(self, toks: torch.Tensor) -> None:
-        """Fold sampled tokens into this rank's device digest (tp > 1)."""
+        """Fold sampled tokens into this rank's device digest (on a
+        mesh)."""
         if self._digest is None:
             return
         flat = toks.reshape(-1).long()
@@ -1609,13 +1625,13 @@ class ModelRunner:
         n_steps = k if cfg.decode_loop == "scan" else max(steps)
         chain_src = -1 if chain_entry is None else chain_entry["dispatch"]
         with self._dispatch_lock():
-            if self.tp is not None:
-                self.tp.send_header(mesh.DECODE, self._dispatches, b, mb, k,
-                                    n_steps, chain_src, int(counts is not None),
-                                    lpk)
-                self.tp.bcast(slot.inp[:n_packed])
+            if self.mesh is not None:
+                self.mesh.send_header(pmesh.DECODE, self._dispatches, b, mb, k,
+                                      n_steps, chain_src,
+                                      int(counts is not None), lpk)
+                self.mesh.bcast(slot.inp[:n_packed])
                 if counts is not None:
-                    self.tp.bcast(counts)
+                    self.mesh.bcast(counts)
             d, bf = self._decode_device(slot, b, mb, k, n_steps, chain_src,
                                         counts, lpk)
         self._push_rows(d, seqs, range(n))
@@ -1835,13 +1851,13 @@ class ModelRunner:
         if counts is not None:
             counts = torch.from_numpy(counts)
         with self._dispatch_lock():
-            if self.tp is not None:
-                self.tp.send_header(mesh.PREFILL, self._dispatches, b, t, mb,
-                                    int(has_window), int(counts is not None),
-                                    lpk)
-                self.tp.bcast(slot.inp[:n_packed + b])
+            if self.mesh is not None:
+                self.mesh.send_header(pmesh.PREFILL, self._dispatches, b, t,
+                                      mb, int(has_window),
+                                      int(counts is not None), lpk)
+                self.mesh.bcast(slot.inp[:n_packed + b])
                 if counts is not None:
-                    self.tp.bcast(counts)
+                    self.mesh.bcast(counts)
             d, bf = self._prefill_device(slot, b, t, mb, has_window, finals,
                                          counts, lpk)
 
@@ -1951,7 +1967,7 @@ class ModelRunner:
         (norm floored at 1e-9). Rows pad to the power-of-two bucket of at
         most ``max_num_seqs`` (more inputs go in chunks of that many),
         tokens to the power-of-two bucket >= 16 of the longest input. Run
-        between dispatches on the engine's worker thread; at tp > 1 every
+        between dispatches on the engine's worker thread; on a mesh every
         rank runs its shard's forward (an EMBED descriptor)."""
         self.wait_for_weights()
         t0 = time.monotonic()
@@ -1973,9 +1989,9 @@ class ModelRunner:
                 ids[i, :len(toks)] = toks
                 lens[i] = len(toks)
             with self._dispatch_lock():
-                if self.tp is not None:
-                    self.tp.send_header(mesh.EMBED, b, t)
-                    self.tp.bcast(packed)
+                if self.mesh is not None:
+                    self.mesh.send_header(pmesh.EMBED, b, t)
+                    self.mesh.bcast(packed)
                 out = self._embed_device(packed, b, t)
             outs.append(out[:n].cpu().numpy())
         self.embed_calls_total += 1
@@ -2030,11 +2046,17 @@ class ModelRunner:
         return (n, pool.shape[0], heads, self.config.block_size,
                 *pool.shape[3:])
 
+    @property
+    def _pool_split(self) -> bool:
+        """Whether tp ranks split this pool's kv heads (else every rank
+        holds every head)."""
+        return self.local_kv_heads < self.model_config.num_kv_heads
+
     def _io_chunk(self) -> int:
-        """Blocks per block-exchange collective at tp > 1 (one block of
+        """Blocks per block-exchange collective on a mesh (one block of
         this rank's K pool per row)."""
         k = self.kv_k
-        return mesh.TPGroup.block_chunk(
+        return pmesh.RankMesh.block_chunk(
             k.numel() // self.num_kv_blocks * k.element_size())
 
     def read_blocks(self, block_ids: List[int]):
@@ -2042,27 +2064,29 @@ class ModelRunner:
         ``read_blocks``): (k, v, k_scale, v_scale) numpy arrays, payload
         ``[n, L, Hkv, bs, Dh]`` in the pool's storage dtype (bfloat16 as
         ``kv_offload.serde.BF16``), plus the per-slot scales ``[n, L, Hkv,
-        bs]`` of an int8 pool (None otherwise). Every kv head at any tp: at
-        tp > 1 a ``KV_READ`` descriptor makes each rank select its heads
-        and rank 0 gathers them (``_read_device``). A gather through the
-        ``[L, Hkv, nblk, bs, Dh]`` view of each pool, then a copy to host
-        memory, on the dispatch stream: it runs after every dispatch
-        enqueued before it, whichever thread calls."""
+        bs]`` of an int8 pool (None otherwise). Every kv head at any mesh:
+        where tp splits the kv heads a ``KV_READ`` descriptor makes each
+        rank of the (0, 0) tp group select its heads and rank 0 gathers
+        them (``_read_device``); a pool every rank holds whole is read on
+        rank 0 alone. A gather through the ``[L, Hkv, nblk, bs, Dh]`` view
+        of each pool, then a copy to host memory, on the dispatch stream: it
+        runs after every dispatch enqueued before it, whichever thread
+        calls."""
         self.wait_for_weights()
         ids = torch.tensor(list(block_ids), dtype=torch.long)
-        if self.tp is None or not ids.numel():
+        if not self._pool_split or not ids.numel():
             hosts = self._read_device(ids)
         else:
             with self._dispatch_lock():
                 try:
                     step = self._io_chunk()
-                    self.tp.send_header(mesh.KV_READ, ids.numel(),
-                                        int(self.kv_quantized), step)
-                    self.tp.bcast(ids)
+                    self.mesh.send_header(pmesh.KV_READ, ids.numel(),
+                                          int(self.kv_quantized), step)
+                    self.mesh.bcast(ids)
                     hosts = self._read_device(ids, step)
                 except Exception as e:
                     # The ranks are out of step: the group is lost.
-                    self.tp.mark_lost("block read", e)
+                    self.mesh.mark_lost("block read", e)
                     raise
         out = [_to_numpy(h) for h in hosts]
         if not self.kv_quantized:
@@ -2071,16 +2095,19 @@ class ModelRunner:
 
     def _read_device(self, ids: torch.Tensor, step: int = 0
                      ) -> Optional[List[torch.Tensor]]:
-        """The device part of ``read_blocks``, on every rank: each pool's
-        blocks ``ids`` as host tensors ``[n, L, Hkv, bs(, Dh)]`` (None on
-        ranks 1..tp-1). At tp > 1 each rank selects its heads ``step``
-        blocks at a time (rank 0's choice, sent in the descriptor) and rank
-        0 gathers them in rank order."""
+        """The device part of ``read_blocks``: each pool's blocks ``ids`` as
+        host tensors ``[n, L, Hkv, bs(, Dh)]`` (None on ranks 1..world-1).
+        Where tp splits the kv heads each rank of the (0, 0) tp group
+        selects its heads ``step`` blocks at a time (rank 0's choice, sent
+        in the descriptor) and rank 0 gathers them in rank order; the
+        other replicas' ranks hold copies and take no part."""
         cuda = self.device.type == "cuda"
         n = ids.numel()
+        if self._pool_split and self.mesh.coords[:2] != (0, 0):
+            return None
         with self.kv_io_lock, self._io_stream():
             idx = ids.to(self.device)
-            if self.tp is None:
+            if not self._pool_split:
                 hosts = []
                 for pool in self._pools():
                     g = self._block_view(pool).index_select(2, idx).movedim(2, 0)
@@ -2100,7 +2127,7 @@ class ModelRunner:
                 for pool, h in zip(self._pools(), hosts):
                     g = self._block_view(pool).index_select(
                         2, idx[a:a + step]).movedim(2, 0)
-                    parts = self.tp.gather_to_root(g)
+                    parts = self.mesh.gather_to_root(g)
                     if root:
                         join_kv_blocks(parts, out=h[a:a + step])
             return hosts if root else None
@@ -2116,7 +2143,7 @@ class ModelRunner:
                 return self.read_blocks(block_ids)
             except RuntimeError:
                 if attempt == attempts - 1 or (
-                        self.tp is not None and self.tp.lost()):
+                        self.mesh is not None and self.mesh.lost()):
                     raise
                 time.sleep(0.01)
 
@@ -2125,8 +2152,9 @@ class ModelRunner:
         """Host-to-device restore of whole KV blocks (the reference's
         ``write_blocks``): ``[n, L, Hkv, bs, Dh]`` payloads, and an int8
         pool's ``[n, L, Hkv, bs]`` scales (it restores bit-identically, no
-        requantization). Every kv head at any tp: at tp > 1 a ``KV_WRITE``
-        descriptor makes rank 0 scatter each rank its heads. Copied and
+        requantization). Every kv head at any mesh: on a mesh a
+        ``KV_WRITE`` descriptor makes rank 0 scatter every rank its heads
+        (each replica takes the blob). Copied and
         scattered on the dispatch stream with ``index_copy_`` into the pool
         tensors themselves: the decode graphs captured their addresses, so
         the pools are never rebound. The next dispatch runs after the
@@ -2140,7 +2168,7 @@ class ModelRunner:
         arrays = [k_np, v_np] + ([k_scale, v_scale] if self.kv_quantized
                                  else [])
         ids = torch.tensor(list(block_ids), dtype=torch.long)
-        if self.tp is None:
+        if self.mesh is None:
             hosts = [_to_torch(a, pin=cuda) for a in arrays]
             self._write_device(ids, hosts)
         elif ids.numel():
@@ -2149,12 +2177,12 @@ class ModelRunner:
             with self._dispatch_lock():
                 try:
                     step = self._io_chunk()
-                    self.tp.send_header(mesh.KV_WRITE, ids.numel(),
-                                        int(self.kv_quantized), step)
-                    self.tp.bcast(ids)
+                    self.mesh.send_header(pmesh.KV_WRITE, ids.numel(),
+                                          int(self.kv_quantized), step)
+                    self.mesh.bcast(ids)
                     self._write_device(ids, hosts, step)
                 except Exception as e:
-                    self.tp.mark_lost("block write", e)
+                    self.mesh.mark_lost("block write", e)
                     raise
         if self.kv_quantized:
             self.kv_quant_tokens_written += (len(block_ids)
@@ -2165,34 +2193,57 @@ class ModelRunner:
                       step: int = 0) -> None:
         """The device part of ``write_blocks``, on every rank: each pool's
         blocks ``ids`` from rank 0's host tensors ``hosts`` (every kv head;
-        None on ranks 1..tp-1). At tp > 1 rank 0 scatters each rank its
+        None on ranks 1..world-1). On a mesh rank 0 scatters every rank its
         heads ``step`` blocks at a time."""
         cuda = self.device.type == "cuda"
         n = ids.numel()
         with self.kv_io_lock, self._io_stream():
             idx = ids.to(self.device)
-            if self.tp is None:
+            if self.mesh is None:
                 for pool, h in zip(self._pools(), hosts):
                     src = h.to(self.device, non_blocking=cuda).to(pool.dtype)
                     self._block_view(pool).index_copy_(2, idx, src.movedim(0, 2))
                 return
-            tp = self.tp.size
+            m = self.mesh
+            # Global rank g takes the heads of its tp rank g mod tp.
+            tps = [pmesh.grid_coords(g, m.sp_size, m.tp_size)[2]
+                   for g in range(m.size)]
             for a in range(0, n, max(1, step)):
                 rows = min(step, n - a)
                 for i, pool in enumerate(self._pools()):
                     parts = (None if hosts is None else
-                             [shard_kv_blocks(hosts[i][a:a + rows], r, tp)
-                              for r in range(tp)])
-                    src = self.tp.scatter_from_root(
+                             [shard_kv_blocks(hosts[i][a:a + rows], t,
+                                              m.tp_size) for t in tps])
+                    src = self.mesh.scatter_from_root(
                         parts, self._block_shape(pool, rows, False), pool.dtype)
                     self._block_view(pool).index_copy_(
                         2, idx[a:a + rows], src.movedim(0, 2))
 
-    # ------------------------------------------------------ tensor parallel
-    def _rank_report(self) -> Dict:
+    # ------------------------------------------------------------------ mesh
+    def pool_digest(self) -> int:
+        """A digest of this rank's pools' raw bits (payload and scales),
+        over every slot but the null block's (block 0, which padding rows
+        write in no fixed order), one (layer, head) row at a time on the
+        device: equal pools give equal digests, so replicas of one tp rank
+        can be compared."""
+        bs = self.config.block_size
+        digest = 0
+        for pool in self._pools():
+            for layer in pool:
+                for head in layer:
+                    c = head[bs:].reshape(-1).view(
+                        _INT_OF_SIZE[pool.element_size()]).long() % 65521
+                    w = torch.arange(c.numel(), device=c.device) % 65521 + 1
+                    digest = (digest * _DIGEST_MULT
+                              + int((c * w).sum())) % _DIGEST_MOD
+        return digest
+
+    def _rank_report(self, pool_digest: bool = False) -> Dict:
         cuda = self.device.type == "cuda"
         return {
             "rank": self.rank, "pid": os.getpid(), "device": str(self.device),
+            "coords": (list(self.mesh.coords) if self.mesh is not None
+                       else [0, 0, 0]),
             "hbm_kv_bytes": self.hbm_kv_bytes,
             "weight_bytes": sum(
                 t.numel() * t.element_size() for k, v in self.params.items()
@@ -2206,71 +2257,85 @@ class ModelRunner:
             "decode_steps_total": self.decode_steps_total,
             "peak_bytes": (torch.cuda.max_memory_allocated(self.device)
                            if cuda else 0),
+            # The sp ring's ring-attended layer calls by kind, exchanges
+            # and host seconds (None without an sp ring).
+            "rings": dict(self.sp.rings) if self.sp is not None else None,
+            "ring_exchanges": self.sp.exchanges if self.sp is not None else 0,
+            "ring_seconds": self.sp.ring_seconds if self.sp is not None else 0.0,
+            "pool_digest": self.pool_digest() if pool_digest else None,
         }
 
-    def _answer_query(self, reset: bool) -> List[Dict]:
-        reports = self.tp.gather_object(self._rank_report())
+    def _answer_query(self, reset: bool, pool_digest: bool = False
+                      ) -> List[Dict]:
+        reports = self.mesh.gather_object(self._rank_report(pool_digest))
         if reset:
             pa.reset_launch_counts()
             self._digest.zero_()
+            if self.sp is not None:
+                self.sp.rings = dict.fromkeys(self.sp.rings, 0)
+                self.sp.exchanges = 0
+                self.sp.ring_seconds = 0.0
             if self.device.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(self.device)
         return reports
 
-    def tp_query(self, reset: bool = False) -> List[Dict]:
-        """Rank 0, between dispatches: every rank's report (launch counts,
-        token digest, pool and weight bytes, dispatches, decode steps, peak
-        device bytes), in rank order. ``reset`` then sets each rank's launch
-        counts, digest and peak-memory mark to 0."""
-        with self.tp.lock:
-            self.tp.send_header(mesh.QUERY, int(reset))
-            return self._answer_query(reset)
+    def tp_query(self, reset: bool = False, pool_digest: bool = False
+                 ) -> List[Dict]:
+        """Rank 0, between dispatches: every rank's report (grid
+        coordinates, launch counts, token digest, ring counts, pool and
+        weight bytes, dispatches, decode steps, peak device bytes, and with
+        ``pool_digest`` its pools' digest), in rank order. ``reset`` then
+        sets each rank's launch counts, token digest, ring counts and
+        peak-memory mark to 0."""
+        with self.mesh.lock:
+            self.mesh.send_header(pmesh.QUERY, int(reset), int(pool_digest))
+            return self._answer_query(reset, pool_digest)
 
     def tp_stop(self) -> List[Dict]:
         """Rank 0: end the workers' descriptor loops; returns every rank's
         final report."""
-        with self.tp.lock:
-            self.tp.send_header(mesh.STOP)
+        with self.mesh.lock:
+            self.mesh.send_header(pmesh.STOP)
             return self._answer_query(False)
 
     def serve(self) -> List[Dict]:
-        """Ranks 1..tp-1: run rank 0's descriptors, in order, until the
+        """Ranks 1..world-1: run rank 0's descriptors, in order, until the
         stop descriptor; returns the final reports."""
-        tp = self.tp
+        m = self.mesh
         vocab = self.model_config.vocab_size
         while True:
-            h = tp.recv_header()
+            h = m.recv_header()
             kind = h[0]
-            if kind == mesh.NOOP:
+            if kind == pmesh.NOOP:
                 continue
-            if kind == mesh.QUERY:
-                self._answer_query(bool(h[1]))
+            if kind == pmesh.QUERY:
+                self._answer_query(bool(h[1]), bool(h[2]))
                 continue
-            if kind == mesh.STOP:
+            if kind == pmesh.STOP:
                 return self._answer_query(False)
-            if kind == mesh.EMBED:
+            if kind == pmesh.EMBED:
                 b, t = h[1:3]
                 packed = torch.empty((b * t + b,), dtype=torch.int32)
-                tp.bcast(packed)
+                m.bcast(packed)
                 self._embed_device(packed, b, t)
                 continue
-            if kind in (mesh.KV_READ, mesh.KV_WRITE):
+            if kind in (pmesh.KV_READ, pmesh.KV_WRITE):
                 n, quantized, step = h[1:4]
                 if bool(quantized) != self.kv_quantized:
                     raise RuntimeError(
                         f"block I/O descriptor for a {'int8' if quantized else 'unquantized'} "
                         f"pool reached rank {self.rank}")
                 ids = torch.empty((n,), dtype=torch.int64)
-                tp.bcast(ids)
-                if kind == mesh.KV_READ:
+                m.bcast(ids)
+                if kind == pmesh.KV_READ:
                     self._read_device(ids, step)
                 else:
                     self._write_device(ids, None, step)
                 continue
-            if kind == mesh.DECODE:
+            if kind == pmesh.DECODE:
                 d, b, mb, k, n_steps, chain_src, pen, lpk = h[1:9]
                 n_payload = NUM_SCALARS * b + b * mb
-            elif kind == mesh.PREFILL:
+            elif kind == pmesh.PREFILL:
                 d, b, t, mb, has_window, pen, lpk = h[1:8]
                 n_payload = NUM_SCALARS * b + b * mb + b * t + b
             else:
@@ -2279,12 +2344,12 @@ class ModelRunner:
                 raise RuntimeError(f"descriptor of dispatch {d} reached rank "
                                    f"{self.rank} at dispatch {self._dispatches}")
             slot = self._slot(n_payload, 0)
-            tp.bcast(slot.inp[:n_payload])
+            m.bcast(slot.inp[:n_payload])
             counts = None
             if pen:
                 counts = torch.empty((b, vocab), dtype=torch.int32)
-                tp.bcast(counts)
-            if kind == mesh.DECODE:
+                m.bcast(counts)
+            if kind == pmesh.DECODE:
                 self._decode_device(slot, b, mb, k, n_steps, chain_src, counts,
                                     lpk)
             else:

@@ -22,8 +22,25 @@ the embedding rows are gathered over the hidden dim, the row-parallel
 all-gathers each rank's vocab slice of the logits (``lm_head`` split on V)
 or all-reduces partial logits (a tied head, ``embed`` split on D). The
 paged decode runs ``paged_flash_decode_stats_tp`` over the rank's kv heads.
+Where tp does not divide a leaf's split dim the leaf is replicated (the
+reference's fallback), and its collective goes with it: a replicated
+``wo``, ``w_down``, ``embed`` or head is a full product, never reduced or
+gathered. Where tp does not divide the kv heads the pool is replicated
+(``TPPlan``): every rank computes every kv head (gathering the columns of
+a split ``wk`` / ``wv``), writes them all, and attends its query heads
+against the kv heads their GQA groups read.
+
+Sequence parallelism (``sp``, a ``parallel/mesh.py:SPRing``, prefill
+only): each sp rank keeps its contiguous token shard of the chunk through
+every layer, and attention is the distributed ring
+(``ops/ring_attention.py``): a first chunk rings the chunk itself, a
+continuation chunk its shard of the history window (slots at or past the
+row's history length at ``WINDOW_SENTINEL``) followed by its chunk
+tokens. The runner engages it under the reference's condition and gathers
+what follows the forward.
 """
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -41,7 +58,13 @@ from production_stack_tpu_torch.ops.paged_attention import (
     paged_flash_decode_stats,
     paged_flash_decode_stats_tp,
 )
-from production_stack_tpu_torch.parallel.sharding import check_tp, shard_leaf
+from production_stack_tpu_torch.ops import ring_attention
+from production_stack_tpu_torch.parallel.sharding import (
+    check_tp,
+    kv_heads_split,
+    shard_leaf,
+    split_dim,
+)
 
 Params = Dict
 
@@ -148,7 +171,7 @@ def empty_params(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
     ``models/weights.py:load_hf_params`` fill in place. Allocating them
     first lets the runner size its KV pool net of the weights before a
     background thread fills them."""
-    check_tp(cfg, tp)
+    check_tp(tp)
     d, f, dh = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim_
     h, hkv, nl, v = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers, cfg.vocab_size
 
@@ -227,6 +250,81 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return out
 
 
+class TPPlan:
+    """How one tp rank's forward reads its shard (the identity at tp = 1).
+    Which leaves are split is ``parallel/sharding.py``'s rule alone
+    (``split_dim``, ``kv_heads_split``), asked of the config's leaf shapes;
+    the plan says what follows from it: the rank's query heads [h0, h1);
+    whether its ``wq`` columns end mid-head (``q_gather``: q is gathered
+    whole, then its heads taken); whether ``wk`` / ``wv`` are split while
+    the pool is replicated (``kv_gather``: k and v are gathered whole); the
+    kv heads its queries read (``kv``: the pool's heads as they stand where
+    tp splits them, else the range its GQA groups cover, repeated per query
+    head where its heads cut a group); and which products are partial sums
+    (``o_cols``: the columns of the heads' output its ``wo`` rows take,
+    None where ``wo`` is replicated; ``mlp_reduce``; ``embed_split``;
+    ``head_split``). ``tp_plan`` builds one per (config, tp size, rank)."""
+
+    def __init__(self, cfg: ModelConfig, n: int = 1, r: int = 0):
+        h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+        d, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+
+        def split(name, shape):
+            return split_dim(name, shape, n) is not None
+
+        self.g = h // hkv
+        self.h0, self.h1 = 0, h
+        self.q_gather = self.kv_gather = False
+        self.kv_range = None       # (first kv head, end) read from the pool
+        self.expand = None         # (offset, count) of the repeated heads
+        self.o_cols = None
+        self.mlp_reduce = split("w_down", (f, d))
+        self.embed_split = split("embed", (v, d))
+        self.head_split = self.embed_split if cfg.tie_word_embeddings \
+            else split("lm_head", (d, v))
+        if n == 1:
+            return
+        if kv_heads_split(hkv, n):
+            # Heads, kv heads and their GQA groups split together.
+            self.h0, self.h1 = r * h // n, (r + 1) * h // n
+            self.o_cols = (0, (self.h1 - self.h0) * dh)
+            return
+        # The replicated pool: every kv head on every rank.
+        self.kv_gather = split("wk", (d, hkv * dh))
+        if split("wq", (d, h * dh)):
+            c = h * dh // n
+            c0, c1 = r * c, (r + 1) * c
+            self.h0, self.h1 = c0 // dh, -(-c1 // dh)
+            self.q_gather = c0 % dh != 0 or c1 % dh != 0
+            self.o_cols = (c0 - self.h0 * dh, c1 - self.h0 * dh)
+        k0, k1 = self.h0 // self.g, -(-self.h1 // self.g)
+        self.kv_range = (k0, k1)
+        if self.h0 % self.g or self.h1 % self.g:
+            self.expand = (self.h0 - k0 * self.g, self.h1 - self.h0)
+
+    def kv(self, t: Optional[torch.Tensor], dim: int) -> Optional[torch.Tensor]:
+        """The kv heads this rank's queries read, of ``t`` (heads on
+        ``dim``)."""
+        if t is None or self.kv_range is None:
+            return t
+        k0, k1 = self.kv_range
+        t = t.narrow(dim, k0, k1 - k0)
+        if self.expand is not None:
+            t = t.repeat_interleave(self.g, dim=dim).narrow(dim, *self.expand)
+        return t
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(cfg: ModelConfig, n: int, r: int) -> TPPlan:
+    return TPPlan(cfg, n, r)
+
+
+def tp_plan(cfg: ModelConfig, tp=None) -> TPPlan:
+    """This rank's ``TPPlan`` under ``tp`` (None: tp = 1), built once per
+    (config, tp size, rank)."""
+    return _plan(cfg, tp.size, tp.rank) if tp is not None else _plan(cfg, 1, 0)
+
+
 def _layer_body(
     cfg: ModelConfig,
     hidden: torch.Tensor,       # [B, T, D]
@@ -243,11 +341,12 @@ def _layer_body(
     tp=None,                    # TPGroup when tensor_parallel_size > 1
     chunk_bias=None,            # [T, T] additive in-chunk bias (tree verify)
     lora=None,                  # (adapter_idx [B], {target: (A, B)} ONE layer)
+    plan: TPPlan = None,        # forward's, for this rank of ``tp``
+    sp=None,                    # SPRing: the prefill chunk rings
+    win_pos=None,               # [B, S/sp] positions of the rank's window shard
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, t, d = hidden.shape
     dh = cfg.head_dim_
-    # This rank's heads (all of them at tp = 1).
-    h, hkv = lp["wq"].shape[-1] // dh, lp["wk"].shape[-1] // dh
 
     def proj(x, target):
         out = x @ lp[target]
@@ -264,11 +363,32 @@ def _layer_body(
         q = q + lp["bq"]
         k = k + lp["bk"]
         v = v + lp["bv"]
+    if plan.q_gather:
+        q = tp.all_gather(q, dim=-1)[..., plan.h0 * dh:plan.h1 * dh]
+    if plan.kv_gather:
+        k, v = tp.all_gather(torch.stack([k, v]), dim=-1).unbind(0)
+    # This rank's query heads and the pool's kv heads.
+    h, hkv = q.shape[-1] // dh, k.shape[-1] // dh
     q = apply_rope(q.reshape(b, t, h, dh), cos, sin)
     k = apply_rope(k.reshape(b, t, hkv, dh), cos, sin)
     v = v.reshape(b, t, hkv, dh)
 
-    if paged is not None:
+    if sp is not None:
+        # Sequence-parallel prefill (the reference's ring engagement): q, k
+        # and v hold this rank's token shard; a continuation chunk's keys
+        # are its window shard followed by its chunk tokens.
+        ks, vs = plan.kv(k, 2), plan.kv(v, 2)
+        if win_k is None:
+            attn = ring_attention.ring_attention_shard(
+                q, positions, ks, vs, positions, sp, "first")
+        else:
+            kw = plan.kv(win_k, 0).permute(1, 2, 0, 3)   # [B, S/sp, Hkv, Dh]
+            vw = plan.kv(win_v, 0).permute(1, 2, 0, 3)
+            attn = ring_attention.ring_attention_shard(
+                q, positions, torch.cat([kw, ks], dim=1),
+                torch.cat([vw, vs], dim=1),
+                torch.cat([win_pos, positions], dim=1), sp, "continuation")
+    elif paged is not None:
         # Paged decode (T == 1): the pool segment runs in the flash-decode
         # kernel directly against this layer of the stacked pool; the
         # intra-dispatch ring + the current token form a small dense
@@ -301,19 +421,25 @@ def _layer_body(
         attn = attn.reshape(b, t, h, dh)
     else:
         attn = window_attention(
-            q, k, v, positions, chunk_lens,
-            win_k, win_v, win_len, ring_k, ring_v, ring_pos,
+            q, plan.kv(k, 2), plan.kv(v, 2), positions, chunk_lens,
+            plan.kv(win_k, 0), plan.kv(win_v, 0), win_len,
+            plan.kv(ring_k, 0), plan.kv(ring_v, 0), ring_pos,
             chunk_bias=chunk_bias,
         )
     # Row-parallel products (and their LoRA deltas, over this rank's input
-    # rows of A) are partial sums until the all-reduce.
-    o = proj(attn.reshape(b, t, h * dh), "wo")
-    hidden = hidden + (o if tp is None else tp.all_reduce(o))
+    # rows of A) are partial sums until the all-reduce; a replicated wo or
+    # w_down is the full product.
+    attn = attn.reshape(b, t, h * dh)
+    if plan.o_cols is not None:
+        o = tp.all_reduce(proj(attn[..., plan.o_cols[0]:plan.o_cols[1]], "wo"))
+    else:
+        o = proj(attn, "wo")
+    hidden = hidden + o
 
     x = rms_norm(hidden, lp["mlp_norm"], cfg.rms_norm_eps)
     gated = silu(proj(x, "w_gate")) * proj(x, "w_up")
     mlp = proj(gated, "w_down")
-    if tp is not None:
+    if plan.mlp_reduce:
         mlp = tp.all_reduce(mlp)
     # New KV in pool layout [Hkv, B, T, Dh] for the runner's single scatter.
     return hidden + mlp, k.permute(2, 0, 1, 3), v.permute(2, 0, 1, 3)
@@ -335,16 +461,36 @@ def forward(
     paged=None,  # (pool_k [L,Hkv,S,Dh], pool_v, k_scale [L,Hkv,S] | None,
                  #  v_scale | None, block_tables [B,Mb], kv_lens [B],
                  #  block_size) — paged decode path
-    tp=None,     # TPGroup when tensor_parallel_size > 1 (Hkv: this rank's)
+    tp=None,     # TPGroup when tensor_parallel_size > 1 (Hkv: the pool's)
     chunk_bias=None,  # [T, T] additive in-chunk bias: the speculative
                       # token-tree verify (ops/tree_mask.py), window path
     lora=None,   # (adapter_idx [B], {target: (A [L,Na+1,in,r], B [L,Na+1,r,out])})
+    sp=None,     # SPRing: ring-attend this prefill chunk over the sp ranks
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (hidden [B,T,D], k_new [L,Hkv,B,T,Dh], v_new [L,Hkv,B,T,Dh]).
     ``lora``: each row's adapter index and the registry's stacks (models/
-    lora.py), indexed by layer like the params; index 0 adds exactly 0."""
+    lora.py), indexed by layer like the params; index 0 adds exactly 0.
+    With ``sp`` (sp ranks, T divisible by them, a window's S too) this
+    rank keeps tokens [s*T/sp, (s+1)*T/sp) of the chunk: hidden, k_new and
+    v_new hold those (T/sp of them); the window holds every slot."""
+    win_pos = None
+    if sp is not None:
+        n = token_ids.shape[1] // sp.size
+        part = slice(sp.rank * n, (sp.rank + 1) * n)
+        token_ids, positions = token_ids[:, part], positions[:, part]
+        if win_k is not None:
+            w = win_k.shape[3] // sp.size
+            lo = sp.rank * w
+            slots = torch.arange(lo, lo + w, dtype=torch.int32,
+                                 device=positions.device)
+            win_pos = torch.where(
+                slots[None, :] < win_len[:, None], slots[None, :],
+                torch.full((), ring_attention.WINDOW_SENTINEL,
+                           dtype=torch.int32, device=positions.device))
+            win_k, win_v = win_k[:, :, :, lo:lo + w], win_v[:, :, :, lo:lo + w]
+    plan = tp_plan(cfg, tp)
     hidden = params["embed"][token_ids.long()]
-    if tp is not None:
+    if plan.embed_split:
         # embed is split on D: every rank's columns of the same rows.
         hidden = tp.all_gather(hidden, dim=-1)
     hidden = hidden.to(win_k.dtype if win_k is not None else params["embed"].dtype)
@@ -364,6 +510,7 @@ def forward(
             paged=paged, layer_idx=i, tp=tp, chunk_bias=chunk_bias,
             lora=(None if lora is None else
                   (lora[0], {n: (a[i], b[i]) for n, (a, b) in lora[1].items()})),
+            plan=plan, sp=sp, win_pos=win_pos,
         )
         k_out.append(k_l)
         v_out.append(v_l)
@@ -376,9 +523,10 @@ def lm_head_f32(params: Params, cfg: ModelConfig,
     """The output projection [D, V] widened to f32 once: ``compute_logits``
     then multiplies bf16 values exactly in f32 with f32 accumulation, as the
     JAX package's ``preferred_element_type=float32`` dot does. From sharded
-    params it is this rank's share: [D, V/tp] (``lm_head``) or [D/tp, V]
-    (a tied ``embed``). ``out``: an f32 tensor of that shape to fill in
-    place (the same values)."""
+    params it is this rank's share: [D, V/tp] (``lm_head`` split), [D/tp,
+    V] (a tied ``embed`` split), or all of it where the leaf is replicated.
+    ``out``: an f32 tensor of that shape to fill in place (the same
+    values)."""
     head = params["embed"].t() if cfg.tie_word_embeddings else params["lm_head"]
     if out is not None:
         return out.copy_(head)
@@ -392,10 +540,11 @@ def compute_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
     cached ``lm_head_f32`` (computed here when not given). With ``tp``, the
     full logits on every rank, bit-identical across ranks: the vocab slices
     all-gathered, or (tied head) the partial logits over each rank's D
-    slice all-reduced in f32."""
+    slice all-reduced in f32; a replicated head is the full product."""
     if head_f32 is None:
         head_f32 = lm_head_f32(params, cfg)
-    if tp is None:
+    plan = tp_plan(cfg, tp)
+    if not plan.head_split:
         return torch.matmul(hidden.float(), head_f32)
     if cfg.tie_word_embeddings:
         dl = head_f32.shape[0]

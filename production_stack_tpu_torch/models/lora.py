@@ -231,14 +231,16 @@ def stack_bytes(stacks: Optional[Dict]) -> int:
 def shard_stacks(stacks: Optional[Dict], rank: int, tp: int) -> Optional[Dict]:
     """Rank ``rank``'s slice of the stacks, as its base weights are split:
     a column-parallel target's B keeps its output columns, a row-parallel
-    target's A its input rows; the other factor stays whole."""
+    target's A its input rows; the other factor stays whole, and so does
+    the split one where its base weight is replicated (tp does not divide
+    the dim)."""
     if not stacks or tp == 1:
         return stacks
     out = {}
     for target, (a, b) in stacks.items():
-        if target in COLUMN:
+        if target in COLUMN and b.shape[-1] % tp == 0:
             b = _split(b, -1, rank, tp)
-        elif target in ROW:
+        elif target in ROW and a.shape[-2] % tp == 0:
             a = _split(a, -2, rank, tp)
         out[target] = (a, b)
     return out

@@ -145,11 +145,14 @@ def forward(
     tp=None,
     chunk_bias=None,
     lora=None,
+    sp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Same contract as ``models/llama.py:forward``, window path only."""
+    """Same contract as ``models/llama.py:forward``, window path only; no
+    chunk rings (the reference rings the llama family only)."""
     assert paged is None, "paged decode is llama-family only (policy)"
     assert lora is None, "LoRA serving is llama-family only"
     assert tp is None, "the OPT family is served at tensor_parallel_size 1"
+    assert sp is None, "ring attention is llama-family only"
     hidden = (params["embed"][token_ids.long()]
               + params["pos_embed"][positions.long() + _OPT_POS_OFFSET])
     hidden = hidden.to(win_k.dtype if win_k is not None

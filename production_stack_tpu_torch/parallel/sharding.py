@@ -13,18 +13,22 @@ same rules by leaf name:
     vocab V is split; norms are replicated;
   * KV pools [L, Hkv, slots, Dh] and int8 scale pools [L, Hkv, slots]:
     the kv-head dim is split.
-Splits are contiguous blocks: rank r holds q heads [r*H/tp, (r+1)*H/tp)
-and the kv heads of those GQA groups, [r*Hkv/tp, (r+1)*Hkv/tp).
+Splits are contiguous blocks: rank r holds columns (or rows) [r*n/tp,
+(r+1)*n/tp) of a split dim of size n.
+
+The replication fallback is the reference's (``_shard_if_divisible``): a
+leaf whose split dim tp does not divide is replicated, whole on every rank
+(``split_dim`` says which dim a leaf splits, or None). The pools split
+their kv heads only when tp divides Hkv. A split need not fall on head
+boundaries (``wk`` at Hkv 2, Dh 32, tp 4 splits 64 columns into 16s);
+``models/llama.py`` gathers what a rank's heads then need, and sums only
+the products whose input rows are split.
 
 A batch of whole KV blocks (the offload tier's and the handoff's payload
 [n, L, Hkv, bs, Dh], an int8 pool's scales [n, L, Hkv, bs]) splits into
 the same head ranges along its head axis (``shard_kv_blocks``), and
 ``join_kv_blocks`` puts the ranks' slices back in rank order: the blob a
 tp > 1 pool writes is the one a tp = 1 pool writes.
-
-Where the JAX package replicates a leaf whose dim tp does not divide
-(``_shard_if_divisible``), the port raises a ``ValueError``: the
-replication fallback is not ported (ROADMAP).
 """
 
 from typing import Dict, Optional
@@ -37,24 +41,26 @@ COLUMN = frozenset({"wq", "wk", "wv", "w_gate", "w_up", "bq", "bk", "bv"})
 ROW = frozenset({"wo", "w_down"})
 
 
-def check_tp(cfg: ModelConfig, tp: int) -> None:
-    """Raise a ValueError unless ``tp`` divides both head counts and every
-    dim the rules split (hidden, intermediate, vocab)."""
+def check_tp(tp: int) -> None:
+    """The one check the reference makes of the degree itself."""
     if tp < 1:
         raise ValueError(f"tensor_parallel_size must be >= 1, got {tp}")
-    if cfg.num_heads % tp or cfg.num_kv_heads % tp:
-        raise ValueError(
-            f"--tensor-parallel-size {tp} must divide the model's head "
-            f"counts: model {cfg.name!r} has {cfg.num_heads} query heads and "
-            f"{cfg.num_kv_heads} kv heads (heads are split into contiguous "
-            "blocks per rank; replicating them is not ported)")
-    for what, n in (("hidden_size", cfg.hidden_size),
-                    ("intermediate_size", cfg.intermediate_size),
-                    ("vocab_size", cfg.vocab_size)):
-        if n % tp:
-            raise ValueError(
-                f"--tensor-parallel-size {tp} must divide the model's {what} "
-                f"{n} (replicating an indivisible leaf is not ported)")
+
+
+def split_dim(name: str, shape, tp: int) -> Optional[int]:
+    """The dim of param leaf ``name`` (of ``shape``, with or without its
+    leading L axis) that tp ranks split, or None where the leaf is
+    replicated: tp is 1, the leaf is a norm, or tp does not divide the
+    dim the rules name (the reference's ``_shard_if_divisible``)."""
+    if tp == 1:
+        return None
+    if name in COLUMN or name in ("embed", "lm_head"):
+        dim = -1
+    elif name in ROW:
+        dim = -2
+    else:
+        return None
+    return dim if shape[dim] % tp == 0 else None
 
 
 def _split(t: torch.Tensor, dim: int, rank: int, tp: int) -> torch.Tensor:
@@ -64,30 +70,33 @@ def _split(t: torch.Tensor, dim: int, rank: int, tp: int) -> torch.Tensor:
 
 def shard_leaf(name: str, leaf: torch.Tensor, rank: int, tp: int) -> torch.Tensor:
     """Rank ``rank``'s slice of the param leaf ``name`` (a layer leaf with
-    or without its leading L axis: the rules index dims from the end)."""
-    if tp == 1:
-        return leaf
-    if name in COLUMN or name in ("embed", "lm_head"):
-        return _split(leaf, -1, rank, tp)
-    if name in ROW:
-        return _split(leaf, -2, rank, tp)
-    return leaf
+    or without its leading L axis: the rules index dims from the end);
+    the whole leaf where it is replicated."""
+    dim = split_dim(name, leaf.shape, tp)
+    return leaf if dim is None else _split(leaf, dim, rank, tp)
 
 
 def shard_params(params: Dict, cfg: ModelConfig, rank: int, tp: int) -> Dict:
     """Rank ``rank``'s shard of the port's param dict (the layout of
     ``models/llama.py``): the leaves of device r of the JAX package's
     ``jax.device_put(params, param_shardings(cfg, mesh, params))``."""
-    check_tp(cfg, tp)
+    check_tp(tp)
     return {k: ({n: shard_leaf(n, t, rank, tp) for n, t in v.items()}
                 if k == "layers" else shard_leaf(k, v, rank, tp))
             for k, v in params.items()}
 
 
+def kv_heads_split(num_kv_heads: int, tp: int) -> bool:
+    """Whether tp ranks split the kv heads of the pools (else every rank
+    holds all of them: the reference's ``kv_pool_sharding``)."""
+    return tp > 1 and num_kv_heads % tp == 0
+
+
 def shard_kv_pool(pool: torch.Tensor, rank: int, tp: int) -> torch.Tensor:
     """Rank ``rank``'s kv heads of a payload pool [L, Hkv, slots, Dh] or a
     scale pool [L, Hkv, slots]."""
-    return _split(pool, 1, rank, tp) if tp > 1 else pool
+    return _split(pool, 1, rank, tp) if kv_heads_split(pool.shape[1], tp) \
+        else pool
 
 
 # The head axis of a block batch [n, L, Hkv, bs(, Dh)].
@@ -97,7 +106,9 @@ BLOCK_HEAD_AXIS = 2
 def shard_kv_blocks(blocks: torch.Tensor, rank: int, tp: int) -> torch.Tensor:
     """Rank ``rank``'s kv heads of a block batch [n, L, Hkv, bs, Dh] (or
     scales [n, L, Hkv, bs]): the heads ``shard_kv_pool`` gives the rank."""
-    return _split(blocks, BLOCK_HEAD_AXIS, rank, tp) if tp > 1 else blocks
+    if kv_heads_split(blocks.shape[BLOCK_HEAD_AXIS], tp):
+        return _split(blocks, BLOCK_HEAD_AXIS, rank, tp)
+    return blocks
 
 
 def join_kv_blocks(parts, out: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -1,13 +1,14 @@
-"""Entry point of tensor-parallel ranks 1..tp-1.
+"""Entry point of mesh ranks 1..world-1.
 
 ``ServingEngine`` (rank 0) starts one process per worker rank, as
 ``python -m production_stack_tpu_torch.parallel.worker --rank R --port P
---spec JSON`` (``argv`` builds the line). A worker joins rank 0's group
-(``parallel/mesh.py``), builds the same ``ModelRunner`` over its own shard
-(its params loaded from the same checkpoint directory, drawn from the same
-seed, or rank 0's broadcast; its slice of the same LoRA adapters), runs rank 0's
-dispatch descriptors in order until the stop descriptor
-(``ModelRunner.serve``), reports and exits. It dies with its parent.
+--spec JSON`` (``argv`` builds the line). A worker joins rank 0's mesh
+(``parallel/mesh.py``), builds the same ``ModelRunner`` over its own tp
+shard (its params loaded from the same checkpoint directory, drawn from
+the same seed, or rank 0's broadcast; its slice of the same LoRA
+adapters), runs rank 0's dispatch descriptors in order until the stop
+descriptor (``ModelRunner.serve``), reports and exits. It dies with its
+parent.
 """
 
 import argparse
@@ -23,7 +24,7 @@ from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.runner import ModelRunner
 from production_stack_tpu_torch.models.config import resolve_model_config
 from production_stack_tpu_torch.models.lora import load_registry
-from production_stack_tpu_torch.parallel.mesh import TPGroup, die_with_parent
+from production_stack_tpu_torch.parallel.mesh import RankMesh, die_with_parent
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)
@@ -43,7 +44,7 @@ def argv(config: EngineConfig, rank: int, port: int, *,
 
 
 def main(args: Optional[List[str]] = None) -> None:
-    p = argparse.ArgumentParser(description="tensor-parallel worker rank")
+    p = argparse.ArgumentParser(description="mesh worker rank")
     p.add_argument("--rank", type=int, required=True)
     p.add_argument("--port", type=int, required=True)
     p.add_argument("--spec", required=True)
@@ -52,18 +53,19 @@ def main(args: Optional[List[str]] = None) -> None:
     die_with_parent(spec["parent"])
     torch.set_num_threads(spec["threads"])
     cfg = EngineConfig(**spec["config"])
-    group = TPGroup.join(a.rank, cfg.tensor_parallel_size, a.port,
-                         torch.device(cfg.device), cfg.tp_timeout_s)
+    mesh = RankMesh.join(a.rank, cfg.data_parallel_size,
+                         cfg.sequence_parallel_size, cfg.tensor_parallel_size,
+                         a.port, torch.device(cfg.device), cfg.tp_timeout_s)
     try:
         mc = resolve_model_config(cfg.model)
         runner = ModelRunner(cfg, mc, num_kv_blocks=spec["num_kv_blocks"],
-                             tp=group, broadcast_params=spec["broadcast_params"],
+                             mesh=mesh, broadcast_params=spec["broadcast_params"],
                              lora_registry=load_registry(cfg.lora_modules, mc))
         runner.serve()
-        logger.info("tp rank %d: stopped after %d dispatches", a.rank,
+        logger.info("rank %d: stopped after %d dispatches", a.rank,
                     runner._dispatches)
     finally:
-        group.close()
+        mesh.close()
 
 
 if __name__ == "__main__":

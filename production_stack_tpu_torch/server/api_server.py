@@ -1259,14 +1259,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "'pallas' are the reference's names of window and "
                         "paged)")
     p.add_argument("--tensor-parallel-size", type=int, default=1,
-                   help="tp ranks, one process each (heads split over them; "
-                        "tp must divide both head counts)")
+                   help="tp ranks per replica, one process each (heads and "
+                        "projections split over them; a leaf whose dim tp "
+                        "does not divide is replicated)")
     p.add_argument("--sequence-parallel-size", type=int, default=1,
-                   help="sp degree (ring-attention prefill): not ported "
-                        "yet, 1 only")
+                   help="sp ranks: a prefill chunk's tokens split over them, "
+                        "its attention a ring (decode replicated)")
     p.add_argument("--data-parallel-size", type=int, default=1,
-                   help="dp replica count within this process: not ported "
-                        "yet, 1 only")
+                   help="dp replicas of the sp x tp ranks, each repeating "
+                        "its twin's work (the reference's dp axis)")
     p.add_argument("--compilation-cache-dir", default=None,
                    help="directory of the warm-up manifest (a subdirectory "
                         "per card and toolchain): a start that finds the "

@@ -424,8 +424,8 @@ async def test_rank_lost_during_a_block_read_fails_the_engine():
     eng = _port(2, kv_offload_cpu=True, tp_timeout_s=timeout)
     eng.offload.flush_interval = 0.02
     sent = []
-    send = eng.tp.send_header
-    proc = eng.tp.procs[0]
+    send = eng.mesh.send_header
+    proc = eng.mesh.procs[0]
 
     def send_header(kind, *args):
         send(kind, *args)
@@ -437,7 +437,7 @@ async def test_rank_lost_during_a_block_read_fails_the_engine():
                 t_kill.append(time.monotonic())
 
     t_kill = []
-    eng.tp.send_header = send_header
+    eng.mesh.send_header = send_header
     await eng.start()
     try:
         try:

@@ -584,7 +584,7 @@ def test_every_jax_flag_parses_on_the_port(action):
     assert cfg.device == "cpu"
 
 
-@pytest.mark.parametrize("flag,value,refused", [
+@pytest.mark.parametrize("flag,value,departs", [
     ("--sequence-parallel-size", "1", False),
     ("--sequence-parallel-size", "2", True),
     ("--data-parallel-size", "1", False),
@@ -593,23 +593,23 @@ def test_every_jax_flag_parses_on_the_port(action):
     ("--compilation-cache-dir", "/var/cache/pstpu", False),
     (None, None, False),
 ])
-def test_unported_flags_refused_unless_inert(flag, value, refused):
-    """sp and dp are not ported: 1 builds, any other value is a ValueError
-    naming the flag and saying so, when the config is built. The
-    compilation cache directory (the warm-up manifest's) is ported: any
-    value reaches the config as given."""
+def test_unported_flags_refused_unless_inert(flag, value, departs):
+    """Every one of these flags is served now: sp and dp at any degree
+    (``departs``: other than the inert 1) and the compilation cache
+    directory (the warm-up manifest's) reach the config as given, and the
+    mesh counts the ranks."""
     argv = ["--model", "tiny-llama", "--device", "cpu"]
     if flag:
         argv += [flag, value]
     args = port_api.parse_args(argv)
-    if not refused:
-        cfg = port_api.config_from_args(args)
-        if flag == "--compilation-cache-dir":
-            assert cfg.compilation_cache_dir == value
-        return
-    with pytest.raises(ValueError) as e:
-        port_api.config_from_args(args)
-    assert flag in str(e.value) and "not ported yet" in str(e.value)
+    cfg = port_api.config_from_args(args)
+    if flag == "--compilation-cache-dir":
+        assert cfg.compilation_cache_dir == value
+    elif flag:
+        dest = flag[2:].replace("-", "_")
+        assert getattr(cfg, dest) == int(value)
+        assert cfg.mesh_devices == int(value)
+    assert (cfg.mesh_devices > 1) == departs
 
 
 def test_chart_flags_build_a_port_engine():

@@ -8,7 +8,8 @@ in interpret mode. The checks:
   * each rank's ``shard_params`` equals, bit for bit, the addressable shard
     on device r of ``jax.device_put(leaf, param_shardings(...))``, and the
     pool slices equal the shards of ``kv_pool_sharding`` /
-    ``kv_scale_sharding``;
+    ``kv_scale_sharding``, the replication fallback's whole leaves
+    included;
   * ``paged_flash_decode_stats_tp``, each rank's call gathered over 2
     ranks, equals JAX ``paged_flash_decode_stats_tp(..., interpret=True)``
     (unquantized pools to 2e-4, int8 pools to 1e-5, as the single-device
@@ -16,8 +17,9 @@ in interpret mode. The checks:
   * engine tokens at tp = 2 (and 4 on the window path), greedy and seeded,
     equal the JAX engine's at tp = 1 on the same weights (which JAX's own
     tests hold equal to its tp > 1), and the ranks' token digests agree;
-  * config errors name the flags; a lost worker fails the engine within
-    the collective timeout.
+  * config errors name the flags (tp degrees that divide no head count
+    now build, the int8 refusal stays); a lost worker fails the engine
+    within the collective timeout.
 The tests run with one intra-op thread (the ranks share this machine's
 cores; a worker runs with rank 0's thread count).
 """
@@ -28,6 +30,7 @@ import os
 import signal
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -106,7 +109,10 @@ def _shard_on(arr, device):
 # ------------------------------------------------------------------ sharding
 @pytest.mark.parametrize("model,tp", [("tiny-llama-8kv", 2),
                                       ("tiny-llama-8kv", 4),
-                                      ("tiny-llama-128dh", 2)])
+                                      ("tiny-llama-128dh", 2),
+                                      ("tiny-llama", 4),
+                                      ("tiny-llama-128dh", 3),
+                                      ("tiny-llama-128dh", 4)])
 def test_shards_equal_jax_addressable_shards(model, tp):
     jmc, mc = jax_resolve(model), resolve_model_config(model)
     jparams = jax_init(jmc, jax.random.PRNGKey(0), jnp.float32)
@@ -131,6 +137,41 @@ def test_shards_equal_jax_addressable_shards(model, tp):
                                       _shard_on(jpool, devices[r]))
         np.testing.assert_array_equal(shard_kv_pool(_t(scale), r, tp).numpy(),
                                       _shard_on(jscale, devices[r]))
+
+
+@pytest.mark.parametrize("model,tp,tied", [("tiny-llama-8kv", 2, False),
+                                           ("tiny-llama-8kv", 4, True),
+                                           ("tiny-llama-128dh", 3, False),
+                                           ("tiny-llama-128dh", 3, True),
+                                           ("tiny-llama", 4, False)])
+def test_tp_plan_follows_the_shard_shapes(model, tp, tied):
+    """Each rank's ``TPPlan`` reduces or gathers exactly the products whose
+    leaves ``shard_params`` split (a replicated ``wo``, ``w_down``, embed
+    or head is never summed over the ranks), and is built once per
+    (config, tp size, rank)."""
+    mc = dataclasses.replace(resolve_model_config(model), tie_word_embeddings=tied)
+    full = llama.init_params(mc, torch.Generator().manual_seed(0),
+                             torch.float32, torch.device("cpu"))
+    fl = full["layers"]
+    for r in range(tp):
+        mine = shard_params(full, mc, r, tp)
+        ml = mine["layers"]
+        group = types.SimpleNamespace(size=tp, rank=r)
+        plan = llama.tp_plan(mc, group)
+        assert plan is llama.tp_plan(mc, types.SimpleNamespace(size=tp, rank=r))
+        assert plan.mlp_reduce == (ml["w_down"].shape[-2] < fl["w_down"].shape[-2])
+        assert plan.embed_split == (mine["embed"].shape[-1] < full["embed"].shape[-1])
+        head = "embed" if tied else "lm_head"
+        assert plan.head_split == (mine[head].shape[-1] < full[head].shape[-1])
+        o_rows = ml["wo"].shape[-2]
+        if o_rows < fl["wo"].shape[-2]:
+            assert plan.o_cols is not None
+            assert plan.o_cols[1] - plan.o_cols[0] == o_rows
+        else:
+            assert plan.o_cols is None
+        kv_split = ml["wk"].shape[-1] < fl["wk"].shape[-1]
+        pool_split = mc.num_kv_heads % tp == 0
+        assert plan.kv_gather == (kv_split and not pool_split)
 
 
 def test_init_params_shards_are_the_tp1_draw():
@@ -392,7 +433,7 @@ def _check_reports(eng, tp):
     assert len({r["hbm_kv_bytes"] for r in reports}) == 1
     assert all(r["launch_counts"] == dict.fromkeys(tpa.VARIANTS, 0)
                for r in reports)                       # CPU: plain version
-    assert all(eng.tp.procs[i].returncode == 0 for i in range(tp - 1))
+    assert all(eng.mesh.procs[i].returncode == 0 for i in range(tp - 1))
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -511,18 +552,32 @@ async def test_tp2_logprobs_match_tp1():
 
 # ------------------------------------------------------------ config errors
 def test_tp_config_errors_name_the_flags():
+    """The reference's refusals, named; a tp that divides no head count
+    builds (the replication fallback): the pool holds every kv head on
+    every rank, decode takes the window path, and ``shard_params`` keeps
+    each leaf whose split dim tp does not divide whole."""
     with pytest.raises(ValueError, match=r"--kv-cache-dtype int8 with "
                                          r"--tensor-parallel-size 4.*2/2 heads"):
         EngineConfig(model="tiny-llama-128dh", kv_cache_dtype="int8",
                      tensor_parallel_size=4)
-    with pytest.raises(ValueError, match=r"--tensor-parallel-size 3 must divide"
-                                         r".* 2 query heads and 2 kv heads"):
-        EngineConfig(model="tiny-llama-128dh", tensor_parallel_size=3)
-    with pytest.raises(ValueError, match=r"--tensor-parallel-size must be >= 1"):
+    with pytest.raises(ValueError, match=r"--tensor-parallel-size/--sequence-"
+                                         r"parallel-size/--data-parallel-size "
+                                         r"must all be >= 1"):
         EngineConfig(tensor_parallel_size=0)
     mc = resolve_model_config("tiny-llama-128dh")
-    with pytest.raises(ValueError, match=r"2 query heads and 2 kv heads"):
-        shard_params({"layers": {}}, mc, 0, 4)
+    tp3 = EngineConfig(model="tiny-llama-128dh", device="cpu",
+                       tensor_parallel_size=3)
+    assert tp3.local_kv_heads(mc) == 2 and tp3.resolved_attn_impl(mc) == "window"
+    assert tp3.kv_wire_bytes_per_token(mc) == tp3.kv_cache_bytes_per_token(mc)
+    with pytest.raises(ValueError, match=r"attn_impl='paged' requires"):
+        EngineConfig(model="tiny-llama-128dh", device="cpu", attn_impl="paged",
+                     tensor_parallel_size=3).resolved_attn_impl(mc)
+    full = llama.init_params(mc, torch.Generator().manual_seed(0),
+                             torch.float32, torch.device("cpu"))
+    sharded = shard_params(full, mc, 1, 4)
+    assert sharded["layers"]["wq"].shape[-1] == mc.num_heads * mc.head_dim_ // 4
+    assert torch.equal(shard_params(full, mc, 2, 3)["layers"]["wq"],
+                       full["layers"]["wq"])
     cfg = EngineConfig(model="tiny-llama-128dh", device="cpu",
                        attn_impl="paged", tensor_parallel_size=2)
     assert cfg.resolved_attn_impl(mc) == "paged"
@@ -556,7 +611,7 @@ async def test_lost_worker_fails_the_engine_within_the_timeout():
     await eng.start()
     try:
         assert len(await one(eng)) == 4 and eng.is_healthy
-        proc = eng.tp.procs[0]
+        proc = eng.mesh.procs[0]
         os.kill(proc.pid, signal.SIGSTOP)
         t0 = time.monotonic()
         with pytest.raises(RuntimeError, match="engine unavailable"):
@@ -573,7 +628,7 @@ async def test_lost_worker_fails_the_engine_within_the_timeout():
     eng = ServingEngine(EngineConfig(**cfg))
     await eng.start()
     try:
-        proc = eng.tp.procs[0]
+        proc = eng.mesh.procs[0]
         proc.kill()
         proc.wait()
         assert not eng.is_healthy
