@@ -232,7 +232,26 @@ serving):
      adapters alternated; every round replays graphs only and counts layers x
      decode steps of the bf16 kernel, 0 of int8; last, at llama-3b width
      cut to 2 layers in float32, an adapter row's logits against a model
-     with merged weights, W + A.B.alpha/r, within ``CKPT_F32_BOUND``.
+     with merged weights, W + A.B.alpha/r, within ``CKPT_F32_BOUND``;
+ 13. opt-tp: facebook/opt-125m at full width and depth (random bf16
+     weights from --seed) at tensor_parallel_size 2, both ranks on this
+     card over gloo, on the window path: the eager tp = 1 runner's greedy
+     run of 4 prompts (32 tokens each) forced through the tp = 2 runner
+     (max |logit diff| within ``tp_logit_bound``, argmax equal where tp =
+     1's top-2 margin exceeds twice it), eager decode ms per step of both
+     and the gloo collectives' host seconds; both engines serve the 4
+     prompts x 32 greedy tokens (each stream equal to tp = 1's greedy
+     tokens up to the first step whose margin is under twice the bound;
+     the ranks' token digests equal; no paged-kernel launch);
+ 14. spec-dp: llama-3b drafting for itself (N = 4) at
+     data_parallel_size 2, both replicas on this card over gloo, against a
+     dp = 1 engine on the same weights (full width, ``CUT_LAYERS``), eager:
+     linear, tree (W = 3), adaptive and a spec-off control (the paged
+     kernel, its count layers x decode steps on each replica); 4
+     streams (2 greedy, 2 seeded) x 32 tokens, then a stream over a cached
+     prompt head (its draft catch-up runs on both replicas): tokens and
+     the speculative counters equal dp = 1's, both replicas' pool and
+     draft-ring digests equal; ms per token at dp = 2 and dp = 1.
 
 Stdout carries the card line, one ``<phase> summary {...}`` line of JSON
 per phase (timings beside the SM clock nvidia-smi sampled meanwhile) and
@@ -2513,17 +2532,19 @@ def sp_bars(torch, name, lg, ref, served, greedy_ref, bound):
 
 def sp_serve(engine, prompt_ids, max_tokens):
     """Every prompt as a greedy stream on the engine API, all submitted
-    together; every rank's report with its counts reset just before, and
-    after (with pool digests). Returns (tokens, before, after, rank 0's
-    decode steps, wall seconds)."""
+    together; on a mesh every rank's report with its counts reset just
+    before, and after (with pool digests; None on one rank). Returns
+    (tokens, before, after, rank 0's decode steps, wall seconds)."""
     from production_stack_tpu_torch.engine.sampling import SamplingParams
 
     res = {}
 
     async def run():
         await engine.start()
+        mesh = engine.mesh is not None
         try:
-            res["before"] = await engine.rank_reports(reset=True)
+            res["before"] = (await engine.rank_reports(reset=True) if mesh
+                             else None)
             steps0 = engine.runner.decode_steps_total
 
             async def one(ids):
@@ -2538,7 +2559,8 @@ def sp_serve(engine, prompt_ids, max_tokens):
             t0 = time.monotonic()
             res["tokens"] = await asyncio.gather(*[one(p) for p in prompt_ids])
             res["wall"] = time.monotonic() - t0
-            res["after"] = await engine.rank_reports(pool_digest=True)
+            res["after"] = (await engine.rank_reports(pool_digest=True)
+                            if mesh else None)
             res["steps"] = engine.runner.decode_steps_total - steps0
             res["stats"] = engine.stats()
         finally:
@@ -5329,6 +5351,343 @@ def spec_f32_identity(torch, device, seed):
     return out
 
 
+# ------------------------------------------------- phase 11b: opt-tp, spec-dp
+OPT_TP_MODEL = "facebook/opt-125m"
+OPT_TP_TOKENS = 32                  # greedy tokens per stream, forced and served
+
+
+def opt_tp_phase(torch, device, seed, card, model=OPT_TP_MODEL):
+    """The OPT family at tensor_parallel_size 2: facebook/opt-125m at full
+    width and depth (random bf16 weights from ``seed``: every rank draws
+    the whole model and keeps its shard), both ranks on this card (gloo,
+    host-staged), the window path (the paged kernel is llama-only). The
+    eager tp = 1 runner's greedy run of the 4 graph prompts (one prefill,
+    then ``OPT_TP_TOKENS`` - 1 one-step decodes) is forced through the tp =
+    2 engine's runner: max |logit diff| within ``tp_logit_bound``, argmax
+    equal where tp = 1's top-2 margin exceeds twice it; ms per eager
+    decode step of both runners (and rank 0's host ms in the gloo
+    collectives); then both engines serve the 4 prompts greedily on the
+    engine API: each stream equals tp = 1's forced greedy tokens up to the
+    first step whose margin is under twice the bound, both ranks sampled
+    the same tokens (token digests) and launched no paged kernel. Returns
+    the summary."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+    from production_stack_tpu_torch.engine.runner import ModelRunner
+    from production_stack_tpu_torch.engine.tokenizer import ByteTokenizer
+    from production_stack_tpu_torch.models.config import resolve_model_config
+
+    mc = resolve_model_config(model)
+    name = "opt-tp"
+    tok = ByteTokenizer(mc.vocab_size)
+    prompt_ids = [tok.encode(p) for p in graph_prompts(seed)]
+    # 4 rows of the model's whole context (block 16) + the null block.
+    common = dict(model=model, dtype="bfloat16", device=device.type,
+                  max_model_len=mc.max_position_embeddings, num_decode_steps=32,
+                  seed=seed, num_kv_blocks=4 * mc.max_position_embeddings // 16 + 1,
+                  max_num_seqs=4, max_prefill_seqs=4)
+    steps = OPT_TP_TOKENS - 1
+
+    t0 = time.monotonic()
+    ref = ModelRunner(EngineConfig(**common), mc)
+    up1 = time.monotonic() - t0
+    if ref.attn_impl != "window":
+        fail(f"{name}: the tp = 1 runner took the {ref.attn_impl} path")
+    lg1, greedy1, seqs = tp_forced(torch, ref, prompt_ids, None, steps)
+    timing1 = tp_decode_timing(torch, ref, seqs, [list(g) for g in greedy1])
+    del ref, seqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = ServingEngine(EngineConfig(**common))
+    try:
+        served1 = sp_serve(engine, prompt_ids, OPT_TP_TOKENS)
+    finally:
+        engine.shutdown()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.monotonic()
+    engine = ServingEngine(EngineConfig(**common, tensor_parallel_size=TP,
+                                        tp_timeout_s=TP_TIMEOUT_S))
+    up2 = time.monotonic() - t0
+    try:
+        runner = engine.runner
+        coll0 = runner.tp.collective_seconds
+        lg2, greedy2, seqs = tp_forced(torch, runner, prompt_ids, greedy1, steps)
+        timing2 = tp_decode_timing(torch, runner, seqs, [list(g) for g in greedy2])
+        forced_coll_s = runner.tp.collective_seconds - coll0
+        served2 = sp_serve(engine, prompt_ids, OPT_TP_TOKENS)
+        pool_heads = runner.kv_k.shape[1]
+        reports = engine.tp_reports
+    finally:
+        engine.shutdown()
+    del engine, runner, seqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    bound = tp_logit_bound(mc.num_layers, lg1.numel())
+    top2 = lg1.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * bound
+    same = lg2.argmax(-1) == lg1.argmax(-1)
+    if not bool(same[decided].all()):
+        fail(f"{name}: argmax differs at a step whose tp = 1 top-2 margin "
+             f"exceeds twice the bound ({2 * bound:.4f})")
+    bars = sp_bars(torch, name, lg2, lg1, served2["tokens"], greedy1, bound)
+    bars_tp1 = sp_bars(torch, f"{name} tp = 1 served", lg1, lg1,
+                       served1["tokens"], greedy1, bound)
+    after = served2["after"]
+    if len({r["token_digest"] for r in after}) != 1 or \
+            len({r["token_digest"] for r in reports}) != 1:
+        fail(f"{name}: the ranks' token digests differ: {after}")
+    if any(any(r["launch_counts"].values()) for r in after):
+        fail(f"{name}: a rank launched the paged kernel on the window path: "
+             f"{[r['launch_counts'] for r in after]}")
+    if pool_heads != mc.num_heads // TP:
+        fail(f"{name}: rank 0's pool holds {pool_heads} heads, want "
+             f"{mc.num_heads // TP}")
+    n_tok = sum(len(t) for t in served2["tokens"])
+    out = {
+        "card": card, "model": model, "tp": TP, "layers": mc.num_layers,
+        "backend": served2["stats"]["tp_backend"],
+        "engine_up_s": {"tp1_runner": up1, "tp2": up2},
+        "decode_ms_per_step_tp1_eager": timing1,
+        "decode_ms_per_step_tp2_eager": timing2,
+        "gloo_collective_host_s_forced_run": forced_coll_s,
+        "served_ms_per_token": {
+            "tp1": 1e3 * served1["wall"] / max(1, n_tok),
+            "tp2": 1e3 * served2["wall"] / max(1, n_tok)},
+        "served_tokens_equal_tp1": served2["tokens"] == served1["tokens"],
+        "logits": {**bars, "steps_checked": int(decided.sum()),
+                   "steps": int(decided.numel()),
+                   "argmax_equal_all": float(same.float().mean())},
+        "first_divergence_tp1_served": bars_tp1["first_divergence"],
+        "weight_gib_per_rank": [r["weight_bytes"] / 2**30 for r in after],
+        "peak_gib_per_rank": [r["peak_bytes"] / 2**30 for r in after],
+    }
+    log(f"{name} result {json.dumps(out)}")
+    return out
+
+
+SPEC_DP_MODEL = "llama-3b"
+SPEC_DP_TOKENS = 32                # tokens per stream
+SPEC_DP_BLOCKS = 512
+# (mode, speculative fields), every mode at CUT_LAYERS, so the whole script
+# keeps inside its time on slower machines: with linear at llama-3b's full
+# depth it took 914 s on an H100 80GB HBM3 at 700 W.
+SPEC_DP_MODES = (
+    ("linear", {"speculative_num_tokens": SPEC_N}),
+    ("tree", {"speculative_num_tokens": SPEC_N, "speculative_tree_width": 3}),
+    ("adaptive", {"speculative_num_tokens": SPEC_N,
+                  "speculative_adaptive": True}),
+    ("off", {}),
+)
+SPEC_DP_COUNTERS = ("spec_draft_tokens_total", "spec_accepted_tokens_total",
+                    "spec_cycles_run_total")
+
+
+def spec_dp_config(model, fields, seed, device="cuda", **over):
+    """One engine of the spec-dp phase: bf16, block 16, 4 rows and prefill
+    rows of exactly 4 at dp = 1 too (one prefill batch has one shape on
+    every engine), eager (no warm-up graphs: a mesh captures none, and the
+    dp = 1 engine must run the same kernels); speculation per ``fields``,
+    the model drafting for itself."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+
+    fields = {**({"speculative_model": model} if fields else {}), **fields}
+    return EngineConfig(**{
+        "model": model, "dtype": "bfloat16", "device": device,
+        "max_model_len": 2048, "block_size": 16,
+        "num_kv_blocks": SPEC_DP_BLOCKS, "max_num_seqs": 4,
+        "max_prefill_seqs": 4, "num_decode_steps": 32, "seed": seed,
+        "max_num_batched_tokens": WARM_PREFILL_BUDGET, **fields, **over})
+
+
+def spec_dp_serve(torch, pa, engine, prompts, prefix_prompt):
+    """One engine's rounds in one start: the 4 streams (``SPEC_SAMPLINGS``)
+    x ``SPEC_DP_TOKENS``, held until all 4 wait (one prefill batch), then
+    a greedy stream over ``prefix_prompt`` (its head cached by the first
+    round: its draft ring catches up). Counter growth per round; on a mesh
+    every rank's report (counts reset before the 4 streams; pool and ring
+    digests after each round), else the kernel's own counts."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    r = engine.runner
+    gate = gate_schedule(engine)
+    mesh = engine.mesh is not None
+    res = {}
+
+    def counters():
+        return {k: getattr(r, k) for k in SPEC_DP_COUNTERS}
+
+    def grown(c0):
+        return {k: v - c0[k] for k, v in counters().items()}
+
+    async def one(prompt, sampling, n):
+        last = None
+        async for o in engine.generate(prompt=prompt, sampling=SamplingParams(
+                max_tokens=n, ignore_eos=True, **sampling)):
+            last = o
+        return last.token_ids
+
+    async def run():
+        await engine.start()
+        try:
+            if mesh:
+                res["before"] = await engine.rank_reports(reset=True)
+            else:
+                pa.reset_launch_counts()
+            c0, steps0 = counters(), r.decode_steps_total
+            dev0 = r.decode_device_seconds_total
+            gate["want"] = 4
+            t0 = time.monotonic()
+            with SmMhz() as clock:
+                res["tokens"] = await asyncio.gather(*[
+                    one(prompts[i], SPEC_SAMPLINGS[i], SPEC_DP_TOKENS)
+                    for i in range(4)])
+            res["wall"] = time.monotonic() - t0
+            res["clock"] = clock.summary()
+            res["device_s"] = r.decode_device_seconds_total - dev0
+            res["counters"] = grown(c0)
+            res["steps"] = r.decode_steps_total - steps0
+            res["launches"] = None if mesh else pa.launch_counts()
+            if mesh:
+                res["after"] = await engine.rank_reports(pool_digest=True)
+            hits0 = engine.stats()["prefix_cache_hits"]
+            c0 = counters()
+            res["prefix_tokens"] = await one(prefix_prompt, {"temperature": 0.0},
+                                             SPEC_DP_TOKENS)
+            res["prefix_counters"] = grown(c0)
+            res["prefix_hits"] = engine.stats()["prefix_cache_hits"] - hits0
+            if mesh:
+                res["after_prefix"] = await engine.rank_reports(pool_digest=True)
+            res["stats"] = engine.stats()
+        finally:
+            await engine.stop()
+
+    asyncio.run(run())
+    return res
+
+
+def spec_dp_phase(torch, pa, device, seed, card, cut_dirs):
+    """Speculative decoding at data_parallel_size 2: llama-3b drafting for
+    itself (N = ``SPEC_N``), both replicas on this card (gloo), against a
+    dp = 1 engine on the same weights (``cut_model``'s directory: full
+    width, ``CUT_LAYERS`` layers, random bf16 from ``seed``): linear, tree
+    (W = 3), adaptive and a spec-off control. Per mode each engine serves the 4 streams x
+    ``SPEC_DP_TOKENS`` (2 greedy, 2 seeded) and a stream whose prompt head
+    the first round cached (``SPEC_INGEST`` reaches the worker). Bars: the
+    tokens and the counters (``SPEC_DP_COUNTERS``) equal dp = 1's in every
+    round (the replicas run the same kernels at the same shapes); both
+    replicas' pool and draft-ring digests, catch-up counts and token
+    digests are equal; the prefix round hit the cache and caught up on
+    both replicas; the control's paged kernel launched layers x decode
+    steps on each replica and at dp = 1. Returns (the control's launches on
+    the replicas, the summary)."""
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+    from production_stack_tpu_torch.models.config import resolve_model_config
+
+    prompts = spec_prompts(seed)
+    prefix_prompt = prompts[0] + " and then the stream goes on past its prefix"
+    cut = cut_model(torch, device, seed, SPEC_DP_MODEL, cut_dirs)
+    layers = resolve_model_config(cut).num_layers
+    out = {"card": card, "n": SPEC_N, "tokens": SPEC_DP_TOKENS,
+           "layers": layers, "modes": {}}
+    launches, tokens = 0, {}
+    for mode, fields in SPEC_DP_MODES:
+        what = f"spec-dp {mode}"
+        runs = {}
+        for dp in (1, 2):
+            over = ({"data_parallel_size": dp, "tp_timeout_s": TP_TIMEOUT_S}
+                    if dp > 1 else {})
+            t0 = time.monotonic()
+            engine = ServingEngine(spec_dp_config(cut, fields, seed,
+                                                  device.type, **over))
+            up = time.monotonic() - t0
+            try:
+                runs[dp] = spec_dp_serve(torch, pa, engine, prompts,
+                                         prefix_prompt)
+                runs[dp]["reports"] = engine.tp_reports
+            finally:
+                engine.shutdown()
+            runs[dp]["up_s"] = up
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        one, two = runs[1], runs[2]
+        for key in ("tokens", "prefix_tokens"):
+            if two[key] != one[key]:
+                bad = [i for i, (a, b) in enumerate(zip(two[key], one[key]))
+                       if a != b] if key == "tokens" else [0]
+                fail(f"{what}: {key} at dp = 2 differ from dp = 1's on streams "
+                     f"{bad}: {two[key]} / {one[key]}")
+        for key in ("counters", "prefix_counters"):
+            if two[key] != one[key]:
+                fail(f"{what}: {key} at dp = 2 {two[key]} differ from dp = 1's "
+                     f"{one[key]}")
+        for key in ("after", "after_prefix"):
+            reps = two[key]
+            if [tuple(x["coords"]) for x in reps] != [(0, 0, 0), (1, 0, 0)]:
+                fail(f"{what}: reports of {[x['coords'] for x in reps]}")
+            for field in ("pool_digest", "spec_digest", "spec_ingests",
+                          "token_digest", "dispatches"):
+                if len({x[field] for x in reps}) != 1:
+                    fail(f"{what}: the replicas' {field} differ after "
+                         f"{key}: {[x[field] for x in reps]}")
+        if two["prefix_hits"] <= 0 or one["prefix_hits"] <= 0:
+            fail(f"{what}: the prefix round hit no cached block")
+        spec = bool(fields)
+        if spec:
+            if two["after_prefix"][1]["spec_ingests"] <= \
+                    two["after"][1]["spec_ingests"]:
+                fail(f"{what}: the prefix round ran no catch-up on the worker")
+            if two["counters"]["spec_draft_tokens_total"] <= 0 and \
+                    mode != "adaptive":
+                fail(f"{what}: no draft proposals counted")
+        if not spec:
+            # The control: the paged kernel at dp = 1 over the 4 streams,
+            # and on each replica over both rounds (reset before the first,
+            # read at stop), layers x decode steps.
+            n1, steps1 = one["launches"][pa.BF16], one["steps"]
+            if n1 != layers * steps1 or not steps1:
+                fail(f"{what}: dp = 1 counted {n1} launches over {steps1} "
+                     f"decode steps of {layers} layers")
+            for b_rep, a_rep in zip(two["before"], two["reports"]):
+                n = a_rep["launch_counts"][pa.BF16]
+                rs = a_rep["decode_steps_total"] - b_rep["decode_steps_total"]
+                if n != layers * rs or not rs:
+                    fail(f"{what}: rank {a_rep['rank']} counted {n} launches "
+                         f"over {rs} decode steps of {layers} layers")
+                launches += n
+        n_tok = sum(len(t) for t in two["tokens"])
+        row = {
+            "engine_up_s": {"dp1": one["up_s"], "dp2": two["up_s"]},
+            "ms_per_token_wall": {"dp1": 1e3 * one["wall"] / n_tok,
+                                  "dp2": 1e3 * two["wall"] / n_tok},
+            "ms_per_token_events": {"dp1": 1e3 * one["device_s"] / n_tok,
+                                    "dp2": 1e3 * two["device_s"] / n_tok},
+            "counters": two["counters"], "prefix_counters": two["prefix_counters"],
+            "decode_steps": {"dp1": one["steps"], "dp2": two["steps"]},
+            "spec_ingests_per_replica": [x["spec_ingests"] for x in two["after_prefix"]],
+            "tokens_equal_dp1": True,
+            "sm_clock_mhz": {dp: r["clock"]["mean"] if isinstance(r["clock"], dict)
+                             else None for dp, r in runs.items()},
+        }
+        if not spec:
+            row["launches_per_replica"] = [x["launch_counts"][pa.BF16]
+                                           for x in two["reports"]]
+            row["launches_dp1"] = one["launches"][pa.BF16]
+        out["modes"][mode] = row
+        tokens[mode] = two["tokens"]
+        log(f"{what} result {json.dumps(row)}")
+    # Spec-on against the control (the window path against the paged
+    # kernel: reported, not a bar).
+    for mode, toks in tokens.items():
+        if mode != "off":
+            out["modes"][mode]["streams_equal_spec_off"] = [
+                a == b for a, b in zip(toks, tokens["off"])]
+    return launches, out
+
+
 # ---------------------------------------------------------------- phase 11
 CKPT_TOKENS = 64            # tokens per request
 CKPT_SAMPLINGS = ({"temperature": 0.0}, {"temperature": 0.0},
@@ -6305,9 +6664,10 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="kernel,serving,graphs,elastic,check,tp,sp,surface,"
-                            "kvtier,kvtier-tp,spec,ckpt",
+                            "kvtier,kvtier-tp,spec,ckpt,opt-tp,spec-dp",
                     help="comma list of kernel,serving,graphs,elastic,check,tp,"
-                         "sp,surface,kvtier,kvtier-tp,spec,ckpt,trace (build always "
+                         "sp,surface,kvtier,kvtier-tp,spec,ckpt,opt-tp,spec-dp,"
+                         "trace (build always "
                          "runs; trace profiles one more served round after "
                          "serving)")
     ap.add_argument("--tp-kernel-rank", type=int, default=None,
@@ -6689,6 +7049,21 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
     rows = []
+    # The OPT family at tp = 2 (window path: no paged-kernel launch), then
+    # speculative decoding at dp = 2, whose spec-off control round is a
+    # main path of the bf16 kernel on each replica (their launches summed).
+    marks.append(("opt-tp", time.monotonic()))
+    if "opt-tp" in phases:
+        summary("opt-tp", opt_tp_phase(torch, device, args.seed, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+    marks.append(("spec-dp", time.monotonic()))
+    if "spec-dp" in phases:
+        n, spec_dp = spec_dp_phase(torch, pa, device, args.seed, card, cut_dirs)
+        by_path["bf16"]["spec-dp"] = n
+        summary("spec-dp", spec_dp)
+        gc.collect()
+        torch.cuda.empty_cache()
     marks.append(("kernel", time.monotonic()))
     if "kernel" in phases:
         graph_check(torch, pa, device, args.seed, main_lens)

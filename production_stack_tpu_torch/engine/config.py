@@ -233,8 +233,8 @@ class EngineConfig:
 
     def validate_parallelism(self) -> None:
         """The parallel degrees against the other knobs (the reference's
-        ``validate_parallelism``, its checks and messages, and the port's
-        own refusals); raises a ValueError naming the flags at fault."""
+        ``validate_parallelism``: its checks and messages, and no other);
+        raises a ValueError naming the flags at fault."""
         from production_stack_tpu_torch.models.config import (
             resolve_model_config,
         )
@@ -251,29 +251,19 @@ class EngineConfig:
             raise ValueError(_SPEC_MESH_ERROR + " Drop the speculative flags "
                              "to serve on the mesh, or serve speculatively "
                              "on one chip.")
-        if self.speculative_num_tokens and dp > 1:
-            # The reference serves it; the port's speculative dispatches
-            # have no descriptor for the worker ranks (ROADMAP Queue 3).
-            raise ValueError(
-                f"--speculative-num-tokens with --data-parallel-size {dp} is "
-                "not served by the port: the speculative train runs on rank "
-                "0 only. Serve speculatively at --data-parallel-size 1.")
         if tp == 1:
             return
         mc = resolve_model_config(self.model)
-        if mc.arch != "llama":
-            raise ValueError(
-                f"--tensor-parallel-size {tp} serves the llama family only; "
-                f"model {self.model!r} is arch {mc.arch!r}")
         if self.kv_cache_quantized and (mc.num_kv_heads % tp
                                         or mc.num_heads % tp):
             raise ValueError(
-                f"--kv-cache-dtype int8 with --tensor-parallel-size {tp} "
-                f"requires tp to divide the model's head counts (the "
-                f"per-(slot, head) scale pools are kv-head-sharded over the "
-                f"tp ranks like the payload pools); model {self.model!r} has "
-                f"{mc.num_heads}/{mc.num_kv_heads} heads. Use a tp that "
-                f"divides both, or --kv-cache-dtype bfloat16.")
+                f"--kv-cache-dtype int8 with --tensor-parallel-size "
+                f"{tp} requires tp to divide the model's head counts "
+                f"(the per-(slot, head) scale pools are kv-head-"
+                f"sharded over the tp axis like the payload pools); "
+                f"model {self.model!r} has "
+                f"{mc.num_heads}/{mc.num_kv_heads} heads. Use a tp "
+                f"that divides both, or --kv-cache-dtype bfloat16.")
 
     @property
     def kv_offload_enabled(self) -> bool:

@@ -64,9 +64,11 @@ cannot hold, so ``run`` replays the first ceil(max budget / (N + 1))
 cycles unconditionally (no dispatch ends sooner) and then groups of
 ``SPEC_GROUP`` cycles while a pinned "any budget left" flag says so. A
 cycle after every row's budget is spent writes nothing but its own
-(ignored) record, so the replayed count never changes a token. Scatters
-that the reference drops (padding rows, rows at gamma 0, rejected tail
-entries) land in a TRASH row or slot one past the live ones, never in
+(ignored) record, so the replayed count never changes a token. At dp > 1
+(the one mesh speculation serves on) every replica runs the train eagerly
+and takes rank 0's flag (``_spec_any_live``), so all run the same cycles.
+Scatters that the reference drops (padding rows, rows at gamma 0, rejected
+tail entries) land in a TRASH row or slot one past the live ones, never in
 another row's entries.
 """
 
@@ -762,7 +764,22 @@ class DecodeTrain(GraphArena):
         bf.last[:b].copy_(bf.toks)
 
     def _spec_any_live(self, bf: SpecBuffers) -> bool:
-        """The host's read of the cycle flag (pinned, one event wait)."""
+        """Whether a budget is left: rank 0's read of the cycle flag
+        (pinned, one event wait). On a mesh rank 0 broadcasts it on the
+        descriptor group and the other ranks take it instead of their own,
+        so every replica runs exactly rank 0's cycles."""
+        m = self.r.mesh
+        if m is not None and m.rank != 0:
+            flag = torch.zeros((1,), dtype=torch.int64)
+            m.bcast(flag)
+            return bool(flag[0])
+        live = self._read_flag(bf)
+        if m is not None:
+            m.bcast(torch.tensor([int(live)], dtype=torch.int64))
+        return live
+
+    def _read_flag(self, bf: SpecBuffers) -> bool:
+        """This rank's own read of the flag."""
         if self.r.device.type != "cuda":
             return bool(bf.flag.item())
         if self._flag_host is None:

@@ -160,6 +160,7 @@ class ServingEngine:
                 config.tensor_parallel_size, device, config.tp_timeout_s,
                 lambda rank, port: worker.argv(
                     config, rank, port, broadcast_params=params is not None,
+                    broadcast_draft_params=draft_params is not None,
                     num_kv_blocks=num_kv_blocks))
         try:
             self.lora_registry = load_registry(config.lora_modules,

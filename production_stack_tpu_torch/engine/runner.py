@@ -94,8 +94,14 @@ Counterpart of ``production_stack_tpu/engine/runner.py`` (main path only):
     (0, 0) tp group's ranks select their kv heads and rank 0 gathers them
     (a replicated pool is read on rank 0 alone), and every rank of every
     replica writes its heads of a blob rank 0 scatters, so a blob holds the
-    whole logical block at any mesh. Locks, always in this order: the
-    mesh's ``lock`` (rank 0, world > 1), then ``kv_io_lock``.
+    whole logical block at any mesh. A speculative engine (dp replicas)
+    sends its device work the same way: ``SPEC_DECODE`` (the packed buffer
+    carries each row's draft-ring slot and draft depth, rank 0's choices),
+    ``SPEC_INGEST`` (a catch-up) and ``SPEC_RESET`` (a fresh slot), and a
+    prefill's draft pass runs inside its chunk on every rank; each rank
+    reports a digest of its draft rings beside its pool's. Locks, always
+    in this order: the mesh's ``lock`` (rank 0, world > 1), then
+    ``kv_io_lock``.
 """
 
 import contextlib
@@ -302,7 +308,8 @@ class ModelRunner:
                  mesh: Optional[pmesh.RankMesh] = None,
                  broadcast_params: bool = False,
                  draft_params: Optional[Dict] = None,
-                 lora_registry=None):
+                 lora_registry=None,
+                 broadcast_draft_params: bool = False):
         """``mesh``: this process's rank of the dp x sp x tp mesh (None on
         one rank). ``params`` are FULL params; on a mesh rank 0's are
         broadcast to the workers (which pass ``broadcast_params``) and each
@@ -310,7 +317,9 @@ class ModelRunner:
         its shard of the checkpoint directory ``config.model``, or draws it
         from config.seed (``_load_or_init_params``). ``draft_params``: the
         speculative draft's params when it is not the target itself (else
-        loaded or drawn the same way). ``lora_registry``: the engine's
+        loaded or drawn the same way); on a mesh rank 0's are broadcast
+        to the workers (which pass ``broadcast_draft_params``), as the
+        target's are. ``lora_registry``: the engine's
         ``models/lora.py:LoRARegistry`` (None: no adapters)."""
         self.config = config
         self.model_config = model_config
@@ -328,8 +337,7 @@ class ModelRunner:
         self.device = (self.mesh.device if self.mesh is not None
                        else resolve_device(config.device))
         # (init_params, forward, compute_logits, lm_head_f32) of the arch:
-        # llama, or OPT (window path, tp 1, no chunk rings;
-        # config.validate_parallelism).
+        # llama, or OPT (window path, no chunk rings).
         init_fn, self.model_forward, self.model_logits, head_fn = \
             get_model_fns(model_config)
         # "paged": decode attends against the pool inside the CUDA
@@ -405,7 +413,7 @@ class ModelRunner:
             shard_stacks(lora_registry.stacks(self.device), self.tp_rank,
                          tp_size)
             if lora_registry is not None else None)
-        self._init_spec(draft_params)
+        self._init_spec(draft_params, broadcast_draft_params)
         if self.mesh is not None:
             # Every rank's weights are resident before any rank reads the
             # free memory its pool may take.
@@ -576,10 +584,14 @@ class ModelRunner:
             self.kv_k_scale = self.kv_v_scale = None
 
     # -------------------------------------------------- speculative state
-    def _init_spec(self, draft_params: Optional[Dict]) -> None:
+    def _init_spec(self, draft_params: Optional[Dict],
+                   broadcast_draft: bool = False) -> None:
         """The draft model, its ring pools (allocated before the KV pool is
         sized from free memory), slots, tree constants, controller and the
-        acceptance counters (the reference's spec ``__init__`` block)."""
+        acceptance counters (the reference's spec ``__init__`` block). On a
+        mesh (dp replicas: speculation is served at tp = sp = 1) every rank
+        holds the same draft and rings; rank 0 alone decides slots and
+        draft depths, and sends them in its descriptors."""
         cfg = self.config
         self.spec_n = int(cfg.speculative_num_tokens)
         self.spec_tree_width = int(cfg.speculative_tree_width)
@@ -598,6 +610,9 @@ class ModelRunner:
         self.spec_cycles_run_total = 0
         self.spec_cycles_live_total = 0
         self.spec_dispatches_total = 0
+        # Draft catch-ups this rank ran (every rank of a mesh counts its
+        # own: its report shows them).
+        self.spec_ingests_total = 0
         self._spec_window: "deque[Tuple[int, int]]" = deque(maxlen=64)
         if not self.spec_n:
             self.spec_ring_len = 1
@@ -609,6 +624,9 @@ class ModelRunner:
             # Self-draft: the target's params outright.
             self.spec_params, self.spec_head_f32 = self.params, self.head_f32
         else:
+            if self.mesh is not None and (draft_params is not None
+                                          or broadcast_draft):
+                draft_params = self.mesh.broadcast_params(draft_params)
             if draft_params is None:
                 draft_params, loaded = self._load_or_init_params(
                     dmc, cfg.speculative_model, d_init)
@@ -690,11 +708,19 @@ class ModelRunner:
             logger.warning(
                 "Draft-ring slots exhausted; evicting %s (cold draft "
                 "context lowers acceptance for that stream only)", evicted)
-        with self._io_stream():
-            self.spec_pos[slot].fill_(POS_SENTINEL)
+        with self._dispatch_lock():
+            if self.mesh is not None:
+                self.mesh.send_header(pmesh.SPEC_RESET, slot)
+            self._spec_reset_device(slot)
         self._spec_slots[request_id] = slot
         self._spec_warmed[request_id] = 0
         return slot
+
+    def _spec_reset_device(self, slot: int) -> None:
+        """The device part of a fresh slot, on every rank: its ring
+        positions back to the sentinel (unwritten)."""
+        with self._io_stream():
+            self.spec_pos[slot].fill_(POS_SENTINEL)
 
     def release_spec_slot(self, request_id: str) -> None:
         """Return a finished sequence's draft-ring slot (idempotent)."""
@@ -750,7 +776,8 @@ class ModelRunner:
         """Ensure the sequence's draft ring covers context up to ``upto``
         (exclusive): ingest the most recent min(R, upto) tokens it has not
         seen, through the draft, eagerly (the reference's
-        ``_spec_catch_up`` and ``_spec_ingest_jit``). Acceptance only,
+        ``_spec_catch_up`` and ``_spec_ingest_jit``; on a mesh a
+        ``SPEC_INGEST`` descriptor runs it on every rank). Acceptance only,
         never output correctness."""
         rid = seq.request_id
         warmed = self._spec_warmed.get(rid, 0)
@@ -764,14 +791,29 @@ class ModelRunner:
             return
         slot = self.spec_slot(rid)
         t = _bucket(len(toks), 16, max(16, 1 << (r_len - 1).bit_length()))
+        padded = torch.zeros((t,), dtype=torch.int32)
+        padded[:len(toks)] = torch.tensor(toks, dtype=torch.int32)
+        with self._dispatch_lock():
+            if self.mesh is not None:
+                self.mesh.send_header(pmesh.SPEC_INGEST, slot, lo, len(toks),
+                                      t)
+                self.mesh.bcast(padded)
+            self._spec_ingest_device(padded, lo, len(toks), slot)
+        self._spec_warmed[rid] = upto
+
+    def _spec_ingest_device(self, padded: torch.Tensor, lo: int, n: int,
+                            slot: int) -> None:
+        """The device part of a catch-up, on every rank: the draft over the
+        ``n`` tokens at the head of ``padded`` [t] (host int32; positions
+        from ``lo``) into draft-ring slot ``slot``."""
+        t = padded.numel()
         dev = self.device
+        self.spec_ingests_total += 1
         with torch.no_grad(), self._io_stream():
-            padded = torch.zeros((1, t), dtype=torch.int32)
-            padded[0, :len(toks)] = torch.tensor(toks, dtype=torch.int32)
-            padded = padded.to(dev)
+            padded = padded.to(dev)[None, :]
             positions = lo + torch.arange(t, dtype=torch.int32,
                                           device=dev)[None, :]
-            length = torch.full((1,), len(toks), dtype=torch.int32, device=dev)
+            length = torch.full((1,), n, dtype=torch.int32, device=dev)
             slot_idx = torch.full((1,), slot, dtype=torch.int32, device=dev)
             slot_c = slot_idx.long()
             _, dk, dv = self.draft_forward(
@@ -779,11 +821,10 @@ class ModelRunner:
                 torch.clamp(positions, max=self.spec_draft_max_pos - 1),
                 length, None, None, None, self.spec_k[:, :, slot_c],
                 self.spec_v[:, :, slot_c], self.spec_pos[slot_c])
-            in_chunk = torch.arange(t, device=dev)[None, :] < len(toks)
+            in_chunk = torch.arange(t, device=dev)[None, :] < n
             self._spec_ring_write(dk, dv, positions, in_chunk, slot_idx,
                                   torch.zeros((1,), dtype=torch.bool,
                                               device=dev))
-        self._spec_warmed[rid] = upto
 
     @property
     def spec_acceptance_rate(self) -> float:
@@ -1675,10 +1716,21 @@ class ModelRunner:
         poss = [s.num_computed_tokens for s in seqs]
         row_gammas = gammas if gammas is not None else [self.spec_n] * n
         n_packed = NUM_SCALARS * b + b * mb
-        key = (b, mb, k, counts is not None, lpk, True)
-        train = self.decode_train
-        self._first_use(train, key)
-        bf = train.buffers(*key)
+        max_cycles = max(steps)
+        with self._dispatch_lock():
+            if self.mesh is not None:
+                self.mesh.send_header(pmesh.SPEC_DECODE, self._dispatches, b,
+                                      mb, k, max_cycles,
+                                      int(counts is not None), lpk,
+                                      self._spec_mode_code)
+                self.mesh.bcast(slot.inp[:n_packed])
+                if counts is not None:
+                    self.mesh.bcast(counts)
+            d, bf, cycles = self._spec_decode_device(slot, b, mb, k,
+                                                     max_cycles, counts, lpk)
+        self._push_rows(d, seqs, range(n))
+        self.spec_dispatches_total += 1
+        self.spec_cycles_run_total += cycles
         parts = [bf.toks_all, bf.emits, bf.stats]
         if lpk:
             parts += [bf.lp_chosen, bf.lp_top, bf.lp_ids]
@@ -1686,14 +1738,6 @@ class ModelRunner:
         if slot.out.numel() < n_out:
             slot.out = torch.empty((n_out,), dtype=torch.int32,
                                    pin_memory=self.device.type == "cuda")
-        bf.packed.copy_(slot.inp[:n_packed], non_blocking=True)
-        if counts is not None:
-            bf.counts.copy_(counts)
-        cycles = train.run(key, bf, max(steps))
-        self._push_rows(self._push_last(bf.last.clone()), seqs, range(n))
-        self._dispatches += 1
-        self.spec_dispatches_total += 1
-        self.spec_cycles_run_total += cycles
         out_buf, start, end = slot.out, slot.start, slot.end
         offs = self._copy_out(out_buf, parts)
         if end is not None:
@@ -1753,6 +1797,37 @@ class ModelRunner:
             return tokens, lps
 
         return DispatchHandle(fetch)
+
+    @property
+    def _spec_mode_code(self) -> int:
+        """The speculative mode a ``SPEC_DECODE`` descriptor names (1
+        linear, 2 tree, 3 adaptive): a worker checks it against its own."""
+        return 3 if self.spec_adaptive else 2 if self.spec_tree_width > 1 \
+            else 1
+
+    def _spec_decode_device(self, slot: _Slot, b: int, mb: int, k: int,
+                            max_cycles: int, counts: Optional[torch.Tensor],
+                            lpk: int = 0):
+        """The device part of a speculative decode dispatch, on every rank:
+        the speculative train over the packed inputs in ``slot`` (row 12
+        each row's draft-ring slot, row 13 its draft depth, both rank 0's
+        choice), at most ``max_cycles`` cycles, as many as rank 0 runs
+        (``DecodeTrain._spec_any_live``). Returns (dispatch number, the
+        train's buffers, the cycles run)."""
+        n_packed = NUM_SCALARS * b + b * mb
+        key = (b, mb, k, counts is not None, lpk, True)
+        train = self.decode_train
+        self._first_use(train, key)
+        bf = train.buffers(*key)
+        bf.packed.copy_(slot.inp[:n_packed], non_blocking=True)
+        if counts is not None:
+            bf.counts.copy_(counts)
+        cycles = train.run(key, bf, max_cycles)
+        d = self._push_last(bf.last.clone())
+        self._dispatches += 1
+        self._digest_add(bf.toks_all)
+        self._digest_add(bf.emits)
+        return d, bf, cycles
 
     def _decode_device(self, slot: _Slot, b: int, mb: int, k: int,
                        n_steps: int, chain_src: int,
@@ -2220,23 +2295,40 @@ class ModelRunner:
                         2, idx[a:a + rows], src.movedim(0, 2))
 
     # ------------------------------------------------------------------ mesh
+    @staticmethod
+    def _bits_digest(rows) -> int:
+        """A digest of the raw bits of ``rows`` (tensors, in order), one row
+        at a time on the device: equal rows give equal digests."""
+        digest = 0
+        for row in rows:
+            c = row.reshape(-1).view(
+                _INT_OF_SIZE[row.element_size()]).long() % 65521
+            w = torch.arange(c.numel(), device=c.device) % 65521 + 1
+            digest = (digest * _DIGEST_MULT + int((c * w).sum())) % _DIGEST_MOD
+        return digest
+
     def pool_digest(self) -> int:
         """A digest of this rank's pools' raw bits (payload and scales),
         over every slot but the null block's (block 0, which padding rows
-        write in no fixed order), one (layer, head) row at a time on the
-        device: equal pools give equal digests, so replicas of one tp rank
-        can be compared."""
+        write in no fixed order), one (layer, head) row at a time: equal
+        pools give equal digests, so replicas of one tp rank can be
+        compared."""
         bs = self.config.block_size
-        digest = 0
-        for pool in self._pools():
-            for layer in pool:
-                for head in layer:
-                    c = head[bs:].reshape(-1).view(
-                        _INT_OF_SIZE[pool.element_size()]).long() % 65521
-                    w = torch.arange(c.numel(), device=c.device) % 65521 + 1
-                    digest = (digest * _DIGEST_MULT
-                              + int((c * w).sum())) % _DIGEST_MOD
-        return digest
+        return self._bits_digest(head[bs:] for pool in self._pools()
+                                 for layer in pool for head in layer)
+
+    def spec_digest(self) -> Optional[int]:
+        """A digest of the draft rings' raw bits (K, V and positions) over
+        every slot but the trash slot (padding rows write it), like
+        ``pool_digest``: replicas hold equal rings. None without
+        speculation."""
+        if not self.spec_n:
+            return None
+        s = self.spec_num_slots
+        return self._bits_digest(
+            head[:s] for ring in (self.spec_k, self.spec_v,
+                                  self.spec_pos[None, None])
+            for layer in ring for head in layer)
 
     def _rank_report(self, pool_digest: bool = False) -> Dict:
         cuda = self.device.type == "cuda"
@@ -2263,6 +2355,10 @@ class ModelRunner:
             "ring_exchanges": self.sp.exchanges if self.sp is not None else 0,
             "ring_seconds": self.sp.ring_seconds if self.sp is not None else 0.0,
             "pool_digest": self.pool_digest() if pool_digest else None,
+            # The draft rings' digest beside the pool's, and the draft
+            # catch-ups this rank ran (speculation only).
+            "spec_digest": self.spec_digest() if pool_digest else None,
+            "spec_ingests": self.spec_ingests_total,
         }
 
     def _answer_query(self, reset: bool, pool_digest: bool = False
@@ -2319,6 +2415,15 @@ class ModelRunner:
                 m.bcast(packed)
                 self._embed_device(packed, b, t)
                 continue
+            if kind == pmesh.SPEC_RESET:
+                self._spec_reset_device(h[1])
+                continue
+            if kind == pmesh.SPEC_INGEST:
+                slot, lo, n, t = h[1:5]
+                padded = torch.empty((t,), dtype=torch.int32)
+                m.bcast(padded)
+                self._spec_ingest_device(padded, lo, n, slot)
+                continue
             if kind in (pmesh.KV_READ, pmesh.KV_WRITE):
                 n, quantized, step = h[1:4]
                 if bool(quantized) != self.kv_quantized:
@@ -2334,6 +2439,13 @@ class ModelRunner:
                 continue
             if kind == pmesh.DECODE:
                 d, b, mb, k, n_steps, chain_src, pen, lpk = h[1:9]
+                n_payload = NUM_SCALARS * b + b * mb
+            elif kind == pmesh.SPEC_DECODE:
+                d, b, mb, k, max_cycles, pen, lpk, mode = h[1:9]
+                if mode != self._spec_mode_code:
+                    raise RuntimeError(
+                        f"speculative descriptor of mode {mode} reached rank "
+                        f"{self.rank}, whose mode is {self._spec_mode_code}")
                 n_payload = NUM_SCALARS * b + b * mb
             elif kind == pmesh.PREFILL:
                 d, b, t, mb, has_window, pen, lpk = h[1:8]
@@ -2352,6 +2464,9 @@ class ModelRunner:
             if kind == pmesh.DECODE:
                 self._decode_device(slot, b, mb, k, n_steps, chain_src, counts,
                                     lpk)
+            elif kind == pmesh.SPEC_DECODE:
+                self._spec_decode_device(slot, b, mb, k, max_cycles, counts,
+                                         lpk)
             else:
                 finals = [bool(f) for f in slot.inp[n_payload - b:n_payload].tolist()]
                 self._prefill_device(slot, b, t, mb, bool(has_window), finals,

@@ -11,8 +11,10 @@ restore blocks past the device prefix cache (``offload.try_restore``), and
 every block that fills is offered to its spill thread. A prefill-role
 engine forms no decode batch and a decode-role engine no prefill batch,
 except for traffic the router flagged as fallback; a prefill hop's row
-(``handoff_key``) never decodes and is never preempted. LoRA namespaces
-and speculative reconciliation are not ported yet (ROADMAP).
+(``handoff_key``) never decodes and is never preempted. A LoRA request's
+prefix-cache chain lives in its adapter's namespace (``Sequence.hash_seed``),
+and a speculative decode's fetch reconciles each row's KV position to the
+tokens the device accepted (``apply_results``).
 """
 
 import enum

@@ -1,5 +1,6 @@
 """Model definitions of the port: the llama family (target and draft) and
-the OPT family (window path, tensor_parallel_size 1)."""
+the OPT family (window path), both at any tensor_parallel_size
+(``models/tp_plan.py``)."""
 
 from production_stack_tpu_torch.models import llama, opt
 

@@ -7,8 +7,22 @@ layers. OPT's architecture: LayerNorm with bias (normalized in f32, cast
 back to the activation dtype before the affine), learned position
 embeddings with OPT's +2 offset, a ReLU MLP, the LM head tied to the
 embedding. It serves on the window path only (the paged kernel is
-llama-family by policy, ``engine/config.py:resolved_attn_impl``), at
-tensor_parallel_size 1; the speculative engine takes it as a draft.
+llama-family by policy, ``engine/config.py:resolved_attn_impl``), at any
+tensor_parallel_size; the speculative engine takes it as a draft.
+
+Tensor parallelism (``tp``, a ``parallel/mesh.py:TPGroup``) follows
+``models/llama.py`` through the same ``models/tp_plan.py:TPPlan``: every
+rank holds its shard (``parallel/sharding.py``: q, k, v, ``fc1`` and their
+biases split by columns, ``wo`` and ``fc2`` by rows, ``embed`` and
+``pos_embed`` on D) and runs its own heads. The two embedding lookups give
+each rank its D slice of the sum, gathered in rank order before the first
+layer norm; the ``wo`` and ``fc2`` products are partial sums, all-reduced
+before the replicated ``bo`` / ``fc2_b`` are added, once; the tied head,
+split on D, gives partial logits over the whole vocab that are all-reduced
+in f32. Where tp does not divide the heads the pool is replicated and the
+plan's gathers apply (``q_gather``, ``kv_gather``, ``o_cols``). Prefill
+chunks are never rung over an sp ring (the reference rings the llama
+family only).
 """
 
 from typing import Dict, Optional, Tuple
@@ -16,7 +30,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from production_stack_tpu_torch.models.config import ModelConfig
+from production_stack_tpu_torch.models.tp_plan import (
+    TPPlan,
+    head_logits,
+    tp_plan,
+)
 from production_stack_tpu_torch.ops.attention import window_attention
+from production_stack_tpu_torch.parallel.sharding import check_tp, shard_leaf
 
 Params = Dict
 _OPT_POS_OFFSET = 2  # HF OPTLearnedPositionalEmbedding offset
@@ -28,12 +48,6 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     mu = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
-
-
-def _check_tp(tp: int) -> None:
-    if tp != 1:
-        raise ValueError("the OPT family is served at tensor_parallel_size 1 "
-                         f"only, got {tp}")
 
 
 def _shapes(cfg: ModelConfig) -> Dict:
@@ -61,12 +75,17 @@ def _shapes(cfg: ModelConfig) -> Dict:
 def empty_params(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                  device: Optional[torch.device] = None,
                  rank: int = 0, tp: int = 1) -> Params:
-    """Zeroed params of their final shapes, dtype and device (see
-    ``models/llama.py:empty_params``)."""
-    _check_tp(tp)
-    return {k: ({n: torch.zeros(s, dtype=dtype, device=device)
-                 for n, s in v.items()} if k == "layers"
-                else torch.zeros(v, dtype=dtype, device=device))
+    """Zeroed params of their final shapes (rank ``rank``'s shard at
+    ``tp`` > 1), dtype and device (see ``models/llama.py:empty_params``)."""
+    check_tp(tp)
+
+    def leaf(name, shape):
+        shape = shard_leaf(name, torch.empty(shape, device="meta"), rank,
+                           tp).shape
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {k: ({n: leaf(n, s) for n, s in v.items()} if k == "layers"
+                else leaf(k, v))
             for k, v in _shapes(cfg).items()}
 
 
@@ -77,18 +96,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 ) -> Params:
     """Random weights (the JAX package's scheme: N(0, 1/fan_in), unit
     norms, zero biases), drawn on ``device`` from ``generator`` into
-    ``out`` (``empty_params``; allocated here when None) in place."""
-    _check_tp(tp)
+    ``out`` (``empty_params``; allocated here when None) in place. With
+    ``tp`` > 1 every leaf is still drawn in full, in the same order, and
+    rank ``rank`` keeps its slice: the ranks together hold exactly the
+    weights a tp = 1 engine draws from the same seed."""
     device = device if device is not None else generator.device
     if out is None:
         out = empty_params(cfg, dtype, device, rank, tp)
     d, f = cfg.hidden_size, cfg.intermediate_size
     h, dh = cfg.num_heads, cfg.head_dim_
+    shapes = _shapes(cfg)
     layers = out["layers"]
 
-    def w(dst, fan_in):
-        dst.copy_((torch.randn(dst.shape, generator=generator, device=device,
-                               dtype=torch.float32) * fan_in ** -0.5).to(dtype))
+    def w(tree, full, name, fan_in):
+        x = (torch.randn(full[name], generator=generator, device=device,
+                         dtype=torch.float32) * fan_in ** -0.5).to(dtype)
+        tree[name].copy_(shard_leaf(name, x, rank, tp))
 
     for name in ("ln1_w", "ln2_w"):
         layers[name].fill_(1)
@@ -96,9 +119,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         layers[name].zero_()
     for name, fan_in in (("wq", d), ("wk", d), ("wv", d), ("wo", h * dh),
                          ("fc1", d), ("fc2", f)):
-        w(layers[name], fan_in)
-    w(out["embed"], d)
-    w(out["pos_embed"], d)
+        w(layers, shapes["layers"], name, fan_in)
+    w(out, shapes, "embed", d)
+    w(out, shapes, "pos_embed", d)
     out["final_ln_w"].fill_(1)
     out["final_ln_b"].zero_()
     return out
@@ -106,26 +129,46 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def _layer_body(cfg: ModelConfig, hidden: torch.Tensor, lp: Dict,
                 positions, chunk_lens, win_k, win_v, win_len,
-                ring_k, ring_v, ring_pos, chunk_bias=None
+                ring_k, ring_v, ring_pos, chunk_bias=None, tp=None,
+                plan: TPPlan = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, t, d = hidden.shape
-    h, dh = cfg.num_heads, cfg.head_dim_
+    dh = cfg.head_dim_
 
     x = layer_norm(hidden, lp["ln1_w"], lp["ln1_b"])
-    q = (x @ lp["wq"] + lp["bq"]).reshape(b, t, h, dh)
-    k = (x @ lp["wk"] + lp["bk"]).reshape(b, t, h, dh)
-    v = (x @ lp["wv"] + lp["bv"]).reshape(b, t, h, dh)
+    q = x @ lp["wq"] + lp["bq"]
+    k = x @ lp["wk"] + lp["bk"]
+    v = x @ lp["wv"] + lp["bv"]
+    if plan.q_gather:
+        q = tp.all_gather(q, dim=-1)[..., plan.h0 * dh:plan.h1 * dh]
+    if plan.kv_gather:
+        k, v = tp.all_gather(torch.stack([k, v]), dim=-1).unbind(0)
+    # This rank's heads and the pool's (OPT: kv heads are heads).
+    h, hkv = q.shape[-1] // dh, k.shape[-1] // dh
+    q = q.reshape(b, t, h, dh)
+    k = k.reshape(b, t, hkv, dh)
+    v = v.reshape(b, t, hkv, dh)
     attn = window_attention(
-        q, k, v, positions, chunk_lens,
-        win_k, win_v, win_len, ring_k, ring_v, ring_pos,
+        q, plan.kv(k, 2), plan.kv(v, 2), positions, chunk_lens,
+        plan.kv(win_k, 0), plan.kv(win_v, 0), win_len,
+        plan.kv(ring_k, 0), plan.kv(ring_v, 0), ring_pos,
         chunk_bias=chunk_bias,
-    )
-    hidden = hidden + attn.reshape(b, t, h * dh) @ lp["wo"] + lp["bo"]
+    ).reshape(b, t, h * dh)
+    # Row-parallel products are partial sums until the all-reduce; the
+    # replicated biases join once, after it.
+    if plan.o_cols is not None:
+        o = tp.all_reduce(attn[..., plan.o_cols[0]:plan.o_cols[1]] @ lp["wo"])
+    else:
+        o = attn @ lp["wo"]
+    hidden = hidden + o + lp["bo"]
 
     x = layer_norm(hidden, lp["ln2_w"], lp["ln2_b"])
     # OPT's activation is ReLU (HF OPTConfig's default, facebook/opt-125m's).
-    mlp = torch.relu(x @ lp["fc1"] + lp["fc1_b"]) @ lp["fc2"] + lp["fc2_b"]
-    return hidden + mlp, k.permute(2, 0, 1, 3), v.permute(2, 0, 1, 3)
+    mlp = torch.relu(x @ lp["fc1"] + lp["fc1_b"]) @ lp["fc2"]
+    if plan.mlp_reduce:
+        mlp = tp.all_reduce(mlp)
+    return (hidden + (mlp + lp["fc2_b"]), k.permute(2, 0, 1, 3),
+            v.permute(2, 0, 1, 3))
 
 
 def forward(
@@ -148,13 +191,17 @@ def forward(
     sp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Same contract as ``models/llama.py:forward``, window path only; no
-    chunk rings (the reference rings the llama family only)."""
+    chunk rings (the reference rings the llama family only). With ``tp``
+    the embedding sum is each rank's D slice where ``embed`` and
+    ``pos_embed`` are split, gathered in rank order here."""
     assert paged is None, "paged decode is llama-family only (policy)"
     assert lora is None, "LoRA serving is llama-family only"
-    assert tp is None, "the OPT family is served at tensor_parallel_size 1"
     assert sp is None, "ring attention is llama-family only"
+    plan = tp_plan(cfg, tp)
     hidden = (params["embed"][token_ids.long()]
               + params["pos_embed"][positions.long() + _OPT_POS_OFFSET])
+    if plan.embed_split:
+        hidden = tp.all_gather(hidden, dim=-1)
     hidden = hidden.to(win_k.dtype if win_k is not None
                        else params["embed"].dtype)
     layers = params["layers"]
@@ -168,7 +215,7 @@ def forward(
             win_len,
             ring_k[i] if ring_k is not None else None,
             ring_v[i] if ring_v is not None else None,
-            ring_pos, chunk_bias=chunk_bias,
+            ring_pos, chunk_bias=chunk_bias, tp=tp, plan=plan,
         )
         k_out.append(k_l)
         v_out.append(v_l)
@@ -179,7 +226,8 @@ def forward(
 def lm_head_f32(params: Params, cfg: ModelConfig,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The tied output projection [D, V] widened to f32 once (see
-    ``models/llama.py:lm_head_f32``; ``out`` is filled in place)."""
+    ``models/llama.py:lm_head_f32``; this rank's [D/tp, V] where ``embed``
+    is split; ``out`` is filled in place)."""
     if out is not None:
         return out.copy_(params["embed"].t())
     return params["embed"].t().float().contiguous()
@@ -189,8 +237,9 @@ def compute_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
                    head_f32: Optional[torch.Tensor] = None,
                    tp=None) -> torch.Tensor:
     """hidden [..., D] -> logits [..., V] in float32 (the reference's bf16
-    dot with f32 accumulation, exact in f32 here)."""
-    assert tp is None, "the OPT family is served at tensor_parallel_size 1"
+    dot with f32 accumulation, exact in f32 here); with ``tp`` the full
+    logits on every rank (``tp_plan.head_logits``: the partial logits of
+    each rank's D slice all-reduced in f32)."""
     if head_f32 is None:
         head_f32 = lm_head_f32(params, cfg)
-    return torch.matmul(hidden.float(), head_f32)
+    return head_logits(cfg, hidden, head_f32, tp)

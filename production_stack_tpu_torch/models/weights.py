@@ -235,14 +235,12 @@ def params_from_jax(np_tree: Dict, cfg: ModelConfig,
                     rank: int = 0, tp: int = 1) -> Dict:
     """JAX llama or OPT param tree (numpy leaves) -> the port's param dict,
     same keys, same ``[L, ...]`` layouts, ``x @ w`` orientation; with ``tp``
-    > 1, tp rank ``rank``'s shard of it (parallel/sharding.py; llama
-    only)."""
+    > 1, tp rank ``rank``'s shard of it (parallel/sharding.py, either
+    family)."""
     from production_stack_tpu_torch.parallel.sharding import shard_params
 
     if cfg.arch not in ("llama", "opt"):
         raise ValueError(f"params_from_jax: arch {cfg.arch!r} is not ported")
-    if cfg.arch == "opt" and tp > 1:
-        raise ValueError("params_from_jax: OPT trees are not sharded (tp 1)")
     device = device if device is not None else torch.device("cpu")
     out = {
         k: _to_tensor(v, dtype, device)

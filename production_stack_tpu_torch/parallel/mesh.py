@@ -79,8 +79,17 @@ AXIS_DP, AXIS_SP, AXIS_TP = "dp", "sp", "tp"
 # EMBED is the embedding forward (/v1/embeddings, /rerank): no KV pool, no
 # dispatch number. KV_READ and KV_WRITE are block I/O: (kind, blocks,
 # whether int8 scales follow, blocks per collective), then the block ids;
-# no dispatch number.
-NOOP, DECODE, PREFILL, QUERY, STOP, EMBED, KV_READ, KV_WRITE = range(8)
+# no dispatch number. The speculative kinds (dp replicas; speculation is
+# served at tp = sp = 1): SPEC_DECODE is a speculative decode dispatch
+# (kind, dispatch, b, mb, K, cycle bound, penalties, logprob bucket, mode),
+# then the packed buffer (each row's draft-ring slot and draft depth
+# among its scalars) and the penalty counts; during its cycles rank 0
+# broadcasts its "any budget left" flag once per group of cycles, so every
+# replica runs rank 0's cycle count. SPEC_INGEST is a draft catch-up (kind,
+# slot, first position, tokens, padded length), then the padded tokens.
+# SPEC_RESET forgets a fresh draft-ring slot's positions (kind, slot).
+(NOOP, DECODE, PREFILL, QUERY, STOP, EMBED, KV_READ, KV_WRITE,
+ SPEC_DECODE, SPEC_INGEST, SPEC_RESET) = range(11)
 HEADER_LEN = 12
 
 # Bytes of one rank's slice that one block-exchange collective moves at

@@ -1,16 +1,18 @@
-"""Megatron-style tensor-parallel sharding of the llama params and the KV
-pools: rank r's slices.
+"""Megatron-style tensor-parallel sharding of the params (llama and OPT)
+and the KV pools: rank r's slices.
 
 Counterpart of ``production_stack_tpu/parallel/sharding.py``
 (``param_shardings``, ``kv_pool_sharding``, ``kv_scale_sharding``), with the
-same rules by leaf name:
-  * column-parallel ``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up`` (and the
-    biases ``bq``, ``bk``, ``bv``): the OUTPUT (last) dim is split;
-  * row-parallel ``wo``, ``w_down``: the INPUT dim (second to last) is
-    split, so their products are partial sums that ``models/llama.py``
-    all-reduces;
-  * ``embed`` [V, D]: the hidden dim D is split; ``lm_head`` [D, V]: the
-    vocab V is split; norms are replicated;
+same rules by leaf name, for both families:
+  * column-parallel ``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``, ``fc1``
+    (and the biases ``bq``, ``bk``, ``bv``, ``fc1_b``): the OUTPUT (last)
+    dim is split;
+  * row-parallel ``wo``, ``w_down``, ``fc2``: the INPUT dim (second to
+    last) is split, so their products are partial sums that the model
+    all-reduces (OPT's ``bo`` and ``fc2_b`` are then added once);
+  * ``embed`` [V, D] and OPT's ``pos_embed`` [P, D]: the hidden dim D is
+    split; ``lm_head`` [D, V]: the vocab V is split; norms, OPT's
+    layer norms and its ``bo`` / ``fc2_b`` are replicated;
   * KV pools [L, Hkv, slots, Dh] and int8 scale pools [L, Hkv, slots]:
     the kv-head dim is split.
 Splits are contiguous blocks: rank r holds columns (or rows) [r*n/tp,
@@ -21,8 +23,8 @@ leaf whose split dim tp does not divide is replicated, whole on every rank
 (``split_dim`` says which dim a leaf splits, or None). The pools split
 their kv heads only when tp divides Hkv. A split need not fall on head
 boundaries (``wk`` at Hkv 2, Dh 32, tp 4 splits 64 columns into 16s);
-``models/llama.py`` gathers what a rank's heads then need, and sums only
-the products whose input rows are split.
+``models/tp_plan.py`` says what a rank's heads then need gathered, and
+which products are partial sums.
 
 A batch of whole KV blocks (the offload tier's and the handoff's payload
 [n, L, Hkv, bs, Dh], an int8 pool's scales [n, L, Hkv, bs]) splits into
@@ -37,8 +39,11 @@ import torch
 
 from production_stack_tpu_torch.models.config import ModelConfig
 
-COLUMN = frozenset({"wq", "wk", "wv", "w_gate", "w_up", "bq", "bk", "bv"})
-ROW = frozenset({"wo", "w_down"})
+COLUMN = frozenset({"wq", "wk", "wv", "w_gate", "w_up", "fc1",
+                    "bq", "bk", "bv", "fc1_b"})
+ROW = frozenset({"wo", "w_down", "fc2"})
+# Split on their hidden dim D (the last).
+EMBEDDINGS = frozenset({"embed", "pos_embed"})
 
 
 def check_tp(tp: int) -> None:
@@ -54,7 +59,7 @@ def split_dim(name: str, shape, tp: int) -> Optional[int]:
     dim the rules name (the reference's ``_shard_if_divisible``)."""
     if tp == 1:
         return None
-    if name in COLUMN or name in ("embed", "lm_head"):
+    if name in COLUMN or name in EMBEDDINGS or name == "lm_head":
         dim = -1
     elif name in ROW:
         dim = -2
@@ -78,7 +83,7 @@ def shard_leaf(name: str, leaf: torch.Tensor, rank: int, tp: int) -> torch.Tenso
 
 def shard_params(params: Dict, cfg: ModelConfig, rank: int, tp: int) -> Dict:
     """Rank ``rank``'s shard of the port's param dict (the layout of
-    ``models/llama.py``): the leaves of device r of the JAX package's
+    ``models/llama.py`` or ``models/opt.py``): the leaves of device r of the JAX package's
     ``jax.device_put(params, param_shardings(cfg, mesh, params))``."""
     check_tp(tp)
     return {k: ({n: shard_leaf(n, t, rank, tp) for n, t in v.items()}

@@ -5,8 +5,8 @@
 --spec JSON`` (``argv`` builds the line). A worker joins rank 0's mesh
 (``parallel/mesh.py``), builds the same ``ModelRunner`` over its own tp
 shard (its params loaded from the same checkpoint directory, drawn from
-the same seed, or rank 0's broadcast; its slice of the same LoRA
-adapters), runs rank 0's dispatch descriptors in order until the stop
+the same seed, or rank 0's broadcast; the speculative draft the config
+names, the same way; its slice of the same LoRA adapters), runs rank 0's dispatch descriptors in order until the stop
 descriptor (``ModelRunner.serve``), reports and exits. It dies with its
 parent.
 """
@@ -31,12 +31,16 @@ logger = init_logger(__name__)
 
 
 def argv(config: EngineConfig, rank: int, port: int, *,
-         broadcast_params: bool, num_kv_blocks: Optional[int]) -> List[str]:
+         broadcast_params: bool, num_kv_blocks: Optional[int],
+         broadcast_draft_params: bool = False) -> List[str]:
     """The command line of worker ``rank``. It runs with rank 0's intra-op
     thread count, so reductions over the replicated logits take the same
-    order on every rank."""
+    order on every rank. ``broadcast_params`` / ``broadcast_draft_params``:
+    rank 0 was given the target's / the draft's params and broadcasts
+    them."""
     spec = {"config": dataclasses.asdict(config),
             "broadcast_params": broadcast_params,
+            "broadcast_draft_params": broadcast_draft_params,
             "num_kv_blocks": num_kv_blocks,
             "threads": torch.get_num_threads(), "parent": os.getpid()}
     return [sys.executable, "-m", "production_stack_tpu_torch.parallel.worker",
@@ -60,6 +64,8 @@ def main(args: Optional[List[str]] = None) -> None:
         mc = resolve_model_config(cfg.model)
         runner = ModelRunner(cfg, mc, num_kv_blocks=spec["num_kv_blocks"],
                              mesh=mesh, broadcast_params=spec["broadcast_params"],
+                             broadcast_draft_params=spec[
+                                 "broadcast_draft_params"],
                              lora_registry=load_registry(cfg.lora_modules, mc))
         runner.serve()
         logger.info("rank %d: stopped after %d dispatches", a.rank,

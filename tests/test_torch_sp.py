@@ -410,19 +410,21 @@ async def test_sp2_host_pool_restore_serves_the_twin_tokens():
 # --------------------------------------------------------------- refusals
 def test_mesh_config_refusals_name_the_flags():
     """The reference's refusals on a mesh (speculation at sp > 1, int8 KV
-    with heads tp does not divide) and the port's own (speculation at dp >
-    1, an OPT model at tp > 1), each naming its flags; an OPT model at sp
-    or dp > 1 builds, its prefill unrung, as in the reference."""
+    with heads tp does not divide), each naming its flags, and no other:
+    speculation at dp > 1 and an OPT model at tp > 1 build, as in the
+    reference; an OPT model at sp or dp > 1 builds, its prefill unrung."""
     spec = dict(speculative_num_tokens=2, speculative_model="tiny-llama")
     with pytest.raises(ValueError, match=r"--sequence-parallel-size > 1"):
         EngineConfig(model="tiny-llama", sequence_parallel_size=2, **spec)
-    with pytest.raises(ValueError, match=r"--data-parallel-size 2"):
-        EngineConfig(model="tiny-llama", data_parallel_size=2, **spec)
+    cfg = EngineConfig(model="tiny-llama", data_parallel_size=2, **spec)
+    assert cfg.mesh_devices == 2 and cfg.speculative_enabled
     with pytest.raises(ValueError, match=r"int8 with --tensor-parallel-size 3"):
         EngineConfig(model="tiny-llama-8kv", kv_cache_dtype="int8",
                      tensor_parallel_size=3)
-    with pytest.raises(ValueError, match=r"llama family only"):
-        EngineConfig(model="tiny-opt", tensor_parallel_size=2)
+    for tp in (2, 4):
+        cfg = EngineConfig(model="tiny-opt", device="cpu",
+                           tensor_parallel_size=tp)
+        assert cfg.mesh_devices == tp
     cfg = EngineConfig(model="tiny-opt", device="cpu", sequence_parallel_size=2,
                        data_parallel_size=2)
     assert cfg.mesh_devices == 4
