@@ -145,8 +145,9 @@ serving):
      then, on the engine API, logprobs from graphs + pipeline against the
      strict eager loop on the same batches, bit for bit; and resume on
      tiny-llama-128dh in float32, identical;
- 10. kvtier: the port's cache server (``kv_offload/server.py``) as a
-     process, then per KV dtype (bf16, then int8) llama-3b (full width,
+ 10. kvtier: the port's cache server (``kv_offload/server.py``,
+     ``--force-python``: the phase needs its batched, prewarm and lease
+     ops) as a process, then per KV dtype (bf16, then int8) llama-3b (full width,
      depth cut to ``CUT_LAYERS``: a checkpoint directory of random bf16
      weights from --seed, ``cut_model``; block 16, 1024 blocks, decode and
      prefill graphs captured) with the host and remote tiers: 4 streams sharing a
@@ -185,7 +186,14 @@ serving):
      margin is at most twice the bound; a tp = 2 prefill / tp = 1 decode
      pair from ``launch.py`` under the same token bar. Each tp = 2 rank's
      counter reads layers x its decode steps of the run's variant and 0 of the
-     other; every failure counter 0;
+     other; every failure counter 0; then kvtier-native: ``native/kv_server.cpp``
+     built by ``make -C native`` into a temporary directory (or the
+     Makefile's compiler line), and per server, the Python one and then the
+     port's server running the binary it finds on ``PATH`` (it answers a multi-get STATUS_ERROR), one llama-3b engine
+     (``CUT_LAYERS``, bf16 KV, the remote tier alone) serving the 4 prompts
+     cold and again after ``reset_prefix_cache``, restored from the tier:
+     restored tokens and the stored blobs equal across the two servers,
+     TTFT of each restore;
  11. spec: speculative decoding, two pairs at full width, depth cut to
      ``CUT_LAYERS`` (random bf16 weights from --seed, bf16 KV, block 16,
      N = 4): llama-3b drafting
@@ -202,7 +210,12 @@ serving):
      same batches, or bf16 tokens that part from spec-off's before a step
      whose sampler margin is under 2 x ``tp_logit_bound``; a profiled round
      of ``SPEC_TRACE_TOKENS`` per request of spec off and linear per pair
-     (each step's seconds in the summary); then float32 tiny-llama with the
+     (each step's seconds in the summary); the self pair's linear engine
+     then serves 4 streams over prompt heads it cached, so each prefill
+     catches its draft ring up, against its strict eager twin: every
+     catch-up a replay of its bucket's graph, tokens and draft-ring digest
+     equal the twin's bit for bit, host ms per catch-up by bucket, replayed
+     and eager; then float32 tiny-llama with the
      tiny-llama and tiny-opt drafts, every mode's tokens equal to
      spec-off's bit for bit;
  12. ckpt: llama-3b's random bf16 params from --seed, full width cut to
@@ -274,6 +287,7 @@ import random
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -4436,18 +4450,25 @@ async def kvtier_tp_round(pa, engine, gate, prompts, samplings, what):
     return [o.token_ids for o, _ in res], row
 
 
-def kvtier_tier_blobs(engine, token_ids, n):
-    """The tier's blobs of a prompt's first ``n`` full blocks, unpacked:
-    from the host pool where it holds them, else from the remote tier."""
+def kvtier_store_keys(engine, token_ids, n):
+    """The tier's store keys of a prompt's first ``n`` full blocks."""
     from production_stack_tpu_torch.engine.kv_cache import _block_hash
-    from production_stack_tpu_torch.kv_offload.serde import unpack_chain
 
-    off = engine.offload
     bs = engine.config.block_size
     prev, keys = b"", []
     for i in range(n):
         prev = _block_hash(prev, token_ids[i * bs:(i + 1) * bs])
-        keys.append(off._store_key(prev))
+        keys.append(engine.offload._store_key(prev))
+    return keys
+
+
+def kvtier_tier_blobs(engine, token_ids, n):
+    """The tier's blobs of a prompt's first ``n`` full blocks, unpacked:
+    from the host pool where it holds them, else from the remote tier."""
+    from production_stack_tpu_torch.kv_offload.serde import unpack_chain
+
+    off = engine.offload
+    keys = kvtier_store_keys(engine, token_ids, n)
     if off.host_pool is not None and all(off.host_pool.contains(k) for k in keys):
         blobs = [off.host_pool.get(k) for k in keys]
     else:
@@ -4892,9 +4913,187 @@ def kvtier_tp_phase(torch, pa, device, seed, card, kv_cache_dtype, kv_url, model
     return tp_launches, tp1_launches, out
 
 
+# -------------------------------------------------- phase 9c: kvtier-native
+NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native")
+
+
+def build_native_kv_server(build_dir=None):
+    """Build ``native/kv_server.cpp``'s binary from that file alone: ``make
+    -C native BUILD=build_dir`` (a fresh temporary directory by default, so
+    the checkout gains no ``native/build``, which every default
+    ``launch_kv_server`` would then run), or, where there is no ``make``,
+    the Makefile's own compiler line. Returns (the binary's path, seconds,
+    the command). Raises RuntimeError when it cannot."""
+    build_dir = os.path.abspath(build_dir
+                                or tempfile.mkdtemp(prefix="kv-native-"))
+    t0 = time.monotonic()
+    if shutil.which("make"):
+        cmd = ["make", "-C", NATIVE_DIR, f"BUILD={build_dir}"]
+    else:
+        with open(os.path.join(NATIVE_DIR, "Makefile")) as f:
+            flags = dict(ln.split(" ?= ", 1) for ln in f.read().splitlines()
+                         if " ?= " in ln)
+        os.makedirs(build_dir, exist_ok=True)
+        cmd = [flags["CXX"].strip(), *flags["CXXFLAGS"].split(), "-o",
+               os.path.join(build_dir, "kv_server"),
+               os.path.join(NATIVE_DIR, "kv_server.cpp")]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    except OSError as e:
+        raise RuntimeError(f"native kv_server: {cmd[0]} did not run: {e}") from e
+    path = os.path.join(build_dir, "kv_server")
+    if proc.returncode != 0 or not os.access(path, os.X_OK):
+        raise RuntimeError(f"native kv_server: {' '.join(cmd)} exited "
+                           f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return path, time.monotonic() - t0, " ".join(cmd)
+
+
+def is_native_core(url) -> bool:
+    """Whether the cache server at ``url`` is the native core: it answers a
+    multi-get ('M') with STATUS_ERROR and its stats name no ``impl``."""
+    from production_stack_tpu_torch.kv_offload.remote import RemoteKVClient
+    from production_stack_tpu_torch.kv_offload.server import (
+        STATUS_ERROR,
+        pack_key_list,
+    )
+
+    c = RemoteKVClient(url)
+    try:
+        status, _ = c._request(b"M", b"", pack_key_list([b"probe"]))
+        return status == STATUS_ERROR and "impl" not in c.stats()
+    finally:
+        c.close()
+
+
+def kvtier_native_phase(torch, pa, device, seed, card, model="llama-3b"):
+    """The native cache-server core behind the port's server: build the
+    binary (``build_native_kv_server``, into a temporary directory), then
+    start the Python server (``--force-python``) and the port's server,
+    which finds the binary on ``PATH`` and runs it, in turn; against each, one engine
+    (``kvtier_config``, bf16 KV, no host pool: the remote tier is its only
+    tier) serves the kvtier phase's 4 prompts cold (they spill), drops its
+    device prefix cache and serves them again, restored from the remote
+    tier. Bars: the second server is the native core (``is_native_core``);
+    each restore round restored tokens; the restored rounds' tokens, and
+    the stored blobs of every prompt's full blocks, are equal across the
+    two servers; the kvtier rounds' own bars (no eager decode dispatch,
+    the kernel's count, no tier failure). Returns (the kernel launches of
+    its rounds, the summary)."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.launch import launch_kv_server
+
+    try:
+        binary, build_s, cmd = build_native_kv_server()
+    except RuntimeError as e:
+        fail(str(e))
+    out = {"card": card, "build_s": build_s, "build": cmd, "servers": {}}
+    prompts = kvtier_prompts(seed)
+    samplings = kvtier_samplings(SamplingParams, KVTIER_TOKENS)
+    launches = 0
+    got = {}
+    path = os.environ.get("PATH", "")
+    for name in ("python", "native"):
+        # The native round finds the binary on PATH, as an installed one.
+        os.environ["PATH"] = (os.path.dirname(binary) + os.pathsep + path
+                              if name == "native" else path)
+        try:
+            server = launch_kv_server(max_bytes=16 << 30,
+                                      log_dir=os.path.dirname(DETAIL_LOG),
+                                      force_python=name == "python")
+        finally:
+            os.environ["PATH"] = path
+        loop = asyncio.new_event_loop()
+        engine = None
+        try:
+            if is_native_core(server.url) != (name == "native"):
+                fail(f"kvtier native: the {name} round's server at {server.url} "
+                     f"is{' not' if name == 'native' else ''} the native core "
+                     f"(binary {binary})")
+            t0 = time.monotonic()
+            engine = ServingEngine(EngineConfig(**kvtier_config(
+                "bfloat16", seed, model, device.type, kv_remote_url=server.url)))
+            gate = gate_schedule(engine)
+            writes = time_block_writes(torch, engine)
+            loop.run_until_complete(engine.start())
+            up = time.monotonic() - t0
+            rows = {}
+            _, rows["cold"] = loop.run_until_complete(kvtier_round(
+                torch, pa, engine, gate, prompts, samplings,
+                f"native {name} cold recompute", writes))
+            spill_s = loop.run_until_complete(
+                kvtier_wait_spilled(engine, f"native {name}"))
+            engine.block_manager.reset_prefix_cache()
+            toks, rows["restore"] = loop.run_until_complete(kvtier_round(
+                torch, pa, engine, gate, prompts, samplings,
+                f"native {name} remote restore", writes))
+            if rows["restore"]["restored_tokens"] <= 0:
+                fail(f"kvtier native: the {name} server's round restored nothing")
+            bs = engine.config.block_size
+            ids = [engine.tokenizer.encode(p) for p in prompts]
+            # The stored bytes (PKC1 envelopes), by per-key gets: every
+            # server answers them.
+            blobs = [[engine.offload.remote.get(k) for k in
+                      kvtier_store_keys(engine, t, (len(t) - 1) // bs)]
+                     for t in ids]
+            if any(b is None for bl in blobs for b in bl):
+                fail(f"kvtier native: the {name} server lacks a spilled block")
+            loop.run_until_complete(engine.stop())
+            launches += sum(r["launches"] for r in rows.values())
+            got[name] = (toks, blobs)
+            out["servers"][name] = {
+                "engine_up_s": up, "spill_wait_s": spill_s,
+                "ttft_s": {k: sum(r["ttft_s"]) / len(r["ttft_s"])
+                           for k, r in rows.items()},
+                "restore_s": rows["restore"]["restore_s"],
+                "restored_tokens": rows["restore"]["restored_tokens"],
+                "blobs": sum(len(b) for b in blobs),
+                "blob_bytes": sum(len(x) for b in blobs for x in b),
+                "stats": kv_server_stats(server.url),
+                "sm_clock_mhz": {k: r["sm_clock_mhz"]["mean"]
+                                 if isinstance(r["sm_clock_mhz"], dict) else None
+                                 for k, r in rows.items()}}
+        finally:
+            if engine is not None:
+                engine.shutdown()
+            loop.close()
+            out["servers"].setdefault(name, {})["exit_code"] = server.stop()
+        del engine
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    (pt, pb), (nt, nb) = got["python"], got["native"]
+    if nt != pt:
+        fail(f"kvtier native: restored tokens differ from the Python server's "
+             f"round's: {[a == b for a, b in zip(nt, pt)]}")
+    if nb != pb:
+        fail("kvtier native: the native core's stored blobs differ from the "
+             "Python server's for the same prompts")
+    out["tokens_equal"] = out["blobs_equal"] = True
+    log(f"kvtier native result {json.dumps(out)}")
+    return launches, out
+
+
+def kv_server_stats(url) -> dict:
+    """A cache server's 'T' stats."""
+    from production_stack_tpu_torch.kv_offload.remote import RemoteKVClient
+
+    c = RemoteKVClient(url)
+    try:
+        return c.stats()
+    finally:
+        c.close()
+
+
 # ---------------------------------------------------------------- phase 10
 SPEC_N = 4                  # draft-ahead tokens
 SPEC_TOKENS = 64            # tokens per request
+# The ingest rounds' heads, two per catch-up bucket 16, 32, 128 and 256
+# (ByteTokenizer: a token per byte; their full blocks of 16 are cached),
+# and tokens per stream.
+SPEC_INGEST_HEADS = (20, 40, 100, 250, 24, 44, 110, 260)
+SPEC_INGEST_TOKENS = 16
 # Tokens per request of the profiled round of each pair's off and linear
 # modes: the host processes every profiler record, so the round's time
 # grows with the tokens it traces. The checks keep SPEC_TOKENS.
@@ -5065,6 +5264,10 @@ def spec_http_round(torch, pa, engine, gate, prompts, what):
         "graph_capture_seconds": st["graph_capture_seconds"],
         "graph_pool_bytes": st["graph_pool_bytes"],
         "spec_pool_bytes": st["spec_pool_bytes"],
+        # the draft-ingest buckets warm-up captured, and their seconds
+        "ingest_buckets": st["spec_ingest_graph_buckets"],
+        "ingest_capture_seconds": st["spec_ingest_capture_seconds"],
+        "ingest_warm_seconds": st["spec_ingest_warm_seconds"],
         "warmup_s": st["startup_warmup_seconds"],
         "peak_mem_gib": out["peak"], "sm_clock_mhz": out["clock"],
         "launches": out["launches"],
@@ -5084,12 +5287,13 @@ def spec_api_round(engine, gate, prompts, eager=False, sink=None,
     from production_stack_tpu_torch.engine.sampling import SamplingParams
 
     r = engine.runner
-    saved = r.decode_train.graphs, r.prefill_train.graphs
+    saved = r.decode_train.graphs, r.prefill_train.graphs, r.ingest_train.graphs
 
     async def run():
         await engine.start()
         if eager:
             r.decode_train.graphs = r.prefill_train.graphs = {}
+            r.ingest_train.graphs = {}
         r.logits_sink = sink
         gate["want"] = 4
 
@@ -5108,7 +5312,7 @@ def spec_api_round(engine, gate, prompts, eager=False, sink=None,
     try:
         return asyncio.run(run())
     finally:
-        r.decode_train.graphs, r.prefill_train.graphs = saved
+        r.decode_train.graphs, r.prefill_train.graphs, r.ingest_train.graphs = saved
         r.logits_sink = None
 
 
@@ -5159,6 +5363,107 @@ def spec_graph_vs_eager(engine, gate, prompts, what):
         fail(f"spec {what}: graph replay tokens differ from the strict eager "
              f"train on streams {bad}")
     return True
+
+
+def spec_fresh_rings(torch, r):
+    """Every draft ring as a start leaves it (K and V zero, no position
+    written) and every slot free, so two rounds find equal rings and take
+    the same slots. The engine is idle."""
+    from production_stack_tpu_torch.engine.decode_graphs import POS_SENTINEL
+
+    if r.device.type == "cuda":
+        torch.cuda.synchronize()
+    r.spec_k.zero_()
+    r.spec_v.zero_()
+    r.spec_pos.fill_(POS_SENTINEL)
+    r._spec_slots.clear()
+    r._spec_warmed.clear()
+    r._spec_free = list(range(r.spec_num_slots))
+
+
+def spec_ingest_rounds(torch, engine, prompts, what):
+    """The draft's catch-up on the card, the graph round first and then its
+    strict eager twin (every decode, prefill and ingest graph set aside),
+    each in one start: the heads (``SPEC_INGEST_HEADS`` tokens of the
+    prompts, in turn) served one at a time with graphs, so their blocks are
+    cached; then, from fresh rings, a greedy stream of
+    ``SPEC_INGEST_TOKENS`` over each head and a tail, one at a time: each
+    prefill finds its head cached and catches its draft ring up over it.
+    Bars: in the graph round every catch-up replayed
+    (``spec_ingest_eager_total`` unchanged) and ``spec_ingests`` grew by
+    one per stream; its tokens and draft-ring digest equal the twin's bit
+    for bit; the twin's catch-ups ran eagerly. Returns the host ms per
+    catch-up by bucket, replayed and eager, and the counts."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    r = engine.runner
+    train = r.ingest_train
+    heads = [((prompts[i % len(prompts)] + " ") * 4)[:n]
+             for i, n in enumerate(SPEC_INGEST_HEADS)]
+    runs = {}
+
+    async def one(prompt, n):
+        last = None
+        async for o in engine.generate(prompt=prompt, sampling=SamplingParams(
+                max_tokens=n, ignore_eos=True, temperature=0.0)):
+            last = o
+        return last
+
+    for mode in ("graph", "eager"):
+        saved = r.decode_train.graphs, r.prefill_train.graphs, train.graphs
+
+        async def run():
+            await engine.start()
+            try:
+                engine.block_manager.reset_prefix_cache()
+                for h in heads:
+                    await one(h, 1)
+                if mode == "eager":
+                    r.decode_train.graphs = r.prefill_train.graphs = {}
+                    train.graphs = {}
+                spec_fresh_rings(torch, r)
+                c0 = (r.spec_ingests_total, train.eager_dispatches_total,
+                      train.graph_dispatches_total)
+                host0 = {t: list(v) for t, v in train.host_by_bucket.items()}
+                outs = [await one(h + " and the stream goes on past its head",
+                                  SPEC_INGEST_TOKENS) for h in heads]
+                host = {t: 1e3 * (s - host0.get(t, [0, 0.0])[1])
+                        / (n - host0.get(t, [0, 0.0])[0])
+                        for t, (n, s) in train.host_by_bucket.items()
+                        if n > host0.get(t, [0, 0.0])[0]}
+                if r.device.type == "cuda":
+                    torch.cuda.synchronize()
+                return {"tokens": [o.token_ids for o in outs],
+                        "cached": [o.num_cached_tokens for o in outs],
+                        "digest": r.spec_digest(),
+                        "ingests": r.spec_ingests_total - c0[0],
+                        "eager": train.eager_dispatches_total - c0[1],
+                        "replayed": train.graph_dispatches_total - c0[2],
+                        "host_ms_by_bucket": host}
+            finally:
+                r.decode_train.graphs, r.prefill_train.graphs, train.graphs = saved
+                await engine.stop()
+
+        runs[mode] = asyncio.run(run())
+    g, e = runs["graph"], runs["eager"]
+    log(f"spec {what} ingest rounds: {json.dumps(runs)}")
+    if g["ingests"] != len(heads) or not all(g["cached"]):
+        fail(f"spec {what}: the ingest round ran {g['ingests']} catch-ups over "
+             f"cached heads of {g['cached']} tokens")
+    if r.device.type == "cuda" and (g["eager"] or g["replayed"] != len(heads)
+                                    or e["eager"] != len(heads)):
+        fail(f"spec {what}: the graph round's catch-ups: {g['eager']} eager, "
+             f"{g['replayed']} replayed; the twin's: {e['eager']} eager")
+    if g["tokens"] != e["tokens"] or g["digest"] != e["digest"]:
+        fail(f"spec {what}: after the catch-ups the graph round's tokens "
+             f"(equal: {[a == b for a, b in zip(g['tokens'], e['tokens'])]}) or "
+             f"draft-ring digest ({g['digest']} / {e['digest']}) differ from the "
+             "strict eager twin's")
+    return {"host_ms_by_bucket": {"replayed": g["host_ms_by_bucket"],
+                                  "eager": e["host_ms_by_bucket"]},
+            "cached_tokens": g["cached"], "ingests": g["ingests"],
+            "replayed": g["replayed"], "eager_twin": e["eager"],
+            "tokens_and_rings_equal_eager": True}
 
 
 def spec_trace(torch, engine, gate, prompts, what):
@@ -5271,6 +5576,10 @@ def spec_phase(torch, pa, device, seed, card, pairs=SPEC_PAIRS):
                     row["graph_equal_eager"] = spec_graph_vs_eager(
                         engine, gate, prompts, what)
                     lap("graph_vs_eager")
+                if pair == "self" and mode == "linear":
+                    row["ingest"] = spec_ingest_rounds(torch, engine, prompts,
+                                                       what)
+                    lap("ingest")
                 if st["spec_draft_tokens_total"] <= 0 and mode != "adaptive":
                     fail(f"spec {what}: no draft proposals counted")
             if mode in ("off", "linear") and device.type == "cuda":
@@ -6166,7 +6475,6 @@ def ckpt_phase(torch, pa, device, seed, card, model="llama-3b",
     ``load_format="dummy"``: the draw ``cut_model`` wrote). Returns (the
     bf16 kernel's launches over the served rounds, the summary)."""
     import shutil
-    import tempfile
     from dataclasses import replace
 
     from production_stack_tpu_torch.engine.engine import ServingEngine
@@ -6664,10 +6972,11 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="kernel,serving,graphs,elastic,check,tp,sp,surface,"
-                            "kvtier,kvtier-tp,spec,ckpt,opt-tp,spec-dp",
+                            "kvtier,kvtier-tp,kvtier-native,spec,ckpt,opt-tp,"
+                            "spec-dp",
                     help="comma list of kernel,serving,graphs,elastic,check,tp,"
-                         "sp,surface,kvtier,kvtier-tp,spec,ckpt,opt-tp,spec-dp,"
-                         "trace (build always "
+                         "sp,surface,kvtier,kvtier-tp,kvtier-native,spec,ckpt,"
+                         "opt-tp,spec-dp,trace (build always "
                          "runs; trace profiles one more served round after "
                          "serving)")
     ap.add_argument("--tp-kernel-rank", type=int, default=None,
@@ -6913,8 +7222,10 @@ def main() -> None:
         from production_stack_tpu_torch.launch import launch_kv_server
 
         model = cut_model(torch, device, args.seed, "llama-3b", cut_dirs)
+        # The Python server: the phase needs its 'H', 'I' and 'D' ops.
         kv_server = launch_kv_server(max_bytes=16 << 30,
-                                     log_dir=os.path.dirname(DETAIL_LOG))
+                                     log_dir=os.path.dirname(DETAIL_LOG),
+                                     force_python=True)
         try:
             kvt = {}
             for kv in ("bfloat16", "int8"):
@@ -6957,7 +7268,8 @@ def main() -> None:
 
         model = cut_model(torch, device, args.seed, TP_MODEL, cut_dirs)
         kv_server = launch_kv_server(max_bytes=16 << 30,
-                                     log_dir=os.path.dirname(DETAIL_LOG))
+                                     log_dir=os.path.dirname(DETAIL_LOG),
+                                     force_python=True)
         try:
             kvtp = {}
             kvtp_launches = 0
@@ -6994,6 +7306,17 @@ def main() -> None:
                              for k, v in r["rounds"].items()}} for kv, r in kvtp.items()})
         gc.collect()
         torch.cuda.empty_cache()
+    # The native cache-server core against the Python server: each
+    # server's rounds are main paths of the bf16 kernel variant.
+    marks.append(("kvtier-native", time.monotonic()))
+    if "kvtier-native" in phases:
+        n, native = kvtier_native_phase(
+            torch, pa, device, args.seed, card,
+            model=cut_model(torch, device, args.seed, "llama-3b", cut_dirs))
+        by_path["bf16"]["kvtier-native"] = n
+        summary("kvtier-native", native)
+        gc.collect()
+        torch.cuda.empty_cache()
     # Speculative decoding: both pairs, four modes each; the spec-off
     # rounds are main paths of the bf16 kernel variant.
     marks.append(("spec", time.monotonic()))
@@ -7011,7 +7334,8 @@ def main() -> None:
                 "tokens_per_target_step", "cycles_run", "cycles_live",
                 "gamma0_dispatches", "graph_families", "graphs_captured",
                 "graph_pool_bytes", "graph_capture_seconds", "peak_mem_gib",
-                "first_divergence", "decode_dispatches", "decode_tokens")
+                "first_divergence", "decode_dispatches", "decode_tokens",
+                "ingest_buckets", "ingest_capture_seconds")
         summary("spec", {
             "card": card, "n": SPEC_N, "tokens": SPEC_TOKENS,
             "fields": list(keys),
@@ -7034,6 +7358,11 @@ def main() -> None:
                 "wall_s", "device_busy_s", "busy_share", "ms_by_class")}
                 for pair, v in spec["pairs"].items()
                 for mode, r in v["modes"].items() if "trace" in r},
+            # The catch-up (the self pair's linear engine): host ms per
+            # catch-up by bucket, replayed and in the strict eager twin.
+            "ingest": {f"{pair} {mode}": r["ingest"]
+                       for pair, v in spec["pairs"].items()
+                       for mode, r in v["modes"].items() if "ingest" in r},
             "graph_equal_eager": True, "metrics_equal_stats": True})
         gc.collect()
         torch.cuda.empty_cache()

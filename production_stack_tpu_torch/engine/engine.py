@@ -1255,5 +1255,6 @@ class ServingEngine:
             **r.spec_stats(),
             **r.decode_train.stats(),
             **r.prefill_train.stats(),
+            **r.ingest_train.stats(),
             **self._live_perf(),
         }

@@ -123,27 +123,165 @@ class PrefillBuffers:
             return [self.tokens]
         return [self.tokens, self.lp_chosen, self.lp_top, self.lp_ids]
 
+class GraphPerKey(GraphArena):
+    """A train captured as ONE CUDA graph per key of ``body`` over its
+    arena: the prefill chunk per family (``PrefillTrain``), the draft's
+    catch-up per token bucket (``engine/ingest_graphs.py``). ``run``
+    replays a key's graph, or runs ``body`` eagerly; ``warm`` and
+    ``capture`` are warm-up's. A subclass gives ``body``, ``key_buffers``
+    (a key's views), ``_zero_inputs`` (its warm-up dispatch's inputs),
+    ``name`` and ``label`` (how messages name the train and a key)."""
 
-class PrefillTrain(GraphArena):
-    """Runs a prefill dispatch for one ModelRunner: eagerly, or by
-    replaying the graph ``capture`` recorded for its family."""
+    name = "graph"
+    label = "key"
 
     def __init__(self, runner):
         super().__init__(runner)
-        self.graphs: Dict[PrefillKey, "torch.cuda.CUDAGraph"] = {}
-        self.nodes: Dict[PrefillKey, int] = {}
-        # Families warm-up covered: captured on the card, dummy-run on the
-        # CPU. A dispatch of any other family counts as eager.
+        self.graphs: Dict = {}
+        self.nodes: Dict = {}
+        # Keys warm-up covered: captured on the card, dummy-run on the
+        # CPU. A dispatch of any other key counts as eager.
         self.warmed: set = set()
         # Warm-up seconds: the eager warm runs, and capture + instantiate.
         self.warm_seconds = 0.0
         self.capture_seconds = 0.0
-        # The shared graph pool's growth while prefill graphs were captured.
+        # The shared graph pool's growth while this train's graphs were
+        # captured.
         self.pool_bytes = 0
         self.eager_dispatches_total = 0
         self.graph_dispatches_total = 0
         self._stream = None
         self._warned: set = set()
+
+    def body(self, bf):
+        raise NotImplementedError
+
+    def key_buffers(self, key):
+        raise NotImplementedError
+
+    def _zero_inputs(self, bf) -> None:
+        raise NotImplementedError
+
+    def reserve(self, keys) -> None:
+        for key in keys:
+            self.key_buffers(key)
+
+    # -------------------------------------------------------------- run
+    def run(self, key, bf, eager: bool = False):
+        """The dispatch on the current stream, its inputs staged in ``bf``:
+        the key's graph when captured (and ``eager`` is not asked for),
+        else ``body`` eagerly. Returns what an eager ``body`` returns (None
+        for a replay)."""
+        graph = None if eager else self.graphs.get(key)
+        if graph is not None:
+            self.graph_dispatches_total += 1
+            graph.replay()
+            return None
+        if self.r.device.type == "cuda" or key not in self.warmed:
+            self.eager_dispatches_total += 1
+            if self.graphs and key not in self._warned:
+                self._warned.add(key)
+                logger.warning("%s=%s was not captured: its dispatches run "
+                               "eagerly", self.label, key)
+        return self.body(bf)
+
+    def dummy_dispatch(self, key):
+        """The warm-up dispatch of a key: its ``_zero_inputs``, which write
+        no live state."""
+        bf = self.key_buffers(key)
+        self._zero_inputs(bf)
+        self.body(bf)
+        return bf
+
+    # ---------------------------------------------------------- capture
+    def warm(self, keys) -> None:
+        """Run every new key of ``keys`` once eagerly on the capture
+        stream, on the thread that will capture them, then release the
+        allocator's cache. Capture needs the thread's cuBLAS handle and
+        workspace made outside it, and on the card a key whose shapes never
+        ran in the process captures several times slower than one that ran
+        (``PERF.md``, Findings), more than its warm run costs. Run before
+        any graph holds pool memory, so the peak is one key's temporaries,
+        not the pool's plus one key's."""
+        device = self.r.device
+        t0 = time.monotonic()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        self._stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(self._stream):
+            for key in keys:
+                if key not in self.graphs:
+                    self.dummy_dispatch(key)
+        torch.cuda.current_stream(device).wait_stream(self._stream)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        self.warm_seconds += time.monotonic() - t0
+
+    def capture(self, keys) -> None:
+        """Record one graph per key of ``keys`` (``warm`` ran them) into
+        the decode train's graph pool, one after another on the capture
+        stream. A failed capture raises, naming the key: there is no eager
+        fallback for a key that was meant to be captured."""
+        r = self.r
+        if r.mesh is not None:
+            raise RuntimeError(f"{self.name} graphs are not captured on a "
+                               "mesh of more than one rank")
+        device = r.device
+        self.reserve(keys)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved(device)
+        t0 = time.monotonic()
+        train = r.decode_train
+        if train.pool is None:
+            train.pool = torch.cuda.graph_pool_handle()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        # No synchronization or cache release between two captures
+        # (torch.cuda.graph does both per graph).
+        self._stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(self._stream):
+            for key in keys:
+                if key in self.graphs:
+                    continue  # an engine restarted: its graphs stay valid
+                bf = self.key_buffers(key)
+                self._zero_inputs(bf)
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                try:
+                    graph.capture_begin(pool=train.pool)
+                    try:
+                        self.body(bf)
+                    finally:
+                        graph.capture_end()
+                    self.nodes[key] = pa.graph_node_counts(graph)[1]
+                    graph.instantiate()
+                except Exception as e:
+                    raise RuntimeError(
+                        f"{self.label}={key}: CUDA graph capture failed: "
+                        f"{e}") from e
+                self.graphs[key] = graph
+                self.warmed.add(key)
+        torch.cuda.current_stream(device).wait_stream(self._stream)
+        torch.cuda.synchronize(device)
+        self.capture_seconds += time.monotonic() - t0
+        torch.cuda.empty_cache()
+        grown = max(0, torch.cuda.memory_reserved(device) - reserved0)
+        self.pool_bytes += grown
+        # The pool is shared: the decode train reports its whole size.
+        train.pool_bytes += grown
+        logger.info(
+            "%s graphs: %d captured, %d nodes max, %.2f s to capture, graph "
+            "pool +%.1f MiB", self.name, len(self.graphs),
+            max(self.nodes.values(), default=0), self.capture_seconds,
+            grown / 2**20)
+
+
+class PrefillTrain(GraphPerKey):
+    """Runs a prefill dispatch for one ModelRunner: eagerly, or by
+    replaying the graph ``capture`` recorded for its family."""
+
+    name = "prefill"
+    label = "prefill family (b, t, mb, has_window, penalties, logprobs)"
 
     # ------------------------------------------------------------ buffers
     def buffers(self, b: int, t: int, mb: int, has_window: bool, pen: bool,
@@ -305,28 +443,14 @@ class PrefillTrain(GraphArena):
         self.scatter(bf, slot_mapping, k_new, v_new)
         return logits
 
-    # -------------------------------------------------------------- run
-    def run(self, key: PrefillKey, bf: PrefillBuffers,
-            eager: bool = False) -> Optional[torch.Tensor]:
-        """The chunk of one dispatch on the current stream, its inputs
-        staged in ``bf``: the family's graph when captured (and ``eager``
-        is not asked for), else the functions eagerly. Returns the logits
-        of an eager run (None for a replay)."""
-        graph = None if eager else self.graphs.get(key)
-        if graph is not None:
-            self.graph_dispatches_total += 1
-            graph.replay()
-            return None
-        if self.r.device.type == "cuda" or key not in self.warmed:
-            self.eager_dispatches_total += 1
-            if self.graphs and key not in self._warned:
-                self._warned.add(key)
-                logger.warning(
-                    "prefill family (b, t, mb, has_window, penalties, "
-                    "logprobs)=%s was not captured: its dispatches run "
-                    "eagerly", key)
+
+    def key_buffers(self, key: PrefillKey) -> PrefillBuffers:
+        return self.buffers(*key)
+
+    def body(self, bf: PrefillBuffers) -> torch.Tensor:
         return self.prefill(bf)
 
+    # ---------------------------------------------------- first use
     def capture_deferred(self, key: PrefillKey) -> None:
         """Warm-up's path for one deferred family, at its first dispatch,
         before that dispatch stages anything: on the card a warm run of the
@@ -344,107 +468,12 @@ class PrefillTrain(GraphArena):
         else:
             self.dummy_dispatch(key)
             self.warmed.add(key)
-
-    def dummy_dispatch(self, key: PrefillKey) -> PrefillBuffers:
-        """The warm-up dispatch of a family: all-zero inputs, so every row
-        has chunk length 0 and table 0 and writes only the null block (pool
-        contents survive); a speculative engine's rows name the trash
-        slot."""
-        bf = self.buffers(*key)
-        self._zero_inputs(bf)
-        self.prefill(bf)
-        return bf
-
     def _zero_inputs(self, bf: PrefillBuffers) -> None:
         bf.packed.zero_()
         if bf.counts is not None:
             bf.counts.zero_()
         if self.r.spec_n:
             self._scalars(bf)[12].fill_(self.r.spec_num_slots)
-
-    # ---------------------------------------------------------- capture
-    def warm(self, keys: List[PrefillKey]) -> None:
-        """Run every new family of ``keys`` once eagerly on the capture
-        stream, on the thread that will capture them, then release the
-        allocator's cache. Capture needs the thread's cuBLAS handle and
-        workspace made outside it, and on the card a family whose shapes
-        never ran in the process captures several times slower than one
-        that ran (``PERF.md``, Findings), more than its warm run costs. Run
-        before any graph holds pool memory, so the peak is one family's
-        temporaries, not the pool's plus one family's."""
-        device = self.r.device
-        t0 = time.monotonic()
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device)
-        self._stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(self._stream):
-            for key in keys:
-                if key not in self.graphs:
-                    self.dummy_dispatch(key)
-        torch.cuda.current_stream(device).wait_stream(self._stream)
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        self.warm_seconds += time.monotonic() - t0
-
-    def capture(self, keys: List[PrefillKey]) -> None:
-        """Record one graph per family of ``keys`` (``warm`` ran them) into
-        the decode train's graph pool, one after another on the capture
-        stream. A failed capture raises, naming the family: there is no
-        eager fallback for a family that was meant to be captured."""
-        r = self.r
-        if r.mesh is not None:
-            raise RuntimeError("prefill graphs are not captured on a mesh "
-                               "of more than one rank")
-        device = r.device
-        self.reserve(keys)
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        reserved0 = torch.cuda.memory_reserved(device)
-        t0 = time.monotonic()
-        train = r.decode_train
-        if train.pool is None:
-            train.pool = torch.cuda.graph_pool_handle()
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device)
-        # No synchronization or cache release between two captures
-        # (torch.cuda.graph does both per graph).
-        self._stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(self._stream):
-            for key in keys:
-                if key in self.graphs:
-                    continue  # an engine restarted: its graphs stay valid
-                bf = self.buffers(*key)
-                self._zero_inputs(bf)
-                graph = torch.cuda.CUDAGraph(keep_graph=True)
-                try:
-                    graph.capture_begin(pool=train.pool)
-                    try:
-                        self.prefill(bf)
-                    finally:
-                        graph.capture_end()
-                    self.nodes[key] = pa.graph_node_counts(graph)[1]
-                    graph.instantiate()
-                except Exception as e:
-                    raise RuntimeError(
-                        f"prefill family (b, t, mb, has_window, penalties, "
-                        f"logprobs)={key}: CUDA graph capture failed: "
-                        f"{e}") from e
-                self.graphs[key] = graph
-                self.warmed.add(key)
-        torch.cuda.current_stream(device).wait_stream(self._stream)
-        torch.cuda.synchronize(device)
-        self.capture_seconds += time.monotonic() - t0
-        torch.cuda.empty_cache()
-        grown = max(0, torch.cuda.memory_reserved(device) - reserved0)
-        self.pool_bytes += grown
-        # The pool is shared: the decode train reports its whole size.
-        train.pool_bytes += grown
-        logger.info(
-            "prefill graphs: %d families, %d nodes max, %.2f s to capture, "
-            "graph pool +%.1f MiB", len(self.graphs),
-            max(self.nodes.values(), default=0), self.capture_seconds,
-            grown / 2**20)
-
     def check(self, keys: List[PrefillKey]) -> None:
         """Fail warm-up when a family of ``keys`` was not warmed."""
         missed = [k for k in keys if k not in self.warmed]

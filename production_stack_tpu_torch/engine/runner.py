@@ -51,7 +51,9 @@ Counterpart of ``production_stack_tpu/engine/runner.py`` (main path only):
     rows; R ring tokens) in the compute dtype, updated in place. Prefill
     runs the draft over each chunk into the row's ring; a row whose context
     the ring has not seen (a prefix-cache hit, a restore, a handoff) is
-    caught up by an eager draft ingest before its prefill or decode. A
+    caught up by a draft ingest before its prefill or decode
+    (``engine/ingest_graphs.py``: one CUDA graph per token bucket, replayed
+    at dp = 1 after warm-up). A
     decode dispatch runs the speculative train of ``decode_graphs.py``
     (draft N + 1, verify once, accept on the device); its fetch returns
     each row's accepted tokens, a variable count, and feeds the adaptive
@@ -123,6 +125,10 @@ from production_stack_tpu_torch.engine.decode_graphs import (
     POS_SENTINEL,
     DecodeTrain,
     FamilyKey,
+)
+from production_stack_tpu_torch.engine.ingest_graphs import (
+    INGEST_SCALARS,
+    IngestTrain,
 )
 from production_stack_tpu_torch.engine.prefill_graphs import (
     PrefillKey,
@@ -414,6 +420,8 @@ class ModelRunner:
                          tp_size)
             if lora_registry is not None else None)
         self._init_spec(draft_params, broadcast_draft_params)
+        # Its peak is reserved when the pool is sized.
+        self.ingest_train = IngestTrain(self)
         if self.mesh is not None:
             # Every rank's weights are resident before any rank reads the
             # free memory its pool may take.
@@ -748,10 +756,12 @@ class ModelRunner:
         forward's K/V [Ld, Hd, b, t, Dd] at ``positions`` [b, t], entries
         where ``keep``; rows where ``reset`` first forget their ring. The
         rings are gathered, written through a trash row and scattered back
-        in place (the decode graphs hold the pools' addresses)."""
+        in place (the decode graphs hold the pools' addresses). Each row
+        reads the ring it writes back, so a row naming the trash slot
+        ``spec_num_slots`` touches no other."""
         b = slot_idx.shape[0]
         r_len = self.spec_ring_len
-        slot_c = torch.clamp(slot_idx, 0, self.spec_num_slots - 1).long()
+        slot_c = slot_idx.long()
         ld, hd, dd = dk.shape[0], dk.shape[1], dk.shape[-1]
         drk = torch.empty((ld, hd, b + 1, r_len, dd), dtype=self.dtype,
                           device=self.device)
@@ -768,63 +778,54 @@ class ModelRunner:
         drk.view(ld, hd, -1, dd).index_copy_(2, widx, dk.reshape(ld, hd, b * t, dd))
         drv.view(ld, hd, -1, dd).index_copy_(2, widx, dv.reshape(ld, hd, b * t, dd))
         drp.view(-1).index_copy_(0, widx, positions.reshape(-1).int())
-        self.spec_k.index_copy_(2, slot_idx.long(), drk[:, :, :b])
-        self.spec_v.index_copy_(2, slot_idx.long(), drv[:, :, :b])
-        self.spec_pos.index_copy_(0, slot_idx.long(), drp[:b])
+        self.spec_k.index_copy_(2, slot_c, drk[:, :, :b])
+        self.spec_v.index_copy_(2, slot_c, drv[:, :, :b])
+        self.spec_pos.index_copy_(0, slot_c, drp[:b])
 
     def _spec_catch_up(self, seq, upto: int) -> None:
         """Ensure the sequence's draft ring covers context up to ``upto``
         (exclusive): ingest the most recent min(R, upto) tokens it has not
-        seen, through the draft, eagerly (the reference's
-        ``_spec_catch_up`` and ``_spec_ingest_jit``; on a mesh a
+        seen, through the draft (the reference's ``_spec_catch_up`` and
+        ``_spec_ingest_jit``): the bucket's graph replayed at dp = 1 after
+        warm-up, else ``IngestTrain.body`` eagerly (on a mesh a
         ``SPEC_INGEST`` descriptor runs it on every rank). Acceptance only,
-        never output correctness."""
+        never output correctness. Its host seconds count by bucket."""
         rid = seq.request_id
         warmed = self._spec_warmed.get(rid, 0)
         if warmed >= upto:
             return
-        r_len = self.spec_ring_len
-        lo = max(0, upto - r_len, min(warmed, upto))
+        t0 = time.perf_counter()
+        lo = max(0, upto - self.spec_ring_len, min(warmed, upto))
         toks = seq.all_token_ids[lo:upto]
         if not toks:
             self._spec_warmed[rid] = upto
             return
         slot = self.spec_slot(rid)
-        t = _bucket(len(toks), 16, max(16, 1 << (r_len - 1).bit_length()))
-        padded = torch.zeros((t,), dtype=torch.int32)
-        padded[:len(toks)] = torch.tensor(toks, dtype=torch.int32)
+        train = self.ingest_train
+        t = train.bucket(len(toks))
+        packed = train.host_packed(t, lo, len(toks), slot)
+        packed.numpy()[INGEST_SCALARS:INGEST_SCALARS + len(toks)] = toks
         with self._dispatch_lock():
             if self.mesh is not None:
                 self.mesh.send_header(pmesh.SPEC_INGEST, slot, lo, len(toks),
                                       t)
-                self.mesh.bcast(padded)
-            self._spec_ingest_device(padded, lo, len(toks), slot)
+                self.mesh.bcast(packed[INGEST_SCALARS:])
+            self._spec_ingest_device(packed)
         self._spec_warmed[rid] = upto
+        host = train.host_by_bucket.setdefault(t, [0, 0.0])
+        host[0] += 1
+        host[1] += time.perf_counter() - t0
 
-    def _spec_ingest_device(self, padded: torch.Tensor, lo: int, n: int,
-                            slot: int) -> None:
-        """The device part of a catch-up, on every rank: the draft over the
-        ``n`` tokens at the head of ``padded`` [t] (host int32; positions
-        from ``lo``) into draft-ring slot ``slot``."""
-        t = padded.numel()
-        dev = self.device
+    def _spec_ingest_device(self, packed: torch.Tensor) -> None:
+        """The device part of a catch-up, on every rank: ``packed``
+        (``IngestTrain.host_packed``: lo, n, the slot, then the bucket's
+        tokens) staged into the ingest arena on the dispatch stream, then
+        the bucket's graph or ``IngestTrain.body`` eagerly."""
+        train = self.ingest_train
         self.spec_ingests_total += 1
         with torch.no_grad(), self._io_stream():
-            padded = padded.to(dev)[None, :]
-            positions = lo + torch.arange(t, dtype=torch.int32,
-                                          device=dev)[None, :]
-            length = torch.full((1,), n, dtype=torch.int32, device=dev)
-            slot_idx = torch.full((1,), slot, dtype=torch.int32, device=dev)
-            slot_c = slot_idx.long()
-            _, dk, dv = self.draft_forward(
-                self.spec_params, self.spec_draft_config, padded,
-                torch.clamp(positions, max=self.spec_draft_max_pos - 1),
-                length, None, None, None, self.spec_k[:, :, slot_c],
-                self.spec_v[:, :, slot_c], self.spec_pos[slot_c])
-            in_chunk = torch.arange(t, device=dev)[None, :] < n
-            self._spec_ring_write(dk, dv, positions, in_chunk, slot_idx,
-                                  torch.zeros((1,), dtype=torch.bool,
-                                              device=dev))
+            bf = train.stage(packed)
+            train.run(bf.t, bf)
 
     @property
     def spec_acceptance_rate(self) -> float:
@@ -915,9 +916,10 @@ class ModelRunner:
         windows hold dequantized compute-dtype K/V and cost those bytes.
         On the card at tp = 1 warm-up captures every prefill family as a
         CUDA graph, whose temporaries the graph pool holds for the engine's
-        life: the largest family's peak (``prefill_peak_bytes``) is
-        reserved. Without graphs (the CPU, a mesh) prefill takes its
-        temporaries transiently, and only its history window is reserved.
+        life: the largest family's peak (``prefill_peak_bytes``), or the
+        largest draft-ingest bucket's when it is larger, is reserved.
+        Without graphs (the CPU, a mesh) prefill takes its temporaries
+        transiently, and only its history window is reserved.
         An overlapped load reserves its loader's largest transient
         (``loader_reserve_bytes``), which comes after the pool is sized.
         Bytes are this rank's (its kv heads); mesh ranks sharing one card
@@ -934,12 +936,16 @@ class ModelRunner:
             free_bytes = 2 << 30
         budget = int(free_bytes * cfg.hbm_utilization) - self.loader_reserve_bytes
         graphs = self.device.type == "cuda" and self.mesh is None
+        # The ingest graphs share the pool: the larger peak is reserved.
+        ingest_peak = (self.ingest_train.peak_bytes(self.ingest_train.t_max)
+                       if graphs and self.spec_n else 0)
         if self.attn_impl == "window":
             # Windows are counted per block; the graphs' other temporaries
             # are reserved.
-            extra = max((self.prefill_peak_bytes(*f, window=False)
-                         for f in self.reachable_prefill_families(1 << 30)),
-                        default=0) if graphs else 0
+            extra = max([ingest_peak] + [
+                self.prefill_peak_bytes(*f, window=False)
+                for f in self.reachable_prefill_families(1 << 30)]
+                ) if graphs else 0
             reserve_bytes = min(extra, budget // 2)
             n_eager = budget // (bytes_per_block + window_bytes_per_block)
             n = (budget - reserve_bytes) // (bytes_per_block
@@ -960,7 +966,7 @@ class ModelRunner:
             reserve_bytes = window_reserve
             if graphs:
                 reserve_bytes = min(budget // 2, max(
-                    [window_reserve] + [
+                    [window_reserve, ingest_peak] + [
                         self.prefill_peak_bytes(*f)
                         for f in self.reachable_prefill_families(
                             self._prefill_window_blocks)]))
@@ -1213,8 +1219,11 @@ class ModelRunner:
         library is built first), then one graph of every prefill family of
         ``prefill_graph_keys`` into the same pool (``PrefillTrain.capture``;
         each family runs once eagerly before anything is captured,
-        ``PrefillTrain.warm``); on the CPU, run each family's all-zero dummy
-        dispatch eagerly.
+        ``PrefillTrain.warm``), and on a speculative engine one graph of
+        every draft-ingest bucket (``IngestTrain``: warmed after the
+        weights are joined, before the first capture; every start captures
+        them all); on the CPU, run each family's and bucket's all-zero
+        dummy dispatch eagerly.
         Dummy dispatches have budget 0, chunk length 0 and table 0 in every
         row, so they write only the null block: the pool's other blocks
         survive warmup.
@@ -1269,10 +1278,14 @@ class ModelRunner:
             dwarm = [k for k in keys if not (k[3] or k[4])]
             pwarm = [k for k in pkeys if not (k[4] or k[5])]
         train, prefill = self.decode_train, self.prefill_train
+        ingest = self.ingest_train
+        # Every start warms every ingest bucket: it has no variants.
+        ikeys = ingest.buckets() if self.spec_n else []
         # The arenas hold every family first (captured graphs hold their
         # addresses), the deferred ones included.
         train.reserve(keys)
         prefill.reserve(self._prefill_arena_keys())
+        ingest.reserve(ikeys)
         if first:
             train.deferred = set(keys) - set(dwarm)
             prefill.deferred = set(pkeys) - set(pwarm)
@@ -1282,6 +1295,12 @@ class ModelRunner:
                 prefill.warm(pwarm)
                 phases["warm_runs"] = time.monotonic() - t
                 self._join_weights(t0)
+                if ikeys:
+                    # The draft's weights are joined: its warm runs, before
+                    # any graph holds pool memory.
+                    t = time.monotonic()
+                    ingest.warm(ikeys)
+                    phases["warm_runs"] += time.monotonic() - t
                 # The logprob variants are captured apart, so their share
                 # of the graph pool is read.
                 t = time.monotonic()
@@ -1291,6 +1310,10 @@ class ModelRunner:
                 t = time.monotonic()
                 prefill.capture(pwarm)
                 phases["prefill_capture"] = time.monotonic() - t
+                if ikeys:
+                    t = time.monotonic()
+                    ingest.capture(ikeys)
+                    phases["ingest_capture"] = time.monotonic() - t
         else:
             t = time.monotonic()
             for key in dwarm:
@@ -1300,14 +1323,21 @@ class ModelRunner:
                 prefill.warmed.add(key)
             phases["warm_runs"] = time.monotonic() - t
             self._join_weights(t0)
+            t = time.monotonic()
+            for key in ikeys:
+                ingest.dummy_dispatch(key)
+                ingest.warmed.add(key)
+            phases["warm_runs"] += time.monotonic() - t
         prefill.check(pwarm)
         if first:
             # CUDA graphs do not persist: every variant warmed here was
             # captured from scratch (a miss), none is a hit. Deferred: the
             # reference's rule, len(variants) - 1 per family, so an adaptive
-            # speculative engine's plain-train twins are not counted.
+            # speculative engine's plain-train twins are not counted. The
+            # ingest buckets count as the reference's ``n_warmed`` does.
             spec = bool(self.spec_n)
-            self.startup_cache_miss_families = len(dwarm) + len(pwarm)
+            self.startup_cache_miss_families = (len(dwarm) + len(pwarm)
+                                                + len(ikeys))
             self.startup_cache_hit_families = 0
             self.startup_deferred_families = (
                 sum(1 for k in keys if (k[3] or k[4]) and k[5] == spec)
@@ -1319,20 +1349,22 @@ class ModelRunner:
                 self._write_manifest(self._manifest)
         self._warmed_up = True
         if not first:
-            logger.info("warmup: %d decode and %d prefill families already "
-                        "warm (%.2f s)", len(dwarm), len(pwarm),
-                        time.monotonic() - t0)
+            logger.info("warmup: %d decode, %d prefill and %d ingest families "
+                        "already warm (%.2f s)", len(dwarm), len(pwarm),
+                        len(ikeys), time.monotonic() - t0)
             return
         logger.info(
-            "warmup: %d decode and %d prefill families in %.2f s (%s); start "
-            "phases (s): weight load %.2f, kernel build %.2f, warm runs %.2f, "
-            "decode capture %.2f, prefill capture %.2f, overlapped with the "
-            "load %.2f; %d variants deferred to first use (manifest %s)",
-            len(dwarm), len(pwarm), time.monotonic() - t0,
+            "warmup: %d decode, %d prefill and %d ingest families in %.2f s "
+            "(%s); start phases (s): weight load %.2f, kernel build %.2f, "
+            "warm runs %.2f, decode capture %.2f, prefill capture %.2f, "
+            "ingest capture %.2f, overlapped with the load %.2f; %d variants "
+            "deferred to first use (manifest %s)",
+            len(dwarm), len(pwarm), len(ikeys), time.monotonic() - t0,
             "CUDA graphs" if cuda else "eager",
             self.startup_weight_load_seconds, phases["kernel_build"],
             phases.get("warm_runs", 0.0), phases.get("decode_capture", 0.0),
-            phases.get("prefill_capture", 0.0), self.startup_compile_seconds,
+            phases.get("prefill_capture", 0.0),
+            phases.get("ingest_capture", 0.0), self.startup_compile_seconds,
             len(train.deferred) + len(prefill.deferred),
             "verified" if verified else
             "written" if self._manifest is not None else "off")
@@ -2420,9 +2452,9 @@ class ModelRunner:
                 continue
             if kind == pmesh.SPEC_INGEST:
                 slot, lo, n, t = h[1:5]
-                padded = torch.empty((t,), dtype=torch.int32)
-                m.bcast(padded)
-                self._spec_ingest_device(padded, lo, n, slot)
+                packed = self.ingest_train.host_packed(t, lo, n, slot)
+                m.bcast(packed[INGEST_SCALARS:])
+                self._spec_ingest_device(packed)
                 continue
             if kind in (pmesh.KV_READ, pmesh.KV_WRITE):
                 n, quantized, step = h[1:4]

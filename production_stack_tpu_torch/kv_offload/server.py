@@ -1,27 +1,44 @@
 """The shared KV cache server: ``python -m
 production_stack_tpu_torch.kv_offload.server --port 8200``.
 
-The port's own copy of the pure-Python server of
-``production_stack_tpu/kv_offload/server.py`` (the JAX package's module
-cannot be imported where JAX is not installed). The same wire protocol
-(see kv_offload/remote.py) and the same chain-aware store
+The port's own copy of ``production_stack_tpu/kv_offload/server.py`` (the
+JAX package's module cannot be imported where JAX is not installed). It
+runs the native core (``native/kv_server.cpp``'s binary, built by ``make
+-C native``) when ``find_native_binary`` finds one and ``--force-python``
+is absent, and otherwise serves the same wire protocol (see
+kv_offload/remote.py) in pure Python over the same chain-aware store
 (kv_offload/chain_lru.py), so the stack's router, the JAX package's
-engines and the port's engines all talk to it unchanged. The native core
-(``native/kv_server.cpp``) is not run from here.
+engines and the port's engines all talk to it unchanged.
 
 'P' payloads wrapped in the PKC1 chain envelope declare their parent's
 store key; the blob is stored as received. 'M' is a pipelined multi-get,
 'I' a read-only residency query, 'H' the hottest chains (read-only), 'D'
-a delete (the disagg lease), 'T' stats. ``--port 0`` picks a free port;
-the server prints ``kv_server listening on HOST:PORT`` on stdout once it
-accepts connections.
+a delete (the disagg lease), 'T' stats. The native core predates 'M', 'I',
+'H' and 'D' and answers them ``STATUS_ERROR``: ``RemoteKVClient`` then
+degrades to per-key gets and existence checks, and prewarm and the disagg
+lease's delete do nothing, as against the JAX package's server. Its store
+is a flat LRU, not chain-aware.
+
+``--port 0`` picks a free port; the server prints ``kv_server listening on
+HOST:PORT`` on stdout once it accepts connections, whichever core serves.
+The native core binds every interface (it takes no host), so a ``--host``
+that names one address fails the server unless ``--force-python`` is
+given; it exits with its own code, which is the server's; SIGTERM and
+SIGINT are passed on to it.
 """
 
 import argparse
 import asyncio
+import ctypes
 import json
+import os
+import shutil
+import signal
+import socket
 import struct
+import subprocess
 import sys
+import time
 
 import torch  # noqa: F401 — every module of the port is a torch module
 
@@ -32,6 +49,11 @@ from production_stack_tpu_torch.utils import init_logger
 logger = init_logger(__name__)
 
 STATUS_OK, STATUS_MISSING, STATUS_ERROR = 0, 1, 2
+# Seconds the native core has to accept connections before the server
+# fails.
+NATIVE_STARTUP_TIMEOUT_S = 30.0
+# Hosts that mean every interface: the only ones the native core serves.
+WILDCARD_HOSTS = ("0.0.0.0", "", "::")
 
 
 def unpack_key_list(val: bytes):
@@ -59,6 +81,88 @@ def pack_key_list(keys) -> bytes:
     for k in keys:
         out.append(struct.pack("<I", len(k)) + k)
     return b"".join(out)
+
+
+def find_native_binary() -> str:
+    """The native core's binary (the reference's candidates):
+    ``native/build/kv_server`` beside this checkout, then ``kv_server`` on
+    ``PATH``; "" when neither is an executable file."""
+    candidates = [
+        os.path.join(os.path.dirname(__file__), "..", "..", "native",
+                     "build", "kv_server"),
+        shutil.which("kv_server") or "",
+    ]
+    for c in candidates:
+        c = os.path.abspath(c) if c else ""
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    return ""
+
+
+def _die_with_parent() -> None:
+    """In the child, before exec: SIGTERM it when this process dies, so a
+    killed server leaves no native core behind (Linux ``prctl``)."""
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGTERM)  # PR_SET_PDEATHSIG
+    except (AttributeError, OSError):
+        pass
+
+
+def _exit_code(rc: int) -> int:
+    """A child's return code as a shell's exit code: 128 + the signal that
+    ended it."""
+    return 128 - rc if rc < 0 else rc
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("", 0))
+        return s.getsockname()[1]
+
+
+def serve_native(binary: str, host: str, port: int, max_bytes: int) -> int:
+    """Run the native core on ``port`` (a free one when 0) and announce it
+    once it accepts connections; returns its exit code (128 + the signal
+    that ended it). A core that exits or does not accept connections within
+    ``NATIVE_STARTUP_TIMEOUT_S`` fails the server: nothing falls back to
+    Python. The core binds every interface: a ``host`` that names one
+    address fails the server too, rather than expose the store beyond it
+    (``--force-python`` serves on that address)."""
+    if host not in WILDCARD_HOSTS:
+        logger.error("the native kv_server binds every interface and cannot "
+                     "bind --host %s; pass --force-python to serve there",
+                     host)
+        return 2
+    if port == 0:
+        port = _free_port()
+    proc = subprocess.Popen(
+        [binary, "--port", str(port), "--max-bytes", str(max_bytes)],
+        preexec_fn=_die_with_parent)
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda s, _f: proc.send_signal(s))
+    deadline = time.monotonic() + NATIVE_STARTUP_TIMEOUT_S
+    while True:
+        rc = proc.poll()
+        if rc is not None:
+            logger.error("native kv_server %s exited with %d before it "
+                         "accepted connections on port %d", binary, rc, port)
+            return _exit_code(rc) or 1
+        try:
+            socket.create_connection(("127.0.0.1", port), 0.5).close()
+            break
+        except OSError:
+            if time.monotonic() > deadline:
+                logger.error("native kv_server %s did not accept connections "
+                             "on port %d within %.0f s", binary, port,
+                             NATIVE_STARTUP_TIMEOUT_S)
+                proc.kill()
+                proc.wait()
+                return 1
+            time.sleep(0.05)
+    logger.info("native kv_server %s listening on port %d (max %d bytes)",
+                binary, port, max_bytes)
+    print(f"kv_server listening on {host}:{port}", flush=True)
+    return _exit_code(proc.wait())
 
 
 class PyKVServer:
@@ -159,7 +263,15 @@ def main(argv=None) -> int:
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8200)
     ap.add_argument("--max-bytes", type=int, default=32 << 30)
+    ap.add_argument("--force-python", action="store_true",
+                    help="skip the native binary even if present")
     args = ap.parse_args(argv)
+    if not args.force_python:
+        binary = find_native_binary()
+        if binary:
+            return serve_native(binary, args.host, args.port, args.max_bytes)
+        logger.warning("Native kv_server binary not found "
+                       "(build with `make -C native`); using Python server")
     try:
         asyncio.run(serve_python(args.host, args.port, args.max_bytes,
                                  announce=True))

@@ -11,7 +11,7 @@ at the URLs this prints), and of ``__graft_entry__.py:entry``.
 
 prints ``{"urls": [...], "ready_s": [...], "pids": [...]}`` on one line,
 then serves until SIGTERM or SIGINT, which drains and stops every engine.
-``--kv-server`` first starts the port's cache server
+``--kv-server`` first starts the port's Python cache server on loopback
 (``kv_offload/server.py``) and points every engine at it
 (``--kv-remote-url``; its URL is printed as ``kv_url``); ``--roles
 prefill,decode`` gives engine i the i-th role, the disaggregated pair the
@@ -47,6 +47,8 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 import torch
+
+from production_stack_tpu_torch.kv_offload.server import find_native_binary
 
 # The directory holding the package: engine processes import it from there
 # whether or not the package is installed.
@@ -121,19 +123,26 @@ class KVServerHandle:
 
 
 def launch_kv_server(max_bytes: int = 8 << 30, log_dir: Optional[str] = None,
-                     startup_timeout_s: float = 60.0) -> KVServerHandle:
+                     startup_timeout_s: float = 60.0,
+                     force_python: bool = False) -> KVServerHandle:
     """Start the port's cache server (``python -m
     production_stack_tpu_torch.kv_offload.server``) on a free port and wait
-    until it accepts connections."""
+    until it accepts connections: the native core where one is built, the
+    Python server when there is none or ``force_python`` (its batched ops,
+    prewarm and the disagg lease need it). The Python server binds the
+    loopback address alone; the native core takes no host and binds every
+    interface, so ask for ``force_python`` where the store must not be
+    reachable from other hosts."""
     log_dir = log_dir or tempfile.mkdtemp(prefix="pstpu-torch-kv-")
     os.makedirs(log_dir, exist_ok=True)
     port = free_port()
     path = os.path.join(log_dir, f"kv-server-{port}.log")
+    native = not force_python and bool(find_native_binary())
     with open(path, "wb") as log:
         proc = subprocess.Popen(
             [sys.executable, "-m", "production_stack_tpu_torch.kv_offload.server",
-             "--host", "127.0.0.1", "--port", str(port),
-             "--max-bytes", str(max_bytes)],
+             "--port", str(port), "--max-bytes", str(max_bytes)]
+            + ([] if native else ["--force-python", "--host", "127.0.0.1"]),
             stdout=log, stderr=subprocess.STDOUT, env=_child_env())
     handle = KVServerHandle(f"kv://127.0.0.1:{port}", port, proc, path)
     deadline = time.monotonic() + startup_timeout_s
@@ -248,8 +257,8 @@ def main(argv=None) -> None:
     p.add_argument("--log-dir", default=None)
     p.add_argument("--startup-timeout", type=float, default=1800.0)
     p.add_argument("--kv-server", action="store_true",
-                   help="start the port's cache server and pass its URL to "
-                        "every engine as --kv-remote-url")
+                   help="start the port's Python cache server on loopback "
+                        "and pass its URL to every engine as --kv-remote-url")
     p.add_argument("--roles", default=None,
                    help="comma list, one disagg role per engine "
                         "(unified, prefill, decode)")
@@ -272,7 +281,9 @@ def main(argv=None) -> None:
                       for i, v in enumerate(values)]
     kv = None
     if args.kv_server:
-        kv = launch_kv_server(log_dir=args.log_dir)
+        # The disaggregated pair's lease needs the Python server, which
+        # binds loopback alone (the reference's stack launcher pins it).
+        kv = launch_kv_server(log_dir=args.log_dir, force_python=True)
         extra = ["--kv-remote-url", kv.url, *extra]
     try:
         handle = launch_engines(args.model, args.num_engines, extra,

@@ -122,7 +122,8 @@ def server_processes():
          "--max-bytes", str(1 << 24)],
         cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
         stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
-    phandle = launch_kv_server(max_bytes=1 << 24)
+    # The Python server: the wire ops and ``impl`` below are its own.
+    phandle = launch_kv_server(max_bytes=1 << 24, force_python=True)
     try:
         _wait_tcp(port, jproc)
         yield {"jax": f"kv://127.0.0.1:{port}", "port": phandle.url}

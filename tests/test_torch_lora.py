@@ -385,7 +385,7 @@ def test_prefix_spilled_under_an_adapter_restores_only_under_it(adapters):
     engine's."""
     from production_stack_tpu_torch.launch import launch_kv_server
 
-    kv = launch_kv_server(max_bytes=1 << 24)
+    kv = launch_kv_server(max_bytes=1 << 24, force_python=True)
     prompt = "a prefix of several blocks spilled under one adapter " * 2
     sp = dict(temperature=0.0, max_tokens=6, ignore_eos=True)
     loop = asyncio.new_event_loop()
