@@ -159,11 +159,13 @@ serving):
      cache (both equal the twin); ``/prefix_index`` against
      ``prefix_digest``; ``read_blocks`` / ``write_blocks`` GB/s against a
      plain pinned copy of the same bytes; a prefill-role and a decode-role
-     engine launched by ``launch.py`` serve 4 chat requests over both hops
-     as the router drives them (tokens equal the unified engine's on the
-     same request; the decode engine replays its graphs, its kernel count
-     read from ``/debug/kernels``; the prefill engine forms no decode
-     batch); decode ms per step with spilling on and off, alternated. In
+     engine launched by ``launch.py`` (the prefill engine without a prefix
+     cache) serve 4 chat requests over both hops as the router drives them
+     (tokens equal the unified engine's on the same request; the decode
+     engine replays its graphs, its kernel count read from
+     ``/debug/kernels``; the prefill engine forms no decode batch), and
+     with the router phase the port's router sends them again (round (c)
+     below); decode ms per step with spilling on and off, alternated. In
      every round: no eager decode dispatch, the kernel's count layers x
      decode steps, every spill, restore and handoff failure counter 0;
      then kvtier-tp, the tier at tp = 2: per KV dtype (bf16, then int8)
@@ -264,7 +266,29 @@ serving):
      streams (2 greedy, 2 seeded) x 32 tokens, then a stream over a cached
      prompt head (its draft catch-up runs on both replicas): tokens and
      the speculative counters equal dp = 1's, both replicas' pool and
-     draft-ring digests equal; ms per token at dp = 2 and dp = 1.
+     draft-ring digests equal; ms per token at dp = 2 and dp = 1;
+ 15. router: the port's router (``python -m
+     production_stack_tpu_torch.router.app``, a CPU process) in front of port
+     engines: (a) ``launch.py --router-args`` starts two unified engines
+     (llama-3b at ``CUT_LAYERS``, bf16 KV, 1,024 blocks each, the kvtier
+     engines' warm-up manifest) behind a session router; 4 users x 3 rounds
+     of multi-round chat (``benchmarks/multi_round_qa.py``'s shape), 32
+     greedy streamed tokens, one request at a time: each user's rounds on one
+     engine (its ``/debug/requests/{id}``), rounds 2 and 3 adding prefix-cache
+     hits there, the tokens of the same request straight to that engine and
+     through the router again equal, each engine's kernel count layers x its
+     decode steps, every family of the router's series on ``/metrics`` with
+     both engines under ``server``; (b) the same through a cache-aware router
+     on the same engines; (c) in the kvtier phase, a disagg router in front of
+     its prefill/decode pair: the hand-driven chats' tokens, the decode
+     engine's graphs replayed, 4 handoffs; (d) last, user 0's engine
+     SIGKILLed after the first token of a 128-token stream: one whole stream
+     with a finish reason and no 5xx, the tokens after the cut equal to the
+     survivor's greedy continuation of the prompt plus the delivered tokens
+     sent straight to it, one resume counted, the dead engine's breaker open
+     in ``/health``. No router process holds memory on the card
+     (``nvidia-smi --query-compute-apps``); median TTFT and inter-token ms
+     through the router beside the same requests straight to the engine.
 
 Stdout carries the card line, one ``<phase> summary {...}`` line of JSON
 per phase (timings beside the SM clock nvidia-smi sampled meanwhile) and
@@ -285,6 +309,7 @@ import math
 import os
 import random
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -4094,12 +4119,13 @@ def kvtier_disagg(torch, pa, engine, loop, pd, kv_cache_dtype, seed):
     request("POST", dec + "/debug/kernels/reset")
     d0 = json.loads(request("GET", dec + "/debug/kernels")[2])["stats"]
     p0 = json.loads(request("GET", pre + "/debug/kernels")[2])["stats"]
-    rows = []
+    rows, bodies = [], []
     for i, p in enumerate(prompts):
         sp = dict(KVTIER_SAMPLINGS[i])
         body = {"model": engine.config.model_name, "max_tokens": KVTIER_DISAGG_TOKENS,
                 "ignore_eos": True, "stream": True,
                 "messages": [{"role": "user", "content": p}], **sp}
+        bodies.append(body)
         key = f"pstpu-transfer:kvtier-{kv_cache_dtype}-{i}"
         t0 = time.monotonic()
         st, _, text = request("POST", pre + "/disagg/prefill", body, {
@@ -4179,13 +4205,19 @@ def kvtier_disagg(torch, pa, engine, loop, pd, kv_cache_dtype, seed):
             [{"role": "user", "content": p}], add_generation_prompt=True)))
             for p in prompts]}
     log(f"kvtier disagg {kv_cache_dtype}: {json.dumps(summary_row)}")
+    # What the router's disagg round (phase 15 (c)) sends again.
+    summary_row["hand"] = {"bodies": bodies, "tokens": [r["tokens"] for r in rows],
+                           "ttft_s": [r["ttft_s"] for r in rows]}
     return launches, summary_row
 
 
 def kvtier_phase(torch, pa, device, seed, card, kv_cache_dtype, kv_url,
-                 model="llama-3b"):
+                 model="llama-3b", router=False):
     """The KV tier on the card for one KV dtype (see the module docstring).
-    Returns (the kernel launches of the phase's timed paths, the summary)."""
+    With ``router``, the router phase's disagg round (c) runs on the
+    phase's prefill/decode pair (its row and launches under
+    ``out["router_disagg"]``). Returns (the kernel launches of the phase's
+    timed paths, the summary)."""
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.engine import ServingEngine
     from production_stack_tpu_torch.engine.sampling import SamplingParams
@@ -4217,7 +4249,10 @@ def kvtier_phase(torch, pa, device, seed, card, kv_cache_dtype, kv_url,
                 model, 2, engine_args=common, device=device.type,
                 log_dir=log_dir,
                 startup_timeout_s=300,
-                per_engine_args=[["--role", "prefill", "--no-warmup"],
+                # No prefix cache on the prefill engine: every hop 1 of a
+                # prompt (by hand, then through the router) prefills it cold.
+                per_engine_args=[["--role", "prefill", "--no-warmup",
+                                  "--no-enable-prefix-caching"],
                                  ["--role", "decode"]])
         except BaseException as e:  # noqa: BLE001 — reported by the phase
             pd_holder["error"] = e
@@ -4302,6 +4337,12 @@ def kvtier_phase(torch, pa, device, seed, card, kv_cache_dtype, kv_url,
         n, out["disagg"] = kvtier_disagg(torch, pa, engine, loop, pd_holder["pd"],
                                          kv, seed)
         launches += n
+        if router:
+            out["router_disagg"] = router_disagg_round(
+                torch, pa, pd_holder["pd"], engine.config.model_name, kv_url, kv,
+                out["disagg"].pop("hand"), engine.model_config.num_layers)
+        else:
+            out["disagg"].pop("hand")
         # spilling on and off, alternated, on fresh short prompts
         spill = []
         for j, on in enumerate((True, False, True, False)):
@@ -6966,6 +7007,508 @@ def ckpt_overlap(torch, pa, device, seed, ckdir, served, prompts):
     return rows
 
 
+# ------------------------------------------------------ phase 15: router
+ROUTER_USERS = 4
+ROUTER_ROUNDS = 3
+ROUTER_TOKENS = 32                  # greedy tokens per round
+ROUTER_FAILOVER_TOKENS = 128        # the stream cut by SIGKILL in round (d)
+ROUTER_WATCHDOG_S = 600
+ROUTER_HTTP_TIMEOUT_S = 120
+# benchmarks/multi_round_qa.py's synthetic text and its defaults.
+QA_WORDS = ("the quick brown fox jumps over a lazy dog while curious engineers "
+            "measure throughput latency and cache behavior of serving stacks").split()
+QA_SYSTEM_WORDS = 120
+QA_QUESTION_WORDS = 12
+
+
+def qa_text(num_words, seed=0):
+    """``benchmarks/multi_round_qa.py:synth_text``."""
+    return " ".join(QA_WORDS[(seed + i) % len(QA_WORDS)] for i in range(max(1, num_words)))
+
+
+def qa_system_prompt():
+    return ("You are a helpful, knowledgeable assistant serving many users. "
+            + qa_text(QA_SYSTEM_WORDS))
+
+
+def qa_question(user, rnd, tag):
+    """``multi_round_qa.UserSession._question``: the user, the pass's tag,
+    the round, then filler."""
+    return f"user {user} {tag} {rnd}: " + qa_text(QA_QUESTION_WORDS, seed=user * 31 + rnd)
+
+
+def sse_request(url, body, headers, on_event=None, timeout=ROUTER_HTTP_TIMEOUT_S):
+    """One streamed POST read event by event: (status, JSON events, t_sent,
+    t_first event, t_end, ended in [DONE]). ``on_event(events)`` runs after
+    each event (round (d) kills the serving engine from it)."""
+    import http.client
+    from urllib.parse import urlsplit
+
+    parts = urlsplit(url)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port, timeout=timeout)
+    t0 = time.monotonic()
+    try:
+        conn.request("POST", parts.path, body=json.dumps(body), headers={
+            "Content-Type": "application/json", **headers})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            return resp.status, [resp.read().decode()], t0, None, time.monotonic(), False
+        events, t_first, done = [], None, False
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if t_first is None:
+                t_first = time.monotonic()
+            payload = line[len("data: "):]
+            if payload == "[DONE]":
+                done = True
+                continue
+            events.append(json.loads(payload))
+            if on_event is not None:
+                on_event(events)
+        return resp.status, events, t0, t_first, time.monotonic(), done
+    finally:
+        conn.close()
+
+
+def event_tokens(events):
+    """The token ids of a stream's pstpu payloads, checked contiguous."""
+    toks = []
+    for e in events:
+        meta = e.get("pstpu")
+        if meta is None:
+            continue
+        if meta["off"] != len(toks):
+            fail(f"router: pstpu offsets not contiguous ({meta['off']} after "
+                 f"{len(toks)} tokens)")
+        toks += meta["toks"]
+    return toks
+
+
+def engine_kernels(url):
+    st, _, text = request("GET", url + "/debug/kernels")
+    if st != 200:
+        fail(f"router: {url}/debug/kernels answered {st}")
+    return json.loads(text)
+
+
+def card_pids():
+    """pids holding memory on the card, from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    pids = {}
+    for line in out.stdout.splitlines():
+        pid, _, mem = line.partition(",")
+        if pid.strip().isdigit():
+            pids[int(pid)] = mem.strip()
+    return pids
+
+
+def nvidia_files(pid):
+    """The ``/dev/nvidia*`` device files a process holds open (CUDA's
+    initialisation opens them), or None when /proc does not say."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return None
+    out = []
+    for fd in fds:
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.append(target)
+    return sorted(set(out))
+
+
+def router_off_card(name, router_pids, engine_pids):
+    """No router process holds memory on the card (nvidia-smi's compute
+    apps; this container may list no pid there, so the engines' are counted
+    beside), nor holds any ``/dev/nvidia*`` file open (it never initialised
+    CUDA; the engines' open files are counted beside, showing the check
+    sees a process that did)."""
+    on = card_pids()
+    bad = {p: on[p] for p in router_pids if p in on}
+    if bad:
+        fail(f"router {name}: the router process holds memory on the card: {bad}")
+    files = {p: nvidia_files(p) for p in router_pids}
+    if any(f is None or f for f in files.values()):
+        fail(f"router {name}: the router process has /dev/nvidia files open (or "
+             f"/proc does not say): {files}")
+    return {"router_pids_on_card": 0, "router_nvidia_files": 0,
+            "engine_pids_listed": sum(p in on for p in engine_pids),
+            "engine_nvidia_files": [len(nvidia_files(p) or []) for p in engine_pids]}
+
+
+def median(xs):
+    xs = sorted(xs)
+    return None if not xs else (xs[len(xs) // 2] if len(xs) % 2
+                                else (xs[len(xs) // 2 - 1] + xs[len(xs) // 2]) / 2)
+
+
+def stream_times(sent, first, end, n_tokens):
+    return first - sent, 1e3 * (end - first) / max(1, n_tokens - 1)
+
+
+def router_chat_round(name, router_url, engines, model, n_layers, variant):
+    """``ROUTER_USERS`` users x ``ROUTER_ROUNDS`` rounds of multi-round chat
+    (``benchmarks/multi_round_qa.py``'s shape: a shared system prompt, each
+    user's history, the answer, a new question), streamed, greedy, one
+    request at a time through ``router_url``. For each request: the
+    engine that served it (its ``/debug/requests/{id}``), the prefix-cache
+    hits it added there (rounds 2 and 3 must hit), then the same request
+    straight to that engine and through the router again: those two find
+    the same prefix-cache state (the whole prompt cached), so their tokens
+    must be equal. Each engine's kernel counter must grow by layers x its
+    decode steps. Returns (launches, summary row, user -> engine)."""
+    for url in engines:
+        request("POST", url + "/debug/kernels/reset")
+    before = {url: engine_kernels(url)["stats"] for url in engines}
+    convs = [[{"role": "system", "content": qa_system_prompt()}]
+             for _ in range(ROUTER_USERS)]
+    where_of, rows, routed_t, direct_t = {}, [], [], []
+    for rnd in range(ROUTER_ROUNDS):
+        for u in range(ROUTER_USERS):
+            msgs = convs[u] + [{"role": "user", "content": qa_question(u, rnd, name)}]
+            body = {"model": model, "messages": msgs, "temperature": 0,
+                    "max_tokens": ROUTER_TOKENS, "ignore_eos": True, "stream": True,
+                    "stream_options": {"include_usage": True}}
+            rid = f"{name}-u{u}-r{rnd}"
+            user = {"x-user-id": f"user-{u}"}
+            hits0 = {url: engine_kernels(url)["stats"]["prefix_cache_hits"]
+                     for url in engines}
+            st, evs, t0, tf, te, done = sse_request(
+                router_url + "/v1/chat/completions", body, {**user, "x-request-id": rid})
+            toks = event_tokens(evs)
+            if st != 200 or not done or len(toks) != ROUTER_TOKENS:
+                fail(f"router {name} {rid}: HTTP {st}, [DONE] {done}, {len(toks)} tokens")
+            served = [url for url in engines
+                      if request("GET", f"{url}/debug/requests/{rid}")[0] == 200]
+            if len(served) != 1:
+                fail(f"router {name} {rid}: served by {served}")
+            where = served[0]
+            if where_of.setdefault(u, where) != where:
+                fail(f"router {name}: user {u}'s round {rnd} went to {where}, its "
+                     f"earlier rounds to {where_of[u]}")
+            hits = engine_kernels(where)["stats"]["prefix_cache_hits"] - hits0[where]
+            if rnd > 0 and hits <= 0:
+                fail(f"router {name} {rid}: no prefix-cache hit on {where} in round "
+                     f"{rnd + 1}")
+            st_d, evs_d, d0, df, de, done_d = sse_request(
+                where + "/v1/chat/completions", body,
+                {"x-request-id": rid + "-direct", "x-pstpu-resume": "1"})
+            st_r, evs_r, r0, rf, re_, done_r = sse_request(
+                router_url + "/v1/chat/completions", body,
+                {**user, "x-request-id": rid + "-again"})
+            toks_d, toks_r = event_tokens(evs_d), event_tokens(evs_r)
+            if (st_d, st_r, done_d, done_r) != (200, 200, True, True) or toks_r != toks_d:
+                first = next((i for i, (a, b) in enumerate(zip(toks_r, toks_d)) if a != b),
+                             None)
+                fail(f"router {name} {rid}: routed tokens differ from the same request "
+                     f"straight to {where} (HTTP {st_r}/{st_d}, first difference at "
+                     f"{first}, {len(toks_r)} vs {len(toks_d)} tokens)")
+            if request("GET", f"{where}/debug/requests/{rid}-again")[0] != 200:
+                fail(f"router {name} {rid}: the routed twin left {where}")
+            routed_t.append(stream_times(r0, rf, re_, len(toks_r)))
+            direct_t.append(stream_times(d0, df, de, len(toks_d)))
+            rows.append({"rid": rid, "engine": engines.index(where), "hits": hits,
+                         "first_equal_twin": toks == toks_d})
+            text = "".join(e["choices"][0]["delta"].get("content", "")
+                           for e in evs if e.get("choices"))
+            convs[u] = msgs + [{"role": "assistant", "content": text}]
+    launches, steps = {}, {}
+    for url in engines:
+        k = engine_kernels(url)
+        steps[url] = k["stats"]["decode_steps_total"] - before[url]["decode_steps_total"]
+        launches[url] = k["launch_counts"].get(variant, 0)
+        eager = (k["stats"]["decode_eager_dispatches_total"]
+                 - before[url]["decode_eager_dispatches_total"])
+        if launches[url] != n_layers * steps[url] or eager:
+            fail(f"router {name}: {url} launched {k['launch_counts']} for {steps[url]} "
+                 f"decode steps ({n_layers} layers), {eager} eager dispatches")
+    if not any(steps.values()):
+        fail(f"router {name}: no decode step on either engine")
+    row = {"requests": len(rows) * 3, "users_per_engine": [
+        sum(1 for w in where_of.values() if w == url) for url in engines],
+        "prefix_hits_rounds_2_3": [r["hits"] for r in rows[ROUTER_USERS:]],
+        "decode_steps": [steps[u] for u in engines],
+        "launches": [launches[u] for u in engines],
+        "first_pass_equal_twin": sum(r["first_equal_twin"] for r in rows),
+        "ttft_ms_median": {"router": 1e3 * median([t for t, _ in routed_t]),
+                           "direct": 1e3 * median([t for t, _ in direct_t])},
+        "itl_ms_median": {"router": median([i for _, i in routed_t]),
+                          "direct": median([i for _, i in direct_t])}}
+    log(f"router {name}: {json.dumps(row)}")
+    return sum(launches.values()), row, {u: engines.index(w) for u, w in where_of.items()}
+
+
+def router_metrics_check(name, router_url, engines):
+    """The router's /metrics: every family of the port's router metrics
+    (the JAX router's families, tests/test_torch_router_parity.py), and
+    both engines' scraped gauges under ``server``."""
+    from production_stack_tpu_torch.router import metrics as rmetrics
+
+    st, _, text = request("GET", router_url + "/metrics")
+    have = {ln.split()[2] for ln in text.splitlines() if ln.startswith("# TYPE ")}
+    want = {f.name + ("_total" if f.kind == "counter" else "") for f in rmetrics._FAMILIES}
+    if st != 200 or want - have:
+        fail(f"router {name}: /metrics {st}, families missing {sorted(want - have)}")
+    deadline = time.monotonic() + 30
+    while True:
+        series = parse_metrics(request("GET", router_url + "/metrics")[2])
+        servers = {lab.get("server") for lab, _ in series.get("vllm:num_requests_running", [])}
+        if set(engines) <= servers:
+            break
+        if time.monotonic() > deadline:
+            fail(f"router {name}: engines {engines} not all under server= in "
+                 f"vllm:num_requests_running ({servers})")
+        time.sleep(0.5)
+    return len(have)
+
+
+def router_disagg_round(torch, pa, pd, model, kv_url, kv_cache_dtype, hand, n_layers):
+    """Round (c): the port's router with ``--routing-logic disagg`` in front
+    of the kvtier phase's prefill/decode pair; the 4 chats ``kvtier_disagg``
+    drove by hand, through it: tokens equal the hand-driven hops', the
+    decode engine replays its graphs (its kernel count layers x its decode
+    steps), the router counts 4 handoffs and no fallback, and its process
+    holds no memory on the card. Returns (launches, summary row)."""
+    from production_stack_tpu_torch.launch import launch_router
+
+    pre, dec = pd.urls
+    router = launch_router(pd.urls, [model], [
+        "--routing-logic", "disagg", "--static-backend-roles", "prefill,decode",
+        "--kv-offload-url", kv_url, "--session-key", "x-user-id",
+        "--engine-stats-interval", "1"], os.path.dirname(DETAIL_LOG))
+    try:
+        request("POST", dec + "/debug/kernels/reset")
+        d0 = engine_kernels(dec)["stats"]
+        ttft, toks = [], []
+        for i, body in enumerate(hand["bodies"]):
+            st, evs, t0, tf, te, done = sse_request(
+                router.url + "/v1/chat/completions", body,
+                {"x-user-id": f"disagg-{i}", "x-request-id": f"router-disagg-{kv_cache_dtype}-{i}"})
+            got = event_tokens(evs)
+            if st != 200 or not done or got != hand["tokens"][i]:
+                fail(f"router disagg {kv_cache_dtype} chat {i}: HTTP {st}, [DONE] {done}, "
+                     f"tokens differ from the hand-driven hops' at "
+                     f"{next((j for j, (a, b) in enumerate(zip(got, hand['tokens'][i])) if a != b), None)}"
+                     f" ({len(got)} vs {len(hand['tokens'][i])})")
+            ttft.append(tf - t0)
+            toks.append(len(got))
+        k = engine_kernels(dec)
+        steps = k["stats"]["decode_steps_total"] - d0["decode_steps_total"]
+        eager = k["stats"]["decode_eager_dispatches_total"] - d0["decode_eager_dispatches_total"]
+        variant = pa.INT8 if kv_cache_dtype == "int8" else pa.BF16
+        launches = k["launch_counts"].get(variant, 0)
+        if launches != n_layers * steps or not steps or eager:
+            fail(f"router disagg {kv_cache_dtype}: decode engine launched "
+                 f"{k['launch_counts']} for {steps} decode steps, {eager} eager")
+        series = parse_metrics(request("GET", router.url + "/metrics")[2])
+        handoffs = sum(v for _, v in series.get("router_disagg_handoffs_total", []))
+        fallbacks = sum(v for _, v in series.get("router_disagg_fallbacks_total", []))
+        if handoffs != len(hand["bodies"]) or fallbacks:
+            fail(f"router disagg {kv_cache_dtype}: {handoffs} handoffs, {fallbacks} "
+                 "fallbacks")
+        off = router_off_card(f"disagg {kv_cache_dtype}", [router.proc.pid],
+                              [p.pid for p in pd.procs])
+    finally:
+        router.stop()
+    row = {"requests": len(toks), "tokens_equal_hand_driven": True, "decode_steps": steps,
+           "decode_launches": launches, "handoffs": handoffs,
+           "ttft_ms_median": {"router": 1e3 * median(ttft),
+                              "hand": 1e3 * median(hand["ttft_s"])}, **off}
+    log(f"router disagg {kv_cache_dtype}: {json.dumps(row)}")
+    return launches, row
+
+
+def router_failover(name, router_url, router_log, engines, pids, model, where_of, tag):
+    """Round (d), last: a stream of the session router's whose engine is
+    SIGKILLed after its first event. The client must get one whole stream
+    of ``ROUTER_FAILOVER_TOKENS`` tokens with a finish reason and no 5xx;
+    the tokens after the cut must equal the survivor's greedy continuation
+    of the prompt plus the delivered tokens, sent straight to it; the router
+    counts one resume, and the dead backend's breaker opens. Before the
+    stream the survivor is primed with the prompt plus the doomed engine's
+    own answer, so the routed resume and its direct twin find the same
+    prefix-cache state. Returns (the survivor's launches, summary row)."""
+    u = 0
+    a = engines[where_of[u]]
+    b = next(url for url in engines if url != a)
+    body = {"model": model, "temperature": 0, "max_tokens": ROUTER_FAILOVER_TOKENS,
+            "ignore_eos": True, "stream": True, "messages": [
+                {"role": "system", "content": qa_system_prompt()},
+                {"role": "user", "content": qa_question(u, 0, tag)}]}
+    resume = {"x-pstpu-resume": "1"}
+    answers = []
+    for i in range(2):
+        st, evs, *_ = sse_request(a + "/v1/chat/completions", body,
+                                  {**resume, "x-request-id": f"{name}-warm-{i}"})
+        answers.append(event_tokens(evs))
+    st, evs, *_ = sse_request(b + "/v1/chat/completions",
+                              {**body, "resume_tokens": answers[1][:-1]},
+                              {**resume, "x-request-id": f"{name}-prime"})
+    if st != 200:
+        fail(f"router {name}: priming {b} answered {st}")
+    request("POST", b + "/debug/kernels/reset")
+    b0 = engine_kernels(b)["stats"]
+    victim = pids[engines.index(a)]
+    killed = []
+
+    def on_event(events):
+        if not killed and event_tokens(events):
+            os.kill(victim, signal.SIGKILL)
+            killed.append(time.monotonic())
+
+    rid = f"{name}-failover"
+    st, evs, t0, tf, te, done = sse_request(
+        router_url + "/v1/chat/completions", body,
+        {"x-user-id": f"user-{u}", "x-request-id": rid}, on_event=on_event)
+    toks = event_tokens(evs)
+    finish = [c.get("finish_reason") for e in evs for c in e.get("choices", [])
+              if c.get("finish_reason")]
+    if st != 200 or not done or len(toks) != ROUTER_FAILOVER_TOKENS or finish != ["length"]:
+        fail(f"router {name}: the cut stream ended HTTP {st}, [DONE] {done}, "
+             f"{len(toks)} tokens, finish {finish}")
+    cut = None
+    deadline = time.monotonic() + 10
+    while cut is None and time.monotonic() < deadline:
+        for line in open(router_log, errors="replace"):
+            if f"Request {rid} resumed on" in line:
+                cut = int(line.rsplit("token offset", 1)[1].split()[0])
+        time.sleep(0.2)
+    if cut is None or not 0 < cut < ROUTER_FAILOVER_TOKENS:
+        fail(f"router {name}: no resume of {rid} in the router's log (cut {cut})")
+    st, evs_d, *_ = sse_request(b + "/v1/chat/completions",
+                                {**body, "resume_tokens": toks[:cut]},
+                                {**resume, "x-request-id": rid + "-direct"})
+    rest = []
+    for e in evs_d:
+        if "pstpu" in e:
+            rest += e["pstpu"]["toks"]
+    if st != 200 or toks[cut:] != rest:
+        fail(f"router {name}: tokens after the cut ({cut}) differ from {b}'s greedy "
+             f"continuation (first difference at "
+             f"{next((j for j, (x, y) in enumerate(zip(toks[cut:], rest)) if x != y), None)}, "
+             f"{len(toks) - cut} vs {len(rest)} tokens)")
+    series = parse_metrics(request("GET", router_url + "/metrics")[2])
+    resumed = sum(v for lab, v in series.get("router_midstream_resumes_total", [])
+                  if lab.get("outcome") == "resumed")
+    if resumed != 1:
+        fail(f"router {name}: router_midstream_resumes_total resumed = {resumed}")
+    follow, state = 0, None
+    while follow < 40:
+        follow += 1
+        st, *_ = sse_request(router_url + "/v1/chat/completions",
+                             {**body, "max_tokens": 4},
+                             {"x-user-id": f"user-{u}", "x-request-id": f"{rid}-after-{follow}"})
+        if st != 200:
+            fail(f"router {name}: request {follow} after the kill answered {st}")
+        state = json.loads(request("GET", router_url + "/health")[2]).get(
+            "circuit_breakers", {}).get(a)
+        if state == "open":
+            break
+    if state != "open":
+        fail(f"router {name}: {a}'s breaker is {state} after {follow} requests")
+    k = engine_kernels(b)
+    row = {"cut_at": cut, "tokens": len(toks), "kill_to_end_ms": 1e3 * (te - killed[0]),
+           "delivered_equal_warm_answer": toks[:cut] == answers[1][:cut],
+           "resumes": resumed, "requests_to_open": follow,
+           "survivor_decode_steps": k["stats"]["decode_steps_total"] - b0["decode_steps_total"]}
+    log(f"router {name} failover: {json.dumps(row)}")
+    return k, row
+
+
+def router_phase(torch, pa, device, seed, card, model, disagg_rows):
+    """Phase 15 (see the module docstring). ``disagg_rows``: round (c)'s
+    rows from the kvtier phase. Returns (launches, summary)."""
+    from production_stack_tpu_torch.launch import launch_router
+    from production_stack_tpu_torch.models.config import resolve_model_config
+
+    faulthandler.dump_traceback_later(ROUTER_WATCHDOG_S, exit=True)
+    log_dir = os.path.join(os.path.dirname(DETAIL_LOG), "router")
+    os.makedirs(log_dir, exist_ok=True)
+    n_layers = resolve_model_config(model).num_layers
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_up = time.monotonic()
+    launch_log = open(os.path.join(log_dir, "launch.log"), "w")
+    launcher = subprocess.Popen(
+        [sys.executable, "-m", "production_stack_tpu_torch.launch", "--model", model,
+         "--device", device.type, "--num-engines", "2", "--log-dir", log_dir,
+         "--startup-timeout", "600", "--router-args",
+         "--routing-logic session --session-key x-user-id --engine-stats-interval 1",
+         "--", *kvtier_server_args("bfloat16", seed)],
+        stdout=subprocess.PIPE, stderr=launch_log, text=True, cwd=here)
+    out = {"card": card}
+    launches = 0
+    cache_router = None
+    try:
+        line = launcher.stdout.readline()
+        if not line.startswith("{"):
+            fail(f"router: launch.py printed {line!r} (exit {launcher.poll()}); "
+                 f"see {log_dir}")
+        info = json.loads(line)
+        out["up_s"] = time.monotonic() - t_up
+        engines, pids = info["urls"], info["pids"]
+        session_url, session_pid = info["router_url"], info["router_pid"]
+        out["engine_ready_s"] = info["ready_s"]
+        # (a) session
+        with SmMhz() as clock:
+            n, out["session"], where_of = router_chat_round(
+                "session", session_url, engines, model, n_layers, pa.BF16)
+        out["session"]["sm_clock_mhz"] = clock.summary()
+        launches += n
+        out["session"]["families"] = router_metrics_check("session", session_url, engines)
+        out["session"].update(router_off_card("session", [session_pid], pids))
+        # (b) cache-aware, a second router on the same engines
+        t0 = time.monotonic()
+        cache_router = launch_router(engines, [model], [
+            "--routing-logic", "cache_aware_load_balancing", "--session-key", "x-user-id",
+            "--engine-stats-interval", "1"], log_dir)
+        out["cache_aware_router_up_s"] = time.monotonic() - t0
+        with SmMhz() as clock:
+            n, out["cache_aware"], _ = router_chat_round(
+                "cache-aware", cache_router.url, engines, model, n_layers, pa.BF16)
+        out["cache_aware"]["sm_clock_mhz"] = clock.summary()
+        launches += n
+        out["cache_aware"]["families"] = router_metrics_check(
+            "cache-aware", cache_router.url, engines)
+        out["cache_aware"].update(router_off_card(
+            "cache-aware", [cache_router.proc.pid], pids))
+        cache_router.stop()
+        cache_router = None
+        # (d) failover, last: it kills an engine
+        k, out["failover"] = router_failover(
+            "session", session_url, info["router_log"], engines, pids, model, where_of,
+            "failover")
+        launches += k["launch_counts"].get(pa.BF16, 0)
+        if k["launch_counts"].get(pa.BF16, 0) != n_layers * out["failover"]["survivor_decode_steps"]:
+            fail(f"router failover: the survivor launched {k['launch_counts']} for "
+                 f"{out['failover']['survivor_decode_steps']} decode steps")
+        out["failover"].update(router_off_card("failover", [session_pid], pids))
+    finally:
+        if cache_router is not None:
+            cache_router.stop()
+        if launcher.poll() is None:
+            launcher.send_signal(signal.SIGTERM)
+            try:
+                launcher.wait(120)
+            except subprocess.TimeoutExpired:
+                launcher.kill()
+                launcher.wait()
+        launch_log.close()
+        faulthandler.cancel_dump_traceback_later()
+    out["disagg"] = disagg_rows
+    log(f"router result {json.dumps(out)}")
+    return launches, out
+
+
 def main() -> None:
     t_main = time.monotonic()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -6973,12 +7516,13 @@ def main() -> None:
     ap.add_argument("--phases",
                     default="kernel,serving,graphs,elastic,check,tp,sp,surface,"
                             "kvtier,kvtier-tp,kvtier-native,spec,ckpt,opt-tp,"
-                            "spec-dp",
+                            "spec-dp,router",
                     help="comma list of kernel,serving,graphs,elastic,check,tp,"
                          "sp,surface,kvtier,kvtier-tp,kvtier-native,spec,ckpt,"
-                         "opt-tp,spec-dp,trace (build always "
+                         "opt-tp,spec-dp,router,trace (build always "
                          "runs; trace profiles one more served round after "
-                         "serving)")
+                         "serving; router runs kvtier too, whose pair its "
+                         "disagg round drives)")
     ap.add_argument("--tp-kernel-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # a rank of the tp phase's kernel check
     ap.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
@@ -6993,6 +7537,8 @@ def main() -> None:
     ap.add_argument("--kvtier-tp-peer", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    if "router" in phases:
+        phases.add("kvtier")
     if (args.kvtier_peer, args.kvtier_tp_peer, args.tp_kernel_rank) != (None,) * 3:
         # A helper process keeps its own detail log: opening the run's
         # would truncate it under the parent's writes.
@@ -7218,6 +7764,7 @@ def main() -> None:
     # The KV tier: one cache server for both KV dtypes (their keys live in
     # separate namespaces); each dtype's run is one main path.
     marks.append(("kvtier", time.monotonic()))
+    router_disagg = {}
     if "kvtier" in phases:
         from production_stack_tpu_torch.launch import launch_kv_server
 
@@ -7230,8 +7777,12 @@ def main() -> None:
             kvt = {}
             for kv in ("bfloat16", "int8"):
                 n, kvt[kv] = kvtier_phase(torch, pa, device, args.seed, card, kv,
-                                          kv_server.url, model=model)
+                                          kv_server.url, model=model,
+                                          router="router" in phases and kv == "bfloat16")
                 by_path["int8" if kv == "int8" else "bf16"]["kvtier"] = n
+                if "router_disagg" in kvt[kv]:
+                    n, router_disagg[kv] = kvt[kv].pop("router_disagg")
+                    by_path["int8" if kv == "int8" else "bf16"]["router"] = n
         finally:
             kv_server.stop()
         summary("kvtier", {kv: {
@@ -7391,6 +7942,18 @@ def main() -> None:
         n, spec_dp = spec_dp_phase(torch, pa, device, args.seed, card, cut_dirs)
         by_path["bf16"]["spec-dp"] = n
         summary("spec-dp", spec_dp)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # The port's router in front of port engines: rounds (a) session, (b)
+    # cache-aware and (d) failover here, (c) disagg in the kvtier phase;
+    # the engines' bf16 launches of (a), (b), (d) and (c) are the path.
+    marks.append(("router", time.monotonic()))
+    if "router" in phases:
+        n, rt = router_phase(torch, pa, device, args.seed, card,
+                             cut_model(torch, device, args.seed, "llama-3b", cut_dirs),
+                             router_disagg)
+        by_path["bf16"]["router"] = by_path["bf16"].get("router", 0) + n
+        summary("router", rt)
         gc.collect()
         torch.cuda.empty_cache()
     marks.append(("kernel", time.monotonic()))

@@ -25,6 +25,13 @@ import numpy as np
 
 import torch  # noqa: F401 — every module of the port is a torch module
 
+from production_stack_tpu_torch.disagg.headers import (  # noqa: F401
+    DISAGG_ENDPOINT_HEADER,
+    DISAGG_FALLBACK_HEADER,
+    DISAGG_KEY_HEADER,
+    DISAGG_ROLE_HEADER,
+    RESUME_HEADER,
+)
 from production_stack_tpu_torch.kv_offload.serde import get_serde
 from production_stack_tpu_torch.utils import init_logger
 
@@ -33,20 +40,6 @@ logger = init_logger(__name__)
 _MAGIC = b"PDX1"
 
 ENGINE_ROLES = ("unified", "prefill", "decode")
-
-# Router<->engine disagg headers (request_service.py sets them; the API
-# server reads them). Kept here so both planes import one definition.
-DISAGG_ROLE_HEADER = "x-pstpu-disagg"            # hop marker: "decode"
-DISAGG_KEY_HEADER = "x-pstpu-transfer-key"       # store key for the bundle
-DISAGG_ENDPOINT_HEADER = "x-pstpu-endpoint"      # "chat" | "completions"
-DISAGG_FALLBACK_HEADER = "x-pstpu-disagg-fallback"  # unlock unified serving
-# Mid-stream resume (docs/RESILIENCE.md): the router asks the engine to
-# attach the per-chunk resume payload (output token ids, offset, resolved
-# sampler seed) to single-choice streams. Gated on a header so DIRECT API
-# clients get pristine OpenAI chunks and the internal seed base is only
-# exposed on router-requested streams (where it enables the splice and
-# router-of-routers composition).
-RESUME_HEADER = "x-pstpu-resume"
 
 
 @dataclass

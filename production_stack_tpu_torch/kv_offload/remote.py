@@ -23,9 +23,6 @@ import threading
 from typing import List, Optional, Sequence
 from urllib.parse import urlparse
 
-import torch  # noqa: F401 — every module of the port is a torch module
-
-from production_stack_tpu_torch.kv_offload.server import pack_key_list
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)
@@ -33,6 +30,15 @@ logger = init_logger(__name__)
 STATUS_OK = 0
 STATUS_MISSING = 1
 STATUS_ERROR = 2
+
+
+def pack_key_list(keys) -> bytes:
+    """The ``M`` / ``I`` ops' key list: a count, then each key's length and
+    bytes (the server's ``unpack_key_list`` reads it)."""
+    out = [struct.pack("<I", len(keys))]
+    for k in keys:
+        out.append(struct.pack("<I", len(k)) + k)
+    return b"".join(out)
 
 
 def parse_kv_url(url: str):

@@ -43,6 +43,7 @@ import time
 import torch  # noqa: F401 — every module of the port is a torch module
 
 from production_stack_tpu_torch.kv_offload.chain_lru import ChainStore
+from production_stack_tpu_torch.kv_offload.remote import pack_key_list  # noqa: F401
 from production_stack_tpu_torch.kv_offload.serde import unpack_chain
 from production_stack_tpu_torch.utils import init_logger
 
@@ -74,13 +75,6 @@ def unpack_key_list(val: bytes):
         keys.append(val[off:off + klen])
         off += klen
     return keys
-
-
-def pack_key_list(keys) -> bytes:
-    out = [struct.pack("<I", len(keys))]
-    for k in keys:
-        out.append(struct.pack("<I", len(k)) + k)
-    return b"".join(out)
 
 
 def find_native_binary() -> str:

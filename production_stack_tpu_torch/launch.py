@@ -2,15 +2,24 @@
 production_stack_tpu_torch.server.api_server`` process per engine, each on a
 free port, ready once its ``/health`` answers 200.
 
-Counterpart of the engine half of ``benchmarks/stack.py:launch_stack`` (the
-router stays the JAX package's CPU process: point its ``--static-backends``
-at the URLs this prints), and of ``__graft_entry__.py:entry``.
+Counterpart of ``benchmarks/stack.py:launch_stack`` and of
+``__graft_entry__.py:entry``. ``--router-args "FLAGS"`` also starts the
+port's router (``python -m production_stack_tpu_torch.router.app``, a CPU
+process that never touches the card) in front of the engines, with
+``--service-discovery static``, the engines' URLs and served model, their
+``--roles`` and the cache server's URL filled in, and ``FLAGS`` (the
+router's own, e.g. ``--routing-logic session --session-key x-user-id``)
+after them:
 
   python -m production_stack_tpu_torch.launch --model llama-3b \\
-      --num-engines 2 -- --max-num-seqs 16
+      --num-engines 2 --router-args "--routing-logic roundrobin" -- \\
+      --max-num-seqs 16
 
-prints ``{"urls": [...], "ready_s": [...], "pids": [...]}`` on one line,
-then serves until SIGTERM or SIGINT, which drains and stops every engine.
+prints ``{"urls": [...], "ready_s": [...], "pids": [...]}`` on one line
+(with ``router_url`` and ``router_pid`` when a router runs), then serves
+until SIGTERM or SIGINT, which stops the router and drains and stops every
+engine. Without a router it also ends when an engine exits; with one, it
+serves on while any engine does (the router fails over).
 ``--kv-server`` first starts the port's Python cache server on loopback
 (``kv_offload/server.py``) and points every engine at it
 (``--kv-remote-url``; its URL is printed as ``kv_url``); ``--roles
@@ -34,6 +43,7 @@ working directory, so relative paths resolve as they do here:
 import argparse
 import json
 import os
+import shlex
 import signal
 import socket
 import subprocess
@@ -45,10 +55,6 @@ import urllib.error
 import urllib.request
 from dataclasses import dataclass, field
 from typing import List, Optional
-
-import torch
-
-from production_stack_tpu_torch.kv_offload.server import find_native_binary
 
 # The directory holding the package: engine processes import it from there
 # whether or not the package is installed.
@@ -133,6 +139,8 @@ def launch_kv_server(max_bytes: int = 8 << 30, log_dir: Optional[str] = None,
     loopback address alone; the native core takes no host and binds every
     interface, so ask for ``force_python`` where the store must not be
     reachable from other hosts."""
+    from production_stack_tpu_torch.kv_offload.server import find_native_binary
+
     log_dir = log_dir or tempfile.mkdtemp(prefix="pstpu-torch-kv-")
     os.makedirs(log_dir, exist_ok=True)
     port = free_port()
@@ -210,6 +218,66 @@ def launch_engines(model: str, num_engines: int = 1,
     return handle
 
 
+@dataclass
+class RouterHandle:
+    """A running router: its URL, process and log."""
+    url: str
+    proc: subprocess.Popen = field(repr=False)
+    log_path: str = ""
+
+    def stop(self, timeout_s: float = 10.0) -> int:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout_s)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            return self.proc.wait()
+
+
+def launch_router(backends: List[str], models: List[str],
+                  router_args: Optional[List[str]] = None,
+                  log_dir: Optional[str] = None,
+                  startup_timeout_s: float = 120.0) -> RouterHandle:
+    """Start the port's router (``python -m
+    production_stack_tpu_torch.router.app``) on a free loopback port with
+    static discovery of ``backends`` serving ``models`` (one name for all,
+    or one per backend) and the router flags ``router_args``; wait until
+    its ``/health`` answers 200."""
+    log_dir = log_dir or tempfile.mkdtemp(prefix="pstpu-torch-router-")
+    os.makedirs(log_dir, exist_ok=True)
+    port = free_port()
+    path = os.path.join(log_dir, f"router-{port}.log")
+    argv = [sys.executable, "-m", "production_stack_tpu_torch.router.app",
+            "--host", "127.0.0.1", "--port", str(port),
+            "--service-discovery", "static",
+            "--static-backends", ",".join(backends),
+            "--static-models", ",".join(models), *(router_args or [])]
+    with open(path, "wb") as log:
+        proc = subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT,
+                                env=_child_env())
+    handle = RouterHandle(f"http://127.0.0.1:{port}", proc, path)
+    deadline = time.monotonic() + startup_timeout_s
+    while not _healthy(handle.url):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            handle.stop()
+            raise RuntimeError(f"router on port {port} did not start "
+                               f"(exit {proc.poll()}); log: {path}")
+        time.sleep(0.1)
+    return handle
+
+
+def _served_name(model: str, extra: List[str]) -> str:
+    """The model name the engines serve (``--served-model-name``, else
+    ``--model``)."""
+    for i, a in enumerate(extra):
+        if a == "--served-model-name" and i + 1 < len(extra):
+            return extra[i + 1]
+        if a.startswith("--served-model-name="):
+            return a.split("=", 1)[1]
+    return model
+
+
 def entry(device: str = "cuda"):
     """(fn, example_args) of the decode train at ``tiny-llama``: fn runs one
     fused 4-step decode dispatch of 4 rows (head, 4 steps, tail) over the
@@ -218,6 +286,7 @@ def entry(device: str = "cuda"):
     import functools
 
     import numpy as np
+    import torch
 
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.decode_graphs import NUM_SCALARS
@@ -265,6 +334,10 @@ def main(argv=None) -> None:
     p.add_argument("--tensor-parallel-sizes", default=None,
                    help="comma list, one --tensor-parallel-size per engine "
                         "(e.g. 2,1 with --roles prefill,decode)")
+    p.add_argument("--router-args", default=None,
+                   help="start the port's router in front of the engines, "
+                        "with these router flags (one string; \"\" for "
+                        "the defaults)")
     args = p.parse_args(argv)
     per_engine = None
     for name, flag, value in (
@@ -285,23 +358,48 @@ def main(argv=None) -> None:
         # binds loopback alone (the reference's stack launcher pins it).
         kv = launch_kv_server(log_dir=args.log_dir, force_python=True)
         extra = ["--kv-remote-url", kv.url, *extra]
+    router, handle = None, None
     try:
         handle = launch_engines(args.model, args.num_engines, extra,
                                 args.device, args.log_dir,
                                 args.startup_timeout, per_engine)
+        if args.router_args is not None:
+            rargs = shlex.split(args.router_args)
+            if args.roles and "--static-backend-roles" not in rargs:
+                rargs = ["--static-backend-roles", args.roles, *rargs]
+            if kv is not None and "--kv-offload-url" not in rargs and \
+                    "disagg" in rargs:
+                rargs = ["--kv-offload-url", kv.url, *rargs]
+            router = launch_router(handle.urls,
+                                   [_served_name(args.model, extra)], rargs,
+                                   args.log_dir)
     except BaseException:
+        if handle is not None:
+            handle.stop(timeout_s=10.0)
         if kv is not None:
             kv.stop()
         raise
     print(json.dumps({"urls": handle.urls, "ready_s": handle.ready_seconds,
                       "pids": [pr.pid for pr in handle.procs],
                       "logs": handle.log_paths,
-                      **({"kv_url": kv.url} if kv else {})}), flush=True)
+                      **({"kv_url": kv.url} if kv else {}),
+                      **({"router_url": router.url, "router_pid": router.proc.pid,
+                          "router_log": router.log_path} if router else {})}),
+          flush=True)
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: stop.set())
-    while not stop.is_set() and all(pr.poll() is None for pr in handle.procs):
+
+    def serving() -> bool:
+        alive = [pr.poll() is None for pr in handle.procs]
+        if router is None:
+            return all(alive)
+        return router.proc.poll() is None and any(alive)
+
+    while not stop.is_set() and serving():
         stop.wait(1.0)
+    if router is not None:
+        router.stop()
     handle.stop()
     if kv is not None:
         kv.stop()

@@ -26,8 +26,6 @@ from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-import torch  # noqa: F401 — every module of the port is a torch module
-
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)

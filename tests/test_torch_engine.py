@@ -316,9 +316,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     point (what a spawned rank imports), the metrics, roofline and
     launcher modules, the KV tier's modules (offload tiers, the cache
     server, the disagg handoff) and the observability and tool-calling
-    modules among them, and chip_smoke.py, import
-    without jax; and without prometheus_client or ml_dtypes (the card's
-    machine may not have them)."""
+    modules and every module of the router among them, and chip_smoke.py,
+    import without jax; and without prometheus_client, ml_dtypes, aiohttp
+    or requests (the card's machine may not have them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import production_stack_tpu_torch as p\n"
@@ -329,12 +329,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'kv_offload.serde', 'kv_offload.chain_lru', 'kv_offload.host_pool', "
         "'kv_offload.remote', 'kv_offload.server', 'kv_offload.manager', "
         "'disagg.transfer', 'disagg.coordinator', 'tracing', 'profiling', "
-        "'engine.flight_recorder', 'server.tool_calling')}\n"
+        "'engine.flight_recorder', 'server.tool_calling', 'utils', 'protocols', "
+        "'router.app', 'router.http', 'router.parser', 'router.metrics', "
+        "'router.request_service', 'router.routing_logic', 'router.resilience', "
+        "'router.service_discovery', 'router.sse', 'router.ring', "
+        "'router.dynamic_config', 'router.feature_gates', 'router.rewriter', "
+        "'router.callbacks', 'router.log_stats', 'router.stats.engine_stats', "
+        "'router.stats.request_stats')}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', "
-        "'production_stack_tpu', 'prometheus_client', 'ml_dtypes')]\n"
+        "'production_stack_tpu', 'prometheus_client', 'ml_dtypes', 'aiohttp', "
+        "'requests')]\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -342,7 +349,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 28
+    assert int(proc.stdout.split()[-1]) >= 48
 
 
 async def test_stop_strings_cut_text_and_tokens():
