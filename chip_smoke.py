@@ -238,7 +238,11 @@ serving):
      finding the manifest the first boot wrote): load seconds, the warm-up seconds beside the
      load and their share of it, start-to-first-token, tokens equal; then
      two PEFT adapters (a: rank 8 on q_proj and v_proj; b:
-     rank 16 on all seven projections) with ``--lora-modules``: /v1/models,
+     rank 16 on all seven projections), each a ``local`` LoraAdapter CR
+     that the LoraAdapter controller (``python -m
+     production_stack_tpu_torch.controller.lora_main``, against a fake API
+     server) copies into its shared directory, loaded with
+     ``--lora-modules`` from the paths it reports: /v1/models,
      one batch mixing the base model, a, b and a (the base row equals the
      no-adapter engine's, the adapter rows differ from the base model's),
      graph replay = the eager train = the served round on the engine API,
@@ -286,9 +290,36 @@ serving):
      with a finish reason and no 5xx, the tokens after the cut equal to the
      survivor's greedy continuation of the prompt plus the delivered tokens
      sent straight to it, one resume counted, the dead engine's breaker open
-     in ``/health``. No router process holds memory on the card
-     (``nvidia-smi --query-compute-apps``); median TTFT and inter-token ms
-     through the router beside the same requests straight to the engine.
+     in ``/health``. Before (d), on the same engines: (e) a router with
+     ``--enable-batch-api``, ``--feature-gates
+     SemanticCache=true,PIIDetection=true`` and ``--pii-action redact``: a
+     JSONL of 4 greedy chats (16 tokens, logprobs) uploaded as multipart
+     and run as a batch, each output line's tokens and logprobs equal to
+     its twin's straight to an engine (every line run whole on both
+     engines first, before the counts are set to 0, so line and twin find
+     the same prefix-cache state and the logprobs variant's first-use
+     capture is behind them); a stream
+     carrying an email equal to its twin whose text holds
+     ``[REDACTED:email]``; a chat sent twice answered ``"cached": true``
+     the second time with the first body and no engine's kernel count
+     moving (one hit, one miss on ``/metrics``); a router in block mode
+     answering 400 ``pii_detected``; (f) a router with
+     ``--service-discovery k8s`` against a standard-library fake API server
+     at the in-cluster HTTPS endpoint (``tests/fake_kube_api.pem``): it
+     discovers a ready pod on the second engine's port, serves a chat equal
+     to its twin, and drops the pod within 5 s of a ``MODIFIED`` unready
+     event (``/v1/models`` empty, a chat 404 as the JAX router answers);
+     (g) the StaticRoute operator (``python -m
+     production_stack_tpu_torch.controller``) renders a CR naming the second
+     engine into its ConfigMap, probes the router's health through the CR's
+     Service, and the ConfigMap's ``dynamic_config.json``, written where a
+     running router on the first engine watches it, re-points that router
+     to the second engine. The engines' kernel counts over (e)-(g) are
+     layers x their decode steps. No router or controller process holds
+     memory on the card or has a ``/dev/nvidia*`` file open
+     (``nvidia-smi --query-compute-apps``, ``/proc/<pid>/fd``); median TTFT
+     and inter-token ms through the router beside the same requests
+     straight to the engine.
 
 Stdout carries the card line, one ``<phase> summary {...}`` line of JSON
 per phase (timings beside the SM clock nvidia-smi sampled meanwhile) and
@@ -6603,11 +6634,16 @@ def ckpt_phase(torch, pa, device, seed, card, model="llama-3b",
         db = write_peft_adapter(torch, os.path.join(root, "b"), mc, 16,
                                 ("wq", "wk", "wv", "wo", "w_gate", "w_up",
                                  "w_down"), 32, dgen)
+        # The adapters reach the engine through the LoraAdapter controller:
+        # copied into its shared directory, loaded from the paths it
+        # reports on the CRs' status.
+        paths, out["lora_controller"] = lora_controller_paths(
+            root, {"a": da, "b": db}, os.path.dirname(DETAIL_LOG))
         # The directory's config again (adapters do not key the manifest):
         # the default variants only, as every round here is of them.
         leng = ServingEngine(ckpt_server_config(
-            ckdir, served, seed, device, "--lora-modules", f"a={da}", f"b={db}",
-            "--compilation-cache-dir", ELASTIC_CACHE))
+            ckdir, served, seed, device, "--lora-modules", f"a={paths['a']}",
+            f"b={paths['b']}", "--compilation-cache-dir", ELASTIC_CACHE))
         lgate = gate_schedule(leng)
         models = [served, "a", "b", "a"]
         ltoks, row = ckpt_http_round(torch, pa, leng, lgate, prompts, models,
@@ -7425,6 +7461,568 @@ def router_failover(name, router_url, router_log, engines, pids, model, where_of
     return k, row
 
 
+FEATURE_TOKENS = 16                 # greedy tokens per request, rounds (e)-(f)
+FEATURE_BATCH_LINES = 4
+FAKE_KUBE_PEM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                             "fake_kube_api.pem")
+KUBE_GROUP = "/apis/production-stack.tpu/v1alpha1"
+
+
+class FakeKubeApi:
+    """Just enough of the Kubernetes REST API, on the standard library, for
+    the router's pod discovery and the two controllers: pods LIST and WATCH
+    (each open watch a queue of events, written as chunks), StaticRoutes
+    and LoraAdapters listed with their status PATCHes kept, ConfigMaps
+    GET / POST / PUT, Services GET. ``tls`` serves HTTPS (a throwaway
+    self-signed certificate for 127.0.0.1, ``tests/fake_kube_api.pem``):
+    the router finds its API server at the in-cluster https endpoint."""
+
+    def __init__(self, tls=False):
+        import http.server
+        import queue
+        import re
+        import ssl
+        from urllib.parse import parse_qs, urlsplit
+
+        self.pods, self.rv = {}, 100
+        self.staticroutes, self.loraadapters = {}, {}
+        self.configmaps, self.services = {}, {}
+        self.patches, self.lists, self.watches = [], [], []
+        self.watchers = []
+        self.lock = threading.Lock()
+        api = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *a):
+                pass
+
+            def _send(self, status, obj):
+                data = json.dumps(obj).encode()
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def _body(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                return json.loads(self.rfile.read(n)) if n else None
+
+            def do_GET(self):
+                parts = urlsplit(self.path)
+                path, q = parts.path, {k: v[0] for k, v in parse_qs(parts.query).items()}
+                m = re.fullmatch(r"/api/v1/namespaces/([^/]+)/pods", path)
+                if m and q.get("watch") == "true":
+                    return self._watch(q)
+                if m:
+                    with api.lock:
+                        api.lists.append(q)
+                        api.rv += 1
+                        body = {"metadata": {"resourceVersion": str(api.rv)},
+                                "items": list(api.pods.values())}
+                    return self._send(200, body)
+                m = re.fullmatch(KUBE_GROUP + r"/namespaces/([^/]+)/(staticroutes|"
+                                 r"loraadapters)", path)
+                if m:
+                    kind = getattr(api, m.group(2))
+                    return self._send(200, {"items": [o for (ns, _), o in kind.items()
+                                                      if ns == m.group(1)]})
+                m = re.fullmatch(r"/api/v1/namespaces/([^/]+)/(configmaps|services)/"
+                                 r"([^/]+)", path)
+                if m:
+                    obj = getattr(api, m.group(2)).get((m.group(1), m.group(3)))
+                    return self._send(*((200, obj) if obj is not None
+                                        else (404, {"kind": "Status", "code": 404})))
+                self._send(404, {"kind": "Status", "code": 404})
+
+            def _watch(self, q):
+                api.watches.append(q)
+                events = queue.Queue()
+                api.watchers.append(events)
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+                deadline = time.monotonic() + float(q.get("timeoutSeconds", 30))
+                try:
+                    while True:
+                        try:
+                            ev = events.get(timeout=max(0.0, deadline - time.monotonic()))
+                        except queue.Empty:
+                            ev = None
+                        if ev is None:
+                            break
+                        line = json.dumps(ev).encode() + b"\n"
+                        self.wfile.write(b"%x\r\n%s\r\n" % (len(line), line))
+                        self.wfile.flush()
+                    self.wfile.write(b"0\r\n\r\n")
+                    self.wfile.flush()
+                except OSError:
+                    pass
+                finally:
+                    api.watchers.remove(events)
+                self.close_connection = True
+
+            def do_POST(self):
+                m = re.fullmatch(r"/api/v1/namespaces/([^/]+)/configmaps", self.path)
+                if not m:
+                    return self._send(404, {"kind": "Status", "code": 404})
+                body = self._body()
+                api.configmaps[(m.group(1), body["metadata"]["name"])] = body
+                self._send(201, body)
+
+            def do_PUT(self):
+                m = re.fullmatch(r"/api/v1/namespaces/([^/]+)/configmaps/([^/]+)",
+                                 self.path)
+                if not m:
+                    return self._send(404, {"kind": "Status", "code": 404})
+                body = self._body()
+                api.configmaps[(m.group(1), m.group(2))] = body
+                self._send(200, body)
+
+            def do_PATCH(self):
+                m = re.fullmatch(KUBE_GROUP + r"/namespaces/([^/]+)/(staticroutes|"
+                                 r"loraadapters)/([^/]+)/status", self.path)
+                if not m or self.headers.get("Content-Type") != \
+                        "application/merge-patch+json":
+                    return self._send(404, {"kind": "Status", "code": 404})
+                api.patches.append((m.group(2), m.group(3), self._body()["status"]))
+                self._send(200, {"ok": True})
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        if tls:
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ctx.load_cert_chain(FAKE_KUBE_PEM)
+            self.server.socket = ctx.wrap_socket(self.server.socket, server_side=True)
+        self.port = self.server.server_address[1]
+        self.url = f"{'https' if tls else 'http'}://127.0.0.1:{self.port}"
+        self._thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self._thread.start()
+
+    def push(self, etype, pod):
+        for q in list(self.watchers):
+            q.put({"type": etype, "object": pod})
+
+    def status_of(self, kind, name):
+        return next((st for k, n, st in reversed(self.patches)
+                     if k == kind and n == name), None)
+
+    def close(self):
+        for q in list(self.watchers):
+            q.put(None)
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def kube_pod(name, ready):
+    """A pod at 127.0.0.1 labelled ``app=pstpu-engine``."""
+    return {"metadata": {"name": name, "labels": {"app": "pstpu-engine"}},
+            "status": {"podIP": "127.0.0.1",
+                       "containerStatuses": [{"ready": ready}]}}
+
+
+def start_controller(module, api_url, log_dir, *extra):
+    """``python -m production_stack_tpu_torch.controller[.lora_main]``, a
+    CPU process, against ``api_url``; its log beside the router's."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    log = open(os.path.join(log_dir, f"{module.rsplit('.', 1)[-1]}.log"), "w")
+    env = dict(os.environ, PYTHONPATH=here)
+    proc = subprocess.Popen([sys.executable, "-m", module, "--api-base", api_url,
+                             "--namespace", "default", *extra],
+                            stdout=log, stderr=subprocess.STDOUT, cwd=here, env=env)
+    log.close()
+    return proc
+
+
+def wait_for(what, pred, timeout_s, poll_s=0.05):
+    """Poll ``pred`` until it is true (returns seconds waited) or fail."""
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout_s:
+            fail(f"router: {what} not within {timeout_s} s")
+        time.sleep(poll_s)
+    return time.monotonic() - t0
+
+
+def multipart_body(fields):
+    """``multipart/form-data`` of ``fields`` [(name, bytes, filename or
+    None)]: (content type, body)."""
+    boundary = f"pstpu-{random.getrandbits(64):016x}"
+    out = b""
+    for name, data, filename in fields:
+        disp = f'form-data; name="{name}"' + (f'; filename="{filename}"'
+                                              if filename else "")
+        out += (f"--{boundary}\r\nContent-Disposition: {disp}\r\n\r\n").encode() \
+            + data + b"\r\n"
+    return f"multipart/form-data; boundary={boundary}", out + f"--{boundary}--\r\n".encode()
+
+
+def post_raw(url, data, ctype, timeout=ROUTER_HTTP_TIMEOUT_S):
+    import urllib.error
+
+    req = urllib.request.Request(url, data=data, method="POST",
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def stream_logprobs(events):
+    """(token strings, logprobs) of a streamed chat's logprobs entries."""
+    toks, lps = [], []
+    for e in events:
+        for c in e.get("choices", []):
+            for entry in ((c.get("logprobs") or {}).get("content") or []):
+                toks.append(entry["token"])
+                lps.append(entry["logprob"])
+    return toks, lps
+
+
+def served_by(engines, rid):
+    where = [u for u in engines if request("GET", f"{u}/debug/requests/{rid}")[0] == 200]
+    if len(where) != 1:
+        fail(f"router: {rid} served by {where}")
+    return where[0]
+
+
+def feature_prompt(tag, i):
+    return f"{tag} {i}: " + qa_text(48, seed=7 * i + len(tag))
+
+
+def prime(engines, body, whole=False):
+    """The body's prompt once on each engine (one token; ``whole``: the
+    request as it is, not streamed), so a request and its twin after it
+    find the same prefix-cache state."""
+    for url in engines:
+        st, _, _ = request("POST", url + "/v1/chat/completions", {**body, "stream": False} if whole
+                           else {**body, "stream": False, "max_tokens": 1, "logprobs": False})
+        if st != 200:
+            fail(f"router: priming {url} answered {st}")
+
+
+def feature_batch_bodies(model):
+    """Round (e)'s batch lines: greedy chats of ``FEATURE_TOKENS`` tokens
+    with logprobs (their token strings and logprobs stand for the token ids
+    a non-streamed response does not carry)."""
+    return [{"model": model, "temperature": 0, "max_tokens": FEATURE_TOKENS,
+             "ignore_eos": True, "logprobs": True, "messages": [
+                 {"role": "user", "content": feature_prompt("batch line", i)}]}
+            for i in range(FEATURE_BATCH_LINES)]
+
+
+def router_gated_round(model, engines, pids, log_dir, bodies):
+    """Round (e): a router with the batch API, PII redaction and the
+    semantic cache in front of both engines (see the module docstring),
+    ``bodies`` its batch lines, primed on both engines. Returns its summary
+    row."""
+    from production_stack_tpu_torch.launch import launch_router
+
+    t_round = time.monotonic()
+    store = tempfile.mkdtemp(prefix="files-", dir=log_dir)
+    gated = launch_router(engines, [model], [
+        "--routing-logic", "roundrobin", "--enable-batch-api", "--file-storage-path",
+        store, "--feature-gates", "SemanticCache=true,PIIDetection=true",
+        "--pii-action", "redact", "--engine-stats-interval", "1"], log_dir)
+    blocker = None
+    row = {"router_up_s": time.monotonic() - t_round}
+    try:
+        # batch: each output line must equal its twin straight to an engine
+        jsonl = "\n".join(json.dumps({"custom_id": f"line-{i}", "method": "POST",
+                                      "url": "/v1/chat/completions", "body": b})
+                          for i, b in enumerate(bodies)).encode()
+        ctype, data = multipart_body([("file", jsonl, "batch.jsonl"),
+                                      ("purpose", b"batch", None)])
+        st, text = post_raw(gated.url + "/v1/files", data, ctype)
+        if st != 200:
+            fail(f"router gated: upload answered {st}: {text[:200]}")
+        upload = json.loads(text)
+        t0 = time.monotonic()
+        st, _, text = request("POST", gated.url + "/v1/batches", {
+            "input_file_id": upload["id"], "endpoint": "/v1/chat/completions"})
+        batch = json.loads(text)
+        if st != 200 or batch["status"] != "validating":
+            fail(f"router gated: batch create answered {st}: {text[:200]}")
+
+        def completed():
+            nonlocal batch
+            batch = json.loads(request("GET", f"{gated.url}/v1/batches/{batch['id']}")[2])
+            return batch["status"] in ("completed", "failed", "cancelled")
+
+        wait_for("the batch's completion", completed, 120, poll_s=0.2)
+        row["batch_s"] = time.monotonic() - t0
+        if batch["status"] != "completed" or batch["request_counts"] != {
+                "total": FEATURE_BATCH_LINES, "completed": FEATURE_BATCH_LINES, "failed": 0}:
+            fail(f"router gated: batch ended {batch['status']} {batch['request_counts']}")
+        st, _, out = request("GET", f"{gated.url}/v1/files/{batch['output_file_id']}/content")
+        lines = [json.loads(ln) for ln in out.splitlines()]
+        equal_both = 0
+        for i, (b, line) in enumerate(zip(bodies, lines)):
+            resp = line["response"]["body"]
+            got = [(e["token"], e["logprob"]) for e in
+                   resp["choices"][0]["logprobs"]["content"]]
+            twins = []
+            for url in engines:
+                st, evs, *_ = sse_request(url + "/v1/chat/completions", {**b, "stream": True},
+                                          {"x-pstpu-resume": "1",
+                                           "x-request-id": f"batch-twin-{i}-{engines.index(url)}"})
+                toks, lps = stream_logprobs(evs)
+                twins.append((event_tokens(evs), list(zip(toks, lps))))
+            if line["custom_id"] != f"line-{i}" or len(got) != FEATURE_TOKENS or \
+                    got not in [t[1] for t in twins]:
+                fail(f"router gated: batch line {i}'s tokens and logprobs differ from "
+                     f"both engines' twins (first difference at "
+                     f"{[next((j for j, (x, y) in enumerate(zip(got, t[1])) if x != y), None) for t in twins]})")
+            equal_both += twins[0] == twins[1]
+        row["batch_lines_equal_a_twin"] = len(lines)
+        row["batch_twins_equal_across_engines"] = equal_both
+        # PII: the routed stream with an email equals its redacted twin
+        text = feature_prompt("pii", 0)
+        email = {"model": model, "temperature": 0, "max_tokens": FEATURE_TOKENS,
+                 "ignore_eos": True, "stream": True, "messages": [
+                     {"role": "user", "content": f"mail bob@example.com: {text}"}]}
+        redacted = {**email, "messages": [
+            {"role": "user", "content": f"mail [REDACTED:email]: {text}"}]}
+        prime(engines, redacted)
+        st, evs, *_ = sse_request(gated.url + "/v1/chat/completions", email,
+                                  {"x-request-id": "pii-routed"})
+        where = served_by(engines, "pii-routed")
+        st_d, evs_d, *_ = sse_request(where + "/v1/chat/completions", redacted,
+                                      {"x-pstpu-resume": "1", "x-request-id": "pii-twin"})
+        toks, toks_d = event_tokens(evs), event_tokens(evs_d)
+        if (st, st_d) != (200, 200) or len(toks) != FEATURE_TOKENS or toks != toks_d:
+            fail(f"router gated: the redacted request's tokens differ from its twin's "
+                 f"(HTTP {st}/{st_d}, {len(toks)} vs {len(toks_d)} tokens)")
+        row["pii_tokens_equal_redacted_twin"] = True
+        # the semantic cache: the second of two equal chats is a hit that
+        # launches nothing
+        chat = {"model": model, "temperature": 0, "max_tokens": FEATURE_TOKENS,
+                "ignore_eos": True, "messages": [
+                    {"role": "user", "content": feature_prompt("cache", 0)}]}
+        st1, _, first = request("POST", gated.url + "/v1/chat/completions", chat)
+        k0 = {u: engine_kernels(u) for u in engines}
+        t0 = time.monotonic()
+        st2, _, second = request("POST", gated.url + "/v1/chat/completions", chat)
+        row["cache_hit_ms"] = 1e3 * (time.monotonic() - t0)
+        k1 = {u: engine_kernels(u) for u in engines}
+        first, second = json.loads(first), json.loads(second)
+        moved = [u for u in engines if k1[u]["launch_counts"] != k0[u]["launch_counts"]
+                 or k1[u]["stats"]["decode_steps_total"] != k0[u]["stats"]["decode_steps_total"]]
+        if (st1, st2) != (200, 200) or "cached" in first or \
+                second != {**first, "cached": True} or moved:
+            fail(f"router gated: cache round HTTP {st1}/{st2}, cached "
+                 f"{second.get('cached')}, kernel counts moved on {moved}")
+        series = parse_metrics(request("GET", gated.url + "/metrics")[2])
+        hits = sum(v for _, v in series.get("vllm:semantic_cache_hits_total", []))
+        misses = sum(v for _, v in series.get("vllm:semantic_cache_misses_total", []))
+        scanned = sum(v for _, v in series.get("vllm:pii_requests_scanned_total", []))
+        if (hits, misses) != (1, 1):
+            fail(f"router gated: semantic cache hits {hits}, misses {misses}")
+        row.update(cache_hits=hits, cache_misses=misses, pii_scanned=scanned)
+        # PII block: a second router answers 400 pii_detected
+        blocker = launch_router(engines, [model], [
+            "--feature-gates", "PIIDetection=true", "--engine-stats-interval", "1"],
+            log_dir)
+        st, _, text = request("POST", blocker.url + "/v1/chat/completions",
+                              {**email, "stream": False})
+        err = json.loads(text).get("error", {})
+        if st != 400 or err.get("type") != "pii_detected":
+            fail(f"router gated: block mode answered {st}: {text[:200]}")
+        row["pii_block_status"] = st
+        row.update(router_off_card("gated", [gated.proc.pid, blocker.proc.pid], pids))
+    finally:
+        gated.stop()
+        if blocker is not None:
+            blocker.stop()
+        shutil.rmtree(store, ignore_errors=True)
+    row["seconds"] = time.monotonic() - t_round
+    log(f"router gated: {json.dumps(row)}")
+    return row
+
+
+def router_k8s_round(model, engines, pids, log_dir):
+    """Round (f): a router with ``--service-discovery k8s`` finds a ready
+    pod (the fake API server's, at the in-cluster HTTPS endpoint) on the
+    second engine's port, serves a chat equal to its twin straight to the
+    engine, and drops the pod when it turns unready."""
+    from production_stack_tpu_torch.launch import launch_router
+
+    t_round = time.monotonic()
+    target = engines[1]
+    port = target.rsplit(":", 1)[1]
+    api = FakeKubeApi(tls=True)
+    api.pods["engine-1"] = kube_pod("engine-1", True)
+    saved = {k: os.environ.get(k) for k in ("KUBERNETES_SERVICE_HOST",
+                                            "KUBERNETES_SERVICE_PORT")}
+    os.environ.update(KUBERNETES_SERVICE_HOST="127.0.0.1",
+                      KUBERNETES_SERVICE_PORT=str(api.port))
+    router = None
+    row = {}
+    try:
+        router = launch_router(engines[:1], [model], [
+            "--service-discovery", "k8s", "--k8s-namespace", "default",
+            "--k8s-port", port, "--k8s-label-selector", "app=pstpu-engine",
+            "--engine-stats-interval", "1"], log_dir)
+        row["router_up_s"] = time.monotonic() - t_round
+
+        def models():
+            return [m["id"] for m in json.loads(
+                request("GET", router.url + "/v1/models")[2])["data"]]
+
+        row["discovered_s"] = wait_for("k8s discovery of the ready pod",
+                                       lambda: models() == [model], 10)
+        body = {"model": model, "temperature": 0, "max_tokens": FEATURE_TOKENS,
+                "ignore_eos": True, "stream": True, "messages": [
+                    {"role": "user", "content": feature_prompt("k8s", 0)}]}
+        prime([target], body)
+        st, evs, *_ = sse_request(router.url + "/v1/chat/completions", body,
+                                  {"x-request-id": "k8s-routed"})
+        where = served_by(engines, "k8s-routed")
+        st_d, evs_d, *_ = sse_request(target + "/v1/chat/completions", body,
+                                      {"x-pstpu-resume": "1", "x-request-id": "k8s-twin"})
+        toks, toks_d = event_tokens(evs), event_tokens(evs_d)
+        if where != target or (st, st_d) != (200, 200) or len(toks) != FEATURE_TOKENS \
+                or toks != toks_d:
+            fail(f"router k8s: served by {where} (want {target}), HTTP {st}/{st_d}, "
+                 f"tokens equal {toks == toks_d}")
+        wait_for("the watch stream", lambda: api.watchers, 10, poll_s=0.02)
+        api.push("MODIFIED", kube_pod("engine-1", False))
+        row["removed_s"] = wait_for("the unready pod's removal", lambda: models() == [], 5)
+        st, _, _ = request("POST", router.url + "/v1/chat/completions",
+                           {**body, "stream": False})
+        if st != 404:
+            fail(f"router k8s: a chat with no backend answered {st} (the JAX "
+                 "router's 404)")
+        row.update(lists=len(api.lists), watch_resource_version=api.watches[0].get(
+            "resourceVersion"), label_selector=api.lists[0].get("labelSelector"),
+            tokens_equal_twin=True, no_backend_status=st,
+            **router_off_card("k8s", [router.proc.pid], pids))
+    finally:
+        if router is not None:
+            router.stop()
+        api.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    row["seconds"] = time.monotonic() - t_round
+    log(f"router k8s: {json.dumps(row)}")
+    return row
+
+
+def router_operator_round(model, engines, pids, log_dir):
+    """Round (g), the operator: a router on the first engine watching
+    ``dynamic_config.json``; the StaticRoute operator (a process) renders a
+    CR naming the second engine into its ConfigMap, probes the router's
+    health through the CR's Service, patches the CR's status; the
+    ConfigMap's file, written where the router reads it (the kubelet's
+    part), re-points the router: a chat lands on the second engine."""
+    from production_stack_tpu_torch.launch import launch_router
+
+    t_round = time.monotonic()
+    cfg = os.path.join(log_dir, "dynamic_config.json")
+    if os.path.exists(cfg):
+        os.remove(cfg)
+    router = launch_router(engines[:1], [model], [
+        "--dynamic-config-json", cfg, "--dynamic-config-watch-interval", "0.5",
+        "--engine-stats-interval", "1"], log_dir)
+    api = FakeKubeApi()
+    operator = None
+    row = {"router_up_s": time.monotonic() - t_round}
+    try:
+        api.services[("default", "router-svc")] = {"spec": {
+            "clusterIP": "127.0.0.1", "ports": [{"port": int(router.url.rsplit(":", 1)[1])}]}}
+        api.staticroutes[("default", "route-a")] = {
+            "apiVersion": "production-stack.tpu/v1alpha1", "kind": "StaticRoute",
+            "metadata": {"name": "route-a", "namespace": "default", "uid": "uid-a"},
+            "spec": {"serviceDiscovery": "static", "routingLogic": "roundrobin",
+                     "staticBackends": engines[1], "staticModels": model,
+                     "routerRef": {"kind": "Service", "name": "router-svc"},
+                     "healthCheck": {"successThreshold": 1}}}
+        operator = start_controller("production_stack_tpu_torch.controller", api.url,
+                                    log_dir)
+        key = ("default", "route-a-dynamic-config")
+        row["reconciled_s"] = wait_for(
+            "the operator's ConfigMap and status",
+            lambda: key in api.configmaps and api.status_of("staticroutes", "route-a"), 15)
+        status = api.status_of("staticroutes", "route-a")
+        cond = status["conditions"][0]
+        owner = api.configmaps[key]["metadata"]["ownerReferences"][0]
+        if cond["type"] != "HealthCheckSucceeded" or owner["uid"] != "uid-a" or \
+                status["configMapRef"] != key[1]:
+            fail(f"router operator: status {status}, owner {owner}")
+        tmp = cfg + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(api.configmaps[key]["data"]["dynamic_config.json"])
+        os.replace(tmp, cfg)
+
+        def backends():
+            return [b["url"] for b in json.loads(request("GET", router.url + "/fleet")[2])[
+                "backends"]]
+
+        row["repointed_s"] = wait_for("the router's re-pointing",
+                                      lambda: backends() == [engines[1]], 10)
+        st, evs, *_ = sse_request(router.url + "/v1/chat/completions", {
+            "model": model, "temperature": 0, "max_tokens": 4, "ignore_eos": True,
+            "stream": True, "messages": [{"role": "user", "content": "re-pointed"}]},
+            {"x-request-id": "operator-routed"})
+        if st != 200 or served_by(engines, "operator-routed") != engines[1]:
+            fail(f"router operator: the chat after the ConfigMap answered {st}")
+        row.update(condition=cond["type"], backends_after=1,
+                   **router_off_card("operator", [router.proc.pid, operator.pid], pids))
+    finally:
+        if operator is not None:
+            operator.terminate()
+            operator.wait(30)
+        router.stop()
+        api.close()
+    row["seconds"] = time.monotonic() - t_round
+    log(f"router operator: {json.dumps(row)}")
+    return row
+
+
+def lora_controller_paths(root, adapters, log_dir):
+    """The ckpt phase's adapters through the LoraAdapter controller (a
+    process, against a fake API server): each a ``local`` CR copied into
+    the shared directory; returns ({name: the path its status reports},
+    summary row)."""
+    t0 = time.monotonic()
+    api = FakeKubeApi()
+    for name, path in adapters.items():
+        api.loraadapters[("default", name)] = {
+            "metadata": {"name": name, "namespace": "default"},
+            "spec": {"baseModel": "llama-3b", "adapterSource": {
+                "type": "local", "adapterName": f"adapter-{name}", "adapterPath": path}}}
+    shared = os.path.join(root, "shared")
+    proc = start_controller("production_stack_tpu_torch.controller.lora_main", api.url,
+                            log_dir, "--adapters-dir", shared)
+    try:
+        def ready():
+            return all((api.status_of("loraadapters", n) or {}).get("phase") == "Ready"
+                       for n in adapters)
+
+        wait_for("the LoraAdapter controller's Ready", ready, 30)
+        off = router_off_card("lora controller", [proc.pid], [])
+    finally:
+        proc.terminate()
+        proc.wait(30)
+        api.close()
+    phases = {n: [st["phase"] for k, m, st in api.patches if m == n] for n in adapters}
+    paths = {n: api.status_of("loraadapters", n)["adapterPath"] for n in adapters}
+    for n, path in paths.items():
+        if phases[n] != ["Downloading", "Ready"] or \
+                path != os.path.join(shared, f"adapter-{n}") or \
+                sorted(os.listdir(path)) != sorted(os.listdir(adapters[n])):
+            fail(f"ckpt: the LoraAdapter controller reported {phases[n]}, {path}")
+    return paths, {"phases": phases, "seconds": time.monotonic() - t0,
+                   "controller_nvidia_files": off["router_nvidia_files"]}
+
+
 def router_phase(torch, pa, device, seed, card, model, disagg_rows):
     """Phase 15 (see the module docstring). ``disagg_rows``: round (c)'s
     rows from the kvtier phase. Returns (launches, summary)."""
@@ -7483,6 +8081,35 @@ def router_phase(torch, pa, device, seed, card, model, disagg_rows):
             "cache-aware", [cache_router.proc.pid], pids))
         cache_router.stop()
         cache_router = None
+        # (e) the gated router, (f) Kubernetes discovery, (g) the operator:
+        # the engines' bf16 launches over the three are part of the path.
+        # (e)'s batch lines, whole, on both engines first: the prefix-cache
+        # state each line and its twins then share, and the first use of
+        # the logprobs decode variant (its capture runs every layer's
+        # kernel once) before the path's counts are set to 0.
+        t0 = time.monotonic()
+        bodies = feature_batch_bodies(model)
+        for b in bodies:
+            prime(engines, b, whole=True)
+        for url in engines:
+            request("POST", url + "/debug/kernels/reset")
+        before = {url: engine_kernels(url)["stats"] for url in engines}
+        out["gated"] = router_gated_round(model, engines, pids, log_dir, bodies)
+        out["k8s"] = router_k8s_round(model, engines, pids, log_dir)
+        out["operator"] = router_operator_round(model, engines, pids, log_dir)
+        out["features_s"] = time.monotonic() - t0
+        feature_launches = []
+        for url in engines:
+            k = engine_kernels(url)
+            steps = k["stats"]["decode_steps_total"] - before[url]["decode_steps_total"]
+            eager = (k["stats"]["decode_eager_dispatches_total"]
+                     - before[url]["decode_eager_dispatches_total"])
+            feature_launches.append(k["launch_counts"].get(pa.BF16, 0))
+            if feature_launches[-1] != n_layers * steps or not steps or eager:
+                fail(f"router (e)-(g): {url} launched {k['launch_counts']} for {steps} "
+                     f"decode steps ({n_layers} layers), {eager} eager dispatches")
+        out["features_launches"] = feature_launches
+        launches += sum(feature_launches)
         # (d) failover, last: it kills an engine
         k, out["failover"] = router_failover(
             "session", session_url, info["router_log"], engines, pids, model, where_of,

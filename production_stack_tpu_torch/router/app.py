@@ -17,10 +17,11 @@ routers/main_router.py:
 
 Counterpart of ``production_stack_tpu/router/app.py`` on the standard
 library (``router/http.py`` in place of aiohttp): the same routes, the same
-wiring order, the same ``/health``, ``/fleet`` and ``/metrics``. The files
-and batches routes answer 501, as the JAX router's do with the batch API
-off; the batch API, the semantic cache, PII detection and Kubernetes
-discovery are refused at startup (``parser.refuse_not_ported``).
+wiring order, the same ``/health``, ``/fleet`` and ``/metrics``, and the
+same gated features: the files and batches APIs (``--enable-batch-api``),
+PII detection before the semantic cache (``--feature-gates
+PIIDetection=true,SemanticCache=true``) and Kubernetes discovery
+(``--service-discovery k8s``).
 
   python -m production_stack_tpu_torch.router.app --service-discovery static \\
       --static-backends http://127.0.0.1:8100,http://127.0.0.1:8101 \\
@@ -39,10 +40,16 @@ from production_stack_tpu_torch.router.dynamic_config import (
     get_dynamic_config_watcher,
     initialize_dynamic_config_watcher,
 )
-from production_stack_tpu_torch.router.feature_gates import initialize_feature_gates
-from production_stack_tpu_torch.router.parser import refuse_not_ported
+from production_stack_tpu_torch.router.batch_service import LocalBatchProcessor
+from production_stack_tpu_torch.router.feature_gates import (
+    PII_DETECTION,
+    SEMANTIC_CACHE,
+    initialize_feature_gates,
+)
+from production_stack_tpu_torch.router.files_service import initialize_storage
 from production_stack_tpu_torch.router.request_service import (
     _error,
+    resilient_json_request,
     route_disagg_request,
     route_general_request,
 )
@@ -82,12 +89,30 @@ logger = init_logger(__name__)
 
 # --------------------------------------------------------------- API handlers
 async def handle_chat_completions(request: web.Request) -> web.StreamResponse:
+    # PII runs BEFORE the semantic cache so PII-bearing prompts are never
+    # embedded/persisted by the cache; the cache then sees the redacted
+    # body.
+    pii = request.app.get("pii_checker")
+    if pii is not None:
+        blocked = await pii.check(request)
+        if blocked is not None:
+            return blocked
+    cache = request.app.get("semantic_cache")
+    if cache is not None:
+        hit = await cache.check(request)
+        if hit is not None:
+            return hit
     if isinstance(get_routing_logic(), DisaggRouter):
         return await route_disagg_request(request, "/v1/chat/completions")
     return await route_general_request(request, "/v1/chat/completions")
 
 
 async def handle_completions(request: web.Request) -> web.StreamResponse:
+    pii = request.app.get("pii_checker")
+    if pii is not None:
+        blocked = await pii.check(request)
+        if blocked is not None:
+            return blocked
     if isinstance(get_routing_logic(), DisaggRouter):
         return await route_disagg_request(request, "/v1/completions")
     return await route_general_request(request, "/v1/completions")
@@ -303,20 +328,94 @@ async def handle_metrics(request: web.Request) -> web.Response:
 
 
 # ----------------------------------------------------------- files / batches
-async def handle_files(request: web.Request) -> web.Response:
-    return _error(501, "Files API disabled (--enable-batch-api)")
+async def handle_file_upload(request: web.Request) -> web.Response:
+    storage = request.app.get("storage")
+    if storage is None:
+        return _error(501, "Files API disabled (--enable-batch-api)")
+    reader = await request.multipart()
+    filename, content, purpose = "upload", b"", "batch"
+    async for part in reader:
+        if part.name == "file":
+            filename = part.filename or filename
+            content = await part.read()
+        elif part.name == "purpose":
+            purpose = (await part.read()).decode()
+    info = await storage.save_file(filename, content, purpose=purpose)
+    return web.json_response(info.to_dict())
 
 
-async def handle_batches(request: web.Request) -> web.Response:
-    return _error(501, "Batch API disabled (--enable-batch-api)")
+async def handle_file_get(request: web.Request) -> web.Response:
+    storage = request.app.get("storage")
+    if storage is None:
+        return _error(501, "Files API disabled (--enable-batch-api)")
+    try:
+        info = await storage.get_file(request.match_info["file_id"])
+    except FileNotFoundError:
+        return _error(404, "File not found")
+    return web.json_response(info.to_dict())
+
+
+async def handle_file_content(request: web.Request) -> web.Response:
+    storage = request.app.get("storage")
+    if storage is None:
+        return _error(501, "Files API disabled (--enable-batch-api)")
+    try:
+        content = await storage.get_file_content(request.match_info["file_id"])
+    except FileNotFoundError:
+        return _error(404, "File not found")
+    return web.Response(body=content,
+                        content_type="application/octet-stream")
+
+
+async def handle_batch_create(request: web.Request) -> web.Response:
+    processor = request.app.get("batch_processor")
+    if processor is None:
+        return _error(501, "Batch API disabled (--enable-batch-api)")
+    body = await request.json()
+    if "input_file_id" not in body:
+        return _error(400, "Missing 'input_file_id'")
+    info = await processor.create_batch(
+        input_file_id=body["input_file_id"],
+        endpoint=body.get("endpoint", "/v1/chat/completions"),
+        completion_window=body.get("completion_window", "24h"),
+        metadata=body.get("metadata"),
+    )
+    return web.json_response(info.to_dict())
+
+
+async def handle_batch_get(request: web.Request) -> web.Response:
+    processor = request.app.get("batch_processor")
+    if processor is None:
+        return _error(501, "Batch API disabled (--enable-batch-api)")
+    info = await processor.retrieve_batch(request.match_info["batch_id"])
+    if info is None:
+        return _error(404, "Batch not found")
+    return web.json_response(info.to_dict())
+
+
+async def handle_batch_list(request: web.Request) -> web.Response:
+    processor = request.app.get("batch_processor")
+    if processor is None:
+        return _error(501, "Batch API disabled (--enable-batch-api)")
+    batches = await processor.list_batches()
+    return web.json_response(
+        {"object": "list", "data": [b.to_dict() for b in batches]}
+    )
+
+
+async def handle_batch_cancel(request: web.Request) -> web.Response:
+    processor = request.app.get("batch_processor")
+    if processor is None:
+        return _error(501, "Batch API disabled (--enable-batch-api)")
+    info = await processor.cancel_batch(request.match_info["batch_id"])
+    if info is None:
+        return _error(404, "Batch not found")
+    return web.json_response(info.to_dict())
 
 
 # ------------------------------------------------------------------- wiring
 def initialize_all(app: web.Application, args) -> None:
     """Wire all router singletons (reference app.py:98-211 order)."""
-    # Namespaces built without parse_args (tests, rendered configs) meet
-    # the same refusals of features the port lacks.
-    refuse_not_ported(args)
     if args.service_discovery == "static":
         urls = parse_static_urls(args.static_backends)
         models = [[m] for m in parse_static_model_names(args.static_models)]
@@ -415,7 +514,57 @@ def initialize_all(app: web.Application, args) -> None:
         default_ttft_deadline=getattr(args, "ttft_deadline", 0.0),
         slo_window=getattr(args, "request_stats_window", 60.0),
     ))
-    initialize_feature_gates(args.feature_gates)
+    gates = initialize_feature_gates(args.feature_gates)
+
+    if gates.enabled(SEMANTIC_CACHE):
+        from production_stack_tpu_torch.router.semantic_cache import (
+            SemanticCache,
+            create_embed_fn,
+        )
+
+        app["semantic_cache"] = SemanticCache(
+            embed_fn=create_embed_fn(
+                getattr(args, "semantic_cache_embedder", "hashed-ngram")
+            ),
+        )
+    if gates.enabled(PII_DETECTION):
+        from production_stack_tpu_torch.router.pii import (
+            PIIAction,
+            PIIChecker,
+            create_analyzer,
+        )
+
+        app["pii_checker"] = PIIChecker(
+            action=PIIAction(getattr(args, "pii_action", "block")),
+            analyzer=create_analyzer(getattr(args, "pii_analyzer", "regex")),
+        )
+
+    if args.enable_batch_api:
+        import os
+
+        from production_stack_tpu_torch.router.files_service import (
+            DEFAULT_STORAGE_PATH,
+        )
+
+        # argparse choices gate the CLI; this guards operator-rendered arg
+        # namespaces (dynamic config, tests) that bypass parse_args.
+        processor_kind = getattr(args, "batch_processor", "local")
+        if processor_kind != "local":
+            raise ValueError(
+                f"Unknown --batch-processor {processor_kind!r}; only "
+                f"'local' is implemented"
+            )
+        storage_path = args.file_storage_path or DEFAULT_STORAGE_PATH
+        storage = initialize_storage(args.file_storage_class, storage_path)
+        app["storage"] = storage
+
+        async def send_fn(endpoint: str, body: dict) -> dict:
+            return await _inprocess_request(app, endpoint, body)
+
+        app["batch_processor"] = LocalBatchProcessor(
+            storage, db_path=os.path.join(storage_path, "batch.db"),
+            send_fn=send_fn,
+        )
 
     app["rewriter"] = get_request_rewriter(args.request_rewriter)
     if args.callbacks:
@@ -435,6 +584,17 @@ def initialize_all(app: web.Application, args) -> None:
         )
 
 
+async def _inprocess_request(app: web.Application, endpoint: str,
+                             body: dict) -> dict:
+    """Run one request through routing + backend for the batch processor.
+
+    Routed through the resilience wrapper so batch jobs survive a backend
+    restart (retry + failover + circuit breaking) instead of failing the
+    whole line on the first transport error.
+    """
+    return await resilient_json_request(app, endpoint, body)
+
+
 def build_app(args) -> web.Application:
     app = web.Application(client_max_size=64 * 1024 * 1024)
     initialize_all(app, args)
@@ -450,8 +610,14 @@ def build_app(args) -> web.Application:
         tracer = get_tracer("pstpu-router")
         if tracer is not None:
             tracer.on_drop = metrics.router_trace_spans_dropped_total.inc
+        proc = app.get("batch_processor")
+        if proc is not None:
+            proc.start()
 
     async def on_cleanup(app):
+        proc = app.get("batch_processor")
+        if proc is not None:
+            await proc.stop()
         await app["client_session"].close()
         get_engine_stats_scraper().close()
         get_service_discovery().close()
@@ -473,13 +639,13 @@ def build_app(args) -> web.Application:
     app.router.add_get("/health", handle_health)
     app.router.add_get("/fleet", handle_fleet)
     app.router.add_get("/metrics", handle_metrics)
-    app.router.add_post("/v1/files", handle_files)
-    app.router.add_get("/v1/files/{file_id}", handle_files)
-    app.router.add_get("/v1/files/{file_id}/content", handle_files)
-    app.router.add_post("/v1/batches", handle_batches)
-    app.router.add_get("/v1/batches", handle_batches)
-    app.router.add_get("/v1/batches/{batch_id}", handle_batches)
-    app.router.add_post("/v1/batches/{batch_id}/cancel", handle_batches)
+    app.router.add_post("/v1/files", handle_file_upload)
+    app.router.add_get("/v1/files/{file_id}", handle_file_get)
+    app.router.add_get("/v1/files/{file_id}/content", handle_file_content)
+    app.router.add_post("/v1/batches", handle_batch_create)
+    app.router.add_get("/v1/batches", handle_batch_list)
+    app.router.add_get("/v1/batches/{batch_id}", handle_batch_get)
+    app.router.add_post("/v1/batches/{batch_id}/cancel", handle_batch_cancel)
     return app
 
 

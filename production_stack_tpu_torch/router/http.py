@@ -2,7 +2,8 @@
 
 The server side stands in for ``aiohttp.web``: an ``Application`` with GET
 and POST routes (``{name}`` path segments land in ``match_info``),
-``Request``, ``Response``, ``StreamResponse`` and ``json_response``. It
+``Request`` (with ``multipart()`` for form uploads), ``Response``,
+``StreamResponse`` and ``json_response``. It
 keeps client connections alive (HTTP/1.1, as aiohttp does), takes request
 bodies by ``Content-Length`` or chunked up to ``client_max_size``, answers
 ``Expect: 100-continue``, and writes a ``StreamResponse`` chunked, so SSE
@@ -22,6 +23,8 @@ the only timeout of that kind.
 """
 
 import asyncio
+import email.message
+import email.utils
 import json
 from typing import Awaitable, Callable, Dict, List, Optional, Tuple
 from urllib.parse import parse_qsl, urlsplit
@@ -154,6 +157,13 @@ class Request:
     async def json(self):
         return json.loads(self._body)
 
+    async def multipart(self) -> "MultipartReader":
+        """The body's ``multipart/form-data`` parts (aiohttp's
+        ``request.multipart()``); the body is already read, within
+        ``client_max_size``."""
+        return MultipartReader(self.headers.get("Content-Type") or "",
+                               self._body)
+
     def get(self, key, default=None):
         return self._state.get(key, default)
 
@@ -162,6 +172,88 @@ class Request:
 
     def __setitem__(self, key, value) -> None:
         self._state[key] = value
+
+
+class BodyPart:
+    """One part of a multipart body: the ``name`` and ``filename`` of its
+    ``Content-Disposition`` (None when absent), its ``headers``, and its
+    bytes as sent (``read()``)."""
+
+    def __init__(self, headers: Headers, data: bytes):
+        self.headers = headers
+        self._data = data
+        disposition = email.message.Message()
+        disposition["Content-Disposition"] = \
+            headers.get("Content-Disposition") or ""
+        name = disposition.get_param("name", header="Content-Disposition")
+        self.name = (None if name is None
+                     else email.utils.collapse_rfc2231_value(name))
+        self.filename = disposition.get_filename()
+
+    async def read(self) -> bytes:
+        return self._data
+
+
+class MultipartReader:
+    """``multipart/form-data`` split at its boundary, part by part: ``async
+    for part in reader``. Delimiter lines may end in CRLF or LF; the line
+    break before a delimiter belongs to it, so a part's bytes come back
+    exactly as sent. A body without the boundary parameter, its opening
+    delimiter or its closing one raises ValueError."""
+
+    def __init__(self, content_type: str, body: bytes):
+        ctype = email.message.Message()
+        ctype["Content-Type"] = content_type
+        boundary = ctype.get_param("boundary")
+        if ctype.get_content_maintype() != "multipart" or not boundary:
+            raise ValueError(f"not a multipart body: {content_type!r}")
+        self._parts = _split_multipart(
+            body, b"--" + str(boundary).encode("latin-1"))
+
+    def __aiter__(self):
+        return self._iter()
+
+    async def _iter(self):
+        for part in self._parts:
+            yield part
+
+
+def _split_multipart(body: bytes, delim: bytes) -> List[BodyPart]:
+    if body.startswith(delim):
+        pos = len(delim)
+    else:
+        i = body.find(b"\n" + delim)
+        if i < 0:
+            raise ValueError("multipart body has no opening boundary")
+        pos = i + 1 + len(delim)
+    parts = []
+    while True:
+        if body.startswith(b"--", pos):
+            return parts                          # the closing delimiter
+        eol = body.find(b"\n", pos)
+        if eol < 0 or body[pos:eol].strip():
+            raise ValueError("malformed multipart boundary line")
+        pos = eol + 1
+        headers = Headers()
+        while True:
+            eol = body.find(b"\n", pos)
+            if eol < 0:
+                raise ValueError("multipart part headers do not end")
+            line = body[pos:eol].rstrip(b"\r")
+            pos = eol + 1
+            if not line:
+                break
+            name, sep, value = line.decode("utf-8", "replace").partition(":")
+            if not sep:
+                raise ValueError("malformed multipart header line")
+            headers[name.strip()] = value.strip()
+        end = body.find(b"\n" + delim, pos - 1)
+        if end < 0:
+            raise ValueError("multipart body has no closing boundary")
+        data_end = end - 1 if end > pos - 1 and body[end - 1:end] == b"\r" \
+            else end
+        parts.append(BodyPart(headers, body[pos:max(pos, data_end)]))
+        pos = end + 1 + len(delim)
 
 
 class Response:

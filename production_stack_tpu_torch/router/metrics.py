@@ -3,7 +3,8 @@
 Counterpart of ``production_stack_tpu/router/metrics.py``: every series of
 that file, with the same names, types, help text and labels, on a small
 registry (``Counter``, ``Gauge``, ``Histogram`` with labels) in place of
-``prometheus_client``. ``generate_latest()`` renders the Prometheus text
+``prometheus_client``; ``router/pii.py`` and ``router/semantic_cache.py``
+register their series here when they load. ``generate_latest()`` renders the Prometheus text
 format as ``prometheus_client`` does (counters as ``<name>_total``, values
 in Go's float notation, histogram buckets, ``_count`` and ``_sum``), but
 writes no ``*_created`` samples and no ``process_*`` / ``python_*``
@@ -12,7 +13,7 @@ collector families (``ROADMAP.md`` Queue 3).
 
 import math
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 CONTENT_TYPE_LATEST = "text/plain; version=0.0.4; charset=utf-8"
 
@@ -191,10 +192,13 @@ class Histogram(_Family):
         self._only().observe(amount)
 
 
-def generate_latest() -> bytes:
-    """The text exposition of every series of this module."""
+def generate_latest(families: Optional[Sequence["_Family"]] = None) -> bytes:
+    """The text exposition of ``families``, by default of every series
+    registered in this process: this module's, then those of the gated
+    modules imported since (PII detection, the semantic cache), as
+    prometheus_client's default registry renders the JAX router's."""
     out: List[str] = []
-    for fam in _FAMILIES:
+    for fam in _FAMILIES if families is None else families:
         fam.render(out)
     return ("\n".join(out) + "\n").encode()
 

@@ -1,34 +1,10 @@
 """Router CLI flags + cross-field validation.
 
 Counterpart of ``production_stack_tpu/router/parser.py``: every flag, with
-the same defaults and the same ``validate_args`` refusals. A flag that
-names a feature this port has not taken over yet (Kubernetes discovery,
-the files and batch APIs, the semantic cache, PII detection) then refuses
-any value but its default, naming ``ROADMAP.md`` (``NOT_PORTED``).
+the same defaults, meaning and ``validate_args`` refusals.
 """
 
 import argparse
-
-from production_stack_tpu_torch.router.feature_gates import (
-    PII_DETECTION,
-    SEMANTIC_CACHE,
-    parse_feature_gates,
-)
-
-#: Flags of features outside the port, with the value each must keep.
-NOT_PORTED = (
-    ("service_discovery", "static", "Kubernetes service discovery"),
-    ("k8s_namespace", "default", "Kubernetes service discovery"),
-    ("k8s_port", 8000, "Kubernetes service discovery"),
-    ("k8s_label_selector", None, "Kubernetes service discovery"),
-    ("enable_batch_api", False, "the files and batches APIs"),
-    ("file_storage_class", "local_file", "the files and batches APIs"),
-    ("file_storage_path", None, "the files and batches APIs"),
-    ("batch_processor", "local", "the files and batches APIs"),
-    ("pii_action", "block", "PII detection"),
-    ("pii_analyzer", "regex", "PII detection"),
-    ("semantic_cache_embedder", "hashed-ngram", "the semantic cache"),
-)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -271,28 +247,6 @@ def validate_args(args: argparse.Namespace) -> None:
                 "--static-backend-roles must list one role per "
                 "--static-backends entry"
             )
-    refuse_not_ported(args)
-
-
-def _not_ported(flag: str, what: str) -> ValueError:
-    return ValueError(
-        f"{flag}: {what}: not ported to production_stack_tpu_torch yet "
-        f"(ROADMAP.md, Queue 1); leave the flag at its default")
-
-
-def refuse_not_ported(args: argparse.Namespace) -> None:
-    """Refuse a non-default value of a flag whose feature the port lacks."""
-    for dest, default, what in NOT_PORTED:
-        if getattr(args, dest, default) != default:
-            flag = "--" + dest.replace("_", "-")
-            if dest == "service_discovery":
-                flag += f" {args.service_discovery}"
-            raise _not_ported(flag, what)
-    gates = parse_feature_gates(getattr(args, "feature_gates", "") or "")
-    for gate, what in ((SEMANTIC_CACHE, "the semantic cache"),
-                       (PII_DETECTION, "PII detection")):
-        if gates.get(gate):
-            raise _not_ported(f"--feature-gates {gate}=true", what)
 
 
 def _probe_kv_offload_url(url: str, timeout: float = 3.0) -> None:

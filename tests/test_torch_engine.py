@@ -316,7 +316,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     point (what a spawned rank imports), the metrics, roofline and
     launcher modules, the KV tier's modules (offload tiers, the cache
     server, the disagg handoff) and the observability and tool-calling
-    modules and every module of the router among them, and chip_smoke.py,
+    modules and every module of the router and of both controllers among
+    them, and chip_smoke.py,
     import without jax; and without prometheus_client, ml_dtypes, aiohttp
     or requests (the card's machine may not have them)."""
     code = (
@@ -335,7 +336,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'router.service_discovery', 'router.sse', 'router.ring', "
         "'router.dynamic_config', 'router.feature_gates', 'router.rewriter', "
         "'router.callbacks', 'router.log_stats', 'router.stats.engine_stats', "
-        "'router.stats.request_stats')}\n"
+        "'router.stats.request_stats', 'router.files_service', "
+        "'router.batch_service', 'router.pii', 'router.semantic_cache', "
+        "'controller.staticroute', 'controller.loraadapter', "
+        "'controller.lora_main', 'controller.__main__')}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"

@@ -10,8 +10,8 @@ that opens, both disagg hops over the port's Python cache server, a client
 disconnect that aborts the engine's request, and two requests on one
 kept-alive connection. Last, the router as a process: started by
 ``launch.launch_router`` under an import hook that refuses jax, jaxlib,
-aiohttp, prometheus_client and requests, and by ``launch.py
---router-args``."""
+aiohttp, prometheus_client and requests (the gated router and both
+controllers too), and by ``launch.py --router-args``."""
 
 import asyncio
 import http.client
@@ -542,6 +542,128 @@ async def test_router_process_serves_without_jax_aiohttp_prometheus_requests(
                 assert router.stop() == 0, open(router.log_path).read()
     assert log.read_text().splitlines() == ["installed", "installed"], \
         log.read_text()
+
+
+async def _gated_router_round(tmp_path, base_env):
+    """The gated router (batch API, PII redaction, the semantic cache) as a
+    process in front of a fake engine: a multipart upload run as a batch, a
+    chat answered from the cache the second time, the series."""
+    from production_stack_tpu_torch.launch import launch_router
+
+    loop = asyncio.get_running_loop()
+    async with Fakes(1) as fakes:
+        router = await loop.run_in_executor(None, lambda: launch_router(
+            fakes.urls, ["m1"], [
+                "--enable-batch-api", "--file-storage-path", str(tmp_path / "files"),
+                "--feature-gates", "SemanticCache=true,PIIDetection=true",
+                "--pii-action", "redact", "--engine-stats-interval", "1"],
+            str(tmp_path)))
+        try:
+            async with aiohttp.ClientSession() as s:
+                form = aiohttp.FormData()
+                form.add_field("file", json.dumps({"custom_id": "c0", "body": {
+                    "model": "m1", "max_tokens": 2,
+                    "messages": [{"role": "user", "content": "hi"}]}}).encode(),
+                    filename="batch.jsonl")
+                async with s.post(router.url + "/v1/files", data=form) as resp:
+                    up = await resp.json()
+                async with s.post(router.url + "/v1/batches",
+                                  json={"input_file_id": up["id"]}) as resp:
+                    batch = await resp.json()
+                for _ in range(100):
+                    await asyncio.sleep(0.2)
+                    async with s.get(router.url + f"/v1/batches/{batch['id']}") as resp:
+                        batch = await resp.json()
+                    if batch["status"] == "completed":
+                        break
+                assert batch["request_counts"]["completed"] == 1, batch
+                chat = {"model": "m1", "max_tokens": 2, "messages": [
+                    {"role": "user", "content": "mail bob@example.com"}]}
+                bodies = []
+                for _ in range(2):
+                    async with s.post(router.url + "/v1/chat/completions",
+                                      json=chat) as resp:
+                        bodies.append(await resp.json())
+                async with s.get(router.url + "/metrics") as resp:
+                    text = await resp.text()
+            assert "cached" not in bodies[0] and bodies[1]["cached"] is True
+            assert "vllm:semantic_cache_hits_total 1.0" in text
+            assert "vllm:pii_requests_scanned_total 2.0" in text
+            seen = json.dumps(fakes.engines[0].requests_seen)
+            assert "bob@example.com" not in seen and "[REDACTED:email]" in seen
+        finally:
+            assert router.stop() == 0, open(router.log_path).read()
+
+
+async def _controller_round(tmp_path, base_env, what):
+    """``python -m production_stack_tpu_torch.controller`` (the operator)
+    or ``.controller.lora_main`` against a fake Kubernetes API until it has
+    reconciled its CR, then SIGTERM."""
+    from tests.test_lora_controller import FakeK8s as FakeLoraK8s
+    from tests.test_lora_controller import _peft_checkpoint
+    from tests.test_staticroute_operator import FakeK8s, _cr, _serve
+
+    if what == "operator":
+        fake = FakeK8s()
+        fake.staticroutes[("default", "route-a")] = _cr()
+        module, extra = "production_stack_tpu_torch.controller", []
+        done = lambda: fake.status_updates and fake.configmaps  # noqa: E731
+    else:
+        fake = FakeLoraK8s()
+        src = tmp_path / "src"
+        _peft_checkpoint(src)
+        fake.adapters["a"] = {"metadata": {"name": "a", "namespace": "default"},
+                              "spec": {"adapterSource": {
+                                  "type": "local", "adapterName": "x",
+                                  "adapterPath": str(src)}}}
+        module = "production_stack_tpu_torch.controller.lora_main"
+        extra = ["--adapters-dir", str(tmp_path / "shared")]
+        done = lambda: fake.statuses.get("a", [{}])[-1].get("phase") == "Ready"  # noqa: E731
+    runner, base = await _serve(fake.app())
+    proc = subprocess.Popen(
+        [sys.executable, "-m", module, "--api-base", base, "--namespace", "default",
+         *extra], cwd=REPO, env=base_env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        for _ in range(300):
+            if done() or proc.poll() is not None:
+                break
+            await asyncio.sleep(0.1)
+        assert done(), proc.poll()
+        assert proc.poll() is None
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+        await runner.cleanup()
+    if what == "operator":
+        cm = fake.configmaps[("default", "route-a-dynamic-config")]
+        assert json.loads(cm["data"]["dynamic_config.json"])["static_models"] == "m1"
+        assert fake.status_updates[-1][2]["configMapRef"] == "route-a-dynamic-config"
+    else:
+        assert (tmp_path / "shared" / "x" / "adapter_config.json").exists(), out
+
+
+@pytest.mark.parametrize("what", ["gated-router", "operator", "lora-controller"])
+async def test_gated_router_and_controllers_run_without_jax_aiohttp_prometheus_requests(
+        tmp_path, monkeypatch, what):
+    """The gated router (``launch_router`` with the batch API, PII
+    redaction and the semantic cache), the StaticRoute operator and the
+    LoraAdapter controller as processes under the import hook that refuses
+    jax, jaxlib, aiohttp, prometheus_client and requests: each serves or
+    reconciles, and none of them imports a refused module."""
+    hook_dir = tmp_path / "hook"
+    hook_dir.mkdir()
+    log = tmp_path / "imports.log"
+    (hook_dir / "sitecustomize.py").write_text(HOOK.format(log=str(log)))
+    path = os.pathsep.join([str(hook_dir), REPO] + [
+        p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    monkeypatch.setenv("PYTHONPATH", path)
+    env = dict(os.environ, PYTHONPATH=path)
+    if what == "gated-router":
+        await _gated_router_round(tmp_path, env)
+    else:
+        await _controller_round(tmp_path, env, what)
+    assert log.read_text().splitlines() == ["installed"], log.read_text()
 
 
 def test_launch_router_args_starts_the_router_before_cpu_engines(tmp_path):

@@ -1,6 +1,7 @@
 """The port's router (``production_stack_tpu_torch/router/``) held against
 the JAX router piece by piece, on the same inputs: the parsed flags and
-their refusals, every pick of the five routing logics over seeded traces,
+their refusals (the gated features' flags and the chart's rendered router
+args too), every pick of the five routing logics over seeded traces,
 the engine-stats parser on real expositions, breaker / backoff / SLO traces,
 the SSE resume parser on randomly split bytes, the metric exposition, the
 breaker gossip's temporary files, and the rule that nothing blocks the
@@ -118,8 +119,9 @@ def test_refusals_equal_the_jax_parser(argv):
     assert _refusal(port_parser.parse_args, argv) == want
 
 
-@pytest.mark.parametrize("extra", [
-    ["--service-discovery", "k8s"],
+K8S = ["--service-discovery", "k8s"]
+GATED = [
+    K8S,
     STATIC + ["--k8s-namespace", "serving"],
     STATIC + ["--enable-batch-api"],
     STATIC + ["--file-storage-path", "/tmp/f"],
@@ -127,13 +129,72 @@ def test_refusals_equal_the_jax_parser(argv):
     STATIC + ["--feature-gates", "PIIDetection=true"],
     STATIC + ["--pii-action", "redact"],
     STATIC + ["--semantic-cache-embedder", "sentence-transformers"],
-], ids=lambda a: " ".join(a[-2:]))
-def test_features_outside_the_port_are_refused_naming_the_roadmap(extra):
-    """The JAX parser takes these; the port's refuses them at parse time
-    (and ``initialize_all`` on a namespace built without the parser)."""
-    jax_parser.parse_args(extra)
-    msg = _refusal(port_parser.parse_args, extra)
-    assert msg is not None and "ROADMAP.md" in msg and "not ported" in msg
+    K8S + ["--k8s-namespace", "serving"],
+    K8S + ["--k8s-port", "9000"],
+    K8S + ["--k8s-label-selector", "environment=test,release=test"],
+    K8S + ["--k8s-namespace", "prod", "--k8s-port", "8080", "--k8s-label-selector",
+           "app=engine", "--routing-logic", "session", "--session-key", "x-user-id"],
+    STATIC + ["--pii-analyzer", "presidio"],
+    STATIC + ["--batch-processor", "local"],
+    STATIC + ["--enable-batch-api", "--file-storage-class", "local_file",
+              "--file-storage-path", "/tmp/f", "--batch-processor", "local"],
+    STATIC + ["--feature-gates", "SemanticCache=true,PIIDetection=true",
+              "--pii-action", "block", "--pii-analyzer", "regex",
+              "--semantic-cache-embedder", "sentence-transformers:all-MiniLM-L6-v2"],
+]
+GATED_REFUSED = [
+    STATIC + ["--batch-processor", "ray"],
+    STATIC + ["--pii-action", "warn"],
+    ["--service-discovery", "consul"],
+    K8S + ["--k8s-port", "http"],
+]
+
+
+@pytest.mark.parametrize("argv", GATED, ids=lambda a: " ".join(a[-2:]))
+def test_gated_feature_flags_equal_the_jax_parser(argv):
+    """Kubernetes discovery, the files and batch APIs, the semantic cache
+    and PII detection: the port's parser returns the JAX parser's
+    Namespace for each of their flags."""
+    assert vars(port_parser.parse_args(argv)) == vars(jax_parser.parse_args(argv))
+
+
+@pytest.mark.parametrize("argv", GATED_REFUSED, ids=lambda a: " ".join(a[-2:]))
+def test_gated_feature_refusals_equal_the_jax_parser(argv):
+    want = _refusal(jax_parser.parse_args, argv)
+    assert want is not None
+    assert _refusal(port_parser.parse_args, argv) == want
+
+
+def _chart_router_args():
+    """Each example values file's rendered router container args (the JAX
+    package's ``helm_lite``, here only)."""
+    import glob
+
+    from production_stack_tpu.helm_lite import render_chart
+
+    chart = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "helm")
+    out = []
+    for values in sorted(glob.glob(os.path.join(chart, "examples", "values-*.yaml"))):
+        for m in render_chart(chart, values_file=values, release_name="stack",
+                              release_namespace="prod"):
+            if m.get("kind") == "Deployment" and \
+                    m["metadata"]["name"].endswith("deployment-router"):
+                c = next(c for c in m["spec"]["template"]["spec"]["containers"]
+                         if c["name"] == "router")
+                out.append((os.path.basename(values), [str(a) for a in c["args"]]))
+    return out
+
+
+@pytest.mark.parametrize("values,args", _chart_router_args(),
+                         ids=lambda v: v if isinstance(v, str) else "")
+def test_chart_router_args_parse_as_the_jax_parser(values, args):
+    """The chart's router args (``--service-discovery k8s`` with its
+    namespace, label selector and port by default) parse with the port's
+    parser to the JAX parser's Namespace."""
+    want = vars(jax_parser.parse_args(args))
+    assert vars(port_parser.parse_args(args)) == want
+    assert want["service_discovery"] == "k8s" and want["k8s_namespace"] == "prod"
 
 
 # ----------------------------------------------------------------- routing
@@ -588,7 +649,11 @@ def test_metric_exposition_equals_prometheus_client_and_the_registry():
         if isinstance(obj, MetricWrapperBase):
             jax_router.register(obj)
     want = _normalized_exposition(generate_latest(jax_router).decode())
-    got = port_metrics_mod.generate_latest().decode().splitlines()
+    # The port router module's series alone, likewise (the gated modules
+    # register theirs on the same registry).
+    got = port_metrics_mod.generate_latest(
+        [obj for obj in vars(port_metrics_mod).values()
+         if isinstance(obj, port_metrics_mod._Family)]).decode().splitlines()
     assert got == want
     families = {ln.split()[2] for ln in got if ln.startswith("# TYPE")}
     registered = {s.name for s in REGISTRY if ROUTER in s.surfaces}
@@ -681,13 +746,13 @@ def test_hash_ring_and_placement_equal_jax():
 
 
 def test_router_modules_mirror_the_jax_names():
-    """Every module of the JAX router this slice ports has its counterpart
-    under the same name."""
-    for name in ("app", "callbacks", "dynamic_config", "feature_gates",
-                 "log_stats", "metrics", "parser", "request_service",
-                 "resilience", "rewriter", "ring", "routing_logic",
-                 "service_discovery", "sse", "stats.engine_stats",
-                 "stats.request_stats"):
+    """Every module of the JAX router has its counterpart under the same
+    name."""
+    for name in ("app", "batch_service", "callbacks", "dynamic_config",
+                 "feature_gates", "files_service", "log_stats", "metrics",
+                 "parser", "pii", "request_service", "resilience", "rewriter",
+                 "ring", "routing_logic", "semantic_cache", "service_discovery",
+                 "sse", "stats.engine_stats", "stats.request_stats"):
         importlib.import_module(f"production_stack_tpu.router.{name}")
         importlib.import_module(f"production_stack_tpu_torch.router.{name}")
 
