@@ -273,10 +273,15 @@ serving):
      draft-ring digests equal; ms per token at dp = 2 and dp = 1;
  15. router: the port's router (``python -m
      production_stack_tpu_torch.router.app``, a CPU process) in front of port
-     engines: (a) ``launch.py --router-args`` starts two unified engines
-     (llama-3b at ``CUT_LAYERS``, bf16 KV, 1,024 blocks each, the kvtier
-     engines' warm-up manifest) behind a session router; 4 users x 3 rounds
-     of multi-round chat (``benchmarks/multi_round_qa.py``'s shape), 32
+     engines. First the port's ``helm_lite`` renders ``helm/`` in this
+     process (PyYAML never loaded): the engine asks for one
+     ``nvidia.com/gpu`` and its rendered args, the launcher's own flags
+     out and the smoke's ``--seed``, ``--num-kv-blocks`` and
+     ``--max-num-batched-tokens`` in, parse to ``kvtier_server_args``'
+     Namespace. (a) ``launch.py --router-args`` starts two unified engines
+     with those args (llama-3b at ``CUT_LAYERS``, bf16 KV, 1,024 blocks
+     each, the kvtier engines' warm-up manifest) behind a session router;
+     4 users x 3 rounds of multi-round chat (``benchmarks/multi_round_qa.py``'s shape), 32
      greedy streamed tokens, one request at a time: each user's rounds on one
      engine (its ``/debug/requests/{id}``), rounds 2 and 3 adding prefix-cache
      hits there, the tokens of the same request straight to that engine and
@@ -315,8 +320,14 @@ serving):
      Service, and the ConfigMap's ``dynamic_config.json``, written where a
      running router on the first engine watches it, re-points that router
      to the second engine. The engines' kernel counts over (e)-(g) are
-     layers x their decode steps. No router or controller process holds
-     memory on the card or has a ``/dev/nvidia*`` file open
+     layers x their decode steps. (h) the chart rendered again (the second
+     engine's port as ``--k8s-port``, a free router port, namespace
+     ``default``) and the router started with exactly its rendered args
+     behind a fake in-cluster API server listing one ready pod on the
+     second engine with the rendered pod labels: the label selector it
+     sends is the rendered one, a 16-token greedy chat through it equals
+     its twin, the engines' counts over the round are layers x steps. No
+     router or controller process holds memory on the card or has a ``/dev/nvidia*`` file open
      (``nvidia-smi --query-compute-apps``, ``/proc/<pid>/fd``); median TTFT
      and inter-token ms through the router beside the same requests
      straight to the engine.
@@ -4136,6 +4147,22 @@ def kvtier_peer_main(seed, kv_cache_dtype, kv_url, model, device):
     print("kvtier-peer " + json.dumps(out), flush=True)
 
 
+def disagg_hops(pre, dec, body, key):
+    """Both hops of one chat by hand, as the router drives them: POST
+    /disagg/prefill to the prefill-role engine, then the stream from the
+    decode-role engine with the transfer key. Returns (hop 1 s, tokens,
+    first-token and end times)."""
+    t0 = time.monotonic()
+    st, _, text = request("POST", pre + "/disagg/prefill", body, {
+        "x-pstpu-transfer-key": key, "x-pstpu-endpoint": "chat", "x-request-id": key})
+    hop1 = time.monotonic() - t0
+    if st != 200 or json.loads(text).get("status") != "handoff":
+        fail(f"disagg hop 1 of {key}: {st} {text}")
+    st, chunks, ts, tf, te = sse_stream(dec + "/v1/chat/completions", body, {
+        "x-pstpu-disagg": "decode", "x-pstpu-transfer-key": key, "x-pstpu-resume": "1"})
+    return hop1, stream_tokens(chunks), tf, te
+
+
 def kvtier_disagg(torch, pa, engine, loop, pd, kv_cache_dtype, seed):
     """Both hops of 4 chat requests, one at a time, as the router drives
     them: POST /disagg/prefill to the prefill-role engine, then the stream
@@ -4157,18 +4184,9 @@ def kvtier_disagg(torch, pa, engine, loop, pd, kv_cache_dtype, seed):
                 "ignore_eos": True, "stream": True,
                 "messages": [{"role": "user", "content": p}], **sp}
         bodies.append(body)
-        key = f"pstpu-transfer:kvtier-{kv_cache_dtype}-{i}"
         t0 = time.monotonic()
-        st, _, text = request("POST", pre + "/disagg/prefill", body, {
-            "x-pstpu-transfer-key": key, "x-pstpu-endpoint": "chat",
-            "x-request-id": key})
-        hop1 = time.monotonic() - t0
-        if st != 200 or json.loads(text).get("status") != "handoff":
-            fail(f"kvtier disagg {kv_cache_dtype} hop 1: {st} {text}")
-        st, chunks, ts, tf, te = sse_stream(dec + "/v1/chat/completions", body, {
-            "x-pstpu-disagg": "decode", "x-pstpu-transfer-key": key,
-            "x-pstpu-resume": "1"})
-        toks = stream_tokens(chunks)
+        hop1, toks, tf, te = disagg_hops(pre, dec, body,
+                                         f"pstpu-transfer:kvtier-{kv_cache_dtype}-{i}")
         rows.append({"hop1_s": hop1, "ttft_s": tf - t0, "total_s": te - t0,
                      "tokens": toks})
     d1 = json.loads(request("GET", dec + "/debug/kernels")[2])
@@ -7050,6 +7068,7 @@ ROUTER_TOKENS = 32                  # greedy tokens per round
 ROUTER_FAILOVER_TOKENS = 128        # the stream cut by SIGKILL in round (d)
 ROUTER_WATCHDOG_S = 600
 ROUTER_HTTP_TIMEOUT_S = 120
+DISAGG_REPEATS = 0                  # round (c) again (--disagg-repeats)
 # benchmarks/multi_round_qa.py's synthetic text and its defaults.
 QA_WORDS = ("the quick brown fox jumps over a lazy dog while curious engineers "
             "measure throughput latency and cache behavior of serving stacks").split()
@@ -7354,14 +7373,50 @@ def router_disagg_round(torch, pa, pd, model, kv_url, kv_cache_dtype, hand, n_la
                  "fallbacks")
         off = router_off_card(f"disagg {kv_cache_dtype}", [router.proc.pid],
                               [p.pid for p in pd.procs])
+        repeats = router_disagg_repeats(router.url, pd.urls, hand, kv_cache_dtype)
     finally:
         router.stop()
     row = {"requests": len(toks), "tokens_equal_hand_driven": True, "decode_steps": steps,
-           "decode_launches": launches, "handoffs": handoffs,
+           "decode_launches": launches, "handoffs": handoffs, "repeats": repeats,
            "ttft_ms_median": {"router": 1e3 * median(ttft),
                               "hand": 1e3 * median(hand["ttft_s"])}, **off}
     log(f"router disagg {kv_cache_dtype}: {json.dumps(row)}")
     return launches, row
+
+
+def router_disagg_repeats(router_url, urls, hand, kv_cache_dtype):
+    """Round (c)'s chats sent ``DISAGG_REPEATS`` more times (``--disagg-repeats``;
+    0 in a whole run), each through the same router and by hand (both hops
+    again), every one held to the first hand-driven hops' tokens; a chat
+    that differs is logged with both engines' timelines of it, and the run
+    fails after the last repeat."""
+    differ = []
+    for r in range(DISAGG_REPEATS):
+        for i, body in enumerate(hand["bodies"]):
+            rid = f"router-disagg-{kv_cache_dtype}-r{r}-{i}"
+            st, evs, *_ = sse_request(router_url + "/v1/chat/completions", body,
+                                      {"x-user-id": f"disagg-{i}", "x-request-id": rid})
+            key = f"pstpu-transfer:repeat-{kv_cache_dtype}-{r}-{i}"
+            runs = (("router", rid, st, event_tokens(evs)),
+                    ("hand", key, 200, disagg_hops(*urls, body, key)[1]))
+            for how, req_id, status, got in runs:
+                if status == 200 and got == hand["tokens"][i]:
+                    continue
+                at = next((j for j, (a, b) in enumerate(zip(got, hand["tokens"][i]))
+                           if a != b), None)
+                differ.append({"repeat": r, "chat": i, "how": how, "status": status,
+                               "at": at, "got": got, "want": hand["tokens"][i]})
+                for u in urls:
+                    log(f"router disagg repeat {r} chat {i} ({how}) on {u}: "
+                        f"{request('GET', f'{u}/debug/requests/{req_id}')[2]}")
+    row = {"runs": DISAGG_REPEATS, "chats": 2 * DISAGG_REPEATS * len(hand["bodies"]),
+           "differ": [{k: d[k] for k in ("repeat", "chat", "how", "status", "at")}
+                      for d in differ]}
+    log(f"router disagg {kv_cache_dtype} repeats: {json.dumps(row)} {json.dumps(differ)}")
+    if differ:
+        fail(f"router disagg {kv_cache_dtype}: {len(differ)} of {row['chats']} repeated "
+             f"chats differ from the hand-driven hops': {row['differ']}")
+    return row
 
 
 def router_failover(name, router_url, router_log, engines, pids, model, where_of, tag):
@@ -8023,6 +8078,208 @@ def lora_controller_paths(root, adapters, log_dir):
                    "controller_nvidia_files": off["router_nvidia_files"]}
 
 
+CHART_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "helm")
+CHART_RELEASE = "smoke"
+CHART_NAMESPACE = "default"
+# The router phase's engines take these server flags beside the chart's:
+# the chart has no key for them.
+CHART_EXTRA_FLAGS = ("--seed", "--num-kv-blocks", "--max-num-batched-tokens")
+# launch.py sets these itself (the chart's --served-model-name is the model)
+LAUNCHER_FLAGS = ("--model", "--served-model-name", "--host", "--port")
+
+
+def chart_values(model, engine_port=8000, router_port=8000):
+    """The values the router phase renders ``helm/`` with: one modelSpec of
+    ``model`` on one NVIDIA card, the chart's keys for every flag of
+    ``kvtier_server_args("bfloat16", seed)`` it renders, and a session
+    router (``x-user-id``, 1 s stats interval)."""
+    return {
+        "servingEngineSpec": {
+            "containerPort": engine_port,
+            "modelSpec": [{
+                "name": "llama", "repository": "production-stack-tpu-torch/engine",
+                "tag": "latest", "modelURL": model, "replicaCount": 2,
+                "requestGPUType": "nvidia.com/gpu", "requestGPU": 1,
+                "vllmConfig": {"dtype": "bfloat16", "maxModelLen": 4096, "maxNumSeqs": 4},
+                "tpuConfig": {"attnImpl": "paged", "numDecodeSteps": 32,
+                              "kvCacheDtype": "bfloat16",
+                              "compilationCacheDir": ELASTIC_CACHE},
+            }],
+        },
+        "routerSpec": {"containerPort": router_port, "routingLogic": "session",
+                       "sessionKey": "x-user-id", "engineScrapeInterval": 1},
+    }
+
+
+def chart_render(values):
+    """The port's ``helm_lite`` over ``helm/`` in this process: (engine
+    Deployment, router Deployment, seconds)."""
+    from production_stack_tpu_torch.helm_lite import render_chart
+
+    t0 = time.monotonic()
+    manifests = render_chart(CHART_DIR, values, release_name=CHART_RELEASE,
+                             release_namespace=CHART_NAMESPACE)
+    seconds = time.monotonic() - t0
+    deployments = {m["metadata"]["name"]: m for m in manifests if m["kind"] == "Deployment"}
+    engine = [d for n, d in deployments.items() if n.endswith("-deployment-engine")]
+    router = deployments.get(f"{CHART_RELEASE}-deployment-router")
+    if len(engine) != 1 or router is None:
+        fail(f"router chart: rendered Deployments {sorted(deployments)}")
+    return engine[0], router, seconds
+
+
+def chart_args(deployment, container):
+    c = next(c for c in deployment["spec"]["template"]["spec"]["containers"]
+             if c["name"] == container)
+    return [str(a) for a in c["args"]], c
+
+
+def chart_engine_args(model, seed, engine):
+    """The rendered engine args as ``launch.py`` takes them after ``--``:
+    its own flags out (their values checked), the smoke's flags the chart
+    has no key for appended."""
+    args, _ = chart_args(engine, "engine")
+    out, i = [], 0
+    while i < len(args):
+        if args[i] in LAUNCHER_FLAGS:
+            if args[i] in ("--model", "--served-model-name") and args[i + 1] != model:
+                fail(f"router chart: {args[i]} rendered as {args[i + 1]!r}, not {model!r}")
+            i += 2
+            continue
+        out.append(args[i])
+        i += 1
+    want = kvtier_server_args("bfloat16", seed)
+    for flag in CHART_EXTRA_FLAGS:
+        out += want[want.index(flag):want.index(flag) + 2]
+    return out
+
+
+def chart_check(model, seed, device_type):
+    """Render the chart for the router phase's engines and hold it: PyYAML
+    never loaded, the engine asks for one ``nvidia.com/gpu``, and its args
+    parse to today's ``kvtier_server_args`` Namespace. Returns (the engine
+    args for ``launch.py``, summary row)."""
+    from production_stack_tpu_torch.server.api_server import parse_args
+
+    engine, router, seconds = chart_render(chart_values(model))
+    args = chart_engine_args(model, seed, engine)
+    _, container = chart_args(engine, "engine")
+    res = container["resources"]
+    gpus = [res.get("requests", {}).get("nvidia.com/gpu"),
+            res.get("limits", {}).get("nvidia.com/gpu")]
+    launcher = ["--model", model, "--device", device_type, "--host", "127.0.0.1",
+                "--port", "0"]
+    got = vars(parse_args(launcher + args))
+    want = vars(parse_args(launcher + kvtier_server_args("bfloat16", seed)))
+    diff = {k: (got.get(k), want.get(k)) for k in set(got) | set(want)
+            if got.get(k) != want.get(k)}
+    if "yaml" in sys.modules or gpus != ["1", "1"] or diff:
+        fail(f"router chart: yaml loaded {'yaml' in sys.modules}, nvidia.com/gpu "
+             f"{gpus}, Namespace differs from kvtier_server_args at {diff}")
+    row = {"render_s": seconds, "engine_args": args, "nvidia_gpu": gpus,
+           "namespace_equal": True, "yaml_loaded": False,
+           "router_args": chart_args(router, "router")[0]}
+    log(f"router chart: {json.dumps(row)}")
+    return args, row
+
+
+def router_chart_round(model, engines, pids, log_dir, n_layers, variant):
+    """Round (h), the chart's router: the chart rendered again with the
+    second engine's port (``--k8s-port``), a free router port and the
+    namespace ``default``; ``python -m production_stack_tpu_torch.router.app``
+    started with exactly the rendered router args, behind a fake in-cluster
+    API server listing one ready pod on the second engine with the rendered
+    pod template's labels. One greedy chat of ``FEATURE_TOKENS`` tokens
+    through it equals its twin straight to the engine (both after a prime,
+    so they find the same prefix-cache state); the engines' kernel counts
+    over the round are layers x their decode steps, none eager; the router
+    holds no ``/dev/nvidia*`` file. Returns (launches, summary row)."""
+    from production_stack_tpu_torch.launch import _child_env, _healthy, free_port
+
+    t_round = time.monotonic()
+    target = engines[1]
+    port = int(target.rsplit(":", 1)[1])
+    rport = free_port()
+    engine, router, render_s = chart_render(chart_values(model, port, rport))
+    args, _ = chart_args(router, "router")
+    labels = engine["spec"]["template"]["metadata"]["labels"]
+    selector = args[args.index("--k8s-label-selector") + 1]
+    if args[args.index("--k8s-port") + 1] != str(port) or \
+            args[args.index("--k8s-namespace") + 1] != CHART_NAMESPACE or \
+            any(labels.get(k) != v for k, v in (c.split("=", 1) for c in selector.split(","))):
+        fail(f"router chart round: rendered router args {args}, pod labels {labels}")
+    api = FakeKubeApi(tls=True)
+    api.pods["engine-1"] = {"metadata": {"name": "engine-1", "labels": dict(labels)},
+                            "status": {"podIP": "127.0.0.1",
+                                       "containerStatuses": [{"ready": True}]}}
+    env = dict(_child_env(), KUBERNETES_SERVICE_HOST="127.0.0.1",
+               KUBERNETES_SERVICE_PORT=str(api.port))
+    log_path = os.path.join(log_dir, f"chart-router-{rport}.log")
+    proc = None
+    row = {"render_s": render_s, "router_args": args}
+    try:
+        with open(log_path, "wb") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "production_stack_tpu_torch.router.app", *args],
+                stdout=f, stderr=subprocess.STDOUT, env=env,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+        url = f"http://127.0.0.1:{rport}"
+        row["router_up_s"] = wait_for("the chart's router", lambda: proc.poll() is None
+                                      and _healthy(url), 60)
+
+        def models():
+            return [m["id"] for m in json.loads(
+                request("GET", url + "/v1/models")[2])["data"]]
+
+        row["discovered_s"] = wait_for("k8s discovery of the chart's pod",
+                                       lambda: models() == [model], 10)
+        for u in engines:
+            request("POST", u + "/debug/kernels/reset")
+        before = {u: engine_kernels(u)["stats"] for u in engines}
+        body = {"model": model, "temperature": 0, "max_tokens": FEATURE_TOKENS,
+                "ignore_eos": True, "stream": True, "messages": [
+                    {"role": "user", "content": feature_prompt("chart", 0)}]}
+        prime([target], body)
+        st, evs, *_ = sse_request(url + "/v1/chat/completions", body,
+                                  {"x-request-id": "chart-routed", "x-user-id": "chart"})
+        where = served_by(engines, "chart-routed")
+        st_d, evs_d, *_ = sse_request(target + "/v1/chat/completions", body,
+                                      {"x-pstpu-resume": "1", "x-request-id": "chart-twin"})
+        toks, toks_d = event_tokens(evs), event_tokens(evs_d)
+        if where != target or (st, st_d) != (200, 200) or len(toks) != FEATURE_TOKENS \
+                or toks != toks_d:
+            fail(f"router chart round: served by {where} (want {target}), HTTP "
+                 f"{st}/{st_d}, tokens equal {toks == toks_d}")
+        launches = []
+        for u in engines:
+            k = engine_kernels(u)
+            steps = k["stats"]["decode_steps_total"] - before[u]["decode_steps_total"]
+            eager = (k["stats"]["decode_eager_dispatches_total"]
+                     - before[u]["decode_eager_dispatches_total"])
+            launches.append(k["launch_counts"].get(variant, 0))
+            if launches[-1] != n_layers * steps or eager or (u == target and not steps):
+                fail(f"router chart round: {u} launched {k['launch_counts']} for {steps} "
+                     f"decode steps ({n_layers} layers), {eager} eager dispatches")
+        sent = api.lists[0].get("labelSelector") if api.lists else None
+        if sent != selector:
+            fail(f"router chart round: the router listed pods with {sent!r}, the chart "
+                 f"rendered {selector!r}")
+        row.update(tokens_equal_twin=True, launches=launches, label_selector=sent,
+                   pod_labels=labels, **router_off_card("chart", [proc.pid], pids))
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        api.close()
+    row["seconds"] = time.monotonic() - t_round
+    log(f"router chart round: {json.dumps(row)}")
+    return sum(launches), row
+
+
 def router_phase(torch, pa, device, seed, card, model, disagg_rows):
     """Phase 15 (see the module docstring). ``disagg_rows``: round (c)'s
     rows from the kvtier phase. Returns (launches, summary)."""
@@ -8034,6 +8291,9 @@ def router_phase(torch, pa, device, seed, card, model, disagg_rows):
     os.makedirs(log_dir, exist_ok=True)
     n_layers = resolve_model_config(model).num_layers
     here = os.path.dirname(os.path.abspath(__file__))
+    # The chart, rendered here by the port's helm_lite: its engine args
+    # start the phase's two engines.
+    engine_args, chart = chart_check(model, seed, device.type)
     t_up = time.monotonic()
     launch_log = open(os.path.join(log_dir, "launch.log"), "w")
     launcher = subprocess.Popen(
@@ -8041,9 +8301,9 @@ def router_phase(torch, pa, device, seed, card, model, disagg_rows):
          "--device", device.type, "--num-engines", "2", "--log-dir", log_dir,
          "--startup-timeout", "600", "--router-args",
          "--routing-logic session --session-key x-user-id --engine-stats-interval 1",
-         "--", *kvtier_server_args("bfloat16", seed)],
+         "--", *engine_args],
         stdout=subprocess.PIPE, stderr=launch_log, text=True, cwd=here)
-    out = {"card": card}
+    out = {"card": card, "chart": chart}
     launches = 0
     cache_router = None
     try:
@@ -8110,6 +8370,10 @@ def router_phase(torch, pa, device, seed, card, model, disagg_rows):
                      f"decode steps ({n_layers} layers), {eager} eager dispatches")
         out["features_launches"] = feature_launches
         launches += sum(feature_launches)
+        # (h) the chart's router, Kubernetes-discovered
+        n, out["chart_router"] = router_chart_round(model, engines, pids, log_dir,
+                                                    n_layers, pa.BF16)
+        launches += n
         # (d) failover, last: it kills an engine
         k, out["failover"] = router_failover(
             "session", session_url, info["router_log"], engines, pids, model, where_of,
@@ -8162,7 +8426,12 @@ def main() -> None:
     ap.add_argument("--kvtier-device", default="cuda", help=argparse.SUPPRESS)
     # the kvtier-tp phase's second process (its round 4)
     ap.add_argument("--kvtier-tp-peer", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--disagg-repeats", type=int, default=0,
+                    help="send round (c)'s chats this many more times through its "
+                         "router, each held to the hand-driven hops' tokens")
     args = ap.parse_args()
+    global DISAGG_REPEATS
+    DISAGG_REPEATS = args.disagg_repeats
     phases = set(args.phases.split(","))
     if "router" in phases:
         phases.add("kvtier")

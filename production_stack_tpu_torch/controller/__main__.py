@@ -17,12 +17,16 @@ logger = init_logger(__name__)
 _SA = "/var/run/secrets/kubernetes.io/serviceaccount"
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--namespace", default=os.environ.get("WATCH_NAMESPACE"))
     ap.add_argument("--api-base", default=None,
                     help="Kubernetes API base URL (default: in-cluster)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
 
     api_base = args.api_base
     token = None

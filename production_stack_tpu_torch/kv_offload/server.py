@@ -252,14 +252,22 @@ async def serve_python(host: str, port: int, max_bytes: int,
         await srv.serve_forever()
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description="Shared KV cache server")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8200)
     ap.add_argument("--max-bytes", type=int, default=32 << 30)
     ap.add_argument("--force-python", action="store_true",
                     help="skip the native binary even if present")
-    args = ap.parse_args(argv)
+    ap.add_argument("--serde", default="naive", choices=["naive"],
+                    help="the blobs' wire format; the Helm chart renders it "
+                         "(cacheserverSpec.serde), and naive is the one "
+                         "this server speaks")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if not args.force_python:
         binary = find_native_binary()
         if binary:

@@ -1223,7 +1223,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="KV-cache storage dtype: int8 stores K/V with "
                         "per-(slot, head) bf16 scales (~2x the blocks per "
                         "byte, half the decode kernel's pool bytes)")
-    p.add_argument("--max-model-len", type=int, default=4096)
+    p.add_argument("--max-model-len", type=int, default=2048)
     p.add_argument("--block-size", type=int, default=16,
                    help="KV cache block size in tokens")
     p.add_argument("--num-kv-blocks", type=int, default=None,

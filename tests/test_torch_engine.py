@@ -317,9 +317,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     launcher modules, the KV tier's modules (offload tiers, the cache
     server, the disagg handoff) and the observability and tool-calling
     modules and every module of the router and of both controllers among
-    them, and chip_smoke.py,
-    import without jax; and without prometheus_client, ml_dtypes, aiohttp
-    or requests (the card's machine may not have them)."""
+    them, the chart renderer and its YAML reader, and chip_smoke.py,
+    import without jax; and without prometheus_client, ml_dtypes, aiohttp,
+    requests or PyYAML (the card's machine may not have them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import production_stack_tpu_torch as p\n"
@@ -339,13 +339,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'router.stats.request_stats', 'router.files_service', "
         "'router.batch_service', 'router.pii', 'router.semantic_cache', "
         "'controller.staticroute', 'controller.loraadapter', "
-        "'controller.lora_main', 'controller.__main__')}\n"
+        "'controller.lora_main', 'controller.__main__', 'helm_lite', 'yaml_lite')}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', "
         "'production_stack_tpu', 'prometheus_client', 'ml_dtypes', 'aiohttp', "
-        "'requests')]\n"
+        "'requests', 'yaml')]\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
