@@ -104,11 +104,11 @@ serving):
      ``paged_flash_decode_stats_tp`` on each of 2 ranks against its plain
      twin, and its device times at a rank's shape (H 16, Hkv 4);
   8b. sp: the rest of the reference's mesh, every rank a process on this
-     card over gloo. llama-3b at sequence_parallel_size 2, full width and
-     depth, bf16: 4 x 64-token prompts and one of 3,000 tokens at
-     ``max_num_batched_tokens`` 1,024 (a first chunk and two continuation
-     chunks, every one ring-attended); then, cut to ``CUT_LAYERS``, dp = 2
-     x sp = 2 x tp = 2 (8 ranks) and sp = 2 x tp = 3 (6 ranks, the
+     card over gloo. llama-3b at full width, depth cut to ``CUT_LAYERS``,
+     bf16: at sequence_parallel_size 2, 4 x 64-token prompts and one of
+     3,000 tokens at ``max_num_batched_tokens`` 1,024 (a first chunk and
+     two continuation chunks, every one ring-attended); then dp = 2 x sp =
+     2 x tp = 2 (8 ranks) and sp = 2 x tp = 3 (6 ranks, the
      replication fallback: kv heads and the MLP replicated, the window
      path), 4 x 16-token prompts. Each: an eager tp = 1 runner's greedy
      tokens forced through the mesh's runner (max |logit diff| within
@@ -197,8 +197,8 @@ serving):
      restored tokens and the stored blobs equal across the two servers,
      TTFT of each restore;
  11. spec: speculative decoding, two pairs at full width, depth cut to
-     ``CUT_LAYERS`` (random bf16 weights from --seed, bf16 KV, block 16,
-     N = 4): llama-3b drafting
+     ``CUT_LAYERS`` (random bf16 weights
+     from --seed, bf16 KV, block 16, N = 4): llama-3b drafting
      for itself (the ceiling) and a llama-3b draft for llama-3-8b (the
      floor); per pair spec off (the paged kernel, its count layers x
      decode steps), linear, tree (W = 3) and adaptive, each an engine
@@ -211,8 +211,8 @@ serving):
      stats(), graph replays that differ from the strict eager train on the
      same batches, or bf16 tokens that part from spec-off's before a step
      whose sampler margin is under 2 x ``tp_logit_bound``; a profiled round
-     of ``SPEC_TRACE_TOKENS`` per request of spec off and linear per pair
-     (each step's seconds in the summary); the self pair's linear engine
+     of ``SPEC_TRACE_TOKENS`` per request of the self pair's spec off and
+     linear (each step's seconds in the summary); the self pair's linear engine
      then serves 4 streams over prompt heads it cached, so each prefill
      catches its draft ring up, against its strict eager twin: every
      catch-up a replay of its bucket's graph, tokens and draft-ring digest
@@ -275,12 +275,21 @@ serving):
      production_stack_tpu_torch.router.app``, a CPU process) in front of port
      engines. First the port's ``helm_lite`` renders ``helm/`` in this
      process (PyYAML never loaded): the engine asks for one
-     ``nvidia.com/gpu`` and its rendered args, the launcher's own flags
-     out and the smoke's ``--seed``, ``--num-kv-blocks`` and
-     ``--max-num-batched-tokens`` in, parse to ``kvtier_server_args``'
-     Namespace. (a) ``launch.py --router-args`` starts two unified engines
-     with those args (llama-3b at ``CUT_LAYERS``, bf16 KV, 1,024 blocks
-     each, the kvtier engines' warm-up manifest) behind a session router;
+     ``nvidia.com/gpu`` and its rendered args, loopback ``--host`` and
+     ``--port`` in and the smoke's ``--seed``, ``--num-kv-blocks`` and
+     ``--max-num-batched-tokens`` added, parse to ``kvtier_server_args``'
+     Namespace. The port, copied alone to a temporary directory as the
+     engine image copies it, is installed with one ``pip install
+     --target`` into a temporary prefix whose ``bin/pstpu-engine`` links to
+     ``pstpu-torch-engine``, as the engine image links it. (a) two unified
+     engines start from the rendered container's ``command`` and those args
+     (llama-3b at ``CUT_LAYERS``, bf16 KV, 1,024 blocks each, the kvtier
+     engines' warm-up manifest) with the prefix alone on ``PYTHONPATH``, a
+     working directory and an empty kernel cache outside the checkout:
+     each builds the shipped kernel source cold, its ``/debug/kernels``
+     names the prefix's package as the one it imported, and its
+     ``/proc/<pid>/maps`` shows the library from that cache and no file of
+     the checkout; a session router (``launch.launch_router``) before them;
      4 users x 3 rounds of multi-round chat (``benchmarks/multi_round_qa.py``'s shape), 32
      greedy streamed tokens, one request at a time: each user's rounds on one
      engine (its ``/debug/requests/{id}``), rounds 2 and 3 adding prefix-cache
@@ -371,17 +380,20 @@ KERNEL_REPLACES = {
 TP_KERNEL_REPLACES = ("production_stack_tpu/ops/pallas/paged_attention.py:376 "
                       "paged_flash_decode_stats_tp")
 BF16_KV_BLOCKS = 8 * 4096 // 16 + 1   # 8 sequences x 4096 tokens + null block
-# Every phase but the sp phase's sp = 2 run (llama-3b at full depth) runs
-# its model at full width cut to this many layers: serving, graphs,
-# elastic, tp, sp's dp x sp x tp runs, surface, kvtier, kvtier-tp, spec and
-# ckpt load checkpoint directories of random bf16 weights from --seed
-# (``cut_model``), written under the output directory and removed at exit.
-# Warm-up graph capture and eager dispatch are host-bound and grow with
-# depth, and their cost varies from one machine to the next: with the
-# serving, graphs and elastic bf16 runs at full depth the whole script took
-# 947 s on one machine and 1,049 s on another, against a 1,200 s limit
-# that a machine ~1.35x slower had already overrun.
-CUT_LAYERS = 4
+# Every phase but opt-tp runs its model at full width cut to this many
+# layers: serving, graphs, elastic, tp, sp, surface, kvtier, kvtier-tp,
+# spec, ckpt, spec-dp and router load checkpoint directories of random bf16
+# weights from --seed (``cut_model``), written under the output directory
+# and removed at exit. Warm-up graph capture, eager dispatch and the gloo
+# collectives of a mesh on one card are host-bound and grow with depth,
+# and their cost varies ~1.3x from one machine to the next: at 4 layers
+# (and the sp phase's sp = 2 run at 28) the whole script took 832 s on one
+# machine and 1,079 s on another once the router phase built, installed
+# and cold-built the port, against a 1,200 s limit; at 2, 702 s (NVIDIA
+# H100 80GB HBM3, 700 W, as the others). llama-3-8b's tp = 2 meshes
+# (``TP_MODEL``: tp, kvtier-tp, the spec phase's cross target) run eagerly,
+# two gloo collectives per layer and step, the most depth-bound of all.
+CUT_LAYERS = 2
 # The prefill token budget (``max_num_batched_tokens``) of the engines of the
 # surface, kvtier, kvtier-tp, spec and ckpt phases: their warm-up captures
 # the prefill families of chunks up to 512 tokens (33 graphs at llama-3b
@@ -408,6 +420,7 @@ STATS_ATOL = 1e-5
 DETAIL_LOG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "chiprun_out", "chip_smoke_detail.log")
 _detail = None
+_T0 = time.monotonic()
 # --compilation-cache-dir of the serving phase's engines, the elastic
 # phase's, and kvtier's and ckpt's (the warm-up manifests of their
 # configurations): emptied when the script starts, so a rerun on the same
@@ -436,7 +449,8 @@ def log(msg: str) -> None:
     if _detail is None:
         os.makedirs(os.path.dirname(DETAIL_LOG), exist_ok=True)
         _detail = open(DETAIL_LOG, "w")
-    _detail.write(msg + "\n")
+    # Seconds since the process started: where a phase's time goes.
+    _detail.write(f"[{time.monotonic() - _T0:8.2f}] {msg}\n")
     _detail.flush()
 
 
@@ -2501,7 +2515,7 @@ SP_CUT_TOKENS = 16                  # prompt tokens of the cut meshes' runs
 SP_ROW_BLOCKS = 256                 # blocks per forced row (4096 tokens)
 SP_MESHES = (
     # (name, dp, sp, tp, cut to CUT_LAYERS, long prompt)
-    ("sp2", 1, 2, 1, False, True),
+    ("sp2", 1, 2, 1, True, True),
     ("dp2-sp2-tp2", 2, 2, 2, True, False),
     ("sp2-tp3", 1, 2, 3, True, False),
 )
@@ -2764,11 +2778,11 @@ def sp_mesh_run(torch, pa, name, dp, sp, tp, model, mc, common, prompt_ids, ref,
 
 def sp_phase(torch, pa, device, seed, card, cut_dirs, model=SP_MODEL):
     """Sequence parallelism, data parallelism and the replication fallback
-    on this card (every rank a process sharing it over gloo): ``model``
-    (llama-3b) at sp = 2, full width and depth (4 x 64-token prompts and
-    one of 3,000 tokens, 1,024-token chunks: a first chunk and two
-    continuation chunks, all rung); then cut to ``CUT_LAYERS``
-    (``cut_model``'s directory) dp = 2 x sp = 2 x tp = 2 (8 ranks, the paged
+    on this card (every rank a process sharing it over gloo), ``model``
+    (llama-3b) at full width cut to ``CUT_LAYERS`` (``cut_model``'s
+    directory): sp = 2 (4 x 64-token prompts and one of 3,000 tokens,
+    1,024-token chunks: a first chunk and two continuation chunks, all
+    rung); dp = 2 x sp = 2 x tp = 2 (8 ranks, the paged
     kernel per rank) and sp = 2 x tp = 3 (6 ranks: Hkv 8 and the 8,192-wide
     MLP do not divide by 3, so they replicate and decode takes the window
     path), 4 x 16-token prompts; each against an eager tp = 1 runner by the
@@ -2792,10 +2806,10 @@ def sp_phase(torch, pa, device, seed, card, cut_dirs, model=SP_MODEL):
                       max_num_batched_tokens=SP_BUDGET,
                       num_kv_blocks=len(prompt_ids) * SP_ROW_BLOCKS + 1)
         t0 = time.monotonic()
-        if path not in refs:
-            refs[path] = sp_reference(torch, common, mc, prompt_ids, long)
+        if (path, long) not in refs:
+            refs[path, long] = sp_reference(torch, common, mc, prompt_ids, long)
         row, n = sp_mesh_run(torch, pa, name, dp, sp, tp, path, mc, common,
-                             prompt_ids, refs[path], long)
+                             prompt_ids, refs[path, long], long)
         row["seconds"] = time.monotonic() - t0
         out[name] = row
         if tp == 1:
@@ -3862,6 +3876,12 @@ KVTIER_SAMPLINGS = (dict(temperature=0.0), dict(temperature=0.8, top_p=0.9, seed
                     dict(temperature=0.0), dict(temperature=0.7, seed=7))
 
 
+# The disagg pair's prefill engine's restore link rate (Gb/s, the KV tier's
+# ``PSTPU_KV_RESTORE_LINK_GBPS``): so slow that a restore never beats
+# recompute (``kv_offload/manager.py:restore_beats_recompute``).
+PREFILL_NEVER_RESTORES = "1e-9"
+
+
 def kvtier_config(kv_cache_dtype, seed, model="llama-3b", device="cuda", **over):
     """EngineConfig fields of every kvtier engine: ``model`` (llama-3b cut to
     ``CUT_LAYERS`` in the full run), block 16, paged kernel, decode and
@@ -4234,6 +4254,9 @@ def kvtier_disagg(torch, pa, engine, loop, pd, kv_cache_dtype, seed):
             p1["decode_dispatches_total"]:
         fail(f"kvtier disagg {kv_cache_dtype}: the prefill engine formed "
              f"{p1['decode_dispatches_total']} decode batches")
+    if p1["kv_restore_saved_tokens_total"]:
+        fail(f"kvtier disagg {kv_cache_dtype}: the prefill engine restored "
+             f"{p1['kv_restore_saved_tokens_total']} tokens (every hop 1 prefills cold)")
     for name, s in (("prefill", p1), ("decode", dstats)):
         bad = {k: s[k] for k in ("kv_handoff_failures_total", "kv_spill_failures_total",
                                  "kv_restore_failures_total") if s[k]}
@@ -4298,11 +4321,19 @@ def kvtier_phase(torch, pa, device, seed, card, kv_cache_dtype, kv_url,
                 model, 2, engine_args=common, device=device.type,
                 log_dir=log_dir,
                 startup_timeout_s=300,
-                # No prefix cache on the prefill engine: every hop 1 of a
-                # prompt (by hand, then through the router) prefills it cold.
+                # No prefix cache on the prefill engine, and a restore
+                # admission that never beats recompute: every hop 1 of a
+                # prompt (by hand, then through the router) prefills it
+                # cold, in the same chunks. The decode engine spills each
+                # handed-off prompt to the shared tier, and a hop 1 that
+                # restored part of it would prefill the rest in another
+                # chunk: bf16 sums in another order, and a top-p chat's
+                # tokens may differ.
                 per_engine_args=[["--role", "prefill", "--no-warmup",
                                   "--no-enable-prefix-caching"],
-                                 ["--role", "decode"]])
+                                 ["--role", "decode"]],
+                per_engine_env=[{"PSTPU_KV_RESTORE_LINK_GBPS": PREFILL_NEVER_RESTORES},
+                                {}])
         except BaseException as e:  # noqa: BLE001 — reported by the phase
             pd_holder["error"] = e
 
@@ -5672,7 +5703,9 @@ def spec_phase(torch, pa, device, seed, card, pairs=SPEC_PAIRS):
                     lap("ingest")
                 if st["spec_draft_tokens_total"] <= 0 and mode != "adaptive":
                     fail(f"spec {what}: no draft proposals counted")
-            if mode in ("off", "linear") and device.type == "cuda":
+            # Profiled rounds of the self pair only: the cross pair's would
+            # add 7-10 s to the script's time limit.
+            if pair == "self" and mode in ("off", "linear") and device.type == "cuda":
                 row["trace"] = spec_trace(torch, engine, gate, prompts, what)
                 lap("trace")
             rows[mode] = row
@@ -6155,10 +6188,10 @@ def write_hf_checkpoint(torch, params, mc, path, num_shards=1):
 
 def cut_model(torch, device, seed, model, dirs):
     """``model`` at full width cut to ``CUT_LAYERS`` layers, as an HF
-    checkpoint directory of random bf16 weights from ``seed`` (the port's
-    writer), written at the first call and kept in ``dirs`` (model name ->
-    directory) for the later ones; every process of a phase loads the same
-    weights from it."""
+    checkpoint directory of random bf16
+    weights from ``seed`` (the port's writer), written at the first call
+    and kept in ``dirs`` (model name -> directory) for the later ones; every
+    process of a phase loads the same weights from it."""
     from dataclasses import replace
 
     from production_stack_tpu_torch.models import llama
@@ -7351,6 +7384,13 @@ def router_disagg_round(torch, pa, pd, model, kv_url, kv_cache_dtype, hand, n_la
                 {"x-user-id": f"disagg-{i}", "x-request-id": f"router-disagg-{kv_cache_dtype}-{i}"})
             got = event_tokens(evs)
             if st != 200 or not done or got != hand["tokens"][i]:
+                # Both engines' timelines of this chat, routed and by hand:
+                # where the two runs parted (a restore, a chunk, a batch).
+                for u in pd.urls:
+                    for rid in (f"router-disagg-{kv_cache_dtype}-{i}",
+                                f"pstpu-transfer:kvtier-{kv_cache_dtype}-{i}"):
+                        log(f"router disagg {kv_cache_dtype} chat {i}: {rid} on {u}: "
+                            f"{request('GET', f'{u}/debug/requests/{rid}')[2]}")
                 fail(f"router disagg {kv_cache_dtype} chat {i}: HTTP {st}, [DONE] {done}, "
                      f"tokens differ from the hand-driven hops' at "
                      f"{next((j for j, (a, b) in enumerate(zip(got, hand['tokens'][i])) if a != b), None)}"
@@ -7358,6 +7398,10 @@ def router_disagg_round(torch, pa, pd, model, kv_url, kv_cache_dtype, hand, n_la
             ttft.append(tf - t0)
             toks.append(len(got))
         k = engine_kernels(dec)
+        restored = engine_kernels(pre)["stats"]["kv_restore_saved_tokens_total"]
+        if restored:
+            fail(f"router disagg {kv_cache_dtype}: the prefill engine restored "
+                 f"{restored} tokens (every hop 1 prefills cold)")
         steps = k["stats"]["decode_steps_total"] - d0["decode_steps_total"]
         eager = k["stats"]["decode_eager_dispatches_total"] - d0["decode_eager_dispatches_total"]
         variant = pa.INT8 if kv_cache_dtype == "int8" else pa.BF16
@@ -8084,8 +8128,6 @@ CHART_NAMESPACE = "default"
 # The router phase's engines take these server flags beside the chart's:
 # the chart has no key for them.
 CHART_EXTRA_FLAGS = ("--seed", "--num-kv-blocks", "--max-num-batched-tokens")
-# launch.py sets these itself (the chart's --served-model-name is the model)
-LAUNCHER_FLAGS = ("--model", "--served-model-name", "--host", "--port")
 
 
 def chart_values(model, engine_port=8000, router_port=8000):
@@ -8134,53 +8176,178 @@ def chart_args(deployment, container):
     return [str(a) for a in c["args"]], c
 
 
-def chart_engine_args(model, seed, engine):
-    """The rendered engine args as ``launch.py`` takes them after ``--``:
-    its own flags out (their values checked), the smoke's flags the chart
-    has no key for appended."""
-    args, _ = chart_args(engine, "engine")
-    out, i = [], 0
-    while i < len(args):
-        if args[i] in LAUNCHER_FLAGS:
-            if args[i] in ("--model", "--served-model-name") and args[i + 1] != model:
-                fail(f"router chart: {args[i]} rendered as {args[i + 1]!r}, not {model!r}")
-            i += 2
-            continue
-        out.append(args[i])
-        i += 1
+def chart_engine_argv(model, seed, engine, port, device_type):
+    """The rendered engine container's ``command`` + ``args`` as the router
+    phase runs them: exactly as rendered but for ``--host`` / ``--port``
+    (loopback, ``port``), with the smoke's flags the chart has no key for
+    appended (and ``--device`` off the card)."""
+    args, container = chart_args(engine, "engine")
+    argv = [str(c) for c in container["command"]] + args
+    for flag in ("--model", "--served-model-name"):
+        if argv[argv.index(flag) + 1] != model:
+            fail(f"router chart: {flag} rendered as {argv[argv.index(flag) + 1]!r}, "
+                 f"not {model!r}")
+    for flag, value in (("--host", "127.0.0.1"), ("--port", str(port))):
+        argv[argv.index(flag) + 1] = value
     want = kvtier_server_args("bfloat16", seed)
     for flag in CHART_EXTRA_FLAGS:
-        out += want[want.index(flag):want.index(flag) + 2]
-    return out
+        argv += want[want.index(flag):want.index(flag) + 2]
+    if device_type != "cuda":
+        argv += ["--device", device_type]
+    return argv
 
 
 def chart_check(model, seed, device_type):
     """Render the chart for the router phase's engines and hold it: PyYAML
-    never loaded, the engine asks for one ``nvidia.com/gpu``, and its args
-    parse to today's ``kvtier_server_args`` Namespace. Returns (the engine
-    args for ``launch.py``, summary row)."""
+    never loaded, the engine asks for one ``nvidia.com/gpu``, and its
+    command's args parse to today's ``kvtier_server_args`` Namespace (with
+    the rendered ``--served-model-name``, the model's own name). Returns
+    (the engine Deployment, summary row)."""
     from production_stack_tpu_torch.server.api_server import parse_args
 
     engine, router, seconds = chart_render(chart_values(model))
-    args = chart_engine_args(model, seed, engine)
+    argv = chart_engine_argv(model, seed, engine, 0, device_type)
     _, container = chart_args(engine, "engine")
     res = container["resources"]
     gpus = [res.get("requests", {}).get("nvidia.com/gpu"),
             res.get("limits", {}).get("nvidia.com/gpu")]
-    launcher = ["--model", model, "--device", device_type, "--host", "127.0.0.1",
-                "--port", "0"]
-    got = vars(parse_args(launcher + args))
-    want = vars(parse_args(launcher + kvtier_server_args("bfloat16", seed)))
+    twin = ["--model", model, "--served-model-name", model, "--host", "127.0.0.1",
+            "--port", "0"] + (["--device", device_type] if device_type != "cuda" else [])
+    got = vars(parse_args(argv[1:]))
+    want = vars(parse_args(twin + kvtier_server_args("bfloat16", seed)))
     diff = {k: (got.get(k), want.get(k)) for k in set(got) | set(want)
             if got.get(k) != want.get(k)}
     if "yaml" in sys.modules or gpus != ["1", "1"] or diff:
         fail(f"router chart: yaml loaded {'yaml' in sys.modules}, nvidia.com/gpu "
              f"{gpus}, Namespace differs from kvtier_server_args at {diff}")
-    row = {"render_s": seconds, "engine_args": args, "nvidia_gpu": gpus,
+    row = {"render_s": seconds, "engine_argv": argv, "nvidia_gpu": gpus,
            "namespace_equal": True, "yaml_loaded": False,
            "router_args": chart_args(router, "router")[0]}
     log(f"router chart: {json.dumps(row)}")
-    return args, row
+    return engine, row
+
+
+def install_port(here, work):
+    """Install this tree's port as the engine image
+    (``docker/torch/Dockerfile.engine``) installs it, outside the checkout:
+    ``pyproject.toml``, ``README.md`` and ``production_stack_tpu_torch/``
+    copied to ``work/src`` (setuptools writes ``build/`` and
+    ``*.egg-info`` beside its sources), one ``pip install --target`` with no
+    dependencies into ``work/prefix``, and ``bin/pstpu-engine`` linked to
+    ``bin/pstpu-torch-engine`` as the image links it. Returns (prefix,
+    summary row)."""
+    prefix = os.path.join(work, "prefix")
+    src = os.path.join(work, "src")
+    os.makedirs(src)
+    for name in ("pyproject.toml", "README.md"):
+        shutil.copy(os.path.join(here, name), src)
+    shutil.copytree(os.path.join(here, "production_stack_tpu_torch"),
+                    os.path.join(src, "production_stack_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__", "*.pyc"))
+    cmd = [sys.executable, "-m", "pip", "install", "--no-deps", "--no-build-isolation",
+           # nothing is fetched, and pip checks for no newer pip
+           "--no-index", "--target", prefix, src]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=work, capture_output=True, text=True,
+                          env=dict(os.environ, PIP_DISABLE_PIP_VERSION_CHECK="1"))
+    row = {"install_s": time.monotonic() - t0}
+    log(f"router install: {' '.join(cmd)} -> {proc.returncode}\n"
+        f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    if proc.returncode != 0:
+        fail(f"router install: pip install exited {proc.returncode}: {proc.stderr[-500:]}")
+    os.symlink("pstpu-torch-engine", os.path.join(prefix, "bin", "pstpu-engine.tmp"))
+    os.replace(os.path.join(prefix, "bin", "pstpu-engine.tmp"),
+               os.path.join(prefix, "bin", "pstpu-engine"))
+    shipped = os.path.join(prefix, "production_stack_tpu_torch", "csrc", "paged_decode.cu")
+    if not os.path.isfile(shipped):
+        fail(f"router install: the install holds no {shipped}")
+    row["prefix"] = prefix
+    log(f"router install: {json.dumps(row)}")
+    return prefix, row
+
+
+def start_installed_engines(argv_of, prefix, work, log_dir, n=2, timeout_s=600):
+    """Start ``n`` engines from the installed port: engine i runs
+    ``argv_of(port_i)`` (the rendered command first, found on ``PATH``, led
+    by the prefix's ``bin/``), with the prefix alone on ``PYTHONPATH``, its
+    working directory ``work`` and ``XDG_CACHE_HOME`` a fresh, empty
+    directory (both outside the checkout), so each builds the shipped
+    kernel source cold; then wait for every ``/health``. Returns (the
+    engines' ``launch.EngineHandle``, the kernel cache, the resolved
+    command)."""
+    from production_stack_tpu_torch.launch import EngineHandle, _healthy, free_port
+
+    cache = os.path.join(work, "xdg-cache")
+    os.makedirs(cache)
+    env = dict(os.environ, PYTHONPATH=prefix, XDG_CACHE_HOME=cache,
+               PATH=os.pathsep.join([os.path.join(prefix, "bin"), os.environ.get("PATH", "")]))
+    resolved = shutil.which(argv_of(0)[0], path=env["PATH"])
+    handle = EngineHandle([], [], [], [], [])
+    t0 = time.monotonic()
+    try:
+        for _ in range(n):
+            port = free_port()
+            argv = argv_of(port)
+            path = os.path.join(log_dir, f"engine-{port}.log")
+            with open(path, "wb") as f:
+                handle.procs.append(subprocess.Popen(argv, stdout=f, stderr=subprocess.STDOUT,
+                                                     env=env, cwd=work))
+            handle.argvs.append(argv)
+            handle.urls.append(f"http://127.0.0.1:{port}")
+            handle.log_paths.append(path)
+        for proc, url in zip(handle.procs, handle.urls):
+            while not _healthy(url):
+                if proc.poll() is not None or time.monotonic() - t0 > timeout_s:
+                    fail(f"router: the installed engine {url} exited {proc.poll()} or "
+                         f"was not healthy in {timeout_s} s; see {log_dir}")
+                time.sleep(0.2)
+            handle.ready_seconds.append(time.monotonic() - t0)
+    except BaseException:
+        handle.stop(timeout_s=10.0)
+        raise
+    return handle, cache, resolved
+
+
+def installed_engine_check(procs, prefix, cache, here, docs, on_card=True):
+    """Each engine process runs the prefix's script (``/proc/<pid>/cmdline``),
+    imported the prefix's package (``package_dir`` of its
+    ``/debug/kernels``: modules are read, not mapped, so no map shows it),
+    and maps exactly one ``libpaged_decode-*.so``, from ``cache``'s kernel
+    directory, and no file of the checkout (``/proc/<pid>/maps``); both
+    engines' kernel libraries are the one file the cold build left there.
+    ``docs``: each engine's ``/debug/kernels`` answer (its ``stats`` give the
+    build's seconds). Off the card (``on_card`` false) no kernel is built
+    and none is looked for. Returns the summary row."""
+    kdir = os.path.join(cache, "production_stack_tpu_torch", "kernels")
+    script = os.path.realpath(os.path.join(prefix, "bin", "pstpu-torch-engine"))
+    package = os.path.realpath(os.path.join(prefix, "production_stack_tpu_torch"))
+    row = {"kernel_dir": kdir, "kernel_dir_files": sorted(os.listdir(kdir))
+           if os.path.isdir(kdir) else [], "engines": []}
+    for proc, doc in zip(procs, docs):
+        with open(f"/proc/{proc.pid}/cmdline", "rb") as f:
+            cmdline = [a.decode() for a in f.read().split(b"\0") if a]
+        mapped = set()
+        with open(f"/proc/{proc.pid}/maps") as f:
+            for line in f:
+                parts = line.split(None, 5)
+                if len(parts) == 6 and parts[5].startswith("/"):
+                    mapped.add(parts[5].strip())
+        libs = sorted(p for p in mapped
+                      if os.path.basename(p).startswith("libpaged_decode-"))
+        ours = sorted(p for p in mapped if p.startswith(here + os.sep))
+        eng = {"pid": proc.pid, "script": cmdline[1:2],
+               "package_dir": doc.get("package_dir"), "kernel_libs": libs,
+               "checkout_files_mapped": ours,
+               "kernel_build_s": doc["stats"]["startup_phase_seconds"].get("kernel_build")}
+        row["engines"].append(eng)
+        if len(cmdline) < 2 or os.path.realpath(cmdline[1]) != script or ours or (
+                os.path.realpath(eng["package_dir"] or "") != package) or (
+                on_card and (len(libs) != 1 or os.path.dirname(libs[0]) != kdir)):
+            fail(f"router: engine {proc.pid} is not the installed port: {json.dumps(eng)}")
+    if on_card and len({e["kernel_libs"][0] for e in row["engines"]}) != 1:
+        fail(f"router: the engines map different kernel libraries: {json.dumps(row)}")
+    log(f"router installed engines: {json.dumps(row)}")
+    return row
 
 
 def router_chart_round(model, engines, pids, log_dir, n_layers, variant):
@@ -8291,32 +8458,37 @@ def router_phase(torch, pa, device, seed, card, model, disagg_rows):
     os.makedirs(log_dir, exist_ok=True)
     n_layers = resolve_model_config(model).num_layers
     here = os.path.dirname(os.path.abspath(__file__))
-    # The chart, rendered here by the port's helm_lite: its engine args
-    # start the phase's two engines.
-    engine_args, chart = chart_check(model, seed, device.type)
-    t_up = time.monotonic()
-    launch_log = open(os.path.join(log_dir, "launch.log"), "w")
-    launcher = subprocess.Popen(
-        [sys.executable, "-m", "production_stack_tpu_torch.launch", "--model", model,
-         "--device", device.type, "--num-engines", "2", "--log-dir", log_dir,
-         "--startup-timeout", "600", "--router-args",
-         "--routing-logic session --session-key x-user-id --engine-stats-interval 1",
-         "--", *engine_args],
-        stdout=subprocess.PIPE, stderr=launch_log, text=True, cwd=here)
+    # The chart, rendered here by the port's helm_lite: its engine
+    # container's command and args start the phase's two engines, from the
+    # port installed outside the checkout.
+    engine_dep, chart = chart_check(model, seed, device.type)
     out = {"card": card, "chart": chart}
+    rounds = out["round_s"] = {}
+    work = tempfile.mkdtemp(prefix="pstpu-smoke-install-")
+    atexit.register(shutil.rmtree, work, ignore_errors=True)
+    if os.path.realpath(work).startswith(here + os.sep):
+        fail(f"router: the temporary directory {work} lies inside the checkout")
+    handle, session, cache_router = None, None, None
     launches = 0
-    cache_router = None
     try:
-        line = launcher.stdout.readline()
-        if not line.startswith("{"):
-            fail(f"router: launch.py printed {line!r} (exit {launcher.poll()}); "
-                 f"see {log_dir}")
-        info = json.loads(line)
+        prefix, out["install"] = install_port(here, work)
+        t_up = time.monotonic()
+        handle, cache, resolved = start_installed_engines(
+            lambda port: chart_engine_argv(model, seed, engine_dep, port, device.type),
+            prefix, work, log_dir)
+        engines, pids = handle.urls, [p.pid for p in handle.procs]
+        out["engine_ready_s"] = handle.ready_seconds
+        out["install"]["command"] = resolved
+        out["install"].update(installed_engine_check(
+            handle.procs, prefix, cache, here,
+            [engine_kernels(u) for u in engines], on_card=device.type == "cuda"))
+        session = launch_router(engines, [model], [
+            "--routing-logic", "session", "--session-key", "x-user-id",
+            "--engine-stats-interval", "1"], log_dir)
+        session_url, session_pid = session.url, session.proc.pid
         out["up_s"] = time.monotonic() - t_up
-        engines, pids = info["urls"], info["pids"]
-        session_url, session_pid = info["router_url"], info["router_pid"]
-        out["engine_ready_s"] = info["ready_s"]
         # (a) session
+        t0 = time.monotonic()
         with SmMhz() as clock:
             n, out["session"], where_of = router_chat_round(
                 "session", session_url, engines, model, n_layers, pa.BF16)
@@ -8324,6 +8496,7 @@ def router_phase(torch, pa, device, seed, card, model, disagg_rows):
         launches += n
         out["session"]["families"] = router_metrics_check("session", session_url, engines)
         out["session"].update(router_off_card("session", [session_pid], pids))
+        rounds["a"] = time.monotonic() - t0
         # (b) cache-aware, a second router on the same engines
         t0 = time.monotonic()
         cache_router = launch_router(engines, [model], [
@@ -8341,6 +8514,7 @@ def router_phase(torch, pa, device, seed, card, model, disagg_rows):
             "cache-aware", [cache_router.proc.pid], pids))
         cache_router.stop()
         cache_router = None
+        rounds["b"] = time.monotonic() - t0
         # (e) the gated router, (f) Kubernetes discovery, (g) the operator:
         # the engines' bf16 launches over the three are part of the path.
         # (e)'s batch lines, whole, on both engines first: the prefix-cache
@@ -8357,7 +8531,7 @@ def router_phase(torch, pa, device, seed, card, model, disagg_rows):
         out["gated"] = router_gated_round(model, engines, pids, log_dir, bodies)
         out["k8s"] = router_k8s_round(model, engines, pids, log_dir)
         out["operator"] = router_operator_round(model, engines, pids, log_dir)
-        out["features_s"] = time.monotonic() - t0
+        out["features_s"] = rounds["e-g"] = time.monotonic() - t0
         feature_launches = []
         for url in engines:
             k = engine_kernels(url)
@@ -8373,27 +8547,26 @@ def router_phase(torch, pa, device, seed, card, model, disagg_rows):
         # (h) the chart's router, Kubernetes-discovered
         n, out["chart_router"] = router_chart_round(model, engines, pids, log_dir,
                                                     n_layers, pa.BF16)
+        rounds["h"] = out["chart_router"]["seconds"]
         launches += n
         # (d) failover, last: it kills an engine
+        t0 = time.monotonic()
         k, out["failover"] = router_failover(
-            "session", session_url, info["router_log"], engines, pids, model, where_of,
+            "session", session_url, session.log_path, engines, pids, model, where_of,
             "failover")
         launches += k["launch_counts"].get(pa.BF16, 0)
         if k["launch_counts"].get(pa.BF16, 0) != n_layers * out["failover"]["survivor_decode_steps"]:
             fail(f"router failover: the survivor launched {k['launch_counts']} for "
                  f"{out['failover']['survivor_decode_steps']} decode steps")
         out["failover"].update(router_off_card("failover", [session_pid], pids))
+        rounds["d"] = time.monotonic() - t0
     finally:
-        if cache_router is not None:
-            cache_router.stop()
-        if launcher.poll() is None:
-            launcher.send_signal(signal.SIGTERM)
-            try:
-                launcher.wait(120)
-            except subprocess.TimeoutExpired:
-                launcher.kill()
-                launcher.wait()
-        launch_log.close()
+        t0 = time.monotonic()
+        for r in (cache_router, session, handle):
+            if r is not None:
+                r.stop()
+        rounds["drain"] = time.monotonic() - t0
+        shutil.rmtree(work, ignore_errors=True)
         faulthandler.cancel_dump_traceback_later()
     out["disagg"] = disagg_rows
     log(f"router result {json.dumps(out)}")
@@ -8635,8 +8808,8 @@ def main() -> None:
             "kernel": {v: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "library_ms", "max_abs_err")}
                        for v, r in tp_rows.items()}})
-    # The sp phase: sp = 2 at llama-3b's full depth, then dp x sp x tp and the
-    # replication fallback cut; its tp = 1 ranks' runs are main paths of the
+    # The sp phase: sp = 2, dp x sp x tp and the replication fallback, cut
+    # to CUT_LAYERS; its tp = 1 ranks' runs are main paths of the
     # bf16 variant, its tp = 2 ranks' of paged_flash_decode_stats_tp (each
     # rank's launches, summed).
     sp_launches = None

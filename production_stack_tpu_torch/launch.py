@@ -54,7 +54,7 @@ import time
 import urllib.error
 import urllib.request
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 # The directory holding the package: engine processes import it from there
 # whether or not the package is installed.
@@ -171,11 +171,14 @@ def launch_engines(model: str, num_engines: int = 1,
                    device: str = "cuda", log_dir: Optional[str] = None,
                    startup_timeout_s: float = 1800.0,
                    per_engine_args: Optional[List[List[str]]] = None,
+                   per_engine_env: Optional[List[Dict[str, str]]] = None,
                    ) -> EngineHandle:
     """Start ``num_engines`` port engines serving ``model`` on ``device``
     (extra server flags in ``engine_args``, and engine i's own in
-    ``per_engine_args[i]``, e.g. ``["--role", "prefill"]``), each on a
-    free port, and wait until every ``/health`` answers 200. Logs go to
+    ``per_engine_args[i]``, e.g. ``["--role", "prefill"]``, and environment
+    variables in ``per_engine_env[i]``, e.g. the KV tier's restore knobs,
+    which have no flag), each on a free port, and wait until every
+    ``/health`` answers 200. Logs go to
     ``log_dir`` (a fresh temporary directory by default). An engine that
     exits or is not healthy within ``startup_timeout_s`` stops them all
     and raises."""
@@ -196,9 +199,9 @@ def launch_engines(model: str, num_engines: int = 1,
                     *(per_engine_args[i] if per_engine_args else [])]
             path = os.path.join(log_dir, f"engine-{i}-{port}.log")
             with open(path, "wb") as log:
-                procs.append(subprocess.Popen(argv, stdout=log,
-                                              stderr=subprocess.STDOUT,
-                                              env=env))
+                procs.append(subprocess.Popen(
+                    argv, stdout=log, stderr=subprocess.STDOUT,
+                    env={**env, **(per_engine_env[i] if per_engine_env else {})}))
             argvs.append(argv)
             urls.append(f"http://127.0.0.1:{port}")
             logs.append(path)

@@ -8,11 +8,12 @@ tensor-parallel ``paged_flash_decode_stats_tp``, and the
 ``paged_attention_decode_pallas`` / ``paged_attention_pallas`` wrappers).
 The wrapper takes the plain version only for tensors that lie on the CPU;
 for a CUDA tensor it launches the kernel or raises. The kernel is compiled
-by ``nvcc`` from the source in the checkout at first use into
-``build/torch_kernels/`` and bound through ``ctypes`` (a plain C interface:
-seconds to build, no PyTorch headers). The kernel counts its own launches
-per variant on the device (``launch_counts``), so a run can show which
-variant served it, graph replays included. A call is
+by ``nvcc`` from the package's own ``csrc/`` at first use into
+``BUILD_DIR`` (``build/torch_kernels/`` of a checkout; a per-user cache
+directory when the package is installed) and bound through ``ctypes`` (a
+plain C interface: seconds to build, no PyTorch headers). The kernel
+counts its own launches per variant on the device (``launch_counts``), so
+a run can show which variant served it, graph replays included. A call is
 one kernel launch: the kernel splits each row's tiles into chunks on the
 device (the host only sizes the grid, ``launch_plan``) and merges the
 chunks itself, through a scratch kept per device and shape bucket.
@@ -39,7 +40,26 @@ MAX_BLOCK_SIZE = 512      # page sizes: powers of two in [2, 512]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "paged_decode.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+
+
+def kernel_build_dir() -> str:
+    """Where ``build_kernels`` writes: ``build/torch_kernels`` of the
+    checkout when the package's parent is this repository (its
+    ``pyproject.toml``) and writable; otherwise, as in an install, the
+    user's cache directory (``$XDG_CACHE_HOME``, else ``~/.cache``) under
+    ``production_stack_tpu_torch/kernels``."""
+    parent = os.path.dirname(_PKG_DIR)
+    project = os.path.join(parent, "pyproject.toml")
+    if os.path.isfile(project) and os.access(parent, os.W_OK):
+        with open(project) as f:
+            if 'name = "production-stack-tpu"' in f.read():
+                return os.path.join(parent, "build", "torch_kernels")
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return os.path.join(cache, "production_stack_tpu_torch", "kernels")
+
+
+BUILD_DIR = kernel_build_dir()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -121,8 +141,11 @@ def build_kernels() -> Tuple[str, str]:
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                 f"{proc.stdout}\n{proc.stderr}"
             )
-        with open(log_path, "w") as f:
+        # Engines of one pod may build at once: each writes its own files
+        # and renames them into place, the report before the library.
+        with open(tmp + ".log", "w") as f:
             f.write(proc.stdout + proc.stderr)
+        os.replace(tmp + ".log", log_path)
         os.replace(tmp, lib_path)
     with open(log_path) as f:
         return lib_path, f.read()

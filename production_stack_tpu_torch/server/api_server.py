@@ -35,7 +35,8 @@ aiohttp) for what an engine behind the stack's router serves:
     /debug/profile (a bounded torch.profiler window, ``duration_s`` in (0,
     300], 409 while one runs) and GET /debug/profile (its status), and the
     port's own GET /debug/kernels (the paged kernel's launch counts from
-    its device counter, with ``engine.stats()``) and POST
+    its device counter, with ``engine.stats()`` and the imported package's
+    directory) and POST
     /debug/kernels/reset (set the counts to 0).
 
 Tracing: with ``OTEL_EXPORTER_OTLP_ENDPOINT`` set (``OTEL_SERVICE_NAME``
@@ -466,11 +467,14 @@ class OpenAIServer:
         """The paged kernel's launch counts by variant (its device counter,
         which counts graph replays; {} off the card), with the engine's
         stats, so a process driving this server can hold the counts to
-        the decode steps. Waits for the device's queued work."""
+        the decode steps, and the directory of the package this process
+        imported (which install serves). Waits for the device's queued
+        work."""
         counts = (pa.launch_counts() if self.engine.runner.device.type == "cuda"
                   else {})
-        await self._send_json(writer, 200, {"launch_counts": counts,
-                                            "stats": self.engine.stats()})
+        await self._send_json(writer, 200, {
+            "launch_counts": counts, "stats": self.engine.stats(),
+            "package_dir": os.path.dirname(os.path.dirname(os.path.abspath(pa.__file__)))})
 
     async def debug_kernels_reset(self, writer, headers: dict,
                                   body: bytes) -> None:

@@ -457,19 +457,22 @@ def test_chart_controller_args_parse_as_the_jax_ones(deployment, container, modu
 
 def test_the_smokes_chart_values_start_the_kvtier_engines():
     """chip_smoke.py's router phase renders the chart for its engines: one
-    ``nvidia.com/gpu`` each, and the engine args (the launcher's flags out,
-    the smoke's own flags in) parse to the Namespace of the hand-written
-    ``kvtier_server_args`` the phase started its engines with before."""
+    ``nvidia.com/gpu`` each, and the engine container's command and args
+    (loopback ``--host`` and ``--port`` in, the smoke's own flags added)
+    parse to the Namespace of the hand-written ``kvtier_server_args`` the
+    phase started its engines with before."""
     import chip_smoke
 
     engine, router, _ = chip_smoke.chart_render(chip_smoke.chart_values("llama-3b"))
     c = engine["spec"]["template"]["spec"]["containers"][0]
     assert c["resources"]["requests"]["nvidia.com/gpu"] == "1"
     assert c["resources"]["limits"]["nvidia.com/gpu"] == "1"
-    args = chip_smoke.chart_engine_args("llama-3b", 3, engine)
-    launcher = ["--model", "llama-3b", "--device", "cuda", "--host", "h", "--port", "1"]
-    assert vars(port_api.parse_args(launcher + args)) == vars(port_api.parse_args(
-        launcher + chip_smoke.kvtier_server_args("bfloat16", 3)))
+    argv = chip_smoke.chart_engine_argv("llama-3b", 3, engine, 1, "cuda")
+    assert argv[0] == "pstpu-engine"
+    twin = ["--model", "llama-3b", "--served-model-name", "llama-3b",
+            "--host", "127.0.0.1", "--port", "1"]
+    assert vars(port_api.parse_args(argv[1:])) == vars(port_api.parse_args(
+        twin + chip_smoke.kvtier_server_args("bfloat16", 3)))
     rargs = _args(router, "router")
     parsed = port_router_parser.parse_args(rargs)
     assert (parsed.routing_logic, parsed.session_key, parsed.engine_stats_interval,

@@ -398,6 +398,32 @@ async def test_router_routes_model_a_to_a_port_engine_with_adapters(tmp_path):
         server.engine.shutdown()
 
 
+def test_launch_engines_pass_each_engine_its_own_environment(tmp_path, monkeypatch):
+    """``per_engine_env[i]`` reaches engine i's process over the launcher's
+    environment, and no other engine's: the KV tier's restore knobs have
+    no flag, and the disagg pair's prefill engine sets its own."""
+    from production_stack_tpu_torch import launch
+
+    envs = []
+
+    class Proc:
+        returncode = None
+
+        def __init__(self, argv, env, **kw):
+            envs.append(env)
+
+        def poll(self):
+            return None
+
+    monkeypatch.setattr(launch.subprocess, "Popen", Proc)
+    monkeypatch.setattr(launch, "_healthy", lambda url: True)
+    monkeypatch.setenv("PSTPU_KV_RESTORE_LINK_GBPS", "2.0")
+    launch_engines("tiny-llama", 2, device="cpu", log_dir=str(tmp_path),
+                   per_engine_env=[{"PSTPU_KV_RESTORE_LINK_GBPS": "1e-9"}, {}])
+    assert [e["PSTPU_KV_RESTORE_LINK_GBPS"] for e in envs] == ["1e-9", "2.0"]
+    assert all(e["PYTHONPATH"].split(os.pathsep)[0] == launch._PKG_PARENT for e in envs)
+
+
 def test_launch_engines_pass_a_checkpoint_directory_and_adapters(tmp_path):
     """A checkpoint directory as ``--model`` and ``--lora-modules`` after
     ``--`` reach every engine as they were given (relative paths here: the
