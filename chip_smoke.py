@@ -6,11 +6,13 @@ Phases, each printing what it finds (serving, graphs and check run before
 the kernel phase, whose profiler would otherwise stay attached during
 serving):
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-  2. build: the paged flash-decode kernel (bf16 and int8 variants) compiled
-     by nvcc from the checkout; per template instance, ptxas's registers,
-     spills and static shared memory, the launch's dynamic shared memory
-     and resident blocks per SM;
-  3. kernel: one call of each variant captured in a CUDA graph and
+  2. build: the paged flash-decode kernels (the tensor-core kernel's bf16
+     and int8 variants, the generic kernel's bf16 / f16 / f32 over pools of
+     that dtype or int8) compiled by nvcc from the checkout; per template
+     instance, ptxas's registers, spills and static shared memory, the
+     launch's dynamic shared memory and resident blocks per SM;
+  3. kernel: one call of each tensor-core variant and of the generic
+     float32 one captured in a CUDA graph and
      replayed after kv_lens and the block tables change in place (it must
      give the plain version's output on the new inputs, and the captured
      inputs' eager output again bit for bit; each replay counts one launch
@@ -28,7 +30,14 @@ serving):
      must give the kernel's output; device times (torch.profiler) of the
      kernel (per CUDA kernel name; exactly one launch per call), the plain
      version and an SDPA yardstick (int8: over K/V dequantized
-     beforehand, untimed), the bound and the kernel's share of it;
+     beforehand, untimed), the bound and the kernel's share of it; then
+     the generic kernel's shapes, each over compute-dtype and int8 pools,
+     4 layers: float32 and float16 at llama-3b heads, head dim 256 (H 12,
+     Hkv 4), 24 query heads over one kv head, block size 1, head dim 32 at
+     tiny-llama-8kv's heads (B 8, ragged lengths to 4,001), and the domain
+     phase's main paths (llama-3b float32; tiny-llama bf16 and float16);
+     out held in its dtype (``OUT_TOLS``: float32 to 1e-4 of each row's
+     norm, float16 to 6.25e-4, bf16 to 5e-3);
   4. serving, twice: llama-3b at full width, depth cut to ``CUT_LAYERS``
      (``cut_model``'s directory of random bf16 weights from --seed) behind
      the port's HTTP server with its defaults (decode CUDA graphs captured
@@ -90,6 +99,19 @@ serving):
      through the kernel path against the plain window path, over a bf16
      pool and over an int8 pool; the seeded-sampling Gumbel field on the
      card bit for bit against the CPU's;
+  7b. domain: the Pallas kernel's whole domain on the engine path. Per
+     configuration (llama-3b at full width cut to ``CUT_LAYERS`` in float32
+     over float32 pools, then int8 pools; tiny-llama, head dim 32, whole,
+     in bf16 and in float16, each over compute-dtype and int8 pools), an
+     engine with ``attn_impl="paged"`` and graphs captured at warm-up
+     serves 4 streams (2 greedy, 2 seeded) x 32 tokens behind the port's
+     server: no eager decode dispatch, the generic kernel's variant of its
+     dtype and pool kind counted exactly layers x decode steps and every
+     other variant 0, ``engine.runner.attn_impl == "paged"``; the same 4
+     on the engine API from its graphs and through the strict eager train:
+     tokens bit for bit; a window-path twin (strict eager, logits kept):
+     tokens equal up to the first step whose sampler margin is under 2 x
+     ``tp_logit_bound``;
   8. tp: llama-3-8b (Meta-Llama-3-8B shapes, full width, depth cut to
      ``CUT_LAYERS``, random bf16 weights from --seed: ``cut_model``'s
      directory, shared with kvtier-tp) at tensor_parallel_size 2, both ranks on
@@ -219,7 +241,8 @@ serving):
      equal the twin's bit for bit, host ms per catch-up by bucket, replayed
      and eager; then float32 tiny-llama with the
      tiny-llama and tiny-opt drafts, every mode's tokens equal to
-     spec-off's bit for bit;
+     spec-off's bit for bit (one row per engine; spec-off through the
+     generic float32 kernel, counted layers x decode steps);
  12. ckpt: llama-3b's random bf16 params from --seed, full width cut to
      ``CUT_LAYERS`` (``cut_model``'s draw), written as an HF
      checkpoint directory (config.json, HF names and [out, in] tensors, two
@@ -369,7 +392,8 @@ import time
 import urllib.request
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 / fp16 tensor-core peak
+F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 KERNEL_SOURCE = "production_stack_tpu_torch/csrc/paged_decode.cu"
 # The TPU kernel each variant replaces: _decode_kernel, and its
 # quantized=True branch (int8 scores and weights).
@@ -411,6 +435,15 @@ WARM_PREFILL_BUDGET = 512
 OUT_ATOL = 2e-3
 OUT_RTOL = 1e-2
 OUT_ROW_RTOL = 5e-3
+# float16 out: one f16 rounding step is 2**-10 relative, so the bf16
+# bounds shrink 8x. float32 out: no rounding of out at all; the two fp32
+# sums over up to ~4,000 tokens differ in order only, by ~sqrt(n) ulps of
+# the partial sums (~1e-6 relative), held to 1e-4 of each row's norm: 50x
+# tighter than bf16's, and a PV sum rounded to bf16 (the faulty control,
+# ~1.6e-2) fails it by far.
+OUT_TOLS = {"bfloat16": (OUT_ATOL, OUT_RTOL, OUT_ROW_RTOL),
+            "float16": (2.5e-4, 1.25e-3, 6.25e-4),
+            "float32": (1e-5, 1e-4, 1e-4)}
 STATS_RTOL = 1e-3              # m, l are fp32 in both versions
 STATS_ATOL = 1e-5
 
@@ -513,9 +546,13 @@ class SmMhz:
 
 # ---------------------------------------------------------------- phase 3
 def kernel_instances(pa, ptxas: str):
-    """Per template instance of the kernel: ptxas's registers, spills and
+    """Per template instance of the kernels: ptxas's registers, spills and
     static shared memory, and the launch's dynamic shared memory and
-    resident blocks per SM (CUDA occupancy calculator, 128 threads)."""
+    resident blocks per SM (CUDA occupancy calculator, 128 threads): the
+    tensor-core kernel's 8 (bf16 / int8 pools, Dh 64 / 128, 8 / 16 M
+    rows), then the generic kernel's 6 (q in bf16 / f16 / f32 over pools of
+    that dtype or int8), whose shared memory follows the call's shapes:
+    read at Dh 128, 8 query heads per block, one chunk."""
     import re
 
     insts, cur = [], None
@@ -524,9 +561,17 @@ def kernel_instances(pa, ptxas: str):
         if m:
             t = re.search(r"paged_decode_kernelI(13__nv_bfloat16|a)Li(\d+)ELi(\d+)E",
                           m.group(1))
-            cur = None if t is None else {
-                "variant": "bf16" if t.group(1) != "a" else "int8",
-                "Dh": int(t.group(2)), "KG": int(t.group(3))}
+            u = re.search(r"paged_decode_genericILi(\d)ELb([01])E", m.group(1))
+            cur = None
+            if t is not None:
+                cur = {"variant": "bf16" if t.group(1) != "a" else "int8",
+                       "Dh": int(t.group(2)), "KG": int(t.group(3))}
+            elif u is not None:
+                dtype = {c: d for d, c in pa.DTYPE_CODES.items()}[int(u.group(1))]
+                cur = {"variant": pa.GENERIC[(dtype, u.group(2) == "1")],
+                       "dtype": str(dtype).removeprefix("torch."),
+                       "quant": u.group(2) == "1",
+                       "Dh": 128, "KG": pa.GENERIC_HEADS}
             if cur:
                 insts.append(cur)
             continue
@@ -538,10 +583,15 @@ def kernel_instances(pa, ptxas: str):
         m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
         if m:
             cur["registers"], cur["static_smem"] = int(m.group(1)), int(m.group(2))
-    if len(insts) != 8:
-        fail(f"build: ptxas reported {len(insts)} kernel instances, want 8")
+    if len(insts) != 14:
+        fail(f"build: ptxas reported {len(insts)} kernel instances, want 14")
     for inst in insts:
-        blocks, smem = pa.occupancy(inst["variant"] == "int8", inst["Dh"], inst["KG"])
+        if "dtype" in inst:
+            blocks, smem = pa.generic_occupancy(inst["dtype"], inst["quant"],
+                                                inst["Dh"], inst["KG"])
+        else:
+            blocks, smem = pa.occupancy(inst["variant"] == "int8", inst["Dh"],
+                                        inst["KG"])
         inst.update(dynamic_smem=smem, blocks_per_sm=blocks,
                     warps_per_sm=4 * blocks)
         if blocks < 1:
@@ -554,12 +604,16 @@ def graph_check(torch, pa, device, seed, main_lens):
     kv_lens and the block tables in place and replay: the output must be
     the plain version's on the new inputs (no host decision read device
     data), and replaying the first inputs again must give the eager output
-    bit for bit (the merge tickets were reset)."""
+    bit for bit (the merge tickets were reset). Both tensor-core variants
+    and one of the generic kernel (float32, the domain phase's), at
+    llama-3b heads."""
     b, h, hkv, dh, bs = 4, 24, 8, 128, 16
-    for quant in (False, True):
-        name = f"graph [{'int8' if quant else 'bf16'}]"
+    for quant, dtype in ((False, torch.bfloat16), (True, torch.bfloat16),
+                         (False, torch.float32)):
+        dname = str(dtype).removeprefix("torch.")
+        name = f"graph [{case_label(dname, quant)}]"
         q, kp, vp, ks, vs, bt, kvl = make_case(torch, b, h, hkv, dh, main_lens, 2,
-                                               bs, seed, device, quant)
+                                               bs, seed, device, quant, dtype)
         sc = dict(k_scale=ks, v_scale=vs)
         want = pa.paged_flash_decode_stats(q, kp, vp, bt, kvl, 1, block_size=bs, **sc)
         torch.cuda.synchronize()
@@ -595,7 +649,7 @@ def graph_check(torch, pa, device, seed, main_lens):
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
             fail(f"{name}: replay of the captured inputs differs from the eager call")
-        variant = pa.INT8 if quant else pa.BF16
+        variant = pa.variant_of(dtype, quant, dh, h // hkv, bs)
         counts = pa.launch_counts()
         if counts != {**dict.fromkeys(pa.VARIANTS, 0), variant: 2}:
             fail(f"{name}: two replays counted {counts}, want 2 of {variant}")
@@ -609,12 +663,14 @@ def graph_check(torch, pa, device, seed, main_lens):
 
 
 def make_case(torch, b, h, hkv, dh, kv_lens, n_layers, bs, seed, device,
-              quant=False):
-    """Pool, shuffled block tables and queries for one kernel case. Slots
+              quant=False, dtype=None):
+    """Pool, shuffled block tables and queries for one kernel case, q in
+    ``dtype`` (bf16 by default) over pools of that dtype or int8. Slots
     past each kv_len and the block the table padding points at hold NaN
     (int8: NaN scales over a payload of +-127): a kernel that reads them
     poisons its output. Returns (q, k_pool, v_pool, k_scale, v_scale,
-    block_tables, kv_lens); the scales are None for bf16."""
+    block_tables, kv_lens); the scales are None without int8."""
+    dtype = dtype or torch.bfloat16
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     pages = [-(-n // bs) for n in kv_lens]
@@ -630,8 +686,8 @@ def make_case(torch, b, h, hkv, dh, kv_lens, n_layers, bs, seed, device,
         bt[i, :n] = perm[ofs:ofs + n].to(torch.int32)
         ofs += n
     shape = (n_layers, hkv, num_blocks * bs, dh)
-    k_pool = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
-    v_pool = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    k_pool = torch.randn(shape, generator=gen, device=device).to(dtype)
+    v_pool = torch.randn(shape, generator=gen, device=device).to(dtype)
     k_scale = v_scale = None
     poisoned = [(k_pool, float("nan")), (v_pool, float("nan"))]
     if quant:
@@ -647,7 +703,7 @@ def make_case(torch, b, h, hkv, dh, kv_lens, n_layers, bs, seed, device,
             if n % bs:
                 blk = int(bt[i, n // bs])
                 pool[:, :, blk * bs + n % bs:(blk + 1) * bs] = bad
-    q = torch.randn((b, h, dh), generator=gen, device=device).to(torch.bfloat16)
+    q = torch.randn((b, h, dh), generator=gen, device=device).to(dtype)
     kvl = torch.tensor(kv_lens, dtype=torch.int32, device=device)
     return q, k_pool, v_pool, k_scale, v_scale, bt, kvl
 
@@ -737,28 +793,33 @@ def device_ms(torch, fn, n_calls: int, what: str):
     return found[0], "torch.profiler"
 
 
-def bound_of(kv_lens, b, h, hkv, dh, bs, quant=False):
+def bound_of(kv_lens, b, h, hkv, dh, bs, quant=False, elt=2):
     """Least time for the work this input needs: each K/V row of the live
-    pages read once (bf16: 2 B an element; int8: 1 B an element plus the
-    slot's 2-byte bf16 scale), q read, out/m/l written, the block-table
-    entries in use and kv_lens read; operations 4*kv_len*H*Dh (QK and PV)."""
+    pages read once (``elt`` B an element in the compute dtype: 2 for bf16
+    and f16, 4 for f32; int8: 1 B an element plus the slot's 2-byte bf16
+    scale), q read, out/m/l written, the block-table entries in use and
+    kv_lens read; operations 4*kv_len*H*Dh (QK and PV) at the card's peak
+    for the type (the tensor cores' for bf16 and f16, the CUDA cores' for
+    f32)."""
     toks = sum(kv_lens)
-    kv_row_bytes = dh + 2 if quant else dh * 2
-    nbytes = (toks * hkv * kv_row_bytes * 2 + b * h * dh * 2 * 2 + b * h * 4 * 2
+    kv_row_bytes = dh + 2 if quant else dh * elt
+    nbytes = (toks * hkv * kv_row_bytes * 2 + b * h * dh * elt * 2 + b * h * 4 * 2
               + sum(-(-n // bs) for n in kv_lens) * 4 + b * 4)
     ops = 4 * toks * h * dh
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_FLOPS_PER_S * 1e3
+    t_ops = ops / (F32_FLOPS_PER_S if elt == 4 else BF16_FLOPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def out_error(torch, out, ref, live):
     """(max |out - ref|, worst row's ||out - ref|| / ||ref||, passes) over
-    the rows with kv_len > 0."""
+    the rows with kv_len > 0, against the tolerances of out's dtype
+    (``OUT_TOLS``)."""
+    atol, rtol, row_rtol = OUT_TOLS[str(out.dtype).removeprefix("torch.")]
     o, r = out.float()[live], ref.float()[live]
     diff = (o - r).abs()
     row_rel = ((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)).max().item()
-    ok = bool((diff <= OUT_ATOL + OUT_RTOL * r.abs()).all()) and row_rel <= OUT_ROW_RTOL
+    ok = bool((diff <= atol + rtol * r.abs()).all()) and row_rel <= row_rtol
     return diff.max().item(), row_rel, ok
 
 
@@ -841,17 +902,30 @@ def stats_close(torch, got, want):
     return torch.allclose(got, want, rtol=STATS_RTOL, atol=STATS_ATOL)
 
 
+def case_label(dtype: str, quant: bool) -> str:
+    """A kernel case's pool label: "bf16" / "int8" for bf16 q (the
+    tensor-core kernel's two variants), else q's dtype, "/int8" added for
+    int8 pools."""
+    if dtype == "bfloat16":
+        return "int8" if quant else "bf16"
+    return {"float16": "f16", "float32": "f32"}[dtype] + ("/int8" if quant else "")
+
+
 def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
-                    device, quant, bs=16, kernel=None):
+                    device, quant, bs=16, kernel=None, dtype=None):
     """One kernel case: the kernel (``kernel``, by default
-    ``paged_flash_decode_stats``) against its plain version, the fault
+    ``paged_flash_decode_stats``) against its plain version in q's dtype
+    (``dtype``, bf16 by default; the tolerances of ``OUT_TOLS``), the fault
     controls, and device times of the kernel, the plain version and SDPA."""
     import torch.nn.functional as F
 
     from production_stack_tpu_torch.ops.quantization import dequantize_kv
 
+    dtype = dtype or torch.bfloat16
+    dname = str(dtype).removeprefix("torch.")
     q, kp, vp, ks, vs, bt, kvl = make_case(torch, b, h, hkv, dh, kv_lens,
-                                           n_layers, bs, seed, device, quant)
+                                           n_layers, bs, seed, device, quant,
+                                           dtype)
     sc = dict(k_scale=ks, v_scale=vs)
     kernel = kernel or pa.paged_flash_decode_stats
     max_err = max_row_rel = 0.0
@@ -874,8 +948,8 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
         err, row_rel, ok = out_error(torch, out, ro, live)
         if not ok:
             fail(f"{name} layer {layer}: kernel out disagrees with plain version: "
-                 f"max abs {err:.3e}, row rel {row_rel:.3e} (atol {OUT_ATOL}, "
-                 f"rtol {OUT_RTOL}, row rtol {OUT_ROW_RTOL})")
+                 f"max abs {err:.3e}, row rel {row_rel:.3e} (atol, rtol, row "
+                 f"rtol {OUT_TOLS[dname]})")
         try:
             torch.testing.assert_close(m[live], rm[live], rtol=STATS_RTOL,
                                        atol=STATS_ATOL)
@@ -932,8 +1006,8 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
                                                block_size=bs, **sc)
 
     # Yardstick: SDPA over the same K/V gathered contiguous per layer
-    # (int8: dequantized to bf16; gather and dequantization not timed),
-    # padded to the longest row with a key mask.
+    # (int8: dequantized to q's dtype; gather and dequantization not
+    # timed), padded to the longest row with a key mask.
     s_max = max(max(kv_lens), 1)
     n_lib = min(4, n_layers)
     wins = []
@@ -945,7 +1019,7 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
             w = torch.stack([pool[layer][:, slots[i]] for i in range(b)])
             if quant:
                 w = dequantize_kv(w, torch.stack(
-                    [scale[layer][:, slots[i]] for i in range(b)]), torch.bfloat16)
+                    [scale[layer][:, slots[i]] for i in range(b)]), dtype)
             win.append(w.contiguous())                     # [B, Hkv, S, Dh]
         wins.append(win)
     mask = (torch.arange(s_max, device=device)[None, :] < kvl[:, None].long())
@@ -957,7 +1031,8 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
         return F.scaled_dot_product_attention(q4, kw, vw, attn_mask=mask,
                                               enable_gqa=True)
 
-    what = f"{name} [{'int8' if quant else 'bf16'}]"
+    label = case_label(dname, quant)
+    what = f"{name} [{label}]"
     n_calls = 2 * n_layers
     with SmMhz() as clock:
         found = device_profile(torch, kern, n_calls, f"{what} kernel",
@@ -987,7 +1062,8 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
         ms_by_kernel = {k: v / per_call for k, v in ms_by_kernel.items()}
     plain_ms, _ = device_ms(torch, plain, min(8, n_layers), f"{what} plain")
     library_ms, library_by = device_ms(torch, sdpa, 4 * n_lib, f"{what} SDPA")
-    bound_ms, bound_by = bound_of(kv_lens, b, h, hkv, dh, bs, quant)
+    bound_ms, bound_by = bound_of(kv_lens, b, h, hkv, dh, bs, quant,
+                                  dtype.itemsize)
     # No reading can beat the bound: one below it lost records, and the
     # time is read again by CUDA events around replayed graphs of the calls.
     if ms < bound_ms:
@@ -1025,8 +1101,10 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
                       torch, wrap_dispatch, 2 * n_layers, f"{what} dispatch wrapper")[0]}
     del q, kp, vp, ks, vs, bt, kvl, wins, sc
     torch.cuda.empty_cache()
-    row = {"case": name, "variant": "int8" if quant else "bf16", "B": b, "H": h,
-           "Hkv": hkv, "Dh": dh, "kv_tokens": sum(kv_lens),
+    row = {"case": name, "variant": label,
+           "kernel": pa.variant_of(dtype, quant, dh, h // hkv, bs), "dtype": dname,
+           "block_size": bs, "B": b, "H": h, "Hkv": hkv, "Dh": dh,
+           "kv_tokens": sum(kv_lens),
            "max_kv_len": max(kv_lens), "max_abs_err": max_err,
            "max_row_rel_err": max_row_rel, "control_row_rel_err": controls,
            "ms": ms, "ms_by": ms_by, "ms_by_kernel": ms_by_kernel,
@@ -1049,9 +1127,217 @@ def kernel_phase(torch, pa, device, seed, main_lens):
             cases.append((f"{label} B={b}", b, h, hkv, dh, lens, n_layers))
     # The main path's shape: the served batch mid-decode.
     cases.append(("main path llama-3b B=4", 4, 24, 8, 128, main_lens, 28))
-    return [run_kernel_case(torch, pa, *c, seed=seed + i, device=device,
+    rows = [run_kernel_case(torch, pa, *c, seed=seed + i, device=device,
                             quant=quant)
             for quant in (False, True) for i, c in enumerate(cases)]
+    # The generic kernel: the rest of the Pallas kernel's domain at
+    # llama-3b's width (float32 and float16, head dim 256, 24 query heads
+    # per kv head, one-token pages) and head dim 32 at tiny-llama-8kv's
+    # heads, B = 8 of ragged lengths, 4 layers; then the domain phase's
+    # main paths (llama-3b in float32, tiny-llama in bf16 and float16) at
+    # the served batch's lengths. Each over compute-dtype and int8 pools.
+    lens = [0, 1, 17, 4001] + [rng.randint(1, 4096) for _ in range(4)]
+    f32, f16, bf16 = torch.float32, torch.float16, torch.bfloat16
+    generic = [("f32 llama-3b heads B=8", 8, 24, 8, 128, lens, f32, 16),
+               ("f16 llama-3b heads B=8", 8, 24, 8, 128, lens, f16, 16),
+               ("Dh 256 H=12 Hkv=4 B=8", 8, 12, 4, 256, lens, bf16, 16),
+               ("G 24 H=24 Hkv=1 B=8", 8, 24, 1, 128, lens, bf16, 16),
+               ("block size 1 llama-3b heads B=8", 8, 24, 8, 128, lens, bf16, 1),
+               ("Dh 32 tiny-llama-8kv heads B=8", 8, 8, 8, 32, lens, bf16, 16),
+               ("main path llama-3b f32 B=4", 4, 24, 8, 128, main_lens, f32, 16),
+               ("main path tiny-llama B=4", 4, 4, 2, 32, main_lens, bf16, 16),
+               ("main path tiny-llama f16 B=4", 4, 4, 2, 32, main_lens, f16, 16)]
+    for i, (name, b, h, hkv, dh, case_lens, dtype, bs) in enumerate(generic):
+        for quant in (False, True):
+            rows.append(run_kernel_case(
+                torch, pa, name, b, h, hkv, dh, case_lens, 4,
+                seed=seed + 100 + i, device=device, quant=quant, bs=bs,
+                dtype=dtype))
+    return rows
+
+
+# ---------------------------------------------------------------- domain
+DOMAIN_TOKENS = 32                  # tokens per stream
+# (model, compute dtype, kv_cache_dtype): "bfloat16" pools hold the
+# compute dtype; each run's variant of the paged kernels is the generic
+# kernel's of that dtype and pool kind.
+DOMAIN_RUNS = (("llama-3b", "float32", "bfloat16"), ("llama-3b", "float32", "int8"),
+               ("tiny-llama", "bfloat16", "bfloat16"), ("tiny-llama", "bfloat16", "int8"),
+               ("tiny-llama", "float16", "bfloat16"), ("tiny-llama", "float16", "int8"))
+
+
+def domain_prompts(seed: int):
+    """4 prompts of ~150-400 ByteTokenizer tokens: with DOMAIN_TOKENS more
+    they fit tiny-llama's 512 positions."""
+    rng = random.Random(seed + 22)
+    words = ("every shape the gate admits runs a kernel written for the card "
+             "float32 and half precision pages of one token").split()
+    out = []
+    for i in range(4):
+        text = []
+        while sum(len(w) + 1 for w in text) < 150 + 80 * i:
+            text.append(rng.choice(words))
+        out.append(" ".join(text))
+    return out
+
+
+def domain_config(model, dtype, kv, seed, device, **over):
+    """One engine of the domain phase: ``model`` (a named config or a cut
+    directory, its weights drawn from the seed) in ``dtype`` with ``kv``
+    pools, ``attn_impl="paged"``, block 16, 512 tokens per row, 4 rows,
+    graphs captured at warm-up."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+
+    return EngineConfig(**{
+        "model": model, "dtype": dtype, "kv_cache_dtype": kv, "attn_impl": "paged",
+        "device": device, "seed": seed, "load_format": "dummy",
+        "max_model_len": 512, "block_size": 16, "num_kv_blocks": 4 * 512 // 16 + 1,
+        "max_num_seqs": 4, "num_decode_steps": 32,
+        "max_num_batched_tokens": WARM_PREFILL_BUDGET, "enable_warmup": True, **over})
+
+
+def engine_variant(pa, engine) -> str:
+    """The paged-kernel variant ``engine``'s decode launches (its dtype,
+    pool kind, head dim, query heads per kv head and block size)."""
+    cfg, mc = engine.config, engine.model_config
+    return pa.variant_of(cfg.dtype, cfg.kv_cache_quantized, mc.head_dim_,
+                         mc.q_per_kv, cfg.block_size)
+
+
+def domain_http_round(torch, pa, engine, gate, prompts, what):
+    """The 4 streams (``SPEC_SAMPLINGS``: 2 greedy, 2 seeded) x
+    DOMAIN_TOKENS behind the port's server, cold (the prefix cache emptied)
+    and held until all 4 wait (one prefill batch). Checks every stream's
+    length, no eager decode dispatch after warm-up, and the kernels' own
+    counts: the engine's variant layers x decode steps, every other 0.
+    Returns (token ids per stream, a row of numbers)."""
+    from production_stack_tpu_torch.server.api_server import OpenAIServer
+
+    r = engine.runner
+    out = {}
+
+    async def run():
+        server = OpenAIServer(engine, "127.0.0.1", 0)
+        await server.start()
+        base = f"http://127.0.0.1:{server.port}"
+        loop = asyncio.get_running_loop()
+        engine.block_manager.reset_prefix_cache()
+        steps0 = r.decode_steps_total
+        train = r.decode_train
+        eager0, graph0 = train.eager_dispatches_total, train.graph_dispatches_total
+        pa.reset_launch_counts()
+        gate["want"] = 4
+        t0 = time.monotonic()
+
+        def one(i):
+            body = {"model": engine.config.model_name, "prompt": prompts[i],
+                    "max_tokens": DOMAIN_TOKENS, "stream": True, "ignore_eos": True,
+                    **SPEC_SAMPLINGS[i]}
+            st, evs, _, _ = http("POST", base + "/v1/completions", body, True,
+                                 headers={"x-pstpu-resume": "1"})
+            if st != 200 or evs[-1] != "[DONE]":
+                fail(f"domain {what}: request {i}: HTTP {st}")
+            return [t for e in evs[:-1] for t in e.get("pstpu", {}).get("toks", [])]
+
+        toks = await asyncio.gather(*[loop.run_in_executor(None, one, i)
+                                      for i in range(4)])
+        out.update(toks=toks, wall=time.monotonic() - t0, launches=pa.launch_counts(),
+                   steps=r.decode_steps_total - steps0,
+                   eager=train.eager_dispatches_total - eager0,
+                   graph=train.graph_dispatches_total - graph0)
+        await server.stop()
+
+    asyncio.run(run())
+    toks, steps = out["toks"], out["steps"]
+    if any(len(t) != DOMAIN_TOKENS for t in toks):
+        fail(f"domain {what}: stream lengths {[len(t) for t in toks]}")
+    variant = engine_variant(pa, engine)
+    nl = engine.model_config.num_layers
+    if r.device.type != "cuda":
+        log(f"domain {what}: off the card: the graph and launch checks skipped")
+    elif out["eager"] or not out["graph"]:
+        fail(f"domain {what}: {out['eager']} eager decode dispatches after "
+             f"warm-up ({out['graph']} replayed)")
+    elif out["launches"] != {**dict.fromkeys(pa.VARIANTS, 0), variant: nl * steps}:
+        fail(f"domain {what}: kernel launches {out['launches']} for {steps} "
+             f"decode steps of {nl} layers, want them all of {variant}")
+    row = {"variant": variant, "decode_steps": steps,
+           "launches": out["launches"][variant], "wall_s": out["wall"]}
+    log(f"domain {what}: served {json.dumps(row)}")
+    return toks, row
+
+
+def domain_run(torch, pa, device, seed, model, dtype, kv, prompts, what):
+    """One configuration of the domain phase: the paged engine (graphs
+    captured) served through the port's server, then on the engine API
+    from its graphs and through the strict eager train (its graphs set
+    aside; the same loop, so the same batches and dispatch lengths; each
+    round cold): tokens bit for bit; then a window-path twin (same weights,
+    KV dtype and batches, the strict loop without graphs, logits kept):
+    tokens equal up to the first step whose sampler margin is under 2 x
+    ``tp_logit_bound``. Returns (the served round's launches, a row)."""
+    from production_stack_tpu_torch.engine.engine import ServingEngine
+
+    t0 = time.monotonic()
+    engine = ServingEngine(domain_config(model, dtype, kv, seed, device.type))
+    mc = engine.model_config
+    if engine.runner.attn_impl != "paged":
+        fail(f"domain {what}: the engine took the {engine.runner.attn_impl} path")
+    gate = gate_schedule(engine)
+    served, row = domain_http_round(torch, pa, engine, gate, prompts, what)
+    engine.block_manager.reset_prefix_cache()
+    graph = spec_api_round(engine, gate, prompts, n_tokens=DOMAIN_TOKENS)
+    engine.block_manager.reset_prefix_cache()
+    eager = spec_api_round(engine, gate, prompts, eager=True, n_tokens=DOMAIN_TOKENS)
+    for name, got in (("the served round's", served), ("the strict eager train's", eager)):
+        bad = [i for i in range(4) if got[i] != graph[i]]
+        if bad:
+            fail(f"domain {what}: graph-replayed tokens differ from {name} on "
+                 f"streams {bad}")
+    engine.shutdown()
+    del engine
+    gc.collect()
+    twin = ServingEngine(domain_config(
+        model, dtype, kv, seed, device.type, attn_impl="window", enable_warmup=False,
+        async_pipeline=False, overlap_dispatch=False))
+    tgate = gate_schedule(twin)
+    sink = []
+    want = spec_api_round(twin, tgate, prompts, eager=True, sink=sink,
+                          n_tokens=DOMAIN_TOKENS)
+    margins = [[sampler_margin(torch, sink[t][i].float(), SPEC_SAMPLINGS[i], t)
+                for t in range(DOMAIN_TOKENS)] for i in range(4)]
+    twin.shutdown()
+    del twin, sink
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    bound = tp_logit_bound(mc.num_layers, mc.vocab_size * DOMAIN_TOKENS * 4)
+    firsts, ok = spec_token_bar(graph, want, margins, 2 * bound)
+    if not ok:
+        fail(f"domain {what}: paged tokens part from the window twin's where "
+             f"its margin exceeds 2 x {bound}: {firsts}")
+    row.update(first_divergence=firsts, bound=bound, seconds=time.monotonic() - t0,
+               graph_equal_eager=True)
+    log(f"domain {what}: {json.dumps(row)}")
+    return row["launches"], row
+
+
+def domain_phase(torch, pa, device, seed, cut_dirs):
+    """The ``domain`` phase: every DOMAIN_RUNS configuration (llama-3b at
+    full width cut to ``CUT_LAYERS``, tiny-llama whole) through
+    ``domain_run``. Returns ({variant: the served rounds' launches}, a
+    summary)."""
+    prompts = domain_prompts(seed)
+    launches, out = {}, {}
+    for model, dtype, kv in DOMAIN_RUNS:
+        what = f"{model} {dtype} [{kv} KV]"
+        path = model if model.startswith("tiny") else cut_model(
+            torch, device, seed, model, cut_dirs)
+        n, row = domain_run(torch, pa, device, seed, path, dtype, kv, prompts, what)
+        launches[row["variant"]] = launches.get(row["variant"], 0) + n
+        out[what] = {k: row[k] for k in ("variant", "decode_steps", "launches",
+                                         "first_divergence", "bound", "seconds")}
+    return launches, out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -5724,11 +6010,15 @@ def spec_phase(torch, pa, device, seed, card, pairs=SPEC_PAIRS):
     return launches_off, out
 
 
-def spec_f32_identity(torch, device, seed):
+def spec_f32_identity(torch, pa, device, seed):
     """float32 on the card, tiny-llama with the tiny-llama self-draft and
     the tiny-opt cross draft: the four modes' tokens equal spec-off's bit
     for bit, greedy, seeded and seeded with top-p / top-k, graphs
-    captured."""
+    captured. Requests run one at a time, so each engine takes one row
+    (its warm-up captures the 1-row families alone). Spec-off decodes
+    through the paged kernels (the generic float32 variant: head dim 32),
+    its count layers x decode steps; speculation runs on the window path.
+    Returns (spec-off's launches, a row)."""
     from production_stack_tpu_torch.engine.engine import ServingEngine
     from production_stack_tpu_torch.engine.sampling import SamplingParams
 
@@ -5742,11 +6032,13 @@ def spec_f32_identity(torch, device, seed):
     def serve(fields, draft):
         cfg = spec_config("tiny-llama", draft, fields, seed, device=device.type,
                           dtype="float32", max_model_len=256, num_kv_blocks=128,
-                          num_decode_steps=8)
+                          num_decode_steps=8, max_num_seqs=1)
         engine = ServingEngine(cfg)
 
         async def run():
             await engine.start()
+            pa.reset_launch_counts()
+            steps0 = engine.runner.decode_steps_total
             got = []
             for p in prompts:
                 for sp in sps:
@@ -5755,6 +6047,11 @@ def spec_f32_identity(torch, device, seed):
                         last = o
                     got.append(last.token_ids)
             st = engine.stats()
+            st["launches"] = pa.launch_counts()
+            st["steps"] = engine.runner.decode_steps_total - steps0
+            st["layers"] = engine.model_config.num_layers
+            st["variant"] = (engine_variant(pa, engine)
+                             if engine.runner.attn_impl == "paged" else None)
             await engine.stop()
             return got, st
 
@@ -5768,8 +6065,14 @@ def spec_f32_identity(torch, device, seed):
             torch.cuda.empty_cache()
         return got, st
 
-    off, _ = serve({}, None)
-    out = {}
+    off, st = serve({}, None)
+    variant, launches = st["variant"], st["launches"]
+    want = {**dict.fromkeys(pa.VARIANTS, 0), variant: st["layers"] * st["steps"]}
+    if device.type == "cuda" and (variant is None or launches != want):
+        fail(f"spec f32 spec-off: the paged kernels' counts {launches}, want "
+             f"{want} (variant {variant})")
+    out = {"off": {"variant": variant, "launches": launches.get(variant, 0),
+                   "decode_steps": st["steps"]}}
     for draft in ("tiny-llama", "tiny-opt"):
         for mode, fields in SPEC_MODES[1:]:
             got, st = serve(fields, draft)
@@ -5780,7 +6083,7 @@ def spec_f32_identity(torch, device, seed):
             out[f"{draft} {mode}"] = {"equal": True,
                                       "acceptance": st["spec_acceptance_rate"]}
     log(f"spec f32 identity: {json.dumps(out)}")
-    return out
+    return out["off"]["launches"], out
 
 
 # ------------------------------------------------- phase 11b: opt-tp, spec-dp
@@ -6411,7 +6714,7 @@ def ckpt_http_round(torch, pa, engine, gate, prompts, models, what):
     elif out["eager"] or not out["graph"]:
         fail(f"ckpt {what}: {out['eager']} eager decode dispatches after "
              f"warm-up ({out['graph']} replayed)")
-    elif out["launches"] != {pa.BF16: nl * steps, pa.INT8: 0}:
+    elif out["launches"] != {**dict.fromkeys(pa.VARIANTS, 0), pa.BF16: nl * steps}:
         fail(f"ckpt {what}: kernel launches {out['launches']} for {steps} "
              f"decode steps of {nl} layers")
     dev_s = st["decode_device_seconds_total"]
@@ -6505,7 +6808,7 @@ def ckpt_prefix_isolation(engine, prompt):
     return counts
 
 
-def ckpt_merged_check(torch, device, seed, root, model="llama-3b"):
+def ckpt_merged_check(torch, pa, device, seed, root, model="llama-3b"):
     """The adapter arithmetic at llama-3b width, depth cut to
     ``CKPT_F32_LAYERS``, in float32: an engine on the checkpoint (bf16
     file, loaded as f32) with adapter m (rank 16 on all seven targets)
@@ -6513,7 +6816,9 @@ def ckpt_merged_check(torch, device, seed, root, model="llama-3b"):
     (the prefill's and each decode step's) against a plain forward of the
     same tokens through a model whose weights are merged, W + A.B.alpha/r.
     Fails past ``CKPT_F32_BOUND``, or when the adapter moves the logits by
-    less than 10x the bound (an adapter that was not applied)."""
+    less than 10x the bound (an adapter that was not applied). Its decode
+    runs the paged kernels' generic float32 variant: the count must be
+    layers x decode steps."""
     from dataclasses import replace
 
     from production_stack_tpu_torch.engine.config import EngineConfig
@@ -6538,9 +6843,13 @@ def ckpt_merged_check(torch, device, seed, root, model="llama-3b"):
     n_gen = 9
     sink = []
 
+    counted = {}
+
     async def run():
         await eng.start()
         eng.runner.logits_sink = sink
+        pa.reset_launch_counts()
+        steps0 = eng.runner.decode_steps_total
         try:
             last = None
             async for o in eng.generate(prompt_token_ids=prompt, lora_adapter="m",
@@ -6548,12 +6857,20 @@ def ckpt_merged_check(torch, device, seed, root, model="llama-3b"):
                                             max_tokens=n_gen, temperature=0.0,
                                             ignore_eos=True)):
                 last = o
+            counted.update(launches=pa.launch_counts(),
+                           steps=eng.runner.decode_steps_total - steps0)
             return last.token_ids
         finally:
             eng.runner.logits_sink = None
             await eng.stop()
 
     toks = asyncio.run(run())
+    variant = engine_variant(pa, eng)
+    want = {**dict.fromkeys(pa.VARIANTS, 0), variant: mc.num_layers * counted["steps"]}
+    if device.type == "cuda" and (eng.runner.attn_impl != "paged"
+                                  or counted["launches"] != want):
+        fail(f"ckpt merged-weight check: attn {eng.runner.attn_impl}, kernel "
+             f"counts {counted['launches']}, want {want}")
     got = torch.stack([sink[j][0] for j in range(n_gen)])      # [n_gen, V]
     eng.shutdown()
     ad = lora.load_peft_adapter("m", dm, mc, dtype=torch.float32)
@@ -6578,7 +6895,8 @@ def ckpt_merged_check(torch, device, seed, root, model="llama-3b"):
     err = float((got - want).abs().max())
     moved = float((plain - want).abs().max())
     argmax_equal = bool((want.argmax(-1) == torch.tensor(toks, device=device)).all())
-    row = {"layers": CKPT_F32_LAYERS, "tokens": n_gen, "max_abs_logit_diff": err,
+    row = {"layers": CKPT_F32_LAYERS, "tokens": n_gen, "variant": variant,
+           "launches": counted["launches"][variant], "max_abs_logit_diff": err,
            "bound": CKPT_F32_BOUND, "adapter_moves_logits_by": moved,
            "argmax_equal": argmax_equal}
     log(f"ckpt merged-weight check: {json.dumps(row)}")
@@ -6749,7 +7067,7 @@ def ckpt_phase(torch, pa, device, seed, card, model="llama-3b",
         torch.cuda.empty_cache()
 
         # 5. the adapter arithmetic in float32 against merged weights
-        out["merged_f32"] = ckpt_merged_check(torch, device, seed, root, served)
+        out["merged_f32"] = ckpt_merged_check(torch, pa, device, seed, root, served)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches, out
@@ -6892,7 +7210,8 @@ def elastic_rounds(torch, pa, engine, prompts, what, t_built=None):
             elif row["decode_eager"]:
                 fail(f"elastic {what} {name}: {row['decode_eager']} eager decode "
                      "dispatches")
-            elif counts != {pa.BF16: nl * (steps + first_decode), pa.INT8: 0} \
+            elif counts != {**dict.fromkeys(pa.VARIANTS, 0),
+                            pa.BF16: nl * (steps + first_decode)} \
                     or not steps:
                 fail(f"elastic {what} {name}: kernel launches {counts} for "
                      f"{steps} decode steps of {nl} layers and {first_decode} "
@@ -8578,12 +8897,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="kernel,serving,graphs,elastic,check,tp,sp,surface,"
-                            "kvtier,kvtier-tp,kvtier-native,spec,ckpt,opt-tp,"
-                            "spec-dp,router",
-                    help="comma list of kernel,serving,graphs,elastic,check,tp,"
-                         "sp,surface,kvtier,kvtier-tp,kvtier-native,spec,ckpt,"
-                         "opt-tp,spec-dp,router,trace (build always "
+                    default="kernel,serving,graphs,elastic,check,domain,tp,sp,"
+                            "surface,kvtier,kvtier-tp,kvtier-native,spec,ckpt,"
+                            "opt-tp,spec-dp,router",
+                    help="comma list of kernel,serving,graphs,elastic,check,"
+                         "domain,tp,sp,surface,kvtier,kvtier-tp,kvtier-native,"
+                         "spec,ckpt,opt-tp,spec-dp,router,trace (build always "
                          "runs; trace profiles one more served round after "
                          "serving; router runs kvtier too, whose pair its "
                          "disagg round drives)")
@@ -8671,9 +8990,11 @@ def main() -> None:
         log(f"build: {json.dumps(inst)}")
     summary("build", {"seconds": build_s, "instances": [
         [i["variant"], i["Dh"], i["KG"], i["registers"], i.get("spill_stores", 0),
-         i["static_smem"], i["dynamic_smem"], i["blocks_per_sm"]] for i in insts],
+         i.get("spill_loads", 0), i["static_smem"], i["dynamic_smem"],
+         i["blocks_per_sm"]] for i in insts],
         "instance_fields": ["variant", "Dh", "KG", "registers", "spill_stores",
-                            "static_smem", "dynamic_smem", "blocks_per_sm"]})
+                            "spill_loads", "static_smem", "dynamic_smem",
+                            "blocks_per_sm"]})
 
     tok = ByteTokenizer(128256)
     prompts = make_prompts(args.seed, 4)
@@ -8684,7 +9005,7 @@ def main() -> None:
     # path: its launch counts are set to 0 before it and read after it.
     # launches by main path: each path's counts are set to 0 just before
     # it and read just after it.
-    by_path = {"bf16": {}, "int8": {}}
+    by_path = {"bf16": {}, "int8": {}, **{name: {} for name in pa.GENERIC.values()}}
     # (phase, its start): the summary's seconds per phase.
     marks = [("build", t_main)]
     # The depth-cut checkpoint directories (``CUT_LAYERS``), removed at exit
@@ -8781,6 +9102,17 @@ def main() -> None:
         summary("check", {"bf16": check_phase(torch, device, args.seed, False),
                           "int8": check_phase(torch, device, args.seed, True),
                           "gumbel_values_differing": check_noise(torch, device)})
+    # The domain phase: the generic kernel's variants on their main paths
+    # (llama-3b in float32, tiny-llama in bf16 and float16, each over
+    # compute-dtype and int8 pools), each served run's launches.
+    marks.append(("domain", time.monotonic()))
+    if "domain" in phases:
+        launched, dom = domain_phase(torch, pa, device, args.seed, cut_dirs)
+        for variant, n in launched.items():
+            by_path[variant]["domain"] = n
+        summary("domain", dom)
+        gc.collect()
+        torch.cuda.empty_cache()
     # The tp phase: llama-3-8b (cut) at tp = 2 on this card, bf16 then int8 KV;
     # each run is one main path of paged_flash_decode_stats_tp (its launch
     # counts, summed over the ranks, set to 0 before it and read after it).
@@ -8947,7 +9279,8 @@ def main() -> None:
         n, spec = spec_phase(torch, pa, device, args.seed, card, pairs=pairs)
         by_path["bf16"]["spec"] = n
         t0 = time.monotonic()
-        spec["f32_identity"] = spec_f32_identity(torch, device, args.seed)
+        n32, spec["f32_identity"] = spec_f32_identity(torch, pa, device, args.seed)
+        by_path[pa.GENERIC[(torch.float32, False)]]["spec f32 identity"] = n32
         f32_s = time.monotonic() - t0
         keys = ("ms_per_dispatch_events", "ms_per_row_token_events",
                 "ms_per_token_events", "aggregate_tok_s", "ttft_s", "acceptance", "draft_depth_mean",
@@ -8994,6 +9327,8 @@ def main() -> None:
                            model=cut_model(torch, device, args.seed, "llama-3b",
                                            cut_dirs))
         by_path["bf16"]["ckpt"] = n
+        by_path[ck["merged_f32"]["variant"]]["ckpt merged f32"] = \
+            ck["merged_f32"]["launches"]
         summary("ckpt", ck)
         gc.collect()
         torch.cuda.empty_cache()
@@ -9045,15 +9380,17 @@ def main() -> None:
                          for r in rows}})
 
     kernels = []
-    for variant, name in (("bf16", pa.BF16), ("int8", pa.INT8)):
-        mine = [r for r in rows if r["variant"] == variant]
+    for variant, name in (("bf16", pa.BF16), ("int8", pa.INT8),
+                          *((n, n) for n in pa.GENERIC.values())):
+        mine = [r for r in rows if r["kernel"] == name]
         main_row = next((r for r in mine if r["case"].startswith("main path")),
                         {})
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": KERNEL_SOURCE,
-            "replaces": KERNEL_REPLACES[variant],
+            "replaces": KERNEL_REPLACES["int8" if variant == "int8"
+                                        or name.endswith("/int8]") else "bf16"],
             "launches": (sum(by_path[variant].values()) if by_path[variant]
                          else None),
             "launches_by_path": by_path[variant],

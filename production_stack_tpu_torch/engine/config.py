@@ -373,14 +373,13 @@ class EngineConfig:
         tp = self.tensor_parallel_size
         tp_ok = (model_config.num_heads % tp == 0
                  and model_config.num_kv_heads % tp == 0)
+        # The kernels take every compute dtype and pool kind on the
+        # shapes the reference's gate admits; the CPU runs their plain
+        # version.
         supported = (
             model_config.arch == "llama"
+            and supports_paged_decode(model_config.head_dim_, self.block_size)
             and tp_ok
-            and supports_paged_decode(model_config.head_dim_, self.block_size,
-                                      model_config.q_per_kv)
-            # the kernel takes bf16 queries over bf16 or int8 pools; the
-            # CPU runs its plain version
-            and (not on_cuda or self.dtype == "bfloat16")
         )
         # The reference's legacy names: "xla" is the window path, "pallas"
         # the paged kernel.
@@ -398,13 +397,16 @@ class EngineConfig:
         if v == "paged":
             if not supported:
                 raise ValueError(
-                    f"attn_impl={v!r} requires a llama-family model with "
-                    f"head_dim in (64, 128), at most 16 query heads per kv "
-                    f"head, head counts divisible by tensor_parallel_size, "
-                    f"and bfloat16 on CUDA; got arch={model_config.arch} "
+                    f"attn_impl={v!r} requires a llama-family model whose "
+                    f"head_dim divides or is a multiple of 128 (lane "
+                    f"packing), with block_size dividing the superpage and "
+                    f"divisible by the pack factor, and (for tp>1) head "
+                    f"counts divisible by tensor_parallel_size; got "
+                    f"arch={model_config.arch} "
                     f"head_dim={model_config.head_dim_} "
-                    f"heads={model_config.num_heads}/{model_config.num_kv_heads} "
-                    f"tp={tp} dtype={self.dtype} device={self.device}"
+                    f"block_size={self.block_size} "
+                    f"heads={model_config.num_heads}/"
+                    f"{model_config.num_kv_heads} tp={tp}"
                 )
             return "paged"
         if v != "auto":

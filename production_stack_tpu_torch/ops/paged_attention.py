@@ -1,6 +1,10 @@
 """Paged flash-decode over the layer-stacked KV pool: the hand-written CUDA
-kernel (``csrc/paged_decode.cu``, a bf16-pool and an int8-pool variant) and
-its plain PyTorch twin.
+kernels (``csrc/paged_decode.cu``: a tensor-core kernel for bf16 q over bf16
+or int8 pools at Dh 64 / 128, at most 16 query heads per kv head and block
+sizes >= 2, and a generic CUDA-core kernel for the rest of the Pallas
+kernel's domain: float16 and float32, every head dim and block size its
+gate admits, any number of query heads per kv head) and their plain
+PyTorch twin.
 
 Counterpart of ``production_stack_tpu/ops/pallas/paged_attention.py``
 (``paged_flash_decode_stats`` and its ``_decode_kernel``, both branches, the
@@ -32,11 +36,19 @@ import torch
 from production_stack_tpu_torch.ops.attention import paged_attention_xla
 from production_stack_tpu_torch.ops.quantization import SCALE_DTYPE
 
-SUPPORTED_HEAD_DIMS = (64, 128)
-MAX_QUERY_GROUP = 16      # H / Hkv the kernel holds per block (kMaxGroup)
-TILE_TOKENS = 64          # tokens per shared-memory tile (kTile)
+# The gate is the Pallas kernel's (``supports_pallas_decode``): a head dim
+# that divides LANES or is a multiple of it, a block size dividing the
+# 512-token superpage and divisible by the pack factor LANES // Dh.
+SUPER_TOKENS = 512
+LANES = 128
+# The tensor-core kernel's shapes; every other admitted shape runs the
+# generic kernel.
+MMA_HEAD_DIMS = (64, 128)
+MMA_MAX_GROUP = 16        # H / Hkv the tensor-core kernel holds (kMaxGroup)
+GENERIC_HEADS = 8         # query heads per block of the generic kernel (kGenHeads)
+GENERIC_SMEM_BUDGET = 200 * 1024   # its dynamic shared bytes (kGenSmemBudget)
+TILE_TOKENS = 64          # tokens per tile (kTile)
 MAX_CHUNK_TILES = 8       # tiles per block, at most (kMaxChunkTiles)
-MAX_BLOCK_SIZE = 512      # page sizes: powers of two in [2, 512]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "paged_decode.cu")
@@ -71,41 +83,82 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # addresses).
 BF16 = "paged_flash_decode_stats"
 INT8 = "paged_flash_decode_stats[int8]"
-VARIANTS = (BF16, INT8)
+# The generic kernel's instances, by (q dtype, int8 pools).
+DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+_SHORT = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
+GENERIC = {(dt, quant): f"paged_flash_decode_stats[generic {name}"
+                        f"{'/int8' if quant else ''}]"
+           for dt, name in _SHORT.items() for quant in (False, True)}
+VARIANTS = (BF16, INT8, *GENERIC.values())
 _counters: Dict[torch.device, torch.Tensor] = {}
 
 _lib = None
 _lib_lock = threading.Lock()
 _sm_count = {}
 # Split scratch per (device, batch bucket, Hkv, G, Dh, chunks): partial
-# (acc, m, l) of every chunk and one merge ticket per (row, kv head). Kept
-# for the life of the process, so a captured CUDA graph's pointers stay
-# valid; the kernel leaves every ticket at 0.
+# (acc, m, l) of every chunk and one merge ticket per (row, kv head, head
+# group). Kept for the life of the process, so a captured CUDA graph's
+# pointers stay valid; the kernel leaves every ticket at 0.
 _scratch = {}
 
 
-def supports_paged_decode(head_dim: int, block_size: int,
-                          q_per_kv: int = 1) -> bool:
-    """Shapes the CUDA kernel takes: Dh in {64, 128}, a block size that is
-    a power of two in [2, 512] (as the Pallas kernel's, whose 512-token
-    superpage it divides), at most MAX_QUERY_GROUP query heads per kv
-    head."""
-    return (head_dim in SUPPORTED_HEAD_DIMS
-            and 2 <= block_size <= MAX_BLOCK_SIZE
-            and block_size & (block_size - 1) == 0
-            and 1 <= q_per_kv <= MAX_QUERY_GROUP)
+def supports_paged_decode(head_dim: int, block_size: int) -> bool:
+    """Shapes the kernels take: the Pallas kernel's gate
+    (``supports_pallas_decode``), for every compute dtype and both pool
+    kinds, at any number of query heads per kv head."""
+    pack = max(1, LANES // head_dim)
+    return ((head_dim % LANES == 0 or LANES % head_dim == 0)
+            and SUPER_TOKENS % block_size == 0
+            and block_size % pack == 0)
+
+
+def _dtype(dtype) -> torch.dtype:
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
+def uses_mma(dtype, head_dim: int, q_per_kv: int, block_size: int) -> bool:
+    """Whether a call runs the tensor-core kernel (else the generic one):
+    bf16 q, Dh 64 or 128, at most MMA_MAX_GROUP query heads per kv head,
+    block size >= 2. The pool kind does not enter."""
+    return (_dtype(dtype) == torch.bfloat16 and head_dim in MMA_HEAD_DIMS
+            and q_per_kv <= MMA_MAX_GROUP and block_size >= 2)
+
+
+def variant_of(dtype, quant: bool, head_dim: int, q_per_kv: int,
+               block_size: int) -> str:
+    """The variant (launch counter) a call of these shapes launches:
+    ``dtype`` is q's (a torch dtype or its name), ``quant`` True for int8
+    pools."""
+    if uses_mma(dtype, head_dim, q_per_kv, block_size):
+        return INT8 if quant else BF16
+    return GENERIC[(_dtype(dtype), bool(quant))]
+
+
+def heads_per_block(dtype, head_dim: int, q_per_kv: int,
+                    block_size: int) -> int:
+    """Query heads one block takes: every head of its kv head on the
+    tensor-core kernel; on the generic kernel up to GENERIC_HEADS, fewer
+    where q and acc ([heads, Dh] fp32 each) would pass its shared-memory
+    budget. A (row, kv head, chunk) gets ceil(G / this) blocks."""
+    if uses_mma(dtype, head_dim, q_per_kv, block_size):
+        return q_per_kv
+    hb = min(GENERIC_HEADS, q_per_kv)
+    while hb > 1 and 8 * hb * head_dim > GENERIC_SMEM_BUDGET:
+        hb -= 1
+    return hb
 
 
 def launch_plan(batch: int, num_kv_heads: int, max_tokens: int,
-                sm_count: int) -> Tuple[int, int]:
+                sm_count: int, groups: int = 1) -> Tuple[int, int]:
     """(chunk_tiles, max_chunks) of a call, from host-known sizes only:
     chunks of 4 tiles, or of MAX_CHUNK_TILES where 4-tile chunks of rows as
-    long as the block table allows would exceed 8 blocks per SM. The kernel
-    gives row b ceil(tiles_b / chunk_tiles) of the max_chunks blocks per kv
-    head."""
+    long as the block table allows would exceed 8 blocks per SM (``groups``
+    blocks per kv head: ``heads_per_block``). The kernel gives row b
+    ceil(tiles_b / chunk_tiles) of the max_chunks blocks per kv head and
+    head group."""
     tiles = max(1, -(-max_tokens // TILE_TOKENS))
     chunk = 4
-    if batch * num_kv_heads * -(-tiles // chunk) > 8 * sm_count:
+    if batch * num_kv_heads * groups * -(-tiles // chunk) > 8 * sm_count:
         chunk = MAX_CHUNK_TILES
     return chunk, -(-tiles // chunk)
 
@@ -164,9 +217,15 @@ def _load_lib():
             lib.pstpu_paged_decode_bf16.restype = i32
             lib.pstpu_paged_decode_int8.argtypes = [vp] * 14 + tail
             lib.pstpu_paged_decode_int8.restype = i32
+            lib.pstpu_paged_decode_generic.argtypes = (
+                [i32, i32] + [vp] * 14 + [i32] * 5 + tail[4:])
+            lib.pstpu_paged_decode_generic.restype = i32
             lib.pstpu_paged_decode_occupancy.argtypes = [
                 i32, i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
             lib.pstpu_paged_decode_occupancy.restype = i32
+            lib.pstpu_paged_decode_generic_occupancy.argtypes = [
+                i32, i32, i32, i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+            lib.pstpu_paged_decode_generic_occupancy.restype = i32
             lib.pstpu_graph_node_counts.argtypes = [
                 vp, ctypes.POINTER(i32), ctypes.POINTER(i32)]
             lib.pstpu_graph_node_counts.restype = i32
@@ -184,13 +243,27 @@ def _check(lib, err: int, what: str) -> None:
 
 def occupancy(quant: bool, head_dim: int, q_per_kv: int) -> Tuple[int, int]:
     """(resident blocks per SM, dynamic shared bytes per block) of the
-    kernel instance a call with these shapes launches, as the CUDA runtime
-    reports them for the launch's block size and shared memory."""
+    tensor-core kernel instance a call with these shapes launches, as the
+    CUDA runtime reports them for the launch's block size and shared
+    memory."""
     lib = _load_lib()
     blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
     _check(lib, lib.pstpu_paged_decode_occupancy(
         int(quant), head_dim, q_per_kv, ctypes.byref(blocks),
         ctypes.byref(smem)), "occupancy")
+    return blocks.value, smem.value
+
+
+def generic_occupancy(dtype, quant: bool, head_dim: int, heads: int,
+                      max_chunks: int = 1) -> Tuple[int, int]:
+    """The same for the generic kernel's instance of q ``dtype`` and pool
+    kind, at ``heads`` query heads per block and ``max_chunks`` chunks
+    (its shared memory follows both and the head dim)."""
+    lib = _load_lib()
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    _check(lib, lib.pstpu_paged_decode_generic_occupancy(
+        DTYPE_CODES[_dtype(dtype)], int(quant), head_dim, heads, max_chunks,
+        ctypes.byref(blocks), ctypes.byref(smem)), "occupancy")
     return blocks.value, smem.value
 
 
@@ -257,7 +330,7 @@ def _split_scratch(device: torch.device, b: int, hkv: int, g: int, dh: int,
         _scratch[key] = (
             torch.empty((rows * dh,), dtype=torch.float32, device=device),
             torch.empty((rows * 2,), dtype=torch.float32, device=device),
-            torch.zeros((bucket * hkv,), dtype=torch.int32, device=device),
+            torch.zeros((bucket * hkv * g,), dtype=torch.int32, device=device),
         )
     return _scratch[key]
 
@@ -280,9 +353,11 @@ def paged_flash_decode_stats(
     Returns (out [B, H, Dh] normalized in q's dtype, m [B, H] f32,
     l [B, H] f32); rows with kv_len == 0 give (0, -inf, 0), a no-op under
     ops/attention.py:merge_attention_segments. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise: bf16 q over bf16
-    pools, or (scales given) bf16 q over int8 pools with bf16 per-slot
-    scales. Each kv_lens[i] must be at most Mb * block_size (the caller's
+    version; CUDA tensors launch a kernel or raise: q in bf16, f16 or f32
+    over pools of q's dtype, or (scales given) over int8 pools with bf16
+    per-slot scales, on the shapes ``supports_paged_decode`` admits; the
+    tensor-core kernel where ``uses_mma``, else the generic one. Each
+    kv_lens[i] must be at most Mb * block_size (the caller's
     block tables cover every resident token; the lengths stay on the
     device, so this is not checked here: the kernel clamps to it). One
     launch per call, and no host decision reads device data, so a call can
@@ -311,13 +386,14 @@ def paged_flash_decode_stats(
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    pool_dtype = torch.int8 if quant else torch.bfloat16
-    if q.dtype != torch.bfloat16 or k_pool.dtype != pool_dtype \
+    pool_dtype = torch.int8 if quant else q.dtype
+    if q.dtype not in DTYPE_CODES or k_pool.dtype != pool_dtype \
             or v_pool.dtype != pool_dtype:
         raise ValueError(
-            f"paged decode kernel takes bf16 q and {pool_dtype} pools "
-            f"({'with' if quant else 'without'} scales), got q={q.dtype} "
-            f"k={k_pool.dtype} v={v_pool.dtype}"
+            f"paged decode kernel takes q in {sorted(_SHORT.values())} over "
+            f"pools of q's dtype, or int8 pools with scales; got q={q.dtype} "
+            f"k={k_pool.dtype} v={v_pool.dtype} "
+            f"({'with' if quant else 'without'} scales)"
         )
     if quant and (k_scale.dtype != SCALE_DTYPE or v_scale.dtype != SCALE_DTYPE
                   or tuple(k_scale.shape) != (n_layers, hkv, num_slots)
@@ -333,12 +409,12 @@ def paged_flash_decode_stats(
             f"shape mismatch: q {tuple(q.shape)} k {tuple(k_pool.shape)} "
             f"v {tuple(v_pool.shape)}"
         )
-    if not supports_paged_decode(dh, block_size, h // hkv):
+    if not supports_paged_decode(dh, block_size):
         raise ValueError(
-            f"paged decode kernel: head_dim {dh} not in {SUPPORTED_HEAD_DIMS}, "
-            f"block_size {block_size} not a power of two in "
-            f"[2, {MAX_BLOCK_SIZE}], or {h // hkv} query heads per kv head > "
-            f"{MAX_QUERY_GROUP}"
+            f"paged decode kernel: head_dim {dh} must divide or be a multiple "
+            f"of {LANES}, and block_size {block_size} divide the "
+            f"{SUPER_TOKENS}-token superpage and be divisible by the pack "
+            f"factor {max(1, LANES // dh)}"
         )
     if block_tables.dtype != torch.int32 or kv_lens.dtype != torch.int32:
         raise ValueError("block_tables and kv_lens must be int32")
@@ -350,37 +426,51 @@ def paged_flash_decode_stats(
             f"num_slots {num_slots} not a multiple of block_size "
             f"{block_size}, or layer {layer} outside [0, {n_layers})"
         )
-    # 16-byte copies of pool rows; 4-byte loads of q pairs and copies of
-    # scale pairs.
+    g = h // hkv
+    mma = uses_mma(q.dtype, dh, g, block_size)
+    # The tensor-core kernel: 16-byte copies of pool rows; 4-byte loads of
+    # q pairs and copies of scale pairs. The generic kernel reads elements.
     for name, t in tensors:
-        align = 16 if name.endswith("pool") else 4
+        align = (16 if name.endswith("pool") else 4) if mma else t.element_size()
         if t.data_ptr() % align:
             raise ValueError(f"{name} must be {align}-byte aligned")
     if scale is None:
         scale = dh ** -0.5
     mb = block_tables.shape[1]
+    hb = heads_per_block(q.dtype, dh, g, block_size)
     chunk_tiles, max_chunks = launch_plan(b, hkv, mb * block_size,
-                                          sm_count(q.device))
-    part_acc, part_ml, tickets = _split_scratch(q.device, b, hkv, h // hkv,
-                                                dh, max_chunks)
+                                          sm_count(q.device), -(-g // hb))
+    if not mma and 8 * hb * max(dh, max_chunks) > GENERIC_SMEM_BUDGET:
+        raise ValueError(
+            f"paged decode kernel: head_dim {dh} with {mb * block_size}-token "
+            f"block tables needs more than {GENERIC_SMEM_BUDGET} bytes of "
+            "shared memory per block")
+    part_acc, part_ml, tickets = _split_scratch(q.device, b, hkv, g, dh,
+                                                max_chunks)
     out = torch.empty_like(q)
     m = torch.empty((b, h), dtype=torch.float32, device=q.device)
     l = torch.empty((b, h), dtype=torch.float32, device=q.device)
     lib = _load_lib()
-    ptrs = [q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr()]
-    if quant:
-        fn, variant = lib.pstpu_paged_decode_int8, INT8
-        ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
-    else:
-        fn, variant = lib.pstpu_paged_decode_bf16, BF16
+    variant = variant_of(q.dtype, quant, dh, g, block_size)
     counter = _counter(q.device)[VARIANTS.index(variant):]
-    _check(lib, fn(
-        *ptrs, block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-        m.data_ptr(), l.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        tickets.data_ptr(), counter.data_ptr(), b, h, hkv, dh, num_slots,
-        int(layer), mb, block_size.bit_length() - 1, chunk_tiles, max_chunks,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-    ), f"{variant} launch")
+    pools = [k_pool.data_ptr(), v_pool.data_ptr()]
+    scales = [k_scale.data_ptr(), v_scale.data_ptr()] if quant else [None, None]
+    rest = [block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+            m.data_ptr(), l.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            tickets.data_ptr(), counter.data_ptr(), b, h, hkv, dh]
+    tail = [num_slots, int(layer), mb, block_size.bit_length() - 1,
+            chunk_tiles, max_chunks, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream]
+    if not mma:
+        err = lib.pstpu_paged_decode_generic(
+            DTYPE_CODES[q.dtype], int(quant), q.data_ptr(), *pools, *scales,
+            *rest, hb, *tail)
+    elif quant:
+        err = lib.pstpu_paged_decode_int8(q.data_ptr(), *pools, *scales,
+                                          *rest, *tail)
+    else:
+        err = lib.pstpu_paged_decode_bf16(q.data_ptr(), *pools, *rest, *tail)
+    _check(lib, err, f"{variant} launch")
     return out, m, l
 
 
@@ -511,7 +601,7 @@ def paged_attention(
     (T == 1) on a shape the kernel takes runs the flash-decode kernel;
     everything else runs ``ops/attention.py:paged_attention_xla``."""
     b, t, h, dh = q.shape
-    if t == 1 and supports_paged_decode(dh, block_size, h // k_pool.shape[0]):
+    if t == 1 and supports_paged_decode(dh, block_size):
         return paged_attention_decode(
             q, k_pool, v_pool, block_tables, kv_lens, block_size=block_size,
             scale=scale, k_scale=k_scale, v_scale=v_scale,

@@ -435,12 +435,20 @@ def test_engine_config_validation():
     assert EngineConfig(device="cpu").resolved_attn_impl(llama3b) == "window"
     assert EngineConfig(device="cpu", attn_impl="paged").resolved_attn_impl(
         llama3b) == "paged"
-    # The kernel takes bf16 only: fp32 on the card can't force it.
+    # The kernels take every compute dtype and the Pallas gate's head dims:
+    # float32 on the card and tiny-llama's head dim 32 resolve to paged; a
+    # block size outside the gate raises (tests/test_torch_paged_domain.py
+    # holds the refusals against the JAX engine's).
+    for dtype in ("float32", "float16", "bfloat16"):
+        assert EngineConfig(device="cuda", dtype=dtype, attn_impl="paged") \
+            .resolved_attn_impl(llama3b) == "paged"
+        assert EngineConfig(device="cuda", dtype=dtype) \
+            .resolved_attn_impl(tiny) == "paged"
+    assert EngineConfig(device="cpu", attn_impl="paged").resolved_attn_impl(
+        tiny) == "paged"
     with pytest.raises(ValueError, match="paged"):
-        EngineConfig(device="cuda", dtype="float32",
-                     attn_impl="paged").resolved_attn_impl(llama3b)
-    with pytest.raises(ValueError, match="paged"):
-        EngineConfig(device="cpu", attn_impl="paged").resolved_attn_impl(tiny)
+        EngineConfig(device="cpu", attn_impl="paged",
+                     block_size=2).resolved_attn_impl(tiny)
     with pytest.raises(ValueError, match="attn_impl"):
         EngineConfig(attn_impl="nope").resolved_attn_impl(llama3b)
     cfg = EngineConfig(model="llama-3b", max_model_len=4096)

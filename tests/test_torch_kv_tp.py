@@ -83,7 +83,9 @@ def _one_thread():
 
 def _port(tp=1, **over):
     if tp > 1:
-        over = dict(over, tensor_parallel_size=tp, tp_timeout_s=TP_TIMEOUT_S)
+        # A tp_timeout_s the test gives wins over the default.
+        over = dict({"tp_timeout_s": TP_TIMEOUT_S, **over},
+                    tensor_parallel_size=tp)
     return _port_engine(**over)
 
 

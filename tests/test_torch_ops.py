@@ -25,6 +25,7 @@ from paged_decode_model import chunk_plan, kernel_model
 from production_stack_tpu.ops import attention as jattn
 from production_stack_tpu.ops.pallas.paged_attention import (
     paged_flash_decode_stats as jax_paged_stats,
+    supports_pallas_decode,
 )
 from production_stack_tpu_torch.ops import attention as tattn
 from production_stack_tpu_torch.ops import paged_attention as tpa
@@ -108,15 +109,20 @@ def test_paged_decode_ref_ignores_poisoned_slots():
         np.testing.assert_array_equal(a.numpy(), c.numpy())
 
 
-def test_supports_paged_decode_gate():
-    assert tpa.supports_paged_decode(128, 16, 3)
-    assert tpa.supports_paged_decode(64, 16, 8)
-    assert not tpa.supports_paged_decode(32, 16)      # head dim not templated
-    assert not tpa.supports_paged_decode(96, 16)
-    assert not tpa.supports_paged_decode(128, 16, 17)  # > MAX_QUERY_GROUP
-    assert tpa.supports_paged_decode(128, 2) and tpa.supports_paged_decode(64, 512)
-    for bs in (1, 12, 24, 1024):                       # power of two in [2, 512]
-        assert not tpa.supports_paged_decode(128, bs)
+@pytest.mark.parametrize("head_dim,block_size,admitted", [
+    (128, 16, True), (64, 16, True), (32, 16, True), (256, 16, True),
+    (96, 16, False), (48, 16, False), (192, 16, False),
+    (128, 2, True), (64, 512, True), (128, 1, True), (512, 1, True),
+    (64, 1, False), (32, 2, False), (1, 128, True), (1, 64, False),
+    (128, 12, False), (128, 24, False), (128, 1024, False),
+])
+def test_supports_paged_decode_gate(head_dim, block_size, admitted):
+    """The Pallas kernel's gate: a head dim dividing 128 or a multiple of
+    it, a block size dividing the 512-token superpage and divisible by the
+    pack factor 128 // Dh. No dtype and no query-group limit enters: the
+    generic kernel takes what the tensor-core kernel does not."""
+    assert tpa.supports_paged_decode(head_dim, block_size) == admitted
+    assert supports_pallas_decode(head_dim, block_size) == admitted
 
 
 _LEN = st.one_of(st.sampled_from([0, 1, 15, 16, 63, 64, 4095, 4096, 5000]),
@@ -125,17 +131,23 @@ _LEN = st.one_of(st.sampled_from([0, 1, 15, 16, 63, 64, 4095, 4096, 5000]),
 
 @settings(max_examples=200, deadline=None)
 @given(lens=st.lists(_LEN, min_size=1, max_size=64),
-       block_size=st.sampled_from([2, 16, 64, 512]),
-       hkv=st.sampled_from([1, 4, 8]))
-def test_split_plan_covers_every_tile_once(lens, block_size, hkv):
+       block_size=st.sampled_from([1, 2, 16, 64, 512]),
+       hkv=st.sampled_from([1, 4, 8]),
+       g=st.sampled_from([1, 3, 16, 17, 24, 64]))
+def test_split_plan_covers_every_tile_once(lens, block_size, hkv, g):
     """The device-side work split (``chunk_plan``, under the host's
-    ``launch_plan``): every (row, 64-token tile) lies in exactly one chunk
-    of at most chunk_tiles tiles, within the grid's max_chunks; no chunk
-    reaches past kv_len (clamped to the block table) or reads a
-    block-table entry at or past cdiv(kv_len, block_size); a zero-length
-    row has no chunk."""
+    ``launch_plan``, with the head groups of the kernel that takes the
+    shape: one-token pages and more than 16 query heads per kv head run
+    the generic kernel): every (row, 64-token tile) lies in exactly one
+    chunk of at most chunk_tiles tiles, within the grid's max_chunks; no
+    chunk reaches past kv_len (clamped to the block table) or reads a
+    block-table entry at or past cdiv(kv_len, block_size), and a chunk's
+    entries fit its block's page list; a zero-length row has no chunk."""
     max_tokens = 4096                      # Mb * block_size of the tables
-    chunk_tiles, max_chunks = tpa.launch_plan(len(lens), hkv, max_tokens, 132)
+    hb = tpa.heads_per_block(torch.bfloat16, 128, g, block_size)
+    assert hb == (g if block_size >= 2 and g <= 16 else min(g, 8))
+    chunk_tiles, max_chunks = tpa.launch_plan(len(lens), hkv, max_tokens, 132,
+                                              -(-g // hb))
     assert 1 <= chunk_tiles <= tpa.MAX_CHUNK_TILES
     assert max_chunks * chunk_tiles * tpa.TILE_TOKENS >= max_tokens
     for n in lens:
@@ -152,6 +164,7 @@ def test_split_plan_covers_every_tile_once(lens, block_size, hkv):
             assert page0 == begin // block_size
             assert page0 + n_pages <= -(-kv_len // block_size)
             assert page0 + n_pages == -(-end // block_size)  # every page in use
+            assert n_pages <= chunk_tiles * tpa.TILE_TOKENS // block_size + 1
         assert covered == list(range(-(-kv_len // tpa.TILE_TOKENS)))
         assert (plan == []) == (kv_len == 0)
 
