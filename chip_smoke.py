@@ -7,13 +7,15 @@ the kernel phase, whose profiler would otherwise stay attached during
 serving):
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
   2. build: the paged flash-decode kernels (the tensor-core kernel's bf16
-     and int8 variants, the generic kernel's bf16 / f16 / f32 over pools of
-     that dtype or int8) compiled by nvcc from the checkout; per template
-     instance, ptxas's registers, spills and static shared memory, the
-     launch's dynamic shared memory and resident blocks per SM;
+     and f16 variants over pools of q's dtype or int8, the generic kernel's
+     bf16 / f16 / f32 over pools of that dtype or int8) compiled by nvcc
+     from the checkout (one process per translation unit, all at once);
+     per template instance, ptxas's registers, spills and static shared
+     memory, the launch's dynamic shared memory and resident blocks per SM;
   3. kernel: one call of each tensor-core variant and of the generic
-     float32 one captured in a CUDA graph and
-     replayed after kv_lens and the block tables change in place (it must
+     float32 one, and of the tensor-core kernel at 24 query heads per kv
+     head, at head dim 256 and at one-token pages, captured in a CUDA graph
+     and replayed after kv_lens and the block tables change in place (it must
      give the plain version's output on the new inputs, and the captured
      inputs' eager output again bit for bit; each replay counts one launch
      of its variant); then
@@ -29,15 +31,17 @@ serving):
      neighbouring slot); ``paged_attention_decode`` and ``paged_attention``
      must give the kernel's output; device times (torch.profiler) of the
      kernel (per CUDA kernel name; exactly one launch per call), the plain
-     version and an SDPA yardstick (int8: over K/V dequantized
-     beforehand, untimed), the bound and the kernel's share of it; then
-     the generic kernel's shapes, each over compute-dtype and int8 pools,
-     4 layers: float32 and float16 at llama-3b heads, head dim 256 (H 12,
-     Hkv 4), 24 query heads over one kv head, block size 1, head dim 32 at
-     tiny-llama-8kv's heads (B 8, ragged lengths to 4,001), and the domain
-     phase's main paths (llama-3b float32; tiny-llama bf16 and float16);
-     out held in its dtype (``OUT_TOLS``: float32 to 1e-4 of each row's
-     norm, float16 to 6.25e-4, bf16 to 5e-3);
+     version and an SDPA yardstick (CUDA events around replayed graphs of
+     its calls; int8: over K/V dequantized beforehand, untimed), the bound
+     and the kernel's share of it; then the rest of the domain, each over
+     compute-dtype and int8 pools, 4 layers: float32, float16 and bf16 at
+     llama-3b heads, head dim 256 (H 12, Hkv 4), 24 query heads over one
+     kv head, block size 1, head dim 32 at tiny-llama-8kv's heads (B 8,
+     ragged lengths to 4,001), the domain phase's main paths (llama-3b
+     float32 and float16; tiny-llama bf16 and float16), and the generic
+     kernel's bf16 and float16 at head dim 16; out held in its dtype
+     (``OUT_TOLS``: float32 to 1e-4 of each row's norm, float16 to
+     6.25e-4, bf16 to 5e-3);
   4. serving, twice: llama-3b at full width, depth cut to ``CUT_LAYERS``
      (``cut_model``'s directory of random bf16 weights from --seed) behind
      the port's HTTP server with its defaults (decode CUDA graphs captured
@@ -101,12 +105,13 @@ serving):
      card bit for bit against the CPU's;
   7b. domain: the Pallas kernel's whole domain on the engine path. Per
      configuration (llama-3b at full width cut to ``CUT_LAYERS`` in float32
-     over float32 pools, then int8 pools; tiny-llama, head dim 32, whole,
-     in bf16 and in float16, each over compute-dtype and int8 pools), an
-     engine with ``attn_impl="paged"`` and graphs captured at warm-up
-     serves 4 streams (2 greedy, 2 seeded) x 32 tokens behind the port's
-     server: no eager decode dispatch, the generic kernel's variant of its
-     dtype and pool kind counted exactly layers x decode steps and every
+     and in float16; tiny-llama, head dim 32, whole, in bf16; each over
+     compute-dtype and int8 pools), an engine with ``attn_impl="paged"``
+     and graphs captured at warm-up serves 4 streams (2 greedy, 2 seeded)
+     x 32 tokens behind the port's server: no eager decode dispatch, the
+     variant of its dtype, pool kind and head dim (the generic kernel's in
+     float32, the tensor-core kernel's in bf16 and float16) counted exactly
+     layers x decode steps and every
      other variant 0, ``engine.runner.attn_impl == "paged"``; the same 4
      on the engine API from its graphs and through the strict eager train:
      tokens bit for bit; a window-path twin (strict eager, logits kept):
@@ -545,29 +550,39 @@ class SmMhz:
 
 
 # ---------------------------------------------------------------- phase 3
+# Template instances in the build: the tensor-core kernel's 24 (bf16 q over
+# bf16 / int8 pools at Dh 32, 64, 128, 256 with 16 M rows and at Dh 64 / 128
+# with 8; f16 q over f16 / int8 pools at Dh 32-256 with 16; int8 pools of
+# one-token pages at Dh 128 / 256 for each q dtype), the generic kernel's 6.
+KERNEL_INSTANCES = 30
+
+
 def kernel_instances(pa, ptxas: str):
     """Per template instance of the kernels: ptxas's registers, spills and
     static shared memory, and the launch's dynamic shared memory and
     resident blocks per SM (CUDA occupancy calculator, 128 threads): the
-    tensor-core kernel's 8 (bf16 / int8 pools, Dh 64 / 128, 8 / 16 M
-    rows), then the generic kernel's 6 (q in bf16 / f16 / f32 over pools of
-    that dtype or int8), whose shared memory follows the call's shapes:
+    tensor-core kernel's (q dtype, pool kind and one-token pages, Dh, M
+    rows), then the generic kernel's 6 (q in bf16 / f16 / f32 over pools
+    of that dtype or int8), whose shared memory follows the call's shapes:
     read at Dh 128, 8 query heads per block, one chunk."""
     import re
 
+    dtypes = {c: d for d, c in pa.DTYPE_CODES.items()}
     insts, cur = [], None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"paged_decode_kernelI(13__nv_bfloat16|a)Li(\d+)ELi(\d+)E",
+            t = re.search(r"paged_decode_kernelILi(\d)ELi(\d)ELi(\d+)ELi(\d+)E",
                           m.group(1))
             u = re.search(r"paged_decode_genericILi(\d)ELb([01])E", m.group(1))
             cur = None
             if t is not None:
-                cur = {"variant": "bf16" if t.group(1) != "a" else "int8",
-                       "Dh": int(t.group(2)), "KG": int(t.group(3))}
+                dtype, pool = dtypes[int(t.group(1))], int(t.group(2))
+                cur = {"variant": pa.MMA[(dtype, pool > 0)],
+                       "dtype": str(dtype).removeprefix("torch."), "pool": pool,
+                       "Dh": int(t.group(3)), "KG": int(t.group(4))}
             elif u is not None:
-                dtype = {c: d for d, c in pa.DTYPE_CODES.items()}[int(u.group(1))]
+                dtype = dtypes[int(u.group(1))]
                 cur = {"variant": pa.GENERIC[(dtype, u.group(2) == "1")],
                        "dtype": str(dtype).removeprefix("torch."),
                        "quant": u.group(2) == "1",
@@ -583,15 +598,16 @@ def kernel_instances(pa, ptxas: str):
         m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
         if m:
             cur["registers"], cur["static_smem"] = int(m.group(1)), int(m.group(2))
-    if len(insts) != 14:
-        fail(f"build: ptxas reported {len(insts)} kernel instances, want 14")
+    if len(insts) != KERNEL_INSTANCES:
+        fail(f"build: ptxas reported {len(insts)} kernel instances, "
+             f"want {KERNEL_INSTANCES}")
     for inst in insts:
-        if "dtype" in inst:
+        if "pool" in inst:
+            blocks, smem = pa.occupancy(inst["dtype"], inst["pool"], inst["Dh"],
+                                        inst["KG"])
+        else:
             blocks, smem = pa.generic_occupancy(inst["dtype"], inst["quant"],
                                                 inst["Dh"], inst["KG"])
-        else:
-            blocks, smem = pa.occupancy(inst["variant"] == "int8", inst["Dh"],
-                                        inst["KG"])
         inst.update(dynamic_smem=smem, blocks_per_sm=blocks,
                     warps_per_sm=4 * blocks)
         if blocks < 1:
@@ -604,14 +620,22 @@ def graph_check(torch, pa, device, seed, main_lens):
     kv_lens and the block tables in place and replay: the output must be
     the plain version's on the new inputs (no host decision read device
     data), and replaying the first inputs again must give the eager output
-    bit for bit (the merge tickets were reset). Both tensor-core variants
-    and one of the generic kernel (float32, the domain phase's), at
-    llama-3b heads."""
-    b, h, hkv, dh, bs = 4, 24, 8, 128, 16
-    for quant, dtype in ((False, torch.bfloat16), (True, torch.bfloat16),
-                         (False, torch.float32)):
+    bit for bit (the merge tickets were reset). The four tensor-core
+    variants and one of the generic kernel (float32, the domain phase's) at
+    llama-3b heads, then the tensor-core kernel's head groups (G 24), column
+    blocks (Dh 256) and one-token pages (the int8 instances of their own),
+    each with its own tickets."""
+    b = 4
+    bf16, f16 = torch.bfloat16, torch.float16
+    llama = (24, 8, 128, 16)
+    for quant, dtype, (h, hkv, dh, bs), shape in (
+            (False, bf16, llama, ""), (True, bf16, llama, ""), (False, f16, llama, ""),
+            (True, f16, llama, ""), (False, torch.float32, llama, ""),
+            (False, bf16, (24, 1, 128, 16), " G 24"),
+            (True, f16, (12, 4, 256, 1), " Dh 256 block size 1"),
+            (True, bf16, (24, 8, 128, 1), " block size 1")):
         dname = str(dtype).removeprefix("torch.")
-        name = f"graph [{case_label(dname, quant)}]"
+        name = f"graph [{case_label(dname, quant)}]{shape}"
         q, kp, vp, ks, vs, bt, kvl = make_case(torch, b, h, hkv, dh, main_lens, 2,
                                                bs, seed, device, quant, dtype)
         sc = dict(k_scale=ks, v_scale=vs)
@@ -916,7 +940,9 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
     """One kernel case: the kernel (``kernel``, by default
     ``paged_flash_decode_stats``) against its plain version in q's dtype
     (``dtype``, bf16 by default; the tolerances of ``OUT_TOLS``), the fault
-    controls, and device times of the kernel, the plain version and SDPA."""
+    controls, and device times of the kernel, the plain version and SDPA
+    (SDPA by CUDA events around replayed graphs of its calls: torch.profiler
+    has lost SDPA records in long runs and read it 5x too fast)."""
     import torch.nn.functional as F
 
     from production_stack_tpu_torch.ops.quantization import dequantize_kv
@@ -1057,23 +1083,22 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
         if len(ms_by_kernel) != 1 or not 0 < per_call <= 1:
             fail(f"{what}: {per_call} device kernels per call "
                  f"({sorted(ms_by_kernel)}); the kernel is one launch per call")
-        # CUPTI may drop a record (per_call < 1): the mean recorded launch.
+        # CUPTI may drop a record (per_call < 1): the mean recorded launch
+        # (read again below).
         ms /= per_call
         ms_by_kernel = {k: v / per_call for k, v in ms_by_kernel.items()}
     plain_ms, _ = device_ms(torch, plain, min(8, n_layers), f"{what} plain")
-    library_ms, library_by = device_ms(torch, sdpa, 4 * n_lib, f"{what} SDPA")
+    library_ms, library_by = events_ms(torch, sdpa, 4 * n_lib, f"{what} SDPA")
     bound_ms, bound_by = bound_of(kv_lens, b, h, hkv, dh, bs, quant,
                                   dtype.itemsize)
-    # No reading can beat the bound: one below it lost records, and the
-    # time is read again by CUDA events around replayed graphs of the calls.
-    if ms < bound_ms:
-        log(f"{what}: profiler reading {ms:.5f} ms is below the bound "
-            f"{bound_ms:.5f} ms; timing by CUDA events")
+    # No reading can beat the bound, and a trace that lost records is no
+    # reading either (one launch recorded of 8 has read 1.7x the events'
+    # time): both are read again by CUDA events around replayed graphs of
+    # the calls.
+    if ms < bound_ms or (per_call is not None and per_call < 1):
+        log(f"{what}: profiler reading {ms:.5f} ms ({per_call} launches "
+            f"recorded per call; bound {bound_ms:.5f} ms); timing by CUDA events")
         ms, ms_by = events_ms(torch, kern, 2 * n_layers, f"{what} kernel")
-    if library_ms < bound_ms:
-        log(f"{what}: SDPA profiler reading {library_ms:.5f} ms is below the "
-            f"bound {bound_ms:.5f} ms; timing by CUDA events")
-        library_ms, library_by = events_ms(torch, sdpa, 4 * n_lib, f"{what} SDPA")
     events = {}
     if name.startswith("main path"):
         # The main path's two times read a second way, by CUDA events, and
@@ -1093,8 +1118,6 @@ def run_kernel_case(torch, pa, name, b, h, hkv, dh, kv_lens, n_layers, seed,
 
         events = {"ms_events": events_ms(torch, kern, 2 * n_layers,
                                          f"{what} kernel")[0],
-                  "library_ms_events": events_ms(torch, sdpa, 4 * n_lib,
-                                                 f"{what} SDPA")[0],
                   "paged_attention_decode_ms": events_ms(
                       torch, wrap_decode, 2 * n_layers, f"{what} decode wrapper")[0],
                   "paged_attention_ms": events_ms(
@@ -1130,24 +1153,33 @@ def kernel_phase(torch, pa, device, seed, main_lens):
     rows = [run_kernel_case(torch, pa, *c, seed=seed + i, device=device,
                             quant=quant)
             for quant in (False, True) for i, c in enumerate(cases)]
-    # The generic kernel: the rest of the Pallas kernel's domain at
-    # llama-3b's width (float32 and float16, head dim 256, 24 query heads
-    # per kv head, one-token pages) and head dim 32 at tiny-llama-8kv's
-    # heads, B = 8 of ragged lengths, 4 layers; then the domain phase's
-    # main paths (llama-3b in float32, tiny-llama in bf16 and float16) at
-    # the served batch's lengths. Each over compute-dtype and int8 pools.
+    # The Pallas kernel's domain past the served shape, at llama-3b's width
+    # (float32, float16 and bf16 at its heads, head dim 256, 24 query heads
+    # per kv head, one-token pages in bf16 and float16 and at head dim 256;
+    # the bf16 case reads the bytes of the f16, Dh 256 and block-size-1
+    # cases) and head dim 32 at tiny-llama-8kv's heads, B = 8 of ragged
+    # lengths, 4 layers; the domain phase's main paths (llama-3b in float32
+    # and float16, tiny-llama in bf16 and float16) at the served batch's
+    # lengths; and the generic kernel's bf16 and f16 at head dim 16 (no
+    # model's: off the main path). Each over compute-dtype and int8 pools.
     lens = [0, 1, 17, 4001] + [rng.randint(1, 4096) for _ in range(4)]
     f32, f16, bf16 = torch.float32, torch.float16, torch.bfloat16
-    generic = [("f32 llama-3b heads B=8", 8, 24, 8, 128, lens, f32, 16),
-               ("f16 llama-3b heads B=8", 8, 24, 8, 128, lens, f16, 16),
-               ("Dh 256 H=12 Hkv=4 B=8", 8, 12, 4, 256, lens, bf16, 16),
-               ("G 24 H=24 Hkv=1 B=8", 8, 24, 1, 128, lens, bf16, 16),
-               ("block size 1 llama-3b heads B=8", 8, 24, 8, 128, lens, bf16, 1),
-               ("Dh 32 tiny-llama-8kv heads B=8", 8, 8, 8, 32, lens, bf16, 16),
-               ("main path llama-3b f32 B=4", 4, 24, 8, 128, main_lens, f32, 16),
-               ("main path tiny-llama B=4", 4, 4, 2, 32, main_lens, bf16, 16),
-               ("main path tiny-llama f16 B=4", 4, 4, 2, 32, main_lens, f16, 16)]
-    for i, (name, b, h, hkv, dh, case_lens, dtype, bs) in enumerate(generic):
+    domain = [("f32 llama-3b heads B=8", 8, 24, 8, 128, lens, f32, 16),
+              ("f16 llama-3b heads B=8", 8, 24, 8, 128, lens, f16, 16),
+              ("bf16 llama-3b heads B=8", 8, 24, 8, 128, lens, bf16, 16),
+              ("Dh 256 H=12 Hkv=4 B=8", 8, 12, 4, 256, lens, bf16, 16),
+              ("G 24 H=24 Hkv=1 B=8", 8, 24, 1, 128, lens, bf16, 16),
+              ("block size 1 llama-3b heads B=8", 8, 24, 8, 128, lens, bf16, 1),
+              ("f16 block size 1 llama-3b heads B=8", 8, 24, 8, 128, lens, f16, 1),
+              ("block size 1 Dh 256 H=12 Hkv=4 B=8", 8, 12, 4, 256, lens, bf16, 1),
+              ("Dh 32 tiny-llama-8kv heads B=8", 8, 8, 8, 32, lens, bf16, 16),
+              ("main path llama-3b f32 B=4", 4, 24, 8, 128, main_lens, f32, 16),
+              ("main path llama-3b f16 B=4", 4, 24, 8, 128, main_lens, f16, 16),
+              ("main path tiny-llama B=4", 4, 4, 2, 32, main_lens, bf16, 16),
+              ("main path tiny-llama f16 B=4", 4, 4, 2, 32, main_lens, f16, 16),
+              ("Dh 16 H=4 Hkv=2 B=4", 4, 4, 2, 16, main_lens, bf16, 16),
+              ("f16 Dh 16 H=4 Hkv=2 B=4", 4, 4, 2, 16, main_lens, f16, 16)]
+    for i, (name, b, h, hkv, dh, case_lens, dtype, bs) in enumerate(domain):
         for quant in (False, True):
             rows.append(run_kernel_case(
                 torch, pa, name, b, h, hkv, dh, case_lens, 4,
@@ -1159,11 +1191,12 @@ def kernel_phase(torch, pa, device, seed, main_lens):
 # ---------------------------------------------------------------- domain
 DOMAIN_TOKENS = 32                  # tokens per stream
 # (model, compute dtype, kv_cache_dtype): "bfloat16" pools hold the
-# compute dtype; each run's variant of the paged kernels is the generic
-# kernel's of that dtype and pool kind.
+# compute dtype. Each run's variant of the paged kernels: the generic
+# kernel's float32 ones at llama-3b, the tensor-core kernel's bf16 ones at
+# tiny-llama's head dim 32 and its float16 ones at llama-3b's width.
 DOMAIN_RUNS = (("llama-3b", "float32", "bfloat16"), ("llama-3b", "float32", "int8"),
                ("tiny-llama", "bfloat16", "bfloat16"), ("tiny-llama", "bfloat16", "int8"),
-               ("tiny-llama", "float16", "bfloat16"), ("tiny-llama", "float16", "int8"))
+               ("llama-3b", "float16", "bfloat16"), ("llama-3b", "float16", "int8"))
 
 
 def domain_prompts(seed: int):
@@ -8577,9 +8610,12 @@ def install_port(here, work):
     os.symlink("pstpu-torch-engine", os.path.join(prefix, "bin", "pstpu-engine.tmp"))
     os.replace(os.path.join(prefix, "bin", "pstpu-engine.tmp"),
                os.path.join(prefix, "bin", "pstpu-engine"))
-    shipped = os.path.join(prefix, "production_stack_tpu_torch", "csrc", "paged_decode.cu")
-    if not os.path.isfile(shipped):
-        fail(f"router install: the install holds no {shipped}")
+    from production_stack_tpu_torch.ops import paged_attention as pa
+
+    for name in map(os.path.basename, (pa.HEADER, *pa.SOURCES)):
+        shipped = os.path.join(prefix, "production_stack_tpu_torch", "csrc", name)
+        if not os.path.isfile(shipped):
+            fail(f"router install: the install holds no {shipped}")
     row["prefix"] = prefix
     log(f"router install: {json.dumps(row)}")
     return prefix, row
@@ -8991,10 +9027,10 @@ def main() -> None:
     summary("build", {"seconds": build_s, "instances": [
         [i["variant"], i["Dh"], i["KG"], i["registers"], i.get("spill_stores", 0),
          i.get("spill_loads", 0), i["static_smem"], i["dynamic_smem"],
-         i["blocks_per_sm"]] for i in insts],
+         i["blocks_per_sm"], i.get("pool") == 2] for i in insts],
         "instance_fields": ["variant", "Dh", "KG", "registers", "spill_stores",
                             "spill_loads", "static_smem", "dynamic_smem",
-                            "blocks_per_sm"]})
+                            "blocks_per_sm", "one_token_pages"]})
 
     tok = ByteTokenizer(128256)
     prompts = make_prompts(args.seed, 4)
@@ -9005,7 +9041,7 @@ def main() -> None:
     # path: its launch counts are set to 0 before it and read after it.
     # launches by main path: each path's counts are set to 0 just before
     # it and read just after it.
-    by_path = {"bf16": {}, "int8": {}, **{name: {} for name in pa.GENERIC.values()}}
+    by_path = {"bf16": {}, "int8": {}, **{name: {} for name in pa.VARIANTS[2:]}}
     # (phase, its start): the summary's seconds per phase.
     marks = [("build", t_main)]
     # The depth-cut checkpoint directories (``CUT_LAYERS``), removed at exit
@@ -9109,7 +9145,7 @@ def main() -> None:
     if "domain" in phases:
         launched, dom = domain_phase(torch, pa, device, args.seed, cut_dirs)
         for variant, n in launched.items():
-            by_path[variant]["domain"] = n
+            by_path[{pa.BF16: "bf16", pa.INT8: "int8"}.get(variant, variant)]["domain"] = n
         summary("domain", dom)
         gc.collect()
         torch.cuda.empty_cache()
@@ -9372,8 +9408,8 @@ def main() -> None:
             "case_fields": ["case", "variant", "ms", "share_of_bound", "plain_ms",
                             "library_ms", "vs_library", "max_abs_err",
                             "sm_clock_mhz_mean"],
-            "main_path_events": {r["variant"]: {k: r.get(k) for k in (
-                "ms_events", "library_ms_events", "paged_attention_decode_ms",
+            "main_path_events": {f"{r['case']} [{r['variant']}]": {k: r.get(k) for k in (
+                "ms_events", "paged_attention_decode_ms",
                 "paged_attention_ms")} for r in rows
                 if r["case"].startswith("main path")},
             "timed_by": {f"{r['case']} {r['variant']}": [r["ms_by"], r["library_by"]]
@@ -9381,18 +9417,19 @@ def main() -> None:
 
     kernels = []
     for variant, name in (("bf16", pa.BF16), ("int8", pa.INT8),
-                          *((n, n) for n in pa.GENERIC.values())):
+                          *((n, n) for n in pa.VARIANTS[2:])):
         mine = [r for r in rows if r["kernel"] == name]
+        # The main path's case; a variant on no main path (the generic
+        # kernel's bf16 and f16 at head dim 16) its first case.
         main_row = next((r for r in mine if r["case"].startswith("main path")),
-                        {})
+                        mine[0] if mine else {})
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": KERNEL_SOURCE,
             "replaces": KERNEL_REPLACES["int8" if variant == "int8"
                                         or name.endswith("/int8]") else "bf16"],
-            "launches": (sum(by_path[variant].values()) if by_path[variant]
-                         else None),
+            "launches": sum(by_path[variant].values()),
             "launches_by_path": by_path[variant],
             "max_abs_err": max((r["max_abs_err"] for r in mine), default=None),
             **{key: main_row.get(key) for key in (

@@ -1,18 +1,18 @@
 """Paged flash-decode over the layer-stacked KV pool: the hand-written CUDA
-kernels (``csrc/paged_decode.cu``: a tensor-core kernel for bf16 q over bf16
-or int8 pools at Dh 64 / 128, at most 16 query heads per kv head and block
-sizes >= 2, and a generic CUDA-core kernel for the rest of the Pallas
-kernel's domain: float16 and float32, every head dim and block size its
-gate admits, any number of query heads per kv head) and their plain
-PyTorch twin.
+kernels (``csrc/``: a tensor-core kernel for bf16 and f16 q over pools of
+q's dtype or int8 at Dh 32 / 64 / 128 / 256, any number of query heads per
+kv head and every block size the gate admits, and a generic CUDA-core
+kernel for the rest of the Pallas kernel's domain: float32, and bf16 / f16
+at Dh 1-16 and above 256) and their plain PyTorch twin.
 
 Counterpart of ``production_stack_tpu/ops/pallas/paged_attention.py``
 (``paged_flash_decode_stats`` and its ``_decode_kernel``, both branches, the
 tensor-parallel ``paged_flash_decode_stats_tp``, and the
 ``paged_attention_decode_pallas`` / ``paged_attention_pallas`` wrappers).
 The wrapper takes the plain version only for tensors that lie on the CPU;
-for a CUDA tensor it launches the kernel or raises. The kernel is compiled
-by ``nvcc`` from the package's own ``csrc/`` at first use into
+for a CUDA tensor it launches the kernel or raises. The kernels are compiled
+by ``nvcc`` from the package's own ``csrc/`` at first use (one ``nvcc``
+process per translation unit, all at once, then one link) into
 ``BUILD_DIR`` (``build/torch_kernels/`` of a checkout; a per-user cache
 directory when the package is installed) and bound through ``ctypes`` (a
 plain C interface: seconds to build, no PyTorch headers). The kernel
@@ -41,17 +41,26 @@ from production_stack_tpu_torch.ops.quantization import SCALE_DTYPE
 # 512-token superpage and divisible by the pack factor LANES // Dh.
 SUPER_TOKENS = 512
 LANES = 128
-# The tensor-core kernel's shapes; every other admitted shape runs the
-# generic kernel.
-MMA_HEAD_DIMS = (64, 128)
-MMA_MAX_GROUP = 16        # H / Hkv the tensor-core kernel holds (kMaxGroup)
+# The tensor-core kernel's shapes (q dtypes and head dims, at any G and
+# block size); every other admitted shape runs the generic kernel.
+MMA_DTYPES = (torch.bfloat16, torch.float16)
+MMA_HEAD_DIMS = (32, 64, 128, 256)
+MMA_GROUP = 16            # query heads per block; more run as head groups (kMaxGroup)
+MMA_COLUMNS = 128         # output columns per block; Dh 256 runs two (kMaxColumns)
+MMA_PAGE_LIST = 257       # page-list entries of a block (kMaxPages)
 GENERIC_HEADS = 8         # query heads per block of the generic kernel (kGenHeads)
 GENERIC_SMEM_BUDGET = 200 * 1024   # its dynamic shared bytes (kGenSmemBudget)
 TILE_TOKENS = 64          # tokens per tile (kTile)
 MAX_CHUNK_TILES = 8       # tiles per block, at most (kMaxChunkTiles)
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "paged_decode.cu")
+_CSRC = os.path.join(_PKG_DIR, "csrc")
+# The C interface and the generic kernel; the tensor-core instances, one
+# translation unit per q dtype and pool kind; their shared header.
+SOURCE = os.path.join(_CSRC, "paged_decode.cu")
+SOURCES = (SOURCE, *(os.path.join(_CSRC, f"paged_decode_{name}.cu")
+                     for name in ("bf16", "bf16_int8", "f16", "f16_int8")))
+HEADER = os.path.join(_CSRC, "paged_decode.cuh")
 
 
 def kernel_build_dir() -> str:
@@ -73,7 +82,7 @@ def kernel_build_dir() -> str:
 
 BUILD_DIR = kernel_build_dir()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # The variants (the names of chip_smoke.py's kernels line). Each launch
 # adds one to its variant's slot of a per-device int64 counter, in the
@@ -83,22 +92,28 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # addresses).
 BF16 = "paged_flash_decode_stats"
 INT8 = "paged_flash_decode_stats[int8]"
-# The generic kernel's instances, by (q dtype, int8 pools).
+F16 = "paged_flash_decode_stats[f16]"
+F16_INT8 = "paged_flash_decode_stats[f16/int8]"
+# The tensor-core kernel's variants and the generic kernel's, by (q dtype,
+# int8 pools).
+MMA = {(torch.bfloat16, False): BF16, (torch.bfloat16, True): INT8,
+       (torch.float16, False): F16, (torch.float16, True): F16_INT8}
 DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _SHORT = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
 GENERIC = {(dt, quant): f"paged_flash_decode_stats[generic {name}"
                         f"{'/int8' if quant else ''}]"
            for dt, name in _SHORT.items() for quant in (False, True)}
-VARIANTS = (BF16, INT8, *GENERIC.values())
+VARIANTS = (*MMA.values(), *GENERIC.values())
 _counters: Dict[torch.device, torch.Tensor] = {}
 
 _lib = None
 _lib_lock = threading.Lock()
 _sm_count = {}
-# Split scratch per (device, batch bucket, Hkv, G, Dh, chunks): partial
-# (acc, m, l) of every chunk and one merge ticket per (row, kv head, head
-# group). Kept for the life of the process, so a captured CUDA graph's
-# pointers stay valid; the kernel leaves every ticket at 0.
+# Split scratch per (device, batch bucket, Hkv, G, Dh, chunks, blocks per kv
+# head): partial (acc, m, l) of every chunk and one merge ticket per (row,
+# kv head, head group, column block). Kept for the life of the process, so
+# a captured CUDA graph's pointers stay valid; the kernel leaves every
+# ticket at 0.
 _scratch = {}
 
 
@@ -116,12 +131,11 @@ def _dtype(dtype) -> torch.dtype:
     return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
 
-def uses_mma(dtype, head_dim: int, q_per_kv: int, block_size: int) -> bool:
+def uses_mma(dtype, head_dim: int) -> bool:
     """Whether a call runs the tensor-core kernel (else the generic one):
-    bf16 q, Dh 64 or 128, at most MMA_MAX_GROUP query heads per kv head,
-    block size >= 2. The pool kind does not enter."""
-    return (_dtype(dtype) == torch.bfloat16 and head_dim in MMA_HEAD_DIMS
-            and q_per_kv <= MMA_MAX_GROUP and block_size >= 2)
+    bf16 or f16 q at Dh 32, 64, 128 or 256. The pool kind, the query heads
+    per kv head and the block size do not enter."""
+    return _dtype(dtype) in MMA_DTYPES and head_dim in MMA_HEAD_DIMS
 
 
 def variant_of(dtype, quant: bool, head_dim: int, q_per_kv: int,
@@ -129,37 +143,54 @@ def variant_of(dtype, quant: bool, head_dim: int, q_per_kv: int,
     """The variant (launch counter) a call of these shapes launches:
     ``dtype`` is q's (a torch dtype or its name), ``quant`` True for int8
     pools."""
-    if uses_mma(dtype, head_dim, q_per_kv, block_size):
-        return INT8 if quant else BF16
-    return GENERIC[(_dtype(dtype), bool(quant))]
+    table = MMA if uses_mma(dtype, head_dim) else GENERIC
+    return table[(_dtype(dtype), bool(quant))]
 
 
 def heads_per_block(dtype, head_dim: int, q_per_kv: int,
                     block_size: int) -> int:
-    """Query heads one block takes: every head of its kv head on the
+    """Query heads one block takes: up to MMA_GROUP (its M rows) on the
     tensor-core kernel; on the generic kernel up to GENERIC_HEADS, fewer
     where q and acc ([heads, Dh] fp32 each) would pass its shared-memory
-    budget. A (row, kv head, chunk) gets ceil(G / this) blocks."""
-    if uses_mma(dtype, head_dim, q_per_kv, block_size):
-        return q_per_kv
+    budget. A (row, kv head, chunk) gets ceil(G / this) head groups."""
+    if uses_mma(dtype, head_dim):
+        return min(q_per_kv, MMA_GROUP)
     hb = min(GENERIC_HEADS, q_per_kv)
     while hb > 1 and 8 * hb * head_dim > GENERIC_SMEM_BUDGET:
         hb -= 1
     return hb
 
 
+def column_blocks(dtype, head_dim: int) -> int:
+    """Output column blocks of a (row, kv head, head group, chunk): Dh 256
+    runs as two blocks of MMA_COLUMNS on the tensor-core kernel, each
+    scoring all of K and multiplying half of V."""
+    return head_dim // MMA_COLUMNS if uses_mma(dtype, head_dim) \
+        and head_dim > MMA_COLUMNS else 1
+
+
+def chunk_tiles_cap(dtype, head_dim: int, block_size: int) -> int:
+    """Tiles a chunk may hold: MAX_CHUNK_TILES, or 4 on the tensor-core
+    kernel at one-token pages (its page list holds MMA_PAGE_LIST
+    entries)."""
+    if uses_mma(dtype, head_dim) and block_size == 1:
+        return (MMA_PAGE_LIST - 1) // TILE_TOKENS
+    return MAX_CHUNK_TILES
+
+
 def launch_plan(batch: int, num_kv_heads: int, max_tokens: int,
-                sm_count: int, groups: int = 1) -> Tuple[int, int]:
+                sm_count: int, groups: int = 1,
+                max_chunk_tiles: int = MAX_CHUNK_TILES) -> Tuple[int, int]:
     """(chunk_tiles, max_chunks) of a call, from host-known sizes only:
-    chunks of 4 tiles, or of MAX_CHUNK_TILES where 4-tile chunks of rows as
-    long as the block table allows would exceed 8 blocks per SM (``groups``
-    blocks per kv head: ``heads_per_block``). The kernel gives row b
-    ceil(tiles_b / chunk_tiles) of the max_chunks blocks per kv head and
-    head group."""
+    chunks of 4 tiles, or of ``max_chunk_tiles`` (``chunk_tiles_cap``)
+    where 4-tile chunks of rows as long as the block table allows would
+    exceed 8 blocks per SM (``groups`` blocks per kv head: head groups x
+    column blocks). The kernel gives row b ceil(tiles_b / chunk_tiles) of
+    the max_chunks blocks per kv head and head group."""
     tiles = max(1, -(-max_tokens // TILE_TOKENS))
     chunk = 4
     if batch * num_kv_heads * groups * -(-tiles // chunk) > 8 * sm_count:
-        chunk = MAX_CHUNK_TILES
+        chunk = max(chunk, max_chunk_tiles)
     return chunk, -(-tiles // chunk)
 
 
@@ -177,27 +208,45 @@ def _find_nvcc() -> str:
 
 
 def build_kernels() -> Tuple[str, str]:
-    """Compile ``csrc/paged_decode.cu`` into a shared library (once per
-    source content). Returns (library path, ptxas report)."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Compile ``csrc/`` into a shared library (once per source content):
+    one ``nvcc -c`` per translation unit, all running at once, then one
+    link. Returns (library path, ptxas report of every unit)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (HEADER, *SOURCES):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     tag = digest.hexdigest()[:16]
     lib_path = os.path.join(BUILD_DIR, f"libpaged_decode-{tag}.so")
     log_path = lib_path + ".log"
     if not os.path.exists(lib_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
         # Engines of one pod may build at once: each writes its own files
         # and renames them into place, the report before the library.
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        nvcc = _find_nvcc()
+        objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                for obj, src in zip(objs, SOURCES)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        reports = [proc.communicate()[0] for proc in procs]
+        link = [nvcc, "-shared", "-o", tmp, *objs]
+        try:
+            for cmd, proc, report in zip(cmds, procs, reports):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                       f"{' '.join(cmd)}\n{report}")
+            proc = subprocess.run(link, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(link)}\n{proc.stdout}\n{proc.stderr}")
+        finally:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
         with open(tmp + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
+            f.write("".join(reports))
         os.replace(tmp + ".log", log_path)
         os.replace(tmp, lib_path)
     with open(log_path) as f:
@@ -213,16 +262,14 @@ def _load_lib():
             vp, i32 = ctypes.c_void_p, ctypes.c_int
             tail = [i32, i32, i32, i32, ctypes.c_longlong, i32, i32, i32, i32,
                     i32, ctypes.c_float, vp]
-            lib.pstpu_paged_decode_bf16.argtypes = [vp] * 12 + tail
-            lib.pstpu_paged_decode_bf16.restype = i32
-            lib.pstpu_paged_decode_int8.argtypes = [vp] * 14 + tail
-            lib.pstpu_paged_decode_int8.restype = i32
+            lib.pstpu_paged_decode_mma.argtypes = [i32, i32] + [vp] * 14 + tail
+            lib.pstpu_paged_decode_mma.restype = i32
             lib.pstpu_paged_decode_generic.argtypes = (
                 [i32, i32] + [vp] * 14 + [i32] * 5 + tail[4:])
             lib.pstpu_paged_decode_generic.restype = i32
-            lib.pstpu_paged_decode_occupancy.argtypes = [
-                i32, i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
-            lib.pstpu_paged_decode_occupancy.restype = i32
+            lib.pstpu_paged_decode_mma_occupancy.argtypes = [
+                i32, i32, i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+            lib.pstpu_paged_decode_mma_occupancy.restype = i32
             lib.pstpu_paged_decode_generic_occupancy.argtypes = [
                 i32, i32, i32, i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
             lib.pstpu_paged_decode_generic_occupancy.restype = i32
@@ -241,16 +288,17 @@ def _check(lib, err: int, what: str) -> None:
                            f"({lib.pstpu_cuda_error_string(err).decode()})")
 
 
-def occupancy(quant: bool, head_dim: int, q_per_kv: int) -> Tuple[int, int]:
+def occupancy(dtype, pool: int, head_dim: int, m_rows: int) -> Tuple[int, int]:
     """(resident blocks per SM, dynamic shared bytes per block) of the
-    tensor-core kernel instance a call with these shapes launches, as the
-    CUDA runtime reports them for the launch's block size and shared
-    memory."""
+    tensor-core kernel's instance of q ``dtype``, ``pool`` (0 pools of q's
+    dtype, 1 int8 pools, 2 int8 pools of one-token pages), head dim and M
+    rows (8 or 16), as the CUDA runtime reports them for the launch's block
+    size and shared memory."""
     lib = _load_lib()
     blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
-    _check(lib, lib.pstpu_paged_decode_occupancy(
-        int(quant), head_dim, q_per_kv, ctypes.byref(blocks),
-        ctypes.byref(smem)), "occupancy")
+    _check(lib, lib.pstpu_paged_decode_mma_occupancy(
+        DTYPE_CODES[_dtype(dtype)], pool, head_dim, m_rows,
+        ctypes.byref(blocks), ctypes.byref(smem)), "occupancy")
     return blocks.value, smem.value
 
 
@@ -318,19 +366,21 @@ def sm_count(device: torch.device) -> int:
 
 
 def _split_scratch(device: torch.device, b: int, hkv: int, g: int, dh: int,
-                   max_chunks: int):
+                   max_chunks: int, per_kv: int, columns: int):
     """(partial acc, partial (m, l), tickets) for a call, allocated once per
-    device and shape bucket (the batch rounded up to a power of two)."""
+    device and shape bucket (the batch rounded up to a power of two):
+    ``per_kv`` blocks per (row, kv head, chunk), of which ``columns``
+    column blocks each keep their own (m, l)."""
     bucket = 1
     while bucket < b:
         bucket *= 2
-    key = (device, bucket, hkv, g, dh, max_chunks)
+    key = (device, bucket, hkv, g, dh, max_chunks, per_kv, columns)
     if key not in _scratch:
         rows = bucket * hkv * max_chunks * g
         _scratch[key] = (
             torch.empty((rows * dh,), dtype=torch.float32, device=device),
-            torch.empty((rows * 2,), dtype=torch.float32, device=device),
-            torch.zeros((bucket * hkv * g,), dtype=torch.int32, device=device),
+            torch.empty((rows * 2 * columns,), dtype=torch.float32, device=device),
+            torch.zeros((bucket * hkv * per_kv,), dtype=torch.int32, device=device),
         )
     return _scratch[key]
 
@@ -427,7 +477,7 @@ def paged_flash_decode_stats(
             f"{block_size}, or layer {layer} outside [0, {n_layers})"
         )
     g = h // hkv
-    mma = uses_mma(q.dtype, dh, g, block_size)
+    mma = uses_mma(q.dtype, dh)
     # The tensor-core kernel: 16-byte copies of pool rows; 4-byte loads of
     # q pairs and copies of scale pairs. The generic kernel reads elements.
     for name, t in tensors:
@@ -438,15 +488,18 @@ def paged_flash_decode_stats(
         scale = dh ** -0.5
     mb = block_tables.shape[1]
     hb = heads_per_block(q.dtype, dh, g, block_size)
-    chunk_tiles, max_chunks = launch_plan(b, hkv, mb * block_size,
-                                          sm_count(q.device), -(-g // hb))
+    columns = column_blocks(q.dtype, dh)
+    per_kv = -(-g // hb) * columns
+    chunk_tiles, max_chunks = launch_plan(
+        b, hkv, mb * block_size, sm_count(q.device), per_kv,
+        chunk_tiles_cap(q.dtype, dh, block_size))
     if not mma and 8 * hb * max(dh, max_chunks) > GENERIC_SMEM_BUDGET:
         raise ValueError(
             f"paged decode kernel: head_dim {dh} with {mb * block_size}-token "
             f"block tables needs more than {GENERIC_SMEM_BUDGET} bytes of "
             "shared memory per block")
     part_acc, part_ml, tickets = _split_scratch(q.device, b, hkv, g, dh,
-                                                max_chunks)
+                                                max_chunks, per_kv, columns)
     out = torch.empty_like(q)
     m = torch.empty((b, h), dtype=torch.float32, device=q.device)
     l = torch.empty((b, h), dtype=torch.float32, device=q.device)
@@ -461,15 +514,14 @@ def paged_flash_decode_stats(
     tail = [num_slots, int(layer), mb, block_size.bit_length() - 1,
             chunk_tiles, max_chunks, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream]
-    if not mma:
+    if mma:
+        err = lib.pstpu_paged_decode_mma(
+            DTYPE_CODES[q.dtype], int(quant), q.data_ptr(), *pools, *scales,
+            *rest, *tail)
+    else:
         err = lib.pstpu_paged_decode_generic(
             DTYPE_CODES[q.dtype], int(quant), q.data_ptr(), *pools, *scales,
             *rest, hb, *tail)
-    elif quant:
-        err = lib.pstpu_paged_decode_int8(q.data_ptr(), *pools, *scales,
-                                          *rest, *tail)
-    else:
-        err = lib.pstpu_paged_decode_bf16(q.data_ptr(), *pools, *rest, *tail)
     _check(lib, err, f"{variant} launch")
     return out, m, l
 

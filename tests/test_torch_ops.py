@@ -133,23 +133,35 @@ _LEN = st.one_of(st.sampled_from([0, 1, 15, 16, 63, 64, 4095, 4096, 5000]),
 @given(lens=st.lists(_LEN, min_size=1, max_size=64),
        block_size=st.sampled_from([1, 2, 16, 64, 512]),
        hkv=st.sampled_from([1, 4, 8]),
-       g=st.sampled_from([1, 3, 16, 17, 24, 64]))
-def test_split_plan_covers_every_tile_once(lens, block_size, hkv, g):
+       g=st.sampled_from([1, 3, 16, 17, 24, 64]),
+       dtype=st.sampled_from([torch.bfloat16, torch.float32]),
+       head_dim=st.sampled_from([128, 256]))
+def test_split_plan_covers_every_tile_once(lens, block_size, hkv, g, dtype,
+                                            head_dim):
     """The device-side work split (``chunk_plan``, under the host's
-    ``launch_plan``, with the head groups of the kernel that takes the
-    shape: one-token pages and more than 16 query heads per kv head run
-    the generic kernel): every (row, 64-token tile) lies in exactly one
-    chunk of at most chunk_tiles tiles, within the grid's max_chunks; no
-    chunk reaches past kv_len (clamped to the block table) or reads a
-    block-table entry at or past cdiv(kv_len, block_size), and a chunk's
-    entries fit its block's page list; a zero-length row has no chunk."""
+    ``launch_plan``, with the head groups and column blocks of the kernel
+    that takes the shape: the tensor-core kernel's groups of 16 heads and
+    two column blocks at Dh 256, the generic kernel's groups of 8): every
+    (row, 64-token tile) lies in exactly one chunk of at most chunk_tiles
+    tiles, within the grid's max_chunks; no chunk reaches past kv_len
+    (clamped to the block table) or reads a block-table entry at or past
+    cdiv(kv_len, block_size), and a chunk's entries fit its block's page
+    list (257 on the tensor-core kernel: one-token pages take 4-tile
+    chunks); a zero-length row has no chunk."""
     max_tokens = 4096                      # Mb * block_size of the tables
-    hb = tpa.heads_per_block(torch.bfloat16, 128, g, block_size)
-    assert hb == (g if block_size >= 2 and g <= 16 else min(g, 8))
+    mma = tpa.uses_mma(dtype, head_dim)
+    hb = tpa.heads_per_block(dtype, head_dim, g, block_size)
+    assert hb == min(g, 16 if mma else 8)
+    columns = tpa.column_blocks(dtype, head_dim)
+    assert columns == (2 if mma and head_dim == 256 else 1)
+    cap = tpa.chunk_tiles_cap(dtype, head_dim, block_size)
     chunk_tiles, max_chunks = tpa.launch_plan(len(lens), hkv, max_tokens, 132,
-                                              -(-g // hb))
-    assert 1 <= chunk_tiles <= tpa.MAX_CHUNK_TILES
+                                              -(-g // hb) * columns, cap)
+    assert 1 <= chunk_tiles <= cap <= tpa.MAX_CHUNK_TILES
     assert max_chunks * chunk_tiles * tpa.TILE_TOKENS >= max_tokens
+    pages_max = chunk_tiles * tpa.TILE_TOKENS // block_size + 1
+    assert pages_max <= (tpa.MMA_PAGE_LIST if mma else
+                         tpa.MAX_CHUNK_TILES * tpa.TILE_TOKENS + 1)
     for n in lens:
         kv_len = min(n, max_tokens)
         plan = chunk_plan(n, max_tokens, block_size, chunk_tiles)
@@ -164,7 +176,7 @@ def test_split_plan_covers_every_tile_once(lens, block_size, hkv, g):
             assert page0 == begin // block_size
             assert page0 + n_pages <= -(-kv_len // block_size)
             assert page0 + n_pages == -(-end // block_size)  # every page in use
-            assert n_pages <= chunk_tiles * tpa.TILE_TOKENS // block_size + 1
+            assert n_pages <= pages_max
         assert covered == list(range(-(-kv_len // tpa.TILE_TOKENS)))
         assert (plan == []) == (kv_len == 0)
 

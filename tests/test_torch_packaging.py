@@ -114,10 +114,13 @@ def _under(path, root):
 
 # ------------------------------------------------------------ the wheel
 def test_the_wheel_ships_the_kernel_source(wheel):
+    """Every translation unit ``build_kernels`` compiles and their header,
+    byte for byte."""
     with zipfile.ZipFile(wheel) as z:
-        shipped = z.read("production_stack_tpu_torch/csrc/paged_decode.cu")
-    with open(pa.SOURCE, "rb") as f:
-        assert shipped == f.read()
+        for path in (pa.HEADER, *pa.SOURCES):
+            shipped = z.read("production_stack_tpu_torch/csrc/" + os.path.basename(path))
+            with open(path, "rb") as f:
+                assert shipped == f.read(), path
 
 
 def _wheel_scripts(wheel):

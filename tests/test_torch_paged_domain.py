@@ -4,12 +4,14 @@ The port's gate (``supports_paged_decode``) is the Pallas kernel's
 (``supports_pallas_decode``) for every compute dtype and pool kind, and the
 port's engine refuses ``attn_impl="paged"`` exactly where the JAX engine
 does. Inside that domain the plain version (the wrappers' CPU path) holds
-the Pallas kernel in interpret mode at the shapes the CUDA tensor-core
-kernel does not take (head dims 32 and 256, 24 and 32 query heads per kv
-head), over bf16 and int8 pools, and the JAX XLA path at block size 1
-(interpret mode would unroll 512 page DMAs per superpage). Inputs come from
-numpy seeds; everything computes in f32 on the CPU, so the two sides differ
-only in summation order: tolerance 2e-4, as in ``test_torch_ops.py``.
+the Pallas kernel in interpret mode at the shapes past the served one (head
+dims 32 and 256, 24 and 32 query heads per kv head), over bf16 and int8
+pools, and the JAX XLA path at block size 1 (interpret mode would unroll
+512 page DMAs per superpage). Inputs come from numpy seeds; everything
+computes in f32 on the CPU, so the two sides differ only in summation
+order: tolerance 2e-4, as in ``test_torch_ops.py``. The tensor-core
+kernel's own arithmetic at those shapes (``tests/paged_decode_model.py``)
+is held to the Pallas kernel within the smoke's tolerances of q's dtype.
 Pallas comparisons use 64-token pages (interpret-mode compile time grows
 with pages per superpage). Engines of both packages serve the same f32
 weights with ``attn_impl="paged"``; their greedy tokens must be equal.
@@ -55,9 +57,12 @@ def _t(x):
 def test_gate_equals_the_pallas_gate(head_dim):
     """Case for case over block sizes, query heads per kv head, compute
     dtypes and pool kinds: the port admits exactly what the Pallas gate
-    admits, and every admitted case maps to one variant whose kernel takes
-    it (the tensor-core kernel only at bf16, Dh 64 / 128, G <= 16, block
-    size >= 2; the generic kernel's q and acc within its shared memory)."""
+    admits, and every admitted case maps to exactly one variant whose kernel
+    takes it: the tensor-core kernel for bf16 and f16 q at Dh 32, 64, 128
+    and 256 at any G (head groups of 16) and block size (4-tile chunks at
+    one-token pages, so a block's page list holds them; Dh 256 as two
+    column blocks), the generic kernel for the rest (float32; bf16 and f16
+    at Dh 1-16 and above 256), its q and acc within its shared memory."""
     for bs in BLOCK_SIZES:
         want = jpa.supports_pallas_decode(head_dim, bs)
         assert tpa.supports_paged_decode(head_dim, bs) == want, (head_dim, bs)
@@ -67,19 +72,25 @@ def test_gate_equals_the_pallas_gate(head_dim):
             for dtype in DTYPES:
                 for quant in (False, True):
                     variant = tpa.variant_of(dtype, quant, head_dim, g, bs)
-                    assert variant in tpa.VARIANTS
-                    mma = tpa.uses_mma(dtype, head_dim, g, bs)
-                    assert mma == (dtype == torch.bfloat16
-                                   and head_dim in (64, 128) and g <= 16
-                                   and bs >= 2)
-                    assert (variant in (tpa.BF16, tpa.INT8)) == mma
-                    if not mma:
+                    mma = tpa.uses_mma(dtype, head_dim)
+                    assert mma == (dtype in (torch.bfloat16, torch.float16)
+                                   and head_dim in (32, 64, 128, 256))
+                    takers = [v for v in tpa.VARIANTS if v == variant]
+                    assert len(takers) == 1
+                    hb = tpa.heads_per_block(dtype, head_dim, g, bs)
+                    cap = tpa.chunk_tiles_cap(dtype, head_dim, bs)
+                    if mma:
+                        assert variant == tpa.MMA[(dtype, quant)]
+                        assert hb == min(g, 16)
+                        assert tpa.column_blocks(dtype, head_dim) == \
+                            (2 if head_dim == 256 else 1)
+                        assert cap * tpa.TILE_TOKENS // bs + 1 <= tpa.MMA_PAGE_LIST
+                    else:
                         assert variant == tpa.GENERIC[(dtype, quant)]
-                        hb = tpa.heads_per_block(dtype, head_dim, g, bs)
                         assert 1 <= hb <= min(g, tpa.GENERIC_HEADS)
                         assert 8 * hb * head_dim <= tpa.GENERIC_SMEM_BUDGET
-                    else:
-                        assert tpa.heads_per_block(dtype, head_dim, g, bs) == g
+                        assert tpa.column_blocks(dtype, head_dim) == 1
+                        assert cap == tpa.MAX_CHUNK_TILES
 
 
 _MODELS = ("tiny-llama", "tiny-llama-128dh", "llama-1b", "llama-3b")
@@ -154,8 +165,9 @@ def _jax_pools(pools):
                          ids=["dh32", "dh256", "g24", "g32"])
 def test_plain_version_matches_pallas_interpret(h, hkv, dh, quant):
     """The plain version against the Pallas kernel in interpret mode, f32
-    q over bf16 or int8 pools, at shapes only the generic kernel takes:
-    out, m and l within 2e-4; an empty row is (0, -inf, 0) in both."""
+    q over bf16 or int8 pools, at head dims 32 and 256 and 24 and 32 query
+    heads per kv head: out, m and l within 2e-4; an empty row is (0, -inf,
+    0) in both."""
     q, pools, bt, lens = _case(dh + h, 4, h, hkv, dh, [0, 1, 37, 520],
                                quant=quant)
     jk, jv, jks, jvs = _jax_pools(pools)
@@ -201,6 +213,66 @@ def test_plain_version_at_block_size_1_matches_xla(h, hkv, dh, quant):
             k_scale=tks, v_scale=tvs)
         np.testing.assert_allclose(to.numpy(), np.asarray(ref)[:, 0],
                                    rtol=TOL, atol=TOL)
+
+
+_MODEL_SHAPES = {"dh32": (4, 2, 32), "dh256": (12, 4, 256), "g24": (24, 1, 128),
+                 "g32": (32, 1, 64), "llama-3b": (24, 8, 128)}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["pool", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("shape,bs", [("dh32", PALLAS_BS), ("dh256", PALLAS_BS),
+                                      ("g24", PALLAS_BS), ("g32", PALLAS_BS),
+                                      ("llama-3b", 1), ("dh256", 1)],
+                         ids=["dh32", "dh256", "g24", "g32", "bs1", "bs1-dh256"])
+def test_kernel_numerics_model_matches_pallas(shape, bs, dtype, quant):
+    """The tensor-core kernel's arithmetic at the half-precision shapes past
+    the served one (``paged_decode_model.kernel_model``: q unscaled in
+    bf16 or f16, P = hi + lo in q's dtype over compute-dtype pools and in
+    bf16 over int8 pools, head groups of 16 at G 24 / 32, two column blocks
+    at Dh 256, 4-tile chunks at one-token pages) against the Pallas kernel
+    in interpret mode on the same values: out within ``chip_smoke.OUT_TOLS``
+    of q's dtype, m and l within the stats tolerances. Block size 1 runs on
+    the 64-token case's pool, each page split into 64 one-token pages (the
+    Pallas side at block size 64: interpret mode would unroll 512 page DMAs
+    per superpage)."""
+    import chip_smoke
+    from paged_decode_model import chunk_plan, kernel_model
+
+    h, hkv, dh = _MODEL_SHAPES[shape]
+    q, pools, bt, lens = _case(dh + h, 4, h, hkv, dh, [0, 1, 37, 520], quant=quant)
+    q = torch.from_numpy(q).to(dtype)
+    k, v, ks, vs = pools
+    if quant:
+        tk, tv, tks, tvs = kv_pools_from_jax(k, v, ks, vs)
+        jk, jv, jks, jvs = _jax_pools(pools)
+    else:
+        tk, tv = (_t(np.asarray(x, np.float32)).to(dtype) for x in (k, v))
+        jk, jv = (jnp.asarray(x.float().numpy()) for x in (tk, tv))
+        tks = tvs = jks = jvs = None
+    jo, jm, jl = jpa.paged_flash_decode_stats(
+        jnp.asarray(q.float().numpy()), jk, jv, jnp.asarray(bt), jnp.asarray(lens),
+        jnp.asarray([1], jnp.int32), block_size=PALLAS_BS, interpret=True,
+        k_scale=jks, v_scale=jvs)
+    if bs == 1:
+        bt = (bt[:, :, None] * PALLAS_BS + np.arange(PALLAS_BS)).reshape(4, -1)
+    hb = tpa.heads_per_block(dtype, dh, h // hkv, bs)
+    chunk_tiles, _ = tpa.launch_plan(
+        4, hkv, bt.shape[1] * bs, 132,
+        -(-(h // hkv) // hb) * tpa.column_blocks(dtype, dh),
+        tpa.chunk_tiles_cap(dtype, dh, bs))
+    assert len(chunk_plan(520, bt.shape[1] * bs, bs, chunk_tiles)) > 1
+    mo, mm, ml = kernel_model(q, tk, tv, _t(bt.astype(np.int32)), _t(lens), 1,
+                              block_size=bs, chunk_tiles=chunk_tiles,
+                              k_scale=tks, v_scale=tvs)
+    assert mo.dtype == dtype
+    live = torch.from_numpy(lens > 0)
+    _, row_rel, ok = chip_smoke.out_error(torch, mo, _t(jo), live)
+    assert ok, row_rel
+    for got, want in ((mm, jm), (ml, jl)):
+        assert chip_smoke.stats_close(torch, got[live], _t(want)[live])
+    assert torch.all(mo[0] == 0) and torch.all(mm[0] == -np.inf)
+    assert torch.all(ml[0] == 0)
 
 
 async def _serve(engine, sampling_cls, prompts, max_tokens):
